@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the distributed-llama multi-user serving stack.
+
+One NVIDIA Hopper card serves a Q40 Llama through the same entry points as
+the JAX package beside it (``app/dllama_api.py``): the ``.m``/``.t`` formats,
+packed Q40 weights resident on the card, ``llama_forward`` with a contiguous
+KV cache, on-device nucleus sampling, the continuous-batching scheduler and
+the OpenAI-style HTTP server. The Q40 dequant-in-matmul kernels are CUDA C++
+for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use
+(``ops/cuda_q40.py``); every other op is plain PyTorch.
+
+Entry points run on CUDA unless the caller asks for ``device="cpu"``; on
+the CPU each kernel wrapper runs its plain PyTorch version, which is what
+the tests compare against the JAX package.
+"""

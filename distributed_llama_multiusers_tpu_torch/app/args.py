@@ -1,0 +1,41 @@
+"""CLI argument surface of the port's entry points (the flags this slice
+serves; the JAX package's ``app/args.py`` is the full set)."""
+
+from __future__ import annotations
+
+import argparse
+
+# the JAX package's dequant knob, mirrored (ops/cuda_q40.SELECTABLE_MODES)
+DEQUANT_CHOICES = ("auto", "v4", "bf16chain", "repeat", "u8chain", "blockdot",
+                   "i8blockdot")
+
+
+def build_parser(prog: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog)
+    p.add_argument("--model", required=True, help="path to .m model file")
+    p.add_argument("--tokenizer", required=True, help="path to .t tokenizer file")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (default cuda; there is no "
+                        "silent fall back — pass 'cpu' to run on the CPU)")
+    p.add_argument("--max-seq-len", type=int, default=0,
+                   help="clamp the context length (0: the model's)")
+    p.add_argument("--weights", default="auto", choices=["auto", "packed", "dense"],
+                   help="Q40 models: 'packed' keeps int4+scales resident on the "
+                        "device with dequant-in-matmul kernels; 'dense' "
+                        "dequantizes at load. auto = packed on CUDA, dense on "
+                        "the CPU")
+    p.add_argument("--max-lanes", type=int, default=8,
+                   help="concurrent request lanes (continuous batching)")
+    p.add_argument("--kv-dtype", default="auto", choices=["auto", "bf16", "f32"],
+                   help="KV cache dtype: auto = bf16 on CUDA, f32 on the CPU")
+    p.add_argument("--chat-template", default=None,
+                   choices=[None, "llama2", "llama3", "deepSeek3", "chatml"])
+    p.add_argument("--dequant", default=None, choices=DEQUANT_CHOICES,
+                   help="Q40 dequant arithmetic for the bf16 dot "
+                        "(DLLAMA_DEQUANT env equivalent; default v4). 'auto' "
+                        "resolves the mode per (d_in, d_out, m-class) site "
+                        "from ops/dequant_table.json; an f32 dot (the CPU) "
+                        "always runs v4")
+    p.add_argument("--port", type=int, default=9990)
+    p.add_argument("--host", default="0.0.0.0")
+    return p

@@ -1,0 +1,63 @@
+"""`dllama-api` entry point of the port: the multi-user HTTP server on one
+CUDA device, backed by the continuous-batching scheduler.
+
+    python -m distributed_llama_multiusers_tpu_torch.app.dllama_api \\
+        --model m.m --tokenizer t.t --port 9990 [--device cuda] [--dequant auto]
+
+SIGTERM drains: /health flips to 503, new requests shed, in-flight work
+finishes, then the process exits 0.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+
+from ..server import ApiServer
+from ..tokenizer import template_type_from_name
+from .args import build_parser
+from .runtime_setup import load_stack, log, make_scheduler
+
+
+def main(argv=None) -> None:
+    args = build_parser("dllama-api").parse_args(argv)
+    _, _, tokenizer, engine = load_stack(args)
+    scheduler = make_scheduler(engine, tokenizer)
+    server = ApiServer(scheduler, tokenizer, model_name=os.path.basename(args.model),
+                       template_type=template_type_from_name(args.chat_template))
+    httpd = server.serve(host=args.host, port=args.port)
+    log("⭐", f"Server listening on {args.host}:{args.port} ({engine.n_lanes} lanes, "
+              f"{engine.device})")
+
+    def _sigterm(*_):
+        log("⭐", "SIGTERM: draining (health 503, admissions shedding)")
+        scheduler._draining.set()
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+
+    def _sigint(*_):
+        log("⭐", "Shutting down")
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    signal.signal(signal.SIGINT, _sigint)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # keep answering (503 on /health, sheds on POST) while in-flight
+        # work drains, then close the socket
+        accept_loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+        accept_loop.start()
+        try:
+            log("⭐", "Draining in-flight requests (30s window)")
+            clean = scheduler.drain(timeout=30.0)
+            log("⭐", "Drained" if clean else "Drain window passed; cancelled the rest")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+
+
+if __name__ == "__main__":
+    main()

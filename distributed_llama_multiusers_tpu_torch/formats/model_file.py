@@ -1,0 +1,295 @@
+"""The `.m` model file format — header + raw tensors in fixed order.
+
+Format (reference src/llm.cpp:26-98, converter/writer.py:109-145):
+
+    int32 magic = 0xA00ABCD
+    int32 headerSize            # bytes of (magic, headerSize, kv...) == 8 + 8*nKv
+    (int32 key, int32 value) * nKv
+    raw tensor bytes...
+
+Tensor order (src/llm.cpp:447-483):
+    embedding (F32, [vocab, dim])
+    per layer: q k v wo w1 w2 w3 (weightType), rms_att rms_ffn (F32, [dim])
+    final: rms_final (F32, [dim]), wcls (weightType, [vocab, dim])
+
+Matmul weights are stored row-major [d_out, d_in] (d_in contiguous), i.e. a
+tensor that maps x[d_in] -> y[d_out] via y = W @ x. Q/K weights are stored
+pre-permuted to the interleaved-rotary layout (converter/convert-hf.py:11-14).
+"""
+
+from __future__ import annotations
+
+import mmap
+import os
+import struct
+from dataclasses import dataclass, field
+from typing import BinaryIO, Iterator
+
+import numpy as np
+
+from ..quants.codec import FloatType, tensor_bytes
+
+MODEL_MAGIC = 0xA00ABCD
+
+# Header keys (src/llm.hpp:8-28)
+KEY_VERSION = 0
+KEY_ARCH_TYPE = 1
+KEY_DIM = 2
+KEY_HIDDEN_DIM = 3
+KEY_N_LAYERS = 4
+KEY_N_HEADS = 5
+KEY_N_KV_HEADS = 6
+KEY_N_EXPERTS = 7
+KEY_N_ACTIVE_EXPERTS = 8
+KEY_VOCAB_SIZE = 9
+KEY_SEQ_LEN = 10
+KEY_HIDDEN_ACT = 11
+KEY_ROPE_THETA = 12
+KEY_WEIGHT_FLOAT_TYPE = 13
+KEY_ROPE_SCALING_FACTOR = 14
+KEY_ROPE_SCALING_LOW_FREQ_FACTOR = 15
+KEY_ROPE_SCALING_HIGH_FREQ_FACTORY = 16
+KEY_ROPE_SCALING_ORIG_MAX_SEQ_LEN = 17
+KEY_ROPE_TYPE = 18
+# framework extension (reference enum src/llm.hpp:8-28 stops at 18):
+# nonzero = per-layer q/k/v bias vectors follow each q/k/v matmul tensor
+# (Qwen2-family checkpoints). Readers of bias-free files never see the key,
+# so every pre-extension .m stays byte-identical.
+KEY_QKV_BIAS = 19
+
+
+class ArchType:
+    LLAMA = 0xABCD00
+
+
+class HiddenAct:
+    GELU = 0
+    SILU = 1
+
+
+class RopeType:
+    LLAMA = 0
+    FALCON = 1  # reserved in reference enum; unused
+    LLAMA3_1 = 2
+
+
+@dataclass
+class ModelHeader:
+    """Parsed .m header (mirror of LlmHeader, src/llm.hpp:39-67)."""
+
+    version: int = 0
+    arch_type: int = ArchType.LLAMA
+    dim: int = 0
+    hidden_dim: int = 0
+    n_layers: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    n_experts: int = 0
+    n_active_experts: int = 0
+    vocab_size: int = 0
+    seq_len: int = 0
+    orig_seq_len: int = 0
+    hidden_act: int = HiddenAct.SILU
+    rope_theta: float = 10000.0
+    weight_type: int = -1
+    rope_scaling_factor: float = 1.0
+    rope_scaling_low_freq_factor: float = 0.0
+    rope_scaling_high_freq_factor: float = 0.0
+    rope_scaling_orig_max_seq_len: int = 0
+    rope_type: int = RopeType.LLAMA
+    qkv_bias: int = 0  # Qwen2-family q/k/v bias vectors (KEY_QKV_BIAS)
+    norm_epsilon: float = 1e-5
+    header_size: int = 0
+    file_size: int = 0
+
+    @property
+    def head_size(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def kv_dim(self) -> int:
+        return (self.dim * self.n_kv_heads) // self.n_heads
+
+    def to_kv_pairs(self) -> list[tuple[int, int]]:
+        """Serializable (key, int-value) pairs, converter order (writer.py:109-130)."""
+        return [
+            (KEY_VERSION, self.version),
+            (KEY_ARCH_TYPE, self.arch_type),
+            (KEY_HIDDEN_ACT, self.hidden_act),
+            (KEY_DIM, self.dim),
+            (KEY_HIDDEN_DIM, self.hidden_dim),
+            (KEY_N_LAYERS, self.n_layers),
+            (KEY_N_HEADS, self.n_heads),
+            (KEY_N_KV_HEADS, self.n_kv_heads),
+            (KEY_WEIGHT_FLOAT_TYPE, self.weight_type),
+            (KEY_SEQ_LEN, self.orig_seq_len or self.seq_len),
+            (KEY_VOCAB_SIZE, self.vocab_size),
+            (KEY_N_EXPERTS, self.n_experts),
+            (KEY_N_ACTIVE_EXPERTS, self.n_active_experts),
+            (KEY_ROPE_THETA, int(self.rope_theta)),
+            (KEY_ROPE_SCALING_FACTOR, int(self.rope_scaling_factor)),
+            (KEY_ROPE_SCALING_LOW_FREQ_FACTOR, int(self.rope_scaling_low_freq_factor)),
+            (KEY_ROPE_SCALING_HIGH_FREQ_FACTORY, int(self.rope_scaling_high_freq_factor)),
+            (KEY_ROPE_SCALING_ORIG_MAX_SEQ_LEN, self.rope_scaling_orig_max_seq_len),
+            (KEY_ROPE_TYPE, self.rope_type),
+        ] + ([(KEY_QKV_BIAS, self.qkv_bias)] if self.qkv_bias else [])
+
+
+def write_model_header(f: BinaryIO, header: ModelHeader) -> int:
+    """Write magic + headerSize + KV pairs; returns bytes written."""
+    data = b"".join(struct.pack("<ii", k, v) for k, v in header.to_kv_pairs())
+    head = struct.pack("<i", MODEL_MAGIC)
+    head += struct.pack("<i", 8 + len(data))
+    f.write(head)
+    f.write(data)
+    return len(head) + len(data)
+
+
+def load_model_header(path: str, max_seq_len: int = 0) -> ModelHeader:
+    """Parse the .m KV header (src/llm.cpp:26-98). ``max_seq_len`` > 0 clamps
+    seq_len the way --max-seq-len does (src/llm.cpp:89-91)."""
+    h = ModelHeader()
+    with open(path, "rb") as f:
+        magic = struct.unpack("<i", f.read(4))[0]
+        if magic in (0xABCD00, 0xABCD01):
+            raise ValueError("Old model format is not supported")
+        if magic != MODEL_MAGIC:
+            raise ValueError(f"Unsupported magic number 0x{magic & 0xFFFFFFFF:X}")
+        header_size = struct.unpack("<i", f.read(4))[0]
+        n_kv = (header_size - 8) // 8
+        buf = f.read(n_kv * 8)
+        for i in range(n_kv):
+            key, value = struct.unpack_from("<ii", buf, i * 8)
+            if key == KEY_VERSION:
+                h.version = value
+            elif key == KEY_ARCH_TYPE:
+                h.arch_type = value
+            elif key == KEY_DIM:
+                h.dim = value
+            elif key == KEY_HIDDEN_DIM:
+                h.hidden_dim = value
+            elif key == KEY_N_LAYERS:
+                h.n_layers = value
+            elif key == KEY_N_HEADS:
+                h.n_heads = value
+            elif key == KEY_N_KV_HEADS:
+                h.n_kv_heads = value
+            elif key == KEY_N_EXPERTS:
+                h.n_experts = value
+            elif key == KEY_N_ACTIVE_EXPERTS:
+                h.n_active_experts = value
+            elif key == KEY_VOCAB_SIZE:
+                h.vocab_size = value
+            elif key == KEY_SEQ_LEN:
+                h.seq_len = value
+            elif key == KEY_HIDDEN_ACT:
+                h.hidden_act = value
+            elif key == KEY_ROPE_THETA:
+                h.rope_theta = float(value)
+            elif key == KEY_WEIGHT_FLOAT_TYPE:
+                h.weight_type = value
+            elif key == KEY_ROPE_SCALING_FACTOR:
+                h.rope_scaling_factor = float(value)
+            elif key == KEY_ROPE_SCALING_LOW_FREQ_FACTOR:
+                h.rope_scaling_low_freq_factor = float(value)
+            elif key == KEY_ROPE_SCALING_HIGH_FREQ_FACTORY:
+                h.rope_scaling_high_freq_factor = float(value)
+            elif key == KEY_ROPE_SCALING_ORIG_MAX_SEQ_LEN:
+                h.rope_scaling_orig_max_seq_len = value
+            elif key == KEY_ROPE_TYPE:
+                h.rope_type = value
+            elif key == KEY_QKV_BIAS:
+                h.qkv_bias = value
+            else:
+                raise ValueError(f"Unsupported header key {key}")
+        if h.weight_type == -1:
+            raise ValueError("Model does not specify weight type")
+        h.header_size = header_size
+        h.orig_seq_len = h.seq_len
+        if max_seq_len > 0 and h.seq_len > max_seq_len:
+            h.seq_len = max_seq_len
+        h.file_size = os.path.getsize(path)
+    return h
+
+
+@dataclass
+class TensorSpec:
+    """One tensor in the fixed .m walk order."""
+
+    name: str  # reference op-name it feeds, e.g. "block_matmul_q"
+    layer: int
+    float_type: int
+    shape: tuple[int, int]  # (d_out, d_in) for matmuls; (1, n) for vectors
+    offset: int  # byte offset in file
+    n_bytes: int
+    expert: int = -1  # expert index for MoE tensors, -1 for dense
+
+
+def model_tensor_specs(h: ModelHeader) -> list[TensorSpec]:
+    """The full tensor walk of a .m file (src/llm.cpp:447-483).
+
+    MoE models (n_experts > 0): the FFN block per layer becomes a router
+    tensor `block_moe_gate` (F32, [n_experts, dim]) followed by per-expert
+    w3, w1, w2 in the reference converter's expert order
+    (convert-hf.py:66-73 upstream). The router tensor is a FRAMEWORK
+    EXTENSION: the reference converter emits expert weights but no gate, and
+    its runtime only executes dense Llama (src/llm.cpp:21-24), so no
+    reference-produced MoE file was ever runnable."""
+    specs: list[TensorSpec] = []
+    offset = h.header_size
+
+    def add(name: str, layer: int, ftype: int, shape: tuple[int, int], expert: int = -1):
+        nonlocal offset
+        nb = tensor_bytes(ftype, shape[0] * shape[1])
+        specs.append(TensorSpec(name, layer, ftype, shape, offset, nb, expert))
+        offset += nb
+
+    wt = h.weight_type
+    dim, hidden, kv_dim, vocab = h.dim, h.hidden_dim, h.kv_dim, h.vocab_size
+    add("embedding", 0, FloatType.F32, (vocab, dim))
+    for l in range(h.n_layers):
+        add("block_matmul_q", l, wt, (dim, dim))
+        if h.qkv_bias:
+            add("block_bias_q", l, FloatType.F32, (1, dim))
+        add("block_matmul_k", l, wt, (kv_dim, dim))
+        if h.qkv_bias:
+            add("block_bias_k", l, FloatType.F32, (1, kv_dim))
+        add("block_matmul_v", l, wt, (kv_dim, dim))
+        if h.qkv_bias:
+            add("block_bias_v", l, FloatType.F32, (1, kv_dim))
+        add("block_matmul_wo", l, wt, (dim, dim))
+        if h.n_experts > 0:
+            add("block_moe_gate", l, FloatType.F32, (h.n_experts, dim))
+            for e in range(h.n_experts):
+                add("block_matmul_w3", l, wt, (hidden, dim), e)
+                add("block_matmul_w1", l, wt, (hidden, dim), e)
+                add("block_matmul_w2", l, wt, (dim, hidden), e)
+        else:
+            add("block_matmul_w1", l, wt, (hidden, dim))
+            add("block_matmul_w2", l, wt, (dim, hidden))
+            add("block_matmul_w3", l, wt, (hidden, dim))
+        add("block_rms_norm_0", l, FloatType.F32, (1, dim))
+        add("block_rms_norm_1", l, FloatType.F32, (1, dim))
+    add("final_rms_norm", 0, FloatType.F32, (1, dim))
+    add("final_matmul_logits", 0, wt, (vocab, dim))
+    return specs
+
+
+def iter_model_tensors(path: str, header: ModelHeader) -> Iterator[tuple[TensorSpec, np.ndarray]]:
+    """Yield (spec, raw bytes as uint8 array) for every tensor, via mmap.
+
+    Verifies byte-exact file consumption like src/llm.cpp:477-479.
+    """
+    specs = model_tensor_specs(header)
+    with open(path, "rb") as f:
+        # The mmap is left to the GC: yielded arrays are zero-copy views into
+        # it, so an explicit close() would invalidate buffers still in use.
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        end = specs[-1].offset + specs[-1].n_bytes
+        if end != header.file_size:
+            raise ValueError(
+                f"Missing bytes in weight file: expected {end}, file has {header.file_size}"
+            )
+        for spec in specs:
+            raw = np.frombuffer(mm, dtype=np.uint8, count=spec.n_bytes, offset=spec.offset)
+            yield spec, raw

@@ -1,0 +1,155 @@
+"""Generate tiny random-weight `.m` / `.t` files for tests and benchmarks.
+
+These go through the real writers, so every test exercises the same binary
+path a converted HF checkpoint would (tensor order: src/llm.cpp:447-483).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..quants.codec import FloatType, quantize_q40, quantize_q80
+from .model_file import ArchType, HiddenAct, ModelHeader, RopeType, write_model_header
+from .tokenizer_file import TokenizerData, write_tokenizer_file
+
+
+def tiny_header(
+    dim: int = 64,
+    hidden_dim: int = 128,
+    n_layers: int = 2,
+    n_heads: int = 4,
+    n_kv_heads: int = 2,
+    vocab_size: int = 128,
+    seq_len: int = 64,
+    weight_type: int = FloatType.Q40,
+    rope_type: int = RopeType.LLAMA,
+    rope_theta: float = 10000.0,
+    n_experts: int = 0,
+    n_active_experts: int = 0,
+    qkv_bias: int = 0,
+) -> ModelHeader:
+    h = ModelHeader(
+        qkv_bias=qkv_bias,
+        version=0,
+        arch_type=ArchType.LLAMA,
+        dim=dim,
+        hidden_dim=hidden_dim,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=n_kv_heads,
+        n_experts=n_experts,
+        n_active_experts=n_active_experts,
+        vocab_size=vocab_size,
+        seq_len=seq_len,
+        orig_seq_len=seq_len,
+        hidden_act=HiddenAct.SILU,
+        rope_theta=rope_theta,
+        weight_type=weight_type,
+        rope_type=rope_type,
+    )
+    if rope_type == RopeType.LLAMA3_1:
+        h.rope_scaling_factor = 8.0
+        h.rope_scaling_low_freq_factor = 1.0
+        h.rope_scaling_high_freq_factor = 4.0
+        h.rope_scaling_orig_max_seq_len = seq_len
+    return h
+
+
+def _write_tensor(f, x: np.ndarray, float_type: int) -> None:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    if float_type == FloatType.F32:
+        f.write(x.astype("<f4").tobytes())
+    elif float_type == FloatType.F16:
+        f.write(x.astype("<f2").tobytes())
+    elif float_type == FloatType.Q40:
+        f.write(quantize_q40(x).tobytes())
+    elif float_type == FloatType.Q80:
+        f.write(quantize_q80(x, mode="converter").tobytes())
+    else:
+        raise ValueError(float_type)
+
+
+def write_synthetic_model(path: str, header: ModelHeader, seed: int = 0, scale: float = 0.02) -> None:
+    """Random-normal weights, written through the real quantizers."""
+    rng = np.random.default_rng(seed)
+    wt = header.weight_type
+    dim, hidden, kv_dim, vocab = header.dim, header.hidden_dim, header.kv_dim, header.vocab_size
+
+    def rand(shape):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    with open(path, "wb") as f:
+        write_model_header(f, header)
+        _write_tensor(f, rand((vocab, dim)), FloatType.F32)
+        for _ in range(header.n_layers):
+            _write_tensor(f, rand((dim, dim)), wt)  # q
+            if header.qkv_bias:
+                _write_tensor(f, rand((dim,)), FloatType.F32)  # bq
+            _write_tensor(f, rand((kv_dim, dim)), wt)  # k
+            if header.qkv_bias:
+                _write_tensor(f, rand((kv_dim,)), FloatType.F32)  # bk
+            _write_tensor(f, rand((kv_dim, dim)), wt)  # v
+            if header.qkv_bias:
+                _write_tensor(f, rand((kv_dim,)), FloatType.F32)  # bv
+            _write_tensor(f, rand((dim, dim)), wt)  # wo
+            if header.n_experts > 0:
+                _write_tensor(f, rand((header.n_experts, dim)), FloatType.F32)  # router
+                for _ in range(header.n_experts):
+                    _write_tensor(f, rand((hidden, dim)), wt)  # w3 up
+                    _write_tensor(f, rand((hidden, dim)), wt)  # w1 gate
+                    _write_tensor(f, rand((dim, hidden)), wt)  # w2 down
+            else:
+                _write_tensor(f, rand((hidden, dim)), wt)  # w1 gate
+                _write_tensor(f, rand((dim, hidden)), wt)  # w2 down
+                _write_tensor(f, rand((hidden, dim)), wt)  # w3 up
+            _write_tensor(f, 1.0 + rand((dim,)), FloatType.F32)  # rms att
+            _write_tensor(f, 1.0 + rand((dim,)), FloatType.F32)  # rms ffn
+        _write_tensor(f, 1.0 + rand((dim,)), FloatType.F32)  # final rms
+        _write_tensor(f, rand((vocab, dim)), wt)  # wcls
+
+
+LLAMA3_CHAT_TEMPLATE = (
+    "{% for message in messages %}<|start_header_id|>{{ message['role'] }}"
+    "<|end_header_id|>\n\n{{ message['content'] }}<|eot_id|>{% endfor %}"
+)
+
+
+def write_synthetic_tokenizer(path: str, vocab_size: int = 128) -> TokenizerData:
+    """A byte-level tokenizer: regular vocab = single bytes + a few merges,
+    then BOS/EOS/header specials (regular/special split at bos_id, matching
+    the reference's assumption, src/tokenizer.cpp:137-139)."""
+    vocab: list[bytes] = []
+    scores: list[float] = []
+    # keep it small: printable ASCII + whitespace (real tokenizers carry all
+    # 256 byte-fallback tokens; chat templates need \n)
+    base = [b"\t", b"\n", b"\r"] + [bytes([b]) for b in range(32, 127)]
+    merges = [b"he", b"ll", b"hell", b"hello", b"wo", b"rl", b"worl", b"world", b"lo "]
+    for t in base:
+        vocab.append(t)
+        scores.append(0.0)
+    for i, t in enumerate(merges):
+        vocab.append(t)
+        scores.append(float(i + 1))
+    bos_id = len(vocab)
+    vocab.append(b"<|begin_of_text|>")
+    scores.append(0.0)
+    eot_id = len(vocab)
+    vocab.append(b"<|eot_id|>")
+    scores.append(0.0)
+    vocab.append(b"<|start_header_id|>")
+    scores.append(0.0)
+    vocab.append(b"<|end_header_id|>")
+    scores.append(0.0)
+    while len(vocab) < vocab_size:
+        vocab.append(b"<|reserved_%d|>" % len(vocab))
+        scores.append(0.0)
+    data = TokenizerData(
+        vocab=vocab[:vocab_size],
+        scores=scores[:vocab_size],
+        bos_id=bos_id,
+        eos_token_ids=[eot_id],
+        chat_template=LLAMA3_CHAT_TEMPLATE,
+    )
+    with open(path, "wb") as f:
+        write_tokenizer_file(f, data)
+    return data

@@ -1,0 +1,8 @@
+from .engine import InferenceEngine, EngineStats, resolve_device, warmup_engine
+from .scheduler import (
+    AdmissionRejected,
+    ContinuousBatchingScheduler,
+    Request,
+    RequestQueue,
+    RequestState,
+)

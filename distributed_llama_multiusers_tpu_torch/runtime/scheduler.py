@@ -1,0 +1,440 @@
+"""Multi-user request queue + continuous-batching scheduler.
+
+N concurrent requests join and leave one shared batched decode loop. HTTP
+threads push ``Request`` objects into the queue; the scheduler thread
+admits them into free lanes, interleaves at most one prompt chunk per
+iteration with a batched decode step over every generating lane, streams
+each lane's text through its own UTF-8 stream decoder and stop-string
+detector, and fulfils each request's future on EOS, a stop string or
+max_tokens.
+
+This is the path the JAX scheduler takes with speculation, pipelining,
+fused prefill and multi-step decoding off. The QoS queue, circuit breaker,
+watchdog, journal, telemetry and prefix cache are later work.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Callable
+
+import numpy as np
+
+from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
+from .engine import DEFAULT_TOPP
+
+
+class AdmissionRejected(RuntimeError):
+    """A request shed before it took a lane (the server is draining)."""
+
+    def __init__(self, reason: str, retry_after_s: float = 5.0):
+        self.reason = reason
+        self.retry_after_s = retry_after_s
+        self.http_status = 503
+        super().__init__(f"request rejected: {reason}")
+
+
+class RequestState(Enum):
+    QUEUED = 0
+    PROMPT_PROCESSING = 1
+    GENERATING = 2
+    DONE = 3
+    FAILED = 4
+
+
+_req_ids = itertools.count(1)
+_req_ids_lock = threading.Lock()
+
+
+def _next_request_id() -> int:
+    with _req_ids_lock:
+        return next(_req_ids)
+
+
+def fresh_seed() -> int:
+    """A sampling seed from OS entropy for requests that name none."""
+    return int.from_bytes(os.urandom(4), "little")
+
+
+@dataclass
+class Request:
+    """One generation request."""
+
+    prompt: str
+    max_tokens: int = 128
+    temperature: float = 0.0
+    topp: float = DEFAULT_TOPP
+    seed: int | None = None
+    stop: list[str] = field(default_factory=list)
+    add_bos: bool = True
+    add_special_tokens: bool = True
+    id: int = field(default_factory=_next_request_id)
+    state: RequestState = RequestState.QUEUED
+    future: Future = field(default_factory=Future)
+    on_delta: Callable[[str], None] | None = None  # streaming callback
+    # filled by the scheduler
+    generated_text: str = ""
+    generated_tokens: list[int] = field(default_factory=list)
+    n_prompt_tokens: int = 0
+    error: str | None = None
+    finish_reason: str | None = None  # "stop" | "length" | "cancelled" | "error"
+    submitted_at: float | None = None  # monotonic
+    admitted_at: float | None = None
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    summary: dict | None = None
+    _cancelled: threading.Event = field(default_factory=threading.Event)
+
+    def cancel(self) -> None:
+        """Stop generating (e.g. the client went away); the lane frees at
+        the next loop iteration."""
+        self._cancelled.set()
+
+
+class RequestQueue:
+    """Thread-safe FIFO handoff."""
+
+    def __init__(self):
+        self._q: "queue.Queue[Request]" = queue.Queue()
+
+    def push(self, request: Request) -> None:
+        self._q.put(request)
+
+    def pop(self, timeout: float | None = None) -> Request | None:
+        try:
+            if timeout:
+                return self._q.get(timeout=timeout)
+            return self._q.get_nowait()
+        except queue.Empty:
+            return None
+
+    def empty(self) -> bool:
+        return self._q.empty()
+
+    def depth(self) -> int:
+        return self._q.qsize()
+
+    def drain(self) -> list[Request]:
+        out = []
+        while True:
+            try:
+                out.append(self._q.get_nowait())
+            except queue.Empty:
+                return out
+
+
+@dataclass
+class _Lane:
+    request: Request | None = None
+    pos: int = 0  # next write position
+    next_token: int = 0  # token to feed at pos
+    eos: EosDetector | None = None
+    decoder: object = None
+    pending: list[int] = field(default_factory=list)  # unprocessed prompt tail
+    seed: int = 0
+
+
+def _summary(req: Request) -> dict:
+    """Per-request latency record served with the response."""
+    end = req.finished_at or time.monotonic()
+    out = {"n_tokens": len(req.generated_tokens)}
+    if req.submitted_at is not None:
+        out["total_s"] = round(end - req.submitted_at, 6)
+        if req.admitted_at is not None:
+            out["queued_s"] = round(req.admitted_at - req.submitted_at, 6)
+        if req.first_token_at is not None:
+            out["ttft_s"] = round(req.first_token_at - req.submitted_at, 6)
+            n = len(req.generated_tokens)
+            if n > 1 and end > req.first_token_at:
+                out["decode_tok_s"] = round((n - 1) / (end - req.first_token_at), 3)
+    return out
+
+
+class ContinuousBatchingScheduler:
+    def __init__(self, engine, tokenizer: Tokenizer, queue_: RequestQueue | None = None,
+                 eos_padding: tuple[int, int] = (2, 2)):
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.queue = queue_ or RequestQueue()
+        self.eos_padding = eos_padding
+        self._lanes = [_Lane() for _ in range(engine.n_lanes)]
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._chat_stops = TokenizerChatStops(tokenizer)
+        self._prefill_rr = 0  # round-robin cursor over admitting lanes
+        self.engine_failures = 0
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._draining.clear()
+        self._thread = threading.Thread(target=self._run, name="batching-loop",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=30)
+            if thread.is_alive():
+                raise RuntimeError("batching loop failed to stop within 30s")
+            self._thread = None
+
+    def drain(self, timeout: float | None = None) -> bool:
+        """Stop admitting (submit sheds, /health 503), let queued and active
+        work finish, then join the loop; past ``timeout`` the rest is
+        cancelled. Returns True on a clean drain."""
+        self._draining.set()
+        thread = self._thread
+        clean = True
+        if thread is not None:
+            thread.join(timeout=timeout)
+            clean = not thread.is_alive()
+        self.stop()
+        return clean
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def submit(self, request: Request) -> Request:
+        if self._draining.is_set():
+            raise AdmissionRejected("draining", retry_after_s=5.0)
+        if request.submitted_at is None:
+            request.submitted_at = time.monotonic()
+        self.queue.push(request)
+        return request
+
+    def occupancy(self) -> tuple[int, int]:
+        """(busy lanes, total lanes)."""
+        return sum(1 for l in self._lanes if l.request is not None), len(self._lanes)
+
+    # -- internals ----------------------------------------------------------
+
+    def _fail_request(self, lane_idx: int | None, req: Request, error: str,
+                      exc: BaseException | None = None) -> None:
+        req.state = RequestState.FAILED
+        req.error = error
+        req.finish_reason = "error"
+        req.finished_at = time.monotonic()
+        if lane_idx is not None:
+            self._lanes[lane_idx] = _Lane()
+            self.engine.reset_lane(lane_idx)
+        if not req.future.done():
+            req.future.set_exception(exc if exc is not None else RuntimeError(error))
+
+    def _admit(self, wait_s: float = 0.0) -> None:
+        free = [i for i, l in enumerate(self._lanes) if l.request is None]
+        while free:
+            req = self.queue.pop(timeout=wait_s)
+            wait_s = 0.0  # only the first pop may park; the rest are polls
+            if req is None:
+                return
+            if req._cancelled.is_set():
+                self._resolve_unadmitted(req, "cancelled")
+                continue
+            req.admitted_at = time.monotonic()
+            lane_idx = free.pop(0)
+            try:
+                self._start_request(lane_idx, req)
+            except Exception as e:  # tokenization/validation: this request only
+                self._fail_request(lane_idx, req, str(e), exc=e)
+
+    def _resolve_unadmitted(self, req: Request, reason: str) -> None:
+        req.state = RequestState.DONE
+        req.finish_reason = reason
+        if not req.future.done():
+            req.future.set_result(req.generated_text)
+
+    def _start_request(self, lane_idx: int, req: Request) -> None:
+        """Tokenize and claim a lane; the prompt runs one bucket per loop
+        iteration in ``_prefill_step``."""
+        req.state = RequestState.PROMPT_PROCESSING
+        tokens = self.tokenizer.encode(
+            req.prompt, add_bos=req.add_bos, add_special_tokens=req.add_special_tokens
+        )
+        if not tokens:
+            raise ValueError("prefill needs at least one token (empty prompt)")
+        max_ctx = self.engine.config.seq_len
+        if len(tokens) >= max_ctx:
+            # keep the tail
+            tokens = (tokens[-(max_ctx - req.max_tokens - 1):]
+                      if max_ctx > req.max_tokens + 1 else tokens[-max_ctx + 1:])
+        req.n_prompt_tokens = len(tokens)
+        lane = self._lanes[lane_idx]
+        lane.request = req
+        lane.pos = 0
+        lane.pending = list(tokens)
+        lane.seed = (req.seed if req.seed is not None else fresh_seed()) & 0xFFFFFFFF
+        stops = list(req.stop) or self._chat_stops.stops
+        lane.eos = EosDetector(self.tokenizer.eos_token_ids, stops,
+                               self.eos_padding[0], self.eos_padding[1])
+        lane.decoder = self.tokenizer.make_stream_decoder()
+
+    def _prefill_step(self) -> bool:
+        """Advance ONE admitting lane by one prompt bucket (round-robin).
+        Returns True when a chunk was processed."""
+        n = len(self._lanes)
+        admitting = [i for i in range(n)
+                     if self._lanes[i].request is not None and self._lanes[i].pending]
+        if not admitting:
+            return False
+        lane_idx = min(admitting, key=lambda i: (i - self._prefill_rr) % n)
+        self._prefill_rr = (lane_idx + 1) % n
+        lane = self._lanes[lane_idx]
+        req = lane.request
+        chunk = lane.pending[: self.engine.max_chunk()]
+        try:
+            _, greedy, sampled = self.engine.prefill_chunk(
+                lane_idx, chunk, lane.pos, temp=req.temperature, topp=req.topp,
+                seed=lane.seed,
+            )
+        except ValueError as e:  # chunk validation: this request only
+            self._fail_request(lane_idx, req, str(e), exc=e)
+            return True
+        lane.pos += len(chunk)
+        lane.pending = lane.pending[len(chunk):]
+        if lane.pending:
+            return True
+        lane.next_token = int(greedy) if req.temperature == 0.0 else int(sampled)
+        req.state = RequestState.GENERATING
+        return True
+
+    def _consume(self, lane_idx: int, lane: _Lane, tok: int) -> bool:
+        """Emit one generated token on a lane: stream-decode, EOS/stop
+        detection, delta callback, position advance, length check. Returns
+        False when the lane finished (or failed: a raise here is this
+        request's alone)."""
+        req = lane.request
+        try:
+            return self._consume_inner(lane_idx, lane, req, tok)
+        except Exception as e:  # noqa: BLE001 — request-scoped host work
+            self._fail_request(lane_idx, req, str(e), exc=e)
+            return False
+
+    def _consume_inner(self, lane_idx: int, lane: _Lane, req: Request, tok: int) -> bool:
+        req.generated_tokens.append(tok)
+        if req.first_token_at is None:
+            req.first_token_at = time.monotonic()
+        piece = lane.decoder.decode(tok)
+        result = lane.eos.append(tok, piece)
+        if result == EosResult.EOS:
+            self._finish(lane_idx, req)
+            return False
+        if result == EosResult.NOT_EOS:
+            delta = lane.eos.get_delta()
+            if delta:
+                req.generated_text += delta
+                if req.on_delta:
+                    req.on_delta(delta)
+            lane.eos.reset()
+        # MAYBE_EOS: hold back
+        lane.pos += 1
+        if (len(req.generated_tokens) >= req.max_tokens
+                or lane.pos >= self.engine.config.seq_len):
+            self._finish(lane_idx, req, reason="length")
+            return False
+        return True
+
+    def _finish(self, lane_idx: int, req: Request, reason: str = "stop") -> None:
+        req.state = RequestState.DONE
+        req.finish_reason = reason
+        delta = self._lanes[lane_idx].eos.get_delta()
+        if delta:
+            req.generated_text += delta
+            if req.on_delta:
+                req.on_delta(delta)
+        self._lanes[lane_idx] = _Lane()
+        self.engine.reset_lane(lane_idx)
+        req.finished_at = time.monotonic()
+        req.summary = _summary(req)
+        if not req.future.done():
+            req.future.set_result(req.generated_text)
+
+    def _run(self) -> None:
+        """The serving loop inside a containment boundary: an engine
+        exception fails the requests on lanes and the loop keeps serving;
+        on exit every lane and queued request resolves."""
+        try:
+            while True:
+                try:
+                    self._serve_loop()
+                    break
+                except Exception as e:  # noqa: BLE001 — containment boundary
+                    self.engine_failures += 1
+                    err = f"{type(e).__name__}: {e}"
+                    for i, lane in enumerate(self._lanes):
+                        if lane.request is not None:
+                            self._fail_request(i, lane.request, err)
+                    if self._stop.is_set():
+                        break
+        finally:
+            for i, lane in enumerate(self._lanes):
+                if lane.request is not None:
+                    self._finish(i, lane.request, reason="cancelled")
+            for req in self.queue.drain():
+                req.state = RequestState.FAILED
+                if not req.future.done():
+                    req.future.set_exception(
+                        AdmissionRejected("draining") if self._draining.is_set()
+                        else RuntimeError("scheduler stopped"))
+
+    def _serve_loop(self) -> None:
+        n_lanes = self.engine.n_lanes
+        cfg = self.engine.config
+        while not self._stop.is_set():
+            idle = all(l.request is None for l in self._lanes)
+            self._admit(wait_s=0.25 if idle else 0.0)
+            if (self._draining.is_set() and self.queue.empty()
+                    and all(l.request is None for l in self._lanes)):
+                break
+            occupied = [(i, l) for i, l in enumerate(self._lanes) if l.request is not None]
+            if not occupied:
+                continue
+            for i, lane in occupied:
+                if lane.request._cancelled.is_set():
+                    self._finish(i, lane.request, reason="cancelled")
+
+            # at most ONE prompt bucket per iteration: decoding lanes stall
+            # no longer than one bucket while admissions stream in
+            self._prefill_step()
+
+            active = [(i, self._lanes[i]) for i in range(n_lanes)
+                      if self._lanes[i].request is not None
+                      and self._lanes[i].request.state == RequestState.GENERATING]
+            if not active:
+                continue
+            tokens = np.zeros(n_lanes, np.int64)
+            # idle lanes write their junk KV to the scratch slot at seq_len;
+            # lanes mid-prefill write their next unwritten slot, which the
+            # next prompt chunk rewrites before any query reads it
+            positions = np.full(n_lanes, cfg.seq_len, np.int64)
+            temps = np.zeros(n_lanes, np.float32)
+            topps = np.full(n_lanes, DEFAULT_TOPP, np.float32)
+            seeds = np.zeros(n_lanes, np.uint32)
+            for i, lane in enumerate(self._lanes):
+                if lane.request is not None and lane.pending:
+                    positions[i] = lane.pos
+            for i, lane in active:
+                tokens[i] = lane.next_token
+                positions[i] = lane.pos
+                temps[i] = lane.request.temperature
+                topps[i] = lane.request.topp
+                seeds[i] = lane.seed
+            _, greedy, sampled = self.engine.decode(
+                tokens, positions, temps, topps, seeds, want_logits=False)
+            for i, lane in active:
+                req = lane.request
+                if not self._consume(i, lane, lane.next_token):
+                    continue
+                lane.next_token = int(greedy[i]) if req.temperature == 0.0 else int(sampled[i])

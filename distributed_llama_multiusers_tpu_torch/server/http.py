@@ -1,0 +1,283 @@
+"""Multi-user HTTP API server.
+
+Routes: POST /v1/chat/completions and POST /v1/completions (JSON, or SSE
+with ``"stream": true``), GET /v1/models, GET /health, GET /stats, and the
+CORS preflight. A ThreadingHTTPServer gives every connection its own
+thread; all of them submit into the scheduler's queue, and their
+generations proceed together in the continuous batch.
+
+Every streamed delta carries its token index as the SSE ``id:`` line, the
+terminal chunk carries the finish reason and the request's latency
+summary, and the stream ends with ``data: [DONE]``. ``/stats`` serves the
+engine counters, lane occupancy, the dequant mode and each Q40 kernel's
+launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
+plain-version calls of a CPU run).
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+from concurrent.futures import TimeoutError as FutureTimeout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..ops.cuda_q40 import kernel_counts
+from ..ops.dequant_select import dequant_stats
+from ..runtime.scheduler import AdmissionRejected, Request
+from ..tokenizer import ChatItem, TemplateType, chat_generator_for
+from . import api_types
+
+# bound on how long an HTTP thread waits on the scheduler (seconds)
+DEFAULT_RESULT_TIMEOUT_S = 600.0
+
+
+class SchedulerStalled(RuntimeError):
+    """No progress on a request within the wait bound: a 503."""
+
+    def __init__(self, request_id: int, waited_s: float):
+        self.request_id = request_id
+        super().__init__(f"no scheduler progress on request {request_id} within "
+                         f"{waited_s:.0f}s")
+
+
+class ApiServer:
+    def __init__(self, scheduler, tokenizer, model_name: str = "dllama",
+                 template_type: TemplateType = TemplateType.UNKNOWN,
+                 result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S):
+        self.scheduler = scheduler
+        self.tokenizer = tokenizer
+        self.model_name = model_name
+        self.chat_template = chat_generator_for(tokenizer, template_type)
+        self.result_timeout_s = result_timeout_s
+        self._httpd: ThreadingHTTPServer | None = None
+
+    # -- request handling ---------------------------------------------------
+
+    def _make_request(self, prompt: str, body: dict,
+                      streaming: bool) -> tuple[Request, "queue.Queue | None"]:
+        params = api_types.InferenceParams.from_body(body)
+        req = Request(prompt=prompt, max_tokens=params.max_tokens,
+                      temperature=params.temperature, topp=params.top_p,
+                      seed=params.seed, stop=params.stop)
+        deltas = None
+        if streaming:
+            deltas = queue.Queue()
+            # on_delta runs on the scheduler thread right after the token
+            # was consumed, so len(generated_tokens) is the delta's index
+            req.on_delta = lambda d: deltas.put((len(req.generated_tokens), d))
+            req.future.add_done_callback(lambda _f: deltas.put(None))
+        return req, deltas
+
+    def build_request(self, body: dict, streaming: bool):
+        """/v1/chat/completions: messages through the chat template. Raises
+        ValueError on bad input, before any response header goes out."""
+        messages = api_types.parse_chat_messages(body)
+        chat = self.chat_template.generate(
+            [ChatItem(m.role, m.content) for m in messages], append_generation_prompt=True
+        )
+        return self._make_request(chat.content, body, streaming)
+
+    def build_completion_request(self, body: dict, streaming: bool):
+        """/v1/completions: the raw prompt, no chat template."""
+        prompt = api_types.parse_completion_prompt(body)
+        return self._make_request(prompt, body, streaming)
+
+    def run_request(self, req: Request, deltas, send_chunk, chunk_fn, response_fn):
+        """Wait for a submitted request; stream it through ``send_chunk``
+        when given, else return the JSON response."""
+        if send_chunk is None:
+            try:
+                text = req.future.result(timeout=self.result_timeout_s)
+            except FutureTimeout:
+                req.cancel()
+                raise SchedulerStalled(req.id, self.result_timeout_s) from None
+            return response_fn(self.model_name, req.id, text, req.n_prompt_tokens,
+                               len(req.generated_tokens), req.finish_reason or "stop",
+                               summary=req.summary)
+        try:
+            while True:
+                try:
+                    item = deltas.get(timeout=self.result_timeout_s)
+                except queue.Empty:
+                    req.cancel()
+                    raise SchedulerStalled(req.id, self.result_timeout_s) from None
+                if item is None:
+                    break
+                idx, text = item
+                send_chunk(chunk_fn(self.model_name, req.id, text, False), event_id=idx)
+            req.future.result()  # re-raise a failure
+            send_chunk(chunk_fn(self.model_name, req.id, None, True,
+                                req.finish_reason or "stop", summary=req.summary),
+                       event_id=len(req.generated_tokens))
+        except (BrokenPipeError, ConnectionError, OSError):
+            req.cancel()  # the client went away: free the lane
+            raise
+        return {}
+
+    def handle_models(self) -> dict:
+        return api_types.models_response(self.model_name)
+
+    def handle_stats(self) -> dict:
+        """Engine counters, occupancy, dequant mode and kernel counts."""
+        sched = self.scheduler
+        engine = sched.engine
+        stats = engine.stats.snapshot()
+        busy, total = sched.occupancy()
+        out = {
+            "prefill_tokens": stats["prefill_tokens"],
+            "prefill_s": round(stats["prefill_s"], 6),
+            "decode_steps": stats["decode_steps"],
+            "decode_s": round(stats["decode_s"], 6),
+            "host_bytes_in": stats["host_bytes_in"],
+            "lanes_total": total,
+            "lanes_busy": busy,
+            "queue_depth": sched.queue.depth(),
+            "draining": sched.draining,
+            "engine_failures": sched.engine_failures,
+            "device": str(engine.device),
+        }
+        out.update(dequant_stats())
+        out.update(kernel_counts())
+        return out
+
+    def handle_health(self) -> tuple[int, dict]:
+        busy, total = self.scheduler.occupancy()
+        draining = self.scheduler.draining
+        body = {"status": "draining" if draining else "ok", "model": self.model_name,
+                "lanes_free": total - busy, "lanes_total": total,
+                "queue_depth": self.scheduler.queue.depth(), "draining": draining}
+        return (503 if draining else 200), body
+
+    # -- plumbing -----------------------------------------------------------
+
+    def serve(self, host: str = "0.0.0.0", port: int = 9990) -> ThreadingHTTPServer:
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):  # quiet
+                pass
+
+            def _cors(self):
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.send_header("Access-Control-Allow-Methods", "GET, POST, OPTIONS")
+                self.send_header("Access-Control-Allow-Headers", "Content-Type, Authorization")
+
+            def _json(self, code: int, payload: dict, headers: dict | None = None):
+                data = json.dumps(payload).encode()
+                self.send_response(code)
+                self._cors()
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _sse_headers(self, request_id: int):
+                self.send_response(200)
+                self._cors()
+                self.send_header("X-DLlama-Request", str(request_id))
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.end_headers()
+
+            def _sse_chunk(self, payload: dict, event_id=None):
+                buf = b""
+                if event_id is not None:
+                    buf += f"id: {event_id}\n".encode()
+                buf += b"data: " + json.dumps(payload).encode() + b"\n\n"
+                self.wfile.write(buf)
+                self.wfile.flush()
+
+            def do_OPTIONS(self):  # CORS preflight
+                self.send_response(204)
+                self._cors()
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_GET(self):
+                if self.path == "/v1/models":
+                    self._json(200, api.handle_models())
+                elif self.path == "/stats":
+                    self._json(200, api.handle_stats())
+                elif self.path in ("/", "/health"):
+                    code, body = api.handle_health()
+                    self._json(code, body, headers={"Retry-After": "5"} if code != 200 else None)
+                else:
+                    self._json(404, {"error": "not found"})
+
+            def do_POST(self):
+                routes = {
+                    "/v1/chat/completions": (
+                        api.build_request, api_types.chat_chunk_response,
+                        api_types.chat_completion_response,
+                    ),
+                    "/v1/completions": (
+                        api.build_completion_request, api_types.completion_chunk_response,
+                        api_types.completion_response,
+                    ),
+                }
+                route = routes.get(self.path)
+                if route is None:
+                    self._json(404, {"error": "not found"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                except (ValueError, json.JSONDecodeError) as e:
+                    self._json(400, {"error": f"bad request: {e}"})
+                    return
+                build_fn, chunk_fn, response_fn = route
+                req = None
+
+                def err(payload: dict) -> dict:
+                    if req is not None:
+                        payload["request_id"] = req.id
+                    return payload
+
+                try:
+                    streaming = bool(body.get("stream"))
+                    # validate AND submit before any header goes out, so bad
+                    # input gets a 400 and a shed request a 503
+                    req, deltas = build_fn(body, streaming=streaming)
+                    api.scheduler.submit(req)
+                    if not streaming:
+                        self._json(200, api.run_request(req, None, None, chunk_fn,
+                                                        response_fn))
+                        return
+                    try:
+                        self._sse_headers(req.id)
+                    except BaseException:
+                        req.cancel()
+                        raise
+                    try:
+                        api.run_request(req, deltas, self._sse_chunk, chunk_fn, response_fn)
+                        self.wfile.write(b"data: [DONE]\n\n")
+                    except (BrokenPipeError, ConnectionError, OSError):
+                        return
+                    except Exception as e:  # headers already sent: SSE error event
+                        self._sse_chunk(err({"error": str(e)}))
+                        self.wfile.write(b"data: [DONE]\n\n")
+                except AdmissionRejected as e:
+                    self._json(e.http_status, err({"error": str(e), "reason": e.reason}),
+                               headers={"Retry-After": str(max(1, round(e.retry_after_s)))})
+                except SchedulerStalled as e:
+                    self._json(503, err({"error": str(e), "reason": "stalled"}),
+                               headers={"Retry-After": "30"})
+                except ValueError as e:
+                    self._json(400, err({"error": str(e)}))
+                except Exception as e:  # generation failure
+                    self._json(500, err({"error": str(e)}))
+
+        httpd = ThreadingHTTPServer((host, port), Handler)
+        httpd.daemon_threads = True
+        self._httpd = httpd
+        return httpd
+
+    def shutdown(self):
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd = None

@@ -1,0 +1,102 @@
+"""The port on a CUDA card: each Q40 kernel against its plain version, the
+dispatch's mode routing at the m = 32/33 boundary, and a tiny model served
+by the engine on the card. Marked ``gpu``; without a card every test skips.
+
+This file imports neither jax nor the JAX package, so it also runs where
+only PyTorch is installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu -q
+
+``chip_smoke.py`` runs the same comparisons at the full-width sites.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+from distributed_llama_multiusers_tpu_torch.quants.codec import q40_to_planar, quantize_q40
+from distributed_llama_multiusers_tpu_torch.quants.packed import PackedQ40, pack_q40_planar
+
+TOL = 1e-4  # max|kernel - plain| <= TOL * max|plain|, f32 outputs
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _weight(rng, d_out, d_in, device, scale=0.1):
+    w = rng.standard_normal((d_out, d_in), dtype=np.float32) * scale
+    values, scales = q40_to_planar(quantize_q40(w.reshape(-1)))
+    packed, s = pack_q40_planar(values.reshape(d_out, d_in),
+                                scales.reshape(d_out, d_in // 32))
+    return PackedQ40(torch.from_numpy(packed).to(device), torch.from_numpy(s).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d_in,d_out", [(1, 1376, 128), (5, 256, 5504), (8, 2048, 512),
+                                          (32, 256, 11008), (33, 1376, 128), (300, 64, 256)])
+def test_kernels_match_plain(cuda, m, d_in, d_out):
+    rng = np.random.default_rng(m + d_in + d_out)
+    w = _weight(rng, d_out, d_in, cuda)
+    acts = q.make_q80_acts(torch.from_numpy(
+        rng.standard_normal((m, d_in), dtype=np.float32)).to(cuda))
+    pairs = [(q.q40_slab(acts, w, dt, mode),
+              q.q40_slab_plain(acts.x2, w, dt, mode, bsum=acts.bsum))
+             for mode in ("v4", "bf16chain") for dt in (torch.bfloat16, torch.float32)]
+    if m <= q.BLOCKDOT_MAX_M:
+        pairs.append((q.q40_blockdot(acts, w), q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)))
+        pairs.append((q.q40_i8blockdot(acts, w), q.q40_i8blockdot_plain(acts, w)))
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert got.shape == ref.shape == (m, d_out)
+        assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,at32", [("auto", "q40_i8blockdot"), ("blockdot", "q40_blockdot"),
+                                       ("v4", "q40_slab")])
+def test_dispatch_routes_at_the_boundary(cuda, mode, at32):
+    rng = np.random.default_rng(4)
+    w = _weight(rng, 256, 128, cuda)
+    q.set_dequant_mode(mode)
+    try:
+        for m, expect in ((32, at32), (33, "q40_slab")):
+            before = dict(q.LAUNCHES)
+            y = q.q40_matmul(torch.randn(m, 128, device=cuda, dtype=torch.bfloat16), w)
+            torch.cuda.synchronize()
+            assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+            assert [k for k in q.KERNELS if q.LAUNCHES[k] != before[k]] == [expect]
+    finally:
+        q.set_dequant_mode(None)
+
+
+@pytest.mark.gpu
+def test_engine_serves_tiny_model_on_card(cuda, tmp_path):
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+        tiny_header,
+        write_synthetic_model,
+    )
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    path = str(tmp_path / "m.m")
+    write_synthetic_model(path, tiny_header(), seed=0)
+    config, params = load_params_from_m_quantized(path, load_model_header(path),
+                                                  dtype=torch.bfloat16, device=cuda)
+    engine = InferenceEngine(config, params, n_lanes=2, prefill_buckets=(8,))
+    assert engine.device.type == "cuda" and engine.cache_dtype == torch.bfloat16
+    q.reset_counts()
+    logits, tok, pos = engine.prefill(0, [5, 9, 3, 17, 2])
+    tokens = np.asarray([tok, 0])
+    positions = np.asarray([pos, config.seq_len])
+    step, greedy, _ = engine.decode(tokens, positions)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    assert 0 <= int(greedy[0]) < config.vocab_size
+    assert q.LAUNCHES["q40_slab"] == 2 * (7 * config.n_layers + 1)
+    assert q.PLAIN_CALLS == {k: 0 for k in q.KERNELS}

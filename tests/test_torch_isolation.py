@@ -1,0 +1,126 @@
+"""The port stands alone: every module of distributed_llama_multiusers_tpu_torch
+and chip_smoke.py import in a process where ``jax``, ``jaxlib`` and the JAX
+package cannot be imported, and its entry points refuse CUDA where there is
+none instead of drifting to the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKER = textwrap.dedent("""
+    import importlib.abc, sys
+    BLOCKED = ("jax", "jaxlib", "distributed_llama_multiusers_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    for mod in list(sys.modules):
+        if any(mod == b or mod.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[mod]
+    sys.path.insert(0, ROOT)
+""")
+
+
+def _run(body: str, *args, timeout=120):
+    code = f"ROOT = {ROOT!r}\n" + BLOCKER + textwrap.dedent(body)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_blocker_blocks():
+    r = _run("""
+        try:
+            import jax  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            raise SystemExit("jax imported")
+        try:
+            import distributed_llama_multiusers_tpu.quants.codec  # noqa: F401
+        except ImportError:
+            print("blocked")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "blocked" in r.stdout
+
+
+def test_every_port_module_and_chip_smoke_import_without_jax():
+    r = _run("""
+        import importlib, pkgutil
+        import distributed_llama_multiusers_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # noqa: F401
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip().splitlines()[-1]) >= 30
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run("""
+        import torch
+        from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+            tiny_header, write_synthetic_model, write_synthetic_tokenizer)
+        from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+        from distributed_llama_multiusers_tpu_torch.models import load_params_from_m
+        from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+        from distributed_llama_multiusers_tpu_torch.app import dllama_api
+        d = sys.argv[1]
+        h = tiny_header()
+        write_synthetic_model(d + "/m.m", h)
+        write_synthetic_tokenizer(d + "/t.t", vocab_size=h.vocab_size)
+        config, params = load_params_from_m(d + "/m.m", load_model_header(d + "/m.m"),
+                                            dtype=torch.float32)
+        for kwargs in ({}, {"device": "cuda"}):
+            try:
+                InferenceEngine(config, params, **kwargs)
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise SystemExit(f"InferenceEngine({kwargs}) did not raise")
+        try:
+            dllama_api.main(["--model", d + "/m.m", "--tokenizer", d + "/t.t", "--port", "0"])
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise SystemExit("dllama_api without --device cpu did not raise")
+        print("raised")
+    """, str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("raised")
+
+
+def test_chip_smoke_fails_without_cuda_or_package(tmp_path):
+    """No CUDA here: non-zero exit and no result line. A directory holding
+    chip_smoke.py and nothing else of the repository fails the same way."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_bytes(open(os.path.join(ROOT, "chip_smoke.py"), "rb").read())
+    r = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
