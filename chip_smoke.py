@@ -7,25 +7,35 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels from ``distributed_llama_multiusers_tpu_torch/csrc`` and print
-   the build time.
+   Q40 kernels and the ring hop from ``distributed_llama_multiusers_tpu_torch/
+   csrc`` (one ``nvcc`` per source, all at once) and print the build time.
 2. Kernels: at the Llama-3.2-1B matmul sites (2048->2048, 2048->512,
-   2048->8192, 8192->2048, 2048->128256) hold every kernel and mode against
-   its plain PyTorch version on the card (m = 1, 8, 32 for all three
+   2048->8192, 8192->2048, 2048->128256) hold every Q40 kernel and mode
+   against its plain PyTorch version on the card (m = 1, 8, 32 for all three
    kernels; m = 33 and 512 for the slab kernel; f16-denormal scales; the
    m = 32/33 mode-routing boundary), then time each kernel, its plain
-   version and ``torch.matmul`` on the pre-dequantized bf16 weight.
+   version and ``torch.matmul`` on the pre-dequantized bf16 weight. The ring
+   hop bit for bit against its plain version on each tensor-parallel payload
+   (f32 ring chunks at tp=2 and 4, the Q80 wire's values and scales, logits
+   shards, a prefill chunk), timed beside ``dst.copy_(src)`` and its bound;
+   the ring collectives at tp=2 and tp=4 against themselves on the plain hop.
 3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
    layers, seed 0) into ``build/synthetic`` (reused while header and seed
    match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
-   dllama_api`` once per dequant mode (default v4, ``auto``, ``blockdot``),
-   send 4 concurrent requests (greedy and sampled, completion and chat, one
-   streamed), check the answers and the kernels' launch counts on
-   ``/stats``, print TTFT and decode tok/s, and SIGTERM the server.
+   dllama_api`` once per dequant mode (default v4, ``auto``, ``blockdot``)
+   and twice with ``--workers 2`` (defaults; ``--buffer-float-type q80
+   --dequant auto``) on the host's cards (one card named twice where there
+   is one), send 4 concurrent requests (greedy and sampled, completion and
+   chat, one streamed), check the answers, the startup log and the kernels'
+   launch counts on ``/stats``, print TTFT and decode tok/s, and SIGTERM the
+   server.
 4. Decode step: the engine in this process on the same model, host clock
    per step, launches per step and device time by kernel (torch.profiler)
-   in v4, ``auto`` and ``blockdot``; then each kernel, its plain version and
-   ``torch.matmul`` timed over the 113 products of one decode step.
+   in v4, ``auto`` and ``blockdot``, and at tp=2 on the f32 and the Q80
+   wire (with the ring hop's launches and bytes per step); the TP prefill
+   logits against one device's; the ring hops of one TP decode step timed;
+   then each Q40 kernel, its plain version and ``torch.matmul`` timed over
+   the 113 products of one decode step.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -295,6 +305,133 @@ def kernel_phase(torch, q) -> tuple[list, list]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the ring hop kernel and the ring collectives
+# ---------------------------------------------------------------------------
+
+NVLINK_BYTES_S = 450e9  # H100 SXM NVLink, each way (NVIDIA data sheet)
+# the tensor-parallel path's hop payloads at the 1B geometry and 8 lanes
+HOP_PAYLOADS = [
+    ("f32 ring chunk, tp=2", 2, (8, 1024), "float32"),
+    ("f32 ring chunk, tp=4", 4, (8, 512), "float32"),
+    ("Q80 wire values, tp=2", 2, (8, 32, 32), "int8"),
+    ("Q80 wire scales, tp=2", 2, (8, 32, 1), "float16"),
+    ("f32 logits shard, tp=2", 2, (8, 64128), "float32"),
+    ("f32 prefill chunk, tp=2", 2, (512, 1024), "float32"),
+]
+
+
+def rank_devices(torch, n: int) -> list:
+    """One device per rank: distinct cards where the host has them, else the
+    cards repeated (one card serves every rank)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", r % count) for r in range(n)]
+
+
+def _payload(torch, shape, dtype: str, gen):
+    if dtype == "int8":
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+    return torch.randn(shape, device="cuda", generator=gen).to(getattr(torch, dtype))
+
+
+def hop_bound_ms(nbytes: int, same_card: bool) -> float:
+    """One card: the copy reads and writes device memory; across cards the
+    bytes cross NVLink once."""
+    return (2 * nbytes / HBM_BYTES_S if same_card else nbytes / NVLINK_BYTES_S) * 1e3
+
+
+def time_hops(torch, rc, xs_sets: list, reps: int = 4) -> dict:
+    """Per-set device time of ``ring_shift`` over every ranks list in
+    ``xs_sets`` (the kernel, one CUDA graph where all ranks share one card,
+    else eager between events), of ``dst.copy_(src)`` for the same hops (the
+    library yardstick) and of the plain version (eager)."""
+    srcs, dsts = [], []
+    for xs in xs_sets:
+        n = len(xs)
+        srcs += [xs[(r - 1) % n] for r in range(n)]
+        dsts += [torch.empty_like(x) for x in xs]
+    one_card = len({x.device for xs in xs_sets for x in xs}) == 1
+    hop = [lambda xs=xs: rc.ring_shift(xs) for xs in xs_sets]
+    lib = [lambda d=d, s=s: d.copy_(s) for d, s in zip(dsts, srcs)]
+    if one_card:
+        ms = graph_ms(torch, hop * reps) * len(hop)
+        library_ms = graph_ms(torch, lib * reps) * len(lib)
+    else:
+        ms = eager_ms(torch, lambda: [c() for c in hop], 20)
+        library_ms = eager_ms(torch, lambda: [c() for c in lib], 20)
+    plain_ms = eager_ms(torch, lambda: [rc.ring_shift_plain(xs) for xs in xs_sets], 5)
+    nbytes = sum(s.numel() * s.element_size() for s in srcs)
+    return {"ms": ms, "library_ms": library_ms, "plain_ms": plain_ms, "launches": len(srcs),
+            "bytes": nbytes, "same_card": one_card,
+            "bound_ms": hop_bound_ms(nbytes, one_card), "bound_by": "bytes"}
+
+
+def hop_phase(torch, rc) -> list:
+    """The hop kernel against its plain version, bit for bit, on each of the
+    path's payloads, then its time per launch beside ``copy_`` and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for label, n, shape, dtype in HOP_PAYLOADS:
+        devs = rank_devices(torch, n)
+        xs = [_payload(torch, shape, dtype, gen).to(d) for d in devs]
+        got, ref = rc.ring_shift(xs), rc.ring_shift_plain(xs)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        check(all(torch.equal(g, r) and g.device == r.device for g, r in zip(got, ref)),
+              f"ring_hop on {label}: differs from its plain version (max|d| {err:.3e})")
+        t = time_hops(torch, rc, [xs])
+        row = {"payload": label, "ranks": n, "shape": list(shape), "dtype": dtype,
+               "placement": "same card" if t["same_card"] else "peer across cards",
+               "max_abs_err": err, "ms_per_launch": t["ms"] / n,
+               "library_ms_per_launch": t["library_ms"] / n,
+               "plain_ms_per_launch": t["plain_ms"] / n,
+               "bound_ms_per_launch": t["bound_ms"] / n, "bytes_per_launch": t["bytes"] // n}
+        rows.append(row)
+        log("hop " + json.dumps(row))
+    return rows
+
+
+def collectives_phase(torch, q, rc) -> list:
+    """The ring collectives at tp=2 and tp=4 on the card, each against the
+    same function run with the plain hop: bit for bit (the copies are exact
+    and the kernels deterministic)."""
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import col_shards
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = _weight(torch, q, 2048, 2048, gen)
+    out = []
+    kernel_shift = rc.ring_shift
+    for n in (2, 4):
+        devs = rank_devices(torch, n)
+        ws = col_shards(w, make_mesh(MeshPlan(tp=n), devs))
+        parts = [torch.randn((8, 1, 2048), device="cuda", generator=gen).to(d) for d in devs]
+        chunks = [p[..., : 2048 // n].contiguous() for p in parts]
+        xs = [p[..., : 2048 // n].to(torch.bfloat16).contiguous() for p in parts]
+        cases = {
+            "ring_reduce_scatter": lambda: rc.ring_reduce_scatter(parts),
+            "ring_all_gather": lambda: rc.ring_all_gather(chunks),
+            "ring_all_gather_q80": lambda: rc.ring_all_gather_q80(chunks),
+            "ring_sync_matmul": lambda: rc.ring_sync_matmul(xs, ws),
+            "ring_sync_matmul_q80_wire": lambda: rc.ring_sync_matmul(xs, ws, q80_wire=True),
+        }
+        for name, fn in cases.items():
+            got = fn()
+            rc.ring_shift = lambda ys, chan=0: rc.ring_shift_plain(ys)
+            try:
+                ref = fn()
+            finally:
+                rc.ring_shift = kernel_shift
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
+            check(same, f"{name} tp={n}: the kernel hop and the plain hop disagree")
+            out.append({"collective": name, "tp": n, "bit_exact": same,
+                        "shape": list(got[0].shape)})
+    log(f"ring collectives: {len(out)} checks bit-exact against the plain hop")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serving the full-width model
 # ---------------------------------------------------------------------------
 
@@ -380,13 +517,14 @@ def _text(body):
 
 
 def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
-               extra_args=(), log_dir: str = OUT_DIR, health_timeout: float = 900.0) -> dict:
+               extra_args=(), log_dir: str = OUT_DIR, health_timeout: float = 900.0,
+               name: str | None = None) -> dict:
     """One dllama_api process: 4 concurrent requests, checks, /stats,
-    SIGTERM. Returns the pass's measurements and launch counts."""
+    SIGTERM. Returns the pass's measurements, launch counts and startup log."""
     os.makedirs(log_dir, exist_ok=True)
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    name = mode or "default"
+    name = name or mode or "default"
     cmd = [sys.executable, "-m", f"{PKG}.app.dllama_api", "--model", model,
            "--tokenizer", tok, "--host", "127.0.0.1", "--port", str(port),
            *(["--dequant", mode] if mode else []), *extra_args]
@@ -477,12 +615,17 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
         per_req = [r["summary"]["decode_tok_s"] for r in results
                    if "decode_tok_s" in r["summary"]]
         total_tokens = sum(r["n_tokens"] for r in results)
-        out = {"mode": name, "startup_s": startup_s, "batch_s": batch_s,
+        out = {"mode": name, "args": list(extra_args), "startup_s": startup_s,
+               "batch_s": batch_s, "greedy_text": _text(alone_before),
                "ttft_ms": ttft, "ttft_ms_p50": statistics.median(ttft) if ttft else None,
                "decode_tok_s_per_request": per_req,
                "tokens_per_s_batch": total_tokens / batch_s,
                "n_tokens": [r["n_tokens"] for r in results],
                "kernel_launches": stats["kernel_launches"],
+               "ring_hop_launches": stats["ring_hop_launches"],
+               "ring_hop_bytes": stats["ring_hop_bytes"],
+               "sync_bytes_per_decode": stats["sync_bytes_per_decode"],
+               "mesh": stats["mesh"],
                "dequant_mode": stats["dequant_mode"],
                "dequant_sites": stats.get("dequant_sites", {}),
                "decode_steps": stats["decode_steps"], "device": stats["device"]}
@@ -497,6 +640,8 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
         except subprocess.TimeoutExpired:
             raise SmokeFailure(f"server ({name}) did not exit after SIGTERM") from None
         check(rc == 0, f"server ({name}) exited {rc} after SIGTERM; see {log_path}")
+        with open(log_path, errors="replace") as f:
+            out["log"] = f.read()
         return out
     except BaseException:
         with open(log_path, errors="replace") as f:
@@ -522,6 +667,53 @@ def serving_phase(torch, q) -> list:
         for k in expect:
             check(p["kernel_launches"][k] > 0, f"{p['mode']}: {k} never launched")
         passes.append(p)
+    passes += tp_serving_passes(torch, model, tok, passes[0])
+    return passes
+
+
+def _common_prefix(a: list, b: list) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def tp_serving_passes(torch, model: str, tok: str, single: dict) -> list:
+    """``dllama_api --workers 2`` at full width and depth on the host's
+    cards (one card named twice where there is one): the defaults (v4, f32
+    ring wire) and ``--buffer-float-type q80 --dequant auto`` (Q80 wire,
+    i8blockdot decode). Each checks what ``serve_pass`` checks, the startup
+    log's announcements and the ring hop's launches on /stats."""
+    from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
+
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    tokenizer = Tokenizer(tok)
+    ref = tokenizer.encode(single["greedy_text"], add_bos=False)
+    passes = []
+    for name, mode, extra, expect, says in (
+            ("tp2", None, (), ("q40_slab",), ("Ring TP sync",)),
+            ("tp2-q80-auto", "auto", ("--buffer-float-type", "q80"),
+             ("q40_i8blockdot", "q40_slab"), ("Ring TP sync", "(Q80 wire)",
+                                              "Q80 sync transport"))):
+        p = serve_pass(model, tok, mode, GEN_TOKENS, name=name,
+                       extra_args=("--workers", "2", "--device", devices, *extra))
+        check(p["mesh"] is not None and p["mesh"]["tp"] == 2, f"{name}: /stats mesh {p['mesh']}")
+        check(p["ring_hop_launches"] > 0, f"{name}: ring_hop never launched")
+        for k in expect:
+            check(p["kernel_launches"][k] > 0, f"{name}: {k} never launched")
+        for phrase in ("Mesh: dp=1 pp=1 tp=2",) + says:
+            check(phrase in p["log"], f"{name}: the startup log does not say {phrase!r}")
+        got = tokenizer.encode(p["greedy_text"], add_bos=False)
+        p["greedy_tokens_matching_single_device"] = _common_prefix(got, ref)
+        p["greedy_tokens"] = len(got)
+        log(f"greedy tokens [{name}]: the first {_common_prefix(got, ref)} of {len(got)} "
+            "match the single-device v4 pass (information only: bf16 sums in another "
+            "order may part a random model's near-ties)")
+        log(f"ring_hop [{name}]: {p['ring_hop_launches']} launches, {p['ring_hop_bytes']} "
+            f"bytes; sync_bytes_per_decode {p['sync_bytes_per_decode']}")
+        passes.append(p)
     return passes
 
 
@@ -540,39 +732,57 @@ def step_products(params) -> list:
     return ws + [params.wcls]
 
 
-def _q40_kernel_of(name: str) -> str | None:
+def _kernel_of(name: str) -> str | None:
     """The port's kernel behind a profiler kernel name (reduce_splits is
-    the split-K sum launch every wrapper may add)."""
+    the split-K sum launch every Q40 wrapper may add)."""
     for tag, kernel in (("i8blockdot_kernel", "q40_i8blockdot"),
                         ("blockdot_kernel", "q40_blockdot"),
-                        ("slab_kernel", "q40_slab"), ("reduce_splits", "reduce_splits")):
+                        ("slab_kernel", "q40_slab"), ("reduce_splits", "reduce_splits"),
+                        ("hop_vec16", "ring_hop"), ("hop_bytes", "ring_hop")):
         if tag in name:
             return kernel
     return None
 
 
-def step_breakdown(torch, q, config, params, mode: str, lanes: int = 8, busy: int = 4,
-                   steps: int = 10, device: str = "cuda") -> dict:
+def sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy: int = 4,
+                   steps: int = 10, mesh=None, q80: bool = False,
+                   label: str | None = None) -> dict:
     """Where a serving decode step's time goes: the engine in this process
     on the full-width model, ``busy`` of ``lanes`` lanes decoding (the
-    smoke's 4 concurrent requests on the server's 8 lanes). Host clock per
-    synchronous step, the kernels' launch counters over those steps, and
+    smoke's 4 concurrent requests on the server's 8 lanes); with ``mesh``,
+    tensor parallel over its ranks (``q80``: the Q80 wire, as
+    ``--buffer-float-type q80`` serves it). Host clock per synchronous step,
+    the kernels' launch counters over those steps, the ring hop's bytes, and
     device time and launches by kernel from torch.profiler."""
+    from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
     from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
 
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    label = label or mode
+    q80_wire = q80 and mesh is not None and q80_sync_engages(config, mesh.shape)
     q.set_dequant_mode(mode)
     try:
-        engine = InferenceEngine(config, params, n_lanes=lanes, device=device)
+        engine = InferenceEngine(
+            config, params if mesh is None else shard_params(params, mesh), n_lanes=lanes,
+            device="cuda", mesh=mesh, emulate_q80_activations=q80, q80_sync=q80_wire)
         tokens = np.zeros(lanes, np.int64)
         positions = np.full(lanes, config.seq_len, np.int64)
         temps = np.zeros(lanes, np.float32)
+        prefill_logits = None
         for lane in range(busy):
             prompt = [(97 * lane + 13 * i) % 100 + 1 for i in range(40)]
-            _, tokens[lane], positions[lane] = engine.prefill(lane, prompt)
+            last, tokens[lane], positions[lane] = engine.prefill(lane, prompt)
+            if prefill_logits is None:
+                prefill_logits = last.float().cpu()
             temps[lane] = 0.8 if lane % 2 else 0.0  # half the lanes sample
         seeds = np.arange(lanes, dtype=np.uint32)
 
@@ -584,59 +794,75 @@ def step_breakdown(torch, q, config, params, mode: str, lanes: int = 8, busy: in
 
         for _ in range(3):
             step()
-        torch.cuda.synchronize()
+        sync_all(torch)
         wall = []
         before = dict(q.LAUNCHES)
+        ring_before = rc.ring_counts()
         for _ in range(steps):
             t0 = time.perf_counter()
             step()  # decode reads the tokens back: each step ends synchronized
             wall.append((time.perf_counter() - t0) * 1e3)
         launches = {k: (q.LAUNCHES[k] - before[k]) / steps for k in q.KERNELS}
-        n_products = len(step_products(params))
+        ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
+        # per rank and layer: wq, wk, wv, w1, w3 and n column chunks each of
+        # wo and w2; then wcls (n = 1: the 7 products of one device)
+        n, n_layers = len(engine.devices), config.n_layers
+        n_products = n * (n_layers * (5 + 2 * n) + 1)
         check(sum(launches.values()) == n_products,
-              f"decode step [{mode}]: {launches} Q40 launches per step, expected "
+              f"decode step [{label}]: {launches} Q40 launches per step, expected "
               f"{n_products} products")
+        check(ring["ring_hop_bytes"] == engine.stats.sync_bytes_per_decode,
+              f"decode step [{label}]: hop bytes {ring} against sync_bytes_per_decode "
+              f"{engine.stats.sync_bytes_per_decode}")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
-            torch.cuda.synchronize()
+            sync_all(torch)
             prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         by_name: dict = {}
         host: dict = {}
-        q40: dict = {}  # kernel -> [device us per step, launches per step]
+        kernels: dict = {}  # kernel -> [device us per step, launches per step]
         for e in prof.key_averages():
             # kernels only: an aten op's own device time repeats its kernels'
             us = getattr(e, "self_device_time_total", 0.0) or 0.0
             if us > 0 and e.device_type != DeviceType.CPU:
                 by_name[e.key] = by_name.get(e.key, 0.0) + us / steps
-                kernel = _q40_kernel_of(e.key)
+                kernel = _kernel_of(e.key)
                 if kernel:
-                    acc = q40.setdefault(kernel, [0.0, 0.0])
+                    acc = kernels.setdefault(kernel, [0.0, 0.0])
                     acc[0] += us / steps
                     acc[1] += e.count / steps
             if e.self_cpu_time_total > 0:
                 host[e.key] = (e.self_cpu_time_total / steps, e.count // steps)
         device_ms = sum(by_name.values()) / 1e3
-        q40_ms = sum(v[0] for v in q40.values()) / 1e3
+        q40_ms = sum(v[0] for k, v in kernels.items() if k != "ring_hop") / 1e3
+        hop_ms = kernels.get("ring_hop", [0.0, 0.0])[0] / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        out = {"mode": mode, "lanes": lanes, "busy_lanes": busy,
+        out = {"mode": label, "dequant": mode, "ranks": [str(d) for d in engine.devices],
+               "q80_wire": q80_wire,
+               "lanes": lanes, "busy_lanes": busy,
                "step_ms_p50": statistics.median(wall), "step_ms": wall,
                "profiled_step_ms": prof_wall_ms, "device_ms_per_step": device_ms,
                # device time over the unprofiled step: the profiler slows the
                # host side, not the kernels
                "device_busy_share": device_ms / statistics.median(wall),
                "q40_kernels_ms_per_step": q40_ms,
+               "ring_hop_ms_per_step": hop_ms,
                "launches_per_step": launches,
-               "q40_profiled_us_launches_per_step": q40,
+               "ring_hop_launches_per_step": ring["ring_hop_launches"],
+               "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode,
+               "q40_profiled_us_launches_per_step": kernels,
                "top_device_us_per_step": [[k[:90], v] for k, v in top],
                "top_host_us_calls_per_step": [
                    [k[:60], us, n] for k, (us, n) in
-                   sorted(host.items(), key=lambda kv: -kv[1][0])[:12]]}
-        log(f"decode step [{mode}]: p50 {out['step_ms_p50']:.2f} ms host clock, "
+                   sorted(host.items(), key=lambda kv: -kv[1][0])[:12]],
+               "prefill_logits": prefill_logits}
+        log(f"decode step [{label}]: p50 {out['step_ms_p50']:.2f} ms host clock, "
             f"device busy {device_ms:.2f} ms ({out['device_busy_share']:.3f} of the step), "
-            f"Q40 kernels {q40_ms:.3f} ms, launches per step {launches}, "
-            f"profiled {q40}")
+            f"Q40 kernels {q40_ms:.3f} ms, ring_hop {hop_ms:.3f} ms, launches per step "
+            f"{launches}, ring_hop {ring['ring_hop_launches']}, sync_bytes_per_decode "
+            f"{engine.stats.sync_bytes_per_decode}, profiled {kernels}")
         del engine
         torch.cuda.empty_cache()
         return out
@@ -699,33 +925,77 @@ def step_matmuls(torch, q, params, m: int = DECODE_M) -> dict:
     return out
 
 
-def decode_phase(torch, q, model: str) -> tuple[list, dict]:
+# TP prefill logits against one device's, on the card: the TP partials are
+# rounded to bf16 before their f32 sum where one device rounds the whole sum
+# once, and 16 layers of bf16 activations carry that difference to the logits
+TP_LOGITS_TOL = 5e-2  # max|tp - single| <= TP_LOGITS_TOL * max|single|
+
+
+def tp_step_hops(torch, config, devices, lanes: int = DECODE_M) -> list:
+    """The ring hops of one tensor-parallel decode step on the f32 wire, as
+    ranks lists: per wo/w2 sync n-1 hops of the reduce chunk and n-1 of the
+    gather chunk [lanes, 1, dim/n] f32, then n-1 hops of the logits shards
+    [lanes, 1, vocab/n] f32."""
+    n = len(devices)
+    chunk = [torch.randn((lanes, 1, config.dim // n)).to(d) for d in devices]
+    logits = [torch.randn((lanes, 1, config.vocab_size // n)).to(d) for d in devices]
+    return [chunk] * (2 * config.n_layers * 2 * (n - 1)) + [logits] * (n - 1)
+
+
+def decode_phase(torch, q, rc, model: str):
     """Load the full-width model once; break a serving decode step down in
-    each mode whose decode runs a different kernel, then time each kernel
-    over one decode step's products."""
+    each mode whose decode runs a different kernel, then tensor parallel at
+    tp=2 (f32 and Q80 wire), hold the TP prefill logits against one
+    device's, time the ring hops of one TP decode step, and time each Q40
+    kernel over one decode step's products."""
     from distributed_llama_multiusers_tpu_torch.formats import load_model_header
     from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
 
     config, params = load_params_from_m_quantized(model, load_model_header(model),
                                                   dtype=torch.bfloat16, device="cuda")
-    breakdown = [step_breakdown(torch, q, config, params, mode)
+    breakdown = [step_breakdown(torch, q, rc, config, params, mode)
                  for mode in dict.fromkeys(DECODE_MODE_OF.values())]
+    devices = rank_devices(torch, 2)
+    mesh = make_mesh(MeshPlan(tp=2), devices)
+    tp = [step_breakdown(torch, q, rc, config, params, "v4", mesh=mesh,
+                         label="tp2 v4, f32 wire"),
+          step_breakdown(torch, q, rc, config, params, "auto", mesh=mesh, q80=True,
+                         label="tp2 auto, Q80 wire")]
+    ref, got = breakdown[0]["prefill_logits"], tp[0]["prefill_logits"]
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= TP_LOGITS_TOL * scale,
+          f"tp2 prefill logits: max|tp - single| {err:.4e} against max|single| {scale:.4e}")
+    tp_logits = {"max_abs_err": err, "max_abs_ref": scale, "tol": TP_LOGITS_TOL,
+                 "argmax_equal": int(got.argmax()) == int(ref.argmax())}
+    log("tp2 prefill logits against one device: " + json.dumps(tp_logits))
+    hop_step = time_hops(torch, rc, tp_step_hops(torch, config, devices))
+    check(hop_step["launches"] == tp[0]["ring_hop_launches_per_step"]
+          and hop_step["bytes"] == tp[0]["sync_bytes_per_decode"],
+          f"the timed hops ({hop_step['launches']}, {hop_step['bytes']} B) are not the "
+          f"decode step's ({tp[0]['ring_hop_launches_per_step']}, "
+          f"{tp[0]['sync_bytes_per_decode']} B)")
+    log("ring hops of one tp2 decode step: " + json.dumps(hop_step))
     products = step_matmuls(torch, q, params)
+    for b in breakdown + tp:
+        del b["prefill_logits"]
     del params
     torch.cuda.empty_cache()
-    return breakdown, products
+    return breakdown, tp, tp_logits, hop_step, products
 
 
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(q, checks, passes, breakdown, products) -> dict:
+def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
-    main path, each server counting from the end of its warmup). The times
-    and the bound cover one decode step's products at the server's 8 lanes
-    (``step_matmuls``); ``launches_per_decode_step`` and the profiled
-    fields come from the engine's decode steps in the mode that runs the
-    kernel (``step_breakdown``)."""
+    main path, each server counting from the end of its warmup). For a Q40
+    kernel the times and the bound cover one decode step's products at the
+    server's 8 lanes (``step_matmuls``); ``launches_per_decode_step`` and
+    the profiled fields come from the engine's decode steps in the mode that
+    runs the kernel (``step_breakdown``). For the ring hop they cover the
+    hops of one tp=2 decode step on the f32 wire (``time_hops``) and the
+    engine's TP decode steps."""
     out = []
     for kernel, mode in DECODE_MODE_OF.items():
         mine = [c for c in checks if c["kernel"] == kernel and c["io"] == "f32"]
@@ -753,12 +1023,37 @@ def kernels_line(q, checks, passes, breakdown, products) -> dict:
                         f"loaded model at m={p['m']}, mode {p['mode']}: kernel and "
                         "torch.matmul in one CUDA graph each, plain eager",
             "launches_per_decode_step": step["launches_per_step"][kernel],
+            "launches_per_tp2_decode_step": {b["mode"]: b["launches_per_step"][kernel]
+                                             for b in tp},
             "profiled_in_mode": mode,
             "profiled_launches_per_decode_step": own[1],
             "profiled_reduce_splits_per_decode_step": splits[1],
             "profiled_ms_per_decode_step": own[0] / 1e3,
             "profiled_reduce_splits_ms_per_decode_step": splits[0] / 1e3,
         })
+    f32_step = tp[0]
+    out.append({
+        "name": rc.KERNEL, "route": "cuda", "source": rc.KERNEL_SOURCE,
+        "replaces": rc.KERNEL_REPLACES,
+        "launches": sum(p_["ring_hop_launches"] for p_ in passes),
+        "launches_by_mode": {p_["mode"]: p_["ring_hop_launches"] for p_ in passes},
+        "max_abs_err": max(h["max_abs_err"] for h in hops),
+        "tol": 0.0, "tol_rule": "bit-exact against the plain version on every payload",
+        "ms": hop_step["ms"], "plain_ms": hop_step["plain_ms"],
+        "library_ms": hop_step["library_ms"], "bound_ms": hop_step["bound_ms"],
+        "bound_by": hop_step["bound_by"],
+        "placement": "same card" if hop_step["same_card"] else "peer across cards",
+        "timed_as": f"the {hop_step['launches']} hops ({hop_step['bytes']} bytes) of one "
+                    "tp=2 decode step at 8 lanes on the f32 wire: kernel and "
+                    "dst.copy_(src) in one CUDA graph each where the ranks share a card, "
+                    "plain eager",
+        "launches_per_decode_step": f32_step["ring_hop_launches_per_step"],
+        "launches_per_decode_step_by_mode": {b["mode"]: b["ring_hop_launches_per_step"]
+                                             for b in tp},
+        "sync_bytes_per_decode_by_mode": {b["mode"]: b["sync_bytes_per_decode"] for b in tp},
+        "profiled_ms_per_decode_step": f32_step["ring_hop_ms_per_step"],
+        "payloads": hops,
+    })
     return {"kernels": out}
 
 
@@ -790,22 +1085,30 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
         from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+        from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
         t0 = time.perf_counter()
-        q.build_kernels()
-        log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(q.KERNELS)})")
+        names = q.KERNELS + (rc.KERNEL,)
+        q.build_kernels(names)
+        log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
 
         checks, timings = kernel_phase(torch, q)
+        hops = hop_phase(torch, rc)
+        collectives = collectives_phase(torch, q, rc)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
-            json.dump({"card": card, "checks": checks, "timings": timings}, f, indent=1)
+            json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
+                       "collectives": collectives}, f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)
-        breakdown, products = decode_phase(torch, q, model)
+        breakdown, tp, tp_logits, hop_step, products = decode_phase(torch, q, rc, model)
         with open(os.path.join(OUT_DIR, "chip_smoke_serving.json"), "w") as f:
-            json.dump({"card": card, "passes": passes, "decode_step": breakdown,
+            json.dump({"card": card,
+                       "passes": [{k: v for k, v in p.items() if k != "log"} for p in passes],
+                       "decode_step": breakdown, "tp_decode_step": tp,
+                       "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
                        "decode_step_products": products}, f, indent=1)
-        line = kernels_line(q, checks, passes, breakdown, products)
+        line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of the distributed-llama multi-user serving stack.
 
-One NVIDIA Hopper card serves a Q40 Llama through the same entry points as
-the JAX package beside it (``app/dllama_api.py``): the ``.m``/``.t`` formats,
+NVIDIA Hopper cards serve a Q40 Llama through the same entry points as the
+JAX package beside it (``app/dllama_api.py``): the ``.m``/``.t`` formats,
 packed Q40 weights resident on the card, ``llama_forward`` with a contiguous
 KV cache, on-device nucleus sampling, the continuous-batching scheduler and
-the OpenAI-style HTTP server. The Q40 dequant-in-matmul kernels are CUDA C++
-for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use
-(``ops/cuda_q40.py``); every other op is plain PyTorch.
+the OpenAI-style HTTP server. ``--workers N`` shards the model tensor-
+parallel over N ranks driven from one process (``parallel/``), their wo/w2
+outputs synced by ring collectives (``ops/ring_collective.py``). The Q40
+dequant-in-matmul kernels and the ring hop are CUDA C++ for ``sm_90a``
+under ``csrc/``, built with ``nvcc`` at first use; every other op is plain
+PyTorch.
 
 Entry points run on CUDA unless the caller asks for ``device="cpu"``; on
 the CPU each kernel wrapper runs its plain PyTorch version, which is what

@@ -1,9 +1,11 @@
-"""CLI argument surface of the port's entry points (the flags this slice
-serves; the JAX package's ``app/args.py`` is the full set)."""
+"""CLI argument surface of the port's entry points (the flags the port
+serves so far; the JAX package's ``app/args.py`` is the full set)."""
 
 from __future__ import annotations
 
 import argparse
+
+from ..parallel import MeshPlan
 
 # the JAX package's dequant knob, mirrored (ops/cuda_q40.SELECTABLE_MODES)
 DEQUANT_CHOICES = ("auto", "v4", "bf16chain", "repeat", "u8chain", "blockdot",
@@ -16,7 +18,24 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
     p.add_argument("--tokenizer", required=True, help="path to .t tokenizer file")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; there is no "
-                        "silent fall back — pass 'cpu' to run on the CPU)")
+                        "silent fall back — pass 'cpu' to run on the CPU). With "
+                        "--workers N: one device for every rank ('cpu'; 'cuda' "
+                        "= cuda:0..cuda:N-1) or a comma list with one per rank; "
+                        "a card serves several ranks only where the list names "
+                        "it each time (cuda:0,cuda:0)")
+    p.add_argument("--workers", nargs="*", default=None,
+                   help="tensor-parallel ranks: a count (2 -> tp2) or a mesh "
+                        "spec (tp2); this port serves pure TP")
+    p.add_argument("--ring-sync", default="on", choices=["on", "off"],
+                   help="TP mesh: sync the wo/w2 outputs through the ring "
+                        "reduce-scatter + all-gather interleaved with the "
+                        "product (default); 'off': a local partial and a ring "
+                        "all-reduce (or the Q80 reduce-scatter + gather with "
+                        "--buffer-float-type q80)")
+    p.add_argument("--buffer-float-type", default="f32", choices=["f32", "q80"],
+                   help="q80: emulate the reference's Q80 activation casts and, "
+                        "on a TP mesh whose shards hold whole blocks, ship the "
+                        "wo/w2 sync as int8 + f16 scales")
     p.add_argument("--max-seq-len", type=int, default=0,
                    help="clamp the context length (0: the model's)")
     p.add_argument("--weights", default="auto", choices=["auto", "packed", "dense"],
@@ -39,3 +58,22 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
     return p
+
+
+def parse_mesh_spec(workers: list[str] | None):
+    """--workers '8' -> tp=8 (the reference's pure TP); 'dp2,tp2,sp2,ep2' ->
+    explicit axes."""
+    if not workers:
+        return None
+    spec = workers[0]
+    if spec.isdigit():
+        return MeshPlan(tp=int(spec))
+    plan = {"dp": 1, "tp": 1, "sp": 1, "ep": 1, "pp": 1}
+    for part in spec.split(","):
+        for axis in plan:
+            if part.startswith(axis):
+                plan[axis] = int(part[len(axis):])
+                break
+        else:
+            raise ValueError(f"bad mesh spec part {part!r}")
+    return MeshPlan(**plan)

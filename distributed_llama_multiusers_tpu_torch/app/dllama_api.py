@@ -1,8 +1,10 @@
 """`dllama-api` entry point of the port: the multi-user HTTP server on one
-CUDA device, backed by the continuous-batching scheduler.
+CUDA device, or tensor parallel over several (``--workers N``), backed by
+the continuous-batching scheduler.
 
     python -m distributed_llama_multiusers_tpu_torch.app.dllama_api \\
         --model m.m --tokenizer t.t --port 9990 [--device cuda] [--dequant auto]
+        [--workers 2 --device cuda:0,cuda:1] [--buffer-float-type q80]
 
 SIGTERM drains: /health flips to 503, new requests shed, in-flight work
 finishes, then the process exits 0.

@@ -1,5 +1,6 @@
 """Model/engine bootstrapping for the entry points: header -> tokenizer ->
-weights on the device -> engine -> warmed scheduler."""
+weights on the device (or sharded over a tensor-parallel mesh) -> engine ->
+warmed scheduler."""
 
 from __future__ import annotations
 
@@ -10,11 +11,16 @@ import torch
 from ..formats import load_model_header
 from ..models import load_params_from_m
 from ..models.loader import load_params_from_m_quantized
-from ..ops import cuda_q40
+from ..ops import cuda_q40, ring_collective
+from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
+from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
+from ..parallel.collectives import q80_sync_engages
+from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
 from ..runtime.engine import warmup_engine
 from ..tokenizer import Tokenizer
+from .args import parse_mesh_spec
 
 
 def log(emoji: str, msg: str) -> None:
@@ -22,8 +28,15 @@ def log(emoji: str, msg: str) -> None:
 
 
 def load_stack(args, n_lanes: int | None = None):
-    """Returns (config, params, tokenizer, engine) on ``args.device``."""
-    device = resolve_device(args.device)
+    """Returns (config, params, tokenizer, engine) on ``args.device``; with
+    ``--workers N`` the params are the per-rank shards of a tp=N mesh."""
+    plan = parse_mesh_spec(args.workers)
+    if plan is not None and plan.n_devices > 1:
+        devices = mesh_devices(args.device, plan.n_devices)
+        device = devices[0]
+    else:
+        plan = None
+        device = resolve_device(args.device)
     header = load_model_header(args.model, max_seq_len=args.max_seq_len)
     # bf16 activations and weights on the card; f32 on the CPU (parity)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
@@ -37,16 +50,26 @@ def load_stack(args, n_lanes: int | None = None):
     weights = args.weights
     if weights == "auto":
         weights = "dense" if device.type == "cpu" else "packed"
+    # a mesh loads on the host, then each rank takes its shard
+    load_on = device if plan is None else "cpu"
     t0 = time.perf_counter()
     if weights == "packed":
         config, params = load_params_from_m_quantized(args.model, header, dtype=dtype,
-                                                      device=device)
+                                                      device=load_on)
         if isinstance(params.layers.wq, PackedQ40):
             log("🔷", f"Q40 weights resident on {device} (dequant-in-matmul)")
         else:
             log("🔶", "model has no Q40 tensors; loaded dense")
     else:
-        config, params = load_params_from_m(args.model, header, dtype=dtype, device=device)
+        config, params = load_params_from_m(args.model, header, dtype=dtype, device=load_on)
+    mesh = None
+    if plan is not None:
+        validate_mesh_for_config(config, plan)
+        mesh = make_mesh(plan, devices)
+        params = shard_params(params, mesh)
+        log("⭕", f"Mesh: dp={plan.dp} pp={plan.pp} tp={plan.tp} sp={plan.sp} "
+                  f"ep={plan.ep} over {plan.n_devices} devices "
+                  f"({','.join(str(d) for d in mesh.devices)})")
     log("💿", f"Weights loaded in {time.perf_counter() - t0:.1f}s")
 
     # the dequant mode is set before anything runs
@@ -61,9 +84,27 @@ def load_stack(args, n_lanes: int | None = None):
     elif cuda_q40.DEQUANT_MODE != "v4":
         log("🎛️", f"Dequant mode: {cuda_q40.DEQUANT_MODE} (--dequant / DLLAMA_DEQUANT)")
 
+    emulate_q80 = args.buffer_float_type == "q80"
+    # the predicates llama_forward reads, so that what is announced is what runs
+    q80_sync = emulate_q80 and mesh is not None and q80_sync_engages(config, mesh.shape)
+    ring_sync = args.ring_sync == "on"
+    if q80_sync:
+        log("🔶", "Q80 sync transport: wo/w2 TP boundaries ship int8+scales "
+                  "(--buffer-float-type q80 on a tp mesh)")
+    elif emulate_q80:
+        log("🔶", "Q80 activation-cast emulation enabled (--buffer-float-type q80)")
+    if mesh is not None and ring_sync_engages(config, mesh.shape, ring_sync) \
+            and ring_sync_supported(config.dim, mesh.tp, q80_sync):
+        log("🔗", "Ring TP sync: wo/w2 activation sync interleaved with the dequant "
+                  "matmul, every hop one ring_hop kernel launch"
+                  + (" (Q80 wire)" if q80_sync else "") + " — --ring-sync off for "
+                  "a local partial and a ring all-reduce")
+
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "auto": None}[args.kv_dtype]
     engine = InferenceEngine(config, params, n_lanes=n_lanes or args.max_lanes,
-                             cache_dtype=cache_dtype, device=device)
+                             cache_dtype=cache_dtype, device=device, mesh=mesh,
+                             emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
+                             ring_sync=ring_sync)
     return config, params, tokenizer, engine
 
 
@@ -75,8 +116,10 @@ def make_scheduler(engine, tokenizer) -> ContinuousBatchingScheduler:
     t0 = time.perf_counter()
     warmup_engine(engine)
     if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+        for dev in dict.fromkeys(engine.devices):
+            torch.cuda.synchronize(dev)
     cuda_q40.reset_counts()
+    ring_collective.reset_counts()
     log("⏳", f"Warmup done in {time.perf_counter() - t0:.1f}s")
     sched = ContinuousBatchingScheduler(engine, tokenizer)
     sched.start()

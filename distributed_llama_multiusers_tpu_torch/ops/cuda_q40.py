@@ -325,7 +325,7 @@ def build_dir() -> str:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the Q40 kernels build from "
+        raise RuntimeError("nvcc not found: the port's kernels build from "
                            f"{_CSRC} with the CUDA toolkit")
     return found
 
@@ -340,9 +340,10 @@ def _lib_path(name: str) -> str:
 
 
 def build_kernels(names=KERNELS, verbose: bool = False) -> dict:
-    """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together; returns {name: library path}. Raises on a failed
-    build with the compiler's output."""
+    """Compile every missing kernel library (``csrc/<name>.cu``; the Q40
+    kernels by default, ``ring_hop`` too when named), one ``nvcc`` per
+    source, all started together; returns {name: library path}. Raises on a
+    failed build with the compiler's output."""
     os.makedirs(build_dir(), exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
@@ -386,20 +387,26 @@ _ARGTYPES = {
 }
 
 
-def _kernel(name: str):
-    """The kernel's C entry point, building its library on first use."""
-    fn = _libs.get(name)
+def load_kernel(name: str, argtypes: list, symbol: str | None = None):
+    """The C function ``symbol`` (default ``<name>_launch``) of kernel
+    library ``name``, building the library on first use; it returns an int
+    CUDA error code."""
+    key = (name, symbol)
+    fn = _libs.get(key)
     if fn is not None:
         return fn
     with _build_lock:
-        if name not in _libs:
+        if key not in _libs:
             path = build_kernels((name,))[name]
-            lib = ctypes.CDLL(path)
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = _ARGTYPES[name]
+            fn = getattr(ctypes.CDLL(path), symbol or f"{name}_launch")
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
-    return _libs[name]
+            _libs[key] = fn
+    return _libs[key]
+
+
+def _kernel(name: str):
+    return load_kernel(name, _ARGTYPES[name])
 
 
 _sm_counts: dict = {}
@@ -490,13 +497,16 @@ def q40_slab(acts: Q80Acts, w: PackedQ40, w_dtype: torch.dtype,
     out, part = _outputs(m, d_out, x2.dtype, x2.device, splits)
     bf16_dot = w_dtype == torch.bfloat16
     chain = int(bf16_dot and mode in _BF16_CHAINS)
-    err = _kernel("q40_slab")(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), acts.bsum.data_ptr(),
-        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.bfloat16), part.data_ptr(),
-        m, w.d_in, d_out, mt, splits, per, chain, int(bf16_dot),
-        torch.cuda.current_stream(x2.device).cuda_stream,
-    )
+    # the launch goes to the current CUDA context: make x's device current
+    # (a tensor-parallel rank may live on another card)
+    with torch.cuda.device(x2.device):
+        err = _kernel("q40_slab")(
+            x2.data_ptr(), int(x2.dtype == torch.bfloat16), acts.bsum.data_ptr(),
+            w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), part.data_ptr(),
+            m, w.d_in, d_out, mt, splits, per, chain, int(bf16_dot),
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
     _raise_on(err, "q40_slab")
     _bump(LAUNCHES, "q40_slab")
     return out
@@ -516,13 +526,14 @@ def q40_blockdot(acts: Q80Acts, w: PackedQ40) -> torch.Tensor:
     _check_f32(acts.bsum, (m, w.d_in // 32), x2.device, "bsum")
     mt, splits, per = launch_plan(m, w.d_in, d_out, _sm_count(x2.device))
     out, part = _outputs(m, d_out, x2.dtype, x2.device, splits)
-    err = _kernel("q40_blockdot")(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), acts.bsum.data_ptr(),
-        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.bfloat16), part.data_ptr(),
-        m, w.d_in, d_out, mt, splits, per,
-        torch.cuda.current_stream(x2.device).cuda_stream,
-    )
+    with torch.cuda.device(x2.device):
+        err = _kernel("q40_blockdot")(
+            x2.data_ptr(), int(x2.dtype == torch.bfloat16), acts.bsum.data_ptr(),
+            w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), part.data_ptr(),
+            m, w.d_in, d_out, mt, splits, per,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
     _raise_on(err, "q40_blockdot")
     _bump(LAUNCHES, "q40_blockdot")
     return out
@@ -548,13 +559,14 @@ def q40_i8blockdot(acts: Q80Acts, w: PackedQ40) -> torch.Tensor:
     _check_f32(acts.bsum, (m, n_blk), x2.device, "bsum")
     mt, splits, per = launch_plan(m, w.d_in, d_out, _sm_count(x2.device))
     out, part = _outputs(m, d_out, x2.dtype, x2.device, splits)
-    err = _kernel("q40_i8blockdot")(
-        xq.data_ptr(), acts.sx.data_ptr(), acts.bsum.data_ptr(),
-        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.bfloat16), part.data_ptr(),
-        m, w.d_in, d_out, mt, splits, per,
-        torch.cuda.current_stream(x2.device).cuda_stream,
-    )
+    with torch.cuda.device(x2.device):
+        err = _kernel("q40_i8blockdot")(
+            xq.data_ptr(), acts.sx.data_ptr(), acts.bsum.data_ptr(),
+            w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), part.data_ptr(),
+            m, w.d_in, d_out, mt, splits, per,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
     _raise_on(err, "q40_i8blockdot")
     _bump(LAUNCHES, "q40_i8blockdot")
     return out

@@ -15,7 +15,11 @@ draws with ``fold_in(PRNGKey(seed), pos)``, which torch cannot reproduce:
 sampled streams agree with it in support only; greedy streams are
 identical.
 
-This slice runs the synchronous path only; the pipelined, fused,
+With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
+KV caches; sampling and the returned logits stay on rank 0's device, so the
+scheduler sees one engine either way.
+
+The port runs the synchronous path only; the pipelined, fused,
 speculative, multi-step, paged and grammar families are later work, which
 the ``supports_*`` flags say to the scheduler.
 """
@@ -32,6 +36,8 @@ import torch
 
 from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, llama_forward
+from ..ops.ring_collective import ring_counts
+from ..parallel.sharding import shard_kv_cache
 
 DEFAULT_PREFILL_BUCKETS = (16, 64, 256, 1024)
 DEFAULT_TOPP = 0.9
@@ -60,6 +66,9 @@ class EngineStats:
     prefill_tokens: int = 0
     decode_steps: int = 0
     host_bytes_in: int = 0  # device->host token/logit traffic
+    # bytes the ring hop moved in the last decode step (a mesh's TP sync and
+    # logits gather; 0 off-mesh), counted by the hop, not reckoned
+    sync_bytes_per_decode: int = 0
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                  compare=False)
 
@@ -138,13 +147,27 @@ class InferenceEngine:
         prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
         cache_dtype: torch.dtype | None = None,
         device="cuda",
+        mesh=None,
+        emulate_q80_activations: bool = False,
+        q80_sync: bool = False,
+        ring_sync: bool = True,
     ):
         """``device`` defaults to CUDA and raises where there is none; tests
         pass ``device="cpu"``. The parameters must already live there.
-        ``cache_dtype`` None: bf16 KV on the card, f32 on the CPU."""
-        self.device = resolve_device(device)
-        if params.device.type != self.device.type:
-            raise ValueError(f"params on {params.device}, engine on {self.device}")
+        ``cache_dtype`` None: bf16 KV on the card, f32 on the CPU.
+
+        With ``mesh`` (tensor parallel), ``params`` is the per-rank list of
+        ``parallel.sharding.shard_params`` and the device is rank 0's, where
+        sampling runs and logits land; the KV cache is split on kv heads.
+        ``emulate_q80_activations``, ``q80_sync`` and ``ring_sync`` go to
+        ``llama_forward``."""
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.devices[0])
+        self.devices = [self.device] if mesh is None else list(mesh.devices)
+        ranks = [params] if mesh is None else params
+        for p in ranks:
+            if p.device.type != self.device.type:
+                raise ValueError(f"params on {p.device}, engine on {self.device}")
         self.config = config
         self.params = params
         self.n_lanes = n_lanes
@@ -155,12 +178,21 @@ class InferenceEngine:
             cache_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
         self.cache_dtype = cache_dtype
         self.cache = init_kv_cache(config, n_lanes, dtype=cache_dtype, device=self.device)
+        if mesh is not None:
+            self.cache = shard_kv_cache(self.cache, mesh)
+        self._forward_flags = {"emulate_q80_activations": emulate_q80_activations,
+                               "mesh": mesh, "q80_sync": q80_sync, "ring_sync": ring_sync}
         self.stats = EngineStats()
 
     # -- helpers --------------------------------------------------------------
 
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _lane_cache(self, lane: int):
+        if self.mesh is None:
+            return self.cache.lane(lane)
+        return [c.lane(lane) for c in self.cache]
 
     def _attn_len(self, ends) -> int:
         """Cache slots attention must read: past the highest real position,
@@ -212,9 +244,9 @@ class InferenceEngine:
         positions = start_pos + np.arange(bucket, dtype=np.int64)
         logits, _ = llama_forward(
             self.config, self.params, self._tensor(padded)[None, :],
-            self._tensor(positions)[None, :], self.cache.lane(lane),
+            self._tensor(positions)[None, :], self._lane_cache(lane),
             attn_len=self._attn_len([start_pos + n]),
-            logit_rows=self._tensor([n - 1]),
+            logit_rows=self._tensor([n - 1]), **self._forward_flags,
         )
         last = logits[0, 0]
         greedy = torch.argmax(last)
@@ -258,10 +290,11 @@ class InferenceEngine:
         seeds = np.zeros(n, np.uint32) if seeds is None else np.asarray(seeds)
         positions = np.asarray(positions, np.int64)
         t0 = time.perf_counter()
+        hop_bytes = ring_counts()["ring_hop_bytes"]
         logits, _ = llama_forward(
             self.config, self.params, self._tensor(tokens)[:, None],
             self._tensor(positions)[:, None], self.cache,
-            attn_len=self._attn_len(positions + 1),
+            attn_len=self._attn_len(positions + 1), **self._forward_flags,
         )
         step = logits[:, 0, :]
         greedy = torch.argmax(step, dim=-1)
@@ -271,6 +304,7 @@ class InferenceEngine:
             self.stats.host_bytes_in += toks.nbytes
             self.stats.decode_s += time.perf_counter() - t0
             self.stats.decode_steps += 1
+            self.stats.sync_bytes_per_decode = ring_counts()["ring_hop_bytes"] - hop_bytes
         return (step if want_logits else None), toks[0], toks[1]
 
     @torch.inference_mode()

@@ -11,7 +11,9 @@ terminal chunk carries the finish reason and the request's latency
 summary, and the stream ends with ``data: [DONE]``. ``/stats`` serves the
 engine counters, lane occupancy, the dequant mode and each Q40 kernel's
 launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
-plain-version calls of a CPU run).
+plain-version calls of a CPU run), and on a tensor-parallel mesh its shape,
+the ring hop's launches, plain calls and bytes, and the hop bytes of the
+last decode step (``sync_bytes_per_decode``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..ops.cuda_q40 import kernel_counts
 from ..ops.dequant_select import dequant_stats
+from ..ops.ring_collective import ring_counts
 from ..runtime.scheduler import AdmissionRejected, Request
 from ..tokenizer import ChatItem, TemplateType, chat_generator_for
 from . import api_types
@@ -118,7 +121,7 @@ class ApiServer:
         return api_types.models_response(self.model_name)
 
     def handle_stats(self) -> dict:
-        """Engine counters, occupancy, dequant mode and kernel counts."""
+        """Engine counters, occupancy, dequant mode, mesh and kernel counts."""
         sched = self.scheduler
         engine = sched.engine
         stats = engine.stats.snapshot()
@@ -135,9 +138,13 @@ class ApiServer:
             "draining": sched.draining,
             "engine_failures": sched.engine_failures,
             "device": str(engine.device),
+            "mesh": None if engine.mesh is None else {
+                **engine.mesh.shape, "devices": [str(d) for d in engine.mesh.devices]},
+            "sync_bytes_per_decode": stats["sync_bytes_per_decode"],
         }
         out.update(dequant_stats())
         out.update(kernel_counts())
+        out.update(ring_counts())
         return out
 
     def handle_health(self) -> tuple[int, dict]:

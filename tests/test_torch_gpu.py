@@ -1,6 +1,8 @@
 """The port on a CUDA card: each Q40 kernel against its plain version, the
-dispatch's mode routing at the m = 32/33 boundary, and a tiny model served
-by the engine on the card. Marked ``gpu``; without a card every test skips.
+dispatch's mode routing at the m = 32/33 boundary, a tiny model served by
+the engine on the card, the ring hop against its plain version and the
+tensor-parallel forward with two ranks on one card. Marked ``gpu``; without
+a card every test skips.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -100,3 +102,66 @@ def test_engine_serves_tiny_model_on_card(cuda, tmp_path):
     assert 0 <= int(greedy[0]) < config.vocab_size
     assert q.LAUNCHES["q40_slab"] == 2 * (7 * config.n_layers + 1)
     assert q.PLAIN_CALLS == {k: 0 for k in q.KERNELS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,offset", [((8, 1024), torch.float32, 0),
+                                                 ((8, 32, 1), torch.float16, 0),
+                                                 ((3, 37), torch.int8, 0),
+                                                 ((5, 33), torch.float32, 1)])
+def test_ring_hop_matches_plain(cuda, shape, dtype, offset):
+    """The hop kernel bit for bit against its plain version: 16-byte vector
+    copies with a byte tail (int8 [3, 37]: 111 bytes), and the byte path for
+    a source that is not 16-byte aligned (an element offset into a buffer)."""
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+
+    n = int(np.prod(shape))
+    xs = []
+    for r in range(3):
+        base = (torch.randn(n + offset, device=cuda) * 50).to(dtype)
+        xs.append(base[offset:].view(shape))
+    rc.reset_counts()
+    got, ref = rc.ring_shift(xs), rc.ring_shift_plain(xs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, ref))
+    assert rc.COUNTS["launches"] == 3 and rc.COUNTS["plain_calls"] == 0
+    assert rc.COUNTS["bytes"] == 3 * xs[0].numel() * xs[0].element_size()
+
+
+@pytest.mark.gpu
+def test_tp_engine_on_one_card_matches_single_device(cuda, tmp_path):
+    """--workers 2 with both ranks on one card (cuda:0,cuda:0): the f32 TP
+    forward against the single-device forward, and the ring hop launched."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+        tiny_header,
+        write_synthetic_model,
+    )
+    from distributed_llama_multiusers_tpu_torch.models import (
+        init_kv_cache,
+        llama_forward,
+        load_params_from_m_quantized,
+    )
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import (
+        shard_kv_cache,
+        shard_params,
+    )
+
+    path = str(tmp_path / "m.m")
+    write_synthetic_model(path, tiny_header(), seed=0)
+    config, params = load_params_from_m_quantized(path, load_model_header(path),
+                                                  dtype=torch.float32, device=cuda)
+    mesh = make_mesh(MeshPlan(tp=2), ["cuda:0", "cuda:0"])
+    tokens = torch.tensor([[5, 9, 3, 17, 2]], device=cuda)
+    positions = torch.arange(5, device=cuda)[None]
+    rc.reset_counts()
+    got, _ = llama_forward(config, shard_params(params, mesh), tokens, positions,
+                           shard_kv_cache(init_kv_cache(config, 1, device=cuda), mesh),
+                           mesh=mesh)
+    ref, _ = llama_forward(config, params, tokens, positions,
+                           init_kv_cache(config, 1, device=cuda))
+    torch.cuda.synchronize()
+    assert rc.COUNTS["launches"] == 2 * (4 * config.n_layers + 1)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
