@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels and the ring hop from ``distributed_llama_multiusers_tpu_torch/
+   Q40 kernels, the ring hop and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time.
 2. Kernels: at the Llama-3.2-1B matmul sites (2048->2048, 2048->512,
    2048->8192, 8192->2048, 2048->128256) hold every Q40 kernel and mode
@@ -36,6 +36,14 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    logits against one device's; the ring hops of one TP decode step timed;
    then each Q40 kernel, its plain version and ``torch.matmul`` timed over
    the 113 products of one decode step.
+5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
+   ``dense_dot``) against their plain versions at a small shape and at the
+   lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
+   stage, layout and rounding flag; kernel_lab3's ``--check`` on the card;
+   then the four lab modules (``distributed_llama_multiusers_tpu_torch/lab``)
+   at their default shapes, every variant timed beside its bound, its plain
+   version and its library call, with the lab kernels' launches counted
+   over that run (``build/chip_smoke/chip_smoke_lab.json``).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -985,9 +993,163 @@ def decode_phase(torch, q, rc, model: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the kernel lab
+# ---------------------------------------------------------------------------
+
+# the lab's default shape: the Llama-3.1-8B w1/w3 site, 8 stacked planes
+LAB_D_IN, LAB_D_OUT, LAB_L = 4096, 14336, 8
+# (lab module, row) whose numbers stand for each lab kernel in the kernels line
+LAB_LINE_ROWS = {"q40_probe": ("stage_probe", "u8 +unpack_i32"),
+                 "q40_lab_twodot": ("kernel_lab", "v1_f32"),
+                 "dense_dot": ("stage_probe", "dot_only bf16")}
 
 
-def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products) -> dict:
+def lab_checks(torch, lab) -> list:
+    """Each lab kernel against its plain version on the card, at a small
+    shape and at the lab's default shape: the probe at every stage, word
+    and layout (bit for bit: integer sums and the dma row are exact; the
+    scale stage within TOL), the two-dot product at every W rounding, x
+    rounding and correction on both layouts, the dense dot in bf16 and f32
+    (within TOL of max|plain|)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows: list = []
+
+    def planes(shape):
+        packed = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+        sshape = (*shape[:-2], shape[-2] // 16, shape[-1])
+        scales = torch.rand(sshape, device="cuda", generator=gen) * 0.01 + 1e-3
+        return packed, scales.to(torch.float16)
+
+    def record(kernel, case, got, ref, exact):
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{kernel} {case}: shape {tuple(got.shape)} or non-finite output")
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        ok = torch.equal(got, ref) if exact else err <= TOL * scale
+        rows.append({"kernel": kernel, "case": case, "max_abs_err": err, "max_abs_ref": scale,
+                     "rule": "bit-exact" if exact else f"max|d| <= {TOL} * max|plain|",
+                     "ok": ok})
+        check(ok, f"{kernel} {case}: max|d| {err:.3e} against max|plain| {scale:.3e}")
+
+    half = LAB_D_IN // 2
+    for label, shape, tile_rows, stages, words in (
+            ("small", (2, 64, 1040), 32, lab.STAGES, True),
+            ("row-major", (LAB_L, half, LAB_D_OUT), 1024, lab.STAGES, True),
+            ("slab T=512", (LAB_L, LAB_D_OUT // 512, half, 512), None, lab.STAGES, True),
+            ("wide rows=256", (LAB_L, half, LAB_D_OUT), 256, ("dma",), False)):
+        packed, scales = planes(shape)
+        cases = [(packed, st) for st in stages]
+        cases += [(packed.view(torch.int32), st) for st in lab.U32_STAGES] if words else []
+        for p, st in cases:
+            sc = scales if st == "scale" else None
+            record("q40_probe", f"{label} {tuple(p.shape)} {p.dtype} {st}",
+                   lab.q40_probe(p, st, sc, tile_rows), lab.q40_probe_plain(p, st, sc, tile_rows),
+                   exact=st != "scale")
+        del packed, scales, cases
+    for label, m, d_in, d_out, tile in (("small", 3, 512, 1536, 512),
+                                        ("default", 1, LAB_D_IN, LAB_D_OUT, 512),
+                                        ("default", 8, LAB_D_IN, LAB_D_OUT, 512)):
+        packed, scales = planes((d_in // 2, d_out))
+        x = torch.randn((m, d_in), device="cuda", generator=gen)
+        for layout, (p, s) in (("row-major", (packed, scales)),
+                               (f"tiled T={tile}", lab.retile(packed, scales, tile))):
+            for w_round in lab.W_ROUNDS:
+                for x_round in (False, True):
+                    for corr in (True, False):
+                        record("q40_lab_twodot", f"{label} m={m} {d_in}x{d_out} {layout} "
+                               f"w={w_round} x_bf16={x_round} correction={corr}",
+                               lab.q40_lab_twodot(x, p, s, w_round, x_round, corr),
+                               lab.q40_lab_twodot_plain(x, p, s, w_round, x_round, corr),
+                               exact=False)
+    for label, m, d_in, d_out in (("small", 5, 256, 1000), ("default", 1, LAB_D_IN, LAB_D_OUT),
+                                  ("default", 8, LAB_D_IN, LAB_D_OUT)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, d_in), device="cuda", generator=gen).to(dt)
+            w = torch.randn((d_in, d_out), device="cuda", generator=gen).to(dt)
+            record("dense_dot", f"{label} m={m} {d_in}x{d_out} {dt}", lab.dense_dot(x, w),
+                   lab.dense_dot_plain(x, w), exact=False)
+    torch.cuda.empty_cache()
+    log(f"lab kernel checks: {len(rows)} comparisons within tolerance")
+    return rows
+
+
+def lab_phase(torch, q, lab) -> dict:
+    """The kernel lab on the card: each lab kernel against its plain
+    version (``lab_checks``), kernel_lab3's ``--check``, then the four lab
+    modules at their default shapes with plain and library times; the lab
+    kernels' launch counts are read over the modules' runs."""
+    from distributed_llama_multiusers_tpu_torch.lab import (
+        kernel_lab,
+        kernel_lab3,
+        stage_probe,
+        stage_probe2,
+    )
+
+    t0 = time.perf_counter()
+    checks = lab_checks(torch, lab)
+    try:
+        check3 = kernel_lab3.check("cuda", out=log)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
+    lab.reset_counts()
+    q.reset_counts()
+    try:
+        runs = {"kernel_lab": kernel_lab.run(1, LAB_D_IN, LAB_D_OUT, LAB_L, "cuda", plain=True,
+                                             out=log),
+                "kernel_lab3": kernel_lab3.run(LAB_D_IN, LAB_D_OUT, LAB_L, 8, "cuda",
+                                               plain=True, out=log)[0],
+                "stage_probe": stage_probe.run(LAB_D_IN, LAB_D_OUT, LAB_L, 8, "cuda", plain=True,
+                                               out=log),
+                "stage_probe2": stage_probe2.run(LAB_D_IN, LAB_D_OUT, LAB_L, 8, "cuda",
+                                                 plain=True, out=log)}
+    except RuntimeError as e:
+        raise SmokeFailure(f"lab: {e}") from e
+    launches = dict(lab.LAUNCHES)
+    serving = dict(q.LAUNCHES)
+    for k in lab.KERNELS:
+        check(launches[k] > 0, f"lab: {k} never launched on the lab path")
+    for k in q.KERNELS:
+        check(serving[k] > 0, f"lab: {k} never launched by kernel_lab/kernel_lab3")
+    seconds = time.perf_counter() - t0
+    log(f"lab: {sum(len(r) for r in runs.values())} variants, launches {launches}, serving "
+        f"kernels {serving} ({seconds:.1f}s)")
+    return {"checks": checks, "kernel_lab3_check": check3, "runs": runs, "launches": launches,
+            "serving_launches": serving, "seconds": seconds}
+
+
+def lab_line_entries(lab, lab_result) -> list:
+    """The lab kernels' entries of the kernels line: ``launches`` counted
+    over the lab modules' run, the times of the row named in
+    LAB_LINE_ROWS, the errors of ``lab_checks``."""
+    out = []
+    for kernel, (module, name) in LAB_LINE_ROWS.items():
+        row = next(r for r in lab_result["runs"][module] if r["name"] == name)
+        mine = [c for c in lab_result["checks"] if c["kernel"] == kernel]
+        out.append({
+            "name": kernel, "route": "cuda", "source": lab.KERNEL_SOURCES[kernel],
+            "replaces": lab.KERNEL_REPLACES[kernel][0],
+            "replaces_all": list(lab.KERNEL_REPLACES[kernel]),
+            "launches": lab_result["launches"][kernel],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["max_abs_err"] / max(c["max_abs_ref"], 1e-30) for c in mine),
+            "tol": TOL, "tol_rule": sorted({c["rule"] for c in mine}), "checks": len(mine),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": row["library"],
+            "timed_as": f"{module} '{name}' at d_in {LAB_D_IN}, d_out {LAB_D_OUT}, "
+                        f"{LAB_L} planes ({row['bytes']} bytes a pass): one pass in a CUDA "
+                        "graph replayed between events, best of 3; plain eager",
+            "lab_rows": {f"{m}/{r['name']}": r["ms"] for m, rs in lab_result["runs"].items()
+                         for r in rs if r["kernel"] == kernel},
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
+                 lab=None, lab_result=None) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
     main path, each server counting from the end of its warmup). For a Q40
     kernel the times and the bound cover one decode step's products at the
@@ -1030,6 +1192,8 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products)
             "profiled_reduce_splits_per_decode_step": splits[1],
             "profiled_ms_per_decode_step": own[0] / 1e3,
             "profiled_reduce_splits_ms_per_decode_step": splits[0] / 1e3,
+            "launches_on_lab_path": lab_result["serving_launches"][kernel] if lab_result
+            else None,
         })
     f32_step = tp[0]
     out.append({
@@ -1054,6 +1218,8 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products)
         "profiled_ms_per_decode_step": f32_step["ring_hop_ms_per_step"],
         "payloads": hops,
     })
+    if lab_result:
+        out += lab_line_entries(lab, lab_result)
     return {"kernels": out}
 
 
@@ -1084,11 +1250,12 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
         from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
         from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
         t0 = time.perf_counter()
-        names = q.KERNELS + (rc.KERNEL,)
+        names = q.KERNELS + (rc.KERNEL,) + lab.KERNELS
         q.build_kernels(names)
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
 
@@ -1108,7 +1275,11 @@ def main() -> int:
                        "decode_step": breakdown, "tp_decode_step": tp,
                        "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
                        "decode_step_products": products}, f, indent=1)
-        line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products)
+        lab_result = lab_phase(torch, q, lab)
+        with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
+            json.dump({"card": card, **lab_result}, f, indent=1)
+        line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
+                            lab, lab_result)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -170,15 +170,18 @@ class Q80Acts:
     ``x2`` is its contiguous [m, d_in] view. ``bsum`` (exact f32 per-block
     sums, every kernel's folded −8) is built with the bundle; the Q80
     quantization ``xq``/``sx`` only i8blockdot reads, so it is built on
-    first use."""
+    first use, unless the caller hands it over as ``q80 = (xq, sx)`` (the
+    kernel lab feeds its own quantization, ops/cuda_lab.py)."""
 
-    def __init__(self, x: torch.Tensor):
+    def __init__(self, x: torch.Tensor, q80: tuple | None = None):
         d_in = x.shape[-1]
         if d_in % 32 != 0:
             raise ValueError(f"d_in={d_in} must cover whole 32-wide quant blocks")
         self.x = x
         self.x2 = x.reshape(-1, d_in).contiguous()
         self.bsum = _block_sums(self.x2.to(torch.float32))
+        if q80 is not None:
+            self.__dict__["_q80"] = q80  # fills the cached_property below
 
     @property
     def d_in(self) -> int:

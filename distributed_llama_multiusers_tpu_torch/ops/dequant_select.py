@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 
 _DEFAULT_TABLE = os.path.join(os.path.dirname(__file__), "dequant_table.json")
 
@@ -105,6 +106,44 @@ def resolve_mode(d_in: int, d_out: int, m: int) -> str:
 def table_provenance() -> dict:
     """The table's provenance (path, version, rows), loading it if needed."""
     return dict(_get_table().provenance)
+
+
+def record_win(d_in, d_out, m_class: str, mode: str, source: str,
+               path: str | None = None) -> str:
+    """Record a measured (shape -> mode) winner in the table file at
+    ``path`` (default: the shipped table): upserts the rule for exactly
+    (d_in, d_out, m_class) and rewrites the file atomically. A running
+    process keeps the table it loaded; the next start reads the row
+    (``lab/kernel_lab3.py --adopt``)."""
+    from .cuda_q40 import DEQUANT_MODES
+
+    if mode not in DEQUANT_MODES:
+        raise ValueError(f"unknown dequant mode {mode!r}; one of {DEQUANT_MODES}")
+    if m_class not in M_CLASSES + ("*",):
+        raise ValueError(f"unknown m_class {m_class!r}; one of {M_CLASSES + ('*',)}")
+    path = path or _DEFAULT_TABLE
+    if os.path.exists(path):
+        with open(path) as f:
+            data = json.load(f)
+    else:
+        data = {"version": 1, "provenance": "recorded by measurement loops", "rules": []}
+    rules = data.setdefault("rules", [])
+    for r in rules:
+        if (r.get("d_in", "*"), r.get("d_out", "*"), r.get("m_class", "*")) == (d_in, d_out,
+                                                                                m_class):
+            r["mode"] = mode
+            r["source"] = source
+            break
+    else:
+        rules.append({"d_in": d_in, "d_out": d_out, "m_class": m_class, "mode": mode,
+                      "source": source})
+    data["updated"] = time.strftime("%Y-%m-%d")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(data, f, indent=2)
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
 
 
 def _reset_for_tests() -> None:

@@ -165,3 +165,122 @@ def test_tp_engine_on_one_card_matches_single_device(cuda, tmp_path):
     torch.cuda.synchronize()
     assert rc.COUNTS["launches"] == 2 * (4 * config.n_layers + 1)
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The kernel lab's kernels (ops/cuda_lab.py) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _lab_planes(cuda, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    packed = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=g)
+    sshape = (*shape[:-2], shape[-2] // 16, shape[-1])
+    scales = (torch.rand(sshape, device=cuda, generator=g) * 0.01 + 1e-3).to(torch.float16)
+    return packed, scales
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tile_rows", [((2, 64, 1024), None), ((3, 2, 96, 512), None),
+                                             ((2, 128, 1040), 32), ((1, 1024, 14336), 256)])
+def test_lab_probe_matches_plain(cuda, shape, tile_rows):
+    """Every stage bit for bit (integer sums are exact in f32; the dma row
+    is a copy), the scale stage within TOL; u8 bytes and u32 words; the
+    row-major, slab and wide layouts, a ragged last column block."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
+
+    packed, scales = _lab_planes(cuda, shape, sum(shape))
+    lab.reset_counts()
+    cases = [(packed, st, scales if st == "scale" else None) for st in lab.STAGES]
+    if shape[-1] % 4 == 0:
+        cases += [(packed.view(torch.int32), st, None) for st in lab.U32_STAGES]
+    for p, stage, sc in cases:
+        got = lab.q40_probe(p, stage, sc, tile_rows)
+        ref = lab.q40_probe_plain(p, stage, sc, tile_rows)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        if stage == "scale":
+            assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+        else:
+            assert torch.equal(got, ref), (p.dtype, stage)
+    assert lab.LAUNCHES["q40_probe"] == len(cases) and lab.PLAIN_CALLS["q40_probe"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d_in,d_out,tile", [(1, 4096, 1536, 512), (8, 2048, 1024, 256),
+                                               (13, 256, 2048, 2048)])
+def test_lab_twodot_matches_plain(cuda, m, d_in, d_out, tile):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
+
+    packed, scales = _lab_planes(cuda, (d_in // 2, d_out), m + d_in)
+    tiled = lab.retile(packed, scales, tile)
+    x = torch.randn(m, d_in, device=cuda)
+    for p, s in ((packed, scales), tiled):
+        for w_round in lab.W_ROUNDS:
+            for x_round in (False, True):
+                for corr in (True, False):
+                    got = lab.q40_lab_twodot(x, p, s, w_round, x_round, corr)
+                    ref = lab.q40_lab_twodot_plain(x, p, s, w_round, x_round, corr)
+                    torch.cuda.synchronize()
+                    assert got.shape == ref.shape == (m, d_out)
+                    assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+    got = lab.q40_lab_twodot(x, packed, scales, k_chunk=256)  # a pinned split-K range
+    ref = lab.q40_lab_twodot_plain(x, packed, scales)
+    assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_dense_dot_matches_plain(cuda, m):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
+
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(m, 2048, device=cuda).to(dt)
+        w = torch.randn(2048, 1000, device=cuda).to(dt)
+        got, ref = lab.dense_dot(x, w), lab.dense_dot_plain(x, w)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_lab_probe_dma_moves_its_bytes(cuda):
+    """A dma stage whose copies were dropped would run far faster than the
+    byte-sum stage over the same 235 MB stack and beat the card's memory
+    rate; this one moves the bytes."""
+    from distributed_llama_multiusers_tpu_torch.lab.timing import HBM_BYTES_S, pass_ms
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
+
+    packed, _ = _lab_planes(cuda, (8, 2048, 14336), 0)
+    dma = pass_ms(lambda: lab.q40_probe(packed, "dma"), cuda)
+    sums = pass_ms(lambda: lab.q40_probe(packed, "bytes"), cuda)
+    nbytes = packed.numel()
+    assert dma >= 0.5 * sums, (dma, sums)
+    assert nbytes / (dma * 1e-3) <= 1.1 * HBM_BYTES_S, dma
+
+
+@pytest.mark.gpu
+def test_lab_runs_on_card(cuda, tmp_path):
+    """kernel_lab3 --check on the card, each lab module at a small shape,
+    and --adopt into a table file of the test's own."""
+    import json
+
+    from distributed_llama_multiusers_tpu_torch.lab import (
+        kernel_lab,
+        kernel_lab3,
+        stage_probe,
+        stage_probe2,
+    )
+
+    assert all(r["ok"] for r in kernel_lab3.check("cuda"))
+    lines = []
+    kernel_lab.run(2, 1024, 2048, 2, "cuda", reps=2, plain=True, out=lines.append)
+    stage_probe.run(2048, 2048, 2, 2, "cuda", plain=True, out=lines.append)
+    stage_probe2.run(2048, 2048, 2, 2, "cuda", plain=True, out=lines.append)
+    rows, times = kernel_lab3.run(1024, 2048, 2, 2, "cuda", plain=True, out=lines.append)
+    assert not any("FAILED" in ln for ln in lines)
+    assert all(r["ms"] > 0 and r["gb_s"] > 0 for r in rows)
+    path = str(tmp_path / "table.json")
+    mode, _ = kernel_lab3.adopt(times, 1024, 2048, "cuda", path=path, out=lines.append)
+    rule = json.load(open(path))["rules"][0]
+    assert (rule["d_in"], rule["d_out"], rule["m_class"], rule["mode"]) == (1024, 2048,
+                                                                           "decode", mode)
