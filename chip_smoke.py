@@ -8,12 +8,16 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
    Q40 kernels, the ring hop and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
-   csrc`` (one ``nvcc`` per source, all at once) and print the build time.
+   csrc`` (one ``nvcc`` per source, all at once) and print the build time
+   and the slab kernel's geometry (ring stages, shared memory per thread
+   block, its plan at each 1B site).
 2. Kernels: at the Llama-3.2-1B matmul sites (2048->2048, 2048->512,
    2048->8192, 8192->2048, 2048->128256) hold every Q40 kernel and mode
    against its plain PyTorch version on the card (m = 1, 8, 32 for all three
    kernels; m = 33 and 512 for the slab kernel; f16-denormal scales; the
-   m = 32/33 mode-routing boundary), then time each kernel, its plain
+   m = 32/33 mode-routing boundary; the widths d_out = 6, 520 and 1026,
+   which no kernel can read or write as vectors, in every mode and under
+   ``auto`` through the dispatch), then time each kernel, its plain
    version and ``torch.matmul`` on the pre-dequantized bf16 weight. The ring
    hop bit for bit against its plain version on each tensor-parallel payload
    (f32 ring chunks at tp=2 and 4, the Q80 wire's values and scales, logits
@@ -82,6 +86,9 @@ SITES = [
     ("wcls", 2048, 128256, 1),
 ]
 DECODE_M = 8  # the server's default lanes: every decode step is an 8-row product
+# output widths with no vector alignment: d_out % 4 == 2 and d_out % 16 == 8
+ODD_WIDTHS = (6, 520, 1026)
+KERNEL_OF_MODE = {"blockdot": "q40_blockdot", "i8blockdot": "q40_i8blockdot"}  # else slab
 TOL = 1e-4  # max|kernel - plain| <= TOL * max|plain| (f32 outputs)
 GEN_TOKENS = 64
 
@@ -150,6 +157,49 @@ def compare(torch, q, kernel, mode, m, d_in, d_out, w, gen, w_dtype, results):
                         "tol": TOL, "ok": ok})
         check(ok, f"{kernel}/{mode} {d_in}x{d_out} m={m} io={dtype}: max|d| "
                   f"{float(err.max()):.3e} vs max|y| {scale:.3e}")
+
+
+def dispatch_compare(torch, q, mode, m, w, gen, checks, expect=None) -> None:
+    """``q40_matmul`` under ``mode`` on an f32 x: exactly one kernel
+    launches (``expect`` where given, else the one the resolved mode
+    names), and its output matches that kernel's plain version."""
+    d_in, d_out = w.d_in, w.d_out
+    q.set_dequant_mode(mode)
+    try:
+        run = q.resolve_kernel_mode(m, d_in, d_out, torch.bfloat16)
+        kernel = expect or KERNEL_OF_MODE.get(run, "q40_slab")
+        before = dict(q.LAUNCHES)
+        acts = _acts(torch, q, m, d_in, gen, torch.float32)
+        y = q.q40_matmul(acts, w)
+        torch.cuda.synchronize()
+        moved = [k for k in q.KERNELS if q.LAUNCHES[k] != before[k]]
+        check(moved == [kernel], f"{mode} m={m}: launched {moved}, expected {kernel}")
+        ref = _run(q, kernel, run, acts, w, torch.bfloat16)[1]
+        err = float((y.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(y).all()) and err <= TOL * float(ref.abs().max()),
+              f"{mode} {d_in}x{d_out} m={m}: max|d| {err:.3e}")
+        checks.append({"kernel": kernel, "mode": mode, "m": m, "d_in": d_in, "d_out": d_out,
+                       "io": "f32", "routing": True, "max_abs_err": err,
+                       "max_abs_ref": float(ref.abs().max()), "tol": TOL, "ok": True})
+    finally:
+        q.set_dequant_mode(None)
+
+
+def slab_geometry(torch, q) -> dict:
+    """The built slab kernel's ring stages, shared memory bytes per thread
+    block and registers per m-tile, and its plan (m-tile, splits, quant
+    blocks per split) at each Llama-3.2-1B site."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    info = {mt: q.slab_info(mt) for mt in (1, 8, 16)}
+    return {"stages": info[1]["stages"],
+            "smem_bytes_per_block": {str(mt): i["smem_bytes"] for mt, i in info.items()},
+            "registers_per_thread": {str(mt): i["registers"] for mt, i in info.items()},
+            "spill_bytes_per_thread": {str(mt): i["local_bytes"] for mt, i in info.items()},
+            "sms": n_sm,
+            "plan_mt_splits_per_by_site": {
+                f"{site} {d_in}x{d_out}": {str(m): list(q.launch_plan(m, d_in, d_out, n_sm))
+                                           for m in (1, DECODE_M, 512)}
+                for site, d_in, d_out, _ in SITES}}
 
 
 def graph_ms(torch, calls, reps=5):
@@ -273,25 +323,24 @@ def kernel_phase(torch, q) -> tuple[list, list]:
     # the m = 32/33 boundary through the dispatch: which kernel launches
     for mode, at32 in (("auto", "q40_i8blockdot"), ("i8blockdot", "q40_i8blockdot"),
                        ("blockdot", "q40_blockdot")):
-        q.set_dequant_mode(mode)
-        try:
-            for m, expect in ((32, at32), (33, "q40_slab")):
-                before = dict(q.LAUNCHES)
-                acts = _acts(torch, q, m, 2048, gen, torch.float32)
-                y = q.q40_matmul(acts, w)
-                torch.cuda.synchronize()
-                moved = [k for k in q.KERNELS if q.LAUNCHES[k] != before[k]]
-                check(moved == [expect], f"{mode} m={m}: launched {moved}, expected {expect}")
-                ref = _run(q, expect, q.resolve_kernel_mode(m, 2048, 512, torch.bfloat16),
-                           acts, w, torch.bfloat16)[1]
-                err = float((y.float() - ref.float()).abs().max())
-                check(err <= TOL * float(ref.abs().max()), f"{mode} m={m}: max|d| {err:.3e}")
-                checks.append({"kernel": expect, "mode": mode, "m": m, "d_in": 2048,
-                               "d_out": 512, "io": "f32", "routing": True,
-                               "max_abs_err": err, "max_abs_ref": float(ref.abs().max()),
-                               "tol": TOL, "ok": True})
-        finally:
-            q.set_dequant_mode(None)
+        for m, expect in ((32, at32), (33, "q40_slab")):
+            dispatch_compare(torch, q, mode, m, w, gen, checks, expect)
+    # any width: d_out % 4 == 2 (every kernel's column tail) and d_out % 16
+    # == 8 (the slab's plain-load stage), each mode, and auto through the
+    # dispatch
+    for d_out in ODD_WIDTHS:
+        wo = _weight(torch, q, 2048, d_out, gen)
+        for m in (1, DECODE_M, 33):
+            for mode in ("v4", "bf16chain"):
+                compare(torch, q, "q40_slab", mode, m, 2048, d_out, wo, gen, torch.bfloat16,
+                        checks)
+            if m <= q.BLOCKDOT_MAX_M:
+                compare(torch, q, "q40_blockdot", "blockdot", m, 2048, d_out, wo, gen,
+                        torch.bfloat16, checks)
+                compare(torch, q, "q40_i8blockdot", "i8blockdot", m, 2048, d_out, wo, gen,
+                        torch.bfloat16, checks)
+            dispatch_compare(torch, q, "auto", m, wo, gen, checks)
+        del wo
     log(f"kernel checks: {len(checks)} comparisons within tolerance "
         f"({time.perf_counter() - t0:.1f}s)")
 
@@ -1149,7 +1198,7 @@ def lab_line_entries(lab, lab_result) -> list:
 
 
 def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                 lab=None, lab_result=None) -> dict:
+                 geometry, lab=None, lab_result=None) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
     main path, each server counting from the end of its warmup). For a Q40
     kernel the times and the bound cover one decode step's products at the
@@ -1157,7 +1206,8 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
     the profiled fields come from the engine's decode steps in the mode that
     runs the kernel (``step_breakdown``). For the ring hop they cover the
     hops of one tp=2 decode step on the f32 wire (``time_hops``) and the
-    engine's TP decode steps."""
+    engine's TP decode steps. The slab's entry carries its ring stages,
+    shared memory per thread block and plan at each 1B site."""
     out = []
     for kernel, mode in DECODE_MODE_OF.items():
         mine = [c for c in checks if c["kernel"] == kernel and c["io"] == "f32"]
@@ -1194,6 +1244,10 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
             "profiled_reduce_splits_ms_per_decode_step": splits[0] / 1e3,
             "launches_on_lab_path": lab_result["serving_launches"][kernel] if lab_result
             else None,
+            **({"stages": geometry["stages"],
+                "smem_bytes_per_block": geometry["smem_bytes_per_block"],
+                "plan_mt_splits_per_by_site": geometry["plan_mt_splits_per_by_site"]}
+               if kernel == "q40_slab" else {}),
         })
     f32_step = tp[0]
     out.append({
@@ -1258,13 +1312,15 @@ def main() -> int:
         names = q.KERNELS + (rc.KERNEL,) + lab.KERNELS
         q.build_kernels(names)
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
+        geometry = slab_geometry(torch, q)
+        log("q40_slab geometry: " + json.dumps(geometry))
 
         checks, timings = kernel_phase(torch, q)
         hops = hop_phase(torch, rc)
         collectives = collectives_phase(torch, q, rc)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
-                       "collectives": collectives}, f, indent=1)
+                       "collectives": collectives, "slab_geometry": geometry}, f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)
@@ -1279,7 +1335,7 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
         line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                            lab, lab_result)
+                            geometry, lab, lab_result)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,7 +23,7 @@
 
 namespace {
 
-template <int MT>
+template <int MT, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict__ bsum,
                 const uint8_t* __restrict__ packed, const __half* __restrict__ scales,
@@ -35,6 +35,7 @@ blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict_
   const int b_begin = blockIdx.z * blocks_per_split;
   const int b_end = min(n_blk, b_begin + blocks_per_split);
   const bool active = col0 < d_out;
+  const int n = min(kCols, d_out - col0);  // columns of this thread below d_out
 
   __shared__ float xs[MT][kChunkBlocks * 32];
   __shared__ float bs[MT][kChunkBlocks];
@@ -75,7 +76,7 @@ blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict_
         const uint8_t* prow = packed + (size_t)(16 * b) * d_out + col0;
 #pragma unroll 4
         for (int j = 0; j < 16; ++j) {
-          const uint32_t p = load_packed(prow + (size_t)j * d_out);
+          const uint32_t p = load_packed_cols<kTail>(prow + (size_t)j * d_out, n);
           float nl[kCols];
           float nh[kCols];
 #pragma unroll
@@ -94,7 +95,7 @@ blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict_
           }
         }
         float s[kCols];
-        load_scales(scales, (size_t)b * d_out + col0, s);
+        load_scales_cols<kTail>(scales, (size_t)b * d_out + col0, n, s);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           const float corr = 8.f * bs[i][bb];
@@ -111,16 +112,32 @@ blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict_
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     if (row0 + i < m) {
-      store_cols(part, out, out_bf16, splits, plane, (size_t)(row0 + i) * d_out + col0,
-                 acc[i]);
+      store_cols_n<kTail>(part, out, out_bf16, splits, plane,
+                          (size_t)(row0 + i) * d_out + col0, acc[i], n);
     }
+  }
+}
+
+template <int MT>
+void launch(bool tail, dim3 grid, cudaStream_t s, const void* x, int x_bf16, const float* bsum,
+            const uint8_t* p, const __half* sc, float* part, void* out, int out_bf16, int m,
+            int d_in, int d_out, int splits, int blocks_per_split) {
+  if (tail) {
+    blockdot_kernel<MT, true><<<grid, kThreads, 0, s>>>(x, x_bf16, bsum, p, sc, part, out,
+                                                        out_bf16, m, d_in, d_out, splits,
+                                                        blocks_per_split);
+  } else {
+    blockdot_kernel<MT, false><<<grid, kThreads, 0, s>>>(x, x_bf16, bsum, p, sc, part, out,
+                                                         out_bf16, m, d_in, d_out, splits,
+                                                         blocks_per_split);
   }
 }
 
 }  // namespace
 
 // Launches the blockdot kernel (and the split-K reduction when splits > 1)
-// on `stream`; returns cudaGetLastError() as an int, 0 on success.
+// on `stream`; returns cudaGetLastError() as an int, 0 on success. Widths
+// with d_out % 4 != 0 (or unaligned planes) take the kTail instantiation.
 extern "C" int q40_blockdot_launch(const void* x, int x_bf16, const float* bsum,
                                    const void* packed, const void* scales, void* out,
                                    int out_bf16, float* part, int m, int d_in, int d_out,
@@ -129,18 +146,19 @@ extern "C" int q40_blockdot_launch(const void* x, int x_bf16, const float* bsum,
   const dim3 grid = grid_for(m, d_out, mt, splits);
   const uint8_t* p = reinterpret_cast<const uint8_t*>(packed);
   const __half* sc = reinterpret_cast<const __half*>(scales);
+  const bool tail = !cols_aligned(d_out, packed, scales);
   switch (mt) {
     case 1:
-      blockdot_kernel<1><<<grid, kThreads, 0, s>>>(x, x_bf16, bsum, p, sc, part, out, out_bf16,
-                                                   m, d_in, d_out, splits, blocks_per_split);
+      launch<1>(tail, grid, s, x, x_bf16, bsum, p, sc, part, out, out_bf16, m, d_in, d_out,
+                splits, blocks_per_split);
       break;
     case 8:
-      blockdot_kernel<8><<<grid, kThreads, 0, s>>>(x, x_bf16, bsum, p, sc, part, out, out_bf16,
-                                                   m, d_in, d_out, splits, blocks_per_split);
+      launch<8>(tail, grid, s, x, x_bf16, bsum, p, sc, part, out, out_bf16, m, d_in, d_out,
+                splits, blocks_per_split);
       break;
     case 16:
-      blockdot_kernel<16><<<grid, kThreads, 0, s>>>(x, x_bf16, bsum, p, sc, part, out, out_bf16,
-                                                    m, d_in, d_out, splits, blocks_per_split);
+      launch<16>(tail, grid, s, x, x_bf16, bsum, p, sc, part, out, out_bf16, m, d_in, d_out,
+                 splits, blocks_per_split);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,12 +1,18 @@
 // Shared pieces of the three Q40 dequant-in-matmul kernels (q40_slab.cu,
 // q40_blockdot.cu, q40_i8blockdot.cu): thread-block geometry, operand
-// loads, the epilogue store and the split-K reduction.
+// loads, the cp.async copies, the epilogue store and the split-K reduction.
 //
 // Weight layout (quants/packed.py): packed uint8 [d_in/2, d_out], row
 // 16b+j holds input 32b+j in its low nibble and input 32b+16+j in its high
 // nibble; scales f16 [d_in/32, d_out]. Both planes are row-major with d_out
 // contiguous, so one thread reading kCols adjacent columns of a packed row
 // issues one 32-bit load, and a warp reads 128 contiguous bytes per row.
+//
+// Widths: any d_out. A thread's kCols columns are read and written as one
+// vector when d_out % kCols == 0 and the planes are aligned; otherwise the
+// kernels take their kTail instantiation (chosen by the launcher from d_out
+// and the pointers), which reads bytes and halves and writes only the
+// columns below d_out.
 //
 // Work split: blockIdx.x = a tile of kThreads*kCols output columns,
 // blockIdx.y = a tile of MT activation rows, blockIdx.z = a range of quant
@@ -56,6 +62,50 @@ __device__ __forceinline__ uint32_t load_packed(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The first n (<= kCols) columns of the right edge: with kTail byte loads,
+// the missing columns zero; without, the one 32-bit load.
+template <bool kTail>
+__device__ __forceinline__ uint32_t load_packed_cols(const uint8_t* p, int n) {
+  if constexpr (!kTail) {
+    return load_packed(p);
+  } else {
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c < n) v |= (uint32_t)p[c] << (8 * c);
+    }
+    return v;
+  }
+}
+
+template <bool kTail>
+__device__ __forceinline__ void load_scales_cols(const __half* scales, size_t off, int n,
+                                                 float s[kCols]) {
+  if constexpr (!kTail) {
+    load_scales(scales, off, s);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) s[c] = c < n ? __half2float(scales[off + c]) : 0.f;
+  }
+}
+
+// 16-byte global -> shared copies that bypass L1 (asm volatile: the
+// compiler cannot drop them), grouped by commit and awaited by group count.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Returns once at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // One row's kCols results: straight into the output (single split) or into
 // this split's f32 partial plane.
 __device__ __forceinline__ void store_cols(float* part, void* out, int out_bf16,
@@ -73,6 +123,36 @@ __device__ __forceinline__ void store_cols(float* part, void* out, int out_bf16,
   } else {
     *reinterpret_cast<float4*>(part + plane + off) = make_float4(v[0], v[1], v[2], v[3]);
   }
+}
+
+// store_cols for the first n (<= kCols) columns; with kTail element by
+// element, since a row of d_out % kCols != 0 columns breaks vector alignment.
+template <bool kTail>
+__device__ __forceinline__ void store_cols_n(float* part, void* out, int out_bf16, int splits,
+                                             size_t plane, size_t off, const float v[kCols],
+                                             int n) {
+  if constexpr (!kTail) {
+    store_cols(part, out, out_bf16, splits, plane, off, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c >= n) continue;
+      if (splits > 1) {
+        part[plane + off + c] = v[c];
+      } else if (out_bf16) {
+        reinterpret_cast<__nv_bfloat16*>(out)[off + c] = __float2bfloat16_rn(v[c]);
+      } else {
+        reinterpret_cast<float*>(out)[off + c] = v[c];
+      }
+    }
+  }
+}
+
+// True when a thread's kCols columns can be read as one vector: packed rows
+// 4-byte and scale rows 8-byte aligned.
+inline bool cols_aligned(int d_out, const void* packed, const void* scales) {
+  return d_out % kCols == 0 && reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(scales) % 8 == 0;
 }
 
 __global__ void reduce_splits(const float* __restrict__ part, void* __restrict__ out,

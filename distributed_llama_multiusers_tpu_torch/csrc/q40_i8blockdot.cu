@@ -25,7 +25,7 @@
 
 namespace {
 
-template <int MT>
+template <int MT, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 i8blockdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                   const float* __restrict__ bsum, const uint8_t* __restrict__ packed,
@@ -38,6 +38,7 @@ i8blockdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int b_begin = blockIdx.z * blocks_per_split;
   const int b_end = min(n_blk, b_begin + blocks_per_split);
   const bool active = col0 < d_out;
+  const int n = min(kCols, d_out - col0);  // columns of this thread below d_out
 
   // 32 int8 activations per block = 8 words: words 0..3 are the low half
   // (inputs 32b..32b+15), words 4..7 the high half
@@ -86,10 +87,11 @@ i8blockdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           // rows 4q..4q+3 of the block, kCols columns each
-          const uint32_t w0 = load_packed(prow + (size_t)(4 * q + 0) * d_out);
-          const uint32_t w1 = load_packed(prow + (size_t)(4 * q + 1) * d_out);
-          const uint32_t w2 = load_packed(prow + (size_t)(4 * q + 2) * d_out);
-          const uint32_t w3 = load_packed(prow + (size_t)(4 * q + 3) * d_out);
+          const uint8_t* pq = prow + (size_t)(4 * q) * d_out;
+          const uint32_t w0 = load_packed_cols<kTail>(pq, n);
+          const uint32_t w1 = load_packed_cols<kTail>(pq + (size_t)d_out, n);
+          const uint32_t w2 = load_packed_cols<kTail>(pq + (size_t)2 * d_out, n);
+          const uint32_t w3 = load_packed_cols<kTail>(pq + (size_t)3 * d_out, n);
           // 4x4 byte transpose: col[c] holds rows 4q..4q+3 of column c
           const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
           const uint32_t t1 = __byte_perm(w2, w3, 0x5140);
@@ -118,7 +120,7 @@ i8blockdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
           }
         }
         float s[kCols];
-        load_scales(scales, (size_t)b * d_out + col0, s);
+        load_scales_cols<kTail>(scales, (size_t)b * d_out + col0, n, s);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           const float sxi = ss[i][bb];
@@ -138,16 +140,32 @@ i8blockdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     if (row0 + i < m) {
-      store_cols(part, out, out_bf16, splits, plane, (size_t)(row0 + i) * d_out + col0,
-                 acc[i]);
+      store_cols_n<kTail>(part, out, out_bf16, splits, plane,
+                          (size_t)(row0 + i) * d_out + col0, acc[i], n);
     }
+  }
+}
+
+template <int MT>
+void launch(bool tail, dim3 grid, cudaStream_t s, const int8_t* x, const float* sx,
+            const float* bsum, const uint8_t* p, const __half* sc, float* part, void* out,
+            int out_bf16, int m, int d_in, int d_out, int splits, int blocks_per_split) {
+  if (tail) {
+    i8blockdot_kernel<MT, true><<<grid, kThreads, 0, s>>>(x, sx, bsum, p, sc, part, out,
+                                                          out_bf16, m, d_in, d_out, splits,
+                                                          blocks_per_split);
+  } else {
+    i8blockdot_kernel<MT, false><<<grid, kThreads, 0, s>>>(x, sx, bsum, p, sc, part, out,
+                                                           out_bf16, m, d_in, d_out, splits,
+                                                           blocks_per_split);
   }
 }
 
 }  // namespace
 
 // Launches the i8blockdot kernel (and the split-K reduction when splits > 1)
-// on `stream`; returns cudaGetLastError() as an int, 0 on success.
+// on `stream`; returns cudaGetLastError() as an int, 0 on success. Widths
+// with d_out % 4 != 0 (or unaligned planes) take the kTail instantiation.
 extern "C" int q40_i8blockdot_launch(const void* xq, const float* sx, const float* bsum,
                                      const void* packed, const void* scales, void* out,
                                      int out_bf16, float* part, int m, int d_in, int d_out,
@@ -157,18 +175,19 @@ extern "C" int q40_i8blockdot_launch(const void* xq, const float* sx, const floa
   const int8_t* x = reinterpret_cast<const int8_t*>(xq);
   const uint8_t* p = reinterpret_cast<const uint8_t*>(packed);
   const __half* sc = reinterpret_cast<const __half*>(scales);
+  const bool tail = !cols_aligned(d_out, packed, scales);
   switch (mt) {
     case 1:
-      i8blockdot_kernel<1><<<grid, kThreads, 0, s>>>(x, sx, bsum, p, sc, part, out, out_bf16, m,
-                                                     d_in, d_out, splits, blocks_per_split);
+      launch<1>(tail, grid, s, x, sx, bsum, p, sc, part, out, out_bf16, m, d_in, d_out, splits,
+                blocks_per_split);
       break;
     case 8:
-      i8blockdot_kernel<8><<<grid, kThreads, 0, s>>>(x, sx, bsum, p, sc, part, out, out_bf16, m,
-                                                     d_in, d_out, splits, blocks_per_split);
+      launch<8>(tail, grid, s, x, sx, bsum, p, sc, part, out, out_bf16, m, d_in, d_out, splits,
+                blocks_per_split);
       break;
     case 16:
-      i8blockdot_kernel<16><<<grid, kThreads, 0, s>>>(x, sx, bsum, p, sc, part, out, out_bf16,
-                                                      m, d_in, d_out, splits, blocks_per_split);
+      launch<16>(tail, grid, s, x, sx, bsum, p, sc, part, out, out_bf16, m, d_in, d_out, splits,
+                 blocks_per_split);
       break;
     default:
       return (int)cudaErrorInvalidValue;

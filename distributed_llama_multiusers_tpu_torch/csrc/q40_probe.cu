@@ -138,20 +138,6 @@ probe_reduce(const uint32_t* __restrict__ words, const __half* __restrict__ scal
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The dma stage: every kStageRows x 512-byte tile of this block's rows goes
 // to shared memory through cp.async, double-buffered (the next tile's copies
 // are in flight while the block waits for the current one); the block that

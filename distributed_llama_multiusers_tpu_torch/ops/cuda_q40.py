@@ -437,6 +437,17 @@ def launch_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple[int, int, int
     return mt, -(-n_blk // per), per
 
 
+def slab_info(mt: int) -> dict:
+    """The built slab kernel's geometry at m-tile ``mt`` (cp.async stage):
+    ring stages, static shared memory bytes per thread block, registers
+    and local (spill) bytes per thread, as the CUDA runtime reports them."""
+    fn = load_kernel("q40_slab", [_I, ctypes.POINTER(ctypes.c_int)], symbol="q40_slab_info")
+    vals = (ctypes.c_int * 4)()
+    _raise_on(fn(mt, vals), "q40_slab_info")
+    return {"stages": vals[0], "smem_bytes": vals[1], "registers": vals[2],
+            "local_bytes": vals[3]}
+
+
 def _check_weight(w: PackedQ40, device: torch.device) -> None:
     p, s = w.packed, w.scales
     if p.dim() != 2 or s.dim() != 2:
@@ -449,8 +460,6 @@ def _check_weight(w: PackedQ40, device: torch.device) -> None:
         raise ValueError("packed weight planes must be contiguous")
     if s.shape != (p.shape[0] // 16, p.shape[1]) or p.shape[0] % 16:
         raise ValueError(f"scales {tuple(s.shape)} do not match packed {tuple(p.shape)}")
-    if p.shape[1] % COLS_PER_THREAD:
-        raise ValueError(f"d_out={p.shape[1]} must be a multiple of {COLS_PER_THREAD}")
 
 
 def _check_f32(t: torch.Tensor, shape, device, name: str) -> None:

@@ -59,6 +59,51 @@ def test_kernels_match_plain(cuda, m, d_in, d_out):
         assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
+_PLAIN_OF = {
+    "q40_slab": lambda a, w, mode: q.q40_slab_plain(a.x2, w, torch.bfloat16, mode, bsum=a.bsum),
+    "q40_blockdot": lambda a, w, mode: q.q40_blockdot_plain(a.x2, w, bsum=a.bsum),
+    "q40_i8blockdot": lambda a, w, mode: q.q40_i8blockdot_plain(a, w),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_out", [6, 520, 1026])
+@pytest.mark.parametrize("m", [1, 8, 33])
+def test_any_width_matches_plain(cuda, m, d_out):
+    """Q40 products of any width: d_out = 6 and 1026 (d_out % 4 == 2: the
+    column-tail instantiation of every kernel) and 520 (d_out % 16 == 8:
+    the slab's plain-load stage). Each kernel through its wrapper, then
+    every mode through the dispatch (``auto`` included), against its plain
+    version; d_in = 1376 (43 quant blocks) leaves a ragged last split."""
+    d_in = 1376
+    rng = np.random.default_rng(m * 7 + d_out)
+    w = _weight(rng, d_out, d_in, cuda)
+    acts = q.make_q80_acts(torch.from_numpy(
+        rng.standard_normal((m, d_in), dtype=np.float32)).to(cuda))
+    pairs = [(q.q40_slab(acts, w, dt, mode),
+              q.q40_slab_plain(acts.x2, w, dt, mode, bsum=acts.bsum))
+             for mode in ("v4", "bf16chain") for dt in (torch.bfloat16, torch.float32)]
+    if m <= q.BLOCKDOT_MAX_M:
+        pairs.append((q.q40_blockdot(acts, w), q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)))
+        pairs.append((q.q40_i8blockdot(acts, w), q.q40_i8blockdot_plain(acts, w)))
+    for mode in ("v4", "bf16chain", "blockdot", "i8blockdot", "auto"):
+        q.set_dequant_mode(mode)
+        try:
+            run = q.resolve_kernel_mode(m, d_in, d_out, torch.bfloat16)
+            kernel = {"blockdot": "q40_blockdot", "i8blockdot": "q40_i8blockdot"}.get(
+                run, "q40_slab")
+            before = dict(q.LAUNCHES)
+            pairs.append((q.q40_matmul(acts, w), _PLAIN_OF[kernel](acts, w, run)))
+            assert [k for k in q.KERNELS if q.LAUNCHES[k] != before[k]] == [kernel]
+        finally:
+            q.set_dequant_mode(None)
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert got.shape == ref.shape == (m, d_out)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,at32", [("auto", "q40_i8blockdot"), ("blockdot", "q40_blockdot"),
                                        ("v4", "q40_slab")])

@@ -45,6 +45,13 @@ C = (8, 2048, 512)
 D = (32, 256, 11008)
 E = (33, 1376, 128)
 F = (300, 64, 256)
+# widths no kernel can read or write as vectors (d_out % 4 == 2): the
+# card's column-tail instantiations hold against these plain versions.
+# d_in = 1376 keeps enough terms per output that 1e-2 of max|y| against
+# exact f32 measures the bf16 roundings (at d_in = 256 and 18 outputs
+# max|y| itself is small: JAX's kernel sits at 1.5e-2 there)
+G = (5, 1376, 6)
+H = (8, 1376, 1026)
 
 CASES = (
     [("v4", s) for s in (A, B, C, D, E, F)]
@@ -52,6 +59,7 @@ CASES = (
     + [("repeat", A), ("repeat", F), ("u8chain", B), ("u8chain", E)]
     + [("blockdot", s) for s in (A, B, C, D, E)]
     + [("i8blockdot", s) for s in (A, B, C, D, E, F)]
+    + [(mode, s) for mode in ("v4", "bf16chain", "blockdot", "i8blockdot") for s in (G, H)]
 )
 
 
@@ -79,7 +87,7 @@ def _torch_mode(mode, x, tw, w_dtype):
         tq.set_dequant_mode(None)
 
 
-@pytest.mark.parametrize("m,d_in,d_out", [A, B, C, D, E, F])
+@pytest.mark.parametrize("m,d_in,d_out", [A, B, C, D, E, F, G, H])
 def test_v4_f32_matches_jax(m, d_in, d_out):
     rng = np.random.default_rng(d_in + d_out + m)
     jw, tw = _weights(rng, d_out, d_in)
@@ -251,6 +259,18 @@ def test_launch_plan_covers_every_block():
             n_blk = d_in // 32
             assert mt in (1, 8, 16)
             assert (splits - 1) * per < n_blk <= splits * per
+
+
+@pytest.mark.parametrize("d_out", [6, 520, 1026])
+def test_check_weight_accepts_any_width(d_out):
+    """The wrappers take any output width (the card's kernels have a column
+    tail); a scale plane that does not match still raises."""
+    _, tw = _weights(np.random.default_rng(d_out), d_out, 64)
+    tw = PackedQ40(tw.packed.contiguous(), tw.scales.contiguous())
+    tq._check_weight(tw, torch.device("cpu"))
+    bad = PackedQ40(tw.packed, tw.scales[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="do not match"):
+        tq._check_weight(bad, torch.device("cpu"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
