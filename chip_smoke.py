@@ -9,15 +9,19 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
    Q40 kernels, the ring hop and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time
-   and the slab kernel's geometry (ring stages, shared memory per thread
-   block, its plan at each 1B site).
+   and the slab and blockdot kernels' geometry (ring stages, shared memory
+   per thread block, registers and spills, the plan at each 1B site); count
+   the HMMA (tensor-core) instructions in the blockdot kernels' SASS
+   (``cuobjdump -sass``), failing if there are none or if blockdot spills.
 2. Kernels: at the Llama-3.2-1B matmul sites (2048->2048, 2048->512,
    2048->8192, 8192->2048, 2048->128256) hold every Q40 kernel and mode
    against its plain PyTorch version on the card (m = 1, 8, 32 for all three
    kernels; m = 33 and 512 for the slab kernel; f16-denormal scales; the
    m = 32/33 mode-routing boundary; the widths d_out = 6, 520 and 1026,
    which no kernel can read or write as vectors, in every mode and under
-   ``auto`` through the dispatch), then time each kernel, its plain
+   ``auto`` through the dispatch; ``q40_blockdot`` at its tensor-core
+   fragment edges, m in 1..32, d_in 32, 64, 2048, d_out 16..8192, and with
+   f16-extreme scales), then time each kernel, its plain
    version and ``torch.matmul`` on the pre-dequantized bf16 weight. The ring
    hop bit for bit against its plain version on each tensor-parallel payload
    (f32 ring chunks at tp=2 and 4, the Q80 wire's values and scales, logits
@@ -60,6 +64,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import signal
 import socket
 import statistics
@@ -185,12 +191,13 @@ def dispatch_compare(torch, q, mode, m, w, gen, checks, expect=None) -> None:
         q.set_dequant_mode(None)
 
 
-def slab_geometry(torch, q) -> dict:
-    """The built slab kernel's ring stages, shared memory bytes per thread
-    block and registers per m-tile, and its plan (m-tile, splits, quant
-    blocks per split) at each Llama-3.2-1B site."""
+def kernel_geometry(torch, q, info_fn) -> dict:
+    """A built Q40 kernel's ring stages, shared memory bytes per thread
+    block, registers and spill bytes per m-tile (``info_fn``:
+    ``q.slab_info`` or ``q.blockdot_info``), and the shared plan (m-tile,
+    splits, quant blocks per split) at each Llama-3.2-1B site."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    info = {mt: q.slab_info(mt) for mt in (1, 8, 16)}
+    info = {mt: info_fn(mt) for mt in (1, 8, 16)}
     return {"stages": info[1]["stages"],
             "smem_bytes_per_block": {str(mt): i["smem_bytes"] for mt, i in info.items()},
             "registers_per_thread": {str(mt): i["registers"] for mt, i in info.items()},
@@ -200,6 +207,28 @@ def slab_geometry(torch, q) -> dict:
                 f"{site} {d_in}x{d_out}": {str(m): list(q.launch_plan(m, d_in, d_out, n_sm))
                                            for m in (1, DECODE_M, 512)}
                 for site, d_in, d_out, _ in SITES}}
+
+
+def sass_hmma(lib_path: str, tag: str = "blockdot_kernel") -> dict:
+    """HMMA (tensor-core) instructions in each function of a built kernel
+    library whose name holds ``tag``, from the toolkit's ``cuobjdump
+    -sass``. Fails unless every such function has some."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"cuobjdump -sass {lib_path} failed: {r.stderr.strip()[-500:]}")
+    counts: dict = {}
+    fn = None
+    for line in r.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1) if tag in found.group(1) else None
+            if fn:
+                counts.setdefault(fn, 0)
+        elif fn and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    check(bool(counts), f"no {tag} function in the SASS of {lib_path}")
+    check(all(n > 0 for n in counts.values()), f"no HMMA in some {tag} functions: {counts}")
+    return counts
 
 
 def graph_ms(torch, calls, reps=5):
@@ -288,6 +317,48 @@ def time_site(torch, q, kernel, mode, m, d_in, d_out, gen):
             "bound_by": b_by}
 
 
+# the tensor-core blockdot kernel's fragment edges: m around its N-tiles of
+# 8 rows and m-tiles of 1, 8 and 16; one, two and many quant blocks (no
+# split, a split, many splits); one M-tile of 16 columns, a partial 512
+# tile, the plain-load stage (520, and 1026 with a column tail), many tiles
+BLOCKDOT_EDGE_M = (1, 7, 8, 9, 16, 17, 32)
+BLOCKDOT_EDGE_D_IN = (32, 64, 2048)
+BLOCKDOT_EDGE_D_OUT = (16, 48, 520, 1026, 8192)
+
+
+def blockdot_edges(torch, q, gen, checks) -> None:
+    """``q40_blockdot`` against its plain version at its fragment edges
+    (f32 and bf16 x), then with f16-extreme scales (+-65504 and the
+    subnormal 2^-24) and x spanning 1e-3..1e3 in magnitude."""
+    for d_in in BLOCKDOT_EDGE_D_IN:
+        for d_out in BLOCKDOT_EDGE_D_OUT:
+            w = _weight(torch, q, d_in, d_out, gen)
+            for m in BLOCKDOT_EDGE_M:
+                compare(torch, q, "q40_blockdot", "blockdot", m, d_in, d_out, w, gen,
+                        torch.bfloat16, checks)
+    from distributed_llama_multiusers_tpu_torch.quants.packed import PackedQ40
+
+    for m, d_in, d_out in ((DECODE_M, 2048, 2048), (1, 32, 48)):
+        w = _weight(torch, q, d_in, d_out, gen)
+        pick = torch.rand(w.scales.shape, device="cuda", generator=gen)
+        sign = torch.where(torch.rand(w.scales.shape, device="cuda", generator=gen) < 0.5,
+                           -1.0, 1.0)
+        scales = (torch.where(pick < 0.5, 65504.0, 2.0 ** -24) * sign).to(torch.float16)
+        w = PackedQ40(w.packed, scales)
+        mag = 10.0 ** (torch.rand((m, d_in), device="cuda", generator=gen) * 6 - 3)
+        x = mag * torch.sign(torch.randn((m, d_in), device="cuda", generator=gen))
+        acts = q.make_q80_acts(x)
+        got, ref = _run(q, "q40_blockdot", "blockdot", acts, w, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
+        checks.append({"kernel": "q40_blockdot", "mode": "blockdot", "m": m, "d_in": d_in,
+                       "d_out": d_out, "io": "f32", "extreme": True, "max_abs_err": err,
+                       "max_abs_ref": scale, "tol": TOL, "ok": ok})
+        check(ok, f"q40_blockdot, extreme scales and x, {d_in}x{d_out} m={m}: max|d| "
+                  f"{err:.3e} vs max|y| {scale:.3e}")
+
+
 def kernel_phase(torch, q) -> tuple[list, list]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,6 +412,7 @@ def kernel_phase(torch, q) -> tuple[list, list]:
                         torch.bfloat16, checks)
             dispatch_compare(torch, q, "auto", m, wo, gen, checks)
         del wo
+    blockdot_edges(torch, q, gen, checks)
     log(f"kernel checks: {len(checks)} comparisons within tolerance "
         f"({time.perf_counter() - t0:.1f}s)")
 
@@ -1206,11 +1278,14 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
     the profiled fields come from the engine's decode steps in the mode that
     runs the kernel (``step_breakdown``). For the ring hop they cover the
     hops of one tp=2 decode step on the f32 wire (``time_hops``) and the
-    engine's TP decode steps. The slab's entry carries its ring stages,
-    shared memory per thread block and plan at each 1B site."""
+    engine's TP decode steps. The slab's and blockdot's entries carry their
+    ring stages, shared memory, registers and spills per m-tile and the plan
+    at each 1B site; blockdot's also its HMMA count in the SASS."""
     out = []
     for kernel, mode in DECODE_MODE_OF.items():
-        mine = [c for c in checks if c["kernel"] == kernel and c["io"] == "f32"]
+        mine = [c for c in checks if c["kernel"] == kernel and c["io"] == "f32"
+                and not c.get("extreme")]
+        extreme = [c for c in checks if c["kernel"] == kernel and c.get("extreme")]
         mine16 = [c for c in checks if c["kernel"] == kernel and c["io"] == "bf16"]
         p = products[kernel]
         step = next(b for b in breakdown if b["mode"] == mode)
@@ -1224,7 +1299,9 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_abs_err"] / max(c["max_abs_ref"], 1e-30) for c in mine),
             "tol": TOL, "tol_rule": "f32 outputs: max|kernel - plain| <= tol * max|plain|",
-            "checks": len(mine) + len(mine16),
+            "checks": len(mine) + len(mine16) + len(extreme),
+            **({"max_rel_err_extreme_scales": max(c["max_abs_err"] / c["max_abs_ref"]
+                                                  for c in extreme)} if extreme else {}),
             "max_abs_err_bf16_out": max([c["max_abs_err"] for c in mine16]
                                         + [p["max_abs_err_bf16_out"]]),
             "tol_rule_bf16_out": "bf16 outputs: |kernel - plain| <= tol * max|plain| "
@@ -1244,10 +1321,8 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
             "profiled_reduce_splits_ms_per_decode_step": splits[0] / 1e3,
             "launches_on_lab_path": lab_result["serving_launches"][kernel] if lab_result
             else None,
-            **({"stages": geometry["stages"],
-                "smem_bytes_per_block": geometry["smem_bytes_per_block"],
-                "plan_mt_splits_per_by_site": geometry["plan_mt_splits_per_by_site"]}
-               if kernel == "q40_slab" else {}),
+            **({k: v for k, v in geometry[kernel].items() if k != "sms"}
+               if kernel in geometry else {}),
         })
     f32_step = tp[0]
     out.append({
@@ -1310,17 +1385,23 @@ def main() -> int:
 
         t0 = time.perf_counter()
         names = q.KERNELS + (rc.KERNEL,) + lab.KERNELS
-        q.build_kernels(names)
+        libs = q.build_kernels(names)
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
-        geometry = slab_geometry(torch, q)
-        log("q40_slab geometry: " + json.dumps(geometry))
+        geometry = {"q40_slab": kernel_geometry(torch, q, q.slab_info),
+                    "q40_blockdot": kernel_geometry(torch, q, q.blockdot_info)}
+        for kernel, geo in geometry.items():
+            log(f"{kernel} geometry: " + json.dumps(geo))
+        check(all(n == 0 for n in geometry["q40_blockdot"]["spill_bytes_per_thread"].values()),
+              "q40_blockdot spills registers")
+        geometry["q40_blockdot"]["hmma_in_sass"] = sass_hmma(libs["q40_blockdot"])
+        log("q40_blockdot HMMA in SASS: " + json.dumps(geometry["q40_blockdot"]["hmma_in_sass"]))
 
         checks, timings = kernel_phase(torch, q)
         hops = hop_phase(torch, rc)
         collectives = collectives_phase(torch, q, rc)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
-                       "collectives": collectives, "slab_geometry": geometry}, f, indent=1)
+                       "collectives": collectives, "geometry": geometry}, f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)

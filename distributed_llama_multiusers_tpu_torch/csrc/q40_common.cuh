@@ -1,6 +1,7 @@
 // Shared pieces of the three Q40 dequant-in-matmul kernels (q40_slab.cu,
 // q40_blockdot.cu, q40_i8blockdot.cu): thread-block geometry, operand
-// loads, the cp.async copies, the epilogue store and the split-K reduction.
+// loads, the cp.async copies and the stage ring built on them, the
+// epilogue store and the split-K reduction.
 //
 // Weight layout (quants/packed.py): packed uint8 [d_in/2, d_out], row
 // 16b+j holds input 32b+j in its low nibble and input 32b+16+j in its high
@@ -104,6 +105,68 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The cp.async stage ring both the slab and the blockdot kernel stream
+// their weights through: one stage is one quant block of a thread block's
+// kTileCols-column tile, its 16 packed rows plus its f16 scale row. A row
+// is padded by 16 bytes, so that 16-byte reads of the same column chunk in
+// rows 2 apart fall in different banks (the blockdot fragments read rows
+// 2t, 2t+1, 2t+8, 2t+9); 4-byte reads along one row stay conflict-free.
+constexpr int kStages = 3;                    // ring depth: kStages - 1 blocks in flight
+constexpr int kTileCols = kThreads * kCols;   // 512 output columns per thread block
+constexpr int kRowPitch = kTileCols + 16;     // bytes per staged packed row
+
+struct __align__(16) SlabStage {
+  uint8_t packed[16][kRowPitch];   // the quant block's 16 packed rows
+  uint16_t scales[kTileCols];      // and its f16 scale row, as raw bits
+};
+
+// Starts staging quant block b of the column tile at x0 into `st`.
+template <bool kAsync>
+__device__ __forceinline__ void stage_block(SlabStage& st, const uint8_t* __restrict__ packed,
+                                            const __half* __restrict__ scales, int b, int x0,
+                                            int d_out) {
+  if constexpr (kAsync) {
+    // d_out % 16 == 0: every row segment is whole 16-byte chunks; chunks
+    // past d_out are not copied, and what a kernel computes from them is
+    // never stored
+    constexpr int kRowChunks = kTileCols / 16;
+    const int chunks = min(kTileCols, d_out - x0) / 16;
+    const uint8_t* src = packed + (size_t)(16 * b) * d_out + x0;
+#pragma unroll
+    for (int r = 0; r < 16 * kRowChunks / kThreads; ++r) {
+      const int idx = r * kThreads + threadIdx.x;
+      const int row = idx / kRowChunks;
+      const int ch = idx % kRowChunks;
+      if (ch < chunks) cp_async16(&st.packed[row][ch * 16], src + (size_t)row * d_out + ch * 16);
+    }
+    if ((int)threadIdx.x < 2 * chunks) {  // 8 scales per 16-byte chunk
+      cp_async16(&st.scales[8 * threadIdx.x],
+                 scales + (size_t)b * d_out + x0 + 8 * threadIdx.x);
+    }
+  } else {
+    // each thread stages its own kCols columns; columns past d_out are zero
+    const int col0 = x0 + threadIdx.x * kCols;
+    const int n = max(0, min(kCols, d_out - col0));
+    const uint8_t* src = packed + (size_t)(16 * b) * d_out + col0;
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<uint32_t*>(&st.packed[j][threadIdx.x * kCols]) =
+          load_packed_cols<true>(src + (size_t)j * d_out, n);
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      st.scales[threadIdx.x * kCols + c] =
+          c < n ? __half_as_ushort(scales[(size_t)b * d_out + col0 + c]) : 0;
+    }
+  }
+}
+
+// True when the planes can be staged by cp.async: 16-byte rows and planes.
+inline bool rows_async(int d_out, const void* packed, const void* scales) {
+  return d_out % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(scales) % 16 == 0;
 }
 
 // One row's kCols results: straight into the output (single split) or into

@@ -15,9 +15,10 @@
 // products accumulate in f32 (a bf16 x bf16 product is exact in f32), in
 // quant-block order, rows j = 0..15 within a block.
 //
-// Load path: a ring of kStages shared-memory stages per thread block. One
-// stage is one quant block of the block's 512-column tile: 16 packed rows
-// x 512 bytes plus the block's 512 f16 scales (9 KB). The ring keeps
+// Load path: the ring of kStages shared-memory stages per thread block
+// that q40_common.cuh defines (shared with the blockdot kernel). One stage
+// is one quant block of the block's 512-column tile: 16 packed rows x 512
+// bytes plus the block's 512 f16 scales (9 KB). The ring keeps
 // kStages - 1 stages of 16-byte cp.async copies in flight (18 KB per thread
 // block, 36-54 KB per SM) while the threads dequantize and multiply the
 // stage that has landed; each thread reads its 4-byte word of every staged
@@ -50,9 +51,6 @@
 
 namespace {
 
-constexpr int kStages = 3;                    // ring depth: kStages - 1 blocks in flight
-constexpr int kTileCols = kThreads * kCols;   // 512 output columns per thread block
-
 // (float)((p >> shift) & 0xF), exactly, by one FADD: the nibble as the low
 // mantissa bits of 2^23, minus 2^23 (no I2F on the conversion pipe, which
 // runs at a quarter of the FMA rate)
@@ -67,51 +65,6 @@ __device__ __forceinline__ void bf16_round2(float& a, float& b) {
   const uint32_t u = *reinterpret_cast<const uint32_t*>(&r);
   a = __uint_as_float(u << 16);
   b = __uint_as_float(u & 0xFFFF0000u);
-}
-
-struct __align__(16) SlabStage {
-  uint8_t packed[16][kTileCols];   // the quant block's 16 packed rows
-  uint16_t scales[kTileCols];      // and its f16 scale row, as raw bits
-};
-
-// Starts staging quant block b of the column tile at x0 into `st`.
-template <bool kAsync>
-__device__ __forceinline__ void stage_block(SlabStage& st, const uint8_t* __restrict__ packed,
-                                            const __half* __restrict__ scales, int b, int x0,
-                                            int d_out) {
-  if constexpr (kAsync) {
-    // d_out % 16 == 0: every row segment is whole 16-byte chunks; words past
-    // d_out are never read (their threads are inactive)
-    constexpr int kRowChunks = kTileCols / 16;
-    const int chunks = min(kTileCols, d_out - x0) / 16;
-    const uint8_t* src = packed + (size_t)(16 * b) * d_out + x0;
-#pragma unroll
-    for (int r = 0; r < 16 * kRowChunks / kThreads; ++r) {
-      const int idx = r * kThreads + threadIdx.x;
-      const int row = idx / kRowChunks;
-      const int ch = idx % kRowChunks;
-      if (ch < chunks) cp_async16(&st.packed[row][ch * 16], src + (size_t)row * d_out + ch * 16);
-    }
-    if ((int)threadIdx.x < 2 * chunks) {  // 8 scales per 16-byte chunk
-      cp_async16(&st.scales[8 * threadIdx.x],
-                 scales + (size_t)b * d_out + x0 + 8 * threadIdx.x);
-    }
-  } else {
-    // each thread stages its own kCols columns; columns past d_out are zero
-    const int col0 = x0 + threadIdx.x * kCols;
-    const int n = max(0, min(kCols, d_out - col0));
-    const uint8_t* src = packed + (size_t)(16 * b) * d_out + col0;
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      *reinterpret_cast<uint32_t*>(&st.packed[j][threadIdx.x * kCols]) =
-          load_packed_cols<true>(src + (size_t)j * d_out, n);
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      st.scales[threadIdx.x * kCols + c] =
-          c < n ? __half_as_ushort(scales[(size_t)b * d_out + col0 + c]) : 0;
-    }
-  }
 }
 
 // kRound: the dot operands are rounded to bf16 (a bf16 dot; else exact f32,
@@ -311,8 +264,7 @@ extern "C" int q40_slab_launch(const void* x, int x_bf16, const float* bsum,
   const SlabArgs a{x, x_bf16, bsum, reinterpret_cast<const uint8_t*>(packed),
                    reinterpret_cast<const __half*>(scales), part, out, out_bf16, m, d_in,
                    d_out, splits, blocks_per_split};
-  const bool async = d_out % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  const bool async = rows_async(d_out, packed, scales);
   switch (mt) {
     case 1:
       launch_mt<1>(async, chain, round_dot, grid, s, a);

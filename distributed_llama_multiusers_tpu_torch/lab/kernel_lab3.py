@@ -42,7 +42,7 @@ import torch
 from ..ops import cuda_lab as lab
 from ..ops import cuda_q40 as q
 from ..quants.packed import PackedQ40, unpack_q40
-from ..runtime.engine import resolve_device
+from ..device import resolve_device
 from .timing import Lab, parser, q40_planes, randn
 
 M = 8

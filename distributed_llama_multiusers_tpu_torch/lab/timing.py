@@ -23,7 +23,7 @@ import time
 import torch
 
 from ..ops import cuda_lab, cuda_q40
-from ..runtime.engine import resolve_device
+from ..device import resolve_device
 
 # H100 SXM (NVIDIA data sheet; dense, at the full 700 W limit)
 HBM_BYTES_S = 3.35e12

@@ -28,6 +28,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..formats.model_file import HiddenAct
 from ..ops.activations import gelu, silu
 from ..ops.linear import matmul, shared_q80_acts
@@ -105,7 +106,8 @@ class KVCache:
 
 
 def init_kv_cache(config: LlamaConfig, n_lanes: int, dtype=torch.float32,
-                  device="cpu") -> KVCache:
+                  device=DEFAULT_DEVICE) -> KVCache:
+    device = resolve_device(device)
     shape = (config.n_layers, n_lanes, config.seq_len + 1, config.n_kv_heads,
              config.head_size)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..formats.model_file import ModelHeader, iter_model_tensors
 from ..ops.rope import build_rope_cache
 from ..quants.codec import FloatType, dequantize_q40, dequantize_q80
@@ -103,9 +104,10 @@ def read_m_tensors(path: str, header: ModelHeader) -> dict:
 
 
 def load_params_from_m(path: str, header: ModelHeader, dtype=torch.bfloat16,
-                       device="cpu") -> tuple[LlamaConfig, LlamaParams]:
+                       device=DEFAULT_DEVICE) -> tuple[LlamaConfig, LlamaParams]:
     """Load and dequantize every tensor; matmul weights transposed to
     [L, d_in, d_out] in ``dtype``, norms and biases f32."""
+    device = resolve_device(device)
     config = LlamaConfig.from_header(header)
     raw = read_m_tensors(path, header)
     stacked = {}
@@ -130,12 +132,13 @@ def load_params_from_m(path: str, header: ModelHeader, dtype=torch.bfloat16,
 
 
 def load_params_from_m_quantized(path: str, header: ModelHeader,
-                                 dtype=torch.bfloat16, device="cpu"
+                                 dtype=torch.bfloat16, device=DEFAULT_DEVICE
                                  ) -> tuple[LlamaConfig, LlamaParams]:
     """Load a ``.m`` keeping Q40 matmul weights packed on ``device``
     (PackedQ40: int4 nibbles + f16 block scales), repacked there from the
     file's block bytes without dequantizing. Non-Q40 matmul tensors load
     dense; embedding and norms are always dense."""
+    device = resolve_device(device)
     config = LlamaConfig.from_header(header)
     _check_dense_only(config)
     L = config.n_layers
@@ -192,11 +195,12 @@ def load_params_from_m_quantized(path: str, header: ModelHeader,
 
 
 def params_from_random(config: LlamaConfig, seed: int = 0, dtype=torch.bfloat16,
-                       scale: float = 0.02, device="cpu") -> LlamaParams:
+                       scale: float = 0.02, device=DEFAULT_DEVICE) -> LlamaParams:
     """Random-normal dense weights with the right shapes, drawn from one
     numpy generator in the JAX package's order (wq wk wv wo w1 w2 w3, then
     embedding and wcls), so one seed gives both packages the same f32
     draws."""
+    device = resolve_device(device)
     _check_dense_only(config)
     rng = np.random.default_rng(seed)
     L, dim, hidden, kv_dim, vocab = (config.n_layers, config.dim,
@@ -230,12 +234,14 @@ def _from_numpy(x, dtype=None, device="cpu") -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax_numpy(tree, device="cpu", dtype=None) -> LlamaParams:
+def params_from_jax_numpy(tree, device=DEFAULT_DEVICE, dtype=None) -> LlamaParams:
     """The JAX package's ``LlamaParams`` with every leaf a numpy array
     (``PackedQ40`` leaves carry ``packed``/``scales`` arrays) -> the port's
     LlamaParams on ``device``. Layouts carry over unchanged ([L, d_in,
     d_out], or [L, d_in/2, d_out] packed); dense matmul weights and the
     embedding take ``dtype`` when given, else keep theirs."""
+    device = resolve_device(device)
+
     def leaf(x, kind=None):
         if x is None:
             return None

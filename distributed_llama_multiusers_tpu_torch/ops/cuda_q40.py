@@ -16,7 +16,8 @@ Three hand-written CUDA C++ kernels under ``csrc/`` (built with ``nvcc`` for
   rounded to the dot dtype; the −8 is folded into one correction against
   the exact f32 per-block sums of x.
 - ``q40_blockdot``   (``csrc/q40_blockdot.cu``) — per quant block, dots of the
-  raw nibbles against bf16 x, then (· − 8·bsum_b)·s_b on the block result.
+  raw nibbles against bf16 x on the tensor cores (``mma.sync`` m16n8k16,
+  f32 results), then (· − 8·bsum_b)·s_b on the block result.
 - ``q40_i8blockdot`` (``csrc/q40_i8blockdot.cu``) — per quant block, int8 dots
   of the raw nibbles against Q80-quantized x (``__dp4a``), then
   (sx_b·d − 8·bsum_b)·s_b.
@@ -437,15 +438,26 @@ def launch_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple[int, int, int
     return mt, -(-n_blk // per), per
 
 
+def _kernel_info(name: str, mt: int) -> dict:
+    fn = load_kernel(name, [_I, ctypes.POINTER(ctypes.c_int)], symbol=f"{name}_info")
+    vals = (ctypes.c_int * 4)()
+    _raise_on(fn(mt, vals), f"{name}_info")
+    return {"stages": vals[0], "smem_bytes": vals[1], "registers": vals[2],
+            "local_bytes": vals[3]}
+
+
 def slab_info(mt: int) -> dict:
     """The built slab kernel's geometry at m-tile ``mt`` (cp.async stage):
     ring stages, static shared memory bytes per thread block, registers
     and local (spill) bytes per thread, as the CUDA runtime reports them."""
-    fn = load_kernel("q40_slab", [_I, ctypes.POINTER(ctypes.c_int)], symbol="q40_slab_info")
-    vals = (ctypes.c_int * 4)()
-    _raise_on(fn(mt, vals), "q40_slab_info")
-    return {"stages": vals[0], "smem_bytes": vals[1], "registers": vals[2],
-            "local_bytes": vals[3]}
+    return _kernel_info("q40_slab", mt)
+
+
+def blockdot_info(mt: int) -> dict:
+    """The built blockdot kernel's geometry at m-tile ``mt``, as
+    ``slab_info`` gives the slab's; ``local_bytes`` is the larger of its
+    cp.async and plain-load stage instantiations'."""
+    return _kernel_info("q40_blockdot", mt)
 
 
 def _check_weight(w: PackedQ40, device: torch.device) -> None:

@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, llama_forward
 from ..ops.ring_collective import ring_counts
@@ -43,18 +44,6 @@ DEFAULT_PREFILL_BUCKETS = (16, 64, 256, 1024)
 DEFAULT_TOPP = 0.9
 _SEED_MIX = 0x9E3779B97F4A7C15
 _U64 = (1 << 64) - 1
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist — entry points
-    never drift to the CPU on their own."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA device requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' (--device cpu) to run on the CPU"
-        )
-    return dev
 
 
 @dataclass

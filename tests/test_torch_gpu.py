@@ -104,6 +104,81 @@ def test_any_width_matches_plain(cuda, m, d_out):
         assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
+def _random_planes(rng, d_in, d_out, device, scales=None):
+    """Random packed bytes and f16 scales (N(0, 0.01) unless given)."""
+    packed = rng.integers(0, 256, (d_in // 2, d_out), dtype=np.uint8)
+    if scales is None:
+        scales = (rng.standard_normal((d_in // 32, d_out)) * 0.01).astype(np.float16)
+    return PackedQ40(torch.from_numpy(packed).to(device), torch.from_numpy(scales).to(device))
+
+
+def _assert_close(got, ref, dtype):
+    """f32 outputs within TOL of max|plain|; bf16 outputs also within one
+    bf16 rounding step of each value (both sides round an f32 result)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    err = (got - ref).abs()
+    tol = TOL * float(ref.abs().max())
+    if dtype == torch.float32:
+        assert float(err.max()) <= tol, (float(err.max()), tol)
+    else:
+        assert bool((err <= tol + 2.0 ** -7 * ref.abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_out", [16, 48, 520, 1026, 8192])
+@pytest.mark.parametrize("d_in", [32, 64, 2048])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 32])
+def test_blockdot_tensor_core_edges(cuda, m, d_in, d_out, dtype):
+    """The tensor-core blockdot kernel against its plain version at the
+    edges of its fragments: m = 1 (N padded to 8), 7/9/17 (partial N-tiles
+    and m-tiles), 16 and 32 (two N-tiles); one quant block (no split: the
+    kernel writes the output), two, and many (split-K planes summed by
+    reduce_splits); d_out = 16 (one M-tile), 48 (a partial 512 tile), 520
+    and 1026 (the plain-load stage, 1026 with a column tail), 8192 (many
+    column tiles)."""
+    rng = np.random.default_rng(m * 1000 + d_in + d_out)
+    w = _random_planes(rng, d_in, d_out, cuda)
+    x = torch.from_numpy(rng.standard_normal((m, d_in), dtype=np.float32)).to(cuda, dtype)
+    acts = q.make_q80_acts(x)
+    before = q.LAUNCHES["q40_blockdot"]
+    got = q.q40_blockdot(acts, w)
+    ref = q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)
+    torch.cuda.synchronize()
+    assert q.LAUNCHES["q40_blockdot"] == before + 1
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_blockdot_extreme_scales_and_activations(cuda):
+    """f16-extreme scales (65504 and the smallest subnormal, 2^-24) and x
+    spanning 1e-3..1e3 in magnitude, at a split plan and a single one."""
+    rng = np.random.default_rng(7)
+    for m, d_in, d_out in ((8, 2048, 1024), (1, 32, 48)):
+        scales = np.where(rng.random((d_in // 32, d_out)) < 0.5, 65504.0,
+                          2.0 ** -24).astype(np.float16)
+        scales *= np.where(rng.random(scales.shape) < 0.5, -1, 1).astype(np.float16)
+        w = _random_planes(rng, d_in, d_out, cuda, scales)
+        mag = 10.0 ** rng.uniform(-3, 3, (m, d_in))
+        x = (mag * np.sign(rng.standard_normal((m, d_in)))).astype(np.float32)
+        acts = q.make_q80_acts(torch.from_numpy(x).to(cuda))
+        got = q.q40_blockdot(acts, w)
+        ref = q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mt", [1, 8, 16])
+def test_blockdot_info_reports_ring_and_no_spills(cuda, mt):
+    info = q.blockdot_info(mt)
+    assert info["stages"] == 3
+    assert info["local_bytes"] == 0, info
+    assert 0 < info["registers"] <= 255 and info["smem_bytes"] <= 48 * 1024, info
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,at32", [("auto", "q40_i8blockdot"), ("blockdot", "q40_blockdot"),
                                        ("v4", "q40_slab")])

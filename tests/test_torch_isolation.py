@@ -81,15 +81,35 @@ def test_entry_points_raise_without_cuda(tmp_path):
         from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
             tiny_header, write_synthetic_model, write_synthetic_tokenizer)
         from distributed_llama_multiusers_tpu_torch.formats import load_model_header
-        from distributed_llama_multiusers_tpu_torch.models import load_params_from_m
+        from distributed_llama_multiusers_tpu_torch.models import (
+            init_kv_cache, load_params_from_m, load_params_from_m_quantized,
+            params_from_jax_numpy, params_from_random)
         from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
         from distributed_llama_multiusers_tpu_torch.app import dllama_api
         d = sys.argv[1]
         h = tiny_header()
         write_synthetic_model(d + "/m.m", h)
         write_synthetic_tokenizer(d + "/t.t", vocab_size=h.vocab_size)
-        config, params = load_params_from_m(d + "/m.m", load_model_header(d + "/m.m"),
-                                            dtype=torch.float32)
+        header = load_model_header(d + "/m.m")
+        config, params = load_params_from_m(d + "/m.m", header, dtype=torch.float32,
+                                            device="cpu")
+        # the library entry points default to the card: without one they
+        # raise, naming CUDA and device="cpu", instead of landing on the CPU
+        defaults = {
+            "load_params_from_m": lambda: load_params_from_m(d + "/m.m", header),
+            "load_params_from_m_quantized":
+                lambda: load_params_from_m_quantized(d + "/m.m", header),
+            "params_from_random": lambda: params_from_random(config, seed=0),
+            "params_from_jax_numpy": lambda: params_from_jax_numpy(params),
+            "init_kv_cache": lambda: init_kv_cache(config, 1),
+        }
+        for name, call in defaults.items():
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA" in str(e) and "device='cpu'" in str(e), (name, e)
+            else:
+                raise SystemExit(f"{name} with its default device did not raise")
         for kwargs in ({}, {"device": "cuda"}):
             try:
                 InferenceEngine(config, params, **kwargs)

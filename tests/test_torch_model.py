@@ -151,8 +151,10 @@ def jax_params(tiny_model):
 @pytest.fixture(scope="module")
 def torch_params(tiny_model):
     h = load_model_header(tiny_model["model"])
-    config, dense = load_params_from_m(tiny_model["model"], h, dtype=torch.float32)
-    _, packed = load_params_from_m_quantized(tiny_model["model"], h, dtype=torch.float32)
+    config, dense = load_params_from_m(tiny_model["model"], h, dtype=torch.float32,
+                                       device="cpu")
+    _, packed = load_params_from_m_quantized(tiny_model["model"], h, dtype=torch.float32,
+                                             device="cpu")
     assert isinstance(packed.layers.wq, PackedQ40) and isinstance(packed.wcls, PackedQ40)
     return config, {"dense": dense, "packed": packed}
 
@@ -205,7 +207,7 @@ def test_forward_logits_match_jax(kind, jax_params, torch_params):
     jconfig, jp = jax_params
     config, tp = torch_params
     jcache = j_init_cache(jconfig, 2)
-    tcache = init_kv_cache(config, 2)
+    tcache = init_kv_cache(config, 2, device="cpu")
     tokens = np.asarray([PROMPT, PROMPT[::-1]], np.int64)
     positions = np.asarray([np.arange(7), np.arange(7) + 3], np.int64)
     cuda_q40.reset_counts()
@@ -242,7 +244,7 @@ def test_shared_acts_per_layer(torch_params, monkeypatch):
     monkeypatch.setattr(cuda_q40.Q80Acts, "__init__", counting_init)
     monkeypatch.setattr(linear, "q40_matmul", spy_matmul)
     llama_forward(config, tp["packed"], torch.tensor([[3, 9, 27]]),
-                  torch.tensor([[0, 1, 2]]), init_kv_cache(config, 1))
+                  torch.tensor([[0, 1, 2]]), init_kv_cache(config, 1, device="cpu"))
     L = config.n_layers
     assert len(builds) == L * 2 + L * 2 + 1
     assert len(prebuilt) == 7 * L + 1
@@ -252,11 +254,11 @@ def test_shared_acts_per_layer(torch_params, monkeypatch):
 def test_params_from_random_shapes():
     h = t_syn.tiny_header()
     config = LlamaConfig.from_header(h)
-    p = params_from_random(config, seed=0, dtype=torch.float32)
+    p = params_from_random(config, seed=0, dtype=torch.float32, device="cpu")
     assert tuple(p.layers.w1.shape) == (2, 64, 128)
     assert tuple(p.wcls.shape) == (64, 128)
     logits, _ = llama_forward(config, p, torch.tensor([[1, 2]]), torch.tensor([[0, 1]]),
-                              init_kv_cache(config, 1))
+                              init_kv_cache(config, 1, device="cpu"))
     assert torch.isfinite(logits).all()
 
 

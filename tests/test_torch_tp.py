@@ -85,7 +85,7 @@ def models(tiny_model):
                                     scale=0.05), to_device=False)
     out = {}
     for tp, cfg, jp in ((2, jcfg, jtiny), (4, jcfg4, jwide)):
-        tparams = _trim_wcls(params_from_jax_numpy(_np_tree(jp)), cfg.vocab_size)
+        tparams = _trim_wcls(params_from_jax_numpy(_np_tree(jp), device="cpu"), cfg.vocab_size)
         out[tp] = (cfg, jp, LlamaConfig(**{k: getattr(cfg, k) for k in
                                            LlamaConfig.__dataclass_fields__}), tparams)
     return out
@@ -126,10 +126,10 @@ def _jax_tp_logits(jcfg, jp, tp, ring, q80):
 
 def _port_logits(cfg, params, mesh=None, **kw):
     if mesh is None:
-        cache = init_kv_cache(cfg, 2)
+        cache = init_kv_cache(cfg, 2, device="cpu")
     else:
         params = shard_params(params, mesh)
-        cache = shard_kv_cache(init_kv_cache(cfg, 2), mesh)
+        cache = shard_kv_cache(init_kv_cache(cfg, 2, device="cpu"), mesh)
     out = []
     for tokens, positions in _steps():
         logits, _ = llama_forward(cfg, params, torch.from_numpy(tokens),
@@ -194,7 +194,7 @@ def test_shard_params_round_trip(models, kind):
     if kind == "dense":
         from distributed_llama_multiusers_tpu_torch.models import params_from_random
 
-        tparams = params_from_random(cfg, seed=1, dtype=torch.float32)
+        tparams = params_from_random(cfg, seed=1, dtype=torch.float32, device="cpu")
     shards = shard_params(tparams, _mesh(4))
 
     def planes(w):
