@@ -7,26 +7,33 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels, the ring hop and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
+   Q40 kernels, the ring step and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time
-   and the slab and blockdot kernels' geometry (ring stages, shared memory
-   per thread block, registers and spills, the plan at each 1B site); count
-   the HMMA (tensor-core) instructions in the blockdot kernels' SASS
-   (``cuobjdump -sass``), failing if there are none or if blockdot spills.
+   and the slab, blockdot and i8blockdot kernels' geometry (ring stages,
+   shared memory per thread block, registers and spills, the plan at each
+   1B site); count the tensor-core instructions in the tensor-core kernels'
+   SASS (``cuobjdump -sass``: HMMA in blockdot, IMMA in i8blockdot),
+   failing if a function has none, if either spills or has other than 3
+   stages.
 2. Kernels: at the Llama-3.2-1B matmul sites (2048->2048, 2048->512,
    2048->8192, 8192->2048, 2048->128256) hold every Q40 kernel and mode
    against its plain PyTorch version on the card (m = 1, 8, 32 for all three
    kernels; m = 33 and 512 for the slab kernel; f16-denormal scales; the
    m = 32/33 mode-routing boundary; the widths d_out = 6, 520 and 1026,
    which no kernel can read or write as vectors, in every mode and under
-   ``auto`` through the dispatch; ``q40_blockdot`` at its tensor-core
-   fragment edges, m in 1..32, d_in 32, 64, 2048, d_out 16..8192, and with
-   f16-extreme scales), then time each kernel, its plain
-   version and ``torch.matmul`` on the pre-dequantized bf16 weight. The ring
-   hop bit for bit against its plain version on each tensor-parallel payload
-   (f32 ring chunks at tp=2 and 4, the Q80 wire's values and scales, logits
-   shards, a prefill chunk), timed beside ``dst.copy_(src)`` and its bound;
-   the ring collectives at tp=2 and tp=4 against themselves on the plain hop.
+   ``auto`` through the dispatch; ``q40_blockdot`` and ``q40_i8blockdot``
+   at their tensor-core fragment edges, m in 1..32, d_in 32, 64, 2048, d_out
+   16..8192, with f16-extreme scales, and i8blockdot with its int8 values
+   saturated at +-127 and all-zero blocks), then time each kernel, its
+   plain version and ``torch.matmul`` on the pre-dequantized bf16 weight
+   (i8blockdot at m = 1, 8 and 32). The ring step bit for bit against its
+   plain version on each tensor-parallel payload (f32 ring chunks at tp=2
+   and 4, the Q80 wire's values and scales, logits shards, a prefill
+   chunk), timed beside ``dst.copy_(src)`` and its bound; each segment form
+   (the bare hop, the add, the slot) at 32 KiB, 8 KiB and 2 MB, bit for bit,
+   timed per hop beside its library call (``copy_``, ``torch.add(out=)``,
+   the slot ``copy_``); the ring collectives at tp=2 and tp=4 against
+   themselves on the plain ring step.
 3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
    layers, seed 0) into ``build/synthetic`` (reused while header and seed
    match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
@@ -40,10 +47,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 4. Decode step: the engine in this process on the same model, host clock
    per step, launches per step and device time by kernel (torch.profiler)
    in v4, ``auto`` and ``blockdot``, and at tp=2 on the f32 and the Q80
-   wire (with the ring hop's launches and bytes per step); the TP prefill
-   logits against one device's; the ring hops of one TP decode step timed;
-   then each Q40 kernel, its plain version and ``torch.matmul`` timed over
-   the 113 products of one decode step.
+   wire (with the ring step's launches, checked against the reckoned 130 on
+   both wires, its bytes, and the device operations per step); the TP
+   prefill logits against one device's; the ring steps of one TP decode
+   step, recorded from the collectives, timed; then each Q40 kernel, its
+   plain version and ``torch.matmul`` timed over the 113 products of one
+   decode step.
 5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
@@ -61,6 +70,7 @@ no result. Detail goes to ``build/chip_smoke/`` (JSON and server logs).
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -96,6 +106,9 @@ DECODE_M = 8  # the server's default lanes: every decode step is an 8-row produc
 ODD_WIDTHS = (6, 520, 1026)
 KERNEL_OF_MODE = {"blockdot": "q40_blockdot", "i8blockdot": "q40_i8blockdot"}  # else slab
 TOL = 1e-4  # max|kernel - plain| <= TOL * max|plain| (f32 outputs)
+# i8blockdot's per-site times: one row, the server's 8 lanes, and the most
+# rows auto sends it (BLOCKDOT_MAX_M)
+I8_TIMED_M = (1, DECODE_M, 32)
 GEN_TOKENS = 64
 
 
@@ -194,7 +207,8 @@ def dispatch_compare(torch, q, mode, m, w, gen, checks, expect=None) -> None:
 def kernel_geometry(torch, q, info_fn) -> dict:
     """A built Q40 kernel's ring stages, shared memory bytes per thread
     block, registers and spill bytes per m-tile (``info_fn``:
-    ``q.slab_info`` or ``q.blockdot_info``), and the shared plan (m-tile,
+    ``q.slab_info``, ``q.blockdot_info`` or ``q.i8blockdot_info``), and the
+    shared plan (m-tile,
     splits, quant blocks per split) at each Llama-3.2-1B site."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     info = {mt: info_fn(mt) for mt in (1, 8, 16)}
@@ -209,10 +223,11 @@ def kernel_geometry(torch, q, info_fn) -> dict:
                 for site, d_in, d_out, _ in SITES}}
 
 
-def sass_hmma(lib_path: str, tag: str = "blockdot_kernel") -> dict:
-    """HMMA (tensor-core) instructions in each function of a built kernel
-    library whose name holds ``tag``, from the toolkit's ``cuobjdump
-    -sass``. Fails unless every such function has some."""
+def sass_hmma(lib_path: str, tag: str = "blockdot_kernel", opcode: str = "HMMA") -> dict:
+    """Tensor-core instructions (``opcode``: HMMA for bf16, IMMA for int8)
+    in each function of a built kernel library whose name holds ``tag``,
+    from the toolkit's ``cuobjdump -sass``. Fails unless every such
+    function has some."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     r = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300)
     check(r.returncode == 0, f"cuobjdump -sass {lib_path} failed: {r.stderr.strip()[-500:]}")
@@ -224,10 +239,10 @@ def sass_hmma(lib_path: str, tag: str = "blockdot_kernel") -> dict:
             fn = found.group(1) if tag in found.group(1) else None
             if fn:
                 counts.setdefault(fn, 0)
-        elif fn and re.search(r"\bHMMA\b", line):
+        elif fn and re.search(rf"\b{opcode}\b", line):
             counts[fn] += 1
     check(bool(counts), f"no {tag} function in the SASS of {lib_path}")
-    check(all(n > 0 for n in counts.values()), f"no HMMA in some {tag} functions: {counts}")
+    check(all(n > 0 for n in counts.values()), f"no {opcode} in some {tag} functions: {counts}")
     return counts
 
 
@@ -317,46 +332,67 @@ def time_site(torch, q, kernel, mode, m, d_in, d_out, gen):
             "bound_by": b_by}
 
 
-# the tensor-core blockdot kernel's fragment edges: m around its N-tiles of
-# 8 rows and m-tiles of 1, 8 and 16; one, two and many quant blocks (no
-# split, a split, many splits); one M-tile of 16 columns, a partial 512
-# tile, the plain-load stage (520, and 1026 with a column tail), many tiles
+# the tensor-core kernels' fragment edges: m around their N-tiles of 8 rows
+# and m-tiles of 1, 8 and 16; one, two and many quant blocks (no split, a
+# split, many splits); one M-tile of 16 columns, a partial 512 tile, the
+# plain-load stage (520, and 1026 with a column tail), many tiles
 BLOCKDOT_EDGE_M = (1, 7, 8, 9, 16, 17, 32)
 BLOCKDOT_EDGE_D_IN = (32, 64, 2048)
 BLOCKDOT_EDGE_D_OUT = (16, 48, 520, 1026, 8192)
+TENSOR_CORE_KERNELS = (("q40_blockdot", "blockdot"), ("q40_i8blockdot", "i8blockdot"))
 
 
-def blockdot_edges(torch, q, gen, checks) -> None:
-    """``q40_blockdot`` against its plain version at its fragment edges
-    (f32 and bf16 x), then with f16-extreme scales (+-65504 and the
-    subnormal 2^-24) and x spanning 1e-3..1e3 in magnitude."""
-    for d_in in BLOCKDOT_EDGE_D_IN:
-        for d_out in BLOCKDOT_EDGE_D_OUT:
-            w = _weight(torch, q, d_in, d_out, gen)
-            for m in BLOCKDOT_EDGE_M:
-                compare(torch, q, "q40_blockdot", "blockdot", m, d_in, d_out, w, gen,
-                        torch.bfloat16, checks)
+def _extreme_check(torch, q, kernel, mode, acts, w, checks, case: str) -> None:
+    got, ref = _run(q, kernel, mode, acts, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
+    checks.append({"kernel": kernel, "mode": mode, "m": acts.m, "d_in": w.d_in,
+                   "d_out": w.d_out, "io": "f32", "extreme": True, "case": case,
+                   "max_abs_err": err, "max_abs_ref": scale, "tol": TOL, "ok": ok})
+    check(ok, f"{kernel}, {case}, {w.d_in}x{w.d_out} m={acts.m}: max|d| {err:.3e} vs "
+              f"max|y| {scale:.3e}")
+
+
+def tensor_core_edges(torch, q, gen, checks) -> None:
+    """``q40_blockdot`` and ``q40_i8blockdot`` against their plain versions
+    at their fragment edges (f32 and bf16 x), then with f16-extreme scales
+    (+-65504 and the subnormal 2^-24) and x spanning 1e-3..1e3 in
+    magnitude; i8blockdot also with x that saturates its int8 values at
+    +-127 against all-15 nibbles (block dots of +-60,960) and all-zero
+    blocks (sx = 1e-8/127)."""
     from distributed_llama_multiusers_tpu_torch.quants.packed import PackedQ40
 
-    for m, d_in, d_out in ((DECODE_M, 2048, 2048), (1, 32, 48)):
+    for kernel, mode in TENSOR_CORE_KERNELS:
+        for d_in in BLOCKDOT_EDGE_D_IN:
+            for d_out in BLOCKDOT_EDGE_D_OUT:
+                w = _weight(torch, q, d_in, d_out, gen)
+                for m in BLOCKDOT_EDGE_M:
+                    compare(torch, q, kernel, mode, m, d_in, d_out, w, gen, torch.bfloat16,
+                            checks)
+        for m, d_in, d_out in ((DECODE_M, 2048, 2048), (1, 32, 48)):
+            w = _weight(torch, q, d_in, d_out, gen)
+            pick = torch.rand(w.scales.shape, device="cuda", generator=gen)
+            sign = torch.where(torch.rand(w.scales.shape, device="cuda", generator=gen) < 0.5,
+                               -1.0, 1.0)
+            scales = (torch.where(pick < 0.5, 65504.0, 2.0 ** -24) * sign).to(torch.float16)
+            w = PackedQ40(w.packed, scales)
+            mag = 10.0 ** (torch.rand((m, d_in), device="cuda", generator=gen) * 6 - 3)
+            x = mag * torch.sign(torch.randn((m, d_in), device="cuda", generator=gen))
+            _extreme_check(torch, q, kernel, mode, q.make_q80_acts(x), w, checks,
+                           "f16-extreme scales and x")
+    for m, d_in, d_out in ((DECODE_M, 2048, 1024), (17, 64, 48)):
         w = _weight(torch, q, d_in, d_out, gen)
-        pick = torch.rand(w.scales.shape, device="cuda", generator=gen)
-        sign = torch.where(torch.rand(w.scales.shape, device="cuda", generator=gen) < 0.5,
+        packed = w.packed.clone()
+        packed[:, : d_out // 2] = 0xFF  # half the columns all-15 nibbles
+        sign = torch.where(torch.rand((m, d_in // 32, 1), device="cuda", generator=gen) < 0.5,
                            -1.0, 1.0)
-        scales = (torch.where(pick < 0.5, 65504.0, 2.0 ** -24) * sign).to(torch.float16)
-        w = PackedQ40(w.packed, scales)
-        mag = 10.0 ** (torch.rand((m, d_in), device="cuda", generator=gen) * 6 - 3)
-        x = mag * torch.sign(torch.randn((m, d_in), device="cuda", generator=gen))
+        x = (sign * torch.full((m, d_in // 32, 32), 3.0, device="cuda")).view(m, d_in)
+        x[::2, : d_in // 2] = 0.0  # all-zero blocks on every other row
         acts = q.make_q80_acts(x)
-        got, ref = _run(q, "q40_blockdot", "blockdot", acts, w, torch.bfloat16)
-        torch.cuda.synchronize()
-        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= TOL * scale
-        checks.append({"kernel": "q40_blockdot", "mode": "blockdot", "m": m, "d_in": d_in,
-                       "d_out": d_out, "io": "f32", "extreme": True, "max_abs_err": err,
-                       "max_abs_ref": scale, "tol": TOL, "ok": ok})
-        check(ok, f"q40_blockdot, extreme scales and x, {d_in}x{d_out} m={m}: max|d| "
-                  f"{err:.3e} vs max|y| {scale:.3e}")
+        check(int(acts.xq.abs().max()) == 127, "the saturation case does not reach +-127")
+        _extreme_check(torch, q, "q40_i8blockdot", "i8blockdot", acts, PackedQ40(packed, w.scales),
+                       checks, "xq saturated at +-127, all-15 nibbles, all-zero blocks")
 
 
 def kernel_phase(torch, q) -> tuple[list, list]:
@@ -412,7 +448,7 @@ def kernel_phase(torch, q) -> tuple[list, list]:
                         torch.bfloat16, checks)
             dispatch_compare(torch, q, "auto", m, wo, gen, checks)
         del wo
-    blockdot_edges(torch, q, gen, checks)
+    tensor_core_edges(torch, q, gen, checks)
     log(f"kernel checks: {len(checks)} comparisons within tolerance "
         f"({time.perf_counter() - t0:.1f}s)")
 
@@ -421,7 +457,7 @@ def kernel_phase(torch, q) -> tuple[list, list]:
     plan = [("q40_slab", "v4", ms) for ms in (1, DECODE_M, 512)]
     plan += [("q40_slab", "bf16chain", ms) for ms in (DECODE_M, 512)]
     plan += [("q40_blockdot", "blockdot", ms) for ms in (1, DECODE_M)]
-    plan += [("q40_i8blockdot", "i8blockdot", ms) for ms in (1, DECODE_M)]
+    plan += [("q40_i8blockdot", "i8blockdot", ms) for ms in I8_TIMED_M]
     for kernel, mode, m in plan:
         for site, d_in, d_out, per_step in SITES:
             t = time_site(torch, q, kernel, mode, m, d_in, d_out, gen)
@@ -473,25 +509,140 @@ def time_hops(torch, rc, xs_sets: list, reps: int = 4) -> dict:
     ``xs_sets`` (the kernel, one CUDA graph where all ranks share one card,
     else eager between events), of ``dst.copy_(src)`` for the same hops (the
     library yardstick) and of the plain version (eager)."""
-    srcs, dsts = [], []
-    for xs in xs_sets:
-        n = len(xs)
-        srcs += [xs[(r - 1) % n] for r in range(n)]
-        dsts += [torch.empty_like(x) for x in xs]
-    one_card = len({x.device for xs in xs_sets for x in xs}) == 1
-    hop = [lambda xs=xs: rc.ring_shift(xs) for xs in xs_sets]
-    lib = [lambda d=d, s=s: d.copy_(s) for d, s in zip(dsts, srcs)]
-    if one_card:
-        ms = graph_ms(torch, hop * reps) * len(hop)
-        library_ms = graph_ms(torch, lib * reps) * len(lib)
+    n_of = [len(xs) for xs in xs_sets]
+    steps = [[[rc.Seg(xs[(r - 1) % n], torch.empty_like(xs[r]))] for r in range(n)]
+             for xs, n in zip(xs_sets, n_of)]
+    return time_steps(torch, rc, steps, reps)
+
+
+def _library_call(torch, seg):
+    """The one PyTorch call that computes a segment: ``copy_`` into the
+    destination (a slot view included), or ``torch.add(..., out=)``."""
+    if seg.add is None:
+        return lambda: seg.dst.copy_(seg.src)
+    return lambda: torch.add(seg.src, seg.add, out=seg.dst)
+
+
+def time_steps(torch, rc, steps: list, reps: int = 4) -> dict:
+    """Device time of ``rc.ring_step`` over ``steps`` (each a list of
+    per-rank segment lists): one CUDA graph where every tensor is on one
+    card (the median of three, alternating with the library's), else eager
+    between events; beside it each segment's library call
+    (``_library_call``) and the plain version (eager). ``launches`` and
+    ``bytes`` are what the counters would add: one per receiving rank per
+    step, the wire segments' source bytes. The graph replays the steps back
+    to back, so each launch made as a programmatic dependent starts while
+    the step before it runs: a best case. On the decode path a step follows
+    kernels that do not trigger their dependents (``step_breakdown``'s
+    profiled ``ring_hop`` time is that case)."""
+    calls = [lambda st=st: rc.ring_step(st) for st in steps]
+    lib = [_library_call(torch, seg) for st in steps for segs in st for seg in segs]
+    devices = {t.device for st in steps for segs in st for seg in segs
+               for t in (seg.src, seg.dst)}
+    one_card = len(devices) == 1
+    if one_card:  # the median of three graph timings each, in turns
+        ms, library_ms = (statistics.median(v) for v in zip(*[
+            (graph_ms(torch, calls * reps) * len(calls), graph_ms(torch, lib * reps) * len(lib))
+            for _ in range(3)]))
     else:
-        ms = eager_ms(torch, lambda: [c() for c in hop], 20)
+        ms = eager_ms(torch, lambda: [c() for c in calls], 20)
         library_ms = eager_ms(torch, lambda: [c() for c in lib], 20)
-    plain_ms = eager_ms(torch, lambda: [rc.ring_shift_plain(xs) for xs in xs_sets], 5)
-    nbytes = sum(s.numel() * s.element_size() for s in srcs)
-    return {"ms": ms, "library_ms": library_ms, "plain_ms": plain_ms, "launches": len(srcs),
+    plain_ms = eager_ms(torch, lambda: [rc.ring_step_plain(st) for st in steps], 5)
+    nbytes = sum(seg.src.numel() * seg.src.element_size() for st in steps for segs in st
+                 for seg in segs if seg.wire)
+    return {"ms": ms, "library_ms": library_ms, "plain_ms": plain_ms,
+            "launches": sum(len(st) for st in steps), "library_calls": len(lib),
             "bytes": nbytes, "same_card": one_card,
             "bound_ms": hop_bound_ms(nbytes, one_card), "bound_by": "bytes"}
+
+
+# the three forms of a ring step's segment at the decode payloads, per hop
+# against its library call: 32 KiB (an 8-lane f32 ring chunk at tp=2),
+# 8 KiB (the Q80 wire's values of that chunk) and 2 MB (an f32 logits shard)
+HOP_FORM_BYTES = (32 * 1024, 8 * 1024, 8 * 64128 * 4)
+
+
+def _form_steps(torch, rc, form: str, nbytes: int, gen, n: int = 2) -> list:
+    """One ring step of ``form`` at tp=n on this card, destination rows of 8
+    lanes: ``hop`` (f32 copy), ``add`` (f32 accumulator + bf16 partial, as
+    ring_sync_matmul adds) or ``slot`` (f32 chunk into column slot 1 of an
+    [8, n*C] output)."""
+    c = nbytes // (8 * 4)
+    xs = [torch.randn((8, c), device="cuda", generator=gen) for _ in range(n)]
+    adds = [None] * n
+    if form == "add":
+        adds = [torch.randn((8, c), device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(n)]
+    if form == "slot":
+        dsts = [torch.empty((8, n * c), device="cuda")[:, c:2 * c] for _ in range(n)]
+    else:
+        dsts = [torch.empty_like(x) for x in xs]
+    return [[[rc.Seg(xs[(r - 1) % n], dsts[r], adds[r])] for r in range(n)]]
+
+
+def build_one_kernel(q, rc):
+    """Start nvcc on ``csrc/ring_hop.cu`` with RING_HOP_ONE_KERNEL: every
+    ring step through the two-segment kernel, one 16-byte unit a thread, the
+    simpler design ``hop_forms`` times the built one against. Returns the
+    process and the library's path."""
+    os.makedirs(q.build_dir(), exist_ok=True)
+    path = os.path.join(q.build_dir(), "ring_hop_one_kernel.so")
+    cmd = [q._nvcc(), *q.NVCC_FLAGS, "-DRING_HOP_ONE_KERNEL", "-o", path,
+           os.path.join(ROOT, rc.KERNEL_SOURCE)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path
+
+
+def one_kernel_launch(rc, build) -> object:
+    """Wait for ``build_one_kernel``'s nvcc; its library's launch function."""
+    proc, path = build
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -DRING_HOP_ONE_KERNEL failed:\n{out}")
+    fn = ctypes.CDLL(path).ring_hop_launch
+    fn.argtypes = rc._STEP_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def hop_forms(torch, q, rc, one_kernel) -> list:
+    """Each segment form, bit for bit against the plain version, then its
+    time per hop (launch) beside its library call's, in the same CUDA-graph
+    harness, at each of HOP_FORM_BYTES; beside them the same steps through
+    the RING_HOP_ONE_KERNEL build's launch function ``one_kernel``, also bit
+    for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    key = (rc.KERNEL, None)
+    built = q.load_kernel(rc.KERNEL, rc._STEP_ARGTYPES)
+    rows = []
+    for form in ("hop", "add", "slot"):
+        for nbytes in HOP_FORM_BYTES:
+            steps = _form_steps(torch, rc, form, nbytes, gen)
+            t = {}
+            for label, fn in (("built", built), ("one kernel", one_kernel)):
+                q._libs[key] = fn
+                try:
+                    ref = [[seg._replace(dst=seg.dst.clone()) for seg in segs]
+                           for segs in steps[0]]
+                    rc.ring_step(steps[0])
+                    rc.ring_step_plain(ref)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(g.dst, r.dst) for gs, rs in zip(steps[0], ref)
+                              for g, r in zip(gs, rs)),
+                          f"ring step form {form} at {nbytes} B ({label}): differs from its "
+                          "plain version")
+                    t[label] = time_steps(torch, rc, steps, reps=8)
+                finally:
+                    q._libs[key] = built
+            n = t["built"]["launches"]
+            row = {"form": form, "bytes_per_hop": nbytes, "ranks": n,
+                   "us_per_hop": t["built"]["ms"] / n * 1e3,
+                   "library_us_per_hop": t["built"]["library_ms"] / n * 1e3,
+                   "library": "torch.add(out=)" if form == "add" else "copy_",
+                   "one_kernel_us_per_hop": t["one kernel"]["ms"] / n * 1e3,
+                   "bound_us_per_hop": t["built"]["bound_ms"] / n * 1e3,
+                   "kernel_over_library": t["built"]["ms"] / t["built"]["library_ms"]}
+            rows.append(row)
+            log("hop form " + json.dumps(row))
+    return rows
 
 
 def hop_phase(torch, rc) -> list:
@@ -522,22 +673,25 @@ def hop_phase(torch, rc) -> list:
 
 def collectives_phase(torch, q, rc) -> list:
     """The ring collectives at tp=2 and tp=4 on the card, each against the
-    same function run with the plain hop: bit for bit (the copies are exact
-    and the kernels deterministic)."""
+    same function run with the plain ring step: bit for bit (the copies and
+    the adds are exact or rounded once, and the kernels deterministic)."""
     from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import col_shards
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     w = _weight(torch, q, 2048, 2048, gen)
     out = []
-    kernel_shift = rc.ring_shift
+    kernel_step = rc.ring_step
     for n in (2, 4):
         devs = rank_devices(torch, n)
         ws = col_shards(w, make_mesh(MeshPlan(tp=n), devs))
         parts = [torch.randn((8, 1, 2048), device="cuda", generator=gen).to(d) for d in devs]
         chunks = [p[..., : 2048 // n].contiguous() for p in parts]
         xs = [p[..., : 2048 // n].to(torch.bfloat16).contiguous() for p in parts]
+        halves = [p.to(torch.bfloat16) for p in parts]
         cases = {
+            "ring_reduce_scatter_bf16": lambda: rc.ring_reduce_scatter(halves),
+            "ring_all_reduce": lambda: rc.ring_all_reduce(parts),
             "ring_reduce_scatter": lambda: rc.ring_reduce_scatter(parts),
             "ring_all_gather": lambda: rc.ring_all_gather(chunks),
             "ring_all_gather_q80": lambda: rc.ring_all_gather_q80(chunks),
@@ -546,17 +700,17 @@ def collectives_phase(torch, q, rc) -> list:
         }
         for name, fn in cases.items():
             got = fn()
-            rc.ring_shift = lambda ys, chan=0: rc.ring_shift_plain(ys)
+            rc.ring_step = rc.ring_step_plain
             try:
                 ref = fn()
             finally:
-                rc.ring_shift = kernel_shift
+                rc.ring_step = kernel_step
             torch.cuda.synchronize()
             same = all(torch.equal(g, r) for g, r in zip(got, ref))
             check(same, f"{name} tp={n}: the kernel hop and the plain hop disagree")
             out.append({"collective": name, "tp": n, "bit_exact": same,
                         "shape": list(got[0].shape)})
-    log(f"ring collectives: {len(out)} checks bit-exact against the plain hop")
+    log(f"ring collectives: {len(out)} checks bit-exact against the plain ring step")
     return out
 
 
@@ -867,7 +1021,7 @@ def _kernel_of(name: str) -> str | None:
     for tag, kernel in (("i8blockdot_kernel", "q40_i8blockdot"),
                         ("blockdot_kernel", "q40_blockdot"),
                         ("slab_kernel", "q40_slab"), ("reduce_splits", "reduce_splits"),
-                        ("hop_vec16", "ring_hop"), ("hop_bytes", "ring_hop")):
+                        ("ring_seg_kernel", "ring_hop"), ("ring_step2_kernel", "ring_hop")):
         if tag in name:
             return kernel
     return None
@@ -952,9 +1106,12 @@ def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy
         by_name: dict = {}
         host: dict = {}
         kernels: dict = {}  # kernel -> [device us per step, launches per step]
+        device_ops = 0  # kernels, copies and fills the device ran
         for e in prof.key_averages():
             # kernels only: an aten op's own device time repeats its kernels'
             us = getattr(e, "self_device_time_total", 0.0) or 0.0
+            if e.device_type != DeviceType.CPU:
+                device_ops += e.count
             if us > 0 and e.device_type != DeviceType.CPU:
                 by_name[e.key] = by_name.get(e.key, 0.0) + us / steps
                 kernel = _kernel_of(e.key)
@@ -979,6 +1136,7 @@ def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy
                "q40_kernels_ms_per_step": q40_ms,
                "ring_hop_ms_per_step": hop_ms,
                "launches_per_step": launches,
+               "device_ops_per_step": device_ops / steps,
                "ring_hop_launches_per_step": ring["ring_hop_launches"],
                "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode,
                "q40_profiled_us_launches_per_step": kernels,
@@ -990,7 +1148,8 @@ def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy
         log(f"decode step [{label}]: p50 {out['step_ms_p50']:.2f} ms host clock, "
             f"device busy {device_ms:.2f} ms ({out['device_busy_share']:.3f} of the step), "
             f"Q40 kernels {q40_ms:.3f} ms, ring_hop {hop_ms:.3f} ms, launches per step "
-            f"{launches}, ring_hop {ring['ring_hop_launches']}, sync_bytes_per_decode "
+            f"{launches}, ring_hop {ring['ring_hop_launches']}, device ops "
+            f"{device_ops / steps}, sync_bytes_per_decode "
             f"{engine.stats.sync_bytes_per_decode}, profiled {kernels}")
         del engine
         torch.cuda.empty_cache()
@@ -1060,15 +1219,32 @@ def step_matmuls(torch, q, params, m: int = DECODE_M) -> dict:
 TP_LOGITS_TOL = 5e-2  # max|tp - single| <= TP_LOGITS_TOL * max|single|
 
 
-def tp_step_hops(torch, config, devices, lanes: int = DECODE_M) -> list:
-    """The ring hops of one tensor-parallel decode step on the f32 wire, as
-    ranks lists: per wo/w2 sync n-1 hops of the reduce chunk and n-1 of the
-    gather chunk [lanes, 1, dim/n] f32, then n-1 hops of the logits shards
-    [lanes, 1, vocab/n] f32."""
+def tp_step_hops(torch, rc, config, devices, lanes: int = DECODE_M) -> list:
+    """The ring steps of one tensor-parallel decode step on the f32 wire,
+    recorded from the collectives themselves at the model's widths: one
+    wo/w2 ``ring_sync_matmul`` of bf16 partials (n-1 reduce steps, the last
+    into the gather slots, then n-1 gather steps), repeated for the 2 syncs
+    of every layer, then the gather of the [lanes, 1, vocab/n] f32 logits
+    shards (its first step also places each rank's own shard)."""
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import col_shards
+
     n = len(devices)
-    chunk = [torch.randn((lanes, 1, config.dim // n)).to(d) for d in devices]
-    logits = [torch.randn((lanes, 1, config.vocab_size // n)).to(d) for d in devices]
-    return [chunk] * (2 * config.n_layers * 2 * (n - 1)) + [logits] * (n - 1)
+    mesh = make_mesh(MeshPlan(tp=n), devices)
+    w = torch.randn((config.dim, config.dim), device=devices[0]).to(torch.bfloat16) * 0.02
+    xs = [torch.randn((lanes, 1, config.dim // n), device=d).to(torch.bfloat16)
+          for d in devices]
+    logits = [torch.randn((lanes, 1, config.vocab_size // n), device=d) for d in devices]
+    real = rc.ring_step
+    sync, gather = [], []
+    try:
+        rc.ring_step = lambda recv: (sync.append(recv), real(recv))[1]
+        rc.ring_sync_matmul(xs, col_shards(w, mesh))
+        rc.ring_step = lambda recv: (gather.append(recv), real(recv))[1]
+        rc.ring_all_gather(logits)
+    finally:
+        rc.ring_step = real
+    return sync * (2 * config.n_layers) + gather
 
 
 def decode_phase(torch, q, rc, model: str):
@@ -1091,6 +1267,16 @@ def decode_phase(torch, q, rc, model: str):
                          label="tp2 v4, f32 wire"),
           step_breakdown(torch, q, rc, config, params, "auto", mesh=mesh, q80=True,
                          label="tp2 auto, Q80 wire")]
+    # one ring_hop launch per receiving rank per ring step: per layer two
+    # syncs of n-1 reduce and n-1 gather steps, then n-1 logits steps; the
+    # Q80 wire's values and scales share their step's launch. The counter
+    # is exact; the profiler may miss an event now and then
+    want = 2 * (2 - 1) * (4 * config.n_layers + 1)
+    for b in tp:
+        profiled = b["q40_profiled_us_launches_per_step"].get("ring_hop", [0, 0])[1]
+        check(b["ring_hop_launches_per_step"] == want and abs(profiled - want) < 1,
+              f"{b['mode']}: {b['ring_hop_launches_per_step']} ring_hop launches per step "
+              f"(profiled {profiled}), reckoned {want}")
     ref, got = breakdown[0]["prefill_logits"], tp[0]["prefill_logits"]
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
     check(bool(torch.isfinite(got).all()) and err <= TP_LOGITS_TOL * scale,
@@ -1098,13 +1284,13 @@ def decode_phase(torch, q, rc, model: str):
     tp_logits = {"max_abs_err": err, "max_abs_ref": scale, "tol": TP_LOGITS_TOL,
                  "argmax_equal": int(got.argmax()) == int(ref.argmax())}
     log("tp2 prefill logits against one device: " + json.dumps(tp_logits))
-    hop_step = time_hops(torch, rc, tp_step_hops(torch, config, devices))
+    hop_step = time_steps(torch, rc, tp_step_hops(torch, rc, config, devices))
     check(hop_step["launches"] == tp[0]["ring_hop_launches_per_step"]
           and hop_step["bytes"] == tp[0]["sync_bytes_per_decode"],
-          f"the timed hops ({hop_step['launches']}, {hop_step['bytes']} B) are not the "
+          f"the timed ring steps ({hop_step['launches']}, {hop_step['bytes']} B) are not the "
           f"decode step's ({tp[0]['ring_hop_launches_per_step']}, "
           f"{tp[0]['sync_bytes_per_decode']} B)")
-    log("ring hops of one tp2 decode step: " + json.dumps(hop_step))
+    log("ring steps of one tp2 decode step: " + json.dumps(hop_step))
     products = step_matmuls(torch, q, params)
     for b in breakdown + tp:
         del b["prefill_logits"]
@@ -1270,7 +1456,7 @@ def lab_line_entries(lab, lab_result) -> list:
 
 
 def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                 geometry, lab=None, lab_result=None) -> dict:
+                 geometry, lab=None, lab_result=None, timings=(), forms=()) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
     main path, each server counting from the end of its warmup). For a Q40
     kernel the times and the bound cover one decode step's products at the
@@ -1280,7 +1466,10 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
     hops of one tp=2 decode step on the f32 wire (``time_hops``) and the
     engine's TP decode steps. The slab's and blockdot's entries carry their
     ring stages, shared memory, registers and spills per m-tile and the plan
-    at each 1B site; blockdot's also its HMMA count in the SASS."""
+    at each 1B site; blockdot's also its HMMA count in the SASS,
+    i8blockdot's its IMMA count and its per-site times at m = 1, 8 and 32.
+    The ring hop's entry carries each segment form's time per hop beside
+    its library call and the launches per tp=2 step on both wires."""
     out = []
     for kernel, mode in DECODE_MODE_OF.items():
         mine = [c for c in checks if c["kernel"] == kernel and c["io"] == "f32"
@@ -1323,6 +1512,13 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
             else None,
             **({k: v for k, v in geometry[kernel].items() if k != "sms"}
                if kernel in geometry else {}),
+            **({"site_ms_by_m": {str(m): {t["site"]: {k: t[k] for k in (
+                "ms", "library_ms", "bound_ms")} for t in timings
+                if t["kernel"] == kernel and t["m"] == m} for m in I8_TIMED_M},
+                "edge_checks": sum(1 for c in checks if c["kernel"] == kernel
+                                   and c["d_in"] in BLOCKDOT_EDGE_D_IN
+                                   and c["d_out"] in BLOCKDOT_EDGE_D_OUT)}
+               if kernel == "q40_i8blockdot" else {}),
         })
     f32_step = tp[0]
     out.append({
@@ -1336,16 +1532,22 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
         "library_ms": hop_step["library_ms"], "bound_ms": hop_step["bound_ms"],
         "bound_by": hop_step["bound_by"],
         "placement": "same card" if hop_step["same_card"] else "peer across cards",
-        "timed_as": f"the {hop_step['launches']} hops ({hop_step['bytes']} bytes) of one "
-                    "tp=2 decode step at 8 lanes on the f32 wire: kernel and "
-                    "dst.copy_(src) in one CUDA graph each where the ranks share a card, "
-                    "plain eager",
+        "timed_as": f"the {hop_step['launches']} ring-step launches ({hop_step['bytes']} "
+                    "wire bytes) of one tp=2 decode step at 8 lanes on the f32 wire, recorded "
+                    "from the collectives: kernel, and each segment's library call "
+                    f"({hop_step['library_calls']} copy_ / torch.add(out=) calls), in one CUDA "
+                    "graph each where the ranks share a card, back to back (a best case: each "
+                    "dependent launch overlaps the step before it; on the decode path see "
+                    "profiled_ms_per_decode_step); plain eager",
         "launches_per_decode_step": f32_step["ring_hop_launches_per_step"],
         "launches_per_decode_step_by_mode": {b["mode"]: b["ring_hop_launches_per_step"]
                                              for b in tp},
         "sync_bytes_per_decode_by_mode": {b["mode"]: b["sync_bytes_per_decode"] for b in tp},
         "profiled_ms_per_decode_step": f32_step["ring_hop_ms_per_step"],
+        "device_ops_per_tp2_decode_step_by_mode": {b["mode"]: b["device_ops_per_step"]
+                                                   for b in tp},
         "payloads": hops,
+        "forms": list(forms),
     })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
@@ -1385,23 +1587,35 @@ def main() -> int:
 
         t0 = time.perf_counter()
         names = q.KERNELS + (rc.KERNEL,) + lab.KERNELS
-        libs = q.build_kernels(names)
+        one_kernel_build = build_one_kernel(q, rc)
+        try:
+            libs = q.build_kernels(names)
+        finally:
+            one_kernel = one_kernel_launch(rc, one_kernel_build)
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
         geometry = {"q40_slab": kernel_geometry(torch, q, q.slab_info),
-                    "q40_blockdot": kernel_geometry(torch, q, q.blockdot_info)}
+                    "q40_blockdot": kernel_geometry(torch, q, q.blockdot_info),
+                    "q40_i8blockdot": kernel_geometry(torch, q, q.i8blockdot_info)}
         for kernel, geo in geometry.items():
             log(f"{kernel} geometry: " + json.dumps(geo))
-        check(all(n == 0 for n in geometry["q40_blockdot"]["spill_bytes_per_thread"].values()),
-              "q40_blockdot spills registers")
-        geometry["q40_blockdot"]["hmma_in_sass"] = sass_hmma(libs["q40_blockdot"])
-        log("q40_blockdot HMMA in SASS: " + json.dumps(geometry["q40_blockdot"]["hmma_in_sass"]))
+        for kernel, opcode in (("q40_blockdot", "HMMA"), ("q40_i8blockdot", "IMMA")):
+            check(all(n == 0 for n in geometry[kernel]["spill_bytes_per_thread"].values()),
+                  f"{kernel} spills registers")
+            check(geometry[kernel]["stages"] == 3, f"{kernel}: {geometry[kernel]['stages']} "
+                                                   "ring stages, expected 3")
+            tag = kernel.removeprefix("q40_") + "_kernel"
+            geometry[kernel][f"{opcode.lower()}_in_sass"] = sass_hmma(libs[kernel], tag, opcode)
+            log(f"{kernel} {opcode} in SASS: "
+                + json.dumps(geometry[kernel][f"{opcode.lower()}_in_sass"]))
 
         checks, timings = kernel_phase(torch, q)
         hops = hop_phase(torch, rc)
+        forms = hop_forms(torch, q, rc, one_kernel)
         collectives = collectives_phase(torch, q, rc)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
-                       "collectives": collectives, "geometry": geometry}, f, indent=1)
+                       "hop_forms": forms, "collectives": collectives, "geometry": geometry},
+                      f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)
@@ -1416,7 +1630,7 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
         line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                            geometry, lab, lab_result)
+                            geometry, lab, lab_result, timings, forms)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -43,10 +43,11 @@
 // (the kAsync = false instantiation, chosen by the launcher from d_out and
 // the pointers), and the store writes only the columns below d_out. At
 // m-tiles of 8 and 16 rows the results leave through shared memory, so
-// that every warp writes whole row segments: at m = 8 the split-K partials
-// of a 1B model's products are 0.44-1.78x the bytes of their weights (all
-// but wcls). One row (m-tile 1) is stored straight from the fragments,
-// where the detour through shared memory measured slower.
+// that every warp writes whole row segments (store_fragments in
+// q40_common.cuh): at m = 8 the split-K partials of a 1B model's products
+// are 0.44-1.78x the bytes of their weights (all but wcls). One row
+// (m-tile 1) is stored straight from the fragments, where the detour
+// through shared memory measured slower.
 //
 // What bounds it on an H100: bytes. Per weight the kernel issues a fraction
 // of an instruction (a 16x16 fragment of weights costs about a dozen
@@ -58,7 +59,6 @@
 
 namespace {
 
-constexpr int kWarpCols = kTileCols / (kThreads / 32);  // 128 columns per warp
 constexpr int kXPitch = kChunkBlocks * 32 + 8;  // bf16 per staged x row: rows 4 banks apart
 
 // D (16x8 f32) = A (16x16 bf16, row) * B (16x8 bf16, col) + C
@@ -218,62 +218,8 @@ blockdot_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict_
     }
   }
 
-  const size_t plane = (size_t)blockIdx.z * m * d_out;
-  if constexpr (MT == 1) {
-    // one row, held by the lanes with t = 0 (fragment column 0): each
-    // stores its 16 columns straight away
-    if (!warp_active || t != 0) return;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // columns cw + 4q .. 4q+3
-      const int col = x0 + cw + 4 * q;
-      if (col >= d_out) continue;
-      // column 4q + c is M-tile 2q + c / 2, fragment half c % 2
-      const float v[kCols] = {acc[2 * q][0][0], acc[2 * q][0][2], acc[2 * q + 1][0][0],
-                              acc[2 * q + 1][0][2]};
-      store_cols_n<!kAsync>(part, out, out_bf16, splits, plane, (size_t)row0 * d_out + col, v,
-                            min(kCols, d_out - col));
-    }
-  } else {
-    // the results go out through shared memory, one N-tile of 8 rows x 512
-    // columns at a time over the drained ring, so that each warp writes
-    // whole 512-byte row segments (written straight from the fragments, a
-    // warp's stores scatter 16-byte pieces over 4 rows). The float4 column
-    // index is XORed with row / 2 = t, so that the fragment writes of rows
-    // 2t and 2t+1 by the 4 threads t fall in different banks.
-    float4* tile = reinterpret_cast<float4*>(&ring[0]);
-    constexpr int kC4 = kTileCols / 4;
-    static_assert(8 * kC4 * sizeof(float4) <= sizeof(ring), "an N-tile fits the ring");
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      __syncthreads();  // the ring (or the previous N-tile) is no longer read
-      if (warp_active) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 2 * t + e;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            tile[r * kC4 + ((cw / 4 + q) ^ t)] =
-                make_float4(acc[2 * q][nt][e], acc[2 * q][nt][2 + e], acc[2 * q + 1][nt][e],
-                            acc[2 * q + 1][nt][2 + e]);
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int it = 0; it < 8 * kC4 / kThreads; ++it) {
-        const int idx = it * kThreads + threadIdx.x;
-        const int r = idx / kC4;
-        const int c4 = idx % kC4;
-        const int i_row = 8 * nt + r;
-        const int col = x0 + 4 * c4;
-        if (i_row >= MT || row0 + i_row >= m || col >= d_out) continue;
-        const float4 f = tile[r * kC4 + (c4 ^ (r >> 1))];
-        const float v[kCols] = {f.x, f.y, f.z, f.w};
-        store_cols_n<!kAsync>(part, out, out_bf16, splits, plane,
-                              (size_t)(row0 + i_row) * d_out + col, v, min(kCols, d_out - col));
-      }
-    }
-  }
+  store_fragments<MT, !kAsync>(acc, ring, part, out, out_bf16, splits, m, d_out, x0, row0, cw,
+                                warp_active);
 }
 
 template <int MT>
@@ -293,17 +239,7 @@ void launch(bool async, dim3 grid, cudaStream_t s, const void* x, int x_bf16,
 
 template <int MT>
 int info_mt(int* out) {
-  cudaFuncAttributes attr;
-  cudaFuncAttributes tail;
-  cudaError_t err = cudaFuncGetAttributes(&attr, blockdot_kernel<MT, true>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&tail, blockdot_kernel<MT, false>);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = kStages;
-  out[1] = (int)attr.sharedSizeBytes;
-  out[2] = attr.numRegs;
-  out[3] = (int)(attr.localSizeBytes > tail.localSizeBytes ? attr.localSizeBytes
-                                                           : tail.localSizeBytes);
-  return 0;
+  return kernel_info(blockdot_kernel<MT, true>, blockdot_kernel<MT, false>, out);
 }
 
 }  // namespace
@@ -340,10 +276,9 @@ extern "C" int q40_blockdot_launch(const void* x, int x_bf16, const float* bsum,
   return finish(part, out, out_bf16, splits, (size_t)m * d_out, s);
 }
 
-// The geometry of the blockdot kernel at m-tile `mt` (cp.async stage):
-// out[0] ring stages, out[1] static shared memory bytes per thread block,
-// out[2] registers per thread, out[3] local (spill) bytes per thread, the
-// larger of the cp.async and the plain-load instantiation's. Returns a
+// The geometry of the blockdot kernel at m-tile `mt` (kernel_info in
+// q40_common.cuh: ring stages, shared memory, registers and spills, the
+// larger of the cp.async and the plain-load instantiation's). Returns a
 // CUDA error code.
 extern "C" int q40_blockdot_info(int mt, int* out) {
   switch (mt) {

@@ -1,7 +1,8 @@
 // Shared pieces of the three Q40 dequant-in-matmul kernels (q40_slab.cu,
 // q40_blockdot.cu, q40_i8blockdot.cu): thread-block geometry, operand
 // loads, the cp.async copies and the stage ring built on them, the
-// epilogue store and the split-K reduction.
+// epilogue stores (the tensor-core kernels' fragment store among them) and
+// the split-K reduction.
 //
 // Weight layout (quants/packed.py): packed uint8 [d_in/2, d_out], row
 // 16b+j holds input 32b+j in its low nibble and input 32b+16+j in its high
@@ -107,12 +108,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The cp.async stage ring both the slab and the blockdot kernel stream
-// their weights through: one stage is one quant block of a thread block's
-// kTileCols-column tile, its 16 packed rows plus its f16 scale row. A row
-// is padded by 16 bytes, so that 16-byte reads of the same column chunk in
-// rows 2 apart fall in different banks (the blockdot fragments read rows
-// 2t, 2t+1, 2t+8, 2t+9); 4-byte reads along one row stay conflict-free.
+// The cp.async stage ring all three kernels stream their weights through:
+// one stage is one quant block of a thread block's kTileCols-column tile,
+// its 16 packed rows plus its f16 scale row. A row is padded by 16 bytes,
+// so that 16-byte reads of the same column chunk in rows 2 apart fall in
+// different banks (the blockdot fragments read rows 2t, 2t+1, 2t+8, 2t+9;
+// i8blockdot's rows 4t..4t+3 in an order that keeps them apart, see
+// q40_i8blockdot.cu); 4-byte reads along one row stay conflict-free.
 constexpr int kStages = 3;                    // ring depth: kStages - 1 blocks in flight
 constexpr int kTileCols = kThreads * kCols;   // 512 output columns per thread block
 constexpr int kRowPitch = kTileCols + 16;     // bytes per staged packed row
@@ -209,6 +211,103 @@ __device__ __forceinline__ void store_cols_n(float* part, void* out, int out_bf1
       }
     }
   }
+}
+
+// The tensor-core kernels' fragment geometry (q40_blockdot.cu,
+// q40_i8blockdot.cu): thread (g = lane / 4, t = lane % 4) of warp w owns
+// the 16 columns w * kWarpCols + g * 16 .. +15 of the thread block's tile,
+// as 8 M-tiles of 16 fragment rows; M-tile i maps fragment rows g and g + 8
+// to columns 2i and 2i + 1 of those 16. Its f32 results acc[i][nt][e] are
+// the m16n8 accumulator fragment of M-tile i and N-tile nt (8 activation
+// rows): e = 0, 1 column 2i, rows 2t, 2t + 1; e = 2, 3 column 2i + 1.
+constexpr int kWarpCols = kTileCols / (kThreads / 32);  // 128 columns per warp
+
+// Stores the fragments' results, rows past m and columns past d_out
+// dropped. One row (MT = 1), held by the lanes with t = 0 (fragment column
+// 0): each stores its 16 columns straight away. At m-tiles of 8 and 16 rows
+// the results go out through shared memory, one N-tile of 8 rows x 512
+// columns at a time over the drained stage ring, so that each warp writes
+// whole 512-byte row segments (written straight from the fragments, a
+// warp's stores scatter 16-byte pieces over 4 rows). The float4 column
+// index is XORed with row / 2 = t, so that the fragment writes of rows 2t
+// and 2t + 1 by the 4 threads t fall in different banks. Every thread of
+// the block calls it (it holds barriers when MT > 1).
+template <int MT, bool kTail>
+__device__ __forceinline__ void store_fragments(const float (&acc)[8][(MT + 7) / 8][4],
+                                                SlabStage* ring, float* part, void* out,
+                                                int out_bf16, int splits, int m, int d_out,
+                                                int x0, int row0, int cw, bool warp_active) {
+  constexpr int NT = (MT + 7) / 8;
+  const int t = (threadIdx.x % 32) % 4;
+  const size_t plane = (size_t)blockIdx.z * m * d_out;
+  if constexpr (MT == 1) {
+    if (!warp_active || t != 0) return;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // columns cw + 4q .. 4q+3
+      const int col = x0 + cw + 4 * q;
+      if (col >= d_out) continue;
+      // column 4q + c is M-tile 2q + c / 2, fragment half c % 2
+      const float v[kCols] = {acc[2 * q][0][0], acc[2 * q][0][2], acc[2 * q + 1][0][0],
+                              acc[2 * q + 1][0][2]};
+      store_cols_n<kTail>(part, out, out_bf16, splits, plane, (size_t)row0 * d_out + col, v,
+                          min(kCols, d_out - col));
+    }
+  } else {
+    float4* tile = reinterpret_cast<float4*>(ring);
+    constexpr int kC4 = kTileCols / 4;
+    static_assert(8 * kC4 * sizeof(float4) <= kStages * sizeof(SlabStage),
+                  "an N-tile fits the ring");
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      __syncthreads();  // the ring (or the previous N-tile) is no longer read
+      if (warp_active) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 2 * t + e;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            tile[r * kC4 + ((cw / 4 + q) ^ t)] =
+                make_float4(acc[2 * q][nt][e], acc[2 * q][nt][2 + e], acc[2 * q + 1][nt][e],
+                            acc[2 * q + 1][nt][2 + e]);
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < 8 * kC4 / kThreads; ++it) {
+        const int idx = it * kThreads + threadIdx.x;
+        const int r = idx / kC4;
+        const int c4 = idx % kC4;
+        const int i_row = 8 * nt + r;
+        const int col = x0 + 4 * c4;
+        if (i_row >= MT || row0 + i_row >= m || col >= d_out) continue;
+        const float4 f = tile[r * kC4 + (c4 ^ (r >> 1))];
+        const float v[kCols] = {f.x, f.y, f.z, f.w};
+        store_cols_n<kTail>(part, out, out_bf16, splits, plane,
+                            (size_t)(row0 + i_row) * d_out + col, v, min(kCols, d_out - col));
+      }
+    }
+  }
+}
+
+// A tensor-core kernel's geometry at m-tile MT (its cp.async and its
+// plain-load instantiation): out[0] ring stages, out[1] static shared
+// memory bytes per thread block, out[2] registers per thread, out[3] local
+// (spill) bytes per thread, the larger of the two instantiations'.
+template <typename K>
+inline int kernel_info(K async_kernel, K plain_kernel, int* out) {
+  cudaFuncAttributes attr;
+  cudaFuncAttributes other;
+  cudaError_t err = cudaFuncGetAttributes(&attr, async_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&other, plain_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kStages;
+  out[1] = (int)(attr.sharedSizeBytes > other.sharedSizeBytes ? attr.sharedSizeBytes
+                                                               : other.sharedSizeBytes);
+  out[2] = attr.numRegs > other.numRegs ? attr.numRegs : other.numRegs;
+  out[3] = (int)(attr.localSizeBytes > other.localSizeBytes ? attr.localSizeBytes
+                                                            : other.localSizeBytes);
+  return 0;
 }
 
 // True when a thread's kCols columns can be read as one vector: packed rows

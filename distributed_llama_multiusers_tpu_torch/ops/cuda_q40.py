@@ -19,8 +19,8 @@ Three hand-written CUDA C++ kernels under ``csrc/`` (built with ``nvcc`` for
   raw nibbles against bf16 x on the tensor cores (``mma.sync`` m16n8k16,
   f32 results), then (· − 8·bsum_b)·s_b on the block result.
 - ``q40_i8blockdot`` (``csrc/q40_i8blockdot.cu``) — per quant block, int8 dots
-  of the raw nibbles against Q80-quantized x (``__dp4a``), then
-  (sx_b·d − 8·bsum_b)·s_b.
+  of the raw nibbles against Q80-quantized x on the tensor cores
+  (``mma.sync`` m16n8k32, int32 results), then (sx_b·d − 8·bsum_b)·s_b.
 
 Beside each kernel is its plain PyTorch version (``q40_slab_plain``,
 ``q40_blockdot_plain``, ``q40_i8blockdot_plain``) with the kernel's exact
@@ -455,9 +455,15 @@ def slab_info(mt: int) -> dict:
 
 def blockdot_info(mt: int) -> dict:
     """The built blockdot kernel's geometry at m-tile ``mt``, as
-    ``slab_info`` gives the slab's; ``local_bytes`` is the larger of its
+    ``slab_info`` gives the slab's; each field is the larger of its
     cp.async and plain-load stage instantiations'."""
     return _kernel_info("q40_blockdot", mt)
+
+
+def i8blockdot_info(mt: int) -> dict:
+    """The built i8blockdot kernel's geometry at m-tile ``mt``, as
+    ``blockdot_info`` gives blockdot's."""
+    return _kernel_info("q40_i8blockdot", mt)
 
 
 def _check_weight(w: PackedQ40, device: torch.device) -> None:

@@ -22,9 +22,10 @@ import torch
 Q80_BLOCK = 32
 
 
-def q80_encode_blocks(x: torch.Tensor, mode: str = "runtime"):
+def q80_encode_blocks(x: torch.Tensor, mode: str = "runtime", out: tuple | None = None):
     """x [..., n] with n % 32 == 0 -> (q int8 [..., n/32, 32], scales f16
-    [..., n/32, 1])."""
+    [..., n/32, 1]). ``out``: an (int8, f16) pair of those shapes, possibly
+    views into wider buffers, written in place and returned."""
     shape = x.shape
     if shape[-1] % Q80_BLOCK:
         raise ValueError(f"last dim {shape[-1]} is not a whole number of "
@@ -41,7 +42,11 @@ def q80_encode_blocks(x: torch.Tensor, mode: str = "runtime"):
         q = torch.round(scaled)
     else:
         raise ValueError(f"unknown Q80 rounding mode {mode!r}")
-    return q.clamp(-128, 127).to(torch.int8), d32.to(torch.float16)
+    if out is None:
+        return q.clamp(-128, 127).to(torch.int8), d32.to(torch.float16)
+    out[0].copy_(q.clamp(-128, 127))
+    out[1].copy_(d32)
+    return out
 
 
 def q80_decode_blocks(q: torch.Tensor, scales: torch.Tensor, out_shape) -> torch.Tensor:

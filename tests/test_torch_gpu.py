@@ -1,6 +1,7 @@
-"""The port on a CUDA card: each Q40 kernel against its plain version, the
-dispatch's mode routing at the m = 32/33 boundary, a tiny model served by
-the engine on the card, the ring hop against its plain version and the
+"""The port on a CUDA card: each Q40 kernel against its plain version (the
+tensor-core kernels at their fragment edges), the dispatch's mode routing
+at the m = 32/33 boundary, a tiny model served by the engine on the card,
+the ring-step kernel's forms against its plain version and the
 tensor-parallel forward with two ranks on one card. Marked ``gpu``; without
 a card every test skips.
 
@@ -180,6 +181,74 @@ def test_blockdot_info_reports_ring_and_no_spills(cuda, mt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_out", [16, 48, 520, 1026, 8192])
+@pytest.mark.parametrize("d_in", [32, 64, 2048])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 32])
+def test_i8blockdot_tensor_core_edges(cuda, m, d_in, d_out, dtype):
+    """The tensor-core i8blockdot kernel (int8 mma.sync m16n8k32) against its
+    plain version at the edges of its fragments, as blockdot's: m around
+    its N-tiles and m-tiles, one, two and many quant blocks, one M-tile, a
+    partial 512 tile, the plain-load stage and a column tail, many tiles."""
+    rng = np.random.default_rng(m * 1000 + d_in + d_out + 7)
+    w = _random_planes(rng, d_in, d_out, cuda)
+    x = torch.from_numpy(rng.standard_normal((m, d_in), dtype=np.float32)).to(cuda, dtype)
+    acts = q.make_q80_acts(x)
+    before = q.LAUNCHES["q40_i8blockdot"]
+    got = q.q40_i8blockdot(acts, w)
+    ref = q.q40_i8blockdot_plain(acts, w)
+    torch.cuda.synchronize()
+    assert q.LAUNCHES["q40_i8blockdot"] == before + 1
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_i8blockdot_extreme_scales_and_saturation(cuda):
+    """f16-extreme scales (+-65504 and the smallest subnormal, 2^-24) with x
+    spanning 1e-3..1e3; x whose int8 values saturate at +-127 against
+    all-15 nibbles (block dots of +-60,960, the int32 extreme); all-zero
+    blocks, where sx = 1e-8/127 and bsum = 0; at a split plan and a single
+    one."""
+    rng = np.random.default_rng(8)
+    for m, d_in, d_out in ((8, 2048, 1024), (1, 32, 48), (17, 64, 48)):
+        scales = np.where(rng.random((d_in // 32, d_out)) < 0.5, 65504.0,
+                          2.0 ** -24).astype(np.float16)
+        scales *= np.where(rng.random(scales.shape) < 0.5, -1, 1).astype(np.float16)
+        w = _random_planes(rng, d_in, d_out, cuda, scales)
+        mag = 10.0 ** rng.uniform(-3, 3, (m, d_in))
+        x = (mag * np.sign(rng.standard_normal((m, d_in)))).astype(np.float32)
+        acts = q.make_q80_acts(torch.from_numpy(x).to(cuda))
+        got = q.q40_i8blockdot(acts, w)
+        ref = q.q40_i8blockdot_plain(acts, w)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, torch.float32)
+    for m, d_in, d_out in ((8, 2048, 1024), (17, 64, 48)):
+        packed = rng.integers(0, 256, (d_in // 2, d_out), dtype=np.uint8)
+        packed[:, : d_out // 2] = 0xFF
+        w = _random_planes(rng, d_in, d_out, cuda)
+        w = PackedQ40(torch.from_numpy(packed).to(cuda), w.scales)
+        sign = np.where(rng.random((m, d_in // 32, 1)) < 0.5, -1.0, 1.0)
+        x = np.broadcast_to(sign * 3.0, (m, d_in // 32, 32)).reshape(m, d_in).copy()
+        x[::2, : d_in // 2] = 0.0
+        acts = q.make_q80_acts(torch.from_numpy(x.astype(np.float32)).to(cuda))
+        assert int(acts.xq.abs().max()) == 127
+        assert float(acts.sx.min()) == pytest.approx(1e-8 / 127)
+        got = q.q40_i8blockdot(acts, w)
+        ref = q.q40_i8blockdot_plain(acts, w)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mt", [1, 8, 16])
+def test_i8blockdot_info_reports_ring_and_no_spills(cuda, mt):
+    info = q.i8blockdot_info(mt)
+    assert info["stages"] == 3
+    assert info["local_bytes"] == 0, info
+    assert 0 < info["registers"] <= 255 and info["smem_bytes"] <= 48 * 1024, info
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode,at32", [("auto", "q40_i8blockdot"), ("blockdot", "q40_blockdot"),
                                        ("v4", "q40_slab")])
 def test_dispatch_routes_at_the_boundary(cuda, mode, at32):
@@ -224,28 +293,86 @@ def test_engine_serves_tiny_model_on_card(cuda, tmp_path):
     assert q.PLAIN_CALLS == {k: 0 for k in q.KERNELS}
 
 
+def _offset_tensors(cuda, shape, dtype, offset, n=3, scale=50):
+    """n tensors of ``shape``, each an element ``offset`` into its buffer
+    (offset 1 leaves the data off 16-byte alignment)."""
+    size = int(np.prod(shape))
+    return [(torch.randn(size + offset, device=cuda) * scale).to(dtype)[offset:].view(shape)
+            for _ in range(n)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,offset", [((8, 1024), torch.float32, 0),
                                                  ((8, 32, 1), torch.float16, 0),
                                                  ((3, 37), torch.int8, 0),
-                                                 ((5, 33), torch.float32, 1)])
+                                                 ((5, 33), torch.float32, 1),
+                                                 ((8, 1024), torch.bfloat16, 0),
+                                                 ((5, 33), torch.bfloat16, 1)])
 def test_ring_hop_matches_plain(cuda, shape, dtype, offset):
-    """The hop kernel bit for bit against its plain version: 16-byte vector
-    copies with a byte tail (int8 [3, 37]: 111 bytes), and the byte path for
-    a source that is not 16-byte aligned (an element offset into a buffer)."""
+    """The ring-step kernel bit for bit against its plain version: the bare
+    hop (16-byte vector copies with a byte tail, int8 [3, 37]: 111 bytes,
+    and the element path for a source that is not 16-byte aligned); the add
+    form (f32 and bf16 addends into f32, bf16 into bf16, rounded once);
+    the slot form (into column slot 1 of a [..., 3 * C] output, the rest of
+    which stays as it was); two segments in one launch (the payload and an
+    f16 side payload, as the Q80 wire's values and scales ride)."""
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
-    n = int(np.prod(shape))
-    xs = []
-    for r in range(3):
-        base = (torch.randn(n + offset, device=cuda) * 50).to(dtype)
-        xs.append(base[offset:].view(shape))
+    n = 3
+    xs = _offset_tensors(cuda, shape, dtype, offset, n)
     rc.reset_counts()
     got, ref = rc.ring_shift(xs), rc.ring_shift_plain(xs)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, ref))
-    assert rc.COUNTS["launches"] == 3 and rc.COUNTS["plain_calls"] == 0
-    assert rc.COUNTS["bytes"] == 3 * xs[0].numel() * xs[0].element_size()
+    assert rc.COUNTS["launches"] == n and rc.COUNTS["plain_calls"] == 0
+    assert rc.COUNTS["bytes"] == n * xs[0].numel() * xs[0].element_size()
+
+    def both(build):
+        """The same step through the kernel and the plain version, on
+        destinations that start equal."""
+        outs_k, outs_p = build(), build()
+        for a, b in zip(outs_k[0], outs_p[0]):
+            b.copy_(a)
+        rc.ring_step(outs_k[1])
+        rc.ring_step_plain(outs_p[1])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs_k[0], outs_p[0]))
+
+    adds = {torch.float32: (torch.float32, torch.bfloat16),
+            torch.bfloat16: (torch.bfloat16,)}.get(dtype, ())
+    for add_dtype in adds:
+        addend = _offset_tensors(cuda, shape, add_dtype, offset, n)
+
+        def add_form(addend=addend):
+            dst = [torch.full_like(x, 3) for x in xs]
+            return dst, [[rc.Seg(xs[(r - 1) % n], dst[r], addend[r])] for r in range(n)]
+
+        both(add_form)
+    c = shape[-1]
+
+    def slot_form():
+        outs = [(torch.randn(*shape[:-1], n * c, device=cuda) * 9).to(dtype) for _ in range(n)]
+        return outs, [[rc.Seg(xs[(r - 1) % n], outs[r][..., c:2 * c])] for r in range(n)]
+
+    side = [torch.randn(shape[0], 2, device=cuda).to(torch.float16) for _ in range(n)]
+
+    def two_segments():
+        dst = [torch.empty_like(x) for x in xs]
+        sdst = [torch.empty_like(t) for t in side]
+        return dst + sdst, [[rc.Seg(xs[(r - 1) % n], dst[r]), rc.Seg(side[(r - 1) % n], sdst[r])]
+                            for r in range(n)]
+
+    both(slot_form)
+    both(two_segments)
+    if dtype == torch.float32:  # a slot form with its add: the last reduce hop
+        addend = [torch.randn(shape, device=cuda).to(torch.bfloat16) for _ in range(n)]
+
+        def add_slot():
+            outs = [torch.zeros(*shape[:-1], n * c, device=cuda) for _ in range(n)]
+            return outs, [[rc.Seg(xs[(r - 1) % n], outs[r][..., 2 * c:], addend[r])]
+                          for r in range(n)]
+
+        both(add_slot)
 
 
 @pytest.mark.gpu

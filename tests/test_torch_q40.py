@@ -282,3 +282,138 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tq.build_kernels()
 
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core i8blockdot kernel's fragment mapping, modelled in numpy
+# ---------------------------------------------------------------------------
+
+ROW_PITCH = 528  # bytes per staged packed row (csrc/q40_common.cuh, kRowPitch)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: byte j of the result is byte (s >> 4j) & 7 of
+    the 8 bytes of (y, x)."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(s >> (4 * j)) & 7] << (8 * j) for j in range(4))
+
+
+def _words(b: np.ndarray) -> list:
+    return [int.from_bytes(b[4 * q:4 * q + 4].tobytes(), "little") for q in range(len(b) // 4)]
+
+
+def _s8(word: int) -> list:
+    return [int(np.int8(np.uint8((word >> (8 * i)) & 0xFF))) for i in range(4)]
+
+
+def _load_row(t: int, r: int) -> int:
+    """The staged row thread (g, t) reads in its 16-byte load r."""
+    return 4 * t + (r ^ (t & 2))
+
+
+def _i8_fragment_model(xq, sx, bsum, packed, scales, m):
+    """csrc/q40_i8blockdot.cu at one m-tile of NT N-tiles, one split, as its
+    threads compute it: the transposing reads of the staged rows, the
+    m16n8k32 s8 A/B/C fragments as PTX lays them out, the f32 epilogue.
+    Returns (y [m, d_out] f32, the int32 block dots [n_blk, 8*NT, d_out])."""
+    d_in, d_out = 2 * packed.shape[0], packed.shape[1]
+    n_blk, nt_count = d_in // 32, (m + 7) // 8
+    xs = np.zeros((8 * nt_count, d_in), np.int8)
+    xs[:m] = xq
+    acc = np.zeros((8 * nt_count, d_out), np.float32)
+    dots = np.zeros((n_blk, 8 * nt_count, d_out), np.int64)
+    for b in range(n_blk):
+        stage = packed[16 * b:16 * b + 16]
+        for w in range(d_out // 128):
+            for nt in range(nt_count):
+                for i in range(8):  # M-tile i of the warp's fragments
+                    a = np.zeros((16, 32), np.int64)
+                    bm = np.zeros((32, 8), np.int64)
+                    cols = {}
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        cw = w * 128 + g * 16
+                        loads = [_words(stage[_load_row(t, r), cw:cw + 16]) for r in range(4)]
+                        sel = (0x1054, 0x3276) if t & 2 else (0x5410, 0x7632)
+                        q, h = i // 2, i % 2
+                        u0 = _byte_perm(loads[0][q], loads[1][q], 0x5140)
+                        u1 = _byte_perm(loads[2][q], loads[3][q], 0x5140)
+                        u2 = _byte_perm(loads[0][q], loads[1][q], 0x7362)
+                        u3 = _byte_perm(loads[2][q], loads[3][q], 0x7362)
+                        col = [_byte_perm(u0, u1, sel[0]), _byte_perm(u0, u1, sel[1]),
+                               _byte_perm(u2, u3, sel[0]), _byte_perm(u2, u3, sel[1])]
+                        ca, cb = col[2 * h], col[2 * h + 1]
+                        regs = [ca & 0x0F0F0F0F, cb & 0x0F0F0F0F, (ca >> 4) & 0x0F0F0F0F,
+                                (cb >> 4) & 0x0F0F0F0F]
+                        # a0: row g, k 4t+j; a1: row g+8; a2/a3: k 16+4t+j
+                        for reg, (row, k0) in zip(regs, ((g, 4 * t), (g + 8, 4 * t),
+                                                         (g, 16 + 4 * t), (g + 8, 16 + 4 * t))):
+                            a[row, k0:k0 + 4] = _s8(reg)
+                        xrow = xs[8 * nt + g, 32 * b:32 * b + 32]
+                        bm[4 * t:4 * t + 4, g] = _s8(_words(xrow[4 * t:4 * t + 4])[0])
+                        bm[16 + 4 * t:20 + 4 * t, g] = _s8(_words(xrow[16 + 4 * t:20 + 4 * t])[0])
+                        cols[g], cols[g + 8] = cw + 2 * i, cw + 2 * i + 1
+                    d = a @ bm  # [16 fragment rows, 8 activation rows]
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        for e, (row, n) in enumerate(((g, 2 * t), (g, 2 * t + 1),
+                                                      (g + 8, 2 * t), (g + 8, 2 * t + 1))):
+                            col, r = cols[row], 8 * nt + n
+                            dots[b, r, col] = d[row, n]
+                            sxv = sx[r, b] if r < m else np.float32(0)
+                            corr = np.float32(8) * (bsum[r, b] if r < m else np.float32(0))
+                            inner = np.float32(np.float64(sxv) * d[row, n] - np.float64(corr))
+                            acc[r, col] = np.float32(np.float64(inner) * np.float64(
+                                np.float32(scales[b, col])) + np.float64(acc[r, col]))
+    return acc[:m], dots
+
+
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_i8blockdot_fragment_model_matches_plain(m):
+    """A numpy model of the tensor-core kernel's fragment gather and
+    epilogue on a tiny weight (two quant blocks, two warps of columns): its
+    int32 block dots equal the exact integer dots of the packed layout, and
+    its output equals ``q40_i8blockdot_plain`` within 1e-4 of max|y| (the
+    f32 summation order over blocks differs)."""
+    rng = np.random.default_rng(90 + m)
+    d_in, d_out = 64, 256
+    packed = rng.integers(0, 256, (d_in // 2, d_out), dtype=np.uint8)
+    scales = (rng.standard_normal((d_in // 32, d_out)) * 0.05).astype(np.float16)
+    x = rng.standard_normal((m, d_in)).astype(np.float32)
+    acts = tq.make_q80_acts(torch.from_numpy(x))
+    xq, sx, bsum = acts.xq.numpy(), acts.sx.numpy(), acts.bsum.numpy()
+    y, dots = _i8_fragment_model(xq, sx, bsum, packed, scales, m)
+    lo = (packed & 0x0F).astype(np.int64).reshape(d_in // 32, 16, d_out)
+    hi = (packed >> 4).astype(np.int64).reshape(d_in // 32, 16, d_out)
+    xb = xq.astype(np.int64).reshape(m, d_in // 32, 2, 16)
+    exact = (np.einsum("mbj,bjo->bmo", xb[:, :, 0], lo)
+             + np.einsum("mbj,bjo->bmo", xb[:, :, 1], hi))
+    np.testing.assert_array_equal(dots[:, :m], exact)
+    assert not dots[:, m:].any()  # the zero-padded rows of the N-tile
+    ref = tq.q40_i8blockdot_plain(acts, PackedQ40(torch.from_numpy(packed),
+                                                  torch.from_numpy(scales))).numpy()
+    assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def _banks(rows_of, lanes) -> list:
+    """Per lane of a quarter-warp, the 4 banks its 16-byte load of the
+    staged row rows_of(t) at column g * 16 touches."""
+    out = []
+    for lane in lanes:
+        g, t = lane // 4, lane % 4
+        word = (rows_of(t) * ROW_PITCH + g * 16) // 4
+        out += [(word + j) % 32 for j in range(4)]
+    return out
+
+
+def test_i8blockdot_transposing_reads_are_free_of_bank_conflicts():
+    """Each of a thread's four 16-byte loads, quarter-warp by quarter-warp,
+    touches every bank of the 528-byte-pitch stage once; reading rows
+    4t..4t+3 in plain order would put rows 8 apart (t = 0 and 2) on the
+    same banks."""
+    for r in range(4):
+        for quarter in range(4):
+            lanes = range(8 * quarter, 8 * quarter + 8)
+            assert sorted(_banks(lambda t: _load_row(t, r), lanes)) == list(range(32))
+    plain = _banks(lambda t: 4 * t, range(8))
+    assert len(set(plain)) < 32

@@ -81,8 +81,8 @@ def test_ring_shift_rejects_what_the_kernel_does_not_take():
         rc.ring_shift([a, torch.zeros(2, 8, dtype=torch.float64)])
     with pytest.raises(ValueError, match="contiguous"):
         rc.ring_shift([a, torch.zeros(8, 2).t()])
-    with pytest.raises(ValueError, match="channel"):
-        rc.ring_shift([a, a], chan=2)
+    with pytest.raises(ValueError, match="empty"):
+        rc.ring_shift([torch.zeros(2, 0), torch.zeros(2, 0)])
 
 
 @pytest.mark.parametrize("tp", TPS)
@@ -113,6 +113,135 @@ def test_ring_all_reduce_fallback_matches_psum(tp):
     else:
         np.testing.assert_allclose(np.stack([g.numpy() for g in got]), want,
                                    rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+# (destination dtype, addend dtype): the ring step's add forms
+ADD_FORMS = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+_J = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_T = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _recv_add(src: list, add: list, dst: list) -> list:
+    n = len(src)
+    return [[rc.Seg(src[(r - 1) % n], dst[r], add[r])] for r in range(n)]
+
+
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("dst_dtype,add_dtype", ADD_FORMS)
+def test_ring_step_add_matches_ppermute_then_add(tp, dst_dtype, add_dtype):
+    """The fused hop's add form, the received operand on the left: bit for
+    bit the JAX package's ppermute followed by the add (f32 + f32, f32 +
+    bf16 widened, bf16 + bf16 rounded once), through ring_step_plain and
+    through ring_step (one plain call per receiving rank)."""
+    x = _random(tp, 2, 2, 3, 40, seed=40 + tp)  # [tp, (src, addend), ...]
+    want = _per_device(lambda a: jax.lax.ppermute(a[0].astype(_J[dst_dtype]), "tp",
+                                                  jrc._ring_perm(tp))
+                       + a[1].astype(_J[add_dtype]), x, tp)
+    src = [torch.from_numpy(a[0]).to(_T[dst_dtype]) for a in x]
+    add = [torch.from_numpy(a[1]).to(_T[add_dtype]) for a in x]
+    for step in (rc.ring_step_plain, rc.ring_step):
+        rc.reset_counts()
+        dst = [torch.full_like(t, float("nan")) for t in src]
+        step(_recv_add(src, add, dst))
+        assert all(d.dtype == _T[dst_dtype] for d in dst)
+        np.testing.assert_array_equal(np.stack([d.float().numpy() for d in dst]),
+                                      np.asarray(want, np.float32))
+    assert rc.ring_counts() == {"ring_hop_launches": 0, "ring_hop_plain_calls": tp,
+                                "ring_hop_bytes": tp * src[0].numel() * src[0].element_size()}
+
+
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("add", [False, True])
+def test_ring_step_slot_destination(tp, add):
+    """A hop (and a hop with its add) landing in column slot k of a wider
+    [..., n*C] output: the slot equals the JAX ppermute (then add), and no
+    other column of the output is written."""
+    c = 24
+    x = _random(tp, 2, 2, 3, c, seed=50 + tp)
+    want = _per_device(lambda a: jax.lax.ppermute(a[0], "tp", jrc._ring_perm(tp))
+                       + (a[1] if add else 0), x, tp)
+    src = [torch.from_numpy(a[0]) for a in x]
+    addend = [torch.from_numpy(a[1]) for a in x]
+    for k in range(tp):
+        outs = [torch.full((2, 3, tp * c), -7.0) for _ in range(tp)]
+        dst = [o[..., k * c:(k + 1) * c] for o in outs]
+        rc.ring_step([[rc.Seg(src[(r - 1) % tp], dst[r], addend[r] if add else None)]
+                      for r in range(tp)])
+        for r, o in enumerate(outs):
+            np.testing.assert_array_equal(o[..., k * c:(k + 1) * c].numpy(), want[r])
+            rest = torch.cat([o[..., :k * c], o[..., (k + 1) * c:]], dim=-1)
+            assert bool((rest == -7.0).all())
+
+
+@pytest.mark.parametrize("tp", TPS)
+def test_ring_step_two_segments_match_two_ppermutes(tp):
+    """The Q80 wire's step: int8 values and f16 scales, two segments of one
+    launch per rank, each bit for bit its own ppermute; one plain call per
+    rank, the bytes of both."""
+    rng = np.random.default_rng(60 + tp)
+    q = rng.integers(-127, 128, (tp, 3, 2, 32)).astype(np.int8)
+    s = rng.standard_normal((tp, 3, 2, 1)).astype(np.float16)
+    perm = jrc._ring_perm(tp)
+    want_q = _per_device(lambda a: jax.lax.ppermute(a, "tp", perm), q, tp)
+    want_s = _per_device(lambda a: jax.lax.ppermute(a, "tp", perm), s, tp)
+    qs, ss = _ranks(q), _ranks(s)
+    dq, ds = [torch.empty_like(t) for t in qs], [torch.empty_like(t) for t in ss]
+    rc.reset_counts()
+    rc.ring_step([[rc.Seg(qs[(r - 1) % tp], dq[r]), rc.Seg(ss[(r - 1) % tp], ds[r])]
+                  for r in range(tp)])
+    _same(dq, want_q)
+    np.testing.assert_array_equal(np.stack([d.numpy() for d in ds]).view(np.uint16),
+                                  np.asarray(want_s).view(np.uint16))
+    assert rc.ring_counts() == {"ring_hop_launches": 0, "ring_hop_plain_calls": tp,
+                                "ring_hop_bytes": tp * (q[0].nbytes + s[0].nbytes)}
+
+
+def test_ring_step_rejects_what_the_kernel_does_not_take():
+    a, b = torch.zeros(2, 8), torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="does not match"):
+        rc.ring_step([[rc.Seg(a, torch.zeros(2, 4))]])
+    with pytest.raises(ValueError, match="adds f32 or bf16"):
+        rc.ring_step([[rc.Seg(a, b, torch.zeros(2, 8, dtype=torch.float16))]])
+    with pytest.raises(ValueError, match="segments"):
+        rc.ring_step([[rc.Seg(a, b)] * 3])
+    with pytest.raises(ValueError, match="row pitch"):
+        rc.ring_step([[rc.Seg(torch.zeros(4, 3, 8)[:, :2], torch.zeros(4, 2, 8))]])
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        rc.ring_step([[rc.Seg(torch.zeros(8, 2).t(), b)]])
+
+
+# one decode step of the full-width 1B model at tp=2 and 8 lanes: per layer
+# two syncs of d_out = dim, then the logits gather of [8, 1, vocab / 2]
+_STEP_1B = dict(dim=2048, layers=16, vocab=128256, lanes=8)
+
+
+@pytest.mark.parametrize("q80_wire", [False, True])
+def test_ring_step_counts_per_tp2_decode_step(q80_wire):
+    """The ring's launches (plain calls here) and wire bytes per tp=2 decode
+    step of the 1B model, from one wo/w2 sync at its real width and one
+    logits gather: one launch per receiving rank per ring step, so 130 on
+    both wires (the Q80 wire's values and scales ride one launch: 194
+    separate hops before), and the bytes sync_bytes_per_decode reports."""
+    g, n = _STEP_1B, 2
+    mesh = make_mesh(MeshPlan(tp=n), ["cpu"] * n)
+    ws = col_shards(torch.zeros(g["dim"], g["dim"]), mesh)
+    xs = [torch.zeros(g["lanes"], 1, g["dim"] // n) for _ in range(n)]
+    rc.reset_counts()
+    rc.ring_sync_matmul(xs, ws, q80_wire=q80_wire)
+    sync = rc.ring_counts()
+    per_sync = 2 * n * (n - 1)  # n-1 reduce steps and n-1 gather steps, every rank
+    assert sync["ring_hop_plain_calls"] == per_sync
+    rc.reset_counts()
+    rc.ring_all_gather([torch.zeros(g["lanes"], 1, g["vocab"] // n) for _ in range(n)])
+    logits = rc.ring_counts()
+    assert logits["ring_hop_plain_calls"] == n * (n - 1)
+    syncs = 2 * g["layers"]
+    calls = syncs * sync["ring_hop_plain_calls"] + logits["ring_hop_plain_calls"]
+    nbytes = syncs * sync["ring_hop_bytes"] + logits["ring_hop_bytes"]
+    assert calls == 130
+    assert nbytes == (6_758_400 if q80_wire else 8_298_496)
+    if q80_wire:  # separate value and scale hops: one more step per rank per sync
+        assert calls + syncs * n * (n - 1) == 194
 
 
 def _codec_inputs():
