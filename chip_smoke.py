@@ -7,7 +7,8 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels, the ring step and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
+   Q40 kernels, the ring step, the sampler, the decode attention and the
+   lab's kernels from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time
    and the slab, blockdot and i8blockdot kernels' geometry (ring stages,
    shared memory per thread block, registers and spills, the plan at each
@@ -34,21 +35,43 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    timed per hop beside its library call (``copy_``, ``torch.add(out=)``,
    the slot ``copy_``); the ring collectives at tp=2 and tp=4 against
    themselves on the plain ring step.
+   The sampler kernel (``gumbel_sample``) against its plain version at the
+   serving shape, 8 lanes x 128,256 sorted log-probabilities: choices
+   equal, noise within 2^-20; timed beside its plain version and the
+   library composition (``torch.rand``, -log(-log u), add, ``argmax``).
+   The decode attention kernel (``decode_attn``) against its plain version
+   at the 1B decode step's shapes (8 lanes, a bf16 cache of 2048 slots, the
+   serving positions and positions across the cache), a lane's bits
+   against another batch around it; timed beside its plain version and
+   ``scaled_dot_product_attention``.
 3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
    layers, seed 0) into ``build/synthetic`` (reused while header and seed
    match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
    dllama_api`` once per dequant mode (default v4, ``auto``, ``blockdot``)
-   and twice with ``--workers 2`` (defaults; ``--buffer-float-type q80
-   --dequant auto``) on the host's cards (one card named twice where there
-   is one), send 4 concurrent requests (greedy and sampled, completion and
-   chat, one streamed), check the answers, the startup log and the kernels'
-   launch counts on ``/stats``, print TTFT and decode tok/s, and SIGTERM the
-   server.
-4. Decode step: the engine in this process on the same model, host clock
-   per step, launches per step and device time by kernel (torch.profiler)
-   in v4, ``auto`` and ``blockdot``, and at tp=2 on the f32 and the Q80
-   wire (with the ring step's launches, checked against the reckoned 130 on
-   both wires, its bytes, and the device operations per step); the TP
+   under the serving defaults (pipelined decode of depth 2, fused
+   admissions; the pipelined step replayed from CUDA graphs captured at
+   warmup), once more in v4 with ``--pipeline-depth 0
+   --multi-step 0`` (the synchronous loop), and twice with ``--workers 2``
+   (defaults; ``--buffer-float-type q80 --dequant auto``) on the host's
+   cards (one card named twice where there is one), send 4 concurrent
+   requests (greedy and sampled, completion and chat, one streamed), check
+   the answers, the startup log (graph count and capture time), the
+   kernels' launch counts and the serving paths' counters on ``/stats``
+   (pipelined dispatches, no flush, fused admissions, the sampler's
+   launches, the graphs' replays), print TTFT and decode tok/s, and SIGTERM
+   the server. The default v4 pass and the synchronous pass also stream
+   each of the 4 requests alone; their texts, alone and concurrent, must
+   be byte-identical, greedy and seeded.
+4. Decode step: the engine in this process on the same model, its decode
+   step replayed from its CUDA graph and then run eagerly (the bodies the
+   graph captured), each with its host clock per step, launches per step
+   (the graph's recorded counts held equal to the eager counts) and device
+   time by kernel (torch.profiler), in v4, ``auto`` and ``blockdot``, and
+   at tp=2 on the f32 and the Q80 wire (with the ring step's launches,
+   checked against the reckoned 130 on both wires, its bytes, and the
+   device operations per step), and the graphs' count and capture time;
+   then an 8-step ``decode_multi`` replayed from its graph against the
+   eager bodies from the same cache (tokens, KV cache and counts); the TP
    prefill logits against one device's; the ring steps of one TP decode
    step, recorded from the collectives, timed; then each Q40 kernel, its
    plain version and ``torch.matmul`` timed over the 113 products of one
@@ -110,6 +133,16 @@ TOL = 1e-4  # max|kernel - plain| <= TOL * max|plain| (f32 outputs)
 # rows auto sends it (BLOCKDOT_MAX_M)
 I8_TIMED_M = (1, DECODE_M, 32)
 GEN_TOKENS = 64
+MULTI_H = 8  # the scheduler's default multi-step horizon (--multi-step 8)
+# the sampler's serving shape: the server's lanes over the 1B vocabulary
+SAMPLE_VOCAB = 128256
+# kernel and plain version both run -log(-log(u)) with the full-precision
+# logf: at most a few ulps apart at |g| ~ 1
+GUMBEL_ATOL = 2.0 ** -20
+# the attention kernel's online softmax sums the slots in another order than
+# the plain version's two passes: f32 rounding over up to 2048 slots
+ATTN_TOL = 2e-5  # max|kernel - plain| <= ATTN_TOL * max|plain|
+F32_OPS_S = 67e12  # float32 outside the tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -719,6 +752,121 @@ def collectives_phase(torch, q, rc) -> list:
 # ---------------------------------------------------------------------------
 
 
+def sampler_phase(torch, cs) -> dict:
+    """The sampler kernel at the serving shape (8 lanes x 128,256): the
+    nucleus of random logits under 8 (temperature, top-p) settings,
+    choices and noise against the plain version, then the kernel's time
+    (launches back to back in one CUDA graph), the plain version's (eager)
+    and the library composition's (``torch.rand`` + -log(-log u) + add +
+    ``argmax``, one CUDA graph), with the bound: one f32 read of the sorted
+    rows over the memory rate."""
+    from distributed_llama_multiusers_tpu_torch.runtime import sampling as S
+
+    n, vocab = DECODE_M, SAMPLE_VOCAB
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.randn((n, vocab), device="cuda", generator=gen) * 2
+    temps = torch.tensor([0.7, 0.8, 0.9, 1.0, 1.2, 0.6, 1.0, 0.9], device="cuda")
+    topps = torch.tensor([0.9, 0.95, 0.9, 1.0, 0.8, 0.5, 0.0, 0.99], device="cuda")
+    logp, _ = S.nucleus_logp(rows, temps, topps)
+    seeds = torch.arange(n, device="cuda") * 7919 + 3
+    positions = torch.arange(n, device="cuda") * 131 + 40
+    noise = torch.full((n, vocab), float("nan"), device="cuda")
+    got = cs.gumbel_argmax(logp, seeds, positions, noise_out=noise)
+    want = S.gumbel_argmax_plain(logp, seeds, positions)
+    k0, k1 = S.fold_in_keys(seeds, positions)
+    ref = S.gumbel_noise(k0, k1, vocab)
+    kept = torch.isfinite(logp)
+    err = float((noise[kept] - ref[kept]).abs().max())
+    choice_err = int((got - want).abs().max())
+    check(choice_err == 0, f"gumbel_sample chose {got.tolist()}, plain {want.tolist()}")
+    check(err <= GUMBEL_ATOL, f"gumbel_sample noise max|d| {err:.3e} > {GUMBEL_ATOL:.3e}")
+
+    def library():
+        u = torch.rand((n, vocab), device="cuda")
+        return torch.argmax(-torch.log(-torch.log(u)) + logp, dim=-1)
+
+    reps = 20
+    ms = graph_ms(torch, [lambda: cs.gumbel_argmax(logp, seeds, positions)] * reps)
+    library_ms = graph_ms(torch, [library] * reps)
+    plain_ms = eager_ms(torch, lambda: S.gumbel_argmax_plain(logp, seeds, positions), 3)
+    out = {"lanes": n, "vocab": vocab, "kept_entries": int(kept.sum()),
+           "max_abs_err": choice_err, "noise_max_abs_err": err, "noise_tol": GUMBEL_ATOL,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": n * vocab * 4 / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+    log("gumbel_sample: " + json.dumps(out))
+    return out
+
+
+def attn_phase(torch) -> dict:
+    """The attention kernel at the serving decode step's shapes (8 lanes,
+    8 kv heads of 4 query heads, head size 64, a bf16 cache of 2048 slots):
+    against its plain version at the smoke's serving positions (4 lanes at
+    40-100, 4 parked past the cache, which attend every slot) and at
+    positions across the cache; a lane's bits against another batch around
+    it and a shorter s_len; then the kernel's time (launches back to back in
+    one CUDA graph), the plain version's (eager) and
+    ``scaled_dot_product_attention``'s on the same f32 inputs (one CUDA
+    graph), with the bound: the slots the lanes attend read once, q and the
+    output, or the f32 operations of the dots, whichever is longer."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    lanes, n_kv, group, hd, s_len = DECODE_M, 8, 4, 64, 2048
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qf = torch.randn((lanes, 1, n_kv, group, hd), device="cuda", generator=gen)
+    k = torch.randn((lanes, s_len + 1, n_kv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((lanes, s_len + 1, n_kv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    scale = 1.0 / hd ** 0.5
+    serving = torch.tensor([[40], [63], [64], [100]] + [[s_len]] * 4, device="cuda")
+    spread = torch.tensor([[0], [1], [63], [511], [1024], [2046], [2047], [2048]], device="cuda")
+    err, ref_max = 0.0, 0.0
+    for pos in (serving, spread):
+        got = ca.decode_attention(qf, k, v, pos, scale, s_len)
+        want = ca.decode_attention_plain(qf, k, v, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and e <= ATTN_TOL * r,
+              f"decode_attn: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+        err, ref_max = max(err, e), max(ref_max, r)
+    base = ca.decode_attention(qf, k, v, serving, scale, s_len)
+    for pos, sl in ((spread, s_len), (serving, 128)):
+        got = ca.decode_attention(qf, k, v, torch.cat([serving[:1], pos[1:]]), scale, sl)
+        check(torch.equal(got[0], base[0]), "decode_attn: lane 0's bits moved with the batch")
+
+    # the library call on the same function: f32 q [B, heads, 1, H], k/v
+    # [B, n_kv, S, H], a boolean mask of each lane's slots
+    q_l = qf.reshape(lanes, n_kv * group, 1, hd)
+    k_l = k[:, :s_len].permute(0, 2, 1, 3).float().contiguous()
+    v_l = v[:, :s_len].permute(0, 2, 1, 3).float().contiguous()
+    mask = (torch.arange(s_len, device="cuda")[None, :] <= serving)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        library = lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale,  # noqa: E731
+                               enable_gqa=True)
+        lib_out = library()
+    except TypeError:  # a torch without enable_gqa: the kv heads expanded first
+        k_l, v_l = (t.repeat_interleave(group, dim=1) for t in (k_l, v_l))
+        library = lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale)  # noqa: E731
+        lib_out = library()
+    lib_err = float((lib_out.reshape(base.shape) - base).abs().max())
+    reps = 20
+    ms = graph_ms(torch, [lambda: ca.decode_attention(qf, k, v, serving, scale, s_len)] * reps)
+    library_ms = graph_ms(torch, [library] * reps)
+    plain_ms = eager_ms(torch, lambda: ca.decode_attention_plain(qf, k, v, serving, scale,
+                                                                 s_len), 3)
+    slots = int((serving.clamp(max=s_len - 1) + 1).sum())
+    n_bytes = slots * n_kv * hd * 2 * 2 + 2 * qf.numel() * 4 + lanes * 8
+    n_ops = slots * n_kv * group * hd * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "s_len": s_len,
+           "positions": serving[:, 0].tolist(), "slots_read": slots,
+           "max_abs_err": err, "max_abs_ref": ref_max, "tol": ATTN_TOL,
+           "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes": n_bytes, "bound_ops": n_ops}
+    log("decode_attn: " + json.dumps(out))
+    return out
+
+
 def llama32_1b_header():
     from distributed_llama_multiusers_tpu_torch.formats.model_file import RopeType
     from distributed_llama_multiusers_tpu_torch.formats.synthetic import tiny_header
@@ -801,9 +949,10 @@ def _text(body):
 
 def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                extra_args=(), log_dir: str = OUT_DIR, health_timeout: float = 900.0,
-               name: str | None = None) -> dict:
+               name: str | None = None, alone: bool = False) -> dict:
     """One dllama_api process: 4 concurrent requests, checks, /stats,
-    SIGTERM. Returns the pass's measurements, launch counts and startup log."""
+    SIGTERM (``alone``: then each request streamed alone, its text kept).
+    Returns the pass's measurements, launch counts and startup log."""
     os.makedirs(log_dir, exist_ok=True)
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
@@ -891,6 +1040,7 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                   f"{n} tokens, finish {r['finish']} ({name})")
             r["n_tokens"] = n
         stats = json.loads(_http(base + "/stats")[1])
+        alone_texts = [_stream(base + route, body)[1] for route, body in bodies] if alone else None
         status, models = _http(base + "/v1/models")
         check(status == 200 and json.loads(models)["data"], "/v1/models")
 
@@ -911,11 +1061,23 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                "mesh": stats["mesh"],
                "dequant_mode": stats["dequant_mode"],
                "dequant_sites": stats.get("dequant_sites", {}),
-               "decode_steps": stats["decode_steps"], "device": stats["device"]}
+               "decode_steps": stats["decode_steps"], "device": stats["device"],
+               "alone_texts": alone_texts,
+               "concurrent_texts": [r["text"] for r in results],
+               **{k: stats[k] for k in ("pipeline_dispatches", "pipeline_flushes",
+                                        "pipeline_depth_hist", "multi_dispatches",
+                                        "fused_steps", "fused_bucket_hist", "overlap_s",
+                                        "decode_graphs", "decode_graph_replays",
+                                        "gumbel_sample_launches", "decode_attn_launches")}}
         log(f"TTFT ms [{name}]: p50 {out['ttft_ms_p50']} per request {ttft}")
         log(f"decode tok/s [{name}]: per request {per_req}, batch of 4 "
             f"{out['tokens_per_s_batch']:.1f} tok/s ({total_tokens} tokens in {batch_s:.2f}s)")
-        log(f"launches [{name}]: {stats['kernel_launches']}")
+        log(f"launches [{name}]: {stats['kernel_launches']}, gumbel_sample "
+            f"{stats['gumbel_sample_launches']}, decode_attn {stats['decode_attn_launches']}")
+        log(f"serving paths [{name}]: pipelined {stats['pipeline_dispatches']} (depth "
+            f"{stats['pipeline_depth_hist']}), flushes {stats['pipeline_flushes']}, fused "
+            f"{stats['fused_steps']}, multi-step {stats['multi_dispatches']}, decode graphs "
+            f"{stats['decode_graphs']} ({stats['decode_graph_replays']} replays)")
 
         proc.send_signal(signal.SIGTERM)
         try:
@@ -925,6 +1087,12 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
         check(rc == 0, f"server ({name}) exited {rc} after SIGTERM; see {log_path}")
         with open(log_path, errors="replace") as f:
             out["log"] = f.read()
+        warm = re.search(r"Warmup done in ([0-9.]+)s(?: \((\d+) decode graphs captured in "
+                         r"([0-9.]+)s\))?", out["log"])
+        check(warm is not None, f"server ({name}): no warmup line in the log")
+        out["warmup_s"] = float(warm.group(1))
+        out["graphs_captured"] = int(warm.group(2)) if warm.group(2) else 0
+        out["graph_capture_s"] = float(warm.group(3)) if warm.group(3) else 0.0
         return out
     except BaseException:
         with open(log_path, errors="replace") as f:
@@ -937,19 +1105,58 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
             proc.wait(timeout=30)
 
 
+SYNC_ARGS = ("--pipeline-depth", "0", "--multi-step", "0")
+
+
+def check_serving_paths(p: dict, sync: bool = False) -> None:
+    """The serving loop a pass ran: every pass steps from the graphs
+    captured at warmup (the step, greedy and sampled: no horizon, which
+    neither loop picks) and samples through the kernel; under the defaults
+    pipelined dispatches, fused admissions (the 4 requests arrive together,
+    so 3 join a live chain) and no flush; the synchronous pass none of
+    those."""
+    name = p["mode"]
+    check(p["gumbel_sample_launches"] > 0, f"{name}: gumbel_sample never launched")
+    check(p["decode_attn_launches"] > 0, f"{name}: decode_attn never launched")
+    check(p["decode_graphs"] == 2 and p["graphs_captured"] == p["decode_graphs"]
+          and p["decode_graph_replays"] > 0,
+          f"{name}: {p['decode_graphs']} decode graphs, {p['graphs_captured']} at warmup, "
+          f"{p['decode_graph_replays']} replays")
+    if sync:
+        check(p["pipeline_dispatches"] == 0 and p["multi_dispatches"] == 0
+              and p["fused_steps"] == 0, f"{name}: the synchronous pass pipelined")
+        return
+    check(p["pipeline_dispatches"] > 0 and p["fused_steps"] > 0,
+          f"{name}: pipelined {p['pipeline_dispatches']}, fused {p['fused_steps']}")
+    check(p["pipeline_flushes"] == 0, f"{name}: {p['pipeline_flushes']} pipeline flushes")
+
+
 def serving_phase(torch, q) -> list:
     torch.cuda.empty_cache()  # the servers are other processes on this card
     model, tok = ensure_model(llama32_1b_header(), seed=0)
     passes = []
-    # mode -> the kernels its run must have launched
-    for mode, n_tokens, expect in ((None, GEN_TOKENS, ("q40_slab",)),
-                                   ("auto", GEN_TOKENS, ("q40_i8blockdot", "q40_slab")),
-                                   ("blockdot", 16, ("q40_blockdot", "q40_slab"))):
-        p = serve_pass(model, tok, mode, n_tokens)
+    # (mode, extra args, tokens, alone, the kernels its run must have launched)
+    for mode, extra, n_tokens, alone, expect in (
+            (None, (), GEN_TOKENS, True, ("q40_slab",)),
+            (None, SYNC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
+            ("auto", (), GEN_TOKENS, False, ("q40_i8blockdot", "q40_slab")),
+            ("blockdot", (), 16, False, ("q40_blockdot", "q40_slab"))):
+        name = "v4-sync" if extra else None
+        p = serve_pass(model, tok, mode, n_tokens, extra_args=extra, alone=alone, name=name)
         check(p["device"].startswith("cuda"), f"server ran on {p['device']}")
         for k in expect:
             check(p["kernel_launches"][k] > 0, f"{p['mode']}: {k} never launched")
+        check_serving_paths(p, sync=bool(extra))
         passes.append(p)
+    default, sync = passes[0], passes[1]
+    for how in ("alone", "concurrent"):
+        for i, (a, b) in enumerate(zip(default[f"{how}_texts"], sync[f"{how}_texts"])):
+            check(a == b, f"request {i} {how}: the default loop's stream differs from the "
+                          f"synchronous loop's:\n{a!r}\n{b!r}")
+    check(default["greedy_text"] == sync["greedy_text"], "greedy text differs between loops")
+    log(f"serving loops: {len(default['alone_texts'])} streams (2 greedy, 2 seeded), alone "
+        "and concurrent, byte-identical between the defaults and --pipeline-depth 0 "
+        "--multi-step 0")
     passes += tp_serving_passes(torch, model, tok, passes[0])
     return passes
 
@@ -984,6 +1191,7 @@ def tp_serving_passes(torch, model: str, tok: str, single: dict) -> list:
                        extra_args=("--workers", "2", "--device", devices, *extra))
         check(p["mesh"] is not None and p["mesh"]["tp"] == 2, f"{name}: /stats mesh {p['mesh']}")
         check(p["ring_hop_launches"] > 0, f"{name}: ring_hop never launched")
+        check_serving_paths(p)
         for k in expect:
             check(p["kernel_launches"][k] > 0, f"{name}: {k} never launched")
         for phrase in ("Mesh: dp=1 pp=1 tp=2",) + says:
@@ -1021,7 +1229,9 @@ def _kernel_of(name: str) -> str | None:
     for tag, kernel in (("i8blockdot_kernel", "q40_i8blockdot"),
                         ("blockdot_kernel", "q40_blockdot"),
                         ("slab_kernel", "q40_slab"), ("reduce_splits", "reduce_splits"),
-                        ("ring_seg_kernel", "ring_hop"), ("ring_step2_kernel", "ring_hop")):
+                        ("ring_seg_kernel", "ring_hop"), ("ring_step2_kernel", "ring_hop"),
+                        ("gumbel_sample_kernel", "gumbel_sample"),
+                        ("decode_attn_kernel", "decode_attn")):
         if tag in name:
             return kernel
     return None
@@ -1032,23 +1242,158 @@ def sync_all(torch) -> None:
         torch.cuda.synchronize(i)
 
 
-def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy: int = 4,
-                   steps: int = 10, mesh=None, q80: bool = False,
+def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
+    """Host clock per synchronous step, the launch counters over those
+    steps, and device time, launches and operations by kernel from
+    torch.profiler over as many more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    for _ in range(3):
+        step()
+    sync_all(torch)
+    wall = []
+    before = dict(q.LAUNCHES)
+    ring_before = rc.ring_counts()
+    sample_before = cs.COUNTS["launches"]
+    attn_before = ca.COUNTS["launches"]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()  # decode reads the tokens back: each step ends synchronized
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: (q.LAUNCHES[k] - before[k]) / steps for k in q.KERNELS}
+    launches["gumbel_sample"] = (cs.COUNTS["launches"] - sample_before) / steps
+    launches["decode_attn"] = (ca.COUNTS["launches"] - attn_before) / steps
+    ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        sync_all(torch)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict = {}
+    host: dict = {}
+    kernels: dict = {}  # kernel -> [device us per step, launches per step]
+    device_ops = 0  # kernels, copies and fills the device ran
+    for e in prof.key_averages():
+        # kernels only: an aten op's own device time repeats its kernels'
+        us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if e.device_type != DeviceType.CPU:
+            device_ops += e.count
+        if us > 0 and e.device_type != DeviceType.CPU:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / steps
+            kernel = _kernel_of(e.key)
+            if kernel:
+                acc = kernels.setdefault(kernel, [0.0, 0.0])
+                acc[0] += us / steps
+                acc[1] += e.count / steps
+        if e.self_cpu_time_total > 0:
+            host[e.key] = (e.self_cpu_time_total / steps, e.count // steps)
+    device_ms = sum(by_name.values()) / 1e3
+    q40_ms = sum(v[0] for k, v in kernels.items()
+                 if k not in ("ring_hop", "gumbel_sample", "decode_attn")) / 1e3
+    hop_ms = kernels.get("ring_hop", [0.0, 0.0])[0] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"step_ms_p50": statistics.median(wall), "step_ms": wall,
+           "profiled_step_ms": prof_wall_ms, "device_ms_per_step": device_ms,
+           # device time over the unprofiled step: the profiler slows the
+           # host side, not the kernels
+           "device_busy_share": device_ms / statistics.median(wall),
+           "q40_kernels_ms_per_step": q40_ms,
+           "ring_hop_ms_per_step": hop_ms,
+           "gumbel_sample_ms_per_step": kernels.get("gumbel_sample", [0.0, 0.0])[0] / 1e3,
+           "decode_attn_ms_per_step": kernels.get("decode_attn", [0.0, 0.0])[0] / 1e3,
+           "launches_per_step": launches,
+           "device_ops_per_step": device_ops / steps,
+           "ring_hop_launches_per_step": ring["ring_hop_launches"],
+           "ring_hop_bytes_per_step": ring["ring_hop_bytes"],
+           "q40_profiled_us_launches_per_step": kernels,
+           "top_device_us_per_step": [[k[:90], v] for k, v in top],
+           "top_host_us_calls_per_step": [
+               [k[:60], us, n] for k, (us, n) in
+               sorted(host.items(), key=lambda kv: -kv[1][0])[:12]]}
+    log(f"decode step [{label}]: p50 {out['step_ms_p50']:.2f} ms host clock, "
+        f"device busy {device_ms:.2f} ms ({out['device_busy_share']:.3f} of the step), "
+        f"Q40 kernels {q40_ms:.3f} ms, ring_hop {hop_ms:.3f} ms, launches per step "
+        f"{launches}, ring_hop {ring['ring_hop_launches']}, device ops "
+        f"{device_ops / steps}, profiled {kernels}")
+    return out
+
+
+def _kv_state(engine) -> list:
+    caches = [engine.cache] if engine.mesh is None else engine.cache
+    return [t for c in caches for t in (c.k, c.v)]
+
+
+def multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds, busy: int,
+                       label: str, h: int = MULTI_H) -> dict:
+    """An h-step ``decode_multi`` (the synchronous loop's chained steps)
+    replayed from its CUDA graph against the eager bodies from the same
+    cache: chosen tokens and the whole KV cache bit for bit, launch counts
+    equal. The first call runs eagerly and captures; the second replays;
+    then the cache is put back and the same call runs eagerly."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    def counts():
+        return {**q.LAUNCHES, **rc.ring_counts(), "gumbel_sample": cs.COUNTS["launches"],
+                "decode_attn": ca.COUNTS["launches"]}
+
+    def call():
+        sync_all(torch)
+        before = counts()
+        chosen = engine.decode_multi(tokens, positions, temps, seeds=seeds, h=h)
+        sync_all(torch)
+        after = counts()
+        return chosen, {k: after[k] - before[k] for k in after}
+
+    first, _ = call()  # captures the key's graph
+    tokens[:busy] = first[-1, :busy]
+    positions[:busy] += h
+    saved = [t.clone() for t in _kv_state(engine)]
+    replays = engine.graphs.replays
+    got, got_counts = call()
+    check(engine.graphs.replays == replays + 1, f"decode_multi [{label}]: did not replay")
+    got_kv = [t.clone() for t in _kv_state(engine)]
+    for t, s_ in zip(_kv_state(engine), saved):
+        t.copy_(s_)
+    graphs, engine.graphs = engine.graphs, None
+    try:
+        want, want_counts = call()
+    finally:
+        engine.graphs = graphs
+    kv_equal = all(torch.equal(a, b) for a, b in zip(got_kv, _kv_state(engine)))
+    check(bool((got == want).all()), f"decode_multi [{label}]: replayed tokens differ from "
+                                      f"the eager bodies'")
+    check(kv_equal, f"decode_multi [{label}]: replayed KV cache differs from the eager one")
+    check(got_counts == want_counts, f"decode_multi [{label}]: replayed counts {got_counts} "
+                                     f"against eager {want_counts}")
+    per_step = sum(v for k, v in got_counts.items() if k in q.KERNELS) / h
+    log(f"decode_multi [{label}]: h={h} replay equals the eager bodies (tokens, KV, counts; "
+        f"{per_step} Q40 launches per step, {got_counts['gumbel_sample']} gumbel_sample)")
+    del saved, got_kv
+    return {"h": h, "tokens_equal": True, "kv_equal": kv_equal, "counts": got_counts}
+
+
+def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
+                   busy: int = 4, steps: int = 10, mesh=None, q80: bool = False,
                    label: str | None = None) -> dict:
     """Where a serving decode step's time goes: the engine in this process
     on the full-width model, ``busy`` of ``lanes`` lanes decoding (the
-    smoke's 4 concurrent requests on the server's 8 lanes); with ``mesh``,
-    tensor parallel over its ranks (``q80``: the Q80 wire, as
-    ``--buffer-float-type q80`` serves it). Host clock per synchronous step,
-    the kernels' launch counters over those steps, the ring hop's bytes, and
-    device time and launches by kernel from torch.profiler."""
+    smoke's 4 concurrent requests on the server's 8 lanes, half of them
+    sampling); with ``mesh``, tensor parallel over its ranks (``q80``: the
+    Q80 wire, as ``--buffer-float-type q80`` serves it). The step graphs
+    are captured first (greedy and sampled, timed); then the step is
+    measured replayed from its graph (``engine.decode``, the serving path)
+    and run eagerly (the same bodies, the engine's graphs set aside), each
+    as ``_measure_steps`` does; the graph's launch counts per step must
+    equal the eager step's. Last, ``multi_replay_check``."""
     from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
     from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
 
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     label = label or mode
     q80_wire = q80 and mesh is not None and q80_sync_engages(config, mesh.shape)
@@ -1068,6 +1413,11 @@ def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy
                 prefill_logits = last.float().cpu()
             temps[lane] = 0.8 if lane % 2 else 0.0  # half the lanes sample
         seeds = np.arange(lanes, dtype=np.uint32)
+        t0 = time.perf_counter()
+        engine.capture_graphs()
+        sync_all(torch)
+        capture = {"graphs": len(engine.graphs), "capture_s": time.perf_counter() - t0,
+                   "capture_s_in_graphs": engine.graphs.capture_s}
 
         def step():
             _, greedy, sampled = engine.decode(tokens, positions, temps, seeds=seeds,
@@ -1075,83 +1425,48 @@ def step_breakdown(torch, q, rc, config, params, mode: str, lanes: int = 8, busy
             tokens[:busy] = np.where(temps[:busy] > 0, sampled[:busy], greedy[:busy])
             positions[:busy] += 1
 
-        for _ in range(3):
-            step()
-        sync_all(torch)
-        wall = []
-        before = dict(q.LAUNCHES)
-        ring_before = rc.ring_counts()
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            step()  # decode reads the tokens back: each step ends synchronized
-            wall.append((time.perf_counter() - t0) * 1e3)
-        launches = {k: (q.LAUNCHES[k] - before[k]) / steps for k in q.KERNELS}
-        ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
+        graph = _measure_steps(torch, q, rc, cs, step, steps, f"{label}, graph")
+        graphs, engine.graphs = engine.graphs, None  # the eager bodies the graph captured
+        try:
+            eager = _measure_steps(torch, q, rc, cs, step, steps, f"{label}, eager")
+        finally:
+            engine.graphs = graphs
         # per rank and layer: wq, wk, wv, w1, w3 and n column chunks each of
         # wo and w2; then wcls (n = 1: the 7 products of one device)
         n, n_layers = len(engine.devices), config.n_layers
         n_products = n * (n_layers * (5 + 2 * n) + 1)
-        check(sum(launches.values()) == n_products,
-              f"decode step [{label}]: {launches} Q40 launches per step, expected "
-              f"{n_products} products")
-        check(ring["ring_hop_bytes"] == engine.stats.sync_bytes_per_decode,
-              f"decode step [{label}]: hop bytes {ring} against sync_bytes_per_decode "
-              f"{engine.stats.sync_bytes_per_decode}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            sync_all(torch)
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        by_name: dict = {}
-        host: dict = {}
-        kernels: dict = {}  # kernel -> [device us per step, launches per step]
-        device_ops = 0  # kernels, copies and fills the device ran
-        for e in prof.key_averages():
-            # kernels only: an aten op's own device time repeats its kernels'
-            us = getattr(e, "self_device_time_total", 0.0) or 0.0
-            if e.device_type != DeviceType.CPU:
-                device_ops += e.count
-            if us > 0 and e.device_type != DeviceType.CPU:
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / steps
-                kernel = _kernel_of(e.key)
-                if kernel:
-                    acc = kernels.setdefault(kernel, [0.0, 0.0])
-                    acc[0] += us / steps
-                    acc[1] += e.count / steps
-            if e.self_cpu_time_total > 0:
-                host[e.key] = (e.self_cpu_time_total / steps, e.count // steps)
-        device_ms = sum(by_name.values()) / 1e3
-        q40_ms = sum(v[0] for k, v in kernels.items() if k != "ring_hop") / 1e3
-        hop_ms = kernels.get("ring_hop", [0.0, 0.0])[0] / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        for run, name in ((graph, "graph"), (eager, "eager")):
+            got = sum(v for k, v in run["launches_per_step"].items() if k in q.KERNELS)
+            check(got == n_products, f"decode step [{label}, {name}]: "
+                  f"{run['launches_per_step']} Q40 launches per step, expected "
+                  f"{n_products} products")
+            check(run["launches_per_step"]["gumbel_sample"] == 1,
+                  f"decode step [{label}, {name}]: sampler launches "
+                  f"{run['launches_per_step']['gumbel_sample']} per step")
+            check(run["launches_per_step"]["decode_attn"] == n * n_layers,
+                  f"decode step [{label}, {name}]: attention launches "
+                  f"{run['launches_per_step']['decode_attn']} per step, expected "
+                  f"{n * n_layers}")
+        check(graph["launches_per_step"] == eager["launches_per_step"]
+              and graph["ring_hop_launches_per_step"] == eager["ring_hop_launches_per_step"]
+              and graph["ring_hop_bytes_per_step"] == eager["ring_hop_bytes_per_step"],
+              f"decode step [{label}]: replayed counts {graph['launches_per_step']} "
+              f"(ring {graph['ring_hop_launches_per_step']}) against eager "
+              f"{eager['launches_per_step']} (ring {eager['ring_hop_launches_per_step']})")
+        check(graph["ring_hop_bytes_per_step"] == engine.stats.sync_bytes_per_decode,
+              f"decode step [{label}]: hop bytes {graph['ring_hop_bytes_per_step']} against "
+              f"sync_bytes_per_decode {engine.stats.sync_bytes_per_decode}")
+        multi = multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds,
+                                   busy, label)
+        log(f"decode graphs [{label}]: {capture['graphs']} captured in "
+            f"{capture['capture_s']:.2f}s; step p50 graph {graph['step_ms_p50']:.2f} ms, "
+            f"eager {eager['step_ms_p50']:.2f} ms")
         out = {"mode": label, "dequant": mode, "ranks": [str(d) for d in engine.devices],
-               "q80_wire": q80_wire,
-               "lanes": lanes, "busy_lanes": busy,
-               "step_ms_p50": statistics.median(wall), "step_ms": wall,
-               "profiled_step_ms": prof_wall_ms, "device_ms_per_step": device_ms,
-               # device time over the unprofiled step: the profiler slows the
-               # host side, not the kernels
-               "device_busy_share": device_ms / statistics.median(wall),
-               "q40_kernels_ms_per_step": q40_ms,
-               "ring_hop_ms_per_step": hop_ms,
-               "launches_per_step": launches,
-               "device_ops_per_step": device_ops / steps,
-               "ring_hop_launches_per_step": ring["ring_hop_launches"],
+               "q80_wire": q80_wire, "lanes": lanes, "busy_lanes": busy,
+               **graph, "eager": eager, "graphs": capture, "multi_replay": multi,
                "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode,
-               "q40_profiled_us_launches_per_step": kernels,
-               "top_device_us_per_step": [[k[:90], v] for k, v in top],
-               "top_host_us_calls_per_step": [
-                   [k[:60], us, n] for k, (us, n) in
-                   sorted(host.items(), key=lambda kv: -kv[1][0])[:12]],
                "prefill_logits": prefill_logits}
-        log(f"decode step [{label}]: p50 {out['step_ms_p50']:.2f} ms host clock, "
-            f"device busy {device_ms:.2f} ms ({out['device_busy_share']:.3f} of the step), "
-            f"Q40 kernels {q40_ms:.3f} ms, ring_hop {hop_ms:.3f} ms, launches per step "
-            f"{launches}, ring_hop {ring['ring_hop_launches']}, device ops "
-            f"{device_ops / steps}, sync_bytes_per_decode "
-            f"{engine.stats.sync_bytes_per_decode}, profiled {kernels}")
-        del engine
+        del engine, graphs
         torch.cuda.empty_cache()
         return out
     finally:
@@ -1247,7 +1562,7 @@ def tp_step_hops(torch, rc, config, devices, lanes: int = DECODE_M) -> list:
     return sync * (2 * config.n_layers) + gather
 
 
-def decode_phase(torch, q, rc, model: str):
+def decode_phase(torch, q, rc, cs, model: str):
     """Load the full-width model once; break a serving decode step down in
     each mode whose decode runs a different kernel, then tensor parallel at
     tp=2 (f32 and Q80 wire), hold the TP prefill logits against one
@@ -1259,13 +1574,13 @@ def decode_phase(torch, q, rc, model: str):
 
     config, params = load_params_from_m_quantized(model, load_model_header(model),
                                                   dtype=torch.bfloat16, device="cuda")
-    breakdown = [step_breakdown(torch, q, rc, config, params, mode)
+    breakdown = [step_breakdown(torch, q, rc, cs, config, params, mode)
                  for mode in dict.fromkeys(DECODE_MODE_OF.values())]
     devices = rank_devices(torch, 2)
     mesh = make_mesh(MeshPlan(tp=2), devices)
-    tp = [step_breakdown(torch, q, rc, config, params, "v4", mesh=mesh,
+    tp = [step_breakdown(torch, q, rc, cs, config, params, "v4", mesh=mesh,
                          label="tp2 v4, f32 wire"),
-          step_breakdown(torch, q, rc, config, params, "auto", mesh=mesh, q80=True,
+          step_breakdown(torch, q, rc, cs, config, params, "auto", mesh=mesh, q80=True,
                          label="tp2 auto, Q80 wire")]
     # one ring_hop launch per receiving rank per ring step: per layer two
     # syncs of n-1 reduce and n-1 gather steps, then n-1 logits steps; the
@@ -1273,7 +1588,7 @@ def decode_phase(torch, q, rc, model: str):
     # is exact; the profiler may miss an event now and then
     want = 2 * (2 - 1) * (4 * config.n_layers + 1)
     for b in tp:
-        profiled = b["q40_profiled_us_launches_per_step"].get("ring_hop", [0, 0])[1]
+        profiled = b["eager"]["q40_profiled_us_launches_per_step"].get("ring_hop", [0, 0])[1]
         check(b["ring_hop_launches_per_step"] == want and abs(profiled - want) < 1,
               f"{b['mode']}: {b['ring_hop_launches_per_step']} ring_hop launches per step "
               f"(profiled {profiled}), reckoned {want}")
@@ -1455,8 +1770,9 @@ def lab_line_entries(lab, lab_result) -> list:
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                 geometry, lab=None, lab_result=None, timings=(), forms=()) -> dict:
+def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
+                 geometry, sampler, lab=None, lab_result=None, timings=(),
+                 forms=(), attn=None) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
     main path, each server counting from the end of its warmup). For a Q40
     kernel the times and the bound cover one decode step's products at the
@@ -1549,6 +1865,53 @@ def kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
         "payloads": hops,
         "forms": list(forms),
     })
+    out.append({
+        "name": cs.KERNEL, "route": "cuda", "source": cs.KERNEL_SOURCE,
+        "replaces": cs.KERNEL_REPLACES,
+        "replaces_note": "counterpart of XLA's jax.random.categorical inside _sample_lane; "
+                         "no Pallas site",
+        "launches": sum(p_["gumbel_sample_launches"] for p_ in passes),
+        "launches_by_mode": {p_["mode"]: p_["gumbel_sample_launches"] for p_ in passes},
+        "max_abs_err": sampler["max_abs_err"], "tol": 0.0,
+        "tol_rule": "choices equal to the plain version's; noise within "
+                    f"{GUMBEL_ATOL:.3e} of it ({sampler['noise_max_abs_err']:.3e})",
+        "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],
+        "library_ms": sampler["library_ms"], "bound_ms": sampler["bound_ms"],
+        "bound_by": sampler["bound_by"],
+        "timed_as": f"one sampled step's draw, {sampler['lanes']} lanes x {sampler['vocab']} "
+                    f"sorted log-probabilities ({sampler['kept_entries']} in the nuclei): "
+                    "kernel and the library composition (torch.rand, -log(-log u), add, "
+                    "argmax) in one CUDA graph each; plain eager",
+        "launches_per_decode_step": {b["mode"]: b["launches_per_step"]["gumbel_sample"]
+                                     for b in breakdown + tp},
+        "profiled_ms_per_decode_step": {b["mode"]: b["gumbel_sample_ms_per_step"]
+                                        for b in breakdown + tp},
+    })
+    if attn is not None:
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+        out.append({
+            "name": ca.KERNEL, "route": "cuda", "source": ca.KERNEL_SOURCE,
+            "replaces": ca.KERNEL_REPLACES,
+            "replaces_note": "counterpart of XLA's masked softmax attention (_dense_attention) "
+                             "inside the decode step; no Pallas site",
+            "launches": sum(p_["decode_attn_launches"] for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_["decode_attn_launches"] for p_ in passes},
+            "max_abs_err": attn["max_abs_err"], "tol": ATTN_TOL,
+            "tol_rule": f"max|d| <= {ATTN_TOL:.0e} * max|plain| ({attn['max_abs_ref']:.3e})",
+            "ms": attn["ms"], "plain_ms": attn["plain_ms"], "library_ms": attn["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention (f32, boolean mask)",
+            "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+            "timed_as": f"one layer of a decode step: {attn['lanes']} lanes at positions "
+                        f"{attn['positions']} ({attn['slots_read']} slots attended), "
+                        f"{attn['n_kv']} kv heads x {attn['group']}, head size "
+                        f"{attn['head_size']}, bf16 cache of {attn['s_len']} slots: kernel and "
+                        "library call in one CUDA graph each; plain eager",
+            "launches_per_decode_step": {b["mode"]: b["launches_per_step"]["decode_attn"]
+                                         for b in breakdown + tp},
+            "profiled_ms_per_decode_step": {b["mode"]: b["decode_attn_ms_per_step"]
+                                            for b in breakdown + tp},
+        })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
     return {"kernels": out}
@@ -1583,10 +1946,12 @@ def main() -> int:
 
         from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
         from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
         from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
         t0 = time.perf_counter()
-        names = q.KERNELS + (rc.KERNEL,) + lab.KERNELS
+        names = q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL) + lab.KERNELS
         one_kernel_build = build_one_kernel(q, rc)
         try:
             libs = q.build_kernels(names)
@@ -1612,14 +1977,16 @@ def main() -> int:
         hops = hop_phase(torch, rc)
         forms = hop_forms(torch, q, rc, one_kernel)
         collectives = collectives_phase(torch, q, rc)
+        sampler = sampler_phase(torch, cs)
+        attn = attn_phase(torch)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
-                       "hop_forms": forms, "collectives": collectives, "geometry": geometry},
-                      f, indent=1)
+                       "hop_forms": forms, "collectives": collectives, "geometry": geometry,
+                       "sampler": sampler, "attn": attn}, f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)
-        breakdown, tp, tp_logits, hop_step, products = decode_phase(torch, q, rc, model)
+        breakdown, tp, tp_logits, hop_step, products = decode_phase(torch, q, rc, cs, model)
         with open(os.path.join(OUT_DIR, "chip_smoke_serving.json"), "w") as f:
             json.dump({"card": card,
                        "passes": [{k: v for k, v in p.items() if k != "log"} for p in passes],
@@ -1629,8 +1996,8 @@ def main() -> int:
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
-        line = kernels_line(q, rc, checks, passes, breakdown, tp, hops, hop_step, products,
-                            geometry, lab, lab_result, timings, forms)
+        line = kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step,
+                            products, geometry, sampler, lab, lab_result, timings, forms, attn)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

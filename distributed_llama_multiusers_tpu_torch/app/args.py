@@ -55,6 +55,32 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "resolves the mode per (d_in, d_out, m-class) site "
                         "from ops/dequant_table.json; an f32 dot (the CPU) "
                         "always runs v4")
+    p.add_argument("--multi-step", type=int, default=None,
+                   help="serving: chain up to this many decode steps per "
+                        "device dispatch in steady-state decode (identical "
+                        "token streams, 1/h the per-token dispatch "
+                        "overhead); 0 disables; default: scheduler "
+                        "default (8)")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="serving: async decode pipeline — bound on "
+                        "dispatched-but-unconsumed decode steps. Step k+1 "
+                        "dispatches from the on-device token carry while "
+                        "step k's host readback (detokenize, stream, "
+                        "stop/EOS checks) runs one step behind, overlapped "
+                        "with device execution; token streams stay "
+                        "byte-identical to synchronous stepping. 0 or 1 "
+                        "disables; default: engine default (2)")
+    p.add_argument("--fused-prefill", default="on", choices=["on", "off"],
+                   help="serving: stall-free admissions — a queued request "
+                        "claims a lane inside the live async decode chain "
+                        "and its prompt chunks ride fused prefill+decode "
+                        "dispatches (one step advances every decoding lane "
+                        "one token AND consumes one bounded prompt chunk), "
+                        "so admissions never flush the pipeline and "
+                        "pipeline_flushes stays ~0 under churn. 'off' "
+                        "restores the pre-fused behavior: an admission "
+                        "exits the chain to the synchronous admit+prefill "
+                        "path")
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
     return p

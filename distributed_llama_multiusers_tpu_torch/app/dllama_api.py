@@ -25,7 +25,7 @@ from .runtime_setup import load_stack, log, make_scheduler
 def main(argv=None) -> None:
     args = build_parser("dllama-api").parse_args(argv)
     _, _, tokenizer, engine = load_stack(args)
-    scheduler = make_scheduler(engine, tokenizer)
+    scheduler = make_scheduler(engine, tokenizer, args)
     server = ApiServer(scheduler, tokenizer, model_name=os.path.basename(args.model),
                        template_type=template_type_from_name(args.chat_template))
     httpd = server.serve(host=args.host, port=args.port)

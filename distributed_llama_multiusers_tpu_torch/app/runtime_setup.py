@@ -11,7 +11,7 @@ import torch
 from ..formats import load_model_header
 from ..models import load_params_from_m
 from ..models.loader import load_params_from_m_quantized
-from ..ops import cuda_q40, ring_collective
+from ..ops import cuda_attn, cuda_q40, cuda_sample, ring_collective
 from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
@@ -104,23 +104,45 @@ def load_stack(args, n_lanes: int | None = None):
     engine = InferenceEngine(config, params, n_lanes=n_lanes or args.max_lanes,
                              cache_dtype=cache_dtype, device=device, mesh=mesh,
                              emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
-                             ring_sync=ring_sync)
+                             ring_sync=ring_sync,
+                             # async decode pipeline ring bound (None: 2)
+                             pipeline_depth=getattr(args, "pipeline_depth", None))
     return config, params, tokenizer, engine
 
 
-def make_scheduler(engine, tokenizer) -> ContinuousBatchingScheduler:
-    """Warm the engine (builds the kernels, runs each prefill bucket and a
-    decode step), zero the kernel counters, then start the loop: from here
-    ``/stats`` counts serving launches only."""
-    log("⏳", "Warming serving paths (kernel build, prefill buckets, decode)...")
+def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
+    """Build the scheduler from the serving flags, warm the engine (builds
+    the kernels, runs each prefill bucket, captures every decode-family
+    graph the scheduler can replay), zero the kernel counters, then start
+    the loop: from here ``/stats`` counts serving launches only."""
+    # the scheduler's defaults stand where the CLI names no value
+    overrides = {}
+    ms = getattr(args, "multi_step", None)
+    if ms is not None:
+        overrides["multi_step"] = ms
+    fp = getattr(args, "fused_prefill", None)
+    if fp is not None:
+        overrides["fused_prefill"] = fp == "on"
+    sched = ContinuousBatchingScheduler(engine, tokenizer, **overrides)
+    log("⏳", "Warming serving paths (kernel build, prefill buckets, decode graphs)...")
     t0 = time.perf_counter()
-    warmup_engine(engine)
+    # horizons are captured only where serving can pick one (a pipelining
+    # engine never chains them)
+    warmup_engine(engine, multi_step=sched.multi_step if sched.horizons_reachable() else 0)
     if engine.device.type == "cuda":
         for dev in dict.fromkeys(engine.devices):
             torch.cuda.synchronize(dev)
     cuda_q40.reset_counts()
     ring_collective.reset_counts()
-    log("⏳", f"Warmup done in {time.perf_counter() - t0:.1f}s")
-    sched = ContinuousBatchingScheduler(engine, tokenizer)
+    cuda_sample.reset_counts()
+    cuda_attn.reset_counts()
+    graphs = engine.graphs
+    if graphs is not None:
+        graphs.replays = 0
+    log("⏳", f"Warmup done in {time.perf_counter() - t0:.1f}s"
+        + (f" ({len(graphs)} decode graphs captured in {graphs.capture_s:.1f}s)"
+           if graphs is not None else ""))
+    log("🔁", f"Serving paths: pipeline depth {engine.pipeline_depth}, multi-step "
+              f"{sched.multi_step}, fused prefill {'on' if sched.fused_prefill else 'off'}")
     sched.start()
     return sched

@@ -31,6 +31,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..formats.model_file import HiddenAct
 from ..ops.activations import gelu, silu
+from ..ops.cuda_attn import decode_attention, dense_attention
 from ..ops.linear import matmul, shared_q80_acts
 from ..ops.norm import rms_norm
 from ..ops.ring_collective import (
@@ -118,15 +119,6 @@ def _maybe_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     return y if b is None else y + b.to(y.dtype)
 
 
-def _dense_attention(qf, kf, vf, mask, scale):
-    """GQA attention with materialized scores in f32. qf: [B,T,K,G,H];
-    kf/vf: [B,S,K,H]; mask: [B,T,S] bool."""
-    scores = torch.einsum("btkgh,bskh->btkgs", qf * scale, kf)
-    scores = scores.masked_fill(~mask[:, :, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("btkgs,bskh->btkgh", probs, vf)
-
-
 def _qdq(y: torch.Tensor) -> torch.Tensor:
     """The reference runtime's F32 -> Q80 activation casts, emulated
     (``--buffer-float-type q80``): runtime rounding, half away from zero."""
@@ -152,7 +144,9 @@ def llama_forward(
     ``attn_len`` (optional) bounds the cache slots attention reads to the
     first ``attn_len``: every real query position must be below it. The
     slots past it are masked out in any case, so the result is the same
-    up to f32 summation order. ``logit_rows`` (optional) selects the T
+    up to f32 summation order. A decode step (T = 1) attends through
+    ``ops.cuda_attn.decode_attention``: on the card a kernel that reads each
+    lane's own slots only, in an order its position fixes. ``logit_rows`` (optional) selects the T
     positions whose logits are computed (T' = len(logit_rows)); None
     computes all T.
 
@@ -216,8 +210,10 @@ def llama_forward(
     # writes at or past seq_len land in the scratch slot (the JAX scatter
     # drops them)
     w_pos = [p.clamp(0, cfg.seq_len) for p in poss]
-    masks = [torch.arange(s_len, device=d)[None, None, :] <= p[:, :, None]  # [B, T, S]
-             for d, p in zip(devs, poss)]
+    # a decode step (T = 1) runs the attention kernel, which masks by position
+    masks = None if t == 1 else [
+        torch.arange(s_len, device=d)[None, None, :] <= p[:, :, None]  # [B, T, S]
+        for d, p in zip(devs, poss)]
 
     def attention(r: int, lp: LlamaLayerParams, l: int) -> torch.Tensor:
         x, pos, p = xs[r], poss[r], ranks[r]
@@ -235,10 +231,13 @@ def llama_forward(
         v_cache[lane_idx[r], w_pos[r]] = v.to(v_cache.dtype)
 
         qf = q.to(torch.float32).reshape(b, t, n_kv, group, hd)
-        attn = _dense_attention(
-            qf, k_cache[:, :s_len].to(torch.float32),
-            v_cache[:, :s_len].to(torch.float32), masks[r], scale,
-        )
+        if t == 1:
+            attn = decode_attention(qf, k_cache, v_cache, pos, scale, s_len)
+        else:
+            attn = dense_attention(
+                qf, k_cache[:, :s_len].to(torch.float32),
+                v_cache[:, :s_len].to(torch.float32), masks[r], scale,
+            )
         return maybe_qdq(attn.reshape(b, t, n_heads * hd).to(x.dtype))
 
     def ffn_in(r: int, lp: LlamaLayerParams) -> torch.Tensor:

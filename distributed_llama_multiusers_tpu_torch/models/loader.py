@@ -222,7 +222,7 @@ def params_from_random(config: LlamaConfig, seed: int = 0, dtype=torch.bfloat16,
                        rope_cos=cos, rope_sin=sin)
 
 
-def _from_numpy(x, dtype=None, device="cpu") -> torch.Tensor:
+def _from_numpy(x, dtype=None, *, device) -> torch.Tensor:
     """A numpy array (bf16 arrays from ml_dtypes included) -> torch."""
     a = np.ascontiguousarray(x)
     if not a.flags.writeable:  # a read-only view (JAX arrays): torch needs its own copy
@@ -246,9 +246,9 @@ def params_from_jax_numpy(tree, device=DEFAULT_DEVICE, dtype=None) -> LlamaParam
         if x is None:
             return None
         if hasattr(x, "packed") and hasattr(x, "scales"):
-            return PackedQ40(_from_numpy(x.packed, torch.uint8, device),
-                             _from_numpy(x.scales, torch.float16, device))
-        return _from_numpy(x, kind, device)
+            return PackedQ40(_from_numpy(x.packed, torch.uint8, device=device),
+                             _from_numpy(x.scales, torch.float16, device=device))
+        return _from_numpy(x, kind, device=device)
 
     lay = tree.layers
     if getattr(lay, "moe_gate", None) is not None:

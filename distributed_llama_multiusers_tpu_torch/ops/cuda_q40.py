@@ -91,6 +91,13 @@ def kernel_counts() -> dict:
                 "kernel_plain_calls": dict(PLAIN_CALLS)}
 
 
+def add_launches(delta: dict) -> None:
+    """Add a recorded delta of launches (a CUDA graph's, on each replay)."""
+    with _counts_lock:
+        for k, v in delta.items():
+            LAUNCHES[k] += v
+
+
 def _bump(table: dict, key: str) -> None:
     with _counts_lock:
         table[key] += 1

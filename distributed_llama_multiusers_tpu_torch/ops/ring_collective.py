@@ -83,6 +83,14 @@ def ring_counts() -> dict:
         return {f"ring_hop_{k}": v for k, v in COUNTS.items()}
 
 
+def add_counts(delta: dict) -> None:
+    """Add a recorded delta of launches and bytes (a CUDA graph's, on each
+    replay)."""
+    with _counts_lock:
+        for k, v in delta.items():
+            COUNTS[k] += v
+
+
 def _bump(key: str, nbytes: int, n: int = 1) -> None:
     with _counts_lock:
         COUNTS[key] += n

@@ -74,7 +74,7 @@ def pack_q40_planar(values: np.ndarray, scales: np.ndarray):
     return np.ascontiguousarray(packed), np.ascontiguousarray(scales_t)
 
 
-def pack_q40_from_blocks(raw_blocks, shape: tuple[int, int], device="cpu"):
+def pack_q40_from_blocks(raw_blocks, shape: tuple[int, int], *, device):
     """Packed ``.m`` Q40 block bytes (row-major over [d_out, d_in], blocks
     along d_in) -> (packed uint8 [d_in//2, d_out], scales f16 [d_in//32,
     d_out]) on ``device``, without dequantizing: the 16 nibble bytes of

@@ -1,27 +1,49 @@
-"""Inference engine: prefill and decode steps over a lane-based KV cache.
+"""Inference engine: prefill and decode step families over a lane-based KV
+cache, the JAX engine's serving programs.
 
 - ``decode``: one token for every lane at its own position — the whole
   continuous batch advances in one step;
+- ``decode_multi(h)``: h chained decode steps in one dispatch, each lane
+  fed its own choice on the device;
+- ``decode_pipelined`` / ``pipeline_consume``: a ring of at most
+  ``pipeline_depth`` dispatched steps fed by the on-device token and
+  position carry, read back one step behind;
+- ``decode_prefill_fused``: one prompt chunk for an admitting lane plus one
+  pipelined decode step for every other lane, in the same ring;
 - ``prefill_chunk`` / ``prefill``: a bucketed prompt chunk for ONE lane,
   on that lane's slice of the cache.
 
 Prompt chunks are padded to the same buckets as the JAX engine, so a chunk
-runs the same product shapes (and so the same dequant mode per site) there
-and here. Sampling runs on the device: an exact full-vocab nucleus
-(sort -> softmax -> cumulative sum -> keep up to and including the token
-that crosses top-p) and one uniform draw per lane from a ``torch.Generator``
-seeded by (seed, position), so a seeded request reproduces. The JAX engine
-draws with ``fold_in(PRNGKey(seed), pos)``, which torch cannot reproduce:
-sampled streams agree with it in support only; greedy streams are
-identical.
+runs the same product shapes there and here; a chunk's attention reads the
+first ``attn_len`` cache slots of its own lane, a power of two of at least
+64 (or ``seq_len``) past the chunk. A decode step attends over the whole
+cache, as the JAX engine's compiled step does, through the attention
+kernel (``ops/cuda_attn.py``), which reads each lane's own slots in an
+order its position fixes: a lane's result never depends on which other
+lanes share the step (a lane finished but read one step late, an
+admission mid-prompt), so a stream is the same whichever family steps it
+and whoever else is served. Sampling is the JAX engine's, on the device (``runtime/sampling.py``): the exact
+full-vocab nucleus and a Gumbel-max draw with JAX's threefry bits under
+``fold_in(PRNGKey(seed), pos)``, so seeded streams equal the JAX
+package's. A sampled step's greedy/sampled pair comes back as one [2, n]
+readback.
+
+On a CUDA device the decode families run as CUDA graphs
+(``runtime/graphs.py``), one per family (and multi-step horizon) and
+whether a lane samples, captured at warmup (or at a key's first use) from the same step
+bodies the CPU runs eagerly. Host inputs reach the card by non-blocking
+copies from pinned memory and a pipelined step's tokens come back the same
+way behind an event, so nothing in a pipelined dispatch waits on the card.
+The prompt-chunk and fused families run eagerly on the stream, as does a
+tensor-parallel mesh across cards; a mesh whose ranks share one card is
+captured.
 
 With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
 KV caches; sampling and the returned logits stay on rank 0's device, so the
 scheduler sees one engine either way.
 
-The port runs the synchronous path only; the pipelined, fused,
-speculative, multi-step, paged and grammar families are later work, which
-the ``supports_*`` flags say to the scheduler.
+The speculative, paged and grammar families are later work, which the
+``supports_*`` flags say to the scheduler.
 """
 
 from __future__ import annotations
@@ -29,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -39,11 +62,36 @@ from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, llama_forward
 from ..ops.ring_collective import ring_counts
 from ..parallel.sharding import shard_kv_cache
+from .graphs import StepGraphs
+from .sampling import MASK32, sample_lanes
 
 DEFAULT_PREFILL_BUCKETS = (16, 64, 256, 1024)
 DEFAULT_TOPP = 0.9
-_SEED_MIX = 0x9E3779B97F4A7C15
-_U64 = (1 << 64) - 1
+# bounded in-flight ring of the async decode pipeline (--pipeline-depth):
+# 2 = consume step k while step k+1 runs; 0 or 1 disables pipelining
+DEFAULT_PIPELINE_DEPTH = 2
+ATTN_BUCKET_FLOOR = 64
+
+
+def pow2_floor(h: int) -> int:
+    """Largest power of two <= h (0 for h < 1): the multi-step horizon
+    buckets, so that warmup captures the horizons serving dispatches."""
+    return 1 << (h.bit_length() - 1) if h >= 1 else 0
+
+
+def attn_buckets(seq_len: int) -> tuple[int, ...]:
+    """The attention lengths a prompt chunk may run: powers of two from 64
+    below ``seq_len``, then ``seq_len``."""
+    out = []
+    b = ATTN_BUCKET_FLOOR
+    while b < seq_len:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (seq_len,)
+
+
+def _hist_bump(hist: dict, key) -> None:
+    hist[key] = hist.get(key, 0) + 1
 
 
 @dataclass
@@ -55,6 +103,22 @@ class EngineStats:
     prefill_tokens: int = 0
     decode_steps: int = 0
     host_bytes_in: int = 0  # device->host token/logit traffic
+    multi_dispatches: int = 0  # decode_multi calls (h decode steps each)
+    # async decode pipeline: host time between a step's dispatch and the
+    # start of its readback (work the card's execution hid), steps
+    # dispatched, chains cut short with lanes still live (an admission
+    # with fused prefill is not one, so steady serving reads 0), and the
+    # ring depth right after each dispatch
+    overlap_s: float = 0.0
+    pipeline_dispatches: int = 0
+    pipeline_flushes: int = 0
+    pipeline_depth_hist: dict = field(default_factory=dict)
+    # stall-free admissions: fused prefill+decode dispatches, host time
+    # decoding lanes waited behind admission work, and the prefill bucket
+    # of each fused dispatch
+    fused_steps: int = 0
+    admission_stall_s: float = 0.0
+    fused_bucket_hist: dict = field(default_factory=dict)
     # bytes the ring hop moved in the last decode step (a mesh's TP sync and
     # logits gather; 0 off-mesh), counted by the hop, not reckoned
     sync_bytes_per_decode: int = 0
@@ -62,17 +126,22 @@ class EngineStats:
                                  compare=False)
 
     def _counters(self) -> dict:
-        return {k: v for k, v in self.__dict__.items() if k != "lock"}
+        # the histograms are copied: a snapshot must not change under its reader
+        return {k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in self.__dict__.items() if k != "lock"}
 
     def snapshot(self) -> dict:
         with self.lock:
             return self._counters()
 
     def reset(self) -> "EngineStats":
+        """Zero the window's counters and return what they held;
+        ``sync_bytes_per_decode`` describes the step, not a window."""
         with self.lock:
             snap = EngineStats(**self._counters())
-            self.prefill_s = self.decode_s = 0.0
-            self.prefill_tokens = self.decode_steps = self.host_bytes_in = 0
+            keep = self.sync_bytes_per_decode
+            self.__dict__.update(EngineStats()._counters())
+            self.sync_bytes_per_decode = keep
         return snap
 
     @contextlib.contextmanager
@@ -86,46 +155,13 @@ class EngineStats:
                 self.__dict__.update(snap)
 
 
-def _lane_uniforms(seeds, positions) -> torch.Tensor:
-    """One U[0, 1) draw per lane from a CPU generator seeded by (seed, pos)."""
-    out = torch.empty(len(seeds), dtype=torch.float32)
-    g = torch.Generator()
-    for i, (s, p) in enumerate(zip(seeds, positions)):
-        g.manual_seed((int(s) * _SEED_MIX + int(p)) & _U64)
-        out[i] = torch.rand((), generator=g)
-    return out
-
-
-def sample_rows(rows: torch.Tensor, temps: torch.Tensor, topps: torch.Tensor,
-                uniforms: torch.Tensor) -> torch.Tensor:
-    """Exact nucleus samples for rows [n, vocab] (f32): full-vocab sort,
-    softmax at temperature max(temp, 1e-6), keep every token up to and
-    including the one whose cumulative probability crosses top-p (top-p
-    <= 0 or >= 1 keeps all), then inverse-CDF of the kept mass at the
-    lane's uniform. Returns token ids [n] (int64)."""
-    vals, idx = torch.sort(rows, dim=-1, descending=True)
-    t = torch.clamp(temps, min=1e-6)[:, None]
-    p = torch.softmax(vals / t, dim=-1)
-    csum = torch.cumsum(p, dim=-1)
-    topp_eff = torch.where((topps <= 0.0) | (topps >= 1.0),
-                           torch.ones_like(topps), topps)[:, None]
-    keep = (csum - p) < topp_eff
-    kept = torch.where(keep, p, torch.zeros_like(p))
-    kcum = torch.cumsum(kept, dim=-1)
-    r = uniforms.to(rows.device)[:, None] * kcum[:, -1:]
-    choice = torch.searchsorted(kcum, r, right=True)
-    n_kept = keep.sum(dim=-1, keepdim=True)
-    choice = torch.minimum(choice, n_kept - 1)
-    return torch.gather(idx, 1, choice)[:, 0]
-
-
 class InferenceEngine:
-    # later slices: the scheduler reads these to pick its paths
-    supports_pipelined = False
-    supports_fused_prefill = False
+    # the scheduler reads these to pick its paths
+    supports_pipelined = True
+    supports_fused_prefill = True
+    supports_multi_step = True
     supports_speculative = False
     supports_spec_pipelined = False
-    supports_multi_step = False
     supports_grammar = False
 
     def __init__(
@@ -140,6 +176,7 @@ class InferenceEngine:
         emulate_q80_activations: bool = False,
         q80_sync: bool = False,
         ring_sync: bool = True,
+        pipeline_depth: int | None = None,
     ):
         """``device`` defaults to CUDA and raises where there is none; tests
         pass ``device="cpu"``. The parameters must already live there.
@@ -149,7 +186,8 @@ class InferenceEngine:
         ``parallel.sharding.shard_params`` and the device is rank 0's, where
         sampling runs and logits land; the KV cache is split on kv heads.
         ``emulate_q80_activations``, ``q80_sync`` and ``ring_sync`` go to
-        ``llama_forward``."""
+        ``llama_forward``. ``pipeline_depth`` bounds the pipelined ring
+        (None: 2; 0 or 1 turns the scheduler's pipelined path off)."""
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.devices[0])
         self.devices = [self.device] if mesh is None else list(mesh.devices)
@@ -163,6 +201,7 @@ class InferenceEngine:
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets) if b <= config.seq_len
         ) or (min(16, config.seq_len),)
+        self.attn_buckets = attn_buckets(config.seq_len)
         if cache_dtype is None:
             cache_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
         self.cache_dtype = cache_dtype
@@ -172,32 +211,179 @@ class InferenceEngine:
         self._forward_flags = {"emulate_q80_activations": emulate_q80_activations,
                                "mesh": mesh, "q80_sync": q80_sync, "ring_sync": ring_sync}
         self.stats = EngineStats()
+        self.pipeline_depth = (DEFAULT_PIPELINE_DEPTH if pipeline_depth is None
+                               else max(0, pipeline_depth))
+
+        # the step families' static inputs: host tokens, host positions (-1
+        # reads the carried position) and seeds; temperatures and top-p;
+        # the pipeline's token and position carry
+        n = n_lanes
+        self._in_i = torch.zeros((3, n), dtype=torch.int64, device=self.device)
+        self._in_f = torch.zeros((2, n), dtype=torch.float32, device=self.device)
+        self._feed = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._cpos = torch.zeros(n, dtype=torch.int64, device=self.device)
+        # a mesh across cards stays eager (its ranks' streams would join
+        # the capture through events); one card, ranks on it included, is
+        # captured
+        one_card = self.device.type == "cuda" and all(d == self.device for d in self.devices)
+        self.graphs = StepGraphs(self.device, [self._feed, self._cpos]) if one_card else None
+        # pipelined ring: (host readback, ready event or None, t_dispatch)
+        self._pl_inflight: deque = deque()
+        self._pl_seeded = False  # the device carry holds a chain's feed
 
     # -- helpers --------------------------------------------------------------
 
-    def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    def _staged(self, a, dtype=torch.int64) -> torch.Tensor:
+        """A host array as a tensor to copy from: pinned on the card, so
+        that the copy does not wait (a dispatch behind an in-flight step
+        must not stall the host; the pinned block outlives the copy)."""
+        t = torch.as_tensor(np.asarray(a)).to(dtype)
+        return t if self.device.type == "cpu" else t.pin_memory()
+
+    def _upload(self, a, dtype=torch.int64) -> torch.Tensor:
+        """A host array on the engine's device, without waiting."""
+        return self._staged(a, dtype).to(self.device, non_blocking=True)
 
     def _lane_cache(self, lane: int):
         if self.mesh is None:
             return self.cache.lane(lane)
         return [c.lane(lane) for c in self.cache]
 
-    def _attn_len(self, ends) -> int:
-        """Cache slots attention must read: past the highest real position,
-        rounded up to 64 (idle lanes sit at seq_len and are left out)."""
-        real = [int(e) for e in ends if int(e) <= self.config.seq_len]
-        top = max(real) if real else self.config.seq_len
-        return min(self.config.seq_len, -(-top // 64) * 64)
+    def _chunk_attn(self, end: int) -> int:
+        """The attention bucket of a prompt chunk ending at ``end``: the
+        least bucket at or past it."""
+        return next(b for b in self.attn_buckets if b >= end)
 
-    def _sample(self, rows, temps, topps, seeds, positions, greedy) -> torch.Tensor:
-        if not np.any(np.asarray(temps) > 0.0):
-            return greedy
-        u = _lane_uniforms(seeds, positions)
-        tt = self._tensor(temps, torch.float32)
-        sampled = sample_rows(rows.to(torch.float32), tt,
-                              self._tensor(topps, torch.float32), u)
-        return torch.where(tt == 0.0, greedy, sampled)
+    def _fill(self, tokens, positions, temps, topps, seeds) -> None:
+        """Host metadata into the static inputs (tokens None: keep the
+        carry; else they reseed it: the JAX engine's ``_pl_feed``)."""
+        n = self.n_lanes
+        ints = np.empty((3, n), np.int64)
+        ints[0] = 0 if tokens is None else np.asarray(tokens, np.int64)
+        ints[1] = np.asarray(positions, np.int64)
+        ints[2] = np.asarray(seeds, np.int64) & MASK32
+        self._in_i.copy_(self._staged(ints), non_blocking=True)
+        self._in_f.copy_(self._staged(np.stack([temps, topps]), torch.float32),
+                         non_blocking=True)
+        if tokens is not None:
+            self._feed.copy_(self._in_i[0])
+
+    def _defaults(self, temps, topps, seeds):
+        n = self.n_lanes
+        temps = np.zeros(n, np.float32) if temps is None else np.asarray(temps, np.float32)
+        topps = (np.full(n, DEFAULT_TOPP, np.float32) if topps is None
+                 else np.asarray(topps, np.float32))
+        seeds = np.zeros(n, np.int64) if seeds is None else np.asarray(seeds, np.int64)
+        return temps, topps, seeds
+
+    # -- step bodies (captured as CUDA graphs on the card, eager on the CPU) --
+
+    def _forward(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        logits, _ = llama_forward(
+            self.config, self.params, tokens[:, None], positions[:, None], self.cache,
+            **self._forward_flags,
+        )
+        return logits[:, 0, :]
+
+    def _pick(self, step, positions, sample: bool):
+        """(greedy, sampled) per lane: argmax, and the nucleus draw where
+        ``sample`` (the host's "some lane samples"; the twin of the JAX
+        engine's ``lax.cond``)."""
+        greedy = torch.argmax(step, dim=-1)
+        if not sample:
+            return greedy, greedy
+        temps, topps = self._in_f[0], self._in_f[1]
+        return greedy, sample_lanes(step, temps, topps, self._in_i[2], positions, greedy)
+
+    def _step_body(self, sample: bool):
+        """One decode step from the static inputs: positions are the host's
+        where >= 0, else the carry; the chosen tokens and next positions
+        become the carry. Returns (logits [n, vocab], [2, n] int32 greedy
+        and sampled rows)."""
+        pos = torch.where(self._in_i[1] < 0, self._cpos, self._in_i[1])
+        step = self._forward(self._feed, pos)
+        greedy, sampled = self._pick(step, pos, sample)
+        self._feed.copy_(torch.where(self._in_f[0] == 0.0, greedy, sampled))
+        self._cpos.copy_(torch.clamp(pos + 1, max=self.config.seq_len))
+        return step, torch.stack([greedy, sampled]).to(torch.int32)
+
+    def _multi_body(self, h: int, sample: bool):
+        """h chained steps: each lane feeds its greedy token at temperature
+        0, else its draw, at position + 1. Returns chosen [h, n] int32."""
+        tok, pos = self._feed, self._in_i[1]
+        chosen = []
+        for _ in range(h):
+            step = self._forward(tok, pos)
+            greedy, sampled = self._pick(step, pos, sample)
+            tok = torch.where(self._in_f[0] == 0.0, greedy, sampled)
+            chosen.append(tok)
+            pos = pos + 1
+        return torch.stack(chosen).to(torch.int32)
+
+    def _run_step(self, sample: bool):
+        body = lambda: self._step_body(sample)  # noqa: E731
+        if self.graphs is None:
+            return body()
+        return self.graphs.run(("step", sample), body, ("step", sample))
+
+    def _run_multi(self, h: int, sample: bool):
+        body = lambda: self._multi_body(h, sample)  # noqa: E731
+        if self.graphs is None:
+            return body()
+        return self.graphs.run(("multi", h, sample), body, ("multi", sample))
+
+    def capture_graphs(self, multi_step: int = 0) -> None:
+        """Capture every decode-family graph serving can replay: the step
+        and each multi-step horizon (powers of two from ``multi_step``
+        down to 2), with and without sampling. Nothing to do where the
+        engine runs eagerly."""
+        if self.graphs is None:
+            return
+        h = pow2_floor(multi_step)
+        for sample in (False, True):
+            self.graphs.ensure(("step", sample), lambda s=sample: self._step_body(s),
+                               ("step", sample))
+            for k in range(h.bit_length() - 1):
+                hk = h >> k
+                self.graphs.ensure(("multi", hk, sample),
+                                   lambda hk=hk, s=sample: self._multi_body(hk, s),
+                                   ("multi", sample))
+
+    def _prefill_half(self, lane: int, chunk: list[int], start_pos: int,
+                      temp: float, topp: float, seed: int):
+        """One bucketed prompt chunk on one lane's cache, and its boundary
+        token: (last logits [vocab], greedy, sampled) as device tensors."""
+        n = len(chunk)
+        bucket = self.bucket_for(n)
+        padded = np.zeros(bucket, np.int64)
+        padded[:n] = chunk
+        positions = start_pos + np.arange(bucket, dtype=np.int64)
+        logits, _ = llama_forward(
+            self.config, self.params, self._upload(padded)[None, :],
+            self._upload(positions)[None, :], self._lane_cache(lane),
+            attn_len=self._chunk_attn(start_pos + n),
+            logit_rows=self._upload([n - 1]), **self._forward_flags,
+        )
+        last = logits[0, 0]
+        greedy = torch.argmax(last)
+        sampled = greedy
+        if temp > 0.0:  # a greedy admission skips the sampler
+            sampled = sample_lanes(
+                last[None], self._upload([temp], torch.float32),
+                self._upload([topp], torch.float32), self._upload([seed & MASK32]),
+                self._upload([start_pos + n - 1]), greedy[None])[0]
+        return last, greedy, sampled
+
+    def _validate_chunk(self, chunk, start_pos: int) -> None:
+        if not chunk:
+            raise ValueError("prefill needs a non-empty prompt chunk")
+        if len(chunk) > self.max_chunk():
+            raise ValueError(f"chunk of {len(chunk)} exceeds bucket {self.max_chunk()}")
+        if start_pos + len(chunk) > self.config.seq_len:
+            raise ValueError(
+                f"chunk of {len(chunk)} tokens at pos {start_pos} exceeds "
+                f"seq_len {self.config.seq_len}"
+            )
 
     # -- public API ---------------------------------------------------------
 
@@ -216,36 +402,16 @@ class InferenceEngine:
         """One bucketed prompt chunk for one lane. Returns (last_logits
         [vocab] device tensor, greedy_token int, sampled_token int — equals
         greedy at temp 0)."""
-        if len(chunk) > self.max_chunk():
-            raise ValueError(f"chunk of {len(chunk)} exceeds bucket {self.max_chunk()}")
-        if start_pos + len(chunk) > self.config.seq_len:
-            raise ValueError(
-                f"chunk of {len(chunk)} tokens at pos {start_pos} exceeds "
-                f"seq_len {self.config.seq_len}"
-            )
+        self._validate_chunk(chunk, start_pos)
         if not 0 <= lane < self.n_lanes:
             raise ValueError(f"lane {lane} out of range")
         t0 = time.perf_counter()
-        n = len(chunk)
-        bucket = self.bucket_for(n)
-        padded = np.zeros(bucket, np.int64)
-        padded[:n] = chunk
-        positions = start_pos + np.arange(bucket, dtype=np.int64)
-        logits, _ = llama_forward(
-            self.config, self.params, self._tensor(padded)[None, :],
-            self._tensor(positions)[None, :], self._lane_cache(lane),
-            attn_len=self._attn_len([start_pos + n]),
-            logit_rows=self._tensor([n - 1]), **self._forward_flags,
-        )
-        last = logits[0, 0]
-        greedy = torch.argmax(last)
-        sampled = self._sample(last[None], [temp], [topp], [seed & 0xFFFFFFFF],
-                               [start_pos + n - 1], greedy[None])
-        toks = torch.stack([greedy, sampled[0]]).cpu()
+        last, greedy, sampled = self._prefill_half(lane, chunk, start_pos, temp, topp, seed)
+        toks = torch.stack([greedy, sampled]).to(torch.int32).cpu()
         with self.stats.lock:
             self.stats.host_bytes_in += toks.numel() * 4
             self.stats.prefill_s += time.perf_counter() - t0
-            self.stats.prefill_tokens += n
+            self.stats.prefill_tokens += len(chunk)
         return last, int(toks[0]), int(toks[1])
 
     def prefill(self, lane: int, tokens: list[int], start_pos: int = 0,
@@ -265,36 +431,224 @@ class InferenceEngine:
             pos += len(chunk)
         return last, greedy, pos
 
+    def _check_sync(self) -> None:
+        if self.pipeline_active:
+            raise RuntimeError("a pipelined chain holds the token carry: flush it "
+                               "(pipeline_flush) before a synchronous step")
+
     @torch.inference_mode()
     def decode(self, tokens, positions, temps=None, topps=None, seeds=None,
                want_logits: bool = True):
         """One decode step for all lanes. tokens/positions: int [n_lanes]
         (idle lanes at seq_len: their KV write lands in the scratch slot).
         Returns (logits [n_lanes, vocab] device tensor or None, greedy
-        np[n_lanes], sampled np[n_lanes] — equals greedy where temp 0)."""
-        n = self.n_lanes
-        temps = np.zeros(n, np.float32) if temps is None else np.asarray(temps, np.float32)
-        topps = (np.full(n, DEFAULT_TOPP, np.float32) if topps is None
-                 else np.asarray(topps, np.float32))
-        seeds = np.zeros(n, np.uint32) if seeds is None else np.asarray(seeds)
+        np[n_lanes], sampled np[n_lanes] — equals greedy where temp 0), the
+        pair in one [2, n] readback."""
+        self._check_sync()
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
         positions = np.asarray(positions, np.int64)
+        if positions.min() < 0:
+            raise ValueError("decode positions must be >= 0")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
-        logits, _ = llama_forward(
-            self.config, self.params, self._tensor(tokens)[:, None],
-            self._tensor(positions)[:, None], self.cache,
-            attn_len=self._attn_len(positions + 1), **self._forward_flags,
-        )
-        step = logits[:, 0, :]
-        greedy = torch.argmax(step, dim=-1)
-        sampled = self._sample(step, temps, topps, seeds, positions, greedy)
-        toks = torch.stack([greedy, sampled]).cpu().numpy().astype(np.int32)
+        self._fill(tokens, positions, temps, topps, seeds)
+        step, packed = self._run_step(bool(np.any(temps > 0)))
+        toks = packed.cpu().numpy()
         with self.stats.lock:
             self.stats.host_bytes_in += toks.nbytes
             self.stats.decode_s += time.perf_counter() - t0
             self.stats.decode_steps += 1
             self.stats.sync_bytes_per_decode = ring_counts()["ring_hop_bytes"] - hop_bytes
-        return (step if want_logits else None), toks[0], toks[1]
+        return (step.clone() if want_logits else None), toks[0], toks[1]
+
+    @torch.inference_mode()
+    def decode_multi(self, tokens, positions, temps=None, topps=None, seeds=None,
+                     h: int = 8) -> np.ndarray:
+        """``h`` chained decode steps for all lanes in one dispatch. Per
+        lane and step the feed is its greedy token at temperature 0, else
+        its draw (the same fold_in(seed, pos) draw h single steps make), at
+        position + 1. Returns ``chosen`` np[h, n]: the token each lane feeds
+        after step j. The caller consumes its next token plus chosen[:h-1]
+        and adopts chosen[h-1]; steps past a lane's stop write junk KV above
+        its committed tokens, rewritten before any query reads it; steps
+        past seq_len write the scratch slot."""
+        self._check_sync()
+        if h < 1:
+            raise ValueError(f"horizon {h} < 1")
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        positions = np.asarray(positions, np.int64)
+        if positions.min() < 0:
+            raise ValueError("decode positions must be >= 0")
+        t0 = time.perf_counter()
+        hop_bytes = ring_counts()["ring_hop_bytes"]
+        self._fill(tokens, positions, temps, topps, seeds)
+        chosen = self._run_multi(h, bool(np.any(temps > 0))).cpu().numpy()
+        with self.stats.lock:
+            self.stats.host_bytes_in += chosen.nbytes
+            self.stats.decode_s += time.perf_counter() - t0
+            self.stats.decode_steps += h
+            self.stats.multi_dispatches += 1
+            self.stats.sync_bytes_per_decode = (ring_counts()["ring_hop_bytes"]
+                                                - hop_bytes) // h
+        return chosen
+
+    # -- the pipelined family -------------------------------------------------
+
+    def pipeline_inflight(self) -> int:
+        """Dispatched-but-unconsumed pipelined steps (ring occupancy)."""
+        return len(self._pl_inflight)
+
+    @property
+    def pipeline_active(self) -> bool:
+        """True while a chain holds state (in-flight steps or a device token
+        carry): direct decode callers must flush first."""
+        return len(self._pl_inflight) > 0 or self._pl_seeded
+
+    def check_pipelined_dispatch(self, reseed: bool, positions=None) -> None:
+        """Raise every host-side error a pipelined dispatch would, without
+        dispatching."""
+        if reseed and positions is not None and int(np.min(positions)) < 0:
+            raise ValueError(
+                "reseed dispatch with a -1 position: the carried-position "
+                "select has no carry to read on a reseed — pass real "
+                "positions for every lane"
+            )
+        if len(self._pl_inflight) >= max(1, self.pipeline_depth):
+            raise RuntimeError(
+                f"pipeline ring full (depth {self.pipeline_depth}): consume "
+                "the oldest in-flight step before dispatching another"
+            )
+        if not reseed and not self._pl_seeded:
+            raise RuntimeError(
+                "no device token carry: seed the chain with tokens= "
+                "(first dispatch after construction or a flush)"
+            )
+
+    def check_fused_dispatch(self, chunk, p_start: int, reseed: bool,
+                             positions=None) -> None:
+        """``check_pipelined_dispatch`` plus the prompt chunk's bounds."""
+        if not chunk:
+            raise ValueError("fused prefill needs a non-empty prompt chunk")
+        self._validate_chunk(chunk, p_start)
+        self.check_pipelined_dispatch(reseed, positions)
+
+    def _dispatch_step(self, positions, temps, topps, seeds, tokens):
+        """Fill the static inputs and run one step of the chain; returns the
+        step's [2, n] int32 output (static on the card: read it before the
+        next replay)."""
+        hop_bytes = ring_counts()["ring_hop_bytes"]
+        self._fill(tokens, positions, temps, topps, seeds)
+        _, packed = self._run_step(bool(np.any(temps > 0)))
+        self._pl_seeded = True
+        with self.stats.lock:
+            self.stats.sync_bytes_per_decode = ring_counts()["ring_hop_bytes"] - hop_bytes
+        return packed
+
+    def _enqueue(self, packed: torch.Tensor) -> None:
+        """The step's tokens into a pinned host buffer of their own without
+        waiting (the card's copy is ordered behind the step), and the step
+        into the ring."""
+        if self.device.type == "cpu":
+            self._pl_inflight.append((packed.numpy().copy(), None, time.perf_counter()))
+        else:
+            host = torch.empty(tuple(packed.shape), dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            self._pl_inflight.append((host, ready, time.perf_counter()))
+        with self.stats.lock:
+            self.stats.pipeline_dispatches += 1
+            _hist_bump(self.stats.pipeline_depth_hist, len(self._pl_inflight))
+
+    @torch.inference_mode()
+    def decode_pipelined(self, positions, temps=None, topps=None, seeds=None,
+                         tokens=None) -> None:
+        """Dispatch ONE pipelined decode step and return without reading
+        anything back. ``tokens=None`` feeds the device carry (the previous
+        step's where(temp == 0, greedy, sampled)); host ``tokens`` reseed
+        it. A position of -1 reads the carried position, >= 0 overrides it
+        (parked or admitting lanes at seq_len, every lane on a reseed).
+        The ring holds at most ``pipeline_depth`` steps: consume the oldest
+        before dispatching past it. Steps dispatched after a lane's
+        not-yet-read stop write junk KV above its committed tokens."""
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        self.check_pipelined_dispatch(tokens is not None, positions)
+        self._enqueue(self._dispatch_step(positions, temps, topps, seeds, tokens))
+
+    @torch.inference_mode()
+    def decode_prefill_fused(self, positions, temps=None, topps=None, seeds=None,
+                             p_lane: int = 0, chunk: list[int] | None = None,
+                             p_start: int = 0, p_temp: float = 0.0,
+                             p_topp: float = DEFAULT_TOPP, p_seed: int = 0,
+                             tokens=None) -> None:
+        """Dispatch one fused step into the ring: lane ``p_lane`` takes one
+        prompt chunk (``prefill_chunk``'s math) and every lane takes one
+        pipelined decode step (``decode_pipelined``'s, with the admitting
+        lane parked at seq_len by the caller). The carry slot of ``p_lane``
+        becomes the chunk's boundary token and its position the chunk's
+        end, so after the final chunk the next dispatch feeds the admitted
+        lane from the device. The readback is [2, n+1], the extra column
+        the boundary greedy/sampled pair."""
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        _, p_greedy, p_sampled = self._prefill_half(p_lane, chunk, p_start, p_temp,
+                                                    p_topp, p_seed)
+        packed = self._dispatch_step(positions, temps, topps, seeds, tokens)
+        end = p_start + len(chunk)
+        self._feed[p_lane:p_lane + 1].copy_((p_greedy if p_temp == 0.0 else p_sampled)[None])
+        self._cpos[p_lane:p_lane + 1].fill_(end)
+        pair = torch.stack([p_greedy, p_sampled]).to(torch.int32)[:, None]
+        self._enqueue(torch.cat([packed, pair], dim=1))
+        bucket = self.bucket_for(len(chunk))
+        with self.stats.lock:
+            self.stats.fused_steps += 1
+            self.stats.prefill_tokens += len(chunk)
+            _hist_bump(self.stats.fused_bucket_hist, bucket)
+
+    def pipeline_consume(self):
+        """Blocking readback of the OLDEST in-flight step, waiting on its
+        event only. Returns (greedy np[n|n+1], sampled np[n|n+1]); a fused
+        step's extra column is the chunk's boundary pair."""
+        if not self._pl_inflight:
+            raise RuntimeError("pipeline ring empty: nothing to consume")
+        host, ready, dispatched_at = self._pl_inflight.popleft()
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+            host = host.numpy().copy()
+        t1 = time.perf_counter()
+        with self.stats.lock:
+            self.stats.host_bytes_in += host.nbytes
+            self.stats.decode_s += t1 - t0
+            self.stats.decode_steps += 1
+            self.stats.overlap_s += max(0.0, t0 - dispatched_at)
+        return host[0], host[1]
+
+    def pipeline_flush(self, count: bool = True) -> int:
+        """Drain every in-flight step (discarding its tokens) and drop the
+        carry; the next dispatch reseeds. Returns how many steps were
+        discarded; a non-zero drain counts as a flush unless ``count`` is
+        False."""
+        n = len(self._pl_inflight)
+        while self._pl_inflight:
+            self.pipeline_consume()
+        self._pl_seeded = False
+        if n and count:
+            with self.stats.lock:
+                self.stats.pipeline_flushes += 1
+        return n
+
+    def pipeline_abort(self) -> int:
+        """Drop every in-flight step without reading it back, and the carry
+        (the containment path after an engine failure). Counts a flush
+        when steps were dropped."""
+        n = len(self._pl_inflight)
+        self._pl_inflight.clear()
+        self._pl_seeded = False
+        if n:
+            with self.stats.lock:
+                self.stats.pipeline_flushes += 1
+        return n
 
     @torch.inference_mode()
     def sample_token(self, logits_row, temp: float, topp: float, seed: int,
@@ -302,7 +656,11 @@ class InferenceEngine:
         """Sample from one [vocab] logits row with the decode sampler."""
         row = torch.as_tensor(logits_row, dtype=torch.float32).to(self.device)
         greedy = torch.argmax(row)[None]
-        tok = self._sample(row[None], [temp], [topp], [seed & 0xFFFFFFFF], [pos], greedy)
+        tok = greedy
+        if temp > 0.0:
+            tok = sample_lanes(row[None], self._upload([temp], torch.float32),
+                               self._upload([topp], torch.float32),
+                               self._upload([seed & MASK32]), self._upload([pos]), greedy)
         with self.stats.lock:
             self.stats.host_bytes_in += 4
         return int(tok[0])
@@ -312,14 +670,37 @@ class InferenceEngine:
         position 0, and reads are masked to s <= pos."""
 
 
-def warmup_engine(engine: InferenceEngine) -> None:
-    """Run one prefill chunk per bucket and one decode step before serving,
-    so the first request pays no kernel build; the counters are restored
-    afterwards. The junk KV lands in slots admission rewrites."""
-    z = np.zeros(engine.n_lanes, np.int64)
+def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 0,
+                  pipeline: bool = True) -> None:
+    """Run every serving program once before serving, so that no request
+    pays a kernel build or a graph capture: each prefill bucket, every
+    decode-family graph (the step and each multi-step horizon from
+    ``multi_step`` down to 2, greedy and sampled), the pipelined step in
+    its reseed and chained forms and the fused step per prefill bucket.
+    ``spec`` is the JAX signature's; this engine has no speculative family.
+    The counters are restored afterwards; the junk KV lands in slots
+    admission rewrites."""
+    n = engine.n_lanes
+    z = np.zeros(n, np.int64)
     with engine.stats.preserved():
         for bucket in engine.prefill_buckets:
             engine.prefill_chunk(0, [0] * bucket, 0)
+        multi = multi_step if getattr(engine, "supports_multi_step", False) else 0
+        engine.capture_graphs(multi)
         engine.decode(z, z)
-        engine.decode(z, z, temps=np.full(engine.n_lanes, 0.7, np.float32),
-                      seeds=np.ones(engine.n_lanes, np.uint32))
+        engine.decode(z, z, temps=np.full(n, 0.7, np.float32), seeds=np.ones(n, np.int64))
+        h = pow2_floor(multi)
+        while h > 1:
+            engine.decode_multi(z, z, h=h)
+            h //= 2
+        if pipeline and engine.supports_pipelined and engine.pipeline_depth > 1:
+            neg = np.full(n, -1, np.int64)
+            engine.decode_pipelined(z, tokens=z)
+            engine.decode_pipelined(neg)
+            engine.pipeline_flush()
+            if engine.supports_fused_prefill:
+                park = np.full(n, engine.config.seq_len, np.int64)
+                for bucket in engine.prefill_buckets:
+                    engine.decode_prefill_fused(park, p_lane=0, chunk=[0] * bucket, tokens=z)
+                    engine.decode_prefill_fused(neg, p_lane=0, chunk=[0] * bucket)
+                    engine.pipeline_flush()

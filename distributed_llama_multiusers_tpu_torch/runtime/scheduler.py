@@ -8,9 +8,17 @@ each lane's text through its own UTF-8 stream decoder and stop-string
 detector, and fulfils each request's future on EOS, a stop string or
 max_tokens.
 
-This is the path the JAX scheduler takes with speculation, pipelining,
-fused prefill and multi-step decoding off. The QoS queue, circuit breaker,
-watchdog, journal, telemetry and prefix cache are later work.
+Steady-state decode takes the JAX scheduler's default paths: the async
+pipeline (step k+1 dispatched from the engine's on-device token carry while
+step k's tokens are consumed one step behind), admissions fused into it
+(a queued request claims a free lane inside the live chain and its prompt
+chunks ride fused prefill+decode dispatches, so the chain never flushes
+for them), and, with pipelining off, multi-step horizons (up to
+``multi_step`` chained steps in one dispatch). Every path emits the
+synchronous path's token streams; stops, EOS and cancels found a step (or
+a horizon) late discard the overshoot, whose junk KV lies above the
+committed tokens. Speculation, grammar, paged KV, the QoS queue, circuit
+breaker, watchdog, journal, telemetry and prefix cache are later work.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from enum import Enum
@@ -28,7 +37,7 @@ from typing import Callable
 import numpy as np
 
 from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
-from .engine import DEFAULT_TOPP
+from .engine import DEFAULT_TOPP, pow2_floor
 
 
 class AdmissionRejected(RuntimeError):
@@ -159,11 +168,24 @@ def _summary(req: Request) -> dict:
 
 class ContinuousBatchingScheduler:
     def __init__(self, engine, tokenizer: Tokenizer, queue_: RequestQueue | None = None,
-                 eos_padding: tuple[int, int] = (2, 2)):
+                 eos_padding: tuple[int, int] = (2, 2), multi_step: int = 8,
+                 fused_prefill: bool = True):
+        """``multi_step``: in steady-state decode (no prompt chunk pending,
+        nothing queued) run up to this many decode steps in one dispatch
+        (``engine.decode_multi``); 0 or 1 disables. An engine with
+        ``pipeline_depth`` >= 2 pipelines: step k+1 is dispatched from the
+        device token carry while step k's tokens are consumed one step
+        behind. ``fused_prefill`` (with pipelining): admissions claim lanes inside
+        the live chain and their chunks ride fused prefill+decode
+        dispatches; off, an admission exits the chain to the synchronous
+        admit+prefill path. Streams are the synchronous path's on every
+        path."""
         self.engine = engine
         self.tokenizer = tokenizer
         self.queue = queue_ or RequestQueue()
         self.eos_padding = eos_padding
+        self.multi_step = multi_step
+        self.fused_prefill = fused_prefill
         self._lanes = [_Lane() for _ in range(engine.n_lanes)]
         self._stop = threading.Event()
         self._draining = threading.Event()
@@ -233,22 +255,34 @@ class ContinuousBatchingScheduler:
         if not req.future.done():
             req.future.set_exception(exc if exc is not None else RuntimeError(error))
 
+    def _free_lanes(self) -> list[int]:
+        return [i for i, l in enumerate(self._lanes) if l.request is None]
+
+    def _claim_next(self, free: list[int], wait_s: float = 0.0):
+        """Pop one request into the first free lane: its index, -1 when the
+        popped request resolved without a lane (cancelled, or it failed
+        tokenization), None when the queue is empty."""
+        req = self.queue.pop(timeout=wait_s)
+        if req is None:
+            return None
+        if req._cancelled.is_set():
+            self._resolve_unadmitted(req, "cancelled")
+            return -1
+        req.admitted_at = time.monotonic()
+        lane_idx = free.pop(0)
+        try:
+            self._start_request(lane_idx, req)
+        except Exception as e:  # tokenization/validation: this request only
+            self._fail_request(lane_idx, req, str(e), exc=e)
+            return -1
+        return lane_idx
+
     def _admit(self, wait_s: float = 0.0) -> None:
-        free = [i for i, l in enumerate(self._lanes) if l.request is None]
+        free = self._free_lanes()
         while free:
-            req = self.queue.pop(timeout=wait_s)
-            wait_s = 0.0  # only the first pop may park; the rest are polls
-            if req is None:
+            if self._claim_next(free, wait_s) is None:
                 return
-            if req._cancelled.is_set():
-                self._resolve_unadmitted(req, "cancelled")
-                continue
-            req.admitted_at = time.monotonic()
-            lane_idx = free.pop(0)
-            try:
-                self._start_request(lane_idx, req)
-            except Exception as e:  # tokenization/validation: this request only
-                self._fail_request(lane_idx, req, str(e), exc=e)
+            wait_s = 0.0  # only the first pop may park; the rest are polls
 
     def _resolve_unadmitted(self, req: Request, reason: str) -> None:
         req.state = RequestState.DONE
@@ -373,6 +407,8 @@ class ContinuousBatchingScheduler:
                 except Exception as e:  # noqa: BLE001 — containment boundary
                     self.engine_failures += 1
                     err = f"{type(e).__name__}: {e}"
+                    # the chain's in-flight steps and carry go with it
+                    self.engine.pipeline_abort()
                     for i, lane in enumerate(self._lanes):
                         if lane.request is not None:
                             self._fail_request(i, lane.request, err)
@@ -388,6 +424,209 @@ class ContinuousBatchingScheduler:
                     req.future.set_exception(
                         AdmissionRejected("draining") if self._draining.is_set()
                         else RuntimeError("scheduler stopped"))
+
+    # -- path choice (the JAX scheduler's, without speculation) --------------
+
+    def _generating(self) -> list:
+        return [(i, l) for i, l in enumerate(self._lanes)
+                if l.request is not None and l.request.state == RequestState.GENERATING]
+
+    def _pipelines(self) -> bool:
+        """The engine has the pipelined family and a ring depth that buys a
+        lag (--pipeline-depth 0 or 1 turns the pipelined path off)."""
+        return (getattr(self.engine, "supports_pipelined", False)
+                and getattr(self.engine, "pipeline_depth", 0) >= 2)
+
+    def horizons_reachable(self) -> bool:
+        """Whether serving can pick a multi-step horizon: only on an engine
+        that does not pipeline. With pipelining, every decode step that no
+        prompt step preceded in its iteration is pipelined, and a step
+        after a prompt step chains no horizon."""
+        return (self.multi_step > 1 and not self._pipelines()
+                and getattr(self.engine, "supports_multi_step", False))
+
+    def _multi_horizon(self, active, prefilled: bool) -> int:
+        """How many decode steps to chain in one dispatch (0 = one plain
+        step): only in steady state (no chunk processed this iteration,
+        nothing queued), capped by the longest-remaining lane, in powers of
+        two."""
+        if self.multi_step <= 1 or prefilled:
+            return 0
+        if not getattr(self.engine, "supports_multi_step", False):
+            return 0
+        if not self.queue.empty():
+            return 0
+        rem = 0
+        for _, lane in active:
+            req = lane.request
+            rem = max(rem, min(req.max_tokens - len(req.generated_tokens),
+                               self.engine.config.seq_len - lane.pos))
+        p = pow2_floor(min(self.multi_step, rem))
+        return p if p > 1 else 0
+
+    def _fused_ok(self) -> bool:
+        """Fused prefill+decode admissions available: the flag is on, the
+        engine has the fused family, and pipelining is live."""
+        return (self.fused_prefill and self._pipelines()
+                and getattr(self.engine, "supports_fused_prefill", False))
+
+    def _pipeline_ok(self, active, prefilled: bool = False) -> bool:
+        """Gate for the pipelined path: engine support and a ring depth that
+        buys a lag; with fused prefill a queued admission or a pending
+        chunk rides the chain, without it they keep the loop synchronous."""
+        if prefilled or not self._pipelines():
+            return False
+        if self._fused_ok():
+            return True
+        if not self.queue.empty():
+            return False
+        return not any(l.request is not None and l.pending for l in self._lanes)
+
+    # -- the pipelined path ---------------------------------------------------
+
+    def _claim_admissions(self, admitting: dict) -> None:
+        """Claim queued requests into free lanes without leaving the chain
+        (host work only); their chunks ride the dispatch half's fused
+        steps. Claim time counts as an admission stall only when the ring
+        is empty (nothing in flight for the card meanwhile)."""
+        free = self._free_lanes()
+        if not free or self.queue.empty():
+            return
+        stalled = self.engine.pipeline_inflight() == 0
+        t0 = time.perf_counter()
+        while free:
+            claimed = self._claim_next(free)
+            if claimed is None:
+                break
+            if claimed >= 0:
+                admitting[claimed] = self._lanes[claimed]
+        if stalled:
+            with self.engine.stats.lock:
+                self.engine.stats.admission_stall_s += time.perf_counter() - t0
+
+    def _pipeline_dispatch(self, live: dict, admitting: dict, feed):
+        """Dispatch half: queue the next step from host-side lane metadata
+        only (live lanes read their positions from the device carry, -1,
+        except on a reseed; idle and admitting lanes park at seq_len), plus
+        ONE chunk for ONE admitting lane (round-robin) in the same fused
+        dispatch. Nothing here reads a device value back. Returns
+        ``(lane_idx, lane, final, n_chunk)`` for a chunk-carrying step, else
+        None; the chunk's bookkeeping commits here, since its KV writes run
+        whether or not the step is ever consumed."""
+        engine = self.engine
+        n_lanes = engine.n_lanes
+        seq_len = engine.config.seq_len
+        reseed = feed is not None
+        positions = np.full(n_lanes, seq_len, np.int64)
+        temps = np.zeros(n_lanes, np.float32)
+        topps = np.full(n_lanes, DEFAULT_TOPP, np.float32)
+        seeds = np.zeros(n_lanes, np.uint32)
+        for i, lane in live.items():
+            positions[i] = min(lane.pos, seq_len) if reseed else -1
+            temps[i] = lane.request.temperature
+            topps[i] = lane.request.topp
+            seeds[i] = lane.seed
+        if not admitting:
+            engine.decode_pipelined(positions, temps, topps, seeds, tokens=feed)
+            return None
+        target = min(admitting, key=lambda i: (i - self._prefill_rr) % n_lanes)
+        self._prefill_rr = (target + 1) % n_lanes
+        lane = admitting[target]
+        req = lane.request
+        chunk = lane.pending[: engine.max_chunk()]
+        engine.decode_prefill_fused(
+            positions, temps, topps, seeds, p_lane=target, chunk=chunk,
+            p_start=lane.pos, p_temp=req.temperature, p_topp=req.topp,
+            p_seed=lane.seed, tokens=feed)
+        lane.pos += len(chunk)
+        lane.pending = lane.pending[len(chunk):]
+        return target, lane, not lane.pending, len(chunk)
+
+    def _pipeline_consume(self, live: dict, entry: tuple) -> None:
+        """Consume half, one step behind: read the oldest step back and do
+        the synchronous loop's host work (stream decode, EOS/stop, cancel).
+        ``entry`` is ``(step_lanes, fused)`` recorded at dispatch time:
+        a column whose lane finished at an earlier step, or whose lane a
+        new request reclaimed meanwhile, is junk and skipped. A fused
+        step's extra column carries its chunk's boundary pair; on the final
+        chunk that is the request's first generated token."""
+        greedy, sampled = self.engine.pipeline_consume()
+        step_lanes, fused = entry
+        for i, lane in step_lanes:
+            if live.get(i) is not lane:
+                continue
+            req = lane.request
+            if req._cancelled.is_set():
+                self._finish(i, req, reason="cancelled")
+                live.pop(i)
+                continue
+            if not self._consume(i, lane, lane.next_token):
+                live.pop(i)
+                continue
+            # the token this lane fed into the next in-flight step
+            lane.next_token = int(greedy[i]) if req.temperature == 0.0 else int(sampled[i])
+        if fused is not None:
+            i, lane, final, _ = fused
+            if final and live.get(i) is lane:
+                req = lane.request
+                lane.next_token = (int(greedy[-1]) if req.temperature == 0.0
+                                   else int(sampled[-1]))
+                req.state = RequestState.GENERATING
+
+    def _run_pipelined(self, active) -> None:
+        """Steady-state pipelined decode: keep ``pipeline_depth`` steps in
+        flight and consume the oldest one step behind. With fused prefill,
+        queued requests claim lanes in-chain and stream their chunks
+        through fused dispatches; a lane whose final chunk went out joins
+        the decode half from the next dispatch, fed by the device carry.
+        Exits by draining the in-flight steps through the consume path when
+        stop() is set, an admission arrives with fused prefill off, or
+        every lane finished; an exit with lanes still live counts as a
+        pipeline flush."""
+        engine = self.engine
+        depth = max(2, int(getattr(engine, "pipeline_depth", 2)))
+        fused = self._fused_ok()
+        live: dict[int, _Lane] = dict(active)
+        admitting: dict[int, _Lane] = {}
+        if fused:
+            admitting = {i: l for i, l in enumerate(self._lanes)
+                         if l.request is not None and l.pending and i not in live}
+        feed = np.zeros(engine.n_lanes, np.int64)
+        for i, lane in live.items():
+            feed[i] = lane.next_token
+        meta: deque = deque()  # (live lanes, fused info) per dispatch
+        host_feed = True  # the first dispatch reseeds the chain
+        dispatched_any = False
+        while True:
+            # an admitting request cancelled mid-prompt: stop streaming its
+            # chunks (the in-flight ones write junk-safe KV)
+            for i in [j for j, l in admitting.items() if l.request._cancelled.is_set()]:
+                self._finish(i, admitting.pop(i).request, reason="cancelled")
+            flush = self._stop.is_set() or (not live and not admitting)
+            if not flush and not self.queue.empty():
+                if fused:
+                    self._claim_admissions(admitting)
+                else:
+                    flush = True
+            while not flush and engine.pipeline_inflight() < depth:
+                fused_info = self._pipeline_dispatch(live, admitting,
+                                                     feed if host_feed else None)
+                host_feed = False
+                dispatched_any = True
+                meta.append((tuple(live.items()), fused_info))
+                if fused_info is not None and fused_info[2]:
+                    # final chunk out: the lane decodes from the next
+                    # dispatch, its first token and position on the carry
+                    i, lane, _, _ = fused_info
+                    admitting.pop(i)
+                    live[i] = lane
+            if engine.pipeline_inflight() == 0:
+                break
+            self._pipeline_consume(live, meta.popleft())
+        if (live or admitting) and dispatched_any:
+            with engine.stats.lock:
+                engine.stats.pipeline_flushes += 1
+        engine.pipeline_flush()  # the ring is drained; this drops the carry
 
     def _serve_loop(self) -> None:
         n_lanes = self.engine.n_lanes
@@ -405,14 +644,30 @@ class ContinuousBatchingScheduler:
                 if lane.request._cancelled.is_set():
                     self._finish(i, lane.request, reason="cancelled")
 
+            # with fused prefill the chain is entered before the synchronous
+            # prompt step: pending chunks and queued admissions ride it
+            if self._fused_ok():
+                active = self._generating()
+                if active and self._pipeline_ok(active):
+                    self._run_pipelined(active)
+                    continue
+
             # at most ONE prompt bucket per iteration: decoding lanes stall
             # no longer than one bucket while admissions stream in
-            self._prefill_step()
+            had_generating = any(l.request is not None
+                                 and l.request.state == RequestState.GENERATING
+                                 for l in self._lanes)
+            t_pf = time.perf_counter()
+            prefilled = self._prefill_step()
+            if prefilled and had_generating:
+                with self.engine.stats.lock:
+                    self.engine.stats.admission_stall_s += time.perf_counter() - t_pf
 
-            active = [(i, self._lanes[i]) for i in range(n_lanes)
-                      if self._lanes[i].request is not None
-                      and self._lanes[i].request.state == RequestState.GENERATING]
+            active = self._generating()
             if not active:
+                continue
+            if self._pipeline_ok(active, prefilled):
+                self._run_pipelined(active)
                 continue
             tokens = np.zeros(n_lanes, np.int64)
             # idle lanes write their junk KV to the scratch slot at seq_len;
@@ -431,6 +686,17 @@ class ContinuousBatchingScheduler:
                 temps[i] = lane.request.temperature
                 topps[i] = lane.request.topp
                 seeds[i] = lane.seed
+            h = self._multi_horizon(active, prefilled)
+            if h > 1:
+                chosen = self.engine.decode_multi(tokens, positions, temps, topps, seeds, h)
+                for i, lane in active:
+                    # next_token + the first h-1 chained choices; the last
+                    # becomes the pending token; tokens past a stop are
+                    # discarded (their junk KV is rewritten before any read)
+                    seq = [lane.next_token] + [int(chosen[j, i]) for j in range(h - 1)]
+                    if all(self._consume(i, lane, t) for t in seq):
+                        lane.next_token = int(chosen[h - 1, i])
+                continue
             _, greedy, sampled = self.engine.decode(
                 tokens, positions, temps, topps, seeds, want_logits=False)
             for i, lane in active:

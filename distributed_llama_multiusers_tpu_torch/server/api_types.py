@@ -37,7 +37,7 @@ def parse_chat_messages(body: dict) -> list[ChatMessage]:
 @dataclass
 class InferenceParams:
     """Per-request generation params. Sampled requests run on the device
-    (exact full-vocab nucleus, engine.sample_rows)."""
+    (exact full-vocab nucleus and JAX's draw, runtime/sampling.py)."""
 
     max_tokens: int = 128
     temperature: float = 0.0

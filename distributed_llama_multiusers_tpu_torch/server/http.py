@@ -11,9 +11,14 @@ terminal chunk carries the finish reason and the request's latency
 summary, and the stream ends with ``data: [DONE]``. ``/stats`` serves the
 engine counters, lane occupancy, the dequant mode and each Q40 kernel's
 launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
-plain-version calls of a CPU run), and on a tensor-parallel mesh its shape,
-the ring hop's launches, plain calls and bytes, and the hop bytes of the
-last decode step (``sync_bytes_per_decode``).
+plain-version calls of a CPU run), the sampler kernel's
+(``gumbel_sample_launches``) and the attention kernel's
+(``decode_attn_launches``), the serving paths' counters (multi-step
+dispatches, the pipeline's dispatches, flushes and depth histogram, fused
+admissions), the decode graphs captured and their replays since warmup,
+and on a tensor-parallel mesh its shape, the ring hop's launches, plain
+calls and bytes, and the hop bytes of the last decode step
+(``sync_bytes_per_decode``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import queue
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..ops.cuda_attn import attn_counts
 from ..ops.cuda_q40 import kernel_counts
+from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
 from ..ops.ring_collective import ring_counts
 from ..runtime.scheduler import AdmissionRejected, Request
@@ -141,10 +148,33 @@ class ApiServer:
             "mesh": None if engine.mesh is None else {
                 **engine.mesh.shape, "devices": [str(d) for d in engine.mesh.devices]},
             "sync_bytes_per_decode": stats["sync_bytes_per_decode"],
+            # multi-step horizons taken (each several decode steps in one
+            # dispatch; decode_steps counts the chained steps)
+            "multi_dispatches": stats["multi_dispatches"],
+            # async decode pipeline: host consume time hidden behind the
+            # card's execution, steps dispatched device-fed, chains cut
+            # short before their lanes finished, and ring occupancy right
+            # after each dispatch
+            "overlap_s": round(stats["overlap_s"], 3),
+            "pipeline_dispatches": stats["pipeline_dispatches"],
+            "pipeline_flushes": stats["pipeline_flushes"],
+            "pipeline_depth_hist": {
+                str(k): v for k, v in sorted(stats["pipeline_depth_hist"].items())},
+            # stall-free admissions: fused prefill+decode dispatches, host
+            # time decoding lanes waited behind admission work, and the
+            # prefill bucket each fused dispatch carried
+            "fused_steps": stats["fused_steps"],
+            "admission_stall_s": round(stats["admission_stall_s"], 6),
+            "fused_bucket_hist": {
+                str(k): v for k, v in sorted(stats["fused_bucket_hist"].items())},
+            "decode_graphs": 0 if engine.graphs is None else len(engine.graphs),
+            "decode_graph_replays": 0 if engine.graphs is None else engine.graphs.replays,
         }
         out.update(dequant_stats())
         out.update(kernel_counts())
         out.update(ring_counts())
+        out.update(sample_counts())
+        out.update(attn_counts())
         return out
 
     def handle_health(self) -> tuple[int, dict]:

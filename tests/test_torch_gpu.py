@@ -1,9 +1,10 @@
 """The port on a CUDA card: each Q40 kernel against its plain version (the
 tensor-core kernels at their fragment edges), the dispatch's mode routing
 at the m = 32/33 boundary, a tiny model served by the engine on the card,
-the ring-step kernel's forms against its plain version and the
-tensor-parallel forward with two ranks on one card. Marked ``gpu``; without
-a card every test skips.
+the ring-step kernel's forms against its plain version, the tensor-parallel
+forward with two ranks on one card, the sampler and attention kernels
+against their plain versions and the decode graphs against the eager
+bodies. Marked ``gpu``; without a card every test skips.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -531,3 +532,260 @@ def test_lab_runs_on_card(cuda, tmp_path):
     rule = json.load(open(path))["rules"][0]
     assert (rule["d_in"], rule["d_out"], rule["m_class"], rule["mode"]) == (1024, 2048,
                                                                            "decode", mode)
+
+
+# ---------------------------------------------------------------------------
+# The sampler kernel and the decode families' CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the kernel and the plain version both run -log(-log(u)) with the
+# full-precision logf: at most a few ulps apart at |g| ~ 1
+GUMBEL_ATOL = 2.0 ** -20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp,topp", [(0.8, 0.9), (1.0, 1.0), (0.3, 0.5)])
+def test_gumbel_sample_matches_plain(cuda, temp, topp):
+    """8 lanes x 128,256 (the 1B vocabulary): the kernel's choices equal
+    the plain version's and its noise lies within GUMBEL_ATOL of it at every
+    unmasked entry."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample
+    from distributed_llama_multiusers_tpu_torch.runtime import sampling as S
+
+    n, vocab = 8, 128256
+    gen = torch.Generator(device=cuda).manual_seed(int(temp * 10 + topp * 100))
+    rows = torch.randn((n, vocab), device=cuda, generator=gen) * 3
+    logp, _ = S.nucleus_logp(rows, torch.full((n,), temp, device=cuda),
+                             torch.full((n,), topp, device=cuda))
+    seeds = torch.arange(n, device=cuda) * 7919 + 3
+    positions = torch.arange(n, device=cuda) * 131 + 40
+    noise = torch.full((n, vocab), float("nan"), device=cuda)
+    cuda_sample.reset_counts()
+    got = cuda_sample.gumbel_argmax(logp, seeds, positions, noise_out=noise)
+    want = S.gumbel_argmax_plain(logp, seeds, positions)
+    k0, k1 = S.fold_in_keys(seeds, positions)
+    ref = S.gumbel_noise(k0, k1, vocab)
+    torch.cuda.synchronize()
+    assert cuda_sample.COUNTS == {"launches": 1, "plain_calls": 0}
+    assert torch.equal(got, want)
+    kept = torch.isfinite(logp)
+    assert bool(kept.any(dim=-1).all())
+    assert float((noise[kept] - ref[kept]).abs().max()) <= GUMBEL_ATOL
+
+
+# the kernel's online softmax sums the slots in another order than the plain
+# version's two passes: f32 rounding over up to 2048 slots
+ATTN_TOL = 2e-5  # max|kernel - plain| <= ATTN_TOL * max|plain|
+
+
+def _attn_inputs(cuda, lanes, n_kv, group, hd, slots, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qf = torch.randn((lanes, 1, n_kv, group, hd), device=cuda, generator=gen)
+    k = torch.randn((lanes, slots + 1, n_kv, hd), device=cuda, generator=gen).to(dtype)
+    v = torch.randn((lanes, slots + 1, n_kv, hd), device=cuda, generator=gen).to(dtype)
+    return qf, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_kv,group,hd,dtype,s_len", [
+    (8, 4, 64, torch.bfloat16, 2048),  # Llama-3.2-1B at the smoke's seq_len
+    (2, 2, 16, torch.float32, 64),  # the tiny test model
+    (4, 7, 128, torch.bfloat16, 300),
+    (2, 1, 96, torch.float32, 100)])
+def test_decode_attn_matches_plain(cuda, n_kv, group, hd, dtype, s_len):
+    """The attention kernel against its plain version at 8 lanes whose
+    positions span the first slot, the middle, the last slot and a parked
+    lane past it (which attends every slot)."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8, n_kv, group, hd, s_len, dtype, seed=hd + group)
+    positions = torch.tensor([[0], [1], [s_len // 2], [s_len - 2], [s_len - 1], [s_len],
+                              [7], [s_len // 3]], device=cuda)
+    scale = 1.0 / hd ** 0.5
+    cuda_attn.reset_counts()
+    got = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
+    want = cuda_attn.decode_attention_plain(qf, k, v, positions, scale, s_len)
+    torch.cuda.synchronize()
+    assert cuda_attn.COUNTS == {"launches": 1, "plain_calls": 0}
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_decode_attn_lane_bits_independent_of_the_batch(cuda):
+    """A lane's output is the same bits whatever the other lanes hold and
+    whatever s_len is past its position: the property that keeps a stream
+    the same under every serving loop."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8, 8, 4, 64, 2048, torch.bfloat16, seed=3)
+    scale = 0.125
+    base = cuda_attn.decode_attention(qf, k, v, torch.full((8, 1), 100, device=cuda), scale,
+                                      2048)
+    other = torch.tensor([[100], [2048], [0], [1500], [5], [2047], [64], [900]], device=cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[1:], v2[1:] = k2[1:].flip(0), v2[1:].flip(0)
+    for pos, kk, vv, s_len in ((other, k, v, 2048), (other, k2, v2, 2048),
+                               (other, k, v, 128), (other, k, v, 101)):
+        got = cuda_attn.decode_attention(qf, kk, vv, pos, scale, s_len)
+        assert torch.equal(got[0], base[0])
+
+
+@pytest.mark.gpu
+def test_decode_attn_rejects_shapes_out_of_range(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    pos = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    qf, k, v = _attn_inputs(cuda, 2, 1, 1, 160, 8, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="head size"):
+        cuda_attn.decode_attention(qf, k, v, pos, 1.0, 8)
+    qf, k, v = _attn_inputs(cuda, 2, 1, 9, 64, 8, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="group"):
+        cuda_attn.decode_attention(qf, k, v, pos, 1.0, 8)
+
+
+def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
+    """Two engines on one tiny model on the card: the first replays its
+    decode families as CUDA graphs, the second runs the same bodies
+    eagerly (its graphs set aside: a test's comparison only)."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+        tiny_header,
+        write_synthetic_model,
+    )
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    path = str(tmp_path / "m.m")
+    write_synthetic_model(path, tiny_header(seq_len=256), seed=0)
+    config, params = load_params_from_m_quantized(path, load_model_header(path),
+                                                  dtype=torch.bfloat16, device=cuda)
+    out = []
+    for _ in range(2):
+        mesh = None
+        p = params
+        if mesh_devices is not None:
+            mesh = make_mesh(MeshPlan(tp=len(mesh_devices)), mesh_devices)
+            p = shard_params(params, mesh)
+        out.append(InferenceEngine(config, p, n_lanes=n_lanes, prefill_buckets=(8,),
+                                   mesh=mesh))
+    out[1].graphs = None
+    return config, out
+
+
+def _launch_counts():
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn, cuda_sample
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+
+    return {**q.LAUNCHES, "ring_hop": rc.COUNTS["launches"],
+            "ring_bytes": rc.COUNTS["bytes"], "gumbel_sample": cuda_sample.COUNTS["launches"],
+            "decode_attn": cuda_attn.COUNTS["launches"]}
+
+
+def _family_run(engine, config, family):
+    """Prefill three lanes, then one family's dispatches (each family's
+    first dispatch captures its graph, the later ones replay it); returns
+    (tokens, launch counts of the decode dispatches)."""
+    temps = np.asarray([0.0, 0.8, 1.1], np.float32)
+    topps = np.asarray([0.9, 0.9, 1.0], np.float32)
+    seeds = np.asarray([1, 2, 3], np.int64)
+    toks, pos = [], []
+    for lane, prompt in enumerate(([5, 9, 3], [7, 2, 8, 1, 4], [11, 6])):
+        _, g, s = engine.prefill_chunk(lane, prompt, 0, temp=float(temps[lane]),
+                                       topp=float(topps[lane]), seed=int(seeds[lane]))
+        toks.append(g if temps[lane] == 0 else s)
+        pos.append(len(prompt))
+    toks, pos = np.asarray(toks), np.asarray(pos)
+    out = []
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    if family in ("step", "step_greedy"):
+        t = temps if family == "step" else np.zeros(3, np.float32)
+        for _ in range(4):
+            _, g, s = engine.decode(toks, pos, t, topps, seeds, want_logits=False)
+            toks = np.where(t == 0, g, s)
+            pos = pos + 1
+            out.append(toks)
+    elif family == "multi":
+        for _ in range(2):
+            chosen = engine.decode_multi(toks, pos, temps, topps, seeds, h=4)
+            toks, pos = chosen[-1], pos + 4
+            out.append(chosen)
+    elif family == "pipelined":
+        engine.decode_pipelined(pos, temps, topps, seeds, tokens=toks)
+        for _ in range(3):
+            engine.decode_pipelined(np.full(3, -1), temps, topps, seeds)
+            out.append(np.stack(engine.pipeline_consume()))
+        out.append(np.stack(engine.pipeline_consume()))
+        engine.pipeline_flush()
+    else:  # fused: lane 2 re-admits a chunk while lanes 0 and 1 decode
+        park = pos.copy()
+        park[2] = config.seq_len
+        engine.decode_pipelined(park, temps, topps, seeds, tokens=toks)
+        engine.decode_prefill_fused(np.asarray([-1, -1, config.seq_len]), temps, topps,
+                                    seeds, p_lane=2, chunk=[4, 4, 4], p_start=pos[2],
+                                    p_temp=1.1, p_topp=1.0, p_seed=3)
+        out.append(np.stack(engine.pipeline_consume()))
+        engine.decode_pipelined(np.full(3, -1), temps, topps, seeds)
+        out.append(np.stack(engine.pipeline_consume()))
+        out.append(np.stack(engine.pipeline_consume()))
+        engine.pipeline_flush()
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    return np.concatenate([np.asarray(o).reshape(-1) for o in out]), {
+        k: after[k] - before[k] for k in after}
+
+
+def _caches(engine):
+    caches = [engine.cache] if engine.mesh is None else engine.cache
+    return [t for c in caches for t in (c.k, c.v)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["step_greedy", "step", "multi", "pipelined", "fused"])
+def test_graph_replay_matches_eager(cuda, tmp_path, family):
+    """Each decode family replayed from its CUDA graph gives the eager
+    bodies' tokens and KV cache bit for bit, and its launch counters (the
+    graph's recorded deltas) equal the eager run's counts."""
+    config, (graphed, eager) = _graph_engines(cuda, tmp_path)
+    got, got_counts = _family_run(graphed, config, family)
+    want, want_counts = _family_run(eager, config, family)
+    assert len(graphed.graphs) > 0 and graphed.graphs.replays > 0
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(_caches(graphed), _caches(eager)):
+        assert torch.equal(a, b)
+    assert got_counts == want_counts and got_counts["decode_attn"] > 0
+    if family != "step_greedy":
+        assert got_counts["gumbel_sample"] > 0
+
+
+@pytest.mark.gpu
+def test_graph_replay_tp_mesh_on_one_card(cuda, tmp_path):
+    """tp2 with both ranks on the one card: the pipelined family captured
+    (ring steps inside the graph) equals the eager run, ring-hop launches
+    and bytes included."""
+    config, (graphed, eager) = _graph_engines(cuda, tmp_path, ["cuda:0", "cuda:0"])
+    got, got_counts = _family_run(graphed, config, "pipelined")
+    want, want_counts = _family_run(eager, config, "pipelined")
+    assert graphed.graphs.replays > 0
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(_caches(graphed), _caches(eager)):
+        assert torch.equal(a, b)
+    assert got_counts == want_counts and got_counts["ring_hop"] > 0
+
+
+@pytest.mark.gpu
+def test_warmup_captures_every_decode_graph(cuda, tmp_path):
+    """warmup_engine captures the step and each horizon, greedy and
+    sampled; serving then captures nothing new and replays them."""
+    from distributed_llama_multiusers_tpu_torch.runtime.engine import warmup_engine
+
+    config, (engine, _) = _graph_engines(cuda, tmp_path)
+    warmup_engine(engine, multi_step=8)
+    assert len(engine.graphs) == 2 * (1 + 3)  # step and h = 8, 4, 2
+    before = len(engine.graphs), engine.graphs.replays
+    _family_run(engine, config, "fused")
+    _family_run(engine, config, "multi")
+    assert len(engine.graphs) == before[0] and engine.graphs.replays >= before[1] + 4

@@ -110,7 +110,7 @@ def test_packed_planes_byte_equal():
     tp, ts = pack_q40_planar(values, scales)
     np.testing.assert_array_equal(tp, np.asarray(jp))
     np.testing.assert_array_equal(ts.view(np.uint16), np.asarray(js).view(np.uint16))
-    bp, bs = pack_q40_from_blocks(blocks, (d_out, d_in))
+    bp, bs = pack_q40_from_blocks(blocks, (d_out, d_in), device="cpu")
     np.testing.assert_array_equal(bp.numpy(), tp)
     np.testing.assert_array_equal(bs.numpy().view(np.uint16), ts.view(np.uint16))
     dense = unpack_q40(PackedQ40(bp, bs)).numpy()

@@ -5,8 +5,9 @@ reproduces and its tokens lie in the exact nucleus; ``/stats`` counts the
 Q40 kernel wrappers' calls.
 
 The port serves packed Q40 weights (its kernels' plain versions on the
-CPU, exact f32 dot); the JAX server runs the same scheduler path
-(``speculative=False``, ``pipelined=False``, ``fused_prefill=False``,
+CPU, exact f32 dot) under its serving defaults (pipelined decode, fused
+admissions, multi-step horizons); the JAX server runs its synchronous
+path (``speculative=False``, ``pipelined=False``, ``fused_prefill=False``,
 ``multi_step=1``) on dense f32 weights.
 """
 
@@ -221,19 +222,28 @@ def test_sampled_tokens_lie_in_the_nucleus(servers, temp, topp):
 
 def test_sampler_rules():
     """Temperature floor, the top-p clamp and the (csum - p) < topp rule
-    on a hand-made row; a draw at u lands on the inverse CDF of the kept
-    mass."""
-    from distributed_llama_multiusers_tpu_torch.runtime.engine import sample_rows
+    on a hand-made row: the nucleus keeps exactly the expected tokens
+    (finite log p), and seeded draws land inside it."""
+    from distributed_llama_multiusers_tpu_torch.runtime.sampling import (
+        nucleus_logp,
+        sample_lanes,
+    )
 
     row = torch.log(torch.tensor([[0.5, 0.3, 0.15, 0.05]]))
-    pick = lambda t, p, u: int(sample_rows(row, torch.tensor([t]), torch.tensor([p]),  # noqa: E731
-                                           torch.tensor([u]))[0])
-    assert pick(1.0, 0.5, 0.99) == 0  # 0.5 crosses 0.5: nucleus {0}
-    assert pick(1.0, 0.6, 0.99) == 1  # (0.8 - 0.3) < 0.6: nucleus {0, 1}
-    assert pick(1.0, 0.0, 0.99) == 3  # topp <= 0 keeps every token
-    assert pick(1.0, 1.0, 0.99) == 3
-    assert pick(0.0, 1.0, 0.99) == 0  # temperature floor: one-hot on the max
-    assert pick(1.0, 1.0, 0.0) == 0
+
+    def kept(t, p):
+        logp, idx = nucleus_logp(row, torch.tensor([t]), torch.tensor([p]))
+        return set(idx[0][torch.isfinite(logp[0])].tolist())
+
+    assert kept(1.0, 0.5) == {0}  # 0.5 crosses 0.5: nucleus {0}
+    assert kept(1.0, 0.6) == {0, 1}  # (0.8 - 0.3) < 0.6: nucleus {0, 1}
+    assert kept(1.0, 0.0) == {0, 1, 2, 3}  # topp <= 0 keeps every token
+    assert kept(1.0, 1.0) == {0, 1, 2, 3}
+    assert kept(0.0, 1.0) == {0}  # temperature floor: one-hot on the max
+    n = 64
+    draws = sample_lanes(row.expand(n, 4), torch.ones(n), torch.full((n,), 0.6),
+                         torch.arange(n), torch.full((n,), 3), torch.zeros(n, dtype=torch.int64))
+    assert set(draws.tolist()) == {0, 1}
 
 
 def test_stats_health_models(servers):
