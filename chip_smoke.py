@@ -39,11 +39,15 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    serving shape, 8 lanes x 128,256 sorted log-probabilities: choices
    equal, noise within 2^-20; timed beside its plain version and the
    library composition (``torch.rand``, -log(-log u), add, ``argmax``).
+   The sampler also at vocabularies of 1 to 151,936 entries with an all
+   -inf row and a row whose only finite entry is its last.
    The decode attention kernel (``decode_attn``) against its plain version
    at the 1B decode step's shapes (8 lanes, a bf16 cache of 2048 slots, the
-   serving positions and positions across the cache), a lane's bits
-   against another batch around it; timed beside its plain version and
-   ``scaled_dot_product_attention``.
+   serving positions, positions across the cache, on and beside the
+   kernel's split boundaries, and every lane live at 2047), a lane's bits
+   (one of them on a split boundary) against another batch around it;
+   timed beside its plain version and ``scaled_dot_product_attention``, and
+   once more with every lane at 2047 (the long context).
 3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
    layers, seed 0) into ``build/synthetic`` (reused while header and seed
    match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
@@ -139,10 +143,26 @@ SAMPLE_VOCAB = 128256
 # kernel and plain version both run -log(-log(u)) with the full-precision
 # logf: at most a few ulps apart at |g| ~ 1
 GUMBEL_ATOL = 2.0 ** -20
-# the attention kernel's online softmax sums the slots in another order than
-# the plain version's two passes: f32 rounding over up to 2048 slots
+# the attention kernel sums the slots in another order than the plain
+# version's two passes (per split of 128, the splits folded): f32 rounding
+# over up to 2048 slots
 ATTN_TOL = 2e-5  # max|kernel - plain| <= ATTN_TOL * max|plain|
+ATTN_S_LEN = 2048  # the smoke model's seq_len: the attention's cache slots
 F32_OPS_S = 67e12  # float32 outside the tensor cores
+# one instruction per lane per clock at that rate (67e12 counts an FMA as two
+# operations); Hopper's int32 units run at half of it, so a bound of integer
+# work at this rate is low
+LANE_OPS_S = F32_OPS_S / 2
+# operations per kept entry of the sampler's draw, counted from
+# csrc/gumbel_sample.cu: threefry2x32's 20 rounds of add, rotate and xor plus
+# its 5 key injections and the first (77 32-bit integer operations), the
+# uniform (xor, shift, or, subtract, multiply-add, max: 6), two full-precision
+# logf (about 16 each in libdevice: range reduction and a polynomial), the
+# negations, the add and the running-max compare (5)
+GUMBEL_OPS_PER_DRAW = 120
+# the sampler's edge vocabularies: one entry, one chunk, across chunks and no
+# multiple of the chunk, the 1B and a 151,936-entry vocabulary
+SAMPLE_EDGE_VOCABS = (1, 31, 4097, 128256, 151936)
 
 
 class SmokeFailure(RuntimeError):
@@ -758,18 +778,14 @@ def sampler_phase(torch, cs) -> dict:
     choices and noise against the plain version, then the kernel's time
     (launches back to back in one CUDA graph), the plain version's (eager)
     and the library composition's (``torch.rand`` + -log(-log u) + add +
-    ``argmax``, one CUDA graph), with the bound: one f32 read of the sorted
-    rows over the memory rate."""
+    ``argmax``, one CUDA graph), with the bound: the larger of one f32 read
+    of the sorted rows over the memory rate and the draw's operations on
+    the kept entries over the f32 lane rate; then the edge rows
+    (``sampler_edges``)."""
     from distributed_llama_multiusers_tpu_torch.runtime import sampling as S
 
     n, vocab = DECODE_M, SAMPLE_VOCAB
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    rows = torch.randn((n, vocab), device="cuda", generator=gen) * 2
-    temps = torch.tensor([0.7, 0.8, 0.9, 1.0, 1.2, 0.6, 1.0, 0.9], device="cuda")
-    topps = torch.tensor([0.9, 0.95, 0.9, 1.0, 0.8, 0.5, 0.0, 0.99], device="cuda")
-    logp, _ = S.nucleus_logp(rows, temps, topps)
-    seeds = torch.arange(n, device="cuda") * 7919 + 3
-    positions = torch.arange(n, device="cuda") * 131 + 40
+    logp, seeds, positions = sampler_inputs(torch, S)
     noise = torch.full((n, vocab), float("nan"), device="cuda")
     got = cs.gumbel_argmax(logp, seeds, positions, noise_out=noise)
     want = S.gumbel_argmax_plain(logp, seeds, positions)
@@ -781,6 +797,8 @@ def sampler_phase(torch, cs) -> dict:
     check(choice_err == 0, f"gumbel_sample chose {got.tolist()}, plain {want.tolist()}")
     check(err <= GUMBEL_ATOL, f"gumbel_sample noise max|d| {err:.3e} > {GUMBEL_ATOL:.3e}")
 
+    edges = sampler_edges(torch, cs, S)
+
     def library():
         u = torch.rand((n, vocab), device="cuda")
         return torch.argmax(-torch.log(-torch.log(u)) + logp, dim=-1)
@@ -789,12 +807,73 @@ def sampler_phase(torch, cs) -> dict:
     ms = graph_ms(torch, [lambda: cs.gumbel_argmax(logp, seeds, positions)] * reps)
     library_ms = graph_ms(torch, [library] * reps)
     plain_ms = eager_ms(torch, lambda: S.gumbel_argmax_plain(logp, seeds, positions), 3)
-    out = {"lanes": n, "vocab": vocab, "kept_entries": int(kept.sum()),
+    kept_n = int(kept.sum())
+    n_bytes, n_ops = n * vocab * 4, kept_n * GUMBEL_OPS_PER_DRAW
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / LANE_OPS_S
+    out = {"lanes": n, "vocab": vocab, "kept_entries": kept_n,
+           "chunk": cs.CHUNK, "grid": [-(-vocab // cs.CHUNK), n],
            "max_abs_err": choice_err, "noise_max_abs_err": err, "noise_tol": GUMBEL_ATOL,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": n * vocab * 4 / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+           "edge_checks": edges, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes": n_bytes, "bound_bytes_ms": t_bytes * 1e3,
+           "bound_ops": n_ops, "bound_ops_ms": t_ops * 1e3}
     log("gumbel_sample: " + json.dumps(out))
     return out
+
+
+def sampler_inputs(torch, S):
+    """One sampled step at the serving shape: the nucleus log-probabilities
+    of random logits under 8 (temperature, top-p) settings, seeds and
+    positions."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.randn((DECODE_M, SAMPLE_VOCAB), device="cuda", generator=gen) * 2
+    temps = torch.tensor([0.7, 0.8, 0.9, 1.0, 1.2, 0.6, 1.0, 0.9], device="cuda")
+    topps = torch.tensor([0.9, 0.95, 0.9, 1.0, 0.8, 0.5, 0.0, 0.99], device="cuda")
+    logp, _ = S.nucleus_logp(rows, temps, topps)
+    seeds = torch.arange(DECODE_M, device="cuda") * 7919 + 3
+    positions = torch.arange(DECODE_M, device="cuda") * 131 + 40
+    return logp, seeds, positions
+
+
+def sampler_edges(torch, cs, S) -> list:
+    """The sampler kernel's choices against the plain version's on the rows
+    its chunking must get right, at vocabularies of one chunk, across chunks
+    and no multiple of the chunk: 8 lanes of nuclei whose last two rows are
+    every entry masked (picks 0) and only the last entry finite (picks it)."""
+    out = []
+    for vocab in SAMPLE_EDGE_VOCABS:
+        gen = torch.Generator(device="cuda").manual_seed(vocab)
+        rows = torch.randn((DECODE_M, vocab), device="cuda", generator=gen) * 3
+        logp, _ = S.nucleus_logp(rows, torch.full((DECODE_M,), 0.8, device="cuda"),
+                                 torch.full((DECODE_M,), 0.9, device="cuda"))
+        logp[6:] = float("-inf")
+        logp[7, -1] = 0.0
+        seeds = torch.arange(DECODE_M, device="cuda") * 31 + 1
+        positions = torch.arange(DECODE_M, device="cuda") * 257 + 5
+        got = cs.gumbel_argmax(logp, seeds, positions)
+        want = S.gumbel_argmax_plain(logp, seeds, positions)
+        check(torch.equal(got, want) and got[6:].tolist() == [0, vocab - 1],
+              f"gumbel_sample at vocab {vocab}: chose {got.tolist()}, plain {want.tolist()}")
+        out.append({"vocab": vocab, "choices": got.tolist()})
+    return out
+
+
+def attn_inputs(torch, n_kv: int):
+    """One layer of the serving decode step: 8 lanes' queries (f32, 4 query
+    heads of 64 per kv head) and a bf16 cache of ATTN_S_LEN slots."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (DECODE_M, ATTN_S_LEN + 1, n_kv, 64)
+    qf = torch.randn((DECODE_M, 1, n_kv, 4, 64), device="cuda", generator=gen)
+    k = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    return qf, k, v
+
+
+def attn_serving_positions(torch):
+    """The smoke's serving positions: 4 lanes at 40-100, 4 parked past the
+    cache (they attend every slot)."""
+    return torch.tensor([[40], [63], [64], [100]] + [[ATTN_S_LEN]] * 4, device="cuda")
 
 
 def attn_phase(torch) -> dict:
@@ -810,16 +889,17 @@ def attn_phase(torch) -> dict:
     output, or the f32 operations of the dots, whichever is longer."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
 
-    lanes, n_kv, group, hd, s_len = DECODE_M, 8, 4, 64, 2048
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    qf = torch.randn((lanes, 1, n_kv, group, hd), device="cuda", generator=gen)
-    k = torch.randn((lanes, s_len + 1, n_kv, hd), device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn((lanes, s_len + 1, n_kv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    lanes, n_kv, group, hd, s_len = DECODE_M, 8, 4, 64, ATTN_S_LEN
+    qf, k, v = attn_inputs(torch, n_kv)
     scale = 1.0 / hd ** 0.5
-    serving = torch.tensor([[40], [63], [64], [100]] + [[s_len]] * 4, device="cuda")
+    serving = attn_serving_positions(torch)
     spread = torch.tensor([[0], [1], [63], [511], [1024], [2046], [2047], [2048]], device="cuda")
+    split = ca.SPLIT
+    boundaries = torch.tensor([[split - 1], [split], [split + 1], [2 * split - 1], [2 * split],
+                               [2 * split + 1], [3 * split], [s_len - 1]], device="cuda")
+    long_ctx = torch.full((lanes, 1), s_len - 1, device="cuda")  # every lane live at 2047
     err, ref_max = 0.0, 0.0
-    for pos in (serving, spread):
+    for pos in (serving, spread, boundaries, long_ctx):
         got = ca.decode_attention(qf, k, v, pos, scale, s_len)
         want = ca.decode_attention_plain(qf, k, v, pos, scale, s_len)
         e, r = float((got - want).abs().max()), float(want.abs().max())
@@ -830,6 +910,11 @@ def attn_phase(torch) -> dict:
     for pos, sl in ((spread, s_len), (serving, 128)):
         got = ca.decode_attention(qf, k, v, torch.cat([serving[:1], pos[1:]]), scale, sl)
         check(torch.equal(got[0], base[0]), "decode_attn: lane 0's bits moved with the batch")
+    on_split = ca.decode_attention(qf, k, v, torch.full_like(serving, split), scale, s_len)
+    for pos, sl in ((spread, s_len), (serving, split + 1)):
+        got = ca.decode_attention(qf, k, v, torch.cat([boundaries[1:2], pos[1:]]), scale, sl)
+        check(torch.equal(got[0], on_split[0]),
+              "decode_attn: a lane on a split boundary moved with the batch")
 
     # the library call on the same function: f32 q [B, heads, 1, H], k/v
     # [B, n_kv, S, H], a boolean mask of each lane's slots
@@ -848,21 +933,31 @@ def attn_phase(torch) -> dict:
         lib_out = library()
     lib_err = float((lib_out.reshape(base.shape) - base).abs().max())
     reps = 20
+
+    def bound_of(pos):
+        slots = int((pos.clamp(max=s_len - 1) + 1).sum())
+        n_bytes = slots * n_kv * hd * 2 * 2 + 2 * qf.numel() * 4 + lanes * 8
+        n_ops = slots * n_kv * group * hd * 4
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+        return {"slots_read": slots, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": n_bytes, "bound_ops": n_ops}
+
     ms = graph_ms(torch, [lambda: ca.decode_attention(qf, k, v, serving, scale, s_len)] * reps)
     library_ms = graph_ms(torch, [library] * reps)
     plain_ms = eager_ms(torch, lambda: ca.decode_attention_plain(qf, k, v, serving, scale,
                                                                  s_len), 3)
-    slots = int((serving.clamp(max=s_len - 1) + 1).sum())
-    n_bytes = slots * n_kv * hd * 2 * 2 + 2 * qf.numel() * 4 + lanes * 8
-    n_ops = slots * n_kv * group * hd * 4
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    long_ms = graph_ms(torch, [lambda: ca.decode_attention(qf, k, v, long_ctx, scale,
+                                                           s_len)] * reps)
     out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "s_len": s_len,
-           "positions": serving[:, 0].tolist(), "slots_read": slots,
+           "positions": serving[:, 0].tolist(), "split": split,
+           "grid": list(ca.launch_grid(lanes, n_kv, s_len)),
+           "splits_per_lane": [-(-(min(int(p), s_len - 1) + 1) // split) for p in serving[:, 0]],
            "max_abs_err": err, "max_abs_ref": ref_max, "tol": ATTN_TOL,
            "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bound_bytes": n_bytes, "bound_ops": n_ops}
+           "library_ms": library_ms, **bound_of(serving),
+           "long_context": {"positions": long_ctx[:, 0].tolist(), "ms": long_ms,
+                            **bound_of(long_ctx)}}
     log("decode_attn: " + json.dumps(out))
     return out
 
@@ -1277,6 +1372,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     host: dict = {}
     kernels: dict = {}  # kernel -> [device us per step, launches per step]
     device_ops = 0  # kernels, copies and fills the device ran
+    fills = [0.0, 0.0]  # memsets and fill kernels (zeroed scratch): device us, count per step
     for e in prof.key_averages():
         # kernels only: an aten op's own device time repeats its kernels'
         us = getattr(e, "self_device_time_total", 0.0) or 0.0
@@ -1284,6 +1380,9 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
             device_ops += e.count
         if us > 0 and e.device_type != DeviceType.CPU:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / steps
+            if "memset" in e.key.lower() or "FillFunctor" in e.key:
+                fills[0] += us / steps
+                fills[1] += e.count / steps
             kernel = _kernel_of(e.key)
             if kernel:
                 acc = kernels.setdefault(kernel, [0.0, 0.0])
@@ -1307,6 +1406,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
            "decode_attn_ms_per_step": kernels.get("decode_attn", [0.0, 0.0])[0] / 1e3,
            "launches_per_step": launches,
            "device_ops_per_step": device_ops / steps,
+           "fill_ms_per_step": fills[0] / 1e3, "fills_per_step": fills[1],
            "ring_hop_launches_per_step": ring["ring_hop_launches"],
            "ring_hop_bytes_per_step": ring["ring_hop_bytes"],
            "q40_profiled_us_launches_per_step": kernels,

@@ -12,7 +12,11 @@ runs the plain version, ``dense_attention`` under the position mask.
 A lane's result from the kernel depends only on its own query, position
 and slots (the slots it reads and the order it sums them in follow from
 its position), so a stream's tokens do not depend on the lanes beside it.
-``COUNTS`` holds the launches and the plain calls.
+The kernel cuts a lane's slots into splits of ``SPLIT`` slots, one thread
+block each (split j holds slots [j * SPLIT, (j + 1) * SPLIT), so a lane's
+splits follow from its position alone), and folds their partial states in
+split order inside the same launch; the wrapper allocates the partials and
+the arrival tickets per call. ``COUNTS`` holds the launches and the plain calls.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ KERNEL_SOURCE = "distributed_llama_multiusers_tpu_torch/csrc/decode_attn.cu"
 KERNEL_REPLACES = "distributed_llama_multiusers_tpu/models/llama.py:336"
 MAX_HEAD_SIZE = 128
 MAX_GROUP = 8
+SPLIT = 128  # slots per split: kSplit in csrc/decode_attn.cu
 COUNTS = {"launches": 0, "plain_calls": 0}
 _counts_lock = threading.Lock()
-# q, k, v, pos, out, lane_stride, lanes, n_kv, group, head_size, s_len,
-# kv_bf16, scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+# q, k, v, pos, out, part, tickets, lane_stride, lanes, n_kv, group,
+# head_size, s_len, split, kv_bf16, scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -60,6 +65,12 @@ def add_counts(delta: dict) -> None:
 def _bump(key: str) -> None:
     with _counts_lock:
         COUNTS[key] += 1
+
+
+def launch_grid(lanes: int, n_kv: int, s_len: int) -> tuple[int, int, int]:
+    """The kernel's grid: (kv head, lane, split); blocks past a lane's last
+    split return at once."""
+    return n_kv, lanes, -(-s_len // SPLIT)
 
 
 def dense_attention(qf, kf, vf, mask, scale):
@@ -112,11 +123,18 @@ def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     q = qf.to(torch.float32).contiguous()
     pos = positions.to(device=qf.device, dtype=torch.int64).reshape(b).contiguous()
     out = torch.empty_like(q)
+    splits = launch_grid(b, n_kv, s_len)[2]
+    part = tickets = None
+    if splits > 1:  # per-call scratch: the splits' partial states, the arrival tickets
+        part = torch.empty(b * n_kv * splits * group * (hd + 2), dtype=torch.float32,
+                           device=qf.device)
+        tickets = torch.zeros(b * n_kv, dtype=torch.int32, device=qf.device)
     with torch.cuda.device(qf.device):
         err = load_kernel(KERNEL, _ARGTYPES)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), k_cache.stride(0), b, n_kv, group, hd, s_len,
-            int(k_cache.dtype == torch.bfloat16), float(scale),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), k_cache.stride(0), b, n_kv,
+            group, hd, s_len, SPLIT, int(k_cache.dtype == torch.bfloat16), float(scale),
             torch.cuda.current_stream(qf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")

@@ -8,8 +8,11 @@ inside the JAX engine's compiled step; there is no Pallas site. On a CUDA
 tensor the wrapper launches ``csrc/gumbel_sample.cu`` (built with ``nvcc``
 for ``sm_90a`` at first use, like the Q40 kernels) on the current stream,
 or raises; on a CPU tensor it runs the plain version,
-``sampling.gumbel_argmax_plain``. ``COUNTS`` holds the launches and the
-plain calls.
+``sampling.gumbel_argmax_plain``. The kernel cuts each lane's row into
+chunks of ``CHUNK`` entries, one thread block each, and
+reduces the chunks' (value, index) pairs inside the same launch; the
+wrapper allocates their scratch and the arrival tickets per call.
+``COUNTS`` holds the launches and the plain calls.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ KERNEL = "gumbel_sample"
 KERNEL_SOURCE = "distributed_llama_multiusers_tpu_torch/csrc/gumbel_sample.cu"
 # no Pallas site: the XLA computation it replaces
 KERNEL_REPLACES = "distributed_llama_multiusers_tpu/runtime/engine.py:576"
+CHUNK = 2048  # entries per thread block: kChunk in csrc/gumbel_sample.cu
 COUNTS = {"launches": 0, "plain_calls": 0}
 _counts_lock = threading.Lock()
-# logp, seeds, positions, out, noise, lanes, vocab, stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# logp, seeds, positions, out, noise, scratch, lanes, vocab, chunk, stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -87,11 +91,16 @@ def gumbel_argmax(logp: torch.Tensor, seeds: torch.Tensor, positions: torch.Tens
     seeds = seeds.to(torch.int64).contiguous()
     positions = positions.to(torch.int64).contiguous()
     out = torch.empty(n, dtype=torch.int64, device=logp.device)
+    chunks = -(-vocab // CHUNK)  # the grid is (chunks, lanes)
+    # per-call scratch: each chunk's (value, index) pair and the lanes' tickets
+    scratch = (torch.zeros(n * (2 * chunks + 1), dtype=torch.int32, device=logp.device)
+               if chunks > 1 else None)
     with torch.cuda.device(logp.device):
         err = load_kernel(KERNEL, _ARGTYPES)(
             logp.data_ptr(), seeds.data_ptr(), positions.data_ptr(), out.data_ptr(),
             None if noise_out is None else noise_out.data_ptr(),
-            n, vocab, torch.cuda.current_stream(logp.device).cuda_stream)
+            None if scratch is None else scratch.data_ptr(), n, vocab, CHUNK,
+            torch.cuda.current_stream(logp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     _bump("launches")

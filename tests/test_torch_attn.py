@@ -25,13 +25,28 @@ def _inputs(seed, lanes, n_kv, group, hd, slots):
     return qf, k, v
 
 
-@pytest.mark.parametrize("lanes,n_kv,group,hd,s_len,seed", [
-    (2, 2, 2, 16, 64, 0), (8, 8, 4, 64, 256, 1), (3, 1, 7, 32, 40, 2)])
-def test_decode_attention_matches_jax(lanes, n_kv, group, hd, s_len, seed):
+L = cuda_attn.SPLIT
+# on and beside the kernel's split boundaries, and parked
+BOUNDARY = [L - 1, L, L + 1, 2 * L - 1, 2 * L, 2 * L + 1, 3 * L, 10**6]
+
+
+@pytest.mark.parametrize("lanes,n_kv,group,hd,s_len,seed,positions", [
+    (2, 2, 2, 16, 64, 0, None), (8, 8, 4, 64, 256, 1, None), (3, 1, 7, 32, 40, 2, None),
+    (8, 4, 4, 64, 2048, 3, None),  # one rank's shape of the 1B model at tp=2
+    (8, 4, 4, 64, 2048, 4, BOUNDARY),
+    (8, 2, 2, 16, 3 * L + 44, 5, BOUNDARY),  # an s_len that is no multiple of the split
+    (4, 2, 4, 32, L, 6, BOUNDARY),  # one split: the last slot, the rest parked
+    (8, 4, 4, 64, 2 * L, 7, BOUNDARY),  # two splits, each lane on or beside their edge
+    (2, 1, 8, 128, L + 1, 8, None),  # the largest head and group the kernel takes
+    (8, 8, 4, 64, 2048, 9, [2047] * 8),  # every lane live at the last slot
+    (8, 4, 4, 64, 2048, 10, [2048] * 8)])  # every lane parked
+def test_decode_attention_matches_jax(lanes, n_kv, group, hd, s_len, seed, positions):
     """Positions at the first slot, inside, at the last slot and parked
-    past it (every slot attended)."""
+    past it (every slot attended), or on and beside the kernel's split
+    boundaries."""
     qf, k, v = _inputs(seed, lanes, n_kv, group, hd, s_len)
-    pos = np.asarray([0, s_len - 1, s_len, 5, s_len // 2, 1, 17, 3][:lanes], np.int64)[:, None]
+    positions = positions or [0, s_len - 1, s_len, 5, s_len // 2, 1, 17, 3]
+    pos = np.asarray(positions[:lanes], np.int64)[:, None]
     scale = 1.0 / hd ** 0.5
     cuda_attn.reset_counts()
     got = cuda_attn.decode_attention(torch.from_numpy(qf), torch.from_numpy(k),

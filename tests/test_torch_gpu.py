@@ -543,23 +543,38 @@ def test_lab_runs_on_card(cuda, tmp_path):
 GUMBEL_ATOL = 2.0 ** -20
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("temp,topp", [(0.8, 0.9), (1.0, 1.0), (0.3, 0.5)])
-def test_gumbel_sample_matches_plain(cuda, temp, topp):
-    """8 lanes x 128,256 (the 1B vocabulary): the kernel's choices equal
-    the plain version's and its noise lies within GUMBEL_ATOL of it at every
-    unmasked entry."""
-    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample
+def _sampler_rows(cuda, vocab, temp, topp, seed):
+    """8 lanes of sorted nucleus log-probabilities, the last two replaced by
+    edge rows: every entry masked, and only the last entry finite."""
     from distributed_llama_multiusers_tpu_torch.runtime import sampling as S
 
-    n, vocab = 8, 128256
-    gen = torch.Generator(device=cuda).manual_seed(int(temp * 10 + topp * 100))
+    n = 8
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     rows = torch.randn((n, vocab), device=cuda, generator=gen) * 3
     logp, _ = S.nucleus_logp(rows, torch.full((n,), temp, device=cuda),
                              torch.full((n,), topp, device=cuda))
+    logp[6:] = float("-inf")
+    logp[7, -1] = 0.0
     seeds = torch.arange(n, device=cuda) * 7919 + 3
     positions = torch.arange(n, device=cuda) * 131 + 40
-    noise = torch.full((n, vocab), float("nan"), device=cuda)
+    return logp, seeds, positions
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [1, 31, 4097, 128256, 151936])
+@pytest.mark.parametrize("temp,topp", [(0.8, 0.9), (1.0, 1.0), (0.3, 0.5)])
+def test_gumbel_sample_matches_plain(cuda, temp, topp, vocab):
+    """8 lanes over vocabularies from 1 to 151,936 (one chunk, across
+    chunks, no multiple of the chunk; 128,256 is the 1B vocabulary): the
+    kernel's choices equal the plain version's, an all -inf row picks 0, a
+    row whose only finite entry is its last picks it, and the noise lies
+    within GUMBEL_ATOL of the plain version's at every unmasked entry."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample
+    from distributed_llama_multiusers_tpu_torch.runtime import sampling as S
+
+    logp, seeds, positions = _sampler_rows(cuda, vocab, temp, topp,
+                                           int(temp * 10 + topp * 100) + vocab)
+    noise = torch.full(logp.shape, float("nan"), device=cuda)
     cuda_sample.reset_counts()
     got = cuda_sample.gumbel_argmax(logp, seeds, positions, noise_out=noise)
     want = S.gumbel_argmax_plain(logp, seeds, positions)
@@ -568,13 +583,48 @@ def test_gumbel_sample_matches_plain(cuda, temp, topp):
     torch.cuda.synchronize()
     assert cuda_sample.COUNTS == {"launches": 1, "plain_calls": 0}
     assert torch.equal(got, want)
+    assert got[6:].tolist() == [0, vocab - 1]
     kept = torch.isfinite(logp)
-    assert bool(kept.any(dim=-1).all())
+    assert bool(kept[:6].any(dim=-1).all())
     assert float((noise[kept] - ref[kept]).abs().max()) <= GUMBEL_ATOL
 
 
-# the kernel's online softmax sums the slots in another order than the plain
-# version's two passes: f32 rounding over up to 2048 slots
+def _graph_replay_equals_eager(calls):
+    """Two kernel calls captured in one CUDA graph, replayed twice: each
+    replay's outputs equal the eager calls' bit for bit (the per-call
+    scratch and tickets start fresh on every replay)."""
+    eager = [c() for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.gpu
+def test_gumbel_sample_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample
+
+    a = _sampler_rows(cuda, 128256, 0.8, 0.9, seed=1)
+    b = _sampler_rows(cuda, 4097, 1.0, 1.0, seed=2)
+    _graph_replay_equals_eager([lambda: cuda_sample.gumbel_argmax(*a),
+                                lambda: cuda_sample.gumbel_argmax(*b)])
+
+
+# the kernel sums the slots in another order than the plain version's two
+# passes (per split of 128, the splits folded): f32 rounding over up to 2048
+# slots
 ATTN_TOL = 2e-5  # max|kernel - plain| <= ATTN_TOL * max|plain|
 
 
@@ -586,21 +636,37 @@ def _attn_inputs(cuda, lanes, n_kv, group, hd, slots, dtype, seed):
     return qf, k, v
 
 
+def _attn_positions(rule, s_len, split):
+    """8 lanes' positions: spanning the cache (the first slot, the middle,
+    the last slot and a parked lane past it, which attends every slot), on
+    and beside the kernel's split boundaries, or every lane parked."""
+    if rule == "spread":
+        pos = [0, 1, s_len // 2, s_len - 2, s_len - 1, s_len, 7, s_len // 3]
+    elif rule == "boundaries":
+        pos = [split - 1, split, split + 1, 2 * split - 1, 2 * split, 2 * split + 1,
+               3 * split, s_len - 1]
+    else:
+        pos = [s_len] * 8
+    return torch.tensor([[p] for p in pos])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["spread", "boundaries", "parked"])
 @pytest.mark.parametrize("n_kv,group,hd,dtype,s_len", [
     (8, 4, 64, torch.bfloat16, 2048),  # Llama-3.2-1B at the smoke's seq_len
+    (4, 4, 64, torch.bfloat16, 2048),  # one rank of it at tp=2
     (2, 2, 16, torch.float32, 64),  # the tiny test model
-    (4, 7, 128, torch.bfloat16, 300),
-    (2, 1, 96, torch.float32, 100)])
-def test_decode_attn_matches_plain(cuda, n_kv, group, hd, dtype, s_len):
+    (4, 7, 128, torch.bfloat16, 300),  # no multiple of the split
+    (2, 1, 96, torch.float32, 100),
+    (3, 8, 128, torch.float32, 1000),
+    (2, 3, 36, torch.bfloat16, 777)])  # a head of no whole 16-byte chunks
+def test_decode_attn_matches_plain(cuda, n_kv, group, hd, dtype, s_len, rule):
     """The attention kernel against its plain version at 8 lanes whose
-    positions span the first slot, the middle, the last slot and a parked
-    lane past it (which attends every slot)."""
+    positions follow ``rule`` (``_attn_positions``)."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
 
     qf, k, v = _attn_inputs(cuda, 8, n_kv, group, hd, s_len, dtype, seed=hd + group)
-    positions = torch.tensor([[0], [1], [s_len // 2], [s_len - 2], [s_len - 1], [s_len],
-                              [7], [s_len // 3]], device=cuda)
+    positions = _attn_positions(rule, s_len, cuda_attn.SPLIT).to(cuda)
     scale = 1.0 / hd ** 0.5
     cuda_attn.reset_counts()
     got = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
@@ -629,6 +695,28 @@ def test_decode_attn_lane_bits_independent_of_the_batch(cuda):
                                (other, k, v, 128), (other, k, v, 101)):
         got = cuda_attn.decode_attention(qf, kk, vv, pos, scale, s_len)
         assert torch.equal(got[0], base[0])
+    # lane 0 on a split boundary (its last slot opens a split, or closes one)
+    for p0 in (cuda_attn.SPLIT, cuda_attn.SPLIT - 1, 2 * cuda_attn.SPLIT):
+        alone = cuda_attn.decode_attention(qf, k, v, torch.full((8, 1), p0, device=cuda),
+                                           scale, 2048)
+        for pos, kk, vv, s_len in ((other, k, v, 2048), (other, k2, v2, 2048),
+                                   (other, k, v, p0 + 1)):
+            pos = pos.clone()
+            pos[0] = p0
+            got = cuda_attn.decode_attention(qf, kk, vv, pos, scale, s_len)
+            assert torch.equal(got[0], alone[0])
+
+
+@pytest.mark.gpu
+def test_decode_attn_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8, 8, 4, 64, 2048, torch.bfloat16, seed=5)
+    serving = torch.tensor([[40], [63], [64], [100]] + [[2048]] * 4, device=cuda)
+    boundaries = _attn_positions("boundaries", 2048, cuda_attn.SPLIT).to(cuda)
+    _graph_replay_equals_eager(
+        [lambda: cuda_attn.decode_attention(qf, k, v, serving, 0.125, 2048),
+         lambda: cuda_attn.decode_attention(qf, k, v, boundaries, 0.125, 2048)])
 
 
 @pytest.mark.gpu

@@ -141,6 +141,40 @@ def test_plain_gumbel_argmax_counts_plain_calls():
         cuda_sample.gumbel_argmax(logp, torch.tensor([1]), torch.tensor([3, 4]))
 
 
+def _edge_rows(vocab, rng):
+    """Rows the sampler kernel's chunks must get right: every entry masked,
+    only the last entry finite, a random nucleus (the sorted log p of a
+    top-p of 0.9 at temperature 0.8)."""
+    masked = np.full(vocab, -np.inf, np.float32)
+    last = masked.copy()
+    last[-1] = 0.0
+    logp, _ = S.nucleus_logp(torch.from_numpy(rng.standard_normal((1, vocab)).astype(np.float32)
+                                              * 3), torch.tensor([0.8]), torch.tensor([0.9]))
+    return np.stack([masked, last, logp[0].numpy()])
+
+
+# vocab 1, widths below, on, across and past the kernel's chunk, ones that are
+# no multiple of it, the 1B model's and a 151,936-entry vocabulary
+C = cuda_sample.CHUNK
+
+
+@pytest.mark.parametrize("vocab", [1, 31, C - 1, C, C + 1, 2 * C, 2 * C + 1, 3 * C + 1,
+                                   128256, 151936])
+def test_gumbel_argmax_edge_rows_equal_jax(vocab):
+    """The draw's wrapper (the plain version on the CPU) against
+    ``jax.random.categorical(fold_in(PRNGKey(seed), pos), log p)`` on the
+    edge rows, over several (seed, pos): an all -inf row picks 0, a row
+    whose only finite entry is its last picks it."""
+    rows = _edge_rows(vocab, np.random.default_rng(vocab))
+    for seed, pos in ((0, 0), (7, 63), (2**32 - 1, 2047)):
+        n = len(rows)
+        got = cuda_sample.gumbel_argmax(torch.from_numpy(rows), torch.full((n,), seed),
+                                        torch.full((n,), pos))
+        want = [int(jax.random.categorical(_jax_key(seed, pos), jnp.asarray(r))) for r in rows]
+        assert got.tolist() == want
+        assert want[:2] == [0, vocab - 1]
+
+
 @pytest.fixture(scope="module")
 def engines(tiny_model):
     path = tiny_model["model"]
