@@ -27,7 +27,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    16..8192, with f16-extreme scales, and i8blockdot with its int8 values
    saturated at +-127 and all-zero blocks), then time each kernel, its
    plain version and ``torch.matmul`` on the pre-dequantized bf16 weight
-   (i8blockdot at m = 1, 8 and 32). The ring step bit for bit against its
+   (i8blockdot at m = 1, 8 and 32). A speculative verify step's products
+   (m = 32 at 8 lanes) row for row against the decode step's (m = 8) at
+   the 1B sites in the three kernels, bit for bit under ``launch_plan``
+   (recorded under two other k-split plans), each timed at m = 8 and 32
+   under the three plans; under ``launch_plan`` also m = 4 x lanes against
+   m = lanes for 1, 2 and 4 lanes. The ring step bit for bit against its
    plain version on each tensor-parallel payload (f32 ring chunks at tp=2
    and 4, the Q80 wire's values and scales, logits shards, a prefill
    chunk), timed beside ``dst.copy_(src)`` and its bound; each segment form
@@ -47,25 +52,33 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    kernel's split boundaries, and every lane live at 2047), a lane's bits
    (one of them on a split boundary) against another batch around it;
    timed beside its plain version and ``scaled_dot_product_attention``, and
-   once more with every lane at 2047 (the long context).
+   once more with every lane at 2047 (the long context). Its verify window
+   (4 rows a lane from the serving positions, across the split boundaries,
+   all at and past 2047) against its plain version and each row bit for
+   bit against a one-row call; timed beside the same rows as four one-row
+   calls, its plain version and ``scaled_dot_product_attention``.
 3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
    layers, seed 0) into ``build/synthetic`` (reused while header and seed
    match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
    dllama_api`` once per dequant mode (default v4, ``auto``, ``blockdot``)
    under the serving defaults (pipelined decode of depth 2, fused
-   admissions; the pipelined step replayed from CUDA graphs captured at
-   warmup), once more in v4 with ``--pipeline-depth 0
-   --multi-step 0`` (the synchronous loop), and twice with ``--workers 2``
+   admissions, speculation inside the chain; the pipelined and verify steps
+   replayed from CUDA graphs captured at warmup), once more in v4 with
+   ``--pipeline-depth 0 --multi-step 0`` (the synchronous loop and verify
+   step), once in v4 with ``--no-spec``, and twice with ``--workers 2``
    (defaults; ``--buffer-float-type q80 --dequant auto``) on the host's
    cards (one card named twice where there is one), send 4 concurrent
-   requests (greedy and sampled, completion and chat, one streamed), check
-   the answers, the startup log (graph count and capture time), the
-   kernels' launch counts and the serving paths' counters on ``/stats``
-   (pipelined dispatches, no flush, fused admissions, the sampler's
-   launches, the graphs' replays), print TTFT and decode tok/s, and SIGTERM
-   the server. The default v4 pass and the synchronous pass also stream
-   each of the 4 requests alone; their texts, alone and concurrent, must
-   be byte-identical, greedy and seeded.
+   requests (greedy and sampled, completion and chat, one streamed; the
+   greedy completion's prompt built from a probe request so that its lane
+   drafts, ``SPEC_RUN``), check the answers, the startup log (graph count
+   and capture time), the kernels' launch counts and the serving paths'
+   counters on ``/stats`` (pipelined dispatches, no flush, fused
+   admissions, verify steps in the chain and drafted lanes, the window's
+   launches, the sampler's launches, the graphs' replays), print TTFT,
+   decode tok/s and tokens per drafted lane step, and SIGTERM the server.
+   The default v4 pass, the synchronous pass and the ``--no-spec`` pass
+   also stream each of the 4 requests alone; their texts, alone and
+   concurrent, must be byte-identical, greedy and seeded.
 4. Decode step: the engine in this process on the same model, its decode
    step replayed from its CUDA graph and then run eagerly (the bodies the
    graph captured), each with its host clock per step, launches per step
@@ -74,7 +87,11 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    at tp=2 on the f32 and the Q80 wire (with the ring step's launches,
    checked against the reckoned 130 on both wires, its bytes, and the
    device operations per step), and the graphs' count and capture time;
-   then an 8-step ``decode_multi`` replayed from its graph against the
+   on one device the verify step's rows against one-row forwards at their
+   positions, bit for bit, as batches of 1, 2, 4 and 8 lanes, and the
+   verify step replayed from its graph (host clock, launches and device
+   time as the decode step's); then an
+   8-step ``decode_multi`` replayed from its graph against the
    eager bodies from the same cache (tokens, KV cache and counts); the TP
    prefill logits against one device's; the ring steps of one TP decode
    step, recorded from the collectives, timed; then each Q40 kernel, its
@@ -136,7 +153,20 @@ TOL = 1e-4  # max|kernel - plain| <= TOL * max|plain| (f32 outputs)
 # i8blockdot's per-site times: one row, the server's 8 lanes, and the most
 # rows auto sends it (BLOCKDOT_MAX_M)
 I8_TIMED_M = (1, DECODE_M, 32)
+# a speculative verify step's rows at the server's lanes: 8 x (SPEC_DRAFT + 1)
+VERIFY_M = DECODE_M * 4
+# fewer lanes (--max-lanes): their verify steps' rows against their decode steps'
+FEW_LANES = (1, 2, 4)
 GEN_TOKENS = 64
+# the drafting request: a run of one token whose continuation a probe
+# request reads first, then a prompt that holds that continuation ahead of
+# the same run. A random model's greedy stream never repeats itself, so the
+# prompt-lookup drafter has nothing to draft from in an ordinary prompt;
+# this one ends where it began, so the drafter proposes the probe's tokens
+# (and, as a long run's last rows hardly see the prefix, the model mostly
+# continues with them)
+SPEC_RUN = 1900
+SPEC_PROBE_TOKENS = 16
 MULTI_H = 8  # the scheduler's default multi-step horizon (--multi-step 8)
 # the sampler's serving shape: the server's lanes over the 1B vocabulary
 SAMPLE_VOCAB = 128256
@@ -198,13 +228,17 @@ def _acts(torch, q, m, d_in, gen, dtype):
     return q.make_q80_acts(x.to(dtype))
 
 
-def _run(q, kernel, mode, acts, w, w_dtype):
+def _run(q, kernel, mode, acts, w, w_dtype, plain=True):
+    """(kernel, plain version) outputs; the kernel's alone without ``plain``."""
     if kernel == "q40_slab":
-        return (q.q40_slab(acts, w, w_dtype, mode),
-                q.q40_slab_plain(acts.x2, w, w_dtype, mode, bsum=acts.bsum))
+        got = q.q40_slab(acts, w, w_dtype, mode)
+        return (got, q.q40_slab_plain(acts.x2, w, w_dtype, mode, bsum=acts.bsum)) if plain \
+            else got
     if kernel == "q40_blockdot":
-        return q.q40_blockdot(acts, w), q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)
-    return q.q40_i8blockdot(acts, w), q.q40_i8blockdot_plain(acts, w)
+        got = q.q40_blockdot(acts, w)
+        return (got, q.q40_blockdot_plain(acts.x2, w, bsum=acts.bsum)) if plain else got
+    got = q.q40_i8blockdot(acts, w)
+    return (got, q.q40_i8blockdot_plain(acts, w)) if plain else got
 
 
 def compare(torch, q, kernel, mode, m, d_in, d_out, w, gen, w_dtype, results):
@@ -446,6 +480,106 @@ def tensor_core_edges(torch, q, gen, checks) -> None:
         check(int(acts.xq.abs().max()) == 127, "the saturation case does not reach +-127")
         _extreme_check(torch, q, "q40_i8blockdot", "i8blockdot", acts, PackedQ40(packed, w.scales),
                        checks, "xq saturated at +-127, all-15 nibbles, all-zero blocks")
+
+
+def _plan_tiles(q, tiles):
+    """A k-split plan that counts ``tiles(m, mt)`` m-tiles where it spreads
+    d_in over the card (``launch_plan`` counts 1 for every m <= 32)."""
+    def plan(m, d_in, d_out, n_sm):
+        mt = 1 if m == 1 else (8 if m <= 8 else 16)
+        col_blocks = -(-d_out // q.COLS_PER_BLOCK)
+        n_blk = d_in // 32
+        want = max(1, -(-2 * n_sm // (col_blocks * tiles(m, mt))))
+        per = -(-n_blk // min(n_blk, want))
+        return mt, -(-n_blk // per), per
+    return plan
+
+
+def _rotating_ms(torch, q, kernel, mode, m, d_in, d_out, gen) -> float:
+    """A kernel's time per call at one site, its weights rotating over
+    enough copies to exceed the 50 MB L2 (``time_site``'s rule)."""
+    wbytes = d_in * d_out // 2 + (d_in // 32) * d_out * 2
+    n = max(1, min(48, math.ceil(120e6 / wbytes)))
+    ws = [_weight(torch, q, d_in, d_out, gen) for _ in range(n)]
+    acts = _acts(torch, q, m, d_in, gen, torch.bfloat16)
+    acts.xq  # noqa: B018 — the Q80 operands outside the timed calls
+    calls = [lambda w=ws[i % n]: _run(q, kernel, mode, acts, w, torch.bfloat16, plain=False)
+             for i in range(max(n, 8))]
+    ms = graph_ms(torch, calls)
+    del ws
+    return ms
+
+
+def row_plan_phase(torch, q) -> list:
+    """Row r of an m = 32 product (a verify step's rows at 8 lanes) against
+    row r of the m = 8 products of the same rows (decode steps), bit for
+    bit, at the 1B sites in the three kernels the serving modes run, under
+    ``launch_plan`` (one plan for every m <= 32, as one m-tile splits) and
+    two others: the plan before it (m-tiles counted at every m) and one
+    plan for every m <= 32 as two m-tiles split (half the k-splits). The
+    first must hold; the others are recorded. Under ``launch_plan`` also
+    the rows of fewer lanes' verify products (m = 4 x lanes) against their
+    decode products (m = lanes), for lanes in FEW_LANES. Then each kernel's
+    m = 8 and m = 32 times under the three plans, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    now = q.launch_plan
+    plans = {"now": now, "before": _plan_tiles(q, lambda m, mt: -(-m // mt)),
+             "two_tiles": _plan_tiles(q, lambda m, mt: 2 if m <= q.BLOCKDOT_MAX_M
+                                      else -(-m // mt))}
+    order = ("now", "before", "two_tiles", "two_tiles", "before", "now")
+    rows = []
+    t0 = time.perf_counter()
+    try:
+        for site, d_in, d_out, per_step in SITES:
+            w = _weight(torch, q, d_in, d_out, gen)
+            x = torch.randn((VERIFY_M, d_in), device="cuda", generator=gen).to(torch.bfloat16)
+            for kernel, mode in (("q40_slab", "v4"), ("q40_blockdot", "blockdot"),
+                                 ("q40_i8blockdot", "i8blockdot")):
+                row = {"site": site, "d_in": d_in, "d_out": d_out, "kernel": kernel,
+                       "mode": mode, "per_decode_step": per_step}
+                for name, plan in plans.items():
+                    q.launch_plan = plan
+                    full = _run(q, kernel, mode, q.make_q80_acts(x), w, torch.bfloat16,
+                                plain=False)
+                    parts = torch.cat([_run(q, kernel, mode,
+                                            q.make_q80_acts(x[i:i + DECODE_M].contiguous()),
+                                            w, torch.bfloat16, plain=False)
+                                       for i in range(0, VERIFY_M, DECODE_M)])
+                    row[f"rows_equal_{name}"] = bool(torch.equal(full, parts))
+                    row[f"splits_m8_m32_{name}"] = [plan(m, d_in, d_out, n_sm)[1]
+                                                    for m in (DECODE_M, VERIFY_M)]
+                q.launch_plan = now
+                check(row["rows_equal_now"], f"{kernel} {site}: a row of the m = {VERIFY_M} "
+                                             f"product differs from the m = {DECODE_M} one")
+                for n in FEW_LANES:
+                    full = _run(q, kernel, mode, q.make_q80_acts(x[:4 * n].contiguous()), w,
+                                torch.bfloat16, plain=False)
+                    parts = torch.cat([_run(q, kernel, mode,
+                                            q.make_q80_acts(x[i:i + n].contiguous()), w,
+                                            torch.bfloat16, plain=False)
+                                       for i in range(0, 4 * n, n)])
+                    row[f"rows_equal_m{n}_m{4 * n}"] = bool(torch.equal(full, parts))
+                for name in order:
+                    q.launch_plan = plans[name]
+                    for m in (DECODE_M, VERIFY_M):
+                        row.setdefault(f"ms_m{m}_{name}", []).append(
+                            _rotating_ms(torch, q, kernel, mode, m, d_in, d_out, gen))
+                q.launch_plan = now
+                rows.append(row)
+            del w
+    finally:
+        q.launch_plan = now
+    log(f"verify-shaped products: rows of m = {VERIFY_M} equal m = {DECODE_M} at "
+        + ", ".join(f"{sum(r[f'rows_equal_{n}'] for r in rows)} under {n}" for n in plans)
+        + f" of {len(rows)} (kernel, site) pairs ({time.perf_counter() - t0:.1f}s)")
+    for r in rows:
+        log("verify-shaped product " + json.dumps(r))
+    for n in FEW_LANES:
+        differ = [(r["kernel"], r["site"]) for r in rows if not r[f"rows_equal_m{n}_m{4 * n}"]]
+        check(not differ, f"a row of the m = {4 * n} product differs from the m = {n} one at "
+                          f"{differ}")
+    return rows
 
 
 def kernel_phase(torch, q) -> tuple[list, list]:
@@ -949,6 +1083,7 @@ def attn_phase(torch) -> dict:
                                                                  s_len), 3)
     long_ms = graph_ms(torch, [lambda: ca.decode_attention(qf, k, v, long_ctx, scale,
                                                            s_len)] * reps)
+    window = window_phase(torch, ca, k, v, scale)
     out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "s_len": s_len,
            "positions": serving[:, 0].tolist(), "split": split,
            "grid": list(ca.launch_grid(lanes, n_kv, s_len)),
@@ -957,9 +1092,90 @@ def attn_phase(torch) -> dict:
            "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, **bound_of(serving),
            "long_context": {"positions": long_ctx[:, 0].tolist(), "ms": long_ms,
-                            **bound_of(long_ctx)}}
-    log("decode_attn: " + json.dumps(out))
+                            **bound_of(long_ctx)}, "window": window}
+    log("decode_attn: " + json.dumps({k: v for k, v in out.items() if k != "window"}))
+    log("decode_attn window: " + json.dumps(window))
     return out
+
+
+def window_rows(torch, first, t: int = 4):
+    """Each lane's rows at consecutive positions from ``first``."""
+    return torch.tensor(first, device="cuda")[:, None] + torch.arange(t, device="cuda")[None]
+
+
+def window_phase(torch, ca, k, v, scale) -> dict:
+    """The verify window (4 query rows a lane, the speculative verify step
+    at 8 lanes) on ``attn_phase``'s cache: against its plain version and
+    each row against a T = 1 call at its position, bit for bit, with the
+    rows at the serving positions (4 lanes from 40-100, 4 parked), across
+    the split boundaries and all at and past 2047; then one window call's
+    time beside the same rows as four T = 1 calls and as one
+    ``scaled_dot_product_attention`` (one CUDA graph each), and its bound:
+    each lane's slots read once for all rows (its furthest row's), q and the
+    output, or the rows' f32 operations."""
+    lanes, t, s_len, split = DECODE_M, ca.WINDOW, ATTN_S_LEN, ca.SPLIT
+    n_kv, hd = k.shape[2], k.shape[3]
+    group = 4
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qw = torch.randn((lanes, t, n_kv, group, hd), device="cuda", generator=gen)
+    serving = window_rows(torch, [40, 63, 64, 100] + [s_len] * 4)
+    boundaries = window_rows(torch, [split - 4, split - 2, split - 1, split, 2 * split - 3,
+                                     2 * split - 1, 3 * split - 2, s_len - 4])
+    at_end = window_rows(torch, [s_len - 1] * lanes)
+    err, ref_max, rows_checked = 0.0, 0.0, 0
+    for pos in (serving, boundaries, at_end):
+        got = ca.decode_attention(qw, k, v, pos, scale, s_len)
+        want = ca.decode_attention_plain(qw, k, v, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and e <= ATTN_TOL * r,
+              f"decode_attn window: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+        err, ref_max = max(err, e), max(ref_max, r)
+        for row in range(t):
+            one = ca.decode_attention(qw[:, row:row + 1].contiguous(), k, v,
+                                      pos[:, row:row + 1].contiguous(), scale, s_len)
+            check(torch.equal(got[:, row], one[:, 0]),
+                  f"decode_attn window: row {row} differs from a T = 1 call at its position")
+            rows_checked += lanes
+    rows_q = [qw[:, row:row + 1].contiguous() for row in range(t)]
+    rows_p = [serving[:, row:row + 1].contiguous() for row in range(t)]
+    reps = 20
+    ms = graph_ms(torch, [lambda: ca.decode_attention(qw, k, v, serving, scale, s_len)] * reps)
+    ms_one_row_calls = graph_ms(torch, [
+        lambda r=row: ca.decode_attention(rows_q[r], k, v, rows_p[r], scale, s_len)
+        for row in range(t)] * reps) * t
+    plain_ms = eager_ms(torch, lambda: ca.decode_attention_plain(qw, k, v, serving, scale,
+                                                                 s_len), 3)
+    # the library call on the same rows: q [B, heads, T, H], a mask per row
+    q_l = qw.permute(0, 2, 3, 1, 4).reshape(lanes, n_kv * group, t, hd).contiguous()
+    k_l = k[:, :s_len].permute(0, 2, 1, 3).float().contiguous()
+    v_l = v[:, :s_len].permute(0, 2, 1, 3).float().contiguous()
+    mask = (torch.arange(s_len, device="cuda")[None, None, :] <= serving[:, :, None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        library = lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale,  # noqa: E731
+                               enable_gqa=True)
+        lib_out = library()
+    except TypeError:  # a torch without enable_gqa: the kv heads expanded first
+        k_l, v_l = (x.repeat_interleave(group, dim=1) for x in (k_l, v_l))
+        library = lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale)  # noqa: E731
+        lib_out = library()
+    base = ca.decode_attention(qw, k, v, serving, scale, s_len)
+    lib_err = float((lib_out.reshape(lanes, n_kv, group, t, hd).permute(0, 3, 1, 2, 4)
+                     - base).abs().max())
+    library_ms = graph_ms(torch, [library] * reps)
+    n_rows = (serving.clamp(max=s_len - 1) + 1)  # each row's slots
+    slots_read = int(n_rows.max(dim=1).values.sum())  # once a lane, for all rows
+    n_bytes = slots_read * n_kv * hd * 2 * 2 + 2 * qw.numel() * 4 + serving.numel() * 8
+    n_ops = int(n_rows.sum()) * n_kv * group * hd * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return {"lanes": lanes, "rows": t, "first_positions": serving[:, 0].tolist(),
+            "max_abs_err": err, "max_abs_ref": ref_max, "tol": ATTN_TOL,
+            "rows_bit_equal_to_one_row_calls": rows_checked,
+            "library_max_abs_err": lib_err, "ms": ms, "ms_as_one_row_calls": ms_one_row_calls,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "slots_read": slots_read, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
 def llama32_1b_header():
@@ -1074,7 +1290,9 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
             time.sleep(1.0)
         startup_s = time.perf_counter() - t0
 
-        greedy = ("/v1/completions", {"prompt": "hello world, the quick brown fox",
+        probe = json.loads(_http(base + "/v1/completions", {
+            "prompt": "a" * SPEC_RUN, "max_tokens": SPEC_PROBE_TOKENS, "temperature": 0})[1])
+        greedy = ("/v1/completions", {"prompt": "a" + _text(probe) + "a" * SPEC_RUN,
                                       "max_tokens": n_tokens, "temperature": 0})
         bodies = [
             greedy,
@@ -1163,12 +1381,22 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                                         "pipeline_depth_hist", "multi_dispatches",
                                         "fused_steps", "fused_bucket_hist", "overlap_s",
                                         "decode_graphs", "decode_graph_replays",
-                                        "gumbel_sample_launches", "decode_attn_launches")}}
+                                        "gumbel_sample_launches", "decode_attn_launches",
+                                        "decode_attn_window_launches", "spec_steps",
+                                        "spec_pipelined_steps", "spec_lane_steps",
+                                        "spec_emitted", "spec_tokens_per_lane_step",
+                                        "spec_accept_hist")}}
         log(f"TTFT ms [{name}]: p50 {out['ttft_ms_p50']} per request {ttft}")
         log(f"decode tok/s [{name}]: per request {per_req}, batch of 4 "
             f"{out['tokens_per_s_batch']:.1f} tok/s ({total_tokens} tokens in {batch_s:.2f}s)")
         log(f"launches [{name}]: {stats['kernel_launches']}, gumbel_sample "
-            f"{stats['gumbel_sample_launches']}, decode_attn {stats['decode_attn_launches']}")
+            f"{stats['gumbel_sample_launches']}, decode_attn {stats['decode_attn_launches']} "
+            f"({stats['decode_attn_window_launches']} of them verify windows)")
+        log(f"speculation [{name}]: {stats['spec_steps']} verify steps "
+            f"({stats['spec_pipelined_steps']} in the chain), {stats['spec_lane_steps']} "
+            f"drafted lane steps, spec_tokens_per_lane_step "
+            f"{stats['spec_tokens_per_lane_step']}, accept counts {stats['spec_accept_hist']}; "
+            f"batch {out['tokens_per_s_batch']:.1f} tok/s")
         log(f"serving paths [{name}]: pipelined {stats['pipeline_dispatches']} (depth "
             f"{stats['pipeline_depth_hist']}), flushes {stats['pipeline_flushes']}, fused "
             f"{stats['fused_steps']}, multi-step {stats['multi_dispatches']}, decode graphs "
@@ -1201,29 +1429,44 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
 
 
 SYNC_ARGS = ("--pipeline-depth", "0", "--multi-step", "0")
+NO_SPEC_ARGS = ("--no-spec",)
 
 
-def check_serving_paths(p: dict, sync: bool = False) -> None:
+def check_serving_paths(p: dict, sync: bool = False, spec: bool = True) -> None:
     """The serving loop a pass ran: every pass steps from the graphs
-    captured at warmup (the step, greedy and sampled: no horizon, which
-    neither loop picks) and samples through the kernel; under the defaults
-    pipelined dispatches, fused admissions (the 4 requests arrive together,
-    so 3 join a live chain) and no flush; the synchronous pass none of
-    those."""
+    captured at warmup (the step and, with speculation, the verify step,
+    greedy and sampled: no horizon, which neither loop picks) and samples
+    through the kernel; with speculation the drafting request's lane
+    drafted and verify steps ran through the window attention (inside the
+    chain under the defaults); under the defaults pipelined dispatches,
+    fused admissions (the 4 requests arrive together, so 3 join a live
+    chain) and no flush; the synchronous pass none of those."""
     name = p["mode"]
     check(p["gumbel_sample_launches"] > 0, f"{name}: gumbel_sample never launched")
     check(p["decode_attn_launches"] > 0, f"{name}: decode_attn never launched")
-    check(p["decode_graphs"] == 2 and p["graphs_captured"] == p["decode_graphs"]
+    graphs = 4 if spec else 2
+    check(p["decode_graphs"] == graphs and p["graphs_captured"] == p["decode_graphs"]
           and p["decode_graph_replays"] > 0,
-          f"{name}: {p['decode_graphs']} decode graphs, {p['graphs_captured']} at warmup, "
-          f"{p['decode_graph_replays']} replays")
+          f"{name}: {p['decode_graphs']} decode graphs (expected {graphs}), "
+          f"{p['graphs_captured']} at warmup, {p['decode_graph_replays']} replays")
+    if spec:
+        check(p["spec_steps"] > 0 and p["spec_lane_steps"] > 0
+              and p["decode_attn_window_launches"] > 0,
+              f"{name}: {p['spec_steps']} verify steps, {p['spec_lane_steps']} drafted lane "
+              f"steps, {p['decode_attn_window_launches']} window launches")
+    else:
+        check(p["spec_steps"] == 0 and p["decode_attn_window_launches"] == 0,
+              f"{name}: verify steps ran with --no-spec")
     if sync:
         check(p["pipeline_dispatches"] == 0 and p["multi_dispatches"] == 0
-              and p["fused_steps"] == 0, f"{name}: the synchronous pass pipelined")
+              and p["fused_steps"] == 0 and p["spec_pipelined_steps"] == 0,
+              f"{name}: the synchronous pass pipelined")
         return
     check(p["pipeline_dispatches"] > 0 and p["fused_steps"] > 0,
           f"{name}: pipelined {p['pipeline_dispatches']}, fused {p['fused_steps']}")
     check(p["pipeline_flushes"] == 0, f"{name}: {p['pipeline_flushes']} pipeline flushes")
+    if spec:
+        check(p["spec_pipelined_steps"] > 0, f"{name}: no verify step inside the chain")
 
 
 def serving_phase(torch, q) -> list:
@@ -1234,24 +1477,27 @@ def serving_phase(torch, q) -> list:
     for mode, extra, n_tokens, alone, expect in (
             (None, (), GEN_TOKENS, True, ("q40_slab",)),
             (None, SYNC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
+            (None, NO_SPEC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
             ("auto", (), GEN_TOKENS, False, ("q40_i8blockdot", "q40_slab")),
             ("blockdot", (), 16, False, ("q40_blockdot", "q40_slab"))):
-        name = "v4-sync" if extra else None
+        name = {SYNC_ARGS: "v4-sync", NO_SPEC_ARGS: "v4-no-spec"}.get(extra)
         p = serve_pass(model, tok, mode, n_tokens, extra_args=extra, alone=alone, name=name)
         check(p["device"].startswith("cuda"), f"server ran on {p['device']}")
         for k in expect:
             check(p["kernel_launches"][k] > 0, f"{p['mode']}: {k} never launched")
-        check_serving_paths(p, sync=bool(extra))
+        check_serving_paths(p, sync=extra == SYNC_ARGS, spec=extra != NO_SPEC_ARGS)
         passes.append(p)
-    default, sync = passes[0], passes[1]
-    for how in ("alone", "concurrent"):
-        for i, (a, b) in enumerate(zip(default[f"{how}_texts"], sync[f"{how}_texts"])):
-            check(a == b, f"request {i} {how}: the default loop's stream differs from the "
-                          f"synchronous loop's:\n{a!r}\n{b!r}")
-    check(default["greedy_text"] == sync["greedy_text"], "greedy text differs between loops")
+    default = passes[0]
+    for other in passes[1:3]:
+        for how in ("alone", "concurrent"):
+            for i, (a, b) in enumerate(zip(default[f"{how}_texts"], other[f"{how}_texts"])):
+                check(a == b, f"request {i} {how}: the default loop's stream differs from "
+                              f"{other['mode']}'s:\n{a!r}\n{b!r}")
+        check(default["greedy_text"] == other["greedy_text"],
+              f"greedy text differs between the default loop and {other['mode']}")
     log(f"serving loops: {len(default['alone_texts'])} streams (2 greedy, 2 seeded), alone "
-        "and concurrent, byte-identical between the defaults and --pipeline-depth 0 "
-        "--multi-step 0")
+        "and concurrent, byte-identical between the defaults (speculation in the chain), "
+        "--pipeline-depth 0 --multi-step 0 (the synchronous verify step) and --no-spec")
     passes += tp_serving_passes(torch, model, tok, passes[0])
     return passes
 
@@ -1354,6 +1600,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     ring_before = rc.ring_counts()
     sample_before = cs.COUNTS["launches"]
     attn_before = ca.COUNTS["launches"]
+    window_before = ca.COUNTS["window_launches"]
     for _ in range(steps):
         t0 = time.perf_counter()
         step()  # decode reads the tokens back: each step ends synchronized
@@ -1361,6 +1608,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     launches = {k: (q.LAUNCHES[k] - before[k]) / steps for k in q.KERNELS}
     launches["gumbel_sample"] = (cs.COUNTS["launches"] - sample_before) / steps
     launches["decode_attn"] = (ca.COUNTS["launches"] - attn_before) / steps
+    launches["decode_attn_window"] = (ca.COUNTS["window_launches"] - window_before) / steps
     ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1476,6 +1724,67 @@ def multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds
     return {"h": h, "tokens_equal": True, "kv_equal": kv_equal, "counts": got_counts}
 
 
+def verify_step(torch, q, rc, cs, engine, config, tokens, positions, temps, seeds,
+                busy: int, steps: int, label: str, n_products: int) -> dict:
+    """The speculative verify step beside the decode step: first its rows
+    against decode steps, bit for bit (the verify forward of each lane's
+    token and 3 candidates at positions pos .. pos + 3, then one-row
+    forwards at each of those positions on the cache it wrote: every
+    generating lane's logits must be the same bits, which is what keeps a
+    stream the same with speculation on and off), as a batch of every lane
+    and of the first 1, 2 and 4 lanes alone (``--max-lanes`` below 8: the
+    products at m = lanes and 4 x lanes); then ``decode_spec``
+    replayed from its graph, measured as ``_measure_steps`` measures the
+    decode step (the greedy lanes' candidates repeat their token: how many
+    are accepted does not change the step's work). A step launches each
+    Q40 product once at m = 4 x lanes and one window attention a layer."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.models.llama import KVCache, llama_forward
+
+    k1 = engine.SPEC_DRAFT + 1
+    dev = engine.device
+    full = (torch.as_tensor(tokens, device=dev)[:, None]
+            + 7919 * torch.arange(k1, device=dev)[None]) % config.vocab_size
+    pos2d = torch.as_tensor(positions, device=dev)[:, None] + torch.arange(k1, device=dev)
+    equal = {}
+    with torch.inference_mode():
+        for n in (*FEW_LANES, len(tokens)):
+            cache = KVCache(k=engine.cache.k[:, :n], v=engine.cache.v[:, :n])  # a view
+            window, _ = llama_forward(config, engine.params, full[:n], pos2d[:n], cache,
+                                      **engine._forward_flags)
+            live = min(n, busy)
+            equal[n] = []
+            for t in range(k1):
+                one, _ = llama_forward(config, engine.params, full[:n, t:t + 1],
+                                       pos2d[:n, t:t + 1], cache, **engine._forward_flags)
+                equal[n].append(bool(torch.equal(window[:live, t], one[:live, 0])))
+    check(all(all(e) for e in equal.values()),
+          f"verify step [{label}]: rows {equal} (by lanes) of the verify forward against "
+          "one-row forwards at their positions")
+    drafts = np.zeros((len(tokens), engine.SPEC_DRAFT), np.int64)
+    dlen = np.zeros(len(tokens), np.int64)
+    dlen[:busy] = np.where(temps[:busy] == 0, engine.SPEC_DRAFT, 0)
+    lanes = np.arange(busy)
+
+    def step():
+        drafts[:] = tokens[:, None]
+        _, emitted, n_emit = engine.decode_spec(tokens, drafts, dlen, positions, temps,
+                                                seeds=seeds, want_logits=False)
+        tokens[:busy] = emitted[lanes, n_emit[:busy] - 1]
+        positions[:busy] += n_emit[:busy]
+
+    out = _measure_steps(torch, q, rc, cs, step, steps, f"{label}, verify graph")
+    per_step = out["launches_per_step"]
+    n_layers = config.n_layers * len(engine.devices)
+    check(sum(v for k_, v in per_step.items() if k_ in q.KERNELS) == n_products
+          and per_step["decode_attn"] == per_step["decode_attn_window"] == n_layers
+          and per_step["gumbel_sample"] == 1,
+          f"verify step [{label}]: launches per step {per_step}")
+    out["rows_bit_equal_to_decode_steps"] = equal
+    return out
+
+
 def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
                    busy: int = 4, steps: int = 10, mesh=None, q80: bool = False,
                    label: str | None = None) -> dict:
@@ -1488,7 +1797,9 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
     measured replayed from its graph (``engine.decode``, the serving path)
     and run eagerly (the same bodies, the engine's graphs set aside), each
     as ``_measure_steps`` does; the graph's launch counts per step must
-    equal the eager step's. Last, ``multi_replay_check``."""
+    equal the eager step's. On one device then ``verify_step`` (the verify
+    step's rows against decode steps, and its time). Last,
+    ``multi_replay_check``."""
     from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
     from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
@@ -1556,14 +1867,24 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
         check(graph["ring_hop_bytes_per_step"] == engine.stats.sync_bytes_per_decode,
               f"decode step [{label}]: hop bytes {graph['ring_hop_bytes_per_step']} against "
               f"sync_bytes_per_decode {engine.stats.sync_bytes_per_decode}")
+        # one device's verify step (the tp2 passes serve it too; their step
+        # breakdown stays the decode step's)
+        verify = None if mesh is not None else verify_step(
+            torch, q, rc, cs, engine, config, tokens, positions, temps, seeds, busy, steps,
+            label, n_products)
         multi = multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds,
                                    busy, label)
         log(f"decode graphs [{label}]: {capture['graphs']} captured in "
             f"{capture['capture_s']:.2f}s; step p50 graph {graph['step_ms_p50']:.2f} ms, "
-            f"eager {eager['step_ms_p50']:.2f} ms")
+            f"eager {eager['step_ms_p50']:.2f} ms"
+            + ("" if verify is None else
+               f"; verify step p50 graph {verify['step_ms_p50']:.2f} ms, device "
+               f"{verify['device_ms_per_step']:.2f} ms against the decode step's "
+               f"{graph['device_ms_per_step']:.2f} ms"))
         out = {"mode": label, "dequant": mode, "ranks": [str(d) for d in engine.devices],
                "q80_wire": q80_wire, "lanes": lanes, "busy_lanes": busy,
                **graph, "eager": eager, "graphs": capture, "multi_replay": multi,
+               "verify": verify,
                "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode,
                "prefill_logits": prefill_logits}
         del engine, graphs
@@ -1872,7 +2193,7 @@ def lab_line_entries(lab, lab_result) -> list:
 
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
-                 forms=(), attn=None) -> dict:
+                 forms=(), attn=None, row_plans=()) -> dict:
     """One entry per kernel. ``launches`` is the serving passes' count (the
     main path, each server counting from the end of its warmup). For a Q40
     kernel the times and the bound cover one decode step's products at the
@@ -1926,6 +2247,8 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
             "profiled_reduce_splits_ms_per_decode_step": splits[0] / 1e3,
             "launches_on_lab_path": lab_result["serving_launches"][kernel] if lab_result
             else None,
+            "verify_shaped_rows": {r["site"]: {k_: v_ for k_, v_ in r.items() if k_.startswith(
+                ("rows_equal_", "splits_", "ms_m"))} for r in row_plans if r["kernel"] == kernel},
             **({k: v for k, v in geometry[kernel].items() if k != "sms"}
                if kernel in geometry else {}),
             **({"site_ms_by_m": {str(m): {t["site"]: {k: t[k] for k in (
@@ -1987,9 +2310,9 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
         "profiled_ms_per_decode_step": {b["mode"]: b["gumbel_sample_ms_per_step"]
                                         for b in breakdown + tp},
     })
-    if attn is not None:
-        from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
 
+    if attn is not None:
         out.append({
             "name": ca.KERNEL, "route": "cuda", "source": ca.KERNEL_SOURCE,
             "replaces": ca.KERNEL_REPLACES,
@@ -2011,6 +2334,35 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                                          for b in breakdown + tp},
             "profiled_ms_per_decode_step": {b["mode"]: b["decode_attn_ms_per_step"]
                                             for b in breakdown + tp},
+        })
+    if attn is not None:
+        w = attn["window"]
+        out.append({
+            "name": "decode_attn (verify window)", "route": "cuda", "source": ca.KERNEL_SOURCE,
+            "replaces": ca.KERNEL_REPLACES,
+            "replaces_note": "counterpart of XLA's _dense_attention inside the speculative "
+                             "verify forward (T = SPEC_DRAFT + 1 rows a lane); no Pallas site",
+            "launches": sum(p_["decode_attn_window_launches"] for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_["decode_attn_window_launches"]
+                                 for p_ in passes},
+            "max_abs_err": w["max_abs_err"], "tol": ATTN_TOL,
+            "tol_rule": f"max|d| <= {ATTN_TOL:.0e} * max|plain| ({w['max_abs_ref']:.3e}); "
+                        f"each row bit-equal to a T = 1 call at its position "
+                        f"({w['rows_bit_equal_to_one_row_calls']} rows)",
+            "ms": w["ms"], "plain_ms": w["plain_ms"], "library_ms": w["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention (f32, boolean mask "
+                       "per row)",
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "ms_as_one_row_calls": w["ms_as_one_row_calls"],
+            "timed_as": f"one layer of a verify step: {w['lanes']} lanes x {w['rows']} rows "
+                        f"from {w['first_positions']} (the bound: {w['slots_read']} slots "
+                        "read once for all rows), the cache and heads of the decode_attn "
+                        "entry: kernel (one launch, a row a lane), the rows as four T = 1 "
+                        "calls, and the library call in one CUDA graph each; plain eager",
+            "launches_per_verify_step": {b["mode"]: b["verify"]["launches_per_step"][
+                "decode_attn_window"] for b in breakdown if b.get("verify")},
+            "profiled_ms_per_verify_step": {b["mode"]: b["verify"]["decode_attn_ms_per_step"]
+                                            for b in breakdown if b.get("verify")},
         })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
@@ -2074,6 +2426,7 @@ def main() -> int:
                 + json.dumps(geometry[kernel][f"{opcode.lower()}_in_sass"]))
 
         checks, timings = kernel_phase(torch, q)
+        row_plans = row_plan_phase(torch, q)
         hops = hop_phase(torch, rc)
         forms = hop_forms(torch, q, rc, one_kernel)
         collectives = collectives_phase(torch, q, rc)
@@ -2082,7 +2435,8 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
                        "hop_forms": forms, "collectives": collectives, "geometry": geometry,
-                       "sampler": sampler, "attn": attn}, f, indent=1)
+                       "sampler": sampler, "attn": attn, "verify_shaped_products": row_plans},
+                      f, indent=1)
 
         passes = serving_phase(torch, q)
         model, _ = ensure_model(llama32_1b_header(), seed=0)
@@ -2097,7 +2451,8 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
         line = kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step,
-                            products, geometry, sampler, lab, lab_result, timings, forms, attn)
+                            products, geometry, sampler, lab, lab_result, timings, forms, attn,
+                            row_plans)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

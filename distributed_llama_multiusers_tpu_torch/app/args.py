@@ -81,8 +81,28 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "restores the pre-fused behavior: an admission "
                         "exits the chain to the synchronous admit+prefill "
                         "path")
+    p.add_argument("--no-spec", action="store_true",
+                   help="serving: turn off prompt-lookup speculative decoding "
+                        "(on by default: a greedy lane whose history drafts "
+                        "verifies up to SPEC_DRAFT + 1 tokens in one forward, "
+                        "inside the pipelined chain). Up to 8 lanes a greedy "
+                        "stream is the same either way (a verify step's rows "
+                        "give a decode step's bits; checked on the card at 1, "
+                        "2, 4 and 8 lanes). Above 8 lanes a verify step's "
+                        "products pass 32 rows, where the k-split plan and, "
+                        "under the blockdot modes, the kernel change, so a "
+                        "stream may part from the --no-spec one at a near-tie")
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
+    # the JAX package's command line, accepted and ignored: sampling is per
+    # request, and the reference's thread and GPU knobs mean nothing here
+    p.add_argument("--nthreads", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--temperature", type=float, default=0.8, help=argparse.SUPPRESS)
+    p.add_argument("--topp", type=float, default=0.9, help=argparse.SUPPRESS)
+    p.add_argument("--seed", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--gpu-index", type=int, default=-1, help=argparse.SUPPRESS)
+    p.add_argument("--gpu-segments", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--net-turbo", type=int, default=1, help=argparse.SUPPRESS)
     return p
 
 

@@ -113,8 +113,9 @@ def load_stack(args, n_lanes: int | None = None):
 def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     """Build the scheduler from the serving flags, warm the engine (builds
     the kernels, runs each prefill bucket, captures every decode-family
-    graph the scheduler can replay), zero the kernel counters, then start
-    the loop: from here ``/stats`` counts serving launches only."""
+    graph the scheduler can replay, the verify step's unless --no-spec),
+    zero the kernel counters, then start the loop: from here ``/stats``
+    counts serving launches only."""
     # the scheduler's defaults stand where the CLI names no value
     overrides = {}
     ms = getattr(args, "multi_step", None)
@@ -123,12 +124,16 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     fp = getattr(args, "fused_prefill", None)
     if fp is not None:
         overrides["fused_prefill"] = fp == "on"
-    sched = ContinuousBatchingScheduler(engine, tokenizer, **overrides)
+    # speculation is on unless --no-spec, as in the JAX package
+    sched = ContinuousBatchingScheduler(engine, tokenizer,
+                                        speculative=not getattr(args, "no_spec", False),
+                                        **overrides)
     log("⏳", "Warming serving paths (kernel build, prefill buckets, decode graphs)...")
     t0 = time.perf_counter()
     # horizons are captured only where serving can pick one (a pipelining
     # engine never chains them)
-    warmup_engine(engine, multi_step=sched.multi_step if sched.horizons_reachable() else 0)
+    warmup_engine(engine, spec=sched.speculative,
+                  multi_step=sched.multi_step if sched.horizons_reachable() else 0)
     if engine.device.type == "cuda":
         for dev in dict.fromkeys(engine.devices):
             torch.cuda.synchronize(dev)
@@ -143,6 +148,8 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
         + (f" ({len(graphs)} decode graphs captured in {graphs.capture_s:.1f}s)"
            if graphs is not None else ""))
     log("🔁", f"Serving paths: pipeline depth {engine.pipeline_depth}, multi-step "
-              f"{sched.multi_step}, fused prefill {'on' if sched.fused_prefill else 'off'}")
+              f"{sched.multi_step}, fused prefill {'on' if sched.fused_prefill else 'off'}, "
+              f"speculation {'on' if sched.speculative else 'off'} (SPEC_DRAFT "
+              f"{engine.SPEC_DRAFT})")
     sched.start()
     return sched

@@ -1,5 +1,7 @@
-// Decode attention on Hopper: one query per lane (a decode step), grouped
-// query heads, over the lane's own cache slots 0 .. min(pos, s_len - 1).
+// Decode attention on Hopper: one query per lane (a decode step) or a window
+// of up to kWindow query rows per lane (a speculative verify step), grouped
+// query heads; row t of a lane attends its own cache slots
+// 0 .. min(pos[t], s_len - 1).
 //
 // Replaces: no Pallas kernel. The JAX package computes this in XLA inside its
 // compiled decode step (distributed_llama_multiusers_tpu/models/llama.py,
@@ -40,6 +42,15 @@
 // and the lane's position, so a lane's bits never depend on the batch, the
 // other lanes or s_len past its position. The tickets and partials are
 // per-call scratch from the wrapper.
+//
+// The window (T > 1 rows a lane, the verify step; the JAX package runs its
+// dense attention there, models/llama.py _dense_attention) runs the same
+// kernel with a row a lane: the grid is (kv head, row, split) over the B x T
+// rows, row r reading cache lane r / T at its own position, so row t gives
+// the bits of a T = 1 call at pos[t] by construction. A row's blocks read
+// the lane's slots for themselves (the rows after the first mostly from
+// L2). Staging a split's slots once for all of a lane's rows in one block
+// was measured slower: the block ran the rows' chains one after another.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,6 +66,7 @@ constexpr int kThreads = kWarps * 32;  // one thread per slot of the split in it
 constexpr int kWarpSlots = kSplit / kWarps;  // contiguous slots per warp
 constexpr int kU = 4;  // slot loads a thread issues together
 constexpr int kFoldChunk = 16;  // splits the fold loads at a time
+constexpr int kWindow = 4;  // query rows per lane at most (ops/cuda_attn.py WINDOW)
 // blocks per SM the light instantiations are held to (registers <= 96, so
 // the serving step's 544 live blocks of the 1B shape run in one wave); the
 // others would spill under it
@@ -93,6 +105,11 @@ __device__ __forceinline__ uint4 load16(const KV* p, bool vec_ok, int d0, int hd
   return r;
 }
 
+// a row's slots: 0 .. min(pos, s_len - 1)
+__device__ __forceinline__ int row_slots(long long p, int s_len) {
+  return (int)(p < (long long)s_len - 1 ? p : (long long)s_len - 1) + 1;
+}
+
 __device__ __forceinline__ float rescale(float m, float mn) {
   return m == -INFINITY ? 0.0f : expf(m - mn);  // an empty state weighs 0
 }
@@ -104,7 +121,7 @@ __device__ __forceinline__ float rescale(float m, float mn) {
 // the levels add whole (a butterfly) and every thread of a sub-group holds
 // the same sum. The thread ends with v[0 .. max(N / (2 O), 1)), the sums of
 // entries base .. of the N; returns base. The order of every addition is
-// fixed by the thread's index c.
+// fixed by the thread's index c (a sum's tree is the same for any N).
 template <int N, int O, int CNT>
 __device__ __forceinline__ int reduce_scatter(float (&v)[N], int c) {
   if constexpr (O == 0) {
@@ -125,15 +142,16 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[N], int c) {
   }
 }
 
-// G: query heads per kv head (the runtime group g_n <= G); TPS: threads per
-// slot (the runtime head size hd <= TPS * VEC)
+// One query row's share of split j: its scores, the split's softmax and
+// weighted V, written as the row's output (a row with one split, ns == 1)
+// or as the split's partial state (max, sum, weighted V) in rec.
 template <int G, int TPS, typename KV>
-__global__ void __launch_bounds__(kThreads, G <= 4 && TPS <= 8 ? kMinBlocks : 1)
-decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                   const KV* __restrict__ v, const long long* __restrict__ pos,
-                   float* __restrict__ out, float* __restrict__ part,
-                   unsigned* __restrict__ tickets, long long lane_stride, int n_kv, int g_n,
-                   int hd, int s_len, int vec_ok, float scale) {
+__device__ __forceinline__ void split_row(const float* __restrict__ qb,
+                                          const KV* __restrict__ kc, const KV* __restrict__ vc,
+                                          size_t slot_stride, bool vec_ok, int n, int j,
+                                          int ns, float* __restrict__ rec,
+                                          float* __restrict__ ob, int g_n, int hd,
+                                          float scale) {
   constexpr int VEC = 16 / sizeof(KV);
   constexpr int SPW = 32 / TPS;  // slots one load instruction of a warp covers
   constexpr int SLOTS = kWarpSlots / SPW;  // slots per thread
@@ -141,13 +159,6 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   constexpr int NV = G * U;  // a round's dots per thread
   constexpr int NS = NV / TPS > 0 ? NV / TPS : 1;  // the sums a thread keeps of them
   static_assert(SLOTS % U == 0 && kSplit == kThreads, "the split's slot plan");
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int j = blockIdx.z;
-  const long long p = pos[b];
-  const int n = (int)(p < (long long)s_len - 1 ? p : (long long)s_len - 1) + 1;
-  if (j * kSplit >= n) return;  // past the lane's last split
-  const int ns = (n + kSplit - 1) / kSplit;
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
   const int r = t / TPS;  // the slot of a load this thread's group takes
@@ -155,8 +166,6 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const int d0 = c * VEC;
 
   // q * scale, rounded once as the plain version rounds it
-  const size_t head = (size_t)b * n_kv + kvh;
-  const float* qb = q + head * (size_t)g_n * hd;
   float qr[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -169,10 +178,6 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   // the split's scores, then its softmax weights: [local slot][query head]
   __shared__ __align__(16) float s_p[kSplit][G];
   __shared__ float s_red[kWarps][G];
-  __shared__ bool s_last;
-  const size_t slot_stride = (size_t)n_kv * hd;
-  const KV* kb = k + (size_t)b * lane_stride + (size_t)kvh * hd + d0;
-  const KV* vb = v + (size_t)b * lane_stride + (size_t)kvh * hd + d0;
   const int l0 = warp * kWarpSlots + r;  // local slot of the thread's first
   const int s0 = j * kSplit + l0;
   uint4 vr[U];  // the first round's V, in flight while the scores are formed
@@ -182,7 +187,7 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int s = s0 + (u0 + u) * SPW;
-      kr[u] = load16(kb + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+      kr[u] = load16(kc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
     }
     float dot[NV];  // [g][u]
 #pragma unroll
@@ -201,7 +206,7 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int s = s0 + u * SPW;
-        vr[u] = load16(vb + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+        vr[u] = load16(vc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
       }
     }
     // each dot summed over its slot's TPS threads; each sum stored by one
@@ -262,7 +267,7 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int s = s0 + (u0 + u) * SPW;
-        vr[u] = load16(vb + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+        vr[u] = load16(vc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
       }
     }
 #pragma unroll
@@ -287,10 +292,7 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) s_acc[warp * SPW + r][g][d0 + i] = acc[g][i];
   __syncthreads();
-  float* rec = nullptr;  // this split's partial state: acc [g_n][hd], m [g_n], l [g_n]
-  const int rec_len = g_n * (hd + 2);
-  if (ns > 1) rec = part + (head * gridDim.z + j) * (size_t)rec_len;
-  if (rec != nullptr) {
+  if (ns > 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g == threadIdx.x && g < g_n) {
@@ -301,14 +303,13 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       }
     }
   }
-  float* ob = out + head * (size_t)g_n * hd;
   for (int e = threadIdx.x; e < g_n * hd; e += kThreads) {
     const int g = e / hd;
     const int d = e % hd;
     float a = 0.0f;
 #pragma unroll 8
     for (int grp = 0; grp < kWarps * SPW; ++grp) a += s_acc[grp][g][d];
-    if (rec == nullptr) {
+    if (ns == 1) {
       float den = 0.0f;
       for (int w = 0; w < kWarps; ++w) den += s_red[w][g];
       ob[e] = a / den;
@@ -316,24 +317,20 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       rec[e] = a;
     }
   }
-  if (rec == nullptr) return;
+}
 
-  // the last block of this (lane, kv head) to arrive folds the splits'
-  // partial states in split order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[head], 1u) == (unsigned)(ns - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // A chunk of kFoldChunk splits at a time (one for s_len <= 2048): each
-  // output element's partial sums loaded together (past the lane's last
-  // split, copies weighted 0), in flight while one warp lane per (split,
-  // query head) loads the split's max and sum and forms its weight
-  // exp(m_j - max) and the chunk's sum of weighted sums (a butterfly over the
-  // chunk); then each element's sums weighted in split order. A later chunk
-  // rescales what came before.
-  const float* rec0 = part + head * gridDim.z * (size_t)rec_len;
+// One row's output from its ns splits' partial states (rec0: split 0's,
+// split j's at j * split_stride), folded in split order. A chunk of
+// kFoldChunk splits at a time (one for s_len <= 2048): each output element's
+// partial sums loaded together (past the row's last split, copies weighted
+// 0), in flight while one warp lane per (split, query head) loads the split's
+// max and sum and forms its weight exp(m_j - max) and the chunk's sum of
+// weighted sums (a butterfly over the chunk); then each element's sums
+// weighted in split order. A later chunk rescales what came before.
+template <int G, int TPS, typename KV>
+__device__ __forceinline__ void fold_row(const float* __restrict__ rec0, size_t split_stride,
+                                         int ns, float* __restrict__ ob, int g_n, int hd) {
+  constexpr int VEC = 16 / sizeof(KV);
   static_assert(kFoldChunk == 16 && G * kFoldChunk <= kThreads, "the fold's lanes");
   __shared__ float s_w[kFoldChunk][G], s_mx[G], s_c[G], s_den[G];
   constexpr int E = (G * TPS * VEC + kThreads - 1) / kThreads;  // outputs per thread, at most
@@ -353,12 +350,12 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       const int e = min(threadIdx.x + x * kThreads, g_n * hd - 1);  // past the head: a copy
 #pragma unroll
       for (int jj = 0; jj < kFoldChunk; ++jj)
-        aj[x][jj] = __ldcg(rec0 + (size_t)(j0 + min(jj, nj - 1)) * rec_len + e);
+        aj[x][jj] = __ldcg(rec0 + (size_t)(j0 + min(jj, nj - 1)) * split_stride + e);
     }
     if (threadIdx.x < (G * kFoldChunk > 32 ? G * kFoldChunk : 32)) {  // whole warps
       const int jj = threadIdx.x % kFoldChunk, g = threadIdx.x / kFoldChunk;
       const bool in = jj < nj && g < g_n;
-      const float* rj = rec0 + (size_t)(j0 + jj) * rec_len;
+      const float* rj = rec0 + (size_t)(j0 + jj) * split_stride;
       const float m = in ? __ldcg(rj + g_n * hd + g) : -INFINITY;
       const float l = in ? __ldcg(rj + g_n * (hd + 1) + g) : 0.0f;
       const float prev = s_mx[min(g, G - 1)];
@@ -397,15 +394,57 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
+// G: query heads per kv head (the runtime group g_n <= G); TPS: threads per
+// slot (the runtime head size hd <= TPS * VEC). Block (kv head, row, split):
+// the row's cache lane is row / lane_rows.
+template <int G, int TPS, typename KV>
+__global__ void __launch_bounds__(kThreads, G <= 4 && TPS <= 8 ? kMinBlocks : 1)
+decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                   const KV* __restrict__ v, const long long* __restrict__ pos,
+                   float* __restrict__ out, float* __restrict__ part,
+                   unsigned* __restrict__ tickets, long long lane_stride, int lane_rows,
+                   int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale) {
+  constexpr int VEC = 16 / sizeof(KV);
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int j = blockIdx.z;
+  const int n = row_slots(pos[b], s_len);
+  if (j * kSplit >= n) return;  // past the row's last split
+  const int ns = (n + kSplit - 1) / kSplit;
+  const int c = (threadIdx.x % 32) % TPS;
+  const size_t head = (size_t)b * n_kv + kvh;
+  const size_t lane = (size_t)(b / lane_rows);
+  const size_t at = lane * lane_stride + (size_t)kvh * hd + c * VEC;
+  const int rec_len = g_n * (hd + 2);
+  // split j' of this (row, kv head) keeps its partial state at part + (head
+  // S + j') rec_len
+  float* rec = ns > 1 ? part + (head * gridDim.z + j) * rec_len : nullptr;
+  float* ob = out + head * g_n * hd;
+  split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, (size_t)n_kv * hd, vec_ok != 0, n,
+                        j, ns, rec, ob, g_n, hd, scale);
+  if (ns == 1) return;
+
+  // the last block of this (row, kv head) to arrive folds the partial
+  // states in split order
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[head], 1u) == (unsigned)(ns - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  fold_row<G, TPS, KV>(part + head * gridDim.z * rec_len, rec_len, ns, ob, g_n, hd);
+}
+
 template <int G, int TPS, typename KV>
 cudaError_t launch(const float* q, const void* k, const void* v, const long long* pos,
-                   float* out, float* part, unsigned* tickets, long long lane_stride, int lanes,
-                   int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
+                   float* out, float* part, unsigned* tickets, long long lane_stride, int rows,
+                   int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(n_kv, lanes, (s_len + kSplit - 1) / kSplit);
+  const dim3 grid(n_kv, rows, (s_len + kSplit - 1) / kSplit);
   decode_attn_kernel<G, TPS, KV><<<grid, kThreads, 0, stream>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets,
-      lane_stride, n_kv, g_n, hd, s_len, vec_ok, scale);
+      lane_stride, lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
   return cudaGetLastError();
 }
 
@@ -414,12 +453,12 @@ cudaError_t launch(const float* q, const void* k, const void* v, const long long
 template <int G, typename KV>
 cudaError_t by_dims(const float* q, const void* k, const void* v, const long long* pos,
                     float* out, float* part, unsigned* tickets, long long lane_stride,
-                    int lanes, int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
-                    cudaStream_t stream) {
+                    int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
+                    float scale, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(KV);
-#define DECODE_ATTN_LAUNCH(TPS)                                                             \
-  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lane_stride, lanes, n_kv, g_n, \
-                            hd, s_len, vec_ok, scale, stream)
+#define DECODE_ATTN_LAUNCH(TPS)                                                        \
+  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lane_stride, rows,       \
+                            lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (hd <= 4 * VEC) DECODE_ATTN_LAUNCH(4);
   if (hd <= 8 * VEC) DECODE_ATTN_LAUNCH(8);
   if (hd <= 16 * VEC) DECODE_ATTN_LAUNCH(16);
@@ -431,11 +470,11 @@ cudaError_t by_dims(const float* q, const void* k, const void* v, const long lon
 template <typename KV>
 cudaError_t by_group(const float* q, const void* k, const void* v, const long long* pos,
                      float* out, float* part, unsigned* tickets, long long lane_stride,
-                     int lanes, int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
-                     cudaStream_t stream) {
-#define DECODE_ATTN_GROUP(G)                                                                \
-  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, lane_stride, lanes, n_kv, g_n, hd, \
-                        s_len, vec_ok, scale, stream)
+                     int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len,
+                     int vec_ok, float scale, cudaStream_t stream) {
+#define DECODE_ATTN_GROUP(G)                                                            \
+  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, lane_stride, rows, lane_rows, \
+                        n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (g_n <= 1) DECODE_ATTN_GROUP(1);
   if (g_n <= 2) DECODE_ATTN_GROUP(2);
   if (g_n <= 4) DECODE_ATTN_GROUP(4);
@@ -445,19 +484,21 @@ cudaError_t by_group(const float* q, const void* k, const void* v, const long lo
 
 }  // namespace
 
-// q: f32 [lanes, n_kv, g_n, hd]; k, v: one layer's cache, slot s of lane b at
-// b * lane_stride + s * n_kv * hd (elements; kv_bf16: bf16, else f32); pos:
-// int64 [lanes]; out: f32 [lanes, n_kv, g_n, hd]. split: the caller's split
-// length, which must be kSplit. With more than one split (s_len > split),
-// part: f32 [lanes, n_kv, ceil(s_len / split), g_n * (hd + 2)] scratch and
-// tickets: [lanes * n_kv] u32 zeros; else both may be null.
+// q: f32 [lanes, rows, n_kv, g_n, hd]; k, v: one layer's cache, slot s of
+// lane b at b * lane_stride + s * n_kv * hd (elements; kv_bf16: bf16, else
+// f32); pos: int64 [lanes, rows]; out: f32 [lanes, rows, n_kv, g_n, hd];
+// rows: 1 .. kWindow. split: the caller's split length, which must be
+// kSplit. With more than one split (s_len > split), part: f32 [lanes, rows,
+// n_kv, ceil(s_len / split), g_n * (hd + 2)] scratch and tickets: [lanes *
+// rows * n_kv] u32 zeros; else both may be null.
 extern "C" int decode_attn_launch(const float* q, const void* k, const void* v,
                                   const long long* pos, float* out, float* part,
-                                  unsigned* tickets, long long lane_stride, int lanes, int n_kv,
-                                  int g_n, int hd, int s_len, int split, int kv_bf16,
+                                  unsigned* tickets, long long lane_stride, int lanes, int rows,
+                                  int n_kv, int g_n, int hd, int s_len, int split, int kv_bf16,
                                   float scale, void* stream) {
-  if (lanes < 1 || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 || hd > 128 || s_len < 1 ||
-      split != kSplit || (s_len > kSplit && (part == nullptr || tickets == nullptr)))
+  if (lanes < 1 || rows < 1 || rows > kWindow || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 ||
+      hd > 128 || s_len < 1 || split != kSplit ||
+      (s_len > kSplit && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int vec = kv_bf16 ? 8 : 4;
   const int vec_ok = hd % vec == 0 && lane_stride % vec == 0 &&
@@ -465,8 +506,9 @@ extern "C" int decode_attn_launch(const float* q, const void* k, const void* v,
                      reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kv_bf16)
-    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lane_stride, lanes,
-                                        n_kv, g_n, hd, s_len, vec_ok, scale, st);
-  return (int)by_group<float>(q, k, v, pos, out, part, tickets, lane_stride, lanes, n_kv, g_n,
-                              hd, s_len, vec_ok, scale, st);
+    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lane_stride,
+                                        lanes * rows, rows, n_kv, g_n, hd, s_len, vec_ok, scale,
+                                        st);
+  return (int)by_group<float>(q, k, v, pos, out, part, tickets, lane_stride, lanes * rows, rows,
+                              n_kv, g_n, hd, s_len, vec_ok, scale, st);
 }

@@ -11,8 +11,9 @@ The layers run as a plain Python loop. The KV cache is updated in place
 (the JAX version returns a new cache): it holds ``seq_len + 1`` slots per
 lane, the last one a scratch slot that takes the writes the JAX scatter
 drops (positions at or past ``seq_len``: idle lanes parked there, padded
-prefill tails near the end of the context). Attention never reads it for a
-real query, whose mask is s <= pos < seq_len.
+prefill tails near the end of the context; a forward of several rows a lane
+writes zeros there). Attention never reads it for a real query, whose mask
+is s <= pos < seq_len.
 
 Tensor parallelism (``mesh``): one process drives every rank, as the JAX
 package's single controller does. Each layer runs rank by rank on local
@@ -31,7 +32,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..formats.model_file import HiddenAct
 from ..ops.activations import gelu, silu
-from ..ops.cuda_attn import decode_attention, dense_attention
+from ..ops.cuda_attn import WINDOW, decode_attention, dense_attention
 from ..ops.linear import matmul, shared_q80_acts
 from ..ops.norm import rms_norm
 from ..ops.ring_collective import (
@@ -144,11 +145,14 @@ def llama_forward(
     ``attn_len`` (optional) bounds the cache slots attention reads to the
     first ``attn_len``: every real query position must be below it. The
     slots past it are masked out in any case, so the result is the same
-    up to f32 summation order. A decode step (T = 1) attends through
+    up to f32 summation order; a prompt chunk passes it and attends through
+    the dense f32 attention. A decode step (T = 1) and, without it, a
+    forward of at most ``ops.cuda_attn.WINDOW`` rows per lane (the
+    speculative verify window) attend through
     ``ops.cuda_attn.decode_attention``: on the card a kernel that reads each
-    lane's own slots only, in an order its position fixes. ``logit_rows`` (optional) selects the T
-    positions whose logits are computed (T' = len(logit_rows)); None
-    computes all T.
+    lane's own slots only, in an order each row's position fixes.
+    ``logit_rows`` (optional) selects the T positions whose logits are
+    computed (T' = len(logit_rows)); None computes all T.
 
     ``emulate_q80_activations``: Q80 quantize-dequantize at the reference's
     activation casts (before wq/wk/wv, wo, w1/w3, w2 and wcls, and on the
@@ -208,10 +212,15 @@ def llama_forward(
     xs = [p.embedding[tokens.to(d)] for p, d in zip(ranks, devs)]  # [B, T, dim]
     lane_idx = [torch.arange(b, device=d)[:, None].expand(b, t) for d in devs]
     # writes at or past seq_len land in the scratch slot (the JAX scatter
-    # drops them)
+    # drops them); with T > 1 several rows of a lane may land there, and a
+    # scatter leaves any one of them, so they all write zeros: the cache
+    # stays a function of the inputs
     w_pos = [p.clamp(0, cfg.seq_len) for p in poss]
-    # a decode step (T = 1) runs the attention kernel, which masks by position
-    masks = None if t == 1 else [
+    dropped = None if t == 1 else [(p >= cfg.seq_len)[:, :, None, None] for p in poss]
+    # a decode step or a verify window runs the attention kernel, which masks
+    # each row by its position; a prompt chunk the dense attention
+    windowed = t == 1 or (attn_len is None and t <= WINDOW)
+    masks = None if windowed else [
         torch.arange(s_len, device=d)[None, None, :] <= p[:, :, None]  # [B, T, S]
         for d, p in zip(devs, poss)]
 
@@ -227,11 +236,13 @@ def llama_forward(
         q = apply_rope(q, p.rope_cos, p.rope_sin, pos)
         k = apply_rope(k, p.rope_cos, p.rope_sin, pos)
 
+        if dropped is not None:
+            k, v = (torch.where(dropped[r], 0.0, x) for x in (k, v))
         k_cache[lane_idx[r], w_pos[r]] = k.to(k_cache.dtype)
         v_cache[lane_idx[r], w_pos[r]] = v.to(v_cache.dtype)
 
         qf = q.to(torch.float32).reshape(b, t, n_kv, group, hd)
-        if t == 1:
+        if windowed:
             attn = decode_attention(qf, k_cache, v_cache, pos, scale, s_len)
         else:
             attn = dense_attention(

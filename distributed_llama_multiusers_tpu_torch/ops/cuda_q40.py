@@ -435,9 +435,13 @@ def launch_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple[int, int, int
     d_out product. One thread owns COLS_PER_THREAD adjacent output columns
     for an m-tile of rows; narrow products split the d_in blocks across
     thread blocks (partials summed by a second pass) until about two
-    thread blocks per SM are in flight."""
+    thread blocks per SM are in flight. A decode-shaped product (m <=
+    BLOCKDOT_MAX_M) splits as one m-tile does, so its k-split plan is a
+    function of (d_in, d_out) alone: a row sums its partials in the same
+    order in a decode step (m = lanes) and in a verify step (m = lanes x
+    (SPEC_DRAFT + 1)), so both give a row the same bits."""
     mt = 1 if m == 1 else (8 if m <= 8 else 16)
-    m_tiles = -(-m // mt)
+    m_tiles = 1 if m <= BLOCKDOT_MAX_M else -(-m // mt)
     col_blocks = -(-d_out // COLS_PER_BLOCK)
     n_blk = d_in // 32
     want = max(1, -(-2 * n_sm // (col_blocks * m_tiles)))

@@ -10,6 +10,13 @@ cache, the JAX engine's serving programs.
   position carry, read back one step behind;
 - ``decode_prefill_fused``: one prompt chunk for an admitting lane plus one
   pipelined decode step for every other lane, in the same ring;
+- ``decode_spec`` / ``decode_spec_pipelined`` / ``decode_spec_prefill_fused``:
+  the speculative verify step (prompt-lookup drafts, ``runtime/spec.py``),
+  synchronous, inside the pipelined ring, and fused with a prompt chunk:
+  each lane's next token plus up to ``SPEC_DRAFT`` drafts verified in one
+  forward of ``SPEC_DRAFT + 1`` rows, the accepted prefix and the model's
+  own next token emitted, the position carry advanced by each lane's
+  count;
 - ``prefill_chunk`` / ``prefill``: a bucketed prompt chunk for ONE lane,
   on that lane's slice of the cache.
 
@@ -29,9 +36,9 @@ package's. A sampled step's greedy/sampled pair comes back as one [2, n]
 readback.
 
 On a CUDA device the decode families run as CUDA graphs
-(``runtime/graphs.py``), one per family (and multi-step horizon) and
-whether a lane samples, captured at warmup (or at a key's first use) from the same step
-bodies the CPU runs eagerly. Host inputs reach the card by non-blocking
+(``runtime/graphs.py``), one per family (the step, the verify step and each
+multi-step horizon) and whether a lane samples, captured at warmup (or at a
+key's first use) from the same step bodies the CPU runs eagerly. Host inputs reach the card by non-blocking
 copies from pinned memory and a pipelined step's tokens come back the same
 way behind an event, so nothing in a pipelined dispatch waits on the card.
 The prompt-chunk and fused families run eagerly on the stream, as does a
@@ -42,8 +49,8 @@ With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
 KV caches; sampling and the returned logits stay on rank 0's device, so the
 scheduler sees one engine either way.
 
-The speculative, paged and grammar families are later work, which the
-``supports_*`` flags say to the scheduler.
+The paged and grammar families are later work, which the ``supports_*``
+flags say to the scheduler.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..ops.ring_collective import ring_counts
 from ..parallel.sharding import shard_kv_cache
 from .graphs import StepGraphs
 from .sampling import MASK32, sample_lanes
+from .spec import SPEC_DRAFT, pow2_floor
 
 DEFAULT_PREFILL_BUCKETS = (16, 64, 256, 1024)
 DEFAULT_TOPP = 0.9
@@ -71,12 +79,6 @@ DEFAULT_TOPP = 0.9
 # 2 = consume step k while step k+1 runs; 0 or 1 disables pipelining
 DEFAULT_PIPELINE_DEPTH = 2
 ATTN_BUCKET_FLOOR = 64
-
-
-def pow2_floor(h: int) -> int:
-    """Largest power of two <= h (0 for h < 1): the multi-step horizon
-    buckets, so that warmup captures the horizons serving dispatches."""
-    return 1 << (h.bit_length() - 1) if h >= 1 else 0
 
 
 def attn_buckets(seq_len: int) -> tuple[int, ...]:
@@ -104,6 +106,15 @@ class EngineStats:
     decode_steps: int = 0
     host_bytes_in: int = 0  # device->host token/logit traffic
     multi_dispatches: int = 0  # decode_multi calls (h decode steps each)
+    # speculative verify steps (one a dispatch, in the ring or not) and,
+    # from the scheduler, which alone knows what it consumed: tokens
+    # consumed from verify steps and (lane, step) pairs of lanes that
+    # drafted, so emitted / lane_steps is the acceptance in [1, K + 1]
+    spec_steps: int = 0
+    spec_emitted: int = 0
+    spec_lane_steps: int = 0
+    spec_pipelined_steps: int = 0  # verify steps dispatched inside the ring
+    spec_accept_hist: dict = field(default_factory=dict)  # drafted lanes' accept counts
     # async decode pipeline: host time between a step's dispatch and the
     # start of its readback (work the card's execution hid), steps
     # dispatched, chains cut short with lanes still live (an admission
@@ -160,9 +171,11 @@ class InferenceEngine:
     supports_pipelined = True
     supports_fused_prefill = True
     supports_multi_step = True
-    supports_speculative = False
-    supports_spec_pipelined = False
+    supports_speculative = True
+    supports_spec_pipelined = True
     supports_grammar = False
+    # drafts per verify step (SPEC_DRAFT + 1 rows a lane)
+    SPEC_DRAFT = SPEC_DRAFT
 
     def __init__(
         self,
@@ -216,10 +229,13 @@ class InferenceEngine:
 
         # the step families' static inputs: host tokens, host positions (-1
         # reads the carried position) and seeds; temperatures and top-p;
-        # the pipeline's token and position carry
+        # the verify step's candidates and their counts; the pipeline's
+        # token and position carry
         n = n_lanes
         self._in_i = torch.zeros((3, n), dtype=torch.int64, device=self.device)
         self._in_f = torch.zeros((2, n), dtype=torch.float32, device=self.device)
+        self._drafts = torch.zeros((n, SPEC_DRAFT + 1), dtype=torch.int64, device=self.device)
+        self._dlen = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._feed = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._cpos = torch.zeros(n, dtype=torch.int64, device=self.device)
         # a mesh across cards stays eager (its ranks' streams would join
@@ -227,7 +243,8 @@ class InferenceEngine:
         # captured
         one_card = self.device.type == "cuda" and all(d == self.device for d in self.devices)
         self.graphs = StepGraphs(self.device, [self._feed, self._cpos]) if one_card else None
-        # pipelined ring: (host readback, ready event or None, t_dispatch)
+        # pipelined ring: (kind "tok" or "spec", host readback, ready event
+        # or None, t_dispatch)
         self._pl_inflight: deque = deque()
         self._pl_seeded = False  # the device carry holds a chain's feed
 
@@ -268,6 +285,12 @@ class InferenceEngine:
         if tokens is not None:
             self._feed.copy_(self._in_i[0])
 
+    def _fill_drafts(self, drafts, draft_len) -> None:
+        """The verify step's candidates [n, SPEC_DRAFT + 1] (column 0 the
+        guess at the fed token) and counts into the static inputs."""
+        self._drafts.copy_(self._staged(drafts), non_blocking=True)
+        self._dlen.copy_(self._staged(draft_len), non_blocking=True)
+
     def _defaults(self, temps, topps, seeds):
         n = self.n_lanes
         temps = np.zeros(n, np.float32) if temps is None else np.asarray(temps, np.float32)
@@ -307,6 +330,43 @@ class InferenceEngine:
         self._cpos.copy_(torch.clamp(pos + 1, max=self.config.seq_len))
         return step, torch.stack([greedy, sampled]).to(torch.int32)
 
+    def _verify_body(self, sample: bool):
+        """One speculative verify step from the static inputs (the JAX
+        engine's ``_spec_verify_core``): the fed token and candidates 1..K
+        at positions pos .. pos + K in one forward. Candidate 0 is the
+        host's guess at the fed token; the others count only where it is
+        right (on a reseed or a synchronous step it is the fed token), and
+        only as many as leave every emitted token's row below seq_len.
+        Acceptance is the leading run of candidates equal to the greedy
+        token before them; row 0 samples where a lane's temperature is
+        above 0 (its draft count is 0). The carry becomes the token after
+        the accepted prefix and pos + emitted. Returns (row 0's logits
+        [n, vocab], pack [n, K + 2] int32: the emitted tokens, then their
+        count)."""
+        seq_len = self.config.seq_len
+        k1 = SPEC_DRAFT + 1
+        pos = torch.where(self._in_i[1] < 0, self._cpos, self._in_i[1])
+        feed, drafts = self._feed, self._drafts
+        hit0 = (drafts[:, 0] == feed) & (self._dlen > 0)
+        eff = torch.where(hit0, self._dlen - 1, torch.zeros_like(self._dlen))
+        eff = torch.minimum(eff, torch.clamp(seq_len - pos - 1, min=0))
+        full = torch.cat([feed[:, None], drafts[:, 1:]], dim=1)
+        steps = torch.arange(k1, device=pos.device)
+        logits, _ = llama_forward(self.config, self.params, full, pos[:, None] + steps,
+                                  self.cache, **self._forward_flags)
+        greedy = torch.argmax(logits, dim=-1)  # [n, K + 1]
+        match = (full[:, 1:] == greedy[:, :-1]).to(torch.int64)
+        lead = torch.cumprod(match, dim=1)
+        accepted = (lead * (steps[None, :-1] < eff[:, None])).sum(dim=1)
+        n_emit = accepted + 1
+        row0 = logits[:, 0, :]
+        _, sampled0 = self._pick(row0, pos, sample)
+        emitted = torch.cat([torch.where(self._in_f[0] > 0.0, sampled0, greedy[:, 0])[:, None],
+                             greedy[:, 1:]], dim=1)
+        self._feed.copy_(emitted.gather(1, (n_emit - 1)[:, None])[:, 0])
+        self._cpos.copy_(torch.clamp(pos + n_emit, max=seq_len))
+        return row0, torch.cat([emitted, n_emit[:, None]], dim=1).to(torch.int32)
+
     def _multi_body(self, h: int, sample: bool):
         """h chained steps: each lane feeds its greedy token at temperature
         0, else its draw, at position + 1. Returns chosen [h, n] int32."""
@@ -326,23 +386,32 @@ class InferenceEngine:
             return body()
         return self.graphs.run(("step", sample), body, ("step", sample))
 
+    def _run_verify(self, sample: bool):
+        body = lambda: self._verify_body(sample)  # noqa: E731
+        if self.graphs is None:
+            return body()
+        return self.graphs.run(("spec", sample), body, ("spec", sample))
+
     def _run_multi(self, h: int, sample: bool):
         body = lambda: self._multi_body(h, sample)  # noqa: E731
         if self.graphs is None:
             return body()
         return self.graphs.run(("multi", h, sample), body, ("multi", sample))
 
-    def capture_graphs(self, multi_step: int = 0) -> None:
-        """Capture every decode-family graph serving can replay: the step
-        and each multi-step horizon (powers of two from ``multi_step``
-        down to 2), with and without sampling. Nothing to do where the
-        engine runs eagerly."""
+    def capture_graphs(self, multi_step: int = 0, spec: bool = False) -> None:
+        """Capture every decode-family graph serving can replay: the step,
+        the verify step where ``spec`` and each multi-step horizon (powers
+        of two from ``multi_step`` down to 2), with and without sampling.
+        Nothing to do where the engine runs eagerly."""
         if self.graphs is None:
             return
         h = pow2_floor(multi_step)
         for sample in (False, True):
             self.graphs.ensure(("step", sample), lambda s=sample: self._step_body(s),
                                ("step", sample))
+            if spec:
+                self.graphs.ensure(("spec", sample), lambda s=sample: self._verify_body(s),
+                                   ("spec", sample))
             for k in range(h.bit_length() - 1):
                 hk = h >> k
                 self.graphs.ensure(("multi", hk, sample),
@@ -492,6 +561,45 @@ class InferenceEngine:
                                                 - hop_bytes) // h
         return chosen
 
+    @torch.inference_mode()
+    def decode_spec(self, tokens, drafts, draft_len, positions, temps=None, topps=None,
+                    seeds=None, want_logits: bool = True):
+        """One speculative verify step for all lanes: each lane's next token
+        plus up to SPEC_DRAFT drafted continuations in one forward.
+        tokens/positions/draft_len: int [n_lanes]; drafts: [n_lanes,
+        SPEC_DRAFT] (junk past draft_len). Greedy lanes emit their
+        plain-decode stream exactly (the speculative-verification
+        identity); temp > 0 lanes pass draft_len 0 and emit one sampled
+        token. Per lane, draft_len <= seq_len - positions - 1 (the step
+        clamps it there too). Returns (logits [n, vocab] of each lane's
+        first row, device tensor, or None; emitted np[n, K + 1]; n_emit
+        np[n]), the pack in one readback."""
+        self._check_sync()
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        n = self.n_lanes
+        drafts = np.asarray(drafts, np.int64)
+        if drafts.shape != (n, SPEC_DRAFT):
+            raise ValueError(f"spec drafts shape {drafts.shape} != {(n, SPEC_DRAFT)}")
+        positions = np.asarray(positions, np.int64)
+        if positions.min() < 0:
+            raise ValueError("decode positions must be >= 0")
+        draft_len = np.asarray(draft_len, np.int64)
+        t0 = time.perf_counter()
+        hop_bytes = ring_counts()["ring_hop_bytes"]
+        self._fill(tokens, positions, temps, topps, seeds)
+        # the synchronous form of the in-chain step: candidate 0 is the fed token
+        self._fill_drafts(np.concatenate([np.asarray(tokens, np.int64)[:, None], drafts], 1),
+                          np.where(draft_len > 0, draft_len + 1, 0))
+        step, packed = self._run_verify(bool(np.any(temps > 0)))
+        out = packed.cpu().numpy()
+        with self.stats.lock:
+            self.stats.host_bytes_in += out.nbytes
+            self.stats.decode_s += time.perf_counter() - t0
+            self.stats.decode_steps += 1
+            self.stats.spec_steps += 1
+            self.stats.sync_bytes_per_decode = ring_counts()["ring_hop_bytes"] - hop_bytes
+        return (step.clone() if want_logits else None), out[:, :-1], out[:, -1]
+
     # -- the pipelined family -------------------------------------------------
 
     def pipeline_inflight(self) -> int:
@@ -532,33 +640,57 @@ class InferenceEngine:
         self._validate_chunk(chunk, p_start)
         self.check_pipelined_dispatch(reseed, positions)
 
-    def _dispatch_step(self, positions, temps, topps, seeds, tokens):
-        """Fill the static inputs and run one step of the chain; returns the
-        step's [2, n] int32 output (static on the card: read it before the
-        next replay)."""
+    def check_spec_drafts(self, drafts) -> None:
+        """The in-chain verify step's draft shape, in one place."""
+        shape = getattr(drafts, "shape", None)
+        want = (self.n_lanes, SPEC_DRAFT + 1)
+        if shape != want:
+            raise ValueError(f"spec drafts shape {shape} != {want} (SPEC_DRAFT + 1 columns: "
+                             "candidate 0 is the host's guess at the carry token itself)")
+
+    def check_spec_pipelined_dispatch(self, drafts, reseed: bool, positions=None) -> None:
+        """``check_pipelined_dispatch`` plus the draft shape."""
+        self.check_spec_drafts(drafts)
+        self.check_pipelined_dispatch(reseed, positions)
+
+    def _dispatch_step(self, positions, temps, topps, seeds, tokens, drafts=None,
+                       draft_len=None):
+        """Fill the static inputs and run one step of the chain (the verify
+        step where ``drafts`` are given); returns the step's int32 output,
+        [2, n] or the [n, K + 2] pack (static on the card: read it before
+        the next replay)."""
         hop_bytes = ring_counts()["ring_hop_bytes"]
         self._fill(tokens, positions, temps, topps, seeds)
-        _, packed = self._run_step(bool(np.any(temps > 0)))
+        sample = bool(np.any(temps > 0))
+        if drafts is None:
+            _, packed = self._run_step(sample)
+        else:
+            self._fill_drafts(drafts, draft_len)
+            _, packed = self._run_verify(sample)
         self._pl_seeded = True
         with self.stats.lock:
             self.stats.sync_bytes_per_decode = ring_counts()["ring_hop_bytes"] - hop_bytes
         return packed
 
-    def _enqueue(self, packed: torch.Tensor) -> None:
+    def _enqueue(self, packed: torch.Tensor, kind: str = "tok") -> None:
         """The step's tokens into a pinned host buffer of their own without
         waiting (the card's copy is ordered behind the step), and the step
-        into the ring."""
+        into the ring, with its kind: "tok" for a [2, n(+1)] step, "spec"
+        for an [n(+1), K + 2] verify pack."""
         if self.device.type == "cpu":
-            self._pl_inflight.append((packed.numpy().copy(), None, time.perf_counter()))
+            self._pl_inflight.append((kind, packed.numpy().copy(), None, time.perf_counter()))
         else:
             host = torch.empty(tuple(packed.shape), dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
-            self._pl_inflight.append((host, ready, time.perf_counter()))
+            self._pl_inflight.append((kind, host, ready, time.perf_counter()))
         with self.stats.lock:
             self.stats.pipeline_dispatches += 1
             _hist_bump(self.stats.pipeline_depth_hist, len(self._pl_inflight))
+            if kind == "spec":
+                self.stats.spec_steps += 1
+                self.stats.spec_pipelined_steps += 1
 
     @torch.inference_mode()
     def decode_pipelined(self, positions, temps=None, topps=None, seeds=None,
@@ -591,27 +723,80 @@ class InferenceEngine:
         the boundary greedy/sampled pair."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
+                    p_seed, tokens)
+
+    def _fused(self, positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp,
+               p_topp, p_seed, tokens, drafts=None, draft_len=None) -> None:
+        """A fused dispatch: the prompt chunk, then the chain's step (the
+        verify step where ``drafts`` are given); the admitting lane's carry
+        becomes the chunk's boundary token at the chunk's end, and the
+        boundary greedy/sampled pair rides the readback (an extra column of
+        a [2, n] step, an extra row of a verify pack)."""
         _, p_greedy, p_sampled = self._prefill_half(p_lane, chunk, p_start, p_temp,
                                                     p_topp, p_seed)
-        packed = self._dispatch_step(positions, temps, topps, seeds, tokens)
+        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, drafts, draft_len)
         end = p_start + len(chunk)
         self._feed[p_lane:p_lane + 1].copy_((p_greedy if p_temp == 0.0 else p_sampled)[None])
         self._cpos[p_lane:p_lane + 1].fill_(end)
-        pair = torch.stack([p_greedy, p_sampled]).to(torch.int32)[:, None]
-        self._enqueue(torch.cat([packed, pair], dim=1))
+        pair = torch.stack([p_greedy, p_sampled]).to(torch.int32)
+        if drafts is None:
+            self._enqueue(torch.cat([packed, pair[:, None]], dim=1))
+        else:
+            row = torch.cat([pair, pair.new_zeros(packed.shape[1] - 2)])
+            self._enqueue(torch.cat([packed, row[None]], dim=0), kind="spec")
         bucket = self.bucket_for(len(chunk))
         with self.stats.lock:
             self.stats.fused_steps += 1
             self.stats.prefill_tokens += len(chunk)
             _hist_bump(self.stats.fused_bucket_hist, bucket)
 
+    @torch.inference_mode()
+    def decode_spec_pipelined(self, positions, drafts, draft_len, temps=None, topps=None,
+                              seeds=None, tokens=None) -> None:
+        """Dispatch ONE speculative verify step into the pipelined ring (the
+        JAX engine's zero-flush composition of ``decode_spec`` and
+        ``decode_pipelined``): the drafts are verified against the device's
+        own token carry, each lane's accept count advances the position
+        carry (pos + accepted + 1), and the readback is ``decode_spec``'s
+        [n, K + 2] pack. ``drafts`` [n, SPEC_DRAFT + 1]: column 0 is the
+        host's guess at the carry token (its index is one step behind the
+        device; on a reseed it ships the feed), checked on the device
+        before the rest count; ``draft_len`` counts the candidates with
+        column 0, so a lane needs 2 or more to accept anything. Positions
+        as in ``decode_pipelined`` (-1 reads the carry); the draft clamp
+        near seq_len is on the device, from the carried positions."""
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        self.check_spec_pipelined_dispatch(drafts, tokens is not None, positions)
+        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, drafts, draft_len)
+        self._enqueue(packed, kind="spec")
+
+    @torch.inference_mode()
+    def decode_spec_prefill_fused(self, positions, drafts, draft_len, temps=None, topps=None,
+                                  seeds=None, p_lane: int = 0, chunk: list[int] | None = None,
+                                  p_start: int = 0, p_temp: float = 0.0,
+                                  p_topp: float = DEFAULT_TOPP, p_seed: int = 0,
+                                  tokens=None) -> None:
+        """``decode_spec_pipelined`` that also takes one prompt chunk for lane
+        ``p_lane`` (``decode_prefill_fused``'s contract). The readback is
+        [n + 1, K + 2], the boundary greedy/sampled pair in the extra
+        row's first two columns."""
+        temps, topps, seeds = self._defaults(temps, topps, seeds)
+        self.check_spec_drafts(drafts)
+        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
+                    p_seed, tokens, drafts, draft_len)
+
     def pipeline_consume(self):
         """Blocking readback of the OLDEST in-flight step, waiting on its
-        event only. Returns (greedy np[n|n+1], sampled np[n|n+1]); a fused
-        step's extra column is the chunk's boundary pair."""
+        event only. A plain or fused step returns (greedy np[n|n+1], sampled
+        np[n|n+1]), a fused step's extra column the chunk's boundary pair;
+        a verify step returns (emitted np[n(+1), K + 1], n_emit np[n(+1)]),
+        ``decode_spec``'s readback, a fused one's boundary pair in
+        emitted[-1, :2]. The caller knows which it dispatched."""
         if not self._pl_inflight:
             raise RuntimeError("pipeline ring empty: nothing to consume")
-        host, ready, dispatched_at = self._pl_inflight.popleft()
+        kind, host, ready, dispatched_at = self._pl_inflight.popleft()
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
@@ -622,6 +807,8 @@ class InferenceEngine:
             self.stats.decode_s += t1 - t0
             self.stats.decode_steps += 1
             self.stats.overlap_s += max(0.0, t0 - dispatched_at)
+        if kind == "spec":
+            return host[:, :-1], host[:, -1]
         return host[0], host[1]
 
     def pipeline_flush(self, count: bool = True) -> int:
@@ -674,21 +861,25 @@ def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 
                   pipeline: bool = True) -> None:
     """Run every serving program once before serving, so that no request
     pays a kernel build or a graph capture: each prefill bucket, every
-    decode-family graph (the step and each multi-step horizon from
-    ``multi_step`` down to 2, greedy and sampled), the pipelined step in
-    its reseed and chained forms and the fused step per prefill bucket.
-    ``spec`` is the JAX signature's; this engine has no speculative family.
+    decode-family graph (the step, the verify step where ``spec`` and each
+    multi-step horizon from ``multi_step`` down to 2, greedy and sampled),
+    the synchronous verify step, the pipelined step and verify step in
+    their reseed and chained forms and the fused steps per prefill bucket.
     The counters are restored afterwards; the junk KV lands in slots
     admission rewrites."""
     n = engine.n_lanes
     z = np.zeros(n, np.int64)
+    spec = spec and getattr(engine, "supports_speculative", False)
+    spec_pl = spec and getattr(engine, "supports_spec_pipelined", False)
     with engine.stats.preserved():
         for bucket in engine.prefill_buckets:
             engine.prefill_chunk(0, [0] * bucket, 0)
         multi = multi_step if getattr(engine, "supports_multi_step", False) else 0
-        engine.capture_graphs(multi)
+        engine.capture_graphs(multi, spec=spec)
         engine.decode(z, z)
         engine.decode(z, z, temps=np.full(n, 0.7, np.float32), seeds=np.ones(n, np.int64))
+        if spec:
+            engine.decode_spec(z, np.zeros((n, engine.SPEC_DRAFT), np.int64), z, z)
         h = pow2_floor(multi)
         while h > 1:
             engine.decode_multi(z, z, h=h)
@@ -698,9 +889,21 @@ def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 
             engine.decode_pipelined(z, tokens=z)
             engine.decode_pipelined(neg)
             engine.pipeline_flush()
+            k1 = engine.SPEC_DRAFT + 1
+            if spec_pl:
+                engine.decode_spec_pipelined(z, np.zeros((n, k1), np.int64), z, tokens=z)
+                engine.decode_spec_pipelined(neg, np.zeros((n, k1), np.int64), z)
+                engine.pipeline_flush()
             if engine.supports_fused_prefill:
                 park = np.full(n, engine.config.seq_len, np.int64)
                 for bucket in engine.prefill_buckets:
                     engine.decode_prefill_fused(park, p_lane=0, chunk=[0] * bucket, tokens=z)
                     engine.decode_prefill_fused(neg, p_lane=0, chunk=[0] * bucket)
                     engine.pipeline_flush()
+                    if spec_pl:
+                        engine.decode_spec_prefill_fused(
+                            park, np.zeros((n, k1), np.int64), z, p_lane=0,
+                            chunk=[0] * bucket, tokens=z)
+                        engine.decode_spec_prefill_fused(
+                            neg, np.zeros((n, k1), np.int64), z, p_lane=0, chunk=[0] * bucket)
+                        engine.pipeline_flush()

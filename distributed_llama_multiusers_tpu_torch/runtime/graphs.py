@@ -42,7 +42,7 @@ def _counters() -> dict:
         "q40": dict(cuda_q40.LAUNCHES),
         "ring": {k: ring_collective.COUNTS[k] for k in ("launches", "bytes")},
         "sample": {"launches": cuda_sample.COUNTS["launches"]},
-        "attn": {"launches": cuda_attn.COUNTS["launches"]},
+        "attn": {k: cuda_attn.COUNTS[k] for k in ("launches", "window_launches")},
     }
 
 

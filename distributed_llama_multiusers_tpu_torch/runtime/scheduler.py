@@ -13,12 +13,16 @@ pipeline (step k+1 dispatched from the engine's on-device token carry while
 step k's tokens are consumed one step behind), admissions fused into it
 (a queued request claims a free lane inside the live chain and its prompt
 chunks ride fused prefill+decode dispatches, so the chain never flushes
-for them), and, with pipelining off, multi-step horizons (up to
+for them), prompt-lookup speculation inside it (a greedy lane whose
+history drafts, ``runtime/spec.py``, ships its candidates with the
+dispatch and commits the verified prefix one step behind), and, with
+pipelining off, the synchronous verify step and multi-step horizons (up to
 ``multi_step`` chained steps in one dispatch). Every path emits the
-synchronous path's token streams; stops, EOS and cancels found a step (or
-a horizon) late discard the overshoot, whose junk KV lies above the
-committed tokens. Speculation, grammar, paged KV, the QoS queue, circuit
-breaker, watchdog, journal, telemetry and prefix cache are later work.
+synchronous plain path's token streams; stops, EOS and cancels found a
+step (or a horizon, or a verify window) late discard the overshoot, whose
+junk KV lies above the committed tokens. Grammar, paged KV, the QoS queue,
+circuit breaker, watchdog, journal, telemetry and prefix cache are later
+work.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from typing import Callable
 import numpy as np
 
 from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
-from .engine import DEFAULT_TOPP, pow2_floor
+from .engine import DEFAULT_TOPP
+from .spec import NgramDraftIndex, pow2_floor
 
 
 class AdmissionRejected(RuntimeError):
@@ -148,6 +153,8 @@ class _Lane:
     decoder: object = None
     pending: list[int] = field(default_factory=list)  # unprocessed prompt tail
     seed: int = 0
+    # committed (prompt + consumed) tokens and their draft index
+    drafter: NgramDraftIndex = field(default_factory=NgramDraftIndex)
 
 
 def _summary(req: Request) -> dict:
@@ -169,8 +176,11 @@ def _summary(req: Request) -> dict:
 class ContinuousBatchingScheduler:
     def __init__(self, engine, tokenizer: Tokenizer, queue_: RequestQueue | None = None,
                  eos_padding: tuple[int, int] = (2, 2), multi_step: int = 8,
-                 fused_prefill: bool = True):
-        """``multi_step``: in steady-state decode (no prompt chunk pending,
+                 fused_prefill: bool = True, speculative: bool = True):
+        """``speculative``: prompt-lookup speculative decoding of greedy
+        lanes, wherever the engine has the verify families (inside the
+        pipelined chain, else the synchronous verify step); False turns it
+        off. ``multi_step``: in steady-state decode (no prompt chunk pending,
         nothing queued) run up to this many decode steps in one dispatch
         (``engine.decode_multi``); 0 or 1 disables. An engine with
         ``pipeline_depth`` >= 2 pipelines: step k+1 is dispatched from the
@@ -186,6 +196,7 @@ class ContinuousBatchingScheduler:
         self.eos_padding = eos_padding
         self.multi_step = multi_step
         self.fused_prefill = fused_prefill
+        self.speculative = speculative
         self._lanes = [_Lane() for _ in range(engine.n_lanes)]
         self._stop = threading.Event()
         self._draining = threading.Event()
@@ -309,6 +320,7 @@ class ContinuousBatchingScheduler:
         lane.request = req
         lane.pos = 0
         lane.pending = list(tokens)
+        lane.drafter = NgramDraftIndex(tokens)  # seeded with the prompt
         lane.seed = (req.seed if req.seed is not None else fresh_seed()) & 0xFFFFFFFF
         stops = list(req.stop) or self._chat_stops.stops
         lane.eos = EosDetector(self.tokenizer.eos_token_ids, stops,
@@ -360,6 +372,7 @@ class ContinuousBatchingScheduler:
         req.generated_tokens.append(tok)
         if req.first_token_at is None:
             req.first_token_at = time.monotonic()
+        lane.drafter.append(tok)
         piece = lane.decoder.decode(tok)
         result = lane.eos.append(tok, piece)
         if result == EosResult.EOS:
@@ -425,7 +438,7 @@ class ContinuousBatchingScheduler:
                         AdmissionRejected("draining") if self._draining.is_set()
                         else RuntimeError("scheduler stopped"))
 
-    # -- path choice (the JAX scheduler's, without speculation) --------------
+    # -- path choice (the JAX scheduler's) -----------------------------------
 
     def _generating(self) -> list:
         return [(i, l) for i, l in enumerate(self._lanes)
@@ -470,6 +483,32 @@ class ContinuousBatchingScheduler:
         return (self.fused_prefill and self._pipelines()
                 and getattr(self.engine, "supports_fused_prefill", False))
 
+    def _spec_k(self) -> int:
+        """Drafts per verify step: 0 with speculation off or on an engine
+        without the verify step."""
+        if not (self.speculative and getattr(self.engine, "supports_speculative", False)):
+            return 0
+        return getattr(self.engine, "SPEC_DRAFT", 0)
+
+    def _spec_pl_ok(self) -> bool:
+        """Speculation rides the pipelined chain: it is on and the engine
+        has the in-chain verify family. Otherwise a draft hit takes the
+        loop out of the chain to the synchronous verify step."""
+        return self._spec_k() > 0 and getattr(self.engine, "supports_spec_pipelined", False)
+
+    def _drafts_pending(self, live: dict) -> bool:
+        """Whether a generating greedy lane's history drafts (a host-side
+        probe; lanes mid-admission have no next token yet)."""
+        spec_k = self._spec_k()
+        if spec_k <= 0:
+            return False
+        seq_len = self.engine.config.seq_len
+        return any(lane.request.state == RequestState.GENERATING
+                   and lane.request.temperature == 0.0
+                   and seq_len - lane.pos - 1 > 0
+                   and lane.drafter.draft(lane.next_token, spec_k)
+                   for lane in live.values())
+
     def _pipeline_ok(self, active, prefilled: bool = False) -> bool:
         """Gate for the pipelined path: engine support and a ring depth that
         buys a lag; with fused prefill a queued admission or a pending
@@ -504,14 +543,23 @@ class ContinuousBatchingScheduler:
             with self.engine.stats.lock:
                 self.engine.stats.admission_stall_s += time.perf_counter() - t0
 
-    def _pipeline_dispatch(self, live: dict, admitting: dict, feed):
+    def _pipeline_dispatch(self, live: dict, admitting: dict, feed, spec_ok: bool = False):
         """Dispatch half: queue the next step from host-side lane metadata
         only (live lanes read their positions from the device carry, -1,
-        except on a reseed; idle and admitting lanes park at seq_len), plus
-        ONE chunk for ONE admitting lane (round-robin) in the same fused
-        dispatch. Nothing here reads a device value back. Returns
-        ``(lane_idx, lane, final, n_chunk)`` for a chunk-carrying step, else
-        None; the chunk's bookkeeping commits here, since its KV writes run
+        except on a reseed: a verify step advances each lane by its own
+        accept count, which the host learns one step behind; idle and
+        admitting lanes park at seq_len), plus ONE chunk for ONE admitting
+        lane (round-robin) in the same fused dispatch. With ``spec_ok`` each
+        generating greedy lane's draft index is probed (host work only) and
+        a lane that drafts ships up to SPEC_DRAFT + 1 candidates with the
+        dispatch, which becomes a verify step: candidate 0 is the guess at
+        the carry token (the index is one step behind; on a reseed it is
+        the known feed), checked on the device, so a stale probe costs
+        acceptance, never correctness. Nothing here reads a device value
+        back. Returns ``(fused_info, spec_drafted)``: ``(lane_idx, lane,
+        final, n_chunk)`` for a chunk-carrying step, else None; the lanes
+        whose candidates can accept ({lane: True}) for a verify step, else
+        None. The chunk's bookkeeping commits here, since its KV writes run
         whether or not the step is ever consumed."""
         engine = self.engine
         n_lanes = engine.n_lanes
@@ -526,32 +574,88 @@ class ContinuousBatchingScheduler:
             temps[i] = lane.request.temperature
             topps[i] = lane.request.topp
             seeds[i] = lane.seed
+        drafts = draft_len = None
+        drafted: dict[int, bool] = {}
+        if spec_ok:
+            spec_k = engine.SPEC_DRAFT
+            for i, lane in live.items():
+                req = lane.request
+                if (req.state != RequestState.GENERATING or req.temperature != 0.0
+                        or seq_len - lane.pos - 1 <= 0):
+                    continue
+                nt = lane.next_token
+                # on a reseed nt is this dispatch's feed; else it fed the
+                # step in flight, whose output the first continuation guesses
+                d = ([nt] + lane.drafter.draft(nt, spec_k) if reseed
+                     else lane.drafter.draft(nt, spec_k + 1))
+                if len(d) >= 2:  # candidate 0 alone cannot accept anything
+                    if drafts is None:
+                        drafts = np.zeros((n_lanes, spec_k + 1), np.int64)
+                        draft_len = np.zeros(n_lanes, np.int64)
+                    drafts[i, :len(d)] = d
+                    draft_len[i] = len(d)
+                    drafted[i] = True
+        spec_drafted = drafted if drafts is not None else None
         if not admitting:
-            engine.decode_pipelined(positions, temps, topps, seeds, tokens=feed)
-            return None
+            if drafts is None:
+                engine.decode_pipelined(positions, temps, topps, seeds, tokens=feed)
+            else:
+                engine.decode_spec_pipelined(positions, drafts, draft_len, temps, topps, seeds,
+                                             tokens=feed)
+            return None, spec_drafted
         target = min(admitting, key=lambda i: (i - self._prefill_rr) % n_lanes)
         self._prefill_rr = (target + 1) % n_lanes
         lane = admitting[target]
         req = lane.request
         chunk = lane.pending[: engine.max_chunk()]
-        engine.decode_prefill_fused(
-            positions, temps, topps, seeds, p_lane=target, chunk=chunk,
-            p_start=lane.pos, p_temp=req.temperature, p_topp=req.topp,
-            p_seed=lane.seed, tokens=feed)
+        prompt = dict(p_lane=target, chunk=chunk, p_start=lane.pos, p_temp=req.temperature,
+                      p_topp=req.topp, p_seed=lane.seed, tokens=feed)
+        if drafts is None:
+            engine.decode_prefill_fused(positions, temps, topps, seeds, **prompt)
+        else:  # an admitting chunk and a verify step share the dispatch
+            engine.decode_spec_prefill_fused(positions, drafts, draft_len, temps, topps,
+                                             seeds, **prompt)
         lane.pos += len(chunk)
         lane.pending = lane.pending[len(chunk):]
-        return target, lane, not lane.pending, len(chunk)
+        return (target, lane, not lane.pending, len(chunk)), spec_drafted
+
+    def _commit_window(self, i: int, lane: _Lane, emitted, cnt: int, drafted: bool) -> bool:
+        """A verify step's commit for one lane: next_token and the accepted
+        tokens (the plain-decode stream, by the verification identity),
+        then the model's token after them becomes the next token. Drafted
+        lanes that consumed anything feed the acceptance counters. Returns
+        False when the lane finished."""
+        seq = [lane.next_token] + [int(t) for t in emitted[:cnt - 1]]
+        n_fed = 0
+        alive = True
+        for t in seq:
+            n_fed += 1  # consumed, the finishing token included
+            if not self._consume(i, lane, t):
+                alive = False
+                break
+        if drafted:
+            with self.engine.stats.lock:
+                self.engine.stats.spec_lane_steps += 1
+                self.engine.stats.spec_emitted += n_fed
+        if alive:
+            lane.next_token = int(emitted[cnt - 1])
+        return alive
 
     def _pipeline_consume(self, live: dict, entry: tuple) -> None:
         """Consume half, one step behind: read the oldest step back and do
         the synchronous loop's host work (stream decode, EOS/stop, cancel).
-        ``entry`` is ``(step_lanes, fused)`` recorded at dispatch time:
-        a column whose lane finished at an earlier step, or whose lane a
-        new request reclaimed meanwhile, is junk and skipped. A fused
-        step's extra column carries its chunk's boundary pair; on the final
-        chunk that is the request's first generated token."""
-        greedy, sampled = self.engine.pipeline_consume()
-        step_lanes, fused = entry
+        ``entry`` is ``(step_lanes, fused, spec_drafted)`` recorded at
+        dispatch time: a column whose lane finished at an earlier step, or
+        whose lane a new request reclaimed meanwhile, is junk and skipped.
+        A fused step's extra column (row, for a verify pack) carries its
+        chunk's boundary pair; on the final chunk that is the request's
+        first generated token. ``spec_drafted`` (None for a plain step)
+        marks a verify step: each live lane commits a window of its own
+        length, and drafted lanes add their device accept count to the
+        histogram."""
+        out_a, out_b = self.engine.pipeline_consume()
+        step_lanes, fused, spec_drafted = entry
+        is_spec = spec_drafted is not None
         for i, lane in step_lanes:
             if live.get(i) is not lane:
                 continue
@@ -560,17 +664,29 @@ class ContinuousBatchingScheduler:
                 self._finish(i, req, reason="cancelled")
                 live.pop(i)
                 continue
+            if is_spec:
+                cnt = int(out_b[i])
+                drafted = bool(spec_drafted.get(i))
+                if drafted:
+                    with self.engine.stats.lock:
+                        hist = self.engine.stats.spec_accept_hist
+                        hist[cnt - 1] = hist.get(cnt - 1, 0) + 1
+                if not self._commit_window(i, lane, out_a[i], cnt, drafted):
+                    live.pop(i)
+                continue
             if not self._consume(i, lane, lane.next_token):
                 live.pop(i)
                 continue
             # the token this lane fed into the next in-flight step
-            lane.next_token = int(greedy[i]) if req.temperature == 0.0 else int(sampled[i])
+            lane.next_token = int(out_a[i]) if req.temperature == 0.0 else int(out_b[i])
         if fused is not None:
             i, lane, final, _ = fused
             if final and live.get(i) is lane:
                 req = lane.request
-                lane.next_token = (int(greedy[-1]) if req.temperature == 0.0
-                                   else int(sampled[-1]))
+                # a verify pack's extra row, a plain step's extra column
+                greedy, sampled = ((int(out_a[-1, 0]), int(out_a[-1, 1])) if is_spec
+                                   else (int(out_a[-1]), int(out_b[-1])))
+                lane.next_token = greedy if req.temperature == 0.0 else sampled
                 req.state = RequestState.GENERATING
 
     def _run_pipelined(self, active) -> None:
@@ -579,13 +695,19 @@ class ContinuousBatchingScheduler:
         queued requests claim lanes in-chain and stream their chunks
         through fused dispatches; a lane whose final chunk went out joins
         the decode half from the next dispatch, fed by the device carry.
+        Speculation rides the chain (``_spec_pl_ok``): a greedy lane whose
+        history drafts ships its candidates with a dispatch, probed only
+        where the ring lag is at most 1 with no other verify step in
+        flight (past that the host's carry candidate cannot line up).
         Exits by draining the in-flight steps through the consume path when
-        stop() is set, an admission arrives with fused prefill off, or
-        every lane finished; an exit with lanes still live counts as a
-        pipeline flush."""
+        stop() is set, an admission arrives with fused prefill off, a draft
+        hit on an engine without the in-chain verify family, or every lane
+        finished; an exit with lanes still live counts as a pipeline
+        flush."""
         engine = self.engine
         depth = max(2, int(getattr(engine, "pipeline_depth", 2)))
         fused = self._fused_ok()
+        spec_chain = self._spec_pl_ok()
         live: dict[int, _Lane] = dict(active)
         admitting: dict[int, _Lane] = {}
         if fused:
@@ -594,9 +716,11 @@ class ContinuousBatchingScheduler:
         feed = np.zeros(engine.n_lanes, np.int64)
         for i, lane in live.items():
             feed[i] = lane.next_token
-        meta: deque = deque()  # (live lanes, fused info) per dispatch
+        # (live lanes, fused info, spec-drafted lanes) per dispatch
+        meta: deque = deque()
         host_feed = True  # the first dispatch reseeds the chain
         dispatched_any = False
+        probe_drafts = False  # the entry gates just probed the drafters
         while True:
             # an admitting request cancelled mid-prompt: stop streaming its
             # chunks (the in-flight ones write junk-safe KV)
@@ -608,12 +732,19 @@ class ContinuousBatchingScheduler:
                     self._claim_admissions(admitting)
                 else:
                     flush = True
+            if not flush and probe_drafts and not spec_chain:
+                # an engine without the in-chain verify family: a draft hit
+                # leaves the chain for the synchronous verify step
+                flush = self._drafts_pending(live)
+            probe_drafts = True
             while not flush and engine.pipeline_inflight() < depth:
-                fused_info = self._pipeline_dispatch(live, admitting,
-                                                     feed if host_feed else None)
+                spec_ok = (spec_chain and engine.pipeline_inflight() <= 1
+                           and not any(m[2] is not None for m in meta))
+                fused_info, spec_drafted = self._pipeline_dispatch(
+                    live, admitting, feed if host_feed else None, spec_ok)
                 host_feed = False
                 dispatched_any = True
-                meta.append((tuple(live.items()), fused_info))
+                meta.append((tuple(live.items()), fused_info, spec_drafted))
                 if fused_info is not None and fused_info[2]:
                     # final chunk out: the lane decodes from the next
                     # dispatch, its first token and position on the carry
@@ -648,7 +779,8 @@ class ContinuousBatchingScheduler:
             # prompt step: pending chunks and queued admissions ride it
             if self._fused_ok():
                 active = self._generating()
-                if active and self._pipeline_ok(active):
+                if (active and self._pipeline_ok(active)
+                        and (self._spec_pl_ok() or not self._drafts_pending(dict(active)))):
                     self._run_pipelined(active)
                     continue
 
@@ -666,7 +798,25 @@ class ContinuousBatchingScheduler:
             active = self._generating()
             if not active:
                 continue
-            if self._pipeline_ok(active, prefilled):
+            if self._spec_pl_ok() and self._pipeline_ok(active, prefilled):
+                self._run_pipelined(active)
+                continue
+            # the synchronous verify step, gated per lane: a lane drafts at
+            # most the slots it has left before seq_len
+            spec_k = self._spec_k()
+            drafts = draft_len = None
+            if spec_k > 0:
+                drafts = np.zeros((n_lanes, spec_k), np.int64)
+                draft_len = np.zeros(n_lanes, np.int64)
+                for i, lane in active:
+                    d_max = min(spec_k, cfg.seq_len - lane.pos - 1)
+                    if lane.request.temperature == 0.0 and d_max > 0:
+                        d = lane.drafter.draft(lane.next_token, spec_k)[:d_max]
+                        drafts[i, :len(d)] = d
+                        draft_len[i] = len(d)
+                if not draft_len.any():
+                    draft_len = None  # nothing to verify: a plain step
+            if draft_len is None and self._pipeline_ok(active, prefilled):
                 self._run_pipelined(active)
                 continue
             tokens = np.zeros(n_lanes, np.int64)
@@ -686,6 +836,15 @@ class ContinuousBatchingScheduler:
                 temps[i] = lane.request.temperature
                 topps[i] = lane.request.topp
                 seeds[i] = lane.seed
+            if draft_len is not None:
+                _, emitted, n_emit = self.engine.decode_spec(
+                    tokens, drafts, draft_len, positions, temps, topps, seeds,
+                    want_logits=False)
+                for i, lane in active:
+                    # a sampled lane emits its one draw (its draft_len is 0)
+                    self._commit_window(i, lane, emitted[i], int(n_emit[i]),
+                                        bool(draft_len[i] > 0))
+                continue
             h = self._multi_horizon(active, prefilled)
             if h > 1:
                 chosen = self.engine.decode_multi(tokens, positions, temps, topps, seeds, h)

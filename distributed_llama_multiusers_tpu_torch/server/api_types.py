@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from enum import IntEnum
 
 
 @dataclass
@@ -34,6 +35,35 @@ def parse_chat_messages(body: dict) -> list[ChatMessage]:
     return out
 
 
+class Priority(IntEnum):
+    """The JAX package's admission classes (``serving/qos.py``), parsed and
+    validated as it parses them; lower pops first there. The port keeps
+    the value on the request and has no QoS queue yet."""
+
+    HIGH = 0
+    NORMAL = 1
+    LOW = 2
+
+    @staticmethod
+    def parse(value) -> "Priority":
+        """Accept ``"high"/"normal"/"low"`` (HTTP bodies) or the int value."""
+        if isinstance(value, Priority):
+            return value
+        if isinstance(value, str):
+            try:
+                return Priority[value.strip().upper()]
+            except KeyError:
+                raise ValueError(
+                    f"unknown priority {value!r} (expected high, normal, or low)"
+                ) from None
+        try:
+            return Priority(int(value))
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"unknown priority {value!r} (expected high, normal, or low)"
+            ) from None
+
+
 @dataclass
 class InferenceParams:
     """Per-request generation params. Sampled requests run on the device
@@ -45,6 +75,9 @@ class InferenceParams:
     seed: int | None = None
     stop: list[str] = field(default_factory=list)
     stream: bool = False
+    # the OpenAI API's end-user field and the JAX server's admission class
+    user: str = ""
+    priority: int = Priority.NORMAL
 
     @staticmethod
     def from_body(body: dict) -> "InferenceParams":
@@ -63,6 +96,10 @@ class InferenceParams:
         elif isinstance(stop, list):
             p.stop = [str(s) for s in stop]
         p.stream = bool(body.get("stream", False))
+        if body.get("user") is not None:
+            p.user = str(body["user"])
+        if body.get("priority") is not None:
+            p.priority = Priority.parse(body["priority"])  # ValueError -> 400
         if body.get("response_format") is not None:
             # structured output is a later slice of the port
             raise ValueError("response_format is not supported by this server")

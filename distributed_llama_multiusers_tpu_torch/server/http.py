@@ -151,6 +151,21 @@ class ApiServer:
             # multi-step horizons taken (each several decode steps in one
             # dispatch; decode_steps counts the chained steps)
             "multi_dispatches": stats["multi_dispatches"],
+            # speculative verify steps (each lane's next token and its drafts
+            # in one forward), the tokens drafted lanes consumed from them
+            # and their (lane, step) pairs: tokens per lane step is the
+            # acceptance, 1.0 none accepted, SPEC_DRAFT + 1 all; verify
+            # steps inside the pipelined ring; the drafted lanes' device
+            # accept counts
+            "spec_steps": stats["spec_steps"],
+            "spec_emitted": stats["spec_emitted"],
+            "spec_lane_steps": stats["spec_lane_steps"],
+            "spec_tokens_per_lane_step": (
+                round(stats["spec_emitted"] / stats["spec_lane_steps"], 3)
+                if stats["spec_lane_steps"] else None),
+            "spec_pipelined_steps": stats["spec_pipelined_steps"],
+            "spec_accept_hist": {
+                str(k): v for k, v in sorted(stats["spec_accept_hist"].items())},
             # async decode pipeline: host consume time hidden behind the
             # card's execution, steps dispatched device-fed, chains cut
             # short before their lanes finished, and ring occupancy right

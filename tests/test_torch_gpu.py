@@ -672,7 +672,7 @@ def test_decode_attn_matches_plain(cuda, n_kv, group, hd, dtype, s_len, rule):
     got = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
     want = cuda_attn.decode_attention_plain(qf, k, v, positions, scale, s_len)
     torch.cuda.synchronize()
-    assert cuda_attn.COUNTS == {"launches": 1, "plain_calls": 0}
+    assert cuda_attn.COUNTS == {"launches": 1, "window_launches": 0, "plain_calls": 0}
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max())
 
@@ -730,6 +730,86 @@ def test_decode_attn_rejects_shapes_out_of_range(cuda):
     qf, k, v = _attn_inputs(cuda, 2, 1, 9, 64, 8, torch.float32, seed=1)
     with pytest.raises(ValueError, match="group"):
         cuda_attn.decode_attention(qf, k, v, pos, 1.0, 8)
+
+
+def _window_positions(rule, lanes, t, s_len, split):
+    """Each lane's first row; the rows sit at consecutive positions. The
+    serving step's (4 lanes at 40-100, 4 parked), rows across the split
+    boundaries, or every lane's rows at and past 2047 (which read at most
+    s_len - 1)."""
+    if rule == "serving":
+        first = [40, 63, 64, 100] + [s_len] * (lanes - 4)
+    elif rule == "boundaries":
+        first = [split - t, split - 2, split - 1, split, 2 * split - 3, 2 * split - 1,
+                 3 * split - 2, s_len - t][:lanes]
+    else:
+        first = [s_len - 1] * lanes
+    return torch.tensor(first)[:, None] + torch.arange(t)[None, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["serving", "boundaries", "at_2047"])
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("n_kv,group,hd,dtype,s_len", [
+    (8, 4, 64, torch.bfloat16, 2048),  # Llama-3.2-1B at the smoke's seq_len
+    (4, 4, 64, torch.bfloat16, 2048),  # one rank of it at tp=2
+    (3, 8, 128, torch.float32, 1000),  # the largest head and group, f32 slots
+    (2, 3, 36, torch.bfloat16, 777)])  # a head of no whole 16-byte chunks
+def test_decode_attn_window_matches_plain_and_one_row_calls(cuda, n_kv, group, hd, dtype,
+                                                            s_len, t, rule):
+    """The verify window (t rows per lane) against its plain version, and
+    each row's bits against a T = 1 call at that row's position."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8 * t, n_kv, group, hd, s_len, dtype, seed=hd + t)
+    qf = qf.reshape(8, t, n_kv, group, hd)
+    k, v = k[:8], v[:8]
+    positions = _window_positions(rule, 8, t, s_len, cuda_attn.SPLIT).to(cuda)
+    scale = 1.0 / hd ** 0.5
+    cuda_attn.reset_counts()
+    got = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
+    want = cuda_attn.decode_attention_plain(qf, k, v, positions, scale, s_len)
+    torch.cuda.synchronize()
+    assert cuda_attn.COUNTS == {"launches": 1, "window_launches": 1, "plain_calls": 0}
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max())
+    for row in range(t):
+        one = cuda_attn.decode_attention(qf[:, row:row + 1].contiguous(), k, v,
+                                         positions[:, row:row + 1].contiguous(), scale, s_len)
+        assert torch.equal(got[:, row], one[:, 0]), row
+
+
+@pytest.mark.gpu
+def test_decode_attn_window_runs_on_every_device(cuda):
+    """The window at the 1B shape on every card of the host in turn, against
+    its plain version: a tensor-parallel mesh runs it on each rank's card,
+    so no state of the launch (a function attribute, say) may be set on
+    one card only."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        qf, k, v = _attn_inputs(dev, 32, 8, 4, 64, 2048, torch.bfloat16, seed=7)
+        qf, k, v = qf.reshape(8, 4, 8, 4, 64), k[:8], v[:8]
+        positions = _window_positions("serving", 8, 4, 2048, cuda_attn.SPLIT).to(dev)
+        got = cuda_attn.decode_attention(qf, k, v, positions, 0.125, 2048)
+        want = cuda_attn.decode_attention_plain(qf, k, v, positions, 0.125, 2048)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max()), index
+
+
+@pytest.mark.gpu
+def test_decode_attn_window_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 32, 8, 4, 64, 2048, torch.bfloat16, seed=6)
+    qf, k, v = qf.reshape(8, 4, 8, 4, 64), k[:8], v[:8]
+    serving = _window_positions("serving", 8, 4, 2048, cuda_attn.SPLIT).to(cuda)
+    boundaries = _window_positions("boundaries", 8, 4, 2048, cuda_attn.SPLIT).to(cuda)
+    _graph_replay_equals_eager(
+        [lambda: cuda_attn.decode_attention(qf, k, v, serving, 0.125, 2048),
+         lambda: cuda_attn.decode_attention(qf, k, v, boundaries, 0.125, 2048)])
 
 
 def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
@@ -808,6 +888,31 @@ def _family_run(engine, config, family):
             out.append(np.stack(engine.pipeline_consume()))
         out.append(np.stack(engine.pipeline_consume()))
         engine.pipeline_flush()
+    elif family == "spec":
+        # the synchronous verify step, then verify steps in the chain (a
+        # reseed, a chained one behind a plain step) and a fused one; lane
+        # 0's candidates repeat its token, which a tiny random model may or
+        # may not follow
+        k = engine.SPEC_DRAFT
+        _, em, ne = engine.decode_spec(toks, np.tile(toks[:, None], (1, k)),
+                                       np.asarray([k, 0, 0]), pos, temps, topps, seeds)
+        out += [em, ne]
+        nxt = em[np.arange(3), ne - 1]
+        pos = pos + ne
+        drafts = np.tile(nxt[:, None], (1, k + 1))
+        dlen = np.asarray([k + 1, 0, 0])
+        engine.decode_spec_pipelined(pos, drafts, dlen, temps, topps, seeds, tokens=nxt)
+        engine.decode_pipelined(np.full(3, -1), temps, topps, seeds)
+        out += list(engine.pipeline_consume())
+        engine.decode_spec_pipelined(np.full(3, -1), drafts, dlen, temps, topps, seeds)
+        out.append(np.stack(engine.pipeline_consume()))
+        out += list(engine.pipeline_consume())
+        engine.decode_spec_prefill_fused(np.asarray([-1, -1, config.seq_len]), drafts, dlen,
+                                         temps, topps, seeds, p_lane=2, chunk=[4, 4, 4],
+                                         p_start=int(pos[2]), p_temp=1.1, p_topp=1.0,
+                                         p_seed=3)
+        out += list(engine.pipeline_consume())
+        engine.pipeline_flush()
     else:  # fused: lane 2 re-admits a chunk while lanes 0 and 1 decode
         park = pos.copy()
         park[2] = config.seq_len
@@ -832,7 +937,8 @@ def _caches(engine):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["step_greedy", "step", "multi", "pipelined", "fused"])
+@pytest.mark.parametrize("family", ["step_greedy", "step", "multi", "pipelined", "fused",
+                                    "spec"])
 def test_graph_replay_matches_eager(cuda, tmp_path, family):
     """Each decode family replayed from its CUDA graph gives the eager
     bodies' tokens and KV cache bit for bit, and its launch counters (the
@@ -866,14 +972,20 @@ def test_graph_replay_tp_mesh_on_one_card(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_warmup_captures_every_decode_graph(cuda, tmp_path):
-    """warmup_engine captures the step and each horizon, greedy and
-    sampled; serving then captures nothing new and replays them."""
+    """warmup_engine captures the step, the verify step and each horizon,
+    greedy and sampled; serving then captures nothing new and replays
+    them. Without speculation the verify step is not captured."""
     from distributed_llama_multiusers_tpu_torch.runtime.engine import warmup_engine
 
     config, (engine, _) = _graph_engines(cuda, tmp_path)
     warmup_engine(engine, multi_step=8)
-    assert len(engine.graphs) == 2 * (1 + 3)  # step and h = 8, 4, 2
+    assert len(engine.graphs) == 2 * (1 + 1 + 3)  # step, verify and h = 8, 4, 2
     before = len(engine.graphs), engine.graphs.replays
     _family_run(engine, config, "fused")
     _family_run(engine, config, "multi")
+    _family_run(engine, config, "spec")
     assert len(engine.graphs) == before[0] and engine.graphs.replays >= before[1] + 4
+    (tmp_path / "plain").mkdir()
+    config, (plain, _) = _graph_engines(cuda, tmp_path / "plain")
+    warmup_engine(plain, spec=False, multi_step=8)
+    assert len(plain.graphs) == 2 * (1 + 3)

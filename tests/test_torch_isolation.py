@@ -144,3 +144,25 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path):
                        text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_spec_module_is_the_ports_own():
+    """The draft index the port's scheduler drafts with is its own copy
+    (``runtime/spec.py``), importable and usable without jax or the JAX
+    package, and the engine's and scheduler's ``pow2_floor`` is that one."""
+    r = _run("""
+        from distributed_llama_multiusers_tpu_torch.runtime import engine, scheduler, spec
+        assert scheduler.NgramDraftIndex is spec.NgramDraftIndex
+        assert engine.pow2_floor is spec.pow2_floor is scheduler.pow2_floor
+        assert engine.InferenceEngine.SPEC_DRAFT == spec.SPEC_DRAFT == 3
+        idx = spec.NgramDraftIndex([1, 2, 3, 1, 2])
+        assert idx.draft(3, 3) == [1, 2, 3]
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print(spec.__file__)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith(os.path.join("distributed_llama_multiusers_tpu_torch",
+                                                  "runtime", "spec.py"))

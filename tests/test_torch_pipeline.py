@@ -179,6 +179,45 @@ def test_engine_pipeline_ring_discipline(loaded):
     engine.decode_pipelined(z, tokens=z)
     assert engine.pipeline_abort() == 1 and not engine.pipeline_active
     assert engine.stats.snapshot()["pipeline_flushes"] == 2
+    # a verify step is an entry of the same ring: it fills it, and each
+    # entry comes back in its own kind ([2, n] rows, or the [n, K + 2] pack)
+    k1 = engine.SPEC_DRAFT + 1
+    drafts = np.zeros((2, k1), np.int64)
+    engine.decode_spec_pipelined(z, drafts, z, tokens=z)
+    engine.decode_pipelined(np.full(2, -1))
+    with pytest.raises(RuntimeError, match="ring full"):
+        engine.decode_spec_pipelined(np.full(2, -1), drafts, z)
+    emitted, n_emit = engine.pipeline_consume()
+    assert emitted.shape == (2, k1) and list(n_emit) == [1, 1]
+    g, s = engine.pipeline_consume()
+    assert g.shape == s.shape == (2,)
+    assert engine.pipeline_flush() == 0
+    snap = engine.stats.snapshot()
+    assert snap["spec_pipelined_steps"] == 1 and snap["pipeline_dispatches"] == 5
+
+
+def test_engine_plain_step_reads_the_carry_a_verify_step_advanced(loaded):
+    """After an in-chain verify step that accepts a lane's drafts, the next
+    plain pipelined step (position -1) runs at pos + accepted + 1, the
+    carried position, and continues the synchronous stream."""
+    config, params, _ = loaded
+    single = _sync_chain(_engine(config, params), 8)
+    engine = _engine(config, params)
+    toks, positions = _prefilled(engine)
+    k1 = engine.SPEC_DRAFT + 1
+    drafts = np.zeros((2, k1), np.int64)
+    drafts[0] = [toks[0]] + list(single[:k1 - 1, 0])  # lane 0: the right drafts
+    engine.decode_spec_pipelined(positions, drafts, np.asarray([k1, 0]), TEMPS, TOPPS, SEEDS,
+                                 tokens=toks)
+    engine.decode_pipelined(np.full(2, -1), TEMPS, TOPPS, SEEDS)
+    emitted, n_emit = engine.pipeline_consume()
+    assert list(n_emit) == [k1, 1]
+    assert list(emitted[0]) == list(single[:k1, 0])
+    assert int(emitted[1, 0]) == single[0, 1]
+    g, s = engine.pipeline_consume()
+    engine.pipeline_flush()
+    assert int(g[0]) == single[k1, 0]  # lane 0 stepped at the carried pos + k1
+    assert int(s[1]) == single[1, 1]  # lane 1 at pos + 1
 
 
 def test_engine_fused_step_matches_unfused(loaded):

@@ -261,6 +261,16 @@ def test_launch_plan_covers_every_block():
             assert (splits - 1) * per < n_blk <= splits * per
 
 
+@pytest.mark.parametrize("d_in,d_out", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                                        (2048, 128256), (64, 6)])
+def test_launch_plan_splits_decode_shapes_alike(d_in, d_out):
+    """Every decode-shaped product (m <= BLOCKDOT_MAX_M: a decode step's m =
+    lanes and a verify step's m = 4 x lanes) takes one k-split plan, so a
+    row's partials sum in one order whatever m is."""
+    plans = {tq.launch_plan(m, d_in, d_out, 132)[1:] for m in range(1, tq.BLOCKDOT_MAX_M + 1)}
+    assert len(plans) == 1
+
+
 @pytest.mark.parametrize("d_out", [6, 520, 1026])
 def test_check_weight_accepts_any_width(d_out):
     """The wrappers take any output width (the card's kernels have a column

@@ -273,3 +273,78 @@ def test_bad_request_and_unknown_route(servers):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(servers["port"] + "/nope", timeout=30)
     assert e.value.code == 404
+
+
+COMPAT_ARGV = ["--model", "m.m", "--tokenizer", "t.t", "--nthreads", "4", "--gpu-index", "0",
+               "--gpu-segments", "0:1", "--net-turbo", "0", "--temperature", "0.7",
+               "--topp", "0.8", "--seed", "42", "--max-seq-len", "64", "--port", "9991"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--no-spec"]])
+def test_jax_command_line_parses_with_both_parsers(extra):
+    """The JAX ``dllama-api`` command line, the reference's compat flags
+    included, parses with the port's parser as with the JAX one (the port
+    ignores the compat flags); --no-spec reaches both."""
+    from distributed_llama_multiusers_tpu.app.args import build_parser as jax_parser
+    from distributed_llama_multiusers_tpu_torch.app.args import build_parser
+
+    argv = COMPAT_ARGV + extra
+    got = build_parser("dllama-api").parse_args(argv)
+    want = jax_parser("dllama-api", api=True).parse_args(argv)
+    for key in ("model", "tokenizer", "nthreads", "gpu_index", "gpu_segments", "net_turbo",
+                "temperature", "topp", "seed", "max_seq_len", "port", "no_spec"):
+        assert getattr(got, key) == getattr(want, key), key
+    assert got.no_spec is bool(extra)
+    help_text = build_parser("dllama-api").format_help()
+    assert "--no-spec" in help_text and "--nthreads" not in help_text
+
+
+@pytest.mark.parametrize("priority,ok", [
+    ("high", True), ("NORMAL", True), (" low ", True), (0, True), (2, True), ("2", False),
+    ("urgent", False), (7, False), ([1], False), ("", False)])
+def test_priority_validated_like_jax(priority, ok):
+    """``priority`` parses to the JAX package's class or raises its
+    ValueError; ``user`` is kept."""
+    from distributed_llama_multiusers_tpu.server.api_types import (
+        InferenceParams as JaxParams,
+    )
+    from distributed_llama_multiusers_tpu_torch.server.api_types import InferenceParams
+
+    body = {"priority": priority, "user": "u1", "max_tokens": 2}
+    if not ok:
+        for cls in (InferenceParams, JaxParams):
+            with pytest.raises(ValueError, match="unknown priority"):
+                cls.from_body(body)
+        return
+    got, want = InferenceParams.from_body(body), JaxParams.from_body(body)
+    assert int(got.priority) == int(want.priority) and got.user == want.user == "u1"
+
+
+@pytest.mark.parametrize("route", ["/v1/completions", "/v1/chat/completions"])
+def test_bad_priority_is_the_jax_servers_400(servers, route):
+    """A bad priority gets the JAX server's typed 400, before admission;
+    a good one is served."""
+    body = {"prompt": "hi", "messages": [{"role": "user", "content": "hi"}],
+            "max_tokens": 2, "temperature": 0}
+    answers = []
+    for base in (servers["port"], servers["jax"]):
+        req = urllib.request.Request(base + route,
+                                     data=json.dumps({**body, "priority": "urgent"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=30)
+        answers.append((e.value.code, json.loads(e.value.read())))
+    assert answers[0] == answers[1] and answers[0][0] == 400
+    status, out = post(servers["port"] + route, {**body, "priority": "low", "user": "u1"})
+    assert status == 200 and out["usage"]["completion_tokens"] >= 1
+
+
+def test_stats_carry_the_spec_counters(servers):
+    """/stats carries the JAX server's speculation keys."""
+    post(servers["port"] + "/v1/completions", {"prompt": "hello world hello world hello",
+                                               "max_tokens": 16, "temperature": 0})
+    _, stats = get(servers["port"] + "/stats")
+    for key in ("spec_steps", "spec_emitted", "spec_lane_steps", "spec_tokens_per_lane_step",
+                "spec_pipelined_steps", "spec_accept_hist"):
+        assert key in stats, key
+    assert stats["spec_steps"] > 0 and stats["spec_tokens_per_lane_step"] >= 1.0
