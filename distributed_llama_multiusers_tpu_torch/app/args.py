@@ -92,6 +92,41 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "products pass 32 rows, where the k-split plan and, "
                         "under the blockdot modes, the kernel change, so a "
                         "stream may part from the --no-spec one at a near-tie")
+    # the JAX server's QoS and observability surface (serving/, telemetry/)
+    p.add_argument("--max-queue", type=int, default=256,
+                   help="serving: max requests waiting for a lane before "
+                        "submissions are shed with HTTP 429 + Retry-After "
+                        "(bounded admission; 0 = unbounded)")
+    p.add_argument("--queue-timeout", type=float, default=0.0,
+                   help="serving: seconds a request may wait queued before "
+                        "finishing with finish_reason=timeout instead of "
+                        "holding the client open (0 disables)")
+    p.add_argument("--request-budget", type=float, default=0.0,
+                   help="serving: wall-clock seconds a request may spend "
+                        "generating after admission; exceeding it finishes "
+                        "with finish_reason=timeout and frees the lane "
+                        "(0 disables)")
+    p.add_argument("--step-deadline", type=float, default=None,
+                   help="serving: failure-containment watchdog — if a "
+                        "blocking engine step makes no progress for this "
+                        "many seconds, trip the circuit breaker (/health "
+                        "503, new work shed) and abort the async chain; a "
+                        "kernel on the card is not cancelled. Default: "
+                        "DLLAMA_STEP_DEADLINE env, else off (0)")
+    p.add_argument("--prefix-min-tokens", type=int, default=None,
+                   help="serving: reuse resident lane KV when a new request "
+                        "shares at least this many leading prompt tokens, in "
+                        "whole prompt chunks of the largest prefill bucket "
+                        "(per-lane prefix cache: the lane's KV is copied and "
+                        "only the tail prefilled, so the stream is a cold "
+                        "prefill's); 0 disables; default: scheduler default "
+                        "(16)")
+    p.add_argument("--trace-path", default=None,
+                   help="serving: write the request-lifecycle span ring as "
+                        "Chrome trace-event JSON (Perfetto / chrome://tracing "
+                        "loadable) to this path when the server drains; the "
+                        "live ring is always at GET /trace and metrics at GET "
+                        "/metrics")
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
     # the JAX package's command line, accepted and ignored: sampling is per

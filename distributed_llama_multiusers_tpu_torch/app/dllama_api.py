@@ -7,7 +7,9 @@ the continuous-batching scheduler.
         [--workers 2 --device cuda:0,cuda:1] [--buffer-float-type q80]
 
 SIGTERM drains: /health flips to 503, new requests shed, in-flight work
-finishes, then the process exits 0.
+finishes, the span ring is written to ``--trace-path`` where given, then
+the process exits 0. ``DLLAMA_FAULTS`` arms the seeded fault plan
+(``utils/faults.py``) when the scheduler starts.
 """
 
 from __future__ import annotations
@@ -59,6 +61,13 @@ def main(argv=None) -> None:
         finally:
             httpd.shutdown()
             httpd.server_close()
+            if args.trace_path:
+                # the drained server's span ring, the document GET /trace served
+                try:
+                    scheduler.telemetry.dump_trace(args.trace_path)
+                    log("⭐", f"Trace written to {args.trace_path}")
+                except OSError as e:
+                    log("⚠️", f"trace dump failed: {e}")
 
 
 if __name__ == "__main__":

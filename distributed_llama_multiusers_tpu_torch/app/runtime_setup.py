@@ -19,6 +19,7 @@ from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
 from ..runtime.engine import warmup_engine
+from ..serving import DeadlinePolicy, QosQueue
 from ..tokenizer import Tokenizer
 from .args import parse_mesh_spec
 
@@ -111,23 +112,34 @@ def load_stack(args, n_lanes: int | None = None):
 
 
 def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
-    """Build the scheduler from the serving flags, warm the engine (builds
-    the kernels, runs each prefill bucket, captures every decode-family
-    graph the scheduler can replay, the verify step's unless --no-spec),
-    zero the kernel counters, then start the loop: from here ``/stats``
-    counts serving launches only."""
+    """Build the scheduler from the serving flags (the JAX package's
+    ``make_scheduler``: a ``QosQueue`` bounded at --max-queue, the deadline
+    policy, the watchdog where --step-deadline or DLLAMA_STEP_DEADLINE is
+    set), warm the engine (builds the kernels, runs each prefill bucket,
+    captures every decode-family graph the scheduler can replay, the
+    verify step's unless --no-spec), zero the kernel counters and mark the
+    graphs warm, then start the loop: from here ``/stats`` counts serving
+    launches only, and a graph captured counts as a compile after warmup."""
     # the scheduler's defaults stand where the CLI names no value
     overrides = {}
-    ms = getattr(args, "multi_step", None)
-    if ms is not None:
-        overrides["multi_step"] = ms
+    for flag, key in (("multi_step", "multi_step"), ("prefix_min_tokens", "prefix_min_tokens"),
+                      ("step_deadline", "step_deadline_s")):
+        v = getattr(args, flag, None)
+        if v is not None:
+            overrides[key] = v
     fp = getattr(args, "fused_prefill", None)
     if fp is not None:
         overrides["fused_prefill"] = fp == "on"
+    max_queue = getattr(args, "max_queue", 0) or 0
+    policy = DeadlinePolicy.from_args(args) if args is not None else DeadlinePolicy()
+    log("🚦", f"QoS: queue capacity {max_queue or 'unbounded'}, queue timeout "
+              f"{policy.queue_timeout_s or 'off'}, request budget "
+              f"{policy.request_budget_s or 'off'}")
     # speculation is on unless --no-spec, as in the JAX package
     sched = ContinuousBatchingScheduler(engine, tokenizer,
                                         speculative=not getattr(args, "no_spec", False),
-                                        **overrides)
+                                        queue_=QosQueue(capacity=max_queue),
+                                        deadlines=policy, **overrides)
     log("⏳", "Warming serving paths (kernel build, prefill buckets, decode graphs)...")
     t0 = time.perf_counter()
     # horizons are captured only where serving can pick one (a pipelining
@@ -143,13 +155,15 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     cuda_attn.reset_counts()
     graphs = engine.graphs
     if graphs is not None:
-        graphs.replays = 0
+        graphs.mark_warm()
     log("⏳", f"Warmup done in {time.perf_counter() - t0:.1f}s"
         + (f" ({len(graphs)} decode graphs captured in {graphs.capture_s:.1f}s)"
            if graphs is not None else ""))
     log("🔁", f"Serving paths: pipeline depth {engine.pipeline_depth}, multi-step "
               f"{sched.multi_step}, fused prefill {'on' if sched.fused_prefill else 'off'}, "
               f"speculation {'on' if sched.speculative else 'off'} (SPEC_DRAFT "
-              f"{engine.SPEC_DRAFT})")
+              f"{engine.SPEC_DRAFT}), prefix cache "
+              f"{sched.prefix_min_tokens or 'off'}, step watchdog "
+              f"{sched.watchdog.deadline_s if sched.watchdog is not None else 'off'}")
     sched.start()
     return sched

@@ -18,7 +18,9 @@ cache, the JAX engine's serving programs.
   own next token emitted, the position carry advanced by each lane's
   count;
 - ``prefill_chunk`` / ``prefill``: a bucketed prompt chunk for ONE lane,
-  on that lane's slice of the cache.
+  on that lane's slice of the cache;
+- ``copy_lane``: one lane's leading KV slots into another's, in place (the
+  scheduler's per-lane prefix cache).
 
 Prompt chunks are padded to the same buckets as the JAX engine, so a chunk
 runs the same product shapes there and here; a chunk's attention reads the
@@ -49,6 +51,11 @@ With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
 KV caches; sampling and the returned logits stay on rank 0's device, so the
 scheduler sees one engine either way.
 
+Every dispatch family and the lagged consume fire the seeded fault plan
+(``utils/faults.py``: ``engine.dispatch``, ``engine.consume``) after their
+argument checks and before any device work; an unarmed process pays one
+global read.
+
 The paged and grammar families are later work, which the ``supports_*``
 flags say to the scheduler.
 """
@@ -69,6 +76,7 @@ from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, llama_forward
 from ..ops.ring_collective import ring_counts
 from ..parallel.sharding import shard_kv_cache
+from ..utils import faults
 from .graphs import StepGraphs
 from .sampling import MASK32, sample_lanes
 from .spec import SPEC_DRAFT, pow2_floor
@@ -133,6 +141,10 @@ class EngineStats:
     # bytes the ring hop moved in the last decode step (a mesh's TP sync and
     # logits gather; 0 off-mesh), counted by the hop, not reckoned
     sync_bytes_per_decode: int = 0
+    # per-lane prefix cache: admissions that copied another lane's KV
+    # prefix, and the prompt tokens they did not prefill
+    prefix_hits: int = 0
+    prefix_tokens_saved: int = 0
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                  compare=False)
 
@@ -474,6 +486,7 @@ class InferenceEngine:
         self._validate_chunk(chunk, start_pos)
         if not 0 <= lane < self.n_lanes:
             raise ValueError(f"lane {lane} out of range")
+        faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         last, greedy, sampled = self._prefill_half(lane, chunk, start_pos, temp, topp, seed)
         toks = torch.stack([greedy, sampled]).to(torch.int32).cpu()
@@ -518,6 +531,7 @@ class InferenceEngine:
         positions = np.asarray(positions, np.int64)
         if positions.min() < 0:
             raise ValueError("decode positions must be >= 0")
+        faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
         self._fill(tokens, positions, temps, topps, seeds)
@@ -548,6 +562,7 @@ class InferenceEngine:
         positions = np.asarray(positions, np.int64)
         if positions.min() < 0:
             raise ValueError("decode positions must be >= 0")
+        faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
         self._fill(tokens, positions, temps, topps, seeds)
@@ -584,6 +599,7 @@ class InferenceEngine:
         if positions.min() < 0:
             raise ValueError("decode positions must be >= 0")
         draft_len = np.asarray(draft_len, np.int64)
+        faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
         self._fill(tokens, positions, temps, topps, seeds)
@@ -705,6 +721,7 @@ class InferenceEngine:
         not-yet-read stop write junk KV above its committed tokens."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_pipelined_dispatch(tokens is not None, positions)
+        faults.fire("engine.dispatch")
         self._enqueue(self._dispatch_step(positions, temps, topps, seeds, tokens))
 
     @torch.inference_mode()
@@ -723,6 +740,7 @@ class InferenceEngine:
         the boundary greedy/sampled pair."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        faults.fire("engine.dispatch")
         self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
                     p_seed, tokens)
 
@@ -768,6 +786,7 @@ class InferenceEngine:
         near seq_len is on the device, from the carried positions."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_spec_pipelined_dispatch(drafts, tokens is not None, positions)
+        faults.fire("engine.dispatch")
         packed = self._dispatch_step(positions, temps, topps, seeds, tokens, drafts, draft_len)
         self._enqueue(packed, kind="spec")
 
@@ -784,6 +803,7 @@ class InferenceEngine:
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_spec_drafts(drafts)
         self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        faults.fire("engine.dispatch")
         self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
                     p_seed, tokens, drafts, draft_len)
 
@@ -796,6 +816,7 @@ class InferenceEngine:
         emitted[-1, :2]. The caller knows which it dispatched."""
         if not self._pl_inflight:
             raise RuntimeError("pipeline ring empty: nothing to consume")
+        faults.fire("engine.consume")
         kind, host, ready, dispatched_at = self._pl_inflight.popleft()
         t0 = time.perf_counter()
         if ready is not None:
@@ -854,7 +875,25 @@ class InferenceEngine:
 
     def reset_lane(self, lane: int) -> None:
         """Nothing to clear: a new request's prefill rewrites the lane from
-        position 0, and reads are masked to s <= pos."""
+        its first unshared position, and reads are masked to s <= pos."""
+
+    @torch.inference_mode()
+    def copy_lane(self, src: int, dst: int, prefix_len: int | None = None) -> None:
+        """Copy lane ``src``'s KV slots [0, prefix_len) (all of them where
+        None) into lane ``dst`` (the per-lane prefix cache: an admission
+        sharing a prompt prefix with tokens resident in ``src`` prefills
+        only its tail). An in-place copy on the stream, one per K and V
+        plane of each rank, into the planes the decode graphs captured:
+        ordered after every step dispatched before it and before every
+        step after it. ``src == dst`` or a zero length moves nothing."""
+        if not (0 <= src < self.n_lanes and 0 <= dst < self.n_lanes):
+            raise ValueError(f"copy_lane({src}, {dst}) outside {self.n_lanes} lanes")
+        n = self.config.seq_len if prefix_len is None else int(prefix_len)
+        if src == dst or n <= 0:
+            return
+        for c in ([self.cache] if self.mesh is None else self.cache):
+            for plane in (c.k, c.v):
+                plane[:, dst, :n].copy_(plane[:, src, :n])
 
 
 def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 0,

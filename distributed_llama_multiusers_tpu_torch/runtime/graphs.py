@@ -20,7 +20,11 @@ stay those of the launches the card ran.
 A key's first step runs its body eagerly and then captures it, so every
 kernel library is loaded before a capture meets it; the capture stream's
 library handles (cuBLAS and its workspace) are made before the first
-capture. Warmup captures keys ahead of their first step: there a family's
+capture. After ``mark_warm`` every new capture counts in
+``captures_after_warmup``: serving replays what warmup captured, and a
+capture mid-serving stalls a step (the JAX package's post-warmup compile
+counter, ``dllama_jit_compiles_total`` on ``/metrics``). Warmup captures
+keys ahead of their first step: there a family's
 body runs once eagerly on the capture stream first, the engine's carried
 buffers are restored after that run, and the run's cache writes are the
 replay's own, so it leaves no trace. A capture that fails raises: there
@@ -75,6 +79,16 @@ class StepGraphs:
         self._stream_ready = False
         self.capture_s = 0.0
         self.replays = 0
+        self._warm_count: int | None = None
+
+    def mark_warm(self) -> None:
+        """Warmup is over: count replays, and captures, from here."""
+        self._warm_count = len(self._graphs)
+        self.replays = 0
+
+    @property
+    def captures_after_warmup(self) -> int:
+        return 0 if self._warm_count is None else len(self._graphs) - self._warm_count
 
     def __len__(self) -> int:
         return len(self._graphs)

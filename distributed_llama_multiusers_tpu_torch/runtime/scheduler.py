@@ -20,16 +20,28 @@ pipelining off, the synchronous verify step and multi-step horizons (up to
 ``multi_step`` chained steps in one dispatch). Every path emits the
 synchronous plain path's token streams; stops, EOS and cancels found a
 step (or a horizon, or a verify window) late discard the overshoot, whose
-junk KV lies above the committed tokens. Grammar, paged KV, the QoS queue,
-circuit breaker, watchdog, journal, telemetry and prefix cache are later
-work.
+junk KV lies above the committed tokens.
+
+Around the loop sit the JAX scheduler's always-on multi-user layers
+(``serving/``, ``telemetry/``): a ``QosQueue`` (bounded admission,
+priority classes, per-user deficit-round-robin fair share, which also
+orders the lanes claimed inside the live chain), queue-wait and generation
+deadlines, graceful drain, a circuit breaker fed by failure containment
+(an engine raise fails the lanes it hit, aborts the chain and the loop
+serves on; ``/health`` turns 503 while the breaker is open), an optional
+step watchdog, request-lifecycle telemetry (stamped on the host, never in
+the pipelined dispatch half and never reading a tensor), and the per-lane
+prefix cache (an admission whose prompt shares whole prompt chunks with
+the prompt KV resident in some lane copies that lane's KV,
+``engine.copy_lane``, and prefills only the tail; ``_start_request`` says
+what it reuses). The request journal and recovery, grammar and paged KV
+are later work.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
-import queue
 import threading
 import time
 from collections import deque
@@ -40,19 +52,45 @@ from typing import Callable
 
 import numpy as np
 
+from ..serving import (
+    AdmissionRejected,
+    CircuitBreaker,
+    DeadlinePolicy,
+    Priority,
+    QosQueue,
+    StepWatchdog,
+    budget_expired,
+    drain_scheduler,
+    queue_expired,
+)
+from ..serving.watchdog import deadline_from_env
+from ..telemetry import Telemetry
 from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
+from ..utils import faults
 from .engine import DEFAULT_TOPP
 from .spec import NgramDraftIndex, pow2_floor
 
 
-class AdmissionRejected(RuntimeError):
-    """A request shed before it took a lane (the server is draining)."""
+class EngineFailure(RuntimeError):
+    """Engine-scoped serving failure, resolved onto a request's future by
+    the containment layer. Carries the ``request_id`` so the HTTP 500 body
+    or the terminal SSE error chunk can name it."""
 
-    def __init__(self, reason: str, retry_after_s: float = 5.0):
-        self.reason = reason
-        self.retry_after_s = retry_after_s
-        self.http_status = 503
-        super().__init__(f"request rejected: {reason}")
+    def __init__(self, message: str, request_id: int | None = None):
+        self.request_id = request_id
+        super().__init__(message)
+
+
+def classify_failure(e: BaseException) -> str:
+    """The supervised loop's rule (the JAX scheduler's): ``"request"`` for
+    per-request input errors (the ``ValueError`` family: tokenization,
+    empty prompts, chunk validation; and ``AdmissionRejected``, which is
+    load, not failure), which fail only that request; ``"engine"`` for
+    everything a dispatch or consume can raise (CUDA errors, injected
+    faults), which the containment layer handles."""
+    if isinstance(e, AdmissionRejected):
+        return "request"
+    return "request" if isinstance(e, ValueError) else "engine"
 
 
 class RequestState(Enum):
@@ -89,6 +127,15 @@ class Request:
     stop: list[str] = field(default_factory=list)
     add_bos: bool = True
     add_special_tokens: bool = True
+    # QoS identity (serving/qos.py): fair-share key and admission class
+    user_id: str = ""
+    priority: int = Priority.NORMAL
+    # per-request deadline overrides (serving/deadlines.py); None = policy
+    queue_timeout_s: float | None = None
+    budget_s: float | None = None
+    # trace context (telemetry/tracectx.py), "tid-sid" wire form, from the
+    # X-DLlama-Trace header: every span of this request carries its trace id
+    trace: str | None = None
     id: int = field(default_factory=_next_request_id)
     state: RequestState = RequestState.QUEUED
     future: Future = field(default_factory=Future)
@@ -98,11 +145,14 @@ class Request:
     generated_tokens: list[int] = field(default_factory=list)
     n_prompt_tokens: int = 0
     error: str | None = None
-    finish_reason: str | None = None  # "stop" | "length" | "cancelled" | "error"
-    submitted_at: float | None = None  # monotonic
-    admitted_at: float | None = None
-    first_token_at: float | None = None
-    finished_at: float | None = None
+    # "stop" | "length" | "cancelled" | "timeout" | "error"
+    finish_reason: str | None = None
+    submitted_at: float | None = None  # monotonic, stamped by submit()/push()
+    admitted_at: float | None = None  # monotonic, stamped at lane claim
+    # telemetry: the per-request latency record attached at submit, and
+    # the summary (ttft_s, tbt p50/p95, queued_s, phases, ...) made at the
+    # end, served with the response and logged as one JSON line
+    tel: object = None
     summary: dict | None = None
     _cancelled: threading.Event = field(default_factory=threading.Event)
 
@@ -112,36 +162,13 @@ class Request:
         self._cancelled.set()
 
 
-class RequestQueue:
-    """Thread-safe FIFO handoff."""
-
-    def __init__(self):
-        self._q: "queue.Queue[Request]" = queue.Queue()
-
-    def push(self, request: Request) -> None:
-        self._q.put(request)
-
-    def pop(self, timeout: float | None = None) -> Request | None:
-        try:
-            if timeout:
-                return self._q.get(timeout=timeout)
-            return self._q.get_nowait()
-        except queue.Empty:
-            return None
-
-    def empty(self) -> bool:
-        return self._q.empty()
-
-    def depth(self) -> int:
-        return self._q.qsize()
-
-    def drain(self) -> list[Request]:
-        out = []
-        while True:
-            try:
-                out.append(self._q.get_nowait())
-            except queue.Empty:
-                return out
+def _common_prefix_len(a, b) -> int:
+    """Length of the longest common leading run of two token lists."""
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
 
 
 @dataclass
@@ -157,26 +184,13 @@ class _Lane:
     drafter: NgramDraftIndex = field(default_factory=NgramDraftIndex)
 
 
-def _summary(req: Request) -> dict:
-    """Per-request latency record served with the response."""
-    end = req.finished_at or time.monotonic()
-    out = {"n_tokens": len(req.generated_tokens)}
-    if req.submitted_at is not None:
-        out["total_s"] = round(end - req.submitted_at, 6)
-        if req.admitted_at is not None:
-            out["queued_s"] = round(req.admitted_at - req.submitted_at, 6)
-        if req.first_token_at is not None:
-            out["ttft_s"] = round(req.first_token_at - req.submitted_at, 6)
-            n = len(req.generated_tokens)
-            if n > 1 and end > req.first_token_at:
-                out["decode_tok_s"] = round((n - 1) / (end - req.first_token_at), 3)
-    return out
-
-
 class ContinuousBatchingScheduler:
-    def __init__(self, engine, tokenizer: Tokenizer, queue_: RequestQueue | None = None,
+    def __init__(self, engine, tokenizer: Tokenizer, queue_: QosQueue | None = None,
                  eos_padding: tuple[int, int] = (2, 2), multi_step: int = 8,
-                 fused_prefill: bool = True, speculative: bool = True):
+                 fused_prefill: bool = True, speculative: bool = True,
+                 prefix_min_tokens: int = 16, deadlines: DeadlinePolicy | None = None,
+                 telemetry: Telemetry | None = None, breaker: CircuitBreaker | None = None,
+                 step_deadline_s: float | None = None):
         """``speculative``: prompt-lookup speculative decoding of greedy
         lanes, wherever the engine has the verify families (inside the
         pipelined chain, else the synchronous verify step); False turns it
@@ -189,30 +203,91 @@ class ContinuousBatchingScheduler:
         the live chain and their chunks ride fused prefill+decode
         dispatches; off, an admission exits the chain to the synchronous
         admit+prefill path. Streams are the synchronous path's on every
-        path."""
+        path.
+
+        The JAX scheduler's serving layers, with its defaults:
+        ``queue_`` (default an unbounded ``QosQueue``; the server passes one
+        bounded at ``--max-queue``); ``prefix_min_tokens``: an admission
+        whose prompt shares at least this many leading tokens, in whole
+        prompt chunks, with the prompt KV resident in some lane (finished
+        lanes included: their KV stays until overwritten) copies that
+        lane's KV and prefills only the tail (``_start_request``), 0
+        disables; ``deadlines``: the server-wide queue-wait timeout
+        and generation budget (off by default; per-request overrides
+        apply either way); ``telemetry``: the span tracer, metrics and
+        JSON logger hub (a default one is built); ``breaker``: the circuit
+        breaker the containment layer feeds (a default one is built);
+        ``step_deadline_s``: the step watchdog's deadline, None reads
+        ``DLLAMA_STEP_DEADLINE``, 0 disables (a trip never ends the
+        process: the port has no multi-process mesh)."""
         self.engine = engine
         self.tokenizer = tokenizer
-        self.queue = queue_ or RequestQueue()
+        self.queue = queue_ if queue_ is not None else QosQueue()
+        self.deadlines = deadlines or DeadlinePolicy()
+        self.telemetry = telemetry or Telemetry()
+        # the queue-wait histogram takes the queue's own pop-time waits, so
+        # its count reconciles with queue_popped
+        self.queue.set_wait_observer(self.telemetry.queue_wait.observe)
         self.eos_padding = eos_padding
         self.multi_step = multi_step
         self.fused_prefill = fused_prefill
         self.speculative = speculative
+        self.prefix_min_tokens = prefix_min_tokens
         self._lanes = [_Lane() for _ in range(engine.n_lanes)]
+        # the prompt tokens whose KV each lane holds at slots [0, len),
+        # written by prompt chunks (or copied from such): kept after a
+        # request finishes (the KV stays), reset when a request claims the
+        # lane, discarded after a failed step
+        self._lane_kv: list[list[int]] = [[] for _ in range(engine.n_lanes)]
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._thread: threading.Thread | None = None
         self._chat_stops = TokenizerChatStops(tokenizer)
         self._prefill_rr = 0  # round-robin cursor over admitting lanes
+        self.breaker = breaker or CircuitBreaker()
+        deadline = deadline_from_env(step_deadline_s)
+        self.watchdog = (StepWatchdog(deadline, on_trip=self._on_watchdog_trip)
+                         if deadline > 0 else None)
+        # watchdog -> loop: abort the pipelined chain at the next host-side
+        # opportunity (a slow step returns eventually; the chain must not
+        # keep extending behind it)
+        self._wd_abort = threading.Event()
+        # loop-thread counters read by /stats: containment rounds and
+        # deadline expiries
         self.engine_failures = 0
+        self.queue_timeouts = 0
+        self.budget_timeouts = 0
+        self._last_sweep = 0.0
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
         self._stop.clear()
         self._draining.clear()
+        self._wd_abort.clear()
+        # DLLAMA_FAULTS arms the process-wide fault plan (utils/faults.py)
+        faults.maybe_arm_from_env()
+        if self.watchdog is not None:
+            self.watchdog.start()
         self._thread = threading.Thread(target=self._run, name="batching-loop",
                                         daemon=True)
         self._thread.start()
+        engine = self.engine
+        self.telemetry.startup_log(
+            "scheduler_start",
+            n_lanes=engine.n_lanes,
+            pipeline_depth=getattr(engine, "pipeline_depth", 0),
+            fused_prefill=self._fused_ok(),
+            multi_step=self.multi_step,
+            speculative=self.speculative,
+            prefix_min_tokens=self.prefix_min_tokens,
+            queue_capacity=self.queue.capacity,
+            queue_timeout_s=self.deadlines.queue_timeout_s,
+            request_budget_s=self.deadlines.request_budget_s,
+            breaker_threshold=self.breaker.threshold,
+            step_deadline_s=self.watchdog.deadline_s if self.watchdog is not None else 0,
+            faults_armed=faults.armed(),
+        )
 
     def stop(self) -> None:
         self._stop.set()
@@ -222,19 +297,15 @@ class ContinuousBatchingScheduler:
             if thread.is_alive():
                 raise RuntimeError("batching loop failed to stop within 30s")
             self._thread = None
+        if self.watchdog is not None:
+            self.watchdog.stop()
 
     def drain(self, timeout: float | None = None) -> bool:
-        """Stop admitting (submit sheds, /health 503), let queued and active
-        work finish, then join the loop; past ``timeout`` the rest is
-        cancelled. Returns True on a clean drain."""
-        self._draining.set()
-        thread = self._thread
-        clean = True
-        if thread is not None:
-            thread.join(timeout=timeout)
-            clean = not thread.is_alive()
-        self.stop()
-        return clean
+        """Graceful shutdown (serving/drain.py): stop admitting (submit
+        sheds with AdmissionRejected("draining"), /health 503), let queued
+        and active work finish or hit its deadline, then join the loop;
+        past ``timeout`` the rest is cancelled. True on a clean drain."""
+        return drain_scheduler(self, timeout)
 
     @property
     def draining(self) -> bool:
@@ -242,49 +313,156 @@ class ContinuousBatchingScheduler:
 
     def submit(self, request: Request) -> Request:
         if self._draining.is_set():
-            raise AdmissionRejected("draining", retry_after_s=5.0)
+            self._shed_draining()
+        if not self.breaker.allow():
+            # an open circuit sheds before the queue: a broken engine gives
+            # fast 503s with Retry-After, not a backlog (half-open probes
+            # pass through here)
+            self.queue.note_rejection("breaker_open")
+            raise AdmissionRejected("breaker_open",
+                                    retry_after_s=self.breaker.retry_after_s())
         if request.submitted_at is None:
             request.submitted_at = time.monotonic()
-        self.queue.push(request)
+        # the lifecycle record before the push: the loop may admit the
+        # request before push() returns
+        self.telemetry.on_submit(request)
+        try:
+            self.queue.push(request)
+        except AdmissionRejected:
+            request.submitted_at = None  # never entered the queue
+            raise
+        if self._draining.is_set():
+            # raced with drain(): pull it back out and shed, unless the
+            # loop already popped it (then it is served)
+            if self.queue.remove_if(lambda r: r is request):
+                request.submitted_at = None
+                self._shed_draining()
         return request
+
+    def _shed_draining(self) -> None:
+        self.queue.note_rejection("draining")
+        raise AdmissionRejected("draining", retry_after_s=5.0)
 
     def occupancy(self) -> tuple[int, int]:
         """(busy lanes, total lanes)."""
         return sum(1 for l in self._lanes if l.request is not None), len(self._lanes)
 
+    def qos_stats(self) -> dict:
+        """The JAX scheduler's QoS fields for /stats: drain state, deadline
+        expiries, containment rounds, the breaker's and the watchdog's
+        state, and the queue's depth, wait and rejection counters."""
+        out = {
+            "draining": self.draining,
+            "queue_timeouts": self.queue_timeouts,
+            "budget_timeouts": self.budget_timeouts,
+            "engine_failure_rounds": self.engine_failures,
+        }
+        out.update(self.breaker.stats())
+        if self.watchdog is not None:
+            out.update(self.watchdog.stats())
+        out.update(self.queue.stats())
+        return out
+
+    def _on_watchdog_trip(self, waited_s: float) -> None:
+        """Watchdog callback (on the watchdog thread): a step made no
+        progress within the deadline. Trip the breaker (/health 503, new
+        work sheds) and flag the pipelined chain to abort at its next
+        host-side opportunity. A kernel on the card cannot be cancelled;
+        the blocked step returns when it returns."""
+        self.breaker.trip(f"watchdog: no step progress within {waited_s:.1f}s")
+        self._wd_abort.set()
+        self.telemetry.on_watchdog_trip(waited_s, fatal=False)
+
     # -- internals ----------------------------------------------------------
 
-    def _fail_request(self, lane_idx: int | None, req: Request, error: str,
+    def _resolve_unadmitted(self, req: Request, reason: str) -> None:
+        """Finish a request that never claimed a lane (queue timeout, cancel
+        while queued): empty text, typed finish_reason."""
+        req.state = RequestState.DONE
+        req.finish_reason = reason
+        self.telemetry.on_unadmitted(req, reason)
+        if not req.future.done():
+            req.future.set_result(req.generated_text)
+
+    def _shed_unadmitted(self, req: Request) -> None:
+        """Fail a request the drain flushed before it claimed a lane: a
+        retryable 503 (AdmissionRejected), not an empty answer."""
+        req.state = RequestState.FAILED
+        req.finish_reason = "cancelled"
+        self.telemetry.on_unadmitted(req, "shed")
+        if not req.future.done():
+            req.future.set_exception(AdmissionRejected("draining", retry_after_s=5.0))
+
+    def _fail_request(self, lane_idx: int, req: Request, error: str,
                       exc: BaseException | None = None) -> None:
+        """Fail ONE request with finish_reason "error" and reclaim its lane.
+        The lane's resident-KV map is discarded: after a failed step its
+        cache holds unknown contents, which prefix reuse must never read.
+        The future carries ``exc`` (a tokenizer ValueError maps to a 400)
+        or an EngineFailure naming the request."""
         req.state = RequestState.FAILED
         req.error = error
         req.finish_reason = "error"
-        req.finished_at = time.monotonic()
-        if lane_idx is not None:
-            self._lanes[lane_idx] = _Lane()
+        self._lanes[lane_idx] = _Lane()
+        self._lane_kv[lane_idx] = []
+        try:
             self.engine.reset_lane(lane_idx)
+        except Exception:  # noqa: BLE001 — containment must not throw
+            pass
+        self.telemetry.on_error(req, lane_idx, error)
         if not req.future.done():
-            req.future.set_exception(exc if exc is not None else RuntimeError(error))
+            req.future.set_exception(exc if exc is not None
+                                     else EngineFailure(error, request_id=req.id))
 
     def _free_lanes(self) -> list[int]:
         return [i for i, l in enumerate(self._lanes) if l.request is None]
 
+    def _sweep_queue(self, now: float) -> None:
+        """Resolve queued requests that expired or were cancelled while
+        waiting, so a saturated server (no lane frees, nothing pops) still
+        times out its backlog. Throttled to ~20 Hz: the walk holds the
+        queue lock for O(depth)."""
+        if self.queue.empty() or now - self._last_sweep < 0.05:
+            return
+        self._last_sweep = now
+        for req in self.queue.remove_if(lambda r: r._cancelled.is_set()
+                                        or queue_expired(r, self.deadlines, now)):
+            if req._cancelled.is_set():
+                self._resolve_unadmitted(req, "cancelled")
+            else:
+                self.queue_timeouts += 1
+                self._resolve_unadmitted(req, "timeout")
+
     def _claim_next(self, free: list[int], wait_s: float = 0.0):
-        """Pop one request into the first free lane: its index, -1 when the
-        popped request resolved without a lane (cancelled, or it failed
-        tokenization), None when the queue is empty."""
+        """Pop one request (the queue's order: priority, then per-user
+        fair share) into the first free lane: its index, -1 when the
+        popped request resolved without a lane (cancelled, expired, or it
+        failed tokenization), None when the queue is empty. The shared
+        body of the synchronous admit and the in-chain claim."""
         req = self.queue.pop(timeout=wait_s)
         if req is None:
             return None
+        now = time.monotonic()
         if req._cancelled.is_set():
             self._resolve_unadmitted(req, "cancelled")
             return -1
-        req.admitted_at = time.monotonic()
+        if queue_expired(req, self.deadlines, now):
+            self.queue_timeouts += 1
+            self._resolve_unadmitted(req, "timeout")
+            return -1
+        req.admitted_at = now
         lane_idx = free.pop(0)
+        self.telemetry.on_admit(req, lane_idx)
         try:
             self._start_request(lane_idx, req)
-        except Exception as e:  # tokenization/validation: this request only
+        except Exception as e:
+            # tokenization/validation fails this request only; a raise of
+            # the prefix copy (a device op) fails it too, then goes to the
+            # containment boundary
             self._fail_request(lane_idx, req, str(e), exc=e)
+            if classify_failure(e) == "engine":
+                raise
+            self.breaker.record_request_failure()
             return -1
         return lane_idx
 
@@ -295,15 +473,26 @@ class ContinuousBatchingScheduler:
                 return
             wait_s = 0.0  # only the first pop may park; the rest are polls
 
-    def _resolve_unadmitted(self, req: Request, reason: str) -> None:
-        req.state = RequestState.DONE
-        req.finish_reason = reason
-        if not req.future.done():
-            req.future.set_result(req.generated_text)
-
     def _start_request(self, lane_idx: int, req: Request) -> None:
         """Tokenize and claim a lane; the prompt runs one bucket per loop
-        iteration in ``_prefill_step``."""
+        iteration in ``_prefill_step`` (or the fused dispatches).
+
+        The prefix cache reuses whole prompt chunks: a prompt whose first
+        ``start`` tokens, ``start`` a multiple of the largest prefill
+        bucket (``engine.max_chunk()``) and at least ``prefix_min_tokens``,
+        equal the prompt KV resident in some lane starts at ``start``:
+        that lane's slots [0, start) are copied in (``engine.copy_lane``;
+        a no-op from the lane itself) and the tail is prefilled. The tail
+        then runs the very chunks a cold prefill of this prompt runs, and
+        the copied slots hold the bits a cold prefill writes (prompt
+        chunks of the same tokens, shapes and positions), so the stream is
+        the cold one's in every dequant mode. The JAX scheduler reuses the
+        whole common prefix, generated tokens included; on the card a
+        tail chunk of another shape runs other products (another k-split
+        plan, under ``auto`` another kernel with Q80 activations) and its
+        greedy stream can part from the cold one (PERF.md §7). At least
+        one token is left to prefill, whose logits pick the first
+        generated token."""
         req.state = RequestState.PROMPT_PROCESSING
         tokens = self.tokenizer.encode(
             req.prompt, add_bos=req.add_bos, add_special_tokens=req.add_special_tokens
@@ -316,10 +505,29 @@ class ContinuousBatchingScheduler:
             tokens = (tokens[-(max_ctx - req.max_tokens - 1):]
                       if max_ctx > req.max_tokens + 1 else tokens[-max_ctx + 1:])
         req.n_prompt_tokens = len(tokens)
+        start = 0
+        if self.prefix_min_tokens > 0 and getattr(self.engine, "copy_lane", None) is not None:
+            best_lane, best_lcp = -1, 0
+            for j, kv in enumerate(self._lane_kv):
+                if kv:  # an empty map: a never-used lane or a failed one
+                    lcp = _common_prefix_len(tokens, kv)
+                    if lcp > best_lcp:
+                        best_lane, best_lcp = j, lcp
+            best_lcp = min(best_lcp, len(tokens) - 1)  # >= 1 token to prefill
+            best_lcp -= best_lcp % self.engine.max_chunk()  # whole chunks
+            if best_lcp > 0 and best_lcp >= self.prefix_min_tokens:
+                self.engine.copy_lane(best_lane, lane_idx, prefix_len=best_lcp)
+                start = best_lcp
+        if start > 0:
+            self.telemetry.on_prefix_hit(req, start)
+            with self.engine.stats.lock:
+                self.engine.stats.prefix_hits += 1
+                self.engine.stats.prefix_tokens_saved += start
+        self._lane_kv[lane_idx] = list(tokens[:start])
         lane = self._lanes[lane_idx]
         lane.request = req
-        lane.pos = 0
-        lane.pending = list(tokens)
+        lane.pos = start
+        lane.pending = list(tokens[start:])
         lane.drafter = NgramDraftIndex(tokens)  # seeded with the prompt
         lane.seed = (req.seed if req.seed is not None else fresh_seed()) & 0xFFFFFFFF
         stops = list(req.stop) or self._chat_stops.stops
@@ -340,16 +548,31 @@ class ContinuousBatchingScheduler:
         lane = self._lanes[lane_idx]
         req = lane.request
         chunk = lane.pending[: self.engine.max_chunk()]
+        t_chunk = time.perf_counter()
+        wd = self.watchdog
+        if wd is not None:
+            wd.begin_step()
         try:
             _, greedy, sampled = self.engine.prefill_chunk(
                 lane_idx, chunk, lane.pos, temp=req.temperature, topp=req.topp,
                 seed=lane.seed,
             )
-        except ValueError as e:  # chunk validation: this request only
+        except Exception as e:
+            # an engine raise goes to the containment boundary (which fails
+            # this lane too); chunk validation fails this request only
+            if classify_failure(e) == "engine":
+                raise
             self._fail_request(lane_idx, req, str(e), exc=e)
+            self.breaker.record_request_failure()
             return True
+        finally:
+            if wd is not None:
+                wd.step_done()
+        self.breaker.record_success()
+        self.telemetry.on_prefill_chunk(req, lane_idx, t_chunk, len(chunk))
         lane.pos += len(chunk)
         lane.pending = lane.pending[len(chunk):]
+        self._lane_kv[lane_idx].extend(chunk)  # committed: prefix-cacheable
         if lane.pending:
             return True
         lane.next_token = int(greedy) if req.temperature == 0.0 else int(sampled)
@@ -366,12 +589,13 @@ class ContinuousBatchingScheduler:
             return self._consume_inner(lane_idx, lane, req, tok)
         except Exception as e:  # noqa: BLE001 — request-scoped host work
             self._fail_request(lane_idx, req, str(e), exc=e)
+            self.breaker.record_request_failure()
             return False
 
     def _consume_inner(self, lane_idx: int, lane: _Lane, req: Request, tok: int) -> bool:
         req.generated_tokens.append(tok)
-        if req.first_token_at is None:
-            req.first_token_at = time.monotonic()
+        # first token: TTFT; later ones: the inter-token gap
+        self.telemetry.on_token(req)
         lane.drafter.append(tok)
         piece = lane.decoder.decode(tok)
         result = lane.eos.append(tok, piece)
@@ -403,40 +627,68 @@ class ContinuousBatchingScheduler:
                 req.on_delta(delta)
         self._lanes[lane_idx] = _Lane()
         self.engine.reset_lane(lane_idx)
-        req.finished_at = time.monotonic()
-        req.summary = _summary(req)
+        # summary, spans and the log line before the future resolves: the
+        # HTTP thread reads req.summary the moment result() returns
+        self.telemetry.on_finish(req, lane_idx, reason)
         if not req.future.done():
             req.future.set_result(req.generated_text)
 
     def _run(self) -> None:
         """The serving loop inside a containment boundary: an engine
-        exception fails the requests on lanes and the loop keeps serving;
-        on exit every lane and queued request resolves."""
+        exception is contained (``_contain_engine_failure``) and the loop
+        keeps serving behind the circuit breaker; on exit, even a fatal
+        one, every lane and queued request resolves."""
         try:
             while True:
                 try:
                     self._serve_loop()
                     break
                 except Exception as e:  # noqa: BLE001 — containment boundary
-                    self.engine_failures += 1
-                    err = f"{type(e).__name__}: {e}"
-                    # the chain's in-flight steps and carry go with it
-                    self.engine.pipeline_abort()
-                    for i, lane in enumerate(self._lanes):
-                        if lane.request is not None:
-                            self._fail_request(i, lane.request, err)
+                    self._contain_engine_failure(e)
                     if self._stop.is_set():
                         break
         finally:
-            for i, lane in enumerate(self._lanes):
-                if lane.request is not None:
-                    self._finish(i, lane.request, reason="cancelled")
-            for req in self.queue.drain():
+            self._resolve_exit()
+
+    def _contain_engine_failure(self, e: BaseException) -> None:
+        """Engine-scoped containment: count the failure (the breaker's
+        streak), abort the pipeline ring without reading it back, fail
+        every occupied lane with finish_reason "error" (their KV maps are
+        discarded) and leave the lanes fresh. The abort drops the host's
+        in-flight records and the carry flag only: the decode graphs'
+        static inputs, carry buffers and KV planes stay where they were
+        captured, so the next chain reseeds from host tokens and replays
+        the same graphs. Never raises."""
+        err = f"{type(e).__name__}: {e}"
+        self.engine_failures += 1
+        state = self.breaker.record_engine_failure(err)
+        busy = [(i, l.request) for i, l in enumerate(self._lanes) if l.request is not None]
+        self.telemetry.on_engine_failure(err, lanes_failed=len(busy), breaker_state=state)
+        try:
+            self.engine.pipeline_abort()
+        except Exception:  # noqa: BLE001 — containment must not throw
+            pass
+        for i, req in busy:
+            try:
+                self._fail_request(i, req, err)
+            except Exception:  # noqa: BLE001 — containment must not throw
+                pass
+
+    def _resolve_exit(self) -> None:
+        """stop()/drain() cleanup: in-flight lanes resolve as cancelled,
+        queued requests are shed (drain) or failed (stop)."""
+        for i, lane in enumerate(self._lanes):
+            if lane.request is not None:
+                self._finish(i, lane.request, reason="cancelled")
+        draining = self._draining.is_set()
+        for req in self.queue.drain():
+            if draining:
+                self._shed_unadmitted(req)
+            else:
                 req.state = RequestState.FAILED
+                self.telemetry.on_error(req, None, "scheduler stopped")
                 if not req.future.done():
-                    req.future.set_exception(
-                        AdmissionRejected("draining") if self._draining.is_set()
-                        else RuntimeError("scheduler stopped"))
+                    req.future.set_exception(RuntimeError("scheduler stopped"))
 
     # -- path choice (the JAX scheduler's) -----------------------------------
 
@@ -539,6 +791,7 @@ class ContinuousBatchingScheduler:
                 break
             if claimed >= 0:
                 admitting[claimed] = self._lanes[claimed]
+                self.telemetry.on_fused_admit(self._lanes[claimed].request)
         if stalled:
             with self.engine.stats.lock:
                 self.engine.stats.admission_stall_s += time.perf_counter() - t0
@@ -617,6 +870,7 @@ class ContinuousBatchingScheduler:
                                              seeds, **prompt)
         lane.pos += len(chunk)
         lane.pending = lane.pending[len(chunk):]
+        self._lane_kv[target].extend(chunk)  # committed: prefix-cacheable
         return (target, lane, not lane.pending, len(chunk)), spec_drafted
 
     def _commit_window(self, i: int, lane: _Lane, emitted, cnt: int, drafted: bool) -> bool:
@@ -643,25 +897,43 @@ class ContinuousBatchingScheduler:
 
     def _pipeline_consume(self, live: dict, entry: tuple) -> None:
         """Consume half, one step behind: read the oldest step back and do
-        the synchronous loop's host work (stream decode, EOS/stop, cancel).
-        ``entry`` is ``(step_lanes, fused, spec_drafted)`` recorded at
-        dispatch time: a column whose lane finished at an earlier step, or
+        the synchronous loop's host work (stream decode, EOS/stop, cancel,
+        budget expiry). ``entry`` is ``(step_lanes, fused, t_dispatch,
+        spec_drafted)`` recorded at dispatch time: a column whose lane
+        finished at an earlier step, or
         whose lane a new request reclaimed meanwhile, is junk and skipped.
         A fused step's extra column (row, for a verify pack) carries its
         chunk's boundary pair; on the final chunk that is the request's
         first generated token. ``spec_drafted`` (None for a plain step)
         marks a verify step: each live lane commits a window of its own
         length, and drafted lanes add their device accept count to the
-        histogram."""
-        out_a, out_b = self.engine.pipeline_consume()
-        step_lanes, fused, spec_drafted = entry
+        histogram. The step's trace slice (dispatch to this readback) is
+        stamped here, so the dispatch half stays free of telemetry."""
+        wd = self.watchdog
+        if wd is not None:
+            wd.begin_step()
+        try:
+            out_a, out_b = self.engine.pipeline_consume()
+        finally:
+            if wd is not None:
+                wd.step_done()
+        self.breaker.record_success()
+        now = time.monotonic()
+        step_lanes, fused, t_dispatch, spec_drafted = entry
         is_spec = spec_drafted is not None
+        self.telemetry.on_pipelined_step(
+            t_dispatch, fused, kind="spec_pipelined" if is_spec else "pipelined")
         for i, lane in step_lanes:
             if live.get(i) is not lane:
                 continue
             req = lane.request
             if req._cancelled.is_set():
                 self._finish(i, req, reason="cancelled")
+                live.pop(i)
+                continue
+            if budget_expired(req, self.deadlines, now):
+                self.budget_timeouts += 1
+                self._finish(i, req, reason="timeout")
                 live.pop(i)
                 continue
             if is_spec:
@@ -699,11 +971,13 @@ class ContinuousBatchingScheduler:
         history drafts ships its candidates with a dispatch, probed only
         where the ring lag is at most 1 with no other verify step in
         flight (past that the host's carry candidate cannot line up).
-        Exits by draining the in-flight steps through the consume path when
-        stop() is set, an admission arrives with fused prefill off, a draft
-        hit on an engine without the in-chain verify family, or every lane
-        finished; an exit with lanes still live counts as a pipeline
-        flush."""
+        Queued requests' cancels and expiries are swept, and admitting
+        lanes' budgets checked, on the host between steps. Exits by
+        draining the in-flight steps through the consume path when stop()
+        is set, the watchdog tripped, an admission arrives with fused
+        prefill off, a draft hit on an engine without the in-chain verify
+        family, or every lane finished; an exit with lanes still live
+        counts as a pipeline flush."""
         engine = self.engine
         depth = max(2, int(getattr(engine, "pipeline_depth", 2)))
         fused = self._fused_ok()
@@ -713,20 +987,34 @@ class ContinuousBatchingScheduler:
         if fused:
             admitting = {i: l for i, l in enumerate(self._lanes)
                          if l.request is not None and l.pending and i not in live}
+            for lane in admitting.values():
+                # synchronously admitted, its remaining chunks ride the chain
+                self.telemetry.on_fused_admit(lane.request)
         feed = np.zeros(engine.n_lanes, np.int64)
         for i, lane in live.items():
             feed[i] = lane.next_token
-        # (live lanes, fused info, spec-drafted lanes) per dispatch
+        # (live lanes, fused info, dispatch stamp, spec-drafted lanes) per
+        # dispatch
         meta: deque = deque()
         host_feed = True  # the first dispatch reseeds the chain
         dispatched_any = False
         probe_drafts = False  # the entry gates just probed the drafters
         while True:
-            # an admitting request cancelled mid-prompt: stop streaming its
-            # chunks (the in-flight ones write junk-safe KV)
-            for i in [j for j, l in admitting.items() if l.request._cancelled.is_set()]:
-                self._finish(i, admitting.pop(i).request, reason="cancelled")
-            flush = self._stop.is_set() or (not live and not admitting)
+            now = time.monotonic()
+            self._sweep_queue(now)
+            # an admitting request cancelled or expired mid-prompt: stop
+            # streaming its chunks (the in-flight ones write junk-safe KV)
+            for i in [j for j, l in admitting.items()
+                      if l.request._cancelled.is_set()
+                      or budget_expired(l.request, self.deadlines, now)]:
+                req = admitting.pop(i).request
+                if req._cancelled.is_set():
+                    self._finish(i, req, reason="cancelled")
+                else:
+                    self.budget_timeouts += 1
+                    self._finish(i, req, reason="timeout")
+            flush = (self._stop.is_set() or self._wd_abort.is_set()
+                     or (not live and not admitting))
             if not flush and not self.queue.empty():
                 if fused:
                     self._claim_admissions(admitting)
@@ -738,13 +1026,16 @@ class ContinuousBatchingScheduler:
                 flush = self._drafts_pending(live)
             probe_drafts = True
             while not flush and engine.pipeline_inflight() < depth:
+                # the dispatch stamp is taken here; the consume half pairs
+                # it with the readback into the step's trace slice
+                t_d = time.perf_counter()
                 spec_ok = (spec_chain and engine.pipeline_inflight() <= 1
-                           and not any(m[2] is not None for m in meta))
+                           and not any(m[3] is not None for m in meta))
                 fused_info, spec_drafted = self._pipeline_dispatch(
                     live, admitting, feed if host_feed else None, spec_ok)
                 host_feed = False
                 dispatched_any = True
-                meta.append((tuple(live.items()), fused_info, spec_drafted))
+                meta.append((tuple(live.items()), fused_info, t_d, spec_drafted))
                 if fused_info is not None and fused_info[2]:
                     # final chunk out: the lane decodes from the next
                     # dispatch, its first token and position on the carry
@@ -755,6 +1046,7 @@ class ContinuousBatchingScheduler:
                 break
             self._pipeline_consume(live, meta.popleft())
         if (live or admitting) and dispatched_any:
+            self.telemetry.on_flush(len(live), len(admitting))
             with engine.stats.lock:
                 engine.stats.pipeline_flushes += 1
         engine.pipeline_flush()  # the ring is drained; this drops the carry
@@ -763,17 +1055,29 @@ class ContinuousBatchingScheduler:
         n_lanes = self.engine.n_lanes
         cfg = self.engine.config
         while not self._stop.is_set():
+            if self._wd_abort.is_set():
+                # the watchdog tripped and the step returned (slow, not
+                # dead): the chain was drained; serve on (the breaker stays
+                # open until its cooldown and a probe)
+                self._wd_abort.clear()
             idle = all(l.request is None for l in self._lanes)
             self._admit(wait_s=0.25 if idle else 0.0)
+            now = time.monotonic()
+            self._sweep_queue(now)
             if (self._draining.is_set() and self.queue.empty()
                     and all(l.request is None for l in self._lanes)):
                 break
             occupied = [(i, l) for i, l in enumerate(self._lanes) if l.request is not None]
             if not occupied:
                 continue
+            # cancelled or over-budget requests free their lanes before a
+            # step is spent on them
             for i, lane in occupied:
                 if lane.request._cancelled.is_set():
                     self._finish(i, lane.request, reason="cancelled")
+                elif budget_expired(lane.request, self.deadlines, now):
+                    self.budget_timeouts += 1
+                    self._finish(i, lane.request, reason="timeout")
 
             # with fused prefill the chain is entered before the synchronous
             # prompt step: pending chunks and queued admissions ride it
@@ -836,18 +1140,37 @@ class ContinuousBatchingScheduler:
                 temps[i] = lane.request.temperature
                 topps[i] = lane.request.topp
                 seeds[i] = lane.seed
+            h = 0 if draft_len is not None else self._multi_horizon(active, prefilled)
+            wd = self.watchdog
+            if wd is not None:
+                wd.begin_step()
+            t_step = time.perf_counter()
+            try:
+                if draft_len is not None:
+                    _, emitted, n_emit = self.engine.decode_spec(
+                        tokens, drafts, draft_len, positions, temps, topps, seeds,
+                        want_logits=False)
+                elif h > 1:
+                    chosen = self.engine.decode_multi(tokens, positions, temps, topps,
+                                                      seeds, h)
+                else:
+                    _, greedy, sampled = self.engine.decode(
+                        tokens, positions, temps, topps, seeds, want_logits=False)
+            finally:
+                # a raised step is the containment layer's, not a stall
+                if wd is not None:
+                    wd.step_done()
+            self.breaker.record_success()
+            self.telemetry.on_step("spec" if draft_len is not None
+                                   else ("multi" if h > 1 else "sync"),
+                                   t_step, args={"h": h} if h > 1 else None)
             if draft_len is not None:
-                _, emitted, n_emit = self.engine.decode_spec(
-                    tokens, drafts, draft_len, positions, temps, topps, seeds,
-                    want_logits=False)
                 for i, lane in active:
                     # a sampled lane emits its one draw (its draft_len is 0)
                     self._commit_window(i, lane, emitted[i], int(n_emit[i]),
                                         bool(draft_len[i] > 0))
                 continue
-            h = self._multi_horizon(active, prefilled)
             if h > 1:
-                chosen = self.engine.decode_multi(tokens, positions, temps, topps, seeds, h)
                 for i, lane in active:
                     # next_token + the first h-1 chained choices; the last
                     # becomes the pending token; tokens past a stop are
@@ -856,8 +1179,6 @@ class ContinuousBatchingScheduler:
                     if all(self._consume(i, lane, t) for t in seq):
                         lane.next_token = int(chosen[h - 1, i])
                 continue
-            _, greedy, sampled = self.engine.decode(
-                tokens, positions, temps, topps, seeds, want_logits=False)
             for i, lane in active:
                 req = lane.request
                 if not self._consume(i, lane, lane.next_token):

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from enum import IntEnum
+
+from ..serving.qos import Priority
 
 
 @dataclass
@@ -35,35 +36,6 @@ def parse_chat_messages(body: dict) -> list[ChatMessage]:
     return out
 
 
-class Priority(IntEnum):
-    """The JAX package's admission classes (``serving/qos.py``), parsed and
-    validated as it parses them; lower pops first there. The port keeps
-    the value on the request and has no QoS queue yet."""
-
-    HIGH = 0
-    NORMAL = 1
-    LOW = 2
-
-    @staticmethod
-    def parse(value) -> "Priority":
-        """Accept ``"high"/"normal"/"low"`` (HTTP bodies) or the int value."""
-        if isinstance(value, Priority):
-            return value
-        if isinstance(value, str):
-            try:
-                return Priority[value.strip().upper()]
-            except KeyError:
-                raise ValueError(
-                    f"unknown priority {value!r} (expected high, normal, or low)"
-                ) from None
-        try:
-            return Priority(int(value))
-        except (TypeError, ValueError):
-            raise ValueError(
-                f"unknown priority {value!r} (expected high, normal, or low)"
-            ) from None
-
-
 @dataclass
 class InferenceParams:
     """Per-request generation params. Sampled requests run on the device
@@ -75,7 +47,8 @@ class InferenceParams:
     seed: int | None = None
     stop: list[str] = field(default_factory=list)
     stream: bool = False
-    # the OpenAI API's end-user field and the JAX server's admission class
+    # the OpenAI API's end-user field (the fair-share key) and the
+    # admission class (serving/qos.py)
     user: str = ""
     priority: int = Priority.NORMAL
 
@@ -130,7 +103,7 @@ def chat_completion_response(
         },
     }
     if summary is not None:
-        # per-request latency summary (runtime/scheduler._summary)
+        # per-request latency summary (telemetry RequestTrace.summary)
         out["summary"] = summary
     return out
 

@@ -1,10 +1,22 @@
 """Multi-user HTTP API server.
 
 Routes: POST /v1/chat/completions and POST /v1/completions (JSON, or SSE
-with ``"stream": true``), GET /v1/models, GET /health, GET /stats, and the
-CORS preflight. A ThreadingHTTPServer gives every connection its own
-thread; all of them submit into the scheduler's queue, and their
-generations proceed together in the continuous batch.
+with ``"stream": true``), GET /v1/models, GET /health, GET /load, GET
+/stats, GET /metrics, GET /trace, and the CORS preflight. A
+ThreadingHTTPServer gives every connection its own thread; all of them
+submit into the scheduler's queue, and their generations proceed together
+in the continuous batch.
+
+The JAX server's serving surface: a shed request (queue full: 429;
+draining or breaker open: 503) gets a typed JSON body and a ``Retry-After``
+with a deterministic +-20% jitter per request (``serving/qos.py``), so a
+burst of sheds does not retry in step. ``/health`` answers 503 while the
+server drains or the circuit breaker is open or half-open, with ``/load``'s
+body (queue depth, free lanes, breaker, draining); ``/load`` always
+answers 200. ``/metrics`` is Prometheus text (0.0.4) bridged from the same
+snapshot ``/stats`` serves, so the two reconcile; ``/trace?since=&trace_id=``
+serves the span ring as Chrome trace JSON. A valid ``X-DLlama-Trace``
+header on a POST is kept on the request and stamped on its spans.
 
 Every streamed delta carries its token index as the SSE ``id:`` line, the
 terminal chunk carries the finish reason and the request's latency
@@ -18,27 +30,39 @@ dispatches, the pipeline's dispatches, flushes and depth histogram, fused
 admissions), the decode graphs captured and their replays since warmup,
 and on a tensor-parallel mesh its shape, the ring hop's launches, plain
 calls and bytes, and the hop bytes of the last decode step
-(``sync_bytes_per_decode``).
+(``sync_bytes_per_decode``); and the JAX server's QoS fields (the queue's
+depth, waits and rejections, deadline expiries, the breaker and the
+watchdog), the prefix cache's hits and tokens saved, the decode graphs
+captured after warmup (``jit_compiles_after_warmup``, the JAX server's
+post-warmup compile count) and the span ring's counts.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import queue
+import time
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 from ..ops.cuda_attn import attn_counts
 from ..ops.cuda_q40 import kernel_counts
 from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
 from ..ops.ring_collective import ring_counts
-from ..runtime.scheduler import AdmissionRejected, Request
+from ..runtime.scheduler import Request
+from ..serving import AdmissionRejected, jittered_retry_after
+from ..telemetry import TRACE_HEADER, Telemetry, TraceContext
 from ..tokenizer import ChatItem, TemplateType, chat_generator_for
 from . import api_types
 
 # bound on how long an HTTP thread waits on the scheduler (seconds)
 DEFAULT_RESULT_TIMEOUT_S = 600.0
+
+# Retry-After jitter keys for sheds with no request yet
+_shed_keys = itertools.count(1)
 
 
 class SchedulerStalled(RuntimeError):
@@ -60,15 +84,18 @@ class ApiServer:
         self.chat_template = chat_generator_for(tokenizer, template_type)
         self.result_timeout_s = result_timeout_s
         self._httpd: ThreadingHTTPServer | None = None
+        self._fallback_tel: Telemetry | None = None
 
     # -- request handling ---------------------------------------------------
 
-    def _make_request(self, prompt: str, body: dict,
-                      streaming: bool) -> tuple[Request, "queue.Queue | None"]:
+    def _make_request(self, prompt: str, body: dict, streaming: bool,
+                      trace: str | None = None) -> tuple[Request, "queue.Queue | None"]:
+        """``trace``: the request's validated X-DLlama-Trace wire value."""
         params = api_types.InferenceParams.from_body(body)
         req = Request(prompt=prompt, max_tokens=params.max_tokens,
                       temperature=params.temperature, topp=params.top_p,
-                      seed=params.seed, stop=params.stop)
+                      seed=params.seed, stop=params.stop, user_id=params.user,
+                      priority=params.priority, trace=trace)
         deltas = None
         if streaming:
             deltas = queue.Queue()
@@ -78,19 +105,20 @@ class ApiServer:
             req.future.add_done_callback(lambda _f: deltas.put(None))
         return req, deltas
 
-    def build_request(self, body: dict, streaming: bool):
+    def build_request(self, body: dict, streaming: bool, trace: str | None = None):
         """/v1/chat/completions: messages through the chat template. Raises
         ValueError on bad input, before any response header goes out."""
         messages = api_types.parse_chat_messages(body)
         chat = self.chat_template.generate(
             [ChatItem(m.role, m.content) for m in messages], append_generation_prompt=True
         )
-        return self._make_request(chat.content, body, streaming)
+        return self._make_request(chat.content, body, streaming, trace)
 
-    def build_completion_request(self, body: dict, streaming: bool):
+    def build_completion_request(self, body: dict, streaming: bool,
+                                 trace: str | None = None):
         """/v1/completions: the raw prompt, no chat template."""
         prompt = api_types.parse_completion_prompt(body)
-        return self._make_request(prompt, body, streaming)
+        return self._make_request(prompt, body, streaming, trace)
 
     def run_request(self, req: Request, deltas, send_chunk, chunk_fn, response_fn):
         """Wait for a submitted request; stream it through ``send_chunk``
@@ -128,7 +156,8 @@ class ApiServer:
         return api_types.models_response(self.model_name)
 
     def handle_stats(self) -> dict:
-        """Engine counters, occupancy, dequant mode, mesh and kernel counts."""
+        """Engine counters, occupancy, dequant mode, mesh, kernel counts,
+        the QoS state and the span ring's counts."""
         sched = self.scheduler
         engine = sched.engine
         stats = engine.stats.snapshot()
@@ -142,8 +171,6 @@ class ApiServer:
             "lanes_total": total,
             "lanes_busy": busy,
             "queue_depth": sched.queue.depth(),
-            "draining": sched.draining,
-            "engine_failures": sched.engine_failures,
             "device": str(engine.device),
             "mesh": None if engine.mesh is None else {
                 **engine.mesh.shape, "devices": [str(d) for d in engine.mesh.devices]},
@@ -184,21 +211,81 @@ class ApiServer:
                 str(k): v for k, v in sorted(stats["fused_bucket_hist"].items())},
             "decode_graphs": 0 if engine.graphs is None else len(engine.graphs),
             "decode_graph_replays": 0 if engine.graphs is None else engine.graphs.replays,
+            # per-lane prefix cache: admissions that copied a resident
+            # prefix and the prompt tokens they did not prefill
+            "prefix_hits": stats["prefix_hits"],
+            "prefix_tokens_saved": stats["prefix_tokens_saved"],
+            # the JAX server's post-warmup compile count; here the decode
+            # graphs captured after warmup, 0 in steady serving
+            "jit_compiles_after_warmup": (0 if engine.graphs is None
+                                          else engine.graphs.captures_after_warmup),
         }
         out.update(dequant_stats())
         out.update(kernel_counts())
         out.update(ring_counts())
         out.update(sample_counts())
         out.update(attn_counts())
+        qos = getattr(sched, "qos_stats", None)
+        if callable(qos):  # queue depth/wait/rejections, timeouts, breaker
+            out.update(qos())
+        out.update(self._telemetry().tracer.counts())
         return out
 
-    def handle_health(self) -> tuple[int, dict]:
-        busy, total = self.scheduler.occupancy()
-        draining = self.scheduler.draining
-        body = {"status": "draining" if draining else "ok", "model": self.model_name,
-                "lanes_free": total - busy, "lanes_total": total,
-                "queue_depth": self.scheduler.queue.depth(), "draining": draining}
-        return (503 if draining else 200), body
+    def handle_load(self) -> dict:
+        """``GET /load``: one cheap JSON with what a router needs per
+        decision (queue depth, free lanes, breaker state, draining); always
+        200. ``/health`` serves the same body with readiness codes."""
+        sched = self.scheduler
+        busy, total = sched.occupancy()
+        breaker = getattr(sched, "breaker", None)
+        draining = bool(getattr(sched, "draining", False))
+        state = breaker.state if breaker is not None else "closed"
+        return {
+            "status": "draining" if draining else ("unhealthy" if state != "closed" else "ok"),
+            "model": self.model_name,
+            "queue_depth": sched.queue.depth(),
+            "lanes_free": total - busy,
+            "lanes_total": total,
+            "breaker": state,
+            "draining": draining,
+            # this process's position on the /trace timebase (µs since the
+            # span tracer's origin): the anchor for merging traces
+            "trace_clock_us": round(
+                (time.perf_counter() - self._telemetry().tracer.origin) * 1e6, 1),
+        }
+
+    def handle_health(self) -> tuple[int, dict, dict | None]:
+        """(status, body, headers): 503 while draining or while the breaker
+        is open or half-open, with Retry-After."""
+        load = self.handle_load()
+        if load["draining"]:
+            return 503, load, {"Retry-After": "5"}
+        if load["breaker"] != "closed":
+            retry = self.scheduler.breaker.retry_after_s()
+            return 503, load, {"Retry-After": str(max(1, round(retry)))}
+        return 200, load, None
+
+    def _telemetry(self) -> Telemetry:
+        """The scheduler's telemetry hub, or a standalone one for a
+        scheduler without it (/metrics then serves the bridged gauges)."""
+        tel = getattr(self.scheduler, "telemetry", None)
+        if tel is None:
+            if self._fallback_tel is None:
+                self._fallback_tel = Telemetry()
+            tel = self._fallback_tel
+        return tel
+
+    def handle_metrics(self) -> str:
+        """Prometheus text: the native latency histograms and counters plus
+        every /stats field bridged as a ``dllama_stats_*`` gauge, from one
+        snapshot, so the two endpoints reconcile."""
+        return self._telemetry().render_prometheus(bridge=self.handle_stats())
+
+    def handle_trace(self, since: int = 0, trace_id: str | None = None) -> dict:
+        """The span ring as Chrome trace-event JSON; ``since`` (a previous
+        pull's ``cursor``) returns only newer events, ``trace_id`` one
+        request's."""
+        return self._telemetry().chrome_trace(since=since, trace_id=trace_id)
 
     # -- plumbing -----------------------------------------------------------
 
@@ -217,15 +304,26 @@ class ApiServer:
                 self.send_header("Access-Control-Allow-Headers", "Content-Type, Authorization")
 
             def _json(self, code: int, payload: dict, headers: dict | None = None):
-                data = json.dumps(payload).encode()
+                self._raw(code, json.dumps(payload).encode(), "application/json", headers)
+
+            def _raw(self, code: int, data: bytes, content_type: str,
+                     headers: dict | None = None):
                 self.send_response(code)
                 self._cors()
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _reject(self, e: AdmissionRejected, key: int | None = None):
+                # 429 (queue full) or 503 (draining, breaker), Retry-After
+                # jittered per request so a shed burst does not retry in step
+                retry = jittered_retry_after(
+                    e.retry_after_s, key if key is not None else next(_shed_keys))
+                self._json(e.http_status, {"error": str(e), "reason": e.reason},
+                           headers={"Retry-After": str(max(1, round(retry)))})
 
             def _sse_headers(self, request_id: int):
                 self.send_response(200)
@@ -251,13 +349,27 @@ class ApiServer:
                 self.end_headers()
 
             def do_GET(self):
-                if self.path == "/v1/models":
+                path = self.path.split("?", 1)[0]
+                if path == "/v1/models":
                     self._json(200, api.handle_models())
-                elif self.path == "/stats":
+                elif path == "/stats":
                     self._json(200, api.handle_stats())
-                elif self.path in ("/", "/health"):
-                    code, body = api.handle_health()
-                    self._json(code, body, headers={"Retry-After": "5"} if code != 200 else None)
+                elif path == "/load":
+                    self._json(200, api.handle_load())
+                elif path == "/metrics":
+                    self._raw(200, api.handle_metrics().encode(),
+                              "text/plain; version=0.0.4; charset=utf-8")
+                elif path == "/trace":
+                    q = parse_qs(urlsplit(self.path).query)
+                    try:
+                        since = int(q.get("since", ["0"])[0])
+                    except ValueError:
+                        self._json(400, {"error": "bad since cursor"})
+                        return
+                    self._json(200, api.handle_trace(since=since,
+                                                     trace_id=q.get("trace_id", [None])[0]))
+                elif path in ("/", "/health"):
+                    self._json(*api.handle_health())
                 else:
                     self._json(404, {"error": "not found"})
 
@@ -283,6 +395,10 @@ class ApiServer:
                     self._json(400, {"error": f"bad request: {e}"})
                     return
                 build_fn, chunk_fn, response_fn = route
+                # a valid X-DLlama-Trace rides the request; a malformed one
+                # is dropped (tracing never fails a request)
+                ctx = TraceContext.parse(self.headers.get(TRACE_HEADER))
+                trace = ctx.to_header() if ctx is not None else None
                 req = None
 
                 def err(payload: dict) -> dict:
@@ -294,7 +410,7 @@ class ApiServer:
                     streaming = bool(body.get("stream"))
                     # validate AND submit before any header goes out, so bad
                     # input gets a 400 and a shed request a 503
-                    req, deltas = build_fn(body, streaming=streaming)
+                    req, deltas = build_fn(body, streaming=streaming, trace=trace)
                     api.scheduler.submit(req)
                     if not streaming:
                         self._json(200, api.run_request(req, None, None, chunk_fn,
@@ -313,12 +429,13 @@ class ApiServer:
                     except Exception as e:  # headers already sent: SSE error event
                         self._sse_chunk(err({"error": str(e)}))
                         self.wfile.write(b"data: [DONE]\n\n")
-                except AdmissionRejected as e:
-                    self._json(e.http_status, err({"error": str(e), "reason": e.reason}),
-                               headers={"Retry-After": str(max(1, round(e.retry_after_s)))})
+                except AdmissionRejected as e:  # shed before any header
+                    self._reject(e, key=req.id if req is not None else None)
                 except SchedulerStalled as e:
+                    retry = jittered_retry_after(
+                        30.0, req.id if req is not None else next(_shed_keys))
                     self._json(503, err({"error": str(e), "reason": "stalled"}),
-                               headers={"Retry-After": "30"})
+                               headers={"Retry-After": str(max(1, round(retry)))})
                 except ValueError as e:
                     self._json(400, err({"error": str(e)}))
                 except Exception as e:  # generation failure

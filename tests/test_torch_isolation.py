@@ -166,3 +166,57 @@ def test_spec_module_is_the_ports_own():
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith(os.path.join("distributed_llama_multiusers_tpu_torch",
                                                   "runtime", "spec.py"))
+
+
+def test_serving_layers_are_the_ports_own():
+    """The QoS queue, deadlines, drain, breaker, watchdog, fault plan,
+    lock witness and telemetry the port's scheduler and server use are its
+    own copies (``serving/``, ``utils/faults.py``, ``lockcheck.py``,
+    ``telemetry/``), importable and working without jax or the JAX
+    package; the server's ``Priority`` and the scheduler's
+    ``AdmissionRejected`` are the QoS module's."""
+    r = _run("""
+        import os
+        import distributed_llama_multiusers_tpu_torch as pkg
+        from distributed_llama_multiusers_tpu_torch import lockcheck, serving, telemetry
+        from distributed_llama_multiusers_tpu_torch.runtime import scheduler
+        from distributed_llama_multiusers_tpu_torch.server import api_types, http
+        from distributed_llama_multiusers_tpu_torch.serving import (
+            breaker, deadlines, drain, qos, watchdog)
+        from distributed_llama_multiusers_tpu_torch.telemetry import (
+            hub, logs, metrics, spans, trace, tracectx)
+        from distributed_llama_multiusers_tpu_torch.utils import faults
+        root = os.path.dirname(pkg.__file__)
+        mods = (lockcheck, serving, breaker, deadlines, drain, qos, watchdog, telemetry, hub,
+                logs, metrics, spans, trace, tracectx, faults)
+        for m in mods:
+            assert m.__file__.startswith(root), m.__file__
+        assert api_types.Priority is qos.Priority
+        assert scheduler.AdmissionRejected is qos.AdmissionRejected
+        assert http.AdmissionRejected is qos.AdmissionRejected
+        q = qos.QosQueue(capacity=1)
+        q.push(scheduler.Request(prompt="x"))
+        try:
+            q.push(scheduler.Request(prompt="y"))
+        except qos.AdmissionRejected as e:
+            assert e.http_status == 429
+        else:
+            raise SystemExit("no shed at capacity")
+        b = breaker.CircuitBreaker(threshold=1)
+        b.record_engine_failure("boom")
+        assert b.state == "open" and not b.allow()
+        plan = faults.FaultPlan.parse("engine.dispatch:@2+3")
+        assert plan.schedule("engine.dispatch", 9) == [2, 5, 8]
+        tel = telemetry.Telemetry()
+        tel.bridge_stats({"decode_steps": 3, "breaker_state_code": 2})
+        assert "dllama_stats_decode_steps 3" in tel.render_prometheus()
+        ctx = telemetry.TraceContext.mint()
+        assert telemetry.TraceContext.parse(ctx.to_header()) == ctx
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print(len(mods))
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("15")

@@ -277,14 +277,17 @@ def test_bad_request_and_unknown_route(servers):
 
 COMPAT_ARGV = ["--model", "m.m", "--tokenizer", "t.t", "--nthreads", "4", "--gpu-index", "0",
                "--gpu-segments", "0:1", "--net-turbo", "0", "--temperature", "0.7",
-               "--topp", "0.8", "--seed", "42", "--max-seq-len", "64", "--port", "9991"]
+               "--topp", "0.8", "--seed", "42", "--max-seq-len", "64", "--port", "9991",
+               "--max-queue", "7", "--queue-timeout", "3", "--request-budget", "9",
+               "--step-deadline", "2", "--prefix-min-tokens", "32", "--trace-path", "t.json"]
 
 
 @pytest.mark.parametrize("extra", [[], ["--no-spec"]])
 def test_jax_command_line_parses_with_both_parsers(extra):
     """The JAX ``dllama-api`` command line, the reference's compat flags
-    included, parses with the port's parser as with the JAX one (the port
-    ignores the compat flags); --no-spec reaches both."""
+    and the serving layers' flags included, parses with the port's parser
+    as with the JAX one (the port ignores the compat flags); --no-spec
+    reaches both."""
     from distributed_llama_multiusers_tpu.app.args import build_parser as jax_parser
     from distributed_llama_multiusers_tpu_torch.app.args import build_parser
 
@@ -292,7 +295,9 @@ def test_jax_command_line_parses_with_both_parsers(extra):
     got = build_parser("dllama-api").parse_args(argv)
     want = jax_parser("dllama-api", api=True).parse_args(argv)
     for key in ("model", "tokenizer", "nthreads", "gpu_index", "gpu_segments", "net_turbo",
-                "temperature", "topp", "seed", "max_seq_len", "port", "no_spec"):
+                "temperature", "topp", "seed", "max_seq_len", "port", "no_spec", "max_queue",
+                "queue_timeout", "request_budget", "step_deadline", "prefix_min_tokens",
+                "trace_path"):
         assert getattr(got, key) == getattr(want, key), key
     assert got.no_spec is bool(extra)
     help_text = build_parser("dllama-api").format_help()
