@@ -96,6 +96,30 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    cooldown turns it 200 and serving continues; (e) with the loop idle,
    ``/metrics`` parses and reconciles with ``/stats`` and ``/trace`` is
    Chrome trace JSON (``build/chip_smoke/chip_smoke_trace_layers.json``).
+   Then the ``dllama`` CLI, each run through its entry point in this
+   process (one lane, its decode, multi-step and verify graphs captured at
+   startup): ``inference`` on the default pass's greedy prompt, 64 tokens,
+   ``--benchmark``, in v4 and ``auto``, with and without ``--no-spec``, whose
+   text must equal the server's greedy stream in that mode; a seeded run
+   (``--temperature 0.8 --seed 7``) twice, equal; ``--workers 2`` in v4,
+   the one-rank text with a Sync readout on every Pred line and a
+   Measured/step line; ``chat`` with two turns on stdin twice, equal, the
+   second turn at the carried position (its tokenizer also ends a turn on
+   the top sixteenth of the vocabulary: a random model never emits the
+   end-of-turn token). Eval and Pred tok/s and the verify steps are
+   printed. Then crash durability: the default pass with and without
+   ``--journal-path`` (batch tok/s and TTFT); 2 greedy and 2 seeded
+   streamed requests of 256 tokens on a reference server, then on one
+   with ``--journal-path --reconnect-grace 30`` that completes a fifth
+   request first and is SIGKILLed once each stream holds 32 deltas;
+   restarted with ``--recover-journal --max-lanes 4`` under
+   ``DLLAMA_LEAKCHECK=1 DLLAMA_JITCHECK=1``, each client reattaches with
+   ``GET /v1/stream/<id>`` and its Last-Event-ID: its text before the kill
+   plus after equals the reference byte for byte, no index lost or
+   repeated, the fifth request not resurrected, 4 recovered and 0 failed
+   on ``/stats`` and ``/metrics``, no leak, no graph captured after warmup,
+   the SIGTERM drain exits 0; the restart's time to the first reattached
+   byte is printed.
 4. Decode step: the engine in this process on the same model, its decode
    step replayed from its CUDA graph and then run eagerly (the bodies the
    graph captured), each with its host clock per step, launches per step
@@ -2028,6 +2052,445 @@ def serving_layers_phase(model: str, tok: str, clean: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3c: the dllama CLI (inference and chat) on the card
+# ---------------------------------------------------------------------------
+
+CLI_STEPS = GEN_TOKENS  # the serving passes' greedy request runs 64 tokens
+# the chat check's tokenizer also ends a turn on the top sixteenth of the
+# vocabulary (reserved tokens): a random model never emits the end-of-turn
+# token, so without them the first reply would run to the end of the context
+CHAT_STOP_FRACTION = 16
+
+
+def _launch_counts() -> dict:
+    """The kernels' launch counters, keyed as a serving pass's /stats."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+
+    return {"kernel_launches": dict(q.LAUNCHES), "ring_hop_launches": rc.COUNTS["launches"],
+            "ring_hop_bytes": rc.COUNTS["bytes"],
+            "gumbel_sample_launches": cs.COUNTS["launches"],
+            "decode_attn_launches": ca.COUNTS["launches"],
+            "decode_attn_window_launches": ca.COUNTS["window_launches"]}
+
+
+def run_cli(torch, name: str, argv: list, stdin: str | None = None) -> dict:
+    """One ``dllama`` run through its entry point (``app.dllama.main``) in
+    this process, stdout captured (and stdin given), the counters zeroed
+    before it (the CLI zeroes them again after its warmup, as the server
+    does): its output, seconds and the kernels' launches. The dequant mode
+    it sets is restored after it."""
+    import contextlib
+    import gc
+    import io
+
+    from distributed_llama_multiusers_tpu_torch.app import dllama
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+
+    for mod in (q, rc, cs, ca):
+        mod.reset_counts()
+    mode = q.DEQUANT_MODE
+    buf, old_stdin = io.StringIO(), sys.stdin
+    t0 = time.perf_counter()
+    try:
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        with contextlib.redirect_stdout(buf):
+            dllama.main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"dllama ({name}) exited {e.code}:\n{buf.getvalue()[-2000:]}") from None
+    finally:
+        sys.stdin = old_stdin
+        q.set_dequant_mode(mode)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    with open(os.path.join(OUT_DIR, f"chip_smoke_cli_{name}.log"), "w") as f:
+        f.write(out)
+    counts = _launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mode": f"cli-{name}", "argv": [a if len(a) < 200 else a[:40] + "..." for a in argv],
+            "out": out, "seconds": seconds, **counts}
+
+
+def _inference_readout(run: dict) -> dict:
+    """The generated text (Pred lines taken out) and the readout numbers of
+    a ``dllama inference --benchmark`` run."""
+    out = run["out"]
+    check("🔷 Eval" in out and "⏱ Prediction" in out,
+          f"{run['mode']}: no Eval/Prediction readout:\n{out[-2000:]}")
+    body = out.split("🔷 Eval", 1)[1].split("\n", 1)[1].split("\n⏱ Evaluation", 1)[0]
+    preds = re.findall(r"🔶 Pred +([0-9.]+) ms[^\n]*\n", body)
+    ev = re.search(r"Evaluation: ([0-9.]+) ms \(([0-9.]+) tok/s\)", out)
+    pr = re.search(r"Prediction: ([0-9.]+) ms \(([0-9.]+) tok/s\)", out)
+    spec = re.search(r"Speculation: (\d+) verify steps, (\d+) tokens \(([0-9.]+) a step\)", out)
+    measured = re.search(r"Measured/step: [^\n]*", out)
+    run.update(text=re.sub(r"🔶 Pred [^\n]*\n", "", body), pred_lines=len(preds),
+               eval_ms=float(ev.group(1)), eval_tok_s=float(ev.group(2)),
+               pred_ms=float(pr.group(1)), pred_tok_s=float(pr.group(2)),
+               spec_verify_steps=int(spec.group(1)) if spec else 0,
+               spec_tokens=int(spec.group(2)) if spec else 0,
+               spec_tokens_per_step=float(spec.group(3)) if spec else None,
+               sync_kb_per_chip=[float(x) for x in re.findall(r"Sync +([0-9.]+) kB/chip", body)],
+               measured_step=measured.group(0) if measured else None)
+    log(f"cli [{run['mode']}]: Eval {run['eval_ms']:.2f} ms ({run['eval_tok_s']:.1f} tok/s), "
+        f"Prediction {run['pred_ms']:.2f} ms ({run['pred_tok_s']:.1f} tok/s), "
+        f"{run['pred_lines']} Pred lines, spec {run['spec_verify_steps']} verify steps "
+        f"{run['spec_tokens']} tokens ({run['spec_tokens_per_step']} a step); launches "
+        f"{run['kernel_launches']}, decode_attn {run['decode_attn_launches']} "
+        f"({run['decode_attn_window_launches']} windows), ring_hop {run['ring_hop_launches']}; "
+        f"{run['seconds']:.1f}s with load and warmup")
+    return run
+
+
+def chat_tokenizer(tok: str) -> str:
+    """The smoke tokenizer with the top 1/CHAT_STOP_FRACTION of the
+    vocabulary (reserved tokens) also ending a turn."""
+    from distributed_llama_multiusers_tpu_torch.formats.tokenizer_file import (
+        load_tokenizer_file,
+        write_tokenizer_file,
+    )
+
+    data = load_tokenizer_file(tok)
+    first = len(data.vocab) - len(data.vocab) // CHAT_STOP_FRACTION
+    data.eos_token_ids = list(data.eos_token_ids) + [
+        i for i in range(first, len(data.vocab)) if data.vocab[i].startswith(b"<|reserved_")]
+    path = os.path.join(OUT_DIR, "chip_smoke_chat.t")
+    with open(path, "wb") as f:
+        write_tokenizer_file(f, data)
+    return path
+
+
+def cli_phase(torch, model: str, tok: str, passes: list) -> list:
+    """``dllama inference`` on the serving phase's greedy prompt, 64 tokens,
+    ``--benchmark``, under v4 and ``auto``, with and without speculation:
+    its text equals the server's greedy stream for that prompt in that mode
+    (the one-lane engine against the 8-lane server); a seeded run
+    (``--temperature 0.8 --seed 7``) twice, equal, a forward and a Pred line
+    every token; ``--workers 2`` (both ranks on the host's cards) in v4:
+    the single-rank text, a Sync readout on every Pred line, the
+    Measured/step line; ``dllama chat`` with two turns on stdin, twice,
+    equal, the second turn answered at the carried position. Returns the
+    runs, shaped like serving passes for the kernels line."""
+    by_mode = {p["mode"]: p for p in passes}
+    base = ["--model", model, "--tokenizer", tok, "--steps", str(CLI_STEPS), "--benchmark"]
+    runs = []
+    for name, mode, extra in (("v4", "v4", ()), ("v4-no-spec", "v4", ("--no-spec",)),
+                              ("auto", "auto", ()), ("auto-no-spec", "auto", ("--no-spec",))):
+        # each pass built its greedy prompt from its own probe request
+        server = by_mode["default" if mode == "v4" else mode]
+        want = server["greedy_text"]
+        r = _inference_readout(run_cli(torch, name, [
+            "inference", *base, "--prompt", server["bodies"][0][1]["prompt"],
+            "--temperature", "0", "--dequant", mode, *extra]))
+        check(r["text"] == want, f"cli {name}: the greedy text differs from the {mode} "
+                                 f"server's stream for the same prompt:\n{r['text']!r}\n{want!r}")
+        kernels = ("q40_slab",) if mode == "v4" else ("q40_i8blockdot", "q40_slab")
+        for k in kernels:
+            check(r["kernel_launches"][k] > 0, f"cli {name}: {k} never launched")
+        check(r["decode_attn_launches"] > 0, f"cli {name}: decode_attn never launched")
+        if extra:
+            check(r["spec_verify_steps"] == 0 and r["decode_attn_window_launches"] == 0,
+                  f"cli {name}: verify steps ran with --no-spec")
+        else:
+            check(r["spec_verify_steps"] > 0 and r["decode_attn_window_launches"] > 0,
+                  f"cli {name}: no verify step ran (the prompt drafts)")
+        check(r["pred_lines"] < CLI_STEPS, f"cli {name}: every token took a forward")
+        runs.append(r)
+    seeded = [_inference_readout(run_cli(torch, f"seeded-{i}", [
+        "inference", *base, "--prompt", "once upon a time", "--temperature", "0.8",
+        "--seed", "7", "--dequant", "v4"])) for i in (1, 2)]
+    check(seeded[0]["text"] == seeded[1]["text"] and seeded[0]["text"],
+          f"cli seeded: two runs differ:\n{seeded[0]['text']!r}\n{seeded[1]['text']!r}")
+    check(seeded[0]["pred_lines"] == CLI_STEPS,
+          f"cli seeded: {seeded[0]['pred_lines']} Pred lines for {CLI_STEPS} tokens")
+    runs += seeded
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    tp = _inference_readout(run_cli(torch, "tp2", [
+        "inference", *base, "--prompt", passes[0]["bodies"][0][1]["prompt"],
+        "--temperature", "0", "--dequant", "v4",
+        "--workers", "2", "--device", devices]))
+    check(tp["text"] == runs[0]["text"],
+          f"cli tp2: the text differs from one rank's:\n{tp['text']!r}\n{runs[0]['text']!r}")
+    check(tp["ring_hop_launches"] > 0, "cli tp2: ring_hop never launched")
+    check(len(tp["sync_kb_per_chip"]) == tp["pred_lines"] > 0
+          and all(kb > 0 for kb in tp["sync_kb_per_chip"]),
+          f"cli tp2: Sync readouts {tp['sync_kb_per_chip'][:4]} on {tp['pred_lines']} Pred lines")
+    check(tp["measured_step"] is not None, "cli tp2: no Measured/step line")
+    log(f"cli [tp2]: {tp['measured_step']}")
+    runs.append(tp)
+    chat_tok = chat_tokenizer(tok)
+    turns = "hello\ntell me more\n"
+    chats = [run_cli(torch, f"chat-{i}", ["chat", "--model", model, "--tokenizer", chat_tok,
+                                          "--chat-template", "llama3", "--temperature", "0",
+                                          "--dequant", "v4"], stdin=turns) for i in (1, 2)]
+    convs = [c["out"].split("💬 Chat mode. Ctrl-D to exit.", 1)[-1] for c in chats]
+    check(convs[0] == convs[1], f"cli chat: two runs differ:\n{convs[0]!r}\n{convs[1]!r}")
+    check(convs[0].count("\n> ") == 3 and "Context window full" not in convs[0],
+          f"cli chat: the second turn did not run at the carried position:\n{convs[0]!r}")
+    check(chats[0]["decode_attn_launches"] > 0, "cli chat: decode_attn never launched")
+    replies = [t.split("\n", 1)[0] for t in convs[0].split("\n> ")[1:3]]
+    log(f"cli [chat]: two turns, replies {[len(r) for r in replies]} characters, equal over "
+        f"two runs; launches {chats[0]['kernel_launches']}")
+    runs += chats
+    for r in runs:
+        r.pop("out")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: crash durability (journal, recovery, resumable streams) on the card
+# ---------------------------------------------------------------------------
+
+DUR_TOKENS = 256
+DUR_MIN_EVENTS = 32  # deltas each stream holds before the kill
+DUR_GRACE = "30"
+DUR_BODIES = [
+    ("/v1/completions", {"prompt": "once upon a time", "max_tokens": DUR_TOKENS,
+                         "temperature": 0}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hello"}],
+                              "max_tokens": DUR_TOKENS, "temperature": 0}),
+    ("/v1/completions", {"prompt": "the quick brown fox", "max_tokens": DUR_TOKENS,
+                         "temperature": 0.8, "top_p": 0.9, "seed": 7}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "tell me"}],
+                              "max_tokens": DUR_TOKENS, "temperature": 0.7, "top_p": 0.95,
+                              "seed": 11}),
+]
+
+
+class SseStream:
+    """One SSE stream read on a thread: its request id (the
+    ``X-DLlama-Request`` header), every delta as (event id, text), the
+    finish reason, whether ``[DONE]`` came, and the first delta's clock."""
+
+    def __init__(self, url: str, body: dict | None = None, headers: dict | None = None):
+        self.rid = None
+        self.events: list = []
+        self.finish = None
+        self.done = False
+        self.error = None
+        self.first_at = None
+        self.thread = threading.Thread(target=self._read, args=(url, body, headers),
+                                       daemon=True)
+        self.thread.start()
+
+    def _read(self, url, body, headers):
+        data = None if body is None else json.dumps({**body, "stream": True}).encode()
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                self.rid = int(r.headers["X-DLlama-Request"])
+                event_id = None
+                for line in r:
+                    line = line.decode().strip()
+                    if line.startswith("id: "):
+                        event_id = int(line[4:])
+                    elif line == "data: [DONE]":
+                        self.done = True
+                        return
+                    elif line.startswith("data: "):
+                        chunk = json.loads(line[6:])
+                        if "error" in chunk:
+                            self.error = chunk
+                            continue
+                        choice = chunk["choices"][0]
+                        if choice.get("finish_reason") is not None:
+                            self.finish = choice["finish_reason"]
+                            continue
+                        piece = choice.get("text") or (choice.get("delta") or {}).get(
+                            "content") or ""
+                        if self.first_at is None:
+                            self.first_at = time.perf_counter()
+                        self.events.append((event_id, piece))
+        except (OSError, ValueError) as e:  # the kill ends the read
+            self.error = self.error or f"{type(e).__name__}: {e}"
+
+    def join(self, timeout: float = 600) -> "SseStream":
+        self.thread.join(timeout)
+        check(not self.thread.is_alive(), f"stream {self.rid} never ended")
+        return self
+
+
+def _metric(base: str, name: str) -> float | None:
+    _, _, raw = _request(base + "/metrics")
+    for line in raw.decode().splitlines():
+        m = _PROM_RE.match(line)
+        if m and m.group(1) == name and not m.group(2):
+            return float(m.group(3))
+    return None
+
+
+def durability_phase(model: str, tok: str) -> dict:
+    """The default serving pass with and without ``--journal-path`` (batch
+    tok/s and TTFT: what the journal costs); then 2 greedy and 2 seeded
+    streamed requests of 256 tokens on a server without a journal (the
+    reference streams) and on one with ``--journal-path --reconnect-grace
+    30``, which also completes a fifth request and is SIGKILLed once each
+    stream holds 32 deltas; restarted with ``--recover-journal
+    --reconnect-grace 30 --max-lanes 4`` under ``DLLAMA_LEAKCHECK=1
+    DLLAMA_JITCHECK=1``, each client reattaches with ``GET /v1/stream/<id>``
+    and its Last-Event-ID: the text before the kill plus the reattached
+    text equals the reference stream byte for byte, no index lost or
+    repeated, the completed request not resurrected, ``/stats`` and
+    ``/metrics`` count 4 recovered and 0 failed, no leak and no capture
+    after warmup, and the SIGTERM drain exits 0."""
+    from distributed_llama_multiusers_tpu_torch.serving import read_journal
+
+    out = {}
+    jpath = os.path.join(OUT_DIR, "chip_smoke_journal_pass.bin")
+    if os.path.exists(jpath):
+        os.remove(jpath)
+    plain = serve_pass(model, tok, None, GEN_TOKENS, name="journal-off")
+    journaled = serve_pass(model, tok, None, GEN_TOKENS, name="journal-on",
+                           extra_args=("--journal-path", jpath))
+    img = read_journal(jpath)
+    check(img.records >= 2 * 7 and not img.torn and not img.incomplete(),
+          f"journal pass: {img.records} records, torn {img.torn}, "
+          f"{len(img.incomplete())} incomplete")
+    check(journaled["greedy_text"] == plain["greedy_text"],
+          "journal pass: the greedy text differs from the pass without the journal")
+    for p in (plain, journaled):
+        check_serving_paths(p)
+    out["journal_cost"] = {k: {"tokens_per_s_batch": p["tokens_per_s_batch"],
+                               "ttft_ms_p50": p["ttft_ms_p50"], "ttft_ms": p["ttft_ms"],
+                               "journal_records": img.records if p is journaled else 0}
+                           for k, p in (("off", plain), ("on", journaled))}
+    log(f"durability: the default pass without the journal: batch "
+        f"{plain['tokens_per_s_batch']:.1f} tok/s, TTFT p50 {plain['ttft_ms_p50']:.1f} ms; "
+        f"with --journal-path: {journaled['tokens_per_s_batch']:.1f} tok/s, TTFT p50 "
+        f"{journaled['ttft_ms_p50']:.1f} ms ({img.records} records, fsync on)")
+
+    ref_srv = Server(model, tok, "durability-ref")
+    try:
+        refs = [SseStream(ref_srv.base + route, body).join() for route, body in DUR_BODIES]
+        for i, r in enumerate(refs):
+            check(r.done and r.error is None and len(r.events) >= DUR_MIN_EVENTS + 8,
+                  f"durability reference {i}: done {r.done}, error {r.error}, "
+                  f"{len(r.events)} deltas")
+        out["reference_stats"] = ref_srv.stats()
+        ref_srv.stop()
+    except BaseException:
+        ref_srv.tail()
+        raise
+    finally:
+        ref_srv.kill()
+
+    jpath = os.path.join(OUT_DIR, "chip_smoke_journal.bin")
+    if os.path.exists(jpath):
+        os.remove(jpath)
+    crash = Server(model, tok, "durability-crash",
+                   ("--journal-path", jpath, "--reconnect-grace", DUR_GRACE))
+    try:
+        status, _, fifth = _json_call(crash.base, "/v1/completions",
+                                      {"prompt": "a short one", "max_tokens": 8,
+                                       "temperature": 0})
+        check(status == 200, f"durability: the fifth request got {status}")
+        fifth_id = int(fifth["id"].split("-")[1])
+        streams = [SseStream(crash.base + route, body) for route, body in DUR_BODIES]
+        _poll(lambda: all(len(s.events) >= DUR_MIN_EVENTS for s in streams), 300,
+              "durability: the streams never reached 32 deltas before the kill", every=0.005)
+        crash.proc.kill()  # SIGKILL: no drain, no finish record
+        crash.proc.wait(timeout=60)
+        for s in streams:
+            s.join(60)
+        for i, s in enumerate(streams):
+            check(not s.done and s.rid is not None,
+                  f"durability stream {i} finished before the kill ({len(s.events)} deltas)")
+    except BaseException:
+        crash.tail()
+        raise
+    finally:
+        crash.kill()
+    before = [list(s.events) for s in streams]
+    img = read_journal(jpath)
+    fifth_entry = img.entries.get(fifth_id)
+    check([e.request_id for e in img.incomplete()] == [s.rid for s in streams]
+          and fifth_entry is not None and fifth_entry.finished,
+          f"durability: the journal's in-flight set {[e.request_id for e in img.incomplete()]} "
+          f"is not the 4 streams {[s.rid for s in streams]} (fifth: {fifth_entry})")
+
+    t_restart = time.perf_counter()
+    rec = Server(model, tok, "durability-recover",
+                 ("--journal-path", jpath, "--recover-journal", "--reconnect-grace", DUR_GRACE,
+                  "--max-lanes", "4"),
+                 env={"DLLAMA_LEAKCHECK": "1", "DLLAMA_JITCHECK": "1"})
+    try:
+        healthy_s = time.perf_counter() - t_restart
+        again = [SseStream(rec.base + f"/v1/stream/{s.rid}",
+                           headers={"Last-Event-ID": str(ev[-1][0])})
+                 for s, ev in zip(streams, before)]
+        for r in again:
+            r.join()
+        first_byte_s = min(r.first_at for r in again if r.first_at is not None) - t_restart
+        lost = dup = 0
+        for i, (ref, ev, r) in enumerate(zip(refs, before, again)):
+            check(r.done and r.error is None, f"durability stream {i}: reattach ended with "
+                                              f"done {r.done}, error {r.error}")
+            seen = [idx for idx, _ in ev + r.events]
+            dup += len(seen) - len(set(seen))
+            lost += len({idx for idx, _ in ref.events} - set(seen))
+            text = "".join(t for _, t in ev + r.events)
+            want = "".join(t for _, t in ref.events)
+            check(text == want, f"durability stream {i} ({DUR_BODIES[i][1].get('seed')}): "
+                                f"the resumed text differs from the reference:\n{text!r}\n{want!r}")
+            check(r.finish == ref.finish, f"durability stream {i}: finish {r.finish} "
+                                          f"against {ref.finish}")
+        check(lost == 0 and dup == 0, f"durability: {lost} indices lost, {dup} repeated")
+        status, _, _ = _request(rec.base + f"/v1/stream/{fifth_id}")
+        check(status == 404, f"durability: the completed request answers {status} on "
+                             "/v1/stream (resurrected)")
+        stats = _quiet_stats(rec.base, "durability")
+        check(stats["recovered_requests"] == 4 and stats["recovery_failed"] == 0
+              and stats["recovery_incomplete"] == 4 and stats["recovery_done"],
+              f"durability: /stats recovered {stats['recovered_requests']}, failed "
+              f"{stats['recovery_failed']}, incomplete {stats['recovery_incomplete']}")
+        m_rec = _metric(rec.base, "dllama_recovered_requests_total")
+        m_stats = _metric(rec.base, "dllama_stats_recovered_requests")
+        check(m_rec == m_stats == 4, f"durability: /metrics recovered {m_rec} / {m_stats}")
+        check(stats["jit_compiles_after_warmup"] == 0 and stats["resource_leaks_total"] == 0,
+              f"durability: {stats['jit_compiles_after_warmup']} graph captures after warmup, "
+              f"{stats['resource_leaks_total']} leaks")
+        check(stats["gumbel_sample_launches"] > 0 and stats["kernel_launches"]["q40_slab"] > 0
+              and stats["decode_attn_launches"] > 0,
+              "durability: the recovered streams did not run the serving kernels")
+        rec_log = rec.stop()  # SIGTERM: the drain, then the witnesses at stop and close
+    except BaseException:
+        rec.tail()
+        raise
+    finally:
+        rec.kill()
+    check("Journal recovery: 4 incomplete request(s) replaying" in rec_log
+          and "ResourceLeak" not in rec_log and "RecompileAfterWarmup" not in rec_log,
+          "durability: the recovery server's log lacks the recovery line or names a witness")
+    out.update({
+        "streams": [{"body": DUR_BODIES[i][1], "deltas_before_kill": len(ev),
+                     "last_event_id_before_kill": ev[-1][0], "deltas_reattached": len(r.events),
+                     "finish": r.finish} for i, (ev, r) in enumerate(zip(before, again))],
+        "restart_to_healthy_s": healthy_s, "restart_to_first_reattached_byte_s": first_byte_s,
+        "recovery": {k: stats[k] for k in ("recovered_requests", "recovery_failed",
+                                           "recovery_retries", "recovery_replayed_tokens",
+                                           "journal_records", "resource_leaks_total",
+                                           "jit_compiles_after_warmup")},
+        "passes": [plain, journaled, {"mode": "durability-recover", **{
+            k: stats[k] for k in ("kernel_launches", "ring_hop_launches", "ring_hop_bytes",
+                                  "gumbel_sample_launches", "decode_attn_launches",
+                                  "decode_attn_window_launches")}}],
+    })
+    log(f"durability: 4 streams SIGKILLed after {[len(ev) for ev in before]} deltas, recovered "
+        f"at 4 lanes and reattached at their Last-Event-ID: byte-identical to the reference, 0 "
+        f"lost, 0 repeated; the completed request not resurrected; restart to healthy "
+        f"{healthy_s:.1f}s, to the first reattached byte {first_byte_s:.1f}s; 0 leaks, 0 "
+        "graph captures after warmup, drain exit 0")
+    return out
+
+
 STEP_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 # the mode whose decode steps run each kernel (the default v4 runs the slab)
 DECODE_MODE_OF = {"q40_slab": "v4", "q40_blockdot": "blockdot", "q40_i8blockdot": "auto"}
@@ -2727,8 +3190,9 @@ def lab_line_entries(lab, lab_result) -> list:
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
                  forms=(), attn=None, row_plans=()) -> dict:
-    """One entry per kernel. ``launches`` is the serving passes' count (the
-    main path, each server counting from the end of its warmup). For a Q40
+    """One entry per kernel. ``launches`` is the main path's count: the
+    serving passes, the CLI runs and the durability servers, each counting
+    from the end of its warmup. For a Q40
     kernel the times and the bound cover one decode step's products at the
     server's 8 lanes (``step_matmuls``); ``launches_per_decode_step`` and
     the profiled fields come from the engine's decode steps in the mode that
@@ -2974,6 +3438,8 @@ def main() -> int:
         passes = serving_phase(torch, q)
         model, tok = ensure_model(llama32_1b_header(), seed=0)
         layers = serving_layers_phase(model, tok, passes[0])
+        cli = cli_phase(torch, model, tok, passes)
+        durability = durability_phase(model, tok)
         breakdown, tp, tp_logits, hop_step, products, prefix_bits = decode_phase(
             torch, q, rc, cs, model)
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
@@ -2982,14 +3448,17 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke_serving.json"), "w") as f:
             json.dump({"card": card,
                        "passes": [{k: v for k, v in p.items() if k != "log"} for p in passes],
-                       "serving_layers": layers, "prefix_bits": prefix_bits,
+                       "serving_layers": layers, "cli": cli,
+                       "durability": {k: v for k, v in durability.items() if k != "passes"},
+                       "prefix_bits": prefix_bits,
                        "decode_step": breakdown, "tp_decode_step": tp,
                        "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
                        "decode_step_products": products}, f, indent=1)
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
-        line = kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step,
+        main_path = passes + cli + durability["passes"]
+        line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
                             row_plans)
     except SmokeFailure as e:

@@ -1,5 +1,6 @@
-"""CLI argument surface of the port's entry points (the flags the port
-serves so far; the JAX package's ``app/args.py`` is the full set)."""
+"""CLI argument surface of the port's entry points, ``dllama`` (inference,
+chat, worker) and ``dllama-api``: the flags the port serves so far; the
+JAX package's ``app/args.py`` is the full set."""
 
 from __future__ import annotations
 
@@ -12,10 +13,43 @@ DEQUANT_CHOICES = ("auto", "v4", "bf16chain", "repeat", "u8chain", "blockdot",
                    "i8blockdot")
 
 
-def build_parser(prog: str) -> argparse.ArgumentParser:
+def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
+    """The JAX package's ``build_parser(prog, api)``: ``api`` False adds
+    ``dllama``'s positional mode and makes ``--temperature``, ``--topp`` and
+    ``--seed`` take effect; the server accepts and ignores them (sampling
+    is per request). ``api`` None: the server's surface when ``prog`` is
+    ``dllama-api``."""
+    if api is None:
+        api = prog == "dllama-api"
     p = argparse.ArgumentParser(prog=prog)
-    p.add_argument("--model", required=True, help="path to .m model file")
-    p.add_argument("--tokenizer", required=True, help="path to .t tokenizer file")
+    if not api:
+        p.add_argument("mode", choices=["inference", "chat", "worker", "train"],
+                       help="run mode: inference (a prompt, then --steps tokens), "
+                            "chat (turns from stdin), worker (a multi-process "
+                            "mesh member; not ported yet, prints guidance), "
+                            "train (not ported yet; refused)")
+        p.add_argument("--prompt", default=None,
+                       help="inference: the prompt (default 'Hello'); chat: the "
+                            "system message of the first turn")
+        p.add_argument("--steps", type=int, default=64,
+                       help="tokens to generate (inference mode)")
+        p.add_argument("--benchmark", action="store_true",
+                       help="print a per-token Pred line (and on a mesh its Sync "
+                            "bytes: the ring hop's bytes of a decode step, counted "
+                            "by the hop kernel, where the JAX package reckons "
+                            "collectives from the compiled program) and, on a "
+                            "mesh, a Measured/step line whose Sync time is the "
+                            "ring_hop kernels' device time under torch.profiler "
+                            "(the JAX package reads an XLA trace)")
+        p.add_argument("--temperature", type=float, default=0.8,
+                       help="sampling temperature (0: greedy, with prompt-lookup "
+                            "speculation unless --no-spec)")
+        p.add_argument("--topp", type=float, default=0.9, help="nucleus top-p")
+        p.add_argument("--seed", type=int, default=None,
+                       help="sampler seed (inference: 12345 when unset; chat: OS "
+                            "entropy when unset)")
+    p.add_argument("--model", required=api, help="path to .m model file")
+    p.add_argument("--tokenizer", required=api, help="path to .t tokenizer file")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; there is no "
                         "silent fall back — pass 'cpu' to run on the CPU). With "
@@ -82,7 +116,8 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "exits the chain to the synchronous admit+prefill "
                         "path")
     p.add_argument("--no-spec", action="store_true",
-                   help="serving: turn off prompt-lookup speculative decoding "
+                   help="serving and greedy dllama runs: turn off prompt-lookup "
+                        "speculative decoding "
                         "(on by default: a greedy lane whose history drafts "
                         "verifies up to SPEC_DRAFT + 1 tokens in one forward, "
                         "inside the pipelined chain). Up to 8 lanes a greedy "
@@ -121,6 +156,29 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "only the tail prefilled, so the stream is a cold "
                         "prefill's); 0 disables; default: scheduler default "
                         "(16)")
+    # crash-durable serving (serving/journal.py, recovery.py, resume.py)
+    p.add_argument("--journal-path", default=None,
+                   help="serving: append-only CRC-framed request journal "
+                        "(crash durability) — admitted requests with "
+                        "their resolved sampler seeds plus periodic "
+                        "delivery watermarks, written by a background "
+                        "thread off the hot path. Off by default; pair "
+                        "with --recover-journal to resume after a crash")
+    p.add_argument("--recover-journal", action="store_true",
+                   help="serving: on startup, replay the --journal-path "
+                        "journal — every admitted-but-unfinished request "
+                        "is re-admitted and regenerated from its prompt "
+                        "with the same seed (byte-identical streams); "
+                        "re-admission is paced through the circuit "
+                        "breaker so recovery cannot stampede a freshly "
+                        "restarted engine")
+    p.add_argument("--reconnect-grace", type=float, default=0.0,
+                   help="serving: seconds a disconnected SSE client may "
+                        "reattach (GET /v1/stream/<id> with "
+                        "Last-Event-ID) before the request is cancelled; "
+                        "while the window is open the request keeps "
+                        "generating into a bounded delta buffer. 0 "
+                        "(default) preserves cancel-on-disconnect")
     p.add_argument("--trace-path", default=None,
                    help="serving: write the request-lifecycle span ring as "
                         "Chrome trace-event JSON (Perfetto / chrome://tracing "
@@ -129,12 +187,14 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                         "/metrics")
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
-    # the JAX package's command line, accepted and ignored: sampling is per
-    # request, and the reference's thread and GPU knobs mean nothing here
+    # the JAX package's command line, accepted and ignored: the server
+    # samples per request, and the reference's thread and GPU knobs mean
+    # nothing here
     p.add_argument("--nthreads", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--temperature", type=float, default=0.8, help=argparse.SUPPRESS)
-    p.add_argument("--topp", type=float, default=0.9, help=argparse.SUPPRESS)
-    p.add_argument("--seed", type=int, default=None, help=argparse.SUPPRESS)
+    if api:
+        p.add_argument("--temperature", type=float, default=0.8, help=argparse.SUPPRESS)
+        p.add_argument("--topp", type=float, default=0.9, help=argparse.SUPPRESS)
+        p.add_argument("--seed", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--gpu-index", type=int, default=-1, help=argparse.SUPPRESS)
     p.add_argument("--gpu-segments", default=None, help=argparse.SUPPRESS)
     p.add_argument("--net-turbo", type=int, default=1, help=argparse.SUPPRESS)

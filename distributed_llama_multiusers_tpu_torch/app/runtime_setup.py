@@ -1,6 +1,6 @@
 """Model/engine bootstrapping for the entry points: header -> tokenizer ->
 weights on the device (or sharded over a tensor-parallel mesh) -> engine ->
-warmed scheduler."""
+warmed engine (``dllama``) or warmed scheduler (``dllama-api``)."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
 from ..runtime.engine import warmup_engine
-from ..serving import DeadlinePolicy, QosQueue
+from ..serving import DeadlinePolicy, QosQueue, RequestJournal
 from ..tokenizer import Tokenizer
 from .args import parse_mesh_spec
 
@@ -111,15 +111,43 @@ def load_stack(args, n_lanes: int | None = None):
     return config, params, tokenizer, engine
 
 
+def warm_engine(engine, spec: bool, multi_step: int, pipeline: bool = True) -> float:
+    """Warm the engine (builds the kernels, runs each prefill bucket,
+    captures every decode-family graph the caller can replay), zero the
+    kernel counters and mark the graphs warm: from here the counters count
+    serving launches only, and a graph captured is a capture after warmup
+    (``analysis/jitcheck.py``). Returns the seconds it took."""
+    t0 = time.perf_counter()
+    warmup_engine(engine, spec=spec, multi_step=multi_step, pipeline=pipeline)
+    if engine.device.type == "cuda":
+        for dev in dict.fromkeys(engine.devices):
+            torch.cuda.synchronize(dev)
+    cuda_q40.reset_counts()
+    ring_collective.reset_counts()
+    cuda_sample.reset_counts()
+    cuda_attn.reset_counts()
+    if engine.graphs is not None:
+        engine.graphs.mark_warm()
+    return time.perf_counter() - t0
+
+
+def warmup_log(engine, seconds: float) -> None:
+    graphs = engine.graphs
+    log("⏳", f"Warmup done in {seconds:.1f}s"
+        + (f" ({len(graphs)} decode graphs captured in {graphs.capture_s:.1f}s)"
+           if graphs is not None else ""))
+
+
 def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     """Build the scheduler from the serving flags (the JAX package's
     ``make_scheduler``: a ``QosQueue`` bounded at --max-queue, the deadline
     policy, the watchdog where --step-deadline or DLLAMA_STEP_DEADLINE is
     set), warm the engine (builds the kernels, runs each prefill bucket,
     captures every decode-family graph the scheduler can replay, the
-    verify step's unless --no-spec), zero the kernel counters and mark the
-    graphs warm, then start the loop: from here ``/stats`` counts serving
-    launches only, and a graph captured counts as a compile after warmup."""
+    verify step's unless --no-spec; ``warm_engine``), then start the loop:
+    from here ``/stats`` counts serving launches only, and a graph captured
+    counts as a compile after warmup. ``--journal-path`` gives the
+    scheduler its request journal."""
     # the scheduler's defaults stand where the CLI names no value
     overrides = {}
     for flag, key in (("multi_step", "multi_step"), ("prefix_min_tokens", "prefix_min_tokens"),
@@ -130,6 +158,10 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     fp = getattr(args, "fused_prefill", None)
     if fp is not None:
         overrides["fused_prefill"] = fp == "on"
+    journal_path = getattr(args, "journal_path", None)
+    if journal_path:
+        overrides["journal"] = RequestJournal(journal_path)
+        log("📓", f"Request journal: {journal_path} (crash-durable serving)")
     max_queue = getattr(args, "max_queue", 0) or 0
     policy = DeadlinePolicy.from_args(args) if args is not None else DeadlinePolicy()
     log("🚦", f"QoS: queue capacity {max_queue or 'unbounded'}, queue timeout "
@@ -141,24 +173,11 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
                                         queue_=QosQueue(capacity=max_queue),
                                         deadlines=policy, **overrides)
     log("⏳", "Warming serving paths (kernel build, prefill buckets, decode graphs)...")
-    t0 = time.perf_counter()
     # horizons are captured only where serving can pick one (a pipelining
     # engine never chains them)
-    warmup_engine(engine, spec=sched.speculative,
-                  multi_step=sched.multi_step if sched.horizons_reachable() else 0)
-    if engine.device.type == "cuda":
-        for dev in dict.fromkeys(engine.devices):
-            torch.cuda.synchronize(dev)
-    cuda_q40.reset_counts()
-    ring_collective.reset_counts()
-    cuda_sample.reset_counts()
-    cuda_attn.reset_counts()
-    graphs = engine.graphs
-    if graphs is not None:
-        graphs.mark_warm()
-    log("⏳", f"Warmup done in {time.perf_counter() - t0:.1f}s"
-        + (f" ({len(graphs)} decode graphs captured in {graphs.capture_s:.1f}s)"
-           if graphs is not None else ""))
+    warmup_log(engine, warm_engine(
+        engine, spec=sched.speculative,
+        multi_step=sched.multi_step if sched.horizons_reachable() else 0))
     log("🔁", f"Serving paths: pipeline depth {engine.pipeline_depth}, multi-step "
               f"{sched.multi_step}, fused prefill {'on' if sched.fused_prefill else 'off'}, "
               f"speculation {'on' if sched.speculative else 'off'} (SPEC_DRAFT "

@@ -71,6 +71,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..analysis import jitcheck
 from ..device import resolve_device
 from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, llama_forward
@@ -858,6 +859,58 @@ class InferenceEngine:
                 self.stats.pipeline_flushes += 1
         return n
 
+    def lane_logits(self, logits, lane: int) -> np.ndarray:
+        """One lane's row of a step's logits on the host, as f32 numpy (the
+        host sampler's input; counted in ``host_bytes_in``)."""
+        faults.fire("engine.transfer")
+        out = logits[lane].float().cpu().numpy()
+        with self.stats.lock:
+            self.stats.host_bytes_in += out.nbytes
+        return out
+
+    @torch.inference_mode()
+    def measured_sync_stats(self, steps: int = 4) -> dict:
+        """A decode step's time split, measured: wall ms per step (host
+        clock), device busy ms and the ring hop's device ms per step
+        (``torch.profiler``, kernels on every rank), and the hop's share of
+        the busy time. The JAX engine reads the same split from an XLA
+        trace. Every lane steps at ``seq_len``, so the steps write only the
+        scratch slot and no committed KV; the counters are restored. Off a
+        mesh, or where the profiler records no device time (the CPU), the
+        split is None and only ``step_ms`` is measured."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        park = np.full(self.n_lanes, self.config.seq_len, np.int64)
+        z = np.zeros(self.n_lanes, np.int64)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with self.stats.preserved():
+            self.decode(z, park, want_logits=False)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                self.decode(z, park, want_logits=False)  # reads back: synchronized
+            out = {"step_ms": (time.perf_counter() - t0) * 1e3 / steps}
+            with profile(activities=activities) as prof:
+                for _ in range(steps):
+                    self.decode(z, park, want_logits=False)
+        busy = hop = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0) or 0.0
+            if e.device_type == DeviceType.CPU or us <= 0:
+                continue
+            busy += us
+            if "ring_seg_kernel" in e.key or "ring_step2_kernel" in e.key:
+                hop += us
+        if busy <= 0 or self.mesh is None:
+            out.update(device_busy_ms=None, sync_ms=None, sync_frac=None,
+                       source="wall-only")
+            return out
+        out.update(device_busy_ms=busy / 1e3 / steps, sync_ms=hop / 1e3 / steps,
+                   sync_frac=hop / busy, source="torch.profiler")
+        return out
+
     @torch.inference_mode()
     def sample_token(self, logits_row, temp: float, topp: float, seed: int,
                      pos: int) -> int:
@@ -905,12 +958,13 @@ def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 
     the synchronous verify step, the pipelined step and verify step in
     their reseed and chained forms and the fused steps per prefill bucket.
     The counters are restored afterwards; the junk KV lands in slots
-    admission rewrites."""
+    admission rewrites. Captures here never count against the recompile
+    witness (``analysis/jitcheck.py``)."""
     n = engine.n_lanes
     z = np.zeros(n, np.int64)
     spec = spec and getattr(engine, "supports_speculative", False)
     spec_pl = spec and getattr(engine, "supports_spec_pipelined", False)
-    with engine.stats.preserved():
+    with jitcheck.warming(), engine.stats.preserved():
         for bucket in engine.prefill_buckets:
             engine.prefill_chunk(0, [0] * bucket, 0)
         multi = multi_step if getattr(engine, "supports_multi_step", False) else 0

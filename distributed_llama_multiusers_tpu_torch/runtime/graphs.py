@@ -23,7 +23,9 @@ library handles (cuBLAS and its workspace) are made before the first
 capture. After ``mark_warm`` every new capture counts in
 ``captures_after_warmup``: serving replays what warmup captured, and a
 capture mid-serving stalls a step (the JAX package's post-warmup compile
-counter, ``dllama_jit_compiles_total`` on ``/metrics``). Warmup captures
+counter, ``dllama_jit_compiles_total`` on ``/metrics``); every capture is
+reported to the recompile witness (``analysis/jitcheck.py``), which
+``mark_warm`` arms and which raises under ``DLLAMA_JITCHECK=1``. Warmup captures
 keys ahead of their first step: there a family's
 body runs once eagerly on the capture stream first, the engine's carried
 buffers are restored after that run, and the run's cache writes are the
@@ -37,6 +39,7 @@ import time
 
 import torch
 
+from ..analysis import jitcheck
 from ..ops import cuda_attn, cuda_q40, cuda_sample, ring_collective
 
 
@@ -82,9 +85,11 @@ class StepGraphs:
         self._warm_count: int | None = None
 
     def mark_warm(self) -> None:
-        """Warmup is over: count replays, and captures, from here."""
+        """Warmup is over: count replays, and captures, from here (and arm
+        the recompile witness for these graphs)."""
         self._warm_count = len(self._graphs)
         self.replays = 0
+        jitcheck.arm(self)
 
     @property
     def captures_after_warmup(self) -> int:
@@ -146,4 +151,5 @@ class StepGraphs:
         add_deltas(delta, -1)  # the capture itself launched nothing
         self._graphs[key] = entry = (graph, out, delta)
         self.capture_s += time.perf_counter() - t0
+        jitcheck.note_capture(self)
         return entry

@@ -34,14 +34,17 @@ the pipelined dispatch half and never reading a tensor), and the per-lane
 prefix cache (an admission whose prompt shares whole prompt chunks with
 the prompt KV resident in some lane copies that lane's KV,
 ``engine.copy_lane``, and prefills only the tail; ``_start_request`` says
-what it reuses). The request journal and recovery, grammar and paged KV
-are later work.
+what it reuses). With a ``journal`` (``serving/journal.py``) every
+admission writes an admit record with the resolved seed and every ending a
+finish record, so ``serving/recovery.py`` can regenerate the in-flight set
+after a crash through ``build_recovered_request``; ``stop()`` witnesses
+that no session record or journal mark outlived the loop
+(``analysis/leakcheck.py``). Grammar and paged KV are later work.
 """
 
 from __future__ import annotations
 
 import itertools
-import os
 import threading
 import time
 from collections import deque
@@ -52,13 +55,16 @@ from typing import Callable
 
 import numpy as np
 
+from ..analysis import jitcheck, leakcheck
 from ..serving import (
     AdmissionRejected,
     CircuitBreaker,
     DeadlinePolicy,
     Priority,
     QosQueue,
+    RequestJournal,
     StepWatchdog,
+    admit_record,
     budget_expired,
     drain_scheduler,
     queue_expired,
@@ -67,6 +73,7 @@ from ..serving.watchdog import deadline_from_env
 from ..telemetry import Telemetry
 from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
 from ..utils import faults
+from ..utils.seeds import fresh_seed
 from .engine import DEFAULT_TOPP
 from .spec import NgramDraftIndex, pow2_floor
 
@@ -110,9 +117,14 @@ def _next_request_id() -> int:
         return next(_req_ids)
 
 
-def fresh_seed() -> int:
-    """A sampling seed from OS entropy for requests that name none."""
-    return int.from_bytes(os.urandom(4), "little")
+def ensure_request_id_floor(min_used_id: int) -> None:
+    """Advance the shared request-id counter past ``min_used_id``: recovery
+    re-admits crashed requests under their original ids (the SSE reattach
+    key), and requests admitted after it must never collide with them."""
+    global _req_ids
+    with _req_ids_lock:
+        nxt = next(_req_ids)
+        _req_ids = itertools.count(max(nxt, int(min_used_id) + 1))
 
 
 @dataclass
@@ -135,7 +147,14 @@ class Request:
     budget_s: float | None = None
     # trace context (telemetry/tracectx.py), "tid-sid" wire form, from the
     # X-DLlama-Trace header: every span of this request carries its trace id
+    # (journaled, so a recovered stream rejoins its trace)
     trace: str | None = None
+    # crash-durable serving (serving/journal.py): which API route built
+    # this request ("chat" | "completion" | None), journaled so a recovered
+    # stream reattaches with the right SSE chunk shape, and whether this
+    # request is a journal replay (its original id and resolved seed)
+    api_kind: str | None = None
+    recovered: bool = False
     id: int = field(default_factory=_next_request_id)
     state: RequestState = RequestState.QUEUED
     future: Future = field(default_factory=Future)
@@ -190,7 +209,8 @@ class ContinuousBatchingScheduler:
                  fused_prefill: bool = True, speculative: bool = True,
                  prefix_min_tokens: int = 16, deadlines: DeadlinePolicy | None = None,
                  telemetry: Telemetry | None = None, breaker: CircuitBreaker | None = None,
-                 step_deadline_s: float | None = None):
+                 step_deadline_s: float | None = None,
+                 journal: RequestJournal | None = None):
         """``speculative``: prompt-lookup speculative decoding of greedy
         lanes, wherever the engine has the verify families (inside the
         pipelined chain, else the synchronous verify step); False turns it
@@ -219,7 +239,10 @@ class ContinuousBatchingScheduler:
         breaker the containment layer feeds (a default one is built);
         ``step_deadline_s``: the step watchdog's deadline, None reads
         ``DLLAMA_STEP_DEADLINE``, 0 disables (a trip never ends the
-        process: the port has no multi-process mesh)."""
+        process: the port has no multi-process mesh); ``journal``: the
+        crash-durable request journal (``--journal-path``; None, the
+        default, journals nothing). Its creator closes it; ``stop()``
+        only flushes it."""
         self.engine = engine
         self.tokenizer = tokenizer
         self.queue = queue_ if queue_ is not None else QosQueue()
@@ -258,6 +281,16 @@ class ContinuousBatchingScheduler:
         self.queue_timeouts = 0
         self.budget_timeouts = 0
         self._last_sweep = 0.0
+        # crash durability: the journal (None = off) and, after a
+        # --recover-journal restart, the replay coordinator whose counters
+        # /stats merges
+        self.journal = journal
+        self.recovery = None
+        # the live-session mirror: each admitted request's admit wire
+        # record (GET /admin/session/<id>), built whole on the loop thread
+        # and assigned or popped with single-key dict ops; one entry per
+        # request holding a lane
+        self._session_records: dict[int, tuple[dict, Request]] = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -281,6 +314,10 @@ class ContinuousBatchingScheduler:
             multi_step=self.multi_step,
             speculative=self.speculative,
             prefix_min_tokens=self.prefix_min_tokens,
+            # True once warmup armed the recompile witness
+            # (analysis/jitcheck.py, StepGraphs.mark_warm): False means
+            # this scheduler serves steps whose graphs capture mid-request
+            jitcheck_armed=jitcheck.armed(),
             queue_capacity=self.queue.capacity,
             queue_timeout_s=self.deadlines.queue_timeout_s,
             request_budget_s=self.deadlines.request_budget_s,
@@ -299,6 +336,24 @@ class ContinuousBatchingScheduler:
             self._thread = None
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.journal is not None:
+            # a barrier, not close: the journal's creator closes it
+            self.journal.flush()
+        # the loop joined and _resolve_exit settled every lane, so every
+        # count is zero on a clean stop; raises under DLLAMA_LEAKCHECK=1
+        leakcheck.check_drained("scheduler stop", self.leak_counts())
+
+    def leak_counts(self) -> dict[str, int]:
+        """Live counts of every resource this scheduler owns, the leak
+        witness's drain snapshot (also ``resources_live`` on /stats between
+        drains): session-mirror records and open journal marks. The port
+        has no page pool and no admin device-op queue, so the JAX
+        scheduler's ``kv_lane_pages``, ``kv_swap_pending`` and
+        ``device_ops`` kinds do not arise."""
+        counts = {"session_records": len(self._session_records)}
+        if self.journal is not None:
+            counts["journal_marks"] = int(self.journal.stats().get("journal_open_marks", 0))
+        return counts
 
     def drain(self, timeout: float | None = None) -> bool:
         """Graceful shutdown (serving/drain.py): stop admitting (submit
@@ -343,6 +398,49 @@ class ContinuousBatchingScheduler:
         self.queue.note_rejection("draining")
         raise AdmissionRejected("draining", retry_after_s=5.0)
 
+    def build_recovered_request(self, entry) -> Request:
+        """A journal entry (``serving/journal.JournalEntry``) as a Request for
+        deterministic replay (``serving/recovery.py`` calls it and stays
+        free of runtime/). The original id is kept (the SSE reattach key)
+        and the id counter moves past it; the journaled resolved seed
+        rides in ``seed``, so the lane draws the crashed process's
+        ``fold_in(seed, pos)`` stream."""
+        ensure_request_id_floor(entry.request_id)
+        return Request(
+            prompt=entry.prompt,
+            max_tokens=entry.max_tokens,
+            temperature=entry.temperature,
+            topp=entry.topp,
+            seed=entry.seed,
+            stop=list(entry.stop),
+            add_bos=entry.add_bos,
+            add_special_tokens=entry.add_special_tokens,
+            user_id=entry.user,
+            priority=entry.priority,
+            queue_timeout_s=entry.queue_timeout_s,
+            budget_s=entry.budget_s,
+            trace=entry.trace,
+            api_kind=entry.kind,
+            recovered=True,
+            id=entry.request_id,
+        )
+
+    def export_session(self, request_id: int) -> dict | None:
+        """A live session's admit wire record (``serving/journal.admit_record``:
+        prompt tokens, sampler params with the resolved seed, QoS class,
+        deadlines) plus a ``watermark``, the tokens consumed so far
+        (informational: a replay re-buffers from 0 and the client's
+        ``Last-Event-ID`` picks the resume point). None for unknown or
+        finished requests and for queued ones (only an admitted request
+        has a resolved seed)."""
+        got = self._session_records.get(int(request_id))
+        if got is None:
+            return None
+        rec, req = got
+        out = dict(rec)
+        out["watermark"] = len(req.generated_tokens)
+        return out
+
     def occupancy(self) -> tuple[int, int]:
         """(busy lanes, total lanes)."""
         return sum(1 for l in self._lanes if l.request is not None), len(self._lanes)
@@ -360,6 +458,13 @@ class ContinuousBatchingScheduler:
         out.update(self.breaker.stats())
         if self.watchdog is not None:
             out.update(self.watchdog.stats())
+        # crash durability: the journal's write accounting and, after a
+        # --recover-journal restart, the replay counters (bridged to
+        # /metrics like every field)
+        if self.journal is not None:
+            out.update(self.journal.stats())
+        if self.recovery is not None:
+            out.update(self.recovery.stats())
         out.update(self.queue.stats())
         return out
 
@@ -403,6 +508,7 @@ class ContinuousBatchingScheduler:
         req.state = RequestState.FAILED
         req.error = error
         req.finish_reason = "error"
+        self._session_records.pop(req.id, None)
         self._lanes[lane_idx] = _Lane()
         self._lane_kv[lane_idx] = []
         try:
@@ -413,6 +519,11 @@ class ContinuousBatchingScheduler:
         if not req.future.done():
             req.future.set_exception(exc if exc is not None
                                      else EngineFailure(error, request_id=req.id))
+        if self.journal is not None:
+            # after the future, as in _finish: a lost "error" finish record
+            # only re-runs the request on recovery, which is always safe
+            self.journal.record_finish(req.id, "error",
+                                       phases=(req.summary or {}).get("phases"))
 
     def _free_lanes(self) -> list[int]:
         return [i for i, l in enumerate(self._lanes) if l.request is None]
@@ -534,6 +645,23 @@ class ContinuousBatchingScheduler:
         lane.eos = EosDetector(self.tokenizer.eos_token_ids, stops,
                                self.eos_padding[0], self.eos_padding[1])
         lane.decoder = self.tokenizer.make_stream_decoder()
+        # the admit record last, with the resolved seed: nothing is recorded
+        # for a request that failed above. One kwargs set feeds the journal
+        # and the live-session mirror, so the two cannot drift
+        admit_kw = dict(
+            request_id=req.id, prompt=req.prompt, tokens=list(tokens),
+            max_tokens=req.max_tokens, temperature=req.temperature,
+            topp=req.topp, seed=int(lane.seed), stop=list(req.stop),
+            add_bos=req.add_bos, add_special_tokens=req.add_special_tokens,
+            user=req.user_id, priority=int(req.priority),
+            queue_timeout_s=req.queue_timeout_s, budget_s=req.budget_s,
+            stream=req.on_delta is not None, kind=req.api_kind,
+            response_format=None, trace=req.trace,
+        )
+        self._session_records[req.id] = (admit_record(**admit_kw), req)
+        if self.journal is not None:
+            # only enqueues: the journal's writer thread does the file I/O
+            self.journal.record_admit(**admit_kw)
 
     def _prefill_step(self) -> bool:
         """Advance ONE admitting lane by one prompt bucket (round-robin).
@@ -620,6 +748,7 @@ class ContinuousBatchingScheduler:
     def _finish(self, lane_idx: int, req: Request, reason: str = "stop") -> None:
         req.state = RequestState.DONE
         req.finish_reason = reason
+        self._session_records.pop(req.id, None)
         delta = self._lanes[lane_idx].eos.get_delta()
         if delta:
             req.generated_text += delta
@@ -632,6 +761,16 @@ class ContinuousBatchingScheduler:
         self.telemetry.on_finish(req, lane_idx, reason)
         if not req.future.done():
             req.future.set_result(req.generated_text)
+        if self.journal is not None:
+            # a deliberate ending is final: the finish record keeps a later
+            # --recover-journal restart from resurrecting the request (a
+            # crash writes none; that absence is the in-flight set).
+            # Recorded last, after the held-back tail delta and the future:
+            # a finish record that never lands only re-runs the request
+            # (the client's Last-Event-ID dedups), one durable before the
+            # tail reached the transport would lose the tail
+            self.journal.record_finish(req.id, reason,
+                                       phases=(req.summary or {}).get("phases"))
 
     def _run(self) -> None:
         """The serving loop inside a containment boundary: an engine

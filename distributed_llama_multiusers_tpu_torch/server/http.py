@@ -20,9 +20,16 @@ header on a POST is kept on the request and stamped on its spans.
 
 Every streamed delta carries its token index as the SSE ``id:`` line, the
 terminal chunk carries the finish reason and the request's latency
-summary, and the stream ends with ``data: [DONE]``. ``/stats`` serves the
-engine counters, lane occupancy, the dequant mode and each Q40 kernel's
-launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
+summary, and the stream ends with ``data: [DONE]``. A stream's deltas pass
+through a ``StreamRelay`` (``serving/resume.py``); with a resume registry
+(``--reconnect-grace`` > 0) a client that lost its connection reattaches
+within the grace window with ``GET /v1/stream/<id>`` and ``Last-Event-ID``
+(live or journal-recovered streams alike) while the request keeps
+generating, and each delta written to the transport advances the
+journal's delivery watermark. ``GET /admin/session/<id>`` serves a live
+request's admit record (``serving/journal.admit_record``) and watermark.
+``/stats`` serves the engine counters, lane occupancy, the dequant mode
+and each Q40 kernel's launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
 plain-version calls of a CPU run), the sampler kernel's
 (``gumbel_sample_launches``) and the attention kernel's
 (``decode_attn_launches``), the serving paths' counters (multi-step
@@ -34,26 +41,28 @@ calls and bytes, and the hop bytes of the last decode step
 depth, waits and rejections, deadline expiries, the breaker and the
 watchdog), the prefix cache's hits and tokens saved, the decode graphs
 captured after warmup (``jit_compiles_after_warmup``, the JAX server's
-post-warmup compile count) and the span ring's counts.
+post-warmup compile count), the journal's and recovery's counters, the
+leak witness's (``resource_leaks_total``, ``resources_live``) and the span
+ring's counts.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
-import queue
 import time
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
+from ..analysis import leakcheck
 from ..ops.cuda_attn import attn_counts
 from ..ops.cuda_q40 import kernel_counts
 from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
 from ..ops.ring_collective import ring_counts
 from ..runtime.scheduler import Request
-from ..serving import AdmissionRejected, jittered_retry_after
+from ..serving import AdmissionRejected, StreamRelay, jittered_retry_after
 from ..telemetry import TRACE_HEADER, Telemetry, TraceContext
 from ..tokenizer import ChatItem, TemplateType, chat_generator_for
 from . import api_types
@@ -77,33 +86,47 @@ class SchedulerStalled(RuntimeError):
 class ApiServer:
     def __init__(self, scheduler, tokenizer, model_name: str = "dllama",
                  template_type: TemplateType = TemplateType.UNKNOWN,
-                 result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S):
+                 result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S, resume=None):
+        """``resume``: the ``StreamRegistry`` of resumable streams
+        (``--reconnect-grace`` > 0), or None: a client that disconnects
+        then cancels its request."""
         self.scheduler = scheduler
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.chat_template = chat_generator_for(tokenizer, template_type)
         self.result_timeout_s = result_timeout_s
+        self.resume = resume
         self._httpd: ThreadingHTTPServer | None = None
         self._fallback_tel: Telemetry | None = None
 
     # -- request handling ---------------------------------------------------
 
     def _make_request(self, prompt: str, body: dict, streaming: bool,
-                      trace: str | None = None) -> tuple[Request, "queue.Queue | None"]:
-        """``trace``: the request's validated X-DLlama-Trace wire value."""
+                      kind: str | None = None,
+                      trace: str | None = None) -> tuple[Request, StreamRelay | None]:
+        """The body -> Request mapping of both routes. A streamed request
+        gets a ``StreamRelay`` buffering each delta with its token index
+        (the SSE ``id:`` line), which is what makes the stream resumable;
+        with a resume registry it is registered there. ``kind`` names the
+        route (journaled); ``trace`` is the validated X-DLlama-Trace."""
         params = api_types.InferenceParams.from_body(body)
         req = Request(prompt=prompt, max_tokens=params.max_tokens,
                       temperature=params.temperature, topp=params.top_p,
                       seed=params.seed, stop=params.stop, user_id=params.user,
-                      priority=params.priority, trace=trace)
-        deltas = None
+                      priority=params.priority, trace=trace, api_kind=kind)
+        relay = None
         if streaming:
-            deltas = queue.Queue()
+            if self.resume is not None:
+                relay = self.resume.register(req, kind=kind)
+            else:
+                # no reconnects: capacity 0 keeps no replay window (a slow
+                # but connected client backpressures into memory)
+                relay = StreamRelay(req.id, capacity=0)
+                req.future.add_done_callback(lambda _f: relay.finish())
             # on_delta runs on the scheduler thread right after the token
             # was consumed, so len(generated_tokens) is the delta's index
-            req.on_delta = lambda d: deltas.put((len(req.generated_tokens), d))
-            req.future.add_done_callback(lambda _f: deltas.put(None))
-        return req, deltas
+            req.on_delta = lambda d: relay.push(len(req.generated_tokens), d)
+        return req, relay
 
     def build_request(self, body: dict, streaming: bool, trace: str | None = None):
         """/v1/chat/completions: messages through the chat template. Raises
@@ -112,17 +135,20 @@ class ApiServer:
         chat = self.chat_template.generate(
             [ChatItem(m.role, m.content) for m in messages], append_generation_prompt=True
         )
-        return self._make_request(chat.content, body, streaming, trace)
+        return self._make_request(chat.content, body, streaming, kind="chat", trace=trace)
 
     def build_completion_request(self, body: dict, streaming: bool,
                                  trace: str | None = None):
         """/v1/completions: the raw prompt, no chat template."""
         prompt = api_types.parse_completion_prompt(body)
-        return self._make_request(prompt, body, streaming, trace)
+        return self._make_request(prompt, body, streaming, kind="completion", trace=trace)
 
-    def run_request(self, req: Request, deltas, send_chunk, chunk_fn, response_fn):
+    def run_request(self, req: Request, relay, send_chunk, chunk_fn, response_fn):
         """Wait for a submitted request; stream it through ``send_chunk``
-        when given, else return the JSON response."""
+        when given, else return the JSON response. A stream whose client
+        goes away keeps generating within the reconnect grace (the
+        registry's reaper cancels it when nobody returns); without a
+        registry it is cancelled, freeing the lane."""
         if send_chunk is None:
             try:
                 text = req.future.result(timeout=self.result_timeout_s)
@@ -133,24 +159,65 @@ class ApiServer:
                                len(req.generated_tokens), req.finish_reason or "stop",
                                summary=req.summary)
         try:
-            while True:
-                try:
-                    item = deltas.get(timeout=self.result_timeout_s)
-                except queue.Empty:
-                    req.cancel()
-                    raise SchedulerStalled(req.id, self.result_timeout_s) from None
-                if item is None:
-                    break
-                idx, text = item
-                send_chunk(chunk_fn(self.model_name, req.id, text, False), event_id=idx)
-            req.future.result()  # re-raise a failure
-            send_chunk(chunk_fn(self.model_name, req.id, None, True,
-                                req.finish_reason or "stop", summary=req.summary),
-                       event_id=len(req.generated_tokens))
+            self._pump(req, relay, relay.attach(), 0, send_chunk, chunk_fn)
         except (BrokenPipeError, ConnectionError, OSError):
-            req.cancel()  # the client went away: free the lane
+            if self.resume is not None:
+                self.resume.detach(req.id)  # the grace clock starts
+            else:
+                req.cancel()  # the client went away: free the lane
             raise
         return {}
+
+    def _pump(self, req, relay, gen: int, after: int, send_chunk, chunk_fn) -> bool:
+        """Drain a stream's relay to one SSE consumer from token index
+        ``after`` (0 for a fresh stream, the client's Last-Event-ID on a
+        reconnect). Each delta goes out with its index as the ``id:`` line
+        and then advances the journal's delivery watermark (a socket write,
+        not client receipt: recovery never discards by it). Returns True
+        when the terminal chunk went out, False on a quiet end (another
+        consumer took the stream over, or a resume gap the client must
+        restart from)."""
+        journal = getattr(self.scheduler, "journal", None)
+        while True:
+            item = relay.next_after(after, timeout=self.result_timeout_s, gen=gen)
+            if item is None:
+                # the gap between deltas is the stream's liveness bound
+                req.cancel()
+                raise SchedulerStalled(req.id, self.result_timeout_s)
+            tag = item[0]
+            if tag == "delta":
+                _, idx, text = item
+                send_chunk(chunk_fn(self.model_name, req.id, text, False), event_id=idx)
+                after = idx
+                if journal is not None:
+                    journal.note_progress(req.id, idx)
+                continue
+            if tag == "superseded":
+                return False
+            if tag == "gap":
+                # deltas past this consumer's position were evicted: fail
+                # closed rather than skip tokens
+                send_chunk({"error": "resume window exceeded; restart the request",
+                            "reason": "resume_gap", "request_id": req.id})
+                if self.resume is not None:
+                    # a client that closes cleanly after this chunk raises
+                    # nothing, so start the grace clock here
+                    self.resume.detach(req.id)
+                return False
+            break  # ("done",): the future resolved
+        try:
+            req.future.result()  # re-raise a failure
+        except AdmissionRejected as e:
+            # shed after the SSE headers went out (a drain flush): the typed
+            # shed goes out as an error chunk with its Retry-After hint
+            send_chunk({"error": str(e), "reason": e.reason, "request_id": req.id,
+                        "retry_after_s": round(jittered_retry_after(e.retry_after_s,
+                                                                    req.id), 2)})
+            req.finish_reason = "cancelled"
+        send_chunk(chunk_fn(self.model_name, req.id, None, True,
+                            req.finish_reason or "stop", summary=req.summary),
+                   event_id=len(req.generated_tokens))
+        return True
 
     def handle_models(self) -> dict:
         return api_types.models_response(self.model_name)
@@ -220,6 +287,10 @@ class ApiServer:
             "jit_compiles_after_warmup": (0 if engine.graphs is None
                                           else engine.graphs.captures_after_warmup),
         }
+        # the leak witness's counters, then this scheduler's live ownership
+        # (busy serving holds records and marks; only a drain asserts 0)
+        out.update(leakcheck.stats())
+        out["resources_live"] = sched.leak_counts()
         out.update(dequant_stats())
         out.update(kernel_counts())
         out.update(ring_counts())
@@ -228,6 +299,8 @@ class ApiServer:
         qos = getattr(sched, "qos_stats", None)
         if callable(qos):  # queue depth/wait/rejections, timeouts, breaker
             out.update(qos())
+        if self.resume is not None:  # the SSE reattach registry
+            out.update(self.resume.stats())
         out.update(self._telemetry().tracer.counts())
         return out
 
@@ -352,6 +425,10 @@ class ApiServer:
                 path = self.path.split("?", 1)[0]
                 if path == "/v1/models":
                     self._json(200, api.handle_models())
+                elif path.startswith("/v1/stream/"):
+                    self._resume_stream()
+                elif path.startswith("/admin/session/"):
+                    self._export_session()
                 elif path == "/stats":
                     self._json(200, api.handle_stats())
                 elif path == "/load":
@@ -372,6 +449,64 @@ class ApiServer:
                     self._json(*api.handle_health())
                 else:
                     self._json(404, {"error": "not found"})
+
+            def _export_session(self):
+                """``GET /admin/session/<id>``: a live request's admit wire
+                record and watermark; 404 for unknown, queued or finished
+                requests."""
+                try:
+                    rid = int(self.path.split("?", 1)[0].rsplit("/", 1)[1])
+                except ValueError:
+                    self._json(400, {"error": "bad session id"})
+                    return
+                rec = api.scheduler.export_session(rid)
+                if rec is None:
+                    self._json(404, {"error": "unknown or finished session (only "
+                                              "admitted, in-flight requests export one)",
+                                     "request_id": rid})
+                    return
+                self._json(200, rec)
+
+            def _resume_stream(self):
+                """``GET /v1/stream/<id>`` with ``Last-Event-ID``: reattach to a
+                live or journal-recovered stream and replay from there. 404
+                when resumption is off (--reconnect-grace 0), the id is
+                unknown or its grace window passed."""
+                if api.resume is None:
+                    self._json(404, {"error": "stream resumption disabled "
+                                              "(--reconnect-grace is 0)"})
+                    return
+                try:
+                    rid = int(self.path.split("?", 1)[0].rsplit("/", 1)[1])
+                except ValueError:
+                    self._json(400, {"error": "bad stream id"})
+                    return
+                raw = self.headers.get("Last-Event-ID")
+                try:
+                    # none: from the relay's base (0 for a recovered stream:
+                    # without the client's position the whole stream replays)
+                    after = None if raw is None else int(raw)
+                except ValueError:
+                    self._json(400, {"error": f"bad Last-Event-ID {raw!r}"})
+                    return
+                entry = api.resume.attach(rid)
+                if entry is None:
+                    self._json(404, {"error": "unknown or expired stream (reconnect-grace "
+                                              "window passed?)", "request_id": rid})
+                    return
+                req, relay, kind, gen = entry
+                chunk_fn = (api_types.completion_chunk_response if kind == "completion"
+                            else api_types.chat_chunk_response)
+                self._sse_headers(req.id)
+                try:
+                    api._pump(req, relay, gen, relay.base if after is None else after,
+                              self._sse_chunk, chunk_fn)
+                    self.wfile.write(b"data: [DONE]\n\n")
+                except (BrokenPipeError, ConnectionError, OSError):
+                    api.resume.detach(rid)  # gone again: the grace clock restarts
+                except Exception as e:  # headers already out: an SSE error event
+                    self._sse_chunk({"error": str(e), "request_id": rid})
+                    self.wfile.write(b"data: [DONE]\n\n")
 
             def do_POST(self):
                 routes = {
@@ -410,8 +545,15 @@ class ApiServer:
                     streaming = bool(body.get("stream"))
                     # validate AND submit before any header goes out, so bad
                     # input gets a 400 and a shed request a 503
-                    req, deltas = build_fn(body, streaming=streaming, trace=trace)
-                    api.scheduler.submit(req)
+                    req, relay = build_fn(body, streaming=streaming, trace=trace)
+                    try:
+                        api.scheduler.submit(req)
+                    except BaseException:
+                        # shed: nothing will resolve this future or detach
+                        # it, so its registry entry must go
+                        if relay is not None and api.resume is not None:
+                            api.resume.discard(req.id)
+                        raise
                     if not streaming:
                         self._json(200, api.run_request(req, None, None, chunk_fn,
                                                         response_fn))
@@ -422,7 +564,7 @@ class ApiServer:
                         req.cancel()
                         raise
                     try:
-                        api.run_request(req, deltas, self._sse_chunk, chunk_fn, response_fn)
+                        api.run_request(req, relay, self._sse_chunk, chunk_fn, response_fn)
                         self.wfile.write(b"data: [DONE]\n\n")
                     except (BrokenPipeError, ConnectionError, OSError):
                         return

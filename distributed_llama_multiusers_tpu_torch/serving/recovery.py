@@ -1,0 +1,214 @@
+"""Deterministic replay recovery: re-admit the journal's in-flight set (the
+port's copy of the JAX package's ``serving/recovery.py``).
+
+The restart half of crash-durable serving. ``recover_scheduler`` reads
+the request journal (serving/journal.py), takes every admitted request
+without a finish record, and re-admits each one through the NORMAL
+admission path — ``scheduler.submit()`` — on a background replay thread.
+Three properties make this a latency blip instead of data loss:
+
+- **byte-identical regeneration** — the journal carries the prompt
+  tokens and the RESOLVED sampler seed; the scheduler regenerates from
+  the prompt with the same ``fold_in(seed, pos)`` draws, and a lane's
+  bits depend neither on the other lanes nor on the lane count, so a
+  restart with other lanes regenerates the same tokens. The full regenerated stream buffers in
+  the request's :class:`~.resume.StreamRelay` and the reconnecting
+  client's ``Last-Event-ID`` picks the resume point, so it sees zero
+  duplicated and zero lost tokens — even when the crash stranded
+  written-but-never-received deltas in the dead process's socket buffer
+  (the journaled watermark trails transport writes, not client receipt,
+  so it can sit AHEAD of the client's true position and is never used
+  to discard replayed deltas).
+- **no recovery stampede** — re-admission is PACED (one request at a
+  time, a small gap between submits) and goes through ``submit()``,
+  which is gated by the circuit breaker: on a restart into a still-sick
+  engine the breaker sheds the replay like any other client, and the
+  replay retries with the breaker's own Retry-After hint — recovered
+  work COMPOSES with the half-open probe instead of hammering a freshly
+  restarted engine with the entire crash backlog at once.
+- **containment** — a per-entry failure (or the ``recovery.replay``
+  fault point) is counted and skipped; the replay never takes the
+  serving loop down with it.
+
+The coordinator is runtime-agnostic: request construction lives on the
+scheduler (``build_recovered_request``), so this module — like the rest
+of ``serving/`` — imports nothing from ``runtime/`` or ``server/``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from ..lockcheck import make_lock
+from ..utils import faults
+from .journal import JournalEntry, read_journal
+from .qos import AdmissionRejected
+
+# per-entry re-admission gives up after this long of consecutive shed
+# (breaker open / queue full): by then the backlog is stale anyway and
+# the client has long since retried elsewhere
+DEFAULT_ENTRY_DEADLINE_S = 120.0
+
+
+def attach_recovered_stream(scheduler, entry: JournalEntry, registry=None):
+    """Materialize one journal entry into a Request and — for streamed
+    entries with a resume registry — register its relay, ready for
+    ``scheduler.submit()``. Returns ``(request, registered)``.
+
+    The single-entry body of the crash-replay thread below (the JAX
+    package's fleet migration endpoint shares it; the port has none yet).
+    The relay registers at ``base=0`` — NOT any journaled watermark: a
+    watermark trails the dead server's transport writes, not client
+    receipt, so fast-forwarding through it would turn the client's honest
+    ``Last-Event-ID`` into a resume_gap
+    and lose the stranded deltas for good. The whole regenerated stream
+    re-buffers (bounded by max_tokens — the regeneration happens anyway)
+    and ``Last-Event-ID`` alone picks the resume point.
+
+    Callers own the shed path: a ``submit()`` that raises must
+    ``registry.discard(request.id)`` when ``registered`` is True, or the
+    registry leaks one entry per shed."""
+    req = scheduler.build_recovered_request(entry)
+    registered = False
+    if registry is not None and entry.stream:
+        relay = registry.register(req, kind=entry.kind)
+        registered = True
+        # token index = consumed-token count at emit time
+        req.on_delta = (
+            lambda d, r=req, rel=relay: rel.push(
+                len(r.generated_tokens), d
+            )
+        )
+    return req, registered
+
+
+class RecoveryCoordinator:
+    """Owns the replay thread and the recovery counters /stats surfaces
+    (scheduler.qos_stats merges ``stats()``; telemetry/hub bridges the
+    fields to /metrics so the endpoints reconcile field-for-field)."""
+
+
+    def __init__(self, scheduler, entries: list[JournalEntry],
+                 registry=None, pace_s: float = 0.02,
+                 entry_deadline_s: float = DEFAULT_ENTRY_DEADLINE_S):
+        self.scheduler = scheduler
+        self.entries = list(entries)
+        self.registry = registry
+        self.pace_s = float(pace_s)
+        self.entry_deadline_s = float(entry_deadline_s)
+        self.requests = []  # re-admitted Request objects, replay order
+        self._lock = make_lock("RecoveryCoordinator._lock")
+        self._rc_recovered = 0
+        self._rc_failed = 0
+        self._rc_retries = 0
+        self._rc_replayed_tokens = 0
+        self._rc_done = False
+        self._stop_evt = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="recovery-replay", daemon=True
+        )
+
+    def start(self) -> "RecoveryCoordinator":
+        self._thread.start()
+        return self
+
+    # -- replay thread -------------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            for entry in self.entries:
+                if self._stop_evt.is_set():
+                    break
+                try:
+                    faults.fire("recovery.replay")
+                    self._replay_one(entry)
+                except Exception:  # noqa: BLE001 — replay is contained
+                    with self._lock:
+                        self._rc_failed += 1
+                if self.pace_s > 0:
+                    # paced, stop-aware gap between re-admissions: the
+                    # crash backlog trickles into the live queue instead
+                    # of arriving as one thundering batch
+                    self._stop_evt.wait(self.pace_s)
+        finally:
+            with self._lock:
+                self._rc_done = True
+
+    def _replay_one(self, entry: JournalEntry) -> None:
+        scheduler = self.scheduler
+        # the base=0 re-buffer rule and the watermark argument live on
+        # attach_recovered_stream
+        req, registered = attach_recovered_stream(
+            scheduler, entry, self.registry
+        )
+        deadline = time.monotonic() + self.entry_deadline_s
+        while True:
+            if self._stop_evt.is_set():
+                # abandoned pre-submit: nothing will ever resolve the
+                # future, so the registry entry must go or it leaks
+                if registered:
+                    self.registry.discard(req.id)
+                return
+            try:
+                scheduler.submit(req)
+                break
+            except AdmissionRejected as shed:
+                # breaker open / queue full on the fresh process: retry
+                # on the shed's own hint — this is exactly the half-open
+                # probe window composing with recovery
+                if time.monotonic() >= deadline:
+                    if registered:
+                        self.registry.discard(req.id)
+                    with self._lock:
+                        self._rc_failed += 1
+                    return
+                with self._lock:
+                    self._rc_retries += 1
+                self._stop_evt.wait(
+                    min(max(shed.retry_after_s, 0.05), 2.0)
+                )
+        self.requests.append(req)
+        with self._lock:
+            self._rc_recovered += 1
+            self._rc_replayed_tokens += entry.watermark
+
+    # -- surfaces ------------------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "recovery_incomplete": len(self.entries),
+                "recovered_requests": self._rc_recovered,
+                "recovery_failed": self._rc_failed,
+                "recovery_retries": self._rc_retries,
+                "recovery_replayed_tokens": self._rc_replayed_tokens,
+                "recovery_done": self._rc_done,
+            }
+
+    def join(self, timeout: float | None = None) -> bool:
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def stop(self, timeout: float | None = 5.0) -> None:
+        self._stop_evt.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+
+
+def recover_scheduler(scheduler, journal_path: str, registry=None,
+                      pace_s: float = 0.02) -> RecoveryCoordinator:
+    """Read ``journal_path`` and start replaying its incomplete requests
+    into ``scheduler``. Returns the started coordinator (attached as
+    ``scheduler.recovery`` so /stats picks the counters up). Stream
+    reattachment needs a ``registry`` (serving/resume.py) — without one,
+    recovered requests still regenerate and journal their finish (so a
+    second restart does not resurrect them again), but emitted deltas
+    have nowhere to go."""
+    image = read_journal(journal_path)
+    coordinator = RecoveryCoordinator(
+        scheduler, image.incomplete(), registry=registry, pace_s=pace_s
+    )
+    coordinator.image = image
+    scheduler.recovery = coordinator
+    return coordinator.start()

@@ -135,9 +135,31 @@ class Telemetry:
             "jit_compiles_after_warmup field, delta-fed) — non-zero means a "
             "step captured mid-serving",
         )
+        # crash durability (serving/journal.py, serving/recovery.py) and
+        # resource lifecycles (analysis/leakcheck.py): native counters
+        # beside the dllama_stats_* gauges, delta-fed from /stats
+        self.journal_records = reg.counter(
+            "dllama_journal_records_total",
+            "request-journal records durably written (the /stats "
+            "journal_records field, delta-fed)",
+        )
+        self.recovered_requests = reg.counter(
+            "dllama_recovered_requests_total",
+            "crashed requests re-admitted by journal replay (the /stats "
+            "recovered_requests field, delta-fed)",
+        )
+        self.resource_leaks = reg.counter(
+            "dllama_resource_leaks_total",
+            "resources found still held at a drain point: scheduler stop, "
+            "stream-registry close (the /stats resource_leaks_total "
+            "field, delta-fed); non-zero means a lifecycle leak",
+        )
         self._sync_bytes_seen = 0.0
         self._jit_compiles_seen = 0.0
         self._spec_emitted_seen = 0.0
+        self._journal_records_seen = 0.0
+        self._recovered_seen = 0.0
+        self._resource_leaks_seen = 0.0
         self._failures_seen: dict[str, float] = {}
 
     # -- request lifecycle hooks --------------------------------------------
@@ -395,13 +417,20 @@ class Telemetry:
                 self._spec_emitted_seen = float(emitted)
             elif emitted == 0:
                 self._spec_emitted_seen = 0.0
-        # graph captures after warmup never reset within a process, so
-        # the monotone delta-feed recipe applies verbatim
-        v = stats.get("jit_compiles_after_warmup")
-        if isinstance(v, (int, float)) and not isinstance(v, bool):
-            if v > self._jit_compiles_seen:
-                self.jit_compiles.inc(float(v - self._jit_compiles_seen))
-            self._jit_compiles_seen = float(v)
+        # graph captures after warmup never reset within a process, nor do
+        # journal records, recovered requests and leaks (a drop means the
+        # journal or coordinator was swapped: re-baseline, the counter keeps)
+        for fld, ctr, seen_attr in (
+                ("jit_compiles_after_warmup", self.jit_compiles, "_jit_compiles_seen"),
+                ("journal_records", self.journal_records, "_journal_records_seen"),
+                ("recovered_requests", self.recovered_requests, "_recovered_seen"),
+                ("resource_leaks_total", self.resource_leaks, "_resource_leaks_seen")):
+            v = stats.get(fld)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                seen = getattr(self, seen_attr)
+                if v > seen:
+                    ctr.inc(float(v - seen))
+                setattr(self, seen_attr, float(v))
         # breaker exposition (serving/breaker.py): the state gauge tracks
         # breaker_state_code verbatim; the classified-failure counter is
         # delta-fed from the engine_failures dict, same recipe as above

@@ -989,3 +989,106 @@ def test_warmup_captures_every_decode_graph(cuda, tmp_path):
     config, (plain, _) = _graph_engines(cuda, tmp_path / "plain")
     warmup_engine(plain, spec=False, multi_step=8)
     assert len(plain.graphs) == 2 * (1 + 3)
+
+
+def _one_lane_run(engine, config):
+    """The CLI's decode families on a one-lane engine: plain steps, an
+    8-step horizon and verify steps (candidates repeating the fed token);
+    returns every token read back."""
+    _, tok, pos = engine.prefill(0, [5, 9, 3, 17, 2])
+    out = [tok]
+    one = np.zeros(1, np.int64)
+    for _ in range(3):
+        _, g, _ = engine.decode(one + tok, one + pos, want_logits=False)
+        tok, pos = int(g[0]), pos + 1
+        out.append(tok)
+    chosen = engine.decode_multi(one + tok, one + pos, h=8)
+    out += [int(t) for t in chosen[:, 0]]
+    tok, pos = int(chosen[-1, 0]), pos + 8
+    k = engine.SPEC_DRAFT
+    for _ in range(2):
+        _, em, ne = engine.decode_spec(one + tok, np.full((1, k), tok), one + k, one + pos)
+        out += [int(t) for t in em[0, :int(ne[0])]]
+        tok, pos = int(em[0, int(ne[0]) - 1]), pos + int(ne[0])
+    return out
+
+
+@pytest.mark.gpu
+def test_one_lane_graph_replay_equals_eager(cuda, tmp_path):
+    """The one-lane engine of ``dllama``: its step, 8-step horizon and verify
+    step, captured at warmup (``warm_engine``) and replayed, give the eager
+    bodies' tokens and KV cache bit for bit, with no capture after warmup."""
+    from distributed_llama_multiusers_tpu_torch.app.runtime_setup import warm_engine
+
+    config, (graphed, eager) = _graph_engines(cuda, tmp_path, n_lanes=1)
+    warm_engine(graphed, spec=True, multi_step=8, pipeline=False)
+    assert len(graphed.graphs) == 2 * (1 + 1 + 3)
+    got = _one_lane_run(graphed, config)
+    want = _one_lane_run(eager, config)
+    assert got == want
+    for a, b in zip(_caches(graphed), _caches(eager)):
+        assert torch.equal(a, b)
+    assert graphed.graphs.replays >= 6 and graphed.graphs.captures_after_warmup == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["v4", "auto"])
+def test_one_lane_stream_equals_eight_lane(cuda, tmp_path, mode):
+    """The CLI's greedy stream (one lane, speculation and horizons through
+    ``SpecStream``, replayed graphs) equals an 8-lane engine's plain decode
+    of the same prompt on lane 3 with the other lanes busy, in each mode."""
+    from distributed_llama_multiusers_tpu_torch.app.runtime_setup import warm_engine
+    from distributed_llama_multiusers_tpu_torch.runtime.spec import SpecStream
+
+    saved = q.DEQUANT_MODE
+    q.set_dequant_mode(mode)
+    try:
+        config, (one, _) = _graph_engines(cuda, tmp_path, n_lanes=1)
+        (tmp_path / "eight").mkdir()
+        _, (eight, _) = _graph_engines(cuda, tmp_path / "eight", n_lanes=8)
+        prompt = [5, 9, 3, 17, 2, 5, 9, 3, 17, 2, 5, 9]
+        n = 48
+        spec = SpecStream(one, config, enabled=True, prompt_tokens=prompt, multi_h=8)
+        warm_engine(one, spec=True, multi_step=8, pipeline=False)
+        _, cur, pos = one.prefill(0, prompt)
+        got = [cur]
+        while len(got) < n:
+            cur, _ = spec.advance(cur, pos)
+            pos += 1
+            got.append(cur)
+        toks = np.zeros(8, np.int64)
+        poss = np.zeros(8, np.int64)
+        for lane in range(8):
+            p = prompt if lane == 3 else [lane + 1, 7, lane + 2]
+            _, toks[lane], poss[lane] = eight.prefill(lane, p)
+        want = [int(toks[3])]
+        while len(want) < n:
+            _, g, _ = eight.decode(toks, poss, want_logits=False)
+            toks, poss = g.astype(np.int64), poss + 1
+            want.append(int(g[3]))
+    finally:
+        q.set_dequant_mode(saved)
+    assert got == want
+    assert one.stats.spec_steps + one.stats.multi_dispatches > 0
+
+
+@pytest.mark.gpu
+def test_capture_after_warmup_raises_under_jitcheck(cuda, tmp_path):
+    """Under DLLAMA_JITCHECK a decode family warmup did not capture (here an
+    8-step horizon) raises RecompileAfterWarmup at its first step, and the
+    capture counts as one after warmup."""
+    from distributed_llama_multiusers_tpu_torch.analysis import jitcheck
+    from distributed_llama_multiusers_tpu_torch.app.runtime_setup import warm_engine
+
+    config, (engine, _) = _graph_engines(cuda, tmp_path, n_lanes=1)
+    warm_engine(engine, spec=False, multi_step=0, pipeline=False)
+    jitcheck.force(True, fresh=True)
+    try:
+        engine.graphs.mark_warm()
+        one = np.zeros(1, np.int64)
+        engine.decode(one, one + 4, want_logits=False)  # warmed: replays
+        with pytest.raises(jitcheck.RecompileAfterWarmup):
+            engine.decode_multi(one, one + 5, h=8)
+    finally:
+        jitcheck.force(None, fresh=True)
+    assert engine.graphs.captures_after_warmup == 1

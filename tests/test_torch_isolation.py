@@ -220,3 +220,82 @@ def test_serving_layers_are_the_ports_own():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("15")
+
+
+def test_durability_cli_and_witnesses_are_the_ports_own():
+    """The request journal, recovery, resumable streams, the CLI, the seed
+    source and the runtime witnesses are the port's own modules, working
+    without jax or the JAX package: a journal written here reads back, a
+    relay replays after a Last-Event-ID, and the witnesses count."""
+    r = _run("""
+        import os, tempfile
+        import distributed_llama_multiusers_tpu_torch as pkg
+        from distributed_llama_multiusers_tpu_torch import analysis, serving
+        from distributed_llama_multiusers_tpu_torch.analysis import jitcheck, leakcheck
+        from distributed_llama_multiusers_tpu_torch.app import dllama
+        from distributed_llama_multiusers_tpu_torch.runtime import scheduler, spec
+        from distributed_llama_multiusers_tpu_torch.serving import journal, recovery, resume
+        from distributed_llama_multiusers_tpu_torch.utils import seeds
+        root = os.path.dirname(pkg.__file__)
+        mods = (analysis, jitcheck, leakcheck, dllama, journal, recovery, resume, seeds)
+        for m in mods:
+            assert m.__file__.startswith(root), m.__file__
+        assert serving.RequestJournal is journal.RequestJournal
+        assert serving.recover_scheduler is recovery.recover_scheduler
+        assert spec.SpecStream.__module__ == spec.__name__
+        assert scheduler.fresh_seed is seeds.fresh_seed and seeds.fresh_seed() != 0
+        path = os.path.join(tempfile.mkdtemp(), "j.bin")
+        j = journal.RequestJournal(path, fsync=False)
+        j.record_admit(request_id=3, prompt="p", tokens=[1], max_tokens=2, temperature=0.0,
+                       topp=0.9, seed=5, stop=[], add_bos=True, add_special_tokens=True,
+                       user=None, priority=1, queue_timeout_s=None, budget_s=None,
+                       stream=True, kind="chat")
+        assert j.flush()
+        j.close()
+        assert [e.request_id for e in journal.read_journal(path).incomplete()] == [3]
+        relay = resume.StreamRelay(3, capacity=4)
+        relay.push(1, "a")
+        relay.push(2, "b")
+        assert relay.next_after(1, 0.1, relay.attach()) == ("delta", 2, "b")
+        assert leakcheck.check_drained("probe", {"x": 0}) == 0
+        jitcheck.arm(relay)
+        assert jitcheck.note_capture(relay) and jitcheck.total_compiles() == 1
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print(len(mods))
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("8")
+
+
+def test_dllama_cli_raises_without_cuda(tmp_path):
+    """``dllama inference`` and ``chat`` run on the card unless ``--device
+    cpu``: without CUDA they raise, naming it; with ``--device cpu`` they
+    run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run("""
+        import io
+        from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+            tiny_header, write_synthetic_model, write_synthetic_tokenizer)
+        from distributed_llama_multiusers_tpu_torch.app import dllama
+        d = sys.argv[1]
+        h = tiny_header()
+        write_synthetic_model(d + "/m.m", h)
+        write_synthetic_tokenizer(d + "/t.t", vocab_size=h.vocab_size)
+        common = ["--model", d + "/m.m", "--tokenizer", d + "/t.t", "--steps", "2"]
+        for mode in ("inference", "chat"):
+            sys.stdin = io.StringIO("")
+            try:
+                dllama.main([mode, *common])
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise SystemExit(f"dllama {mode} without --device cpu did not raise")
+            dllama.main([mode, *common, "--device", "cpu"])
+        print("raised")
+    """, str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("raised")
