@@ -141,6 +141,25 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    prefill's, bit for bit (information; the copied slots must be equal),
    and the default v4 pass's batch tok/s and graph step p50 beside the
    numbers before the serving layers.
+4b. Paged KV (``--paged-kv on``): (a) the paged attention kernel at the
+   decode step's shapes over 64-slot pages permuted at random, bit-equal to
+   the contiguous kernel on the same slots (serving positions, split and
+   page boundaries, the 4-row window) and within ATTN_TOL of its plain
+   version, timed in turns beside the contiguous kernel; (b) a paged v4
+   engine's prefill, decode steps (replayed from the graphs and eager) and
+   verify steps against a contiguous engine's, logits bit-equal on every
+   live lane, at one rank and at tp=2 on the host's cards, with both steps
+   measured in turns (host clock, device time, device operations), and the
+   swap tier's ms per page; (c) a ``dllama_api --paged-kv on`` default
+   pass whose streams (alone and concurrent) equal the contiguous default
+   pass's, with 0 graphs captured after warmup, and on it (d) a request on
+   the 1,900-token run after a first one sharing 1,024 tokens from the
+   prefix tree copy-free, its stream the cold one's; then a server with a
+   40-page pool, 4 parked sessions and a 256 MiB host tier: (f) a parked
+   session's pages swap to host under another's pressure and back on its
+   readmission, byte-identical, the swap counters equal on /stats and
+   /metrics; (e) a request the pool cannot hold beside a long one gets 429
+   with Retry-After, and serving goes on.
 5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
@@ -1381,11 +1400,12 @@ class Server:
 
 def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                extra_args=(), log_dir: str = OUT_DIR, health_timeout: float = 900.0,
-               name: str | None = None, alone: bool = False) -> dict:
+               name: str | None = None, alone: bool = False, extra=None) -> dict:
     """One dllama_api process: 4 concurrent requests, checks, /stats,
-    SIGTERM (``alone``: then each request streamed alone, its text kept).
-    Returns the pass's measurements, launch counts, bodies and startup
-    log."""
+    SIGTERM (``alone``: then each request streamed alone, its text kept;
+    ``extra``: then ``extra(base)`` runs on the server, its result kept as
+    ``extra``). Returns the pass's measurements, launch counts, bodies and
+    startup log."""
     name = name or mode or "default"
     srv = Server(model, tok, name, (*(["--dequant", mode] if mode else []), *extra_args),
                  log_dir=log_dir, health_timeout=health_timeout)
@@ -1457,6 +1477,7 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
             r["n_tokens"] = n
         stats = json.loads(_http(base + "/stats")[1])
         alone_texts = [_stream(base + route, body)[1] for route, body in bodies] if alone else None
+        extra_out = extra(base) if extra is not None else None
         status, models = _http(base + "/v1/models")
         check(status == 200 and json.loads(models)["data"], "/v1/models")
 
@@ -1486,6 +1507,9 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                "prefix_hits": stats["prefix_hits"],
                "prefix_tokens_saved": stats["prefix_tokens_saved"],
                "jit_compiles_after_warmup": stats["jit_compiles_after_warmup"],
+               "decode_attn_paged_launches": stats["decode_attn_paged_launches"],
+               "pool": {k: v for k, v in stats.items() if k.startswith(("pool_", "swap_"))},
+               "extra": extra_out,
                **{k: stats[k] for k in ("pipeline_dispatches", "pipeline_flushes",
                                         "pipeline_depth_hist", "multi_dispatches",
                                         "fused_steps", "fused_bucket_hist", "overlap_s",
@@ -2543,6 +2567,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     sample_before = cs.COUNTS["launches"]
     attn_before = ca.COUNTS["launches"]
     window_before = ca.COUNTS["window_launches"]
+    paged_before = ca.PAGED_COUNTS["launches"]
     for _ in range(steps):
         t0 = time.perf_counter()
         step()  # decode reads the tokens back: each step ends synchronized
@@ -2551,6 +2576,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     launches["gumbel_sample"] = (cs.COUNTS["launches"] - sample_before) / steps
     launches["decode_attn"] = (ca.COUNTS["launches"] - attn_before) / steps
     launches["decode_attn_window"] = (ca.COUNTS["window_launches"] - window_before) / steps
+    launches["decode_attn_paged"] = (ca.PAGED_COUNTS["launches"] - paged_before) / steps
     ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3032,6 +3058,466 @@ def prefix_bits_phase(torch, config, params, run: int = SPEC_RUN, tail: int = 18
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the paged KV cache (--paged-kv on)
+# ---------------------------------------------------------------------------
+
+PAGE = 64  # the pool's default page size (runtime/kvpool.DEFAULT_PAGE_SIZE)
+PAGED_ARGS = ("--paged-kv", "on")
+# the exhaustion and swap server: 40 pages (a request on a 1,900-token run
+# reserves 30 to 32 pages of 64 slots), 4 parked sessions, a 256 MiB host tier
+SWAP_POOL_PAGES = 40
+SWAP_ARGS = (*PAGED_ARGS, "--kv-pool-pages", str(SWAP_POOL_PAGES), "--kv-max-parked", "4",
+             "--kv-host-bytes", str(256 << 20))
+PAGED_STEPS = 4  # decode and verify steps whose logits are compared
+
+
+def paged_pool(torch, k, v, page: int, seed: int):
+    """A contiguous cache [B, S, n_kv, hd] laid into a pool of ``page``-slot
+    pages permuted at random from ``seed``, a page more for the scratch
+    page: (k_pool, v_pool, int32 table [B, ceil(S / page)])."""
+    b, slots = k.shape[:2]
+    nb = -(-slots // page)
+    perm = torch.randperm(b * nb, generator=torch.Generator().manual_seed(seed))
+    table = perm.reshape(b, nb).to(device="cuda", dtype=torch.int32)
+    pools = []
+    for x in (k, v):
+        rest = tuple(x.shape[2:])
+        padded = torch.zeros((b, nb * page) + rest, dtype=x.dtype, device="cuda")
+        padded[:, :slots] = x
+        pool = torch.zeros((b * nb + 1, page) + rest, dtype=x.dtype, device="cuda")
+        pool[table.reshape(-1).long()] = padded.reshape((b * nb, page) + rest)
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+def paged_attn_phase(torch, attn: dict) -> dict:
+    """(a) The paged attention kernel at ``attn_phase``'s inputs (the
+    serving decode step's shapes), the cache laid into 64-slot pages
+    permuted at random: bit-equal to the contiguous kernel on the same slot
+    contents at the serving positions, across the cache and the split and
+    page boundaries, and for the 4-row verify window at the serving
+    positions and at the cache's end; within ATTN_TOL of its plain version
+    (the gather, then the plain attention). Then the paged and contiguous
+    kernels timed in turns (contiguous, paged, paged, contiguous; one CUDA
+    graph each), the plain version eager. The bound is the contiguous
+    kernel's plus the table words the lanes' slots need; the library call
+    is ``attn_phase``'s on the same slots."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    lanes, n_kv, group, hd, s_len, split = DECODE_M, 8, 4, 64, ATTN_S_LEN, ca.SPLIT
+    qf, k, v = attn_inputs(torch, n_kv)
+    k_pool, v_pool, table = paged_pool(torch, k, v, PAGE, seed=5)
+    scale = 1.0 / hd ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qw = torch.randn((lanes, ca.WINDOW, n_kv, group, hd), device="cuda", generator=gen)
+    serving = attn_serving_positions(torch)
+    serving_w = window_rows(torch, [40, 63, 64, 100] + [s_len] * 4)
+    col = lambda xs: torch.tensor([[x] for x in xs], device="cuda")  # noqa: E731
+    cases = {"serving": (qf, serving),
+             "spread": (qf, col([0, 1, 63, 64, 1024, 2046, 2047, 2048])),
+             "boundaries": (qf, col([split - 1, split, split + 1, PAGE - 1, PAGE, PAGE + 1,
+                                     3 * split, s_len - 1])),
+             "window_serving": (qw, serving_w),
+             "window_at_end": (qw, window_rows(torch, [s_len - 1] * lanes))}
+    ca.reset_counts()
+    err, ref_max = 0.0, 0.0
+    for name, (qq, pos) in cases.items():
+        got = ca.decode_attention_paged(qq, k_pool, v_pool, table, pos, scale, s_len)
+        check(torch.equal(got, ca.decode_attention(qq, k, v, pos, scale, s_len)),
+              f"paged decode_attn [{name}]: differs from the contiguous kernel on the same slots")
+        want = ca.decode_attention_paged_plain(qq, k_pool, v_pool, table, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and e <= ATTN_TOL * r,
+              f"paged decode_attn [{name}]: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+        err, ref_max = max(err, e), max(ref_max, r)
+    sync_all(torch)
+    check(ca.PAGED_COUNTS["launches"] == len(cases),
+          f"paged decode_attn: {ca.PAGED_COUNTS['launches']} paged launches for {len(cases)} calls")
+    reps = 20
+    calls = {
+        "contiguous": lambda: ca.decode_attention(qf, k, v, serving, scale, s_len),
+        "paged": lambda: ca.decode_attention_paged(qf, k_pool, v_pool, table, serving, scale,
+                                                   s_len),
+        "window_contiguous": lambda: ca.decode_attention(qw, k, v, serving_w, scale, s_len),
+        "window_paged": lambda: ca.decode_attention_paged(qw, k_pool, v_pool, table, serving_w,
+                                                          scale, s_len)}
+    times: dict = {name: [] for name in calls}
+    for kind in ("contiguous", "paged", "paged", "contiguous"):
+        for prefix in ("", "window_"):
+            times[prefix + kind].append(graph_ms(torch, [calls[prefix + kind]] * reps))
+    ms = {name: statistics.mean(t) for name, t in times.items()}
+    plain_ms = eager_ms(torch, lambda: ca.decode_attention_paged_plain(
+        qf, k_pool, v_pool, table, serving, scale, s_len), 3)
+    window_plain_ms = eager_ms(torch, lambda: ca.decode_attention_paged_plain(
+        qw, k_pool, v_pool, table, serving_w, scale, s_len), 3)
+
+    def table_bytes(pos):
+        """The table words the lanes' slots lie in (each read once)."""
+        last = pos.clamp(max=s_len - 1).max(dim=1).values  # a lane's furthest row
+        return int((last // PAGE + 1).sum()) * 4
+
+    def bound_of(base: dict, pos) -> dict:
+        n_bytes = base["bound_bytes"] + table_bytes(pos)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, base["bound_ops"] / F32_OPS_S
+        return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": n_bytes, "bound_ops": base["bound_ops"]}
+
+    w = attn["window"]
+    out = {"page": PAGE, "pages": int(k_pool.shape[0]), "cases": list(cases),
+           "max_abs_err": err, "max_abs_ref": ref_max, "tol": ATTN_TOL,
+           "bit_equal_to_contiguous": True, "ms": ms["paged"],
+           "contiguous_ms": ms["contiguous"], "ms_turns": times,
+           "plain_ms": plain_ms, "library_ms": attn["library_ms"], **bound_of(attn, serving),
+           "window": {"ms": ms["window_paged"], "contiguous_ms": ms["window_contiguous"],
+                      "plain_ms": window_plain_ms, "library_ms": w["library_ms"],
+                      **bound_of(w, serving_w)}}
+    log("paged decode_attn: " + json.dumps(out))
+    return out
+
+
+def paged_step_check(torch, q, rc, cs, config, params, mesh=None, label: str = "v4",
+                     steps: int = 10) -> dict:
+    """(b) Two engines on the full-width model in v4, contiguous and
+    ``paged_kv`` (the pool's default 64-slot pages; with ``mesh``, tensor
+    parallel on its ranks), the same 4 of 8 lanes prefilled (each paged
+    lane admitted first), the others parked past the cache: the prefill
+    logits, then PAGED_STEPS decode steps replayed from the graphs, as many
+    run eagerly, and as many verify steps (from their graphs) give the same
+    bits on every live lane and the same tokens. Then each engine's decode
+    step measured as ``step_breakdown`` measures it, in turns (contiguous,
+    paged, paged, contiguous): host clock, device time and device
+    operations per step."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    lanes, busy = DECODE_M, 4
+    q.set_dequant_mode("v4")
+    try:
+        weights = params if mesh is None else shard_params(params, mesh)
+        engines = {name: InferenceEngine(config, weights, n_lanes=lanes, device="cuda",
+                                         mesh=mesh, paged_kv=name == "paged")
+                   for name in ("contiguous", "paged")}
+        temps = np.array([0.0, 0.8] * (lanes // 2), np.float32)
+        temps[busy:] = 0.0
+        seeds = np.arange(lanes, dtype=np.uint32)
+        state, firsts = {}, {}
+        for name, eng in engines.items():
+            tokens = np.zeros(lanes, np.int64)
+            positions = np.full(lanes, config.seq_len, np.int64)
+            for lane in range(busy):
+                prompt = [(97 * lane + 13 * i) % 100 + 1 for i in range(40)]
+                if name == "paged":
+                    eng.paged_admit(lane, prompt, config.seq_len)
+                last, tokens[lane], positions[lane] = eng.prefill(lane, prompt)
+                firsts.setdefault(name, []).append(last.float().clone())
+            eng.capture_graphs(spec=True)
+            state[name] = (tokens, positions)
+        check(all(torch.equal(a, b) for a, b in zip(firsts["contiguous"], firsts["paged"])),
+              f"paged step [{label}]: prefill logits differ from the contiguous engine's")
+
+        def decode(name, want_logits=True):
+            eng, (tokens, positions) = engines[name], state[name]
+            logits, greedy, sampled = eng.decode(tokens, positions, temps, seeds=seeds,
+                                                 want_logits=want_logits)
+            tokens[:busy] = np.where(temps[:busy] > 0, sampled[:busy], greedy[:busy])
+            positions[:busy] += 1
+            return None if logits is None else logits[:busy], tokens[:busy].copy()
+
+        def verify(name):
+            eng, (tokens, positions) = engines[name], state[name]
+            drafts = np.repeat(tokens[:, None], eng.SPEC_DRAFT, axis=1)
+            dlen = np.where(temps == 0, eng.SPEC_DRAFT, 0)
+            dlen[busy:] = 0
+            logits, emitted, n_emit = eng.decode_spec(tokens, drafts, dlen, positions, temps,
+                                                      seeds=seeds)
+            idx = np.arange(busy)
+            tokens[:busy] = emitted[idx, n_emit[:busy] - 1]
+            positions[:busy] += n_emit[:busy]
+            return logits[:busy], emitted[:busy].copy()
+
+        compared = {}
+        for how in ("graph", "eager", "verify"):
+            saved = {}
+            if how == "eager":  # the bodies the graphs captured
+                saved = {n: e.graphs for n, e in engines.items()}
+                for e in engines.values():
+                    e.graphs = None
+            try:
+                for step in range(PAGED_STEPS):
+                    run = verify if how == "verify" else decode
+                    (la, ta), (lb, tb) = run("contiguous"), run("paged")
+                    check(torch.equal(la, lb) and (ta == tb).all(),
+                          f"paged step [{label}, {how}]: step {step}'s logits or tokens "
+                          "differ from the contiguous engine's")
+            finally:
+                for n, g in saved.items():
+                    engines[n].graphs = g
+            compared[how] = PAGED_STEPS
+        check(all(e.graphs is None or e.graphs.replays > 0 for e in engines.values()),
+              f"paged step [{label}]: the graphs never replayed")
+        runs: dict = {"contiguous": [], "paged": []}
+        for name in ("contiguous", "paged", "paged", "contiguous"):
+            runs[name].append(_measure_steps(torch, q, rc, cs, lambda n=name: decode(n, False),
+                                             steps, f"{label}, {name}"))
+        for name, measured in runs.items():
+            paged_per_step = [m["launches_per_step"]["decode_attn_paged"] for m in measured]
+            want = config.n_layers * len(engines[name].devices) if name == "paged" else 0
+            check(all(n == want for n in paged_per_step),
+                  f"paged step [{label}, {name}]: {paged_per_step} paged attention launches "
+                  f"per step, expected {want}")
+        keys = ("step_ms_p50", "device_ms_per_step", "device_ops_per_step",
+                "decode_attn_ms_per_step", "q40_kernels_ms_per_step", "fill_ms_per_step")
+        out = {"label": label, "ranks": [str(d) for d in engines["paged"].devices],
+               "lanes": lanes, "busy_lanes": busy, "page": engines["paged"].kvpool.page_size,
+               "steps_compared": compared, "logits_bit_equal": True,
+               **{name: {k: statistics.mean(m[k] for m in measured) for k in keys}
+                  for name, measured in runs.items()},
+               "launches_per_step": {name: measured[0]["launches_per_step"]
+                                     for name, measured in runs.items()},
+               "turns": {name: [{k: m[k] for k in keys} for m in measured]
+                         for name, measured in runs.items()}}
+        log(f"paged step [{label}]: prefill, {PAGED_STEPS} graph, {PAGED_STEPS} eager and "
+            f"{PAGED_STEPS} verify steps bit-equal to the contiguous engine's; "
+            + json.dumps({k: out[k] for k in ("contiguous", "paged")}))
+        del engines
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        q.set_dequant_mode(None)
+
+
+def paged_prefix_check(base: str) -> dict:
+    """(d) On the paged default server: a request on the 1,900-token run
+    after a first one takes 1,024 tokens (the largest prefill bucket's
+    whole chunks, 16 pages) from the tree copy-free (no copy-on-write), and
+    a request of the same length sharing nothing gives the cold TTFT."""
+    from distributed_llama_multiusers_tpu_torch.runtime.engine import DEFAULT_PREFILL_BUCKETS
+
+    status, _, body = _json_call(base, "/v1/completions",
+                                 {**PREFIX_BODY, "prompt": "a" * SPEC_RUN + " first",
+                                  "max_tokens": 8})
+    check(status == 200, f"paged prefix: the first request failed: {body}")
+    before = _json_call(base, "/stats")[2]
+    warm = prefix_request(base, "paged tree")
+    after = _json_call(base, "/stats")[2]
+    # the same length on another run: nothing to share
+    status, _, body = _json_call(base, "/v1/completions",
+                                 {**PREFIX_BODY, "prompt": "b" * SPEC_RUN + " second"})
+    check(status == 200 and body["summary"]["prefix_tokens_saved"] == 0,
+          f"paged prefix: the cold request: {status} {body.get('summary')}")
+    cold = {"ttft_ms": body["summary"]["ttft_s"] * 1e3}
+    chunk = DEFAULT_PREFILL_BUCKETS[-1]
+    check(warm["prefix_tokens_saved"] == chunk
+          and after["pool_prefix_admits"] == before["pool_prefix_admits"] + 1
+          and after["pool_cow_copies"] == 0,
+          f"paged prefix: {warm['prefix_tokens_saved']} tokens shared (expected {chunk}), "
+          f"prefix admits {before['pool_prefix_admits']} -> {after['pool_prefix_admits']}, "
+          f"{after['pool_cow_copies']} copy-on-write pages")
+    return {"warm": warm, "cold_same_length": cold,
+            "shared_pages": warm["prefix_tokens_saved"] // PAGE,
+            "pool_cow_copies": after["pool_cow_copies"]}
+
+
+def _metric_value(base: str, name: str, labels: str) -> float | None:
+    for line in _http(base + "/metrics")[1].decode().splitlines():
+        if line.startswith(f"{name}{{{labels}}} "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def swap_exhaust_check(model: str, tok: str) -> dict:
+    """(f) then (e) on one server with a pool of SWAP_POOL_PAGES pages, 4
+    parked sessions and a 256 MiB host tier (v4 defaults otherwise). (f) X
+    on the 1,900-token run parks its pages; Y on another run needs them, so
+    X's pages swap to the host tier; X again swaps its whole chunks back in
+    (Y's pages swapping out in turn), its stream byte-identical to the
+    first X's, with its swap time on its summary; ``swap_ins`` and
+    ``swap_outs`` on /stats equal ``dllama_kv_swap_total`` by direction.
+    (e) A on a third run holds 32 pages decoding 256 tokens while B on a
+    fourth asks for 30 of the 8 left: B gets 429 with ``Retry-After`` and
+    reason ``pool_exhausted``; A finishes, and a request streamed after it
+    completes."""
+    srv = Server(model, tok, "paged-swap", SWAP_ARGS)
+    base = srv.base
+    try:
+        def run(prompt, max_tokens=8):
+            status, _, body = _json_call(base, "/v1/completions",
+                                         {"prompt": prompt, "max_tokens": max_tokens,
+                                          "temperature": 0})
+            check(status == 200, f"paged swap: {status} {body}")
+            return body
+
+        x, y = "a" * SPEC_RUN + " first", "b" * SPEC_RUN + " other"
+        first = run(x)
+        s1 = srv.stats()
+        run(y)
+        s2 = srv.stats()
+        again = run(x)
+        s3 = srv.stats()
+        check(_text(again) == _text(first),
+              f"paged swap: the swapped-in stream differs:\n{_text(first)!r}\n{_text(again)!r}")
+        check(s1["pool_parked_sessions"] == 1 and s2["swap_outs"] > 0
+              and s3["swap_ins"] > 0 and s3["pool_swap_in_admits"] == 1
+              and s3["swap_outs"] > s2["swap_outs"] and s3["pool_swap_pending"] == 0,
+              f"paged swap: parked {s1['pool_parked_sessions']}, swap_outs "
+              f"{s2['swap_outs']} -> {s3['swap_outs']}, swap_ins {s3['swap_ins']}, swap-in "
+              f"admits {s3['pool_swap_in_admits']}")
+        phases = again["summary"]["phases"]
+        check(phases["swap_in_ms"] > 0 and again["summary"]["prefix_tokens_saved"] == 1024,
+              f"paged swap: the swapped-in request's summary {again['summary']}")
+        metric = {d: _metric_value(base, "dllama_kv_swap_total", f'direction="{d}"')
+                  for d in ("in", "out")}
+        check(metric == {"in": s3["swap_ins"], "out": s3["swap_outs"]},
+              f"paged swap: dllama_kv_swap_total {metric} against /stats swap_ins "
+              f"{s3['swap_ins']}, swap_outs {s3['swap_outs']}")
+        page_bytes = s3["swap_out_bytes"] / s3["swap_outs"]
+
+        # (e) exhaustion
+        held: list = [None]
+
+        def hold():
+            held[0] = _json_call(base, "/v1/completions",
+                                 {"prompt": "c" * SPEC_RUN, "max_tokens": 256,
+                                  "temperature": 0})
+
+        t = threading.Thread(target=hold)
+        t.start()
+        total = _load(base)["lanes_total"]
+        _poll(lambda: _load(base)["lanes_free"] == total - 1, 60,
+              "paged exhaustion: the holder never took a lane")
+        load = _load(base)
+        status, hdrs, body = _json_call(base, "/v1/completions",
+                                        {"prompt": "d" * SPEC_RUN, "max_tokens": 8,
+                                         "temperature": 0})
+        t.join(timeout=600)
+        check(status == 429 and body.get("reason") == "pool_exhausted"
+              and int(hdrs.get("Retry-After", 0)) >= 1,
+              f"paged exhaustion: {status} {hdrs.get('Retry-After')} {body}")
+        check(held[0] is not None and held[0][0] == 200
+              and held[0][2]["usage"]["completion_tokens"] >= 1,
+              f"paged exhaustion: the holder did not finish: {held[0]}")
+        sstatus, text, last, deltas = _stream(base + "/v1/completions",
+                                              {"prompt": "after the shed", "max_tokens": 16,
+                                               "temperature": 0})
+        check(sstatus == 200 and deltas >= 1 and last["choices"][0].get("finish_reason"),
+              f"paged exhaustion: the request after the shed: {sstatus} {deltas}")
+        s4 = srv.stats()
+        check(s4["pool_exhausted_sheds"] == 1 and load["pool_pages_total"] == SWAP_POOL_PAGES,
+              f"paged exhaustion: {s4['pool_exhausted_sheds']} sheds, /load {load}")
+        check("Paged KV: 40 pages x 64 tokens" in srv.stop(),
+              "paged swap: the startup log does not announce the pool")
+        out = {"swap_outs": s3["swap_outs"], "swap_ins": s3["swap_ins"],
+               "swap_in_ms": s3["swap_in_ms"], "swap_out_bytes": s3["swap_out_bytes"],
+               "page_bytes": page_bytes, "swap_in_ms_per_page": s3["swap_in_ms"] / s3["swap_ins"],
+               "request_swap_in_ms": phases["swap_in_ms"],
+               "ttft_ms_first": first["summary"]["ttft_s"] * 1e3,
+               "ttft_ms_swapped_in": again["summary"]["ttft_s"] * 1e3,
+               "kv_swap_total": metric, "shed": {"status": status, "reason": body.get("reason"),
+                                                 "retry_after": hdrs.get("Retry-After")},
+               "load_during_shed": load, "pool": {k: v for k, v in s4.items()
+                                                  if k.startswith(("pool_", "swap_"))}}
+        log("paged swap and exhaustion: " + json.dumps(
+            {k: v for k, v in out.items() if k != "pool"}))
+        return out
+    except BaseException:
+        srv.tail()
+        raise
+    finally:
+        srv.kill()
+
+
+def swap_page_ms(torch, config, params, pages: int = 16) -> dict:
+    """Swap-out and swap-in ms per page on the card: ``pages`` pages of a
+    paged engine on the full-width model read to host bytes
+    (``swap_out_pages``, a host sync) and written back (``swap_in_pages``,
+    synchronized), bytes equal after the round trip."""
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    eng = InferenceEngine(config, params, n_lanes=DECODE_M, device="cuda", paged_kv=True)
+    ids = list(range(pages))
+    for c in (eng.cache,):
+        c.k[:, :pages].normal_()
+        c.v[:, :pages].normal_()
+    eng.swap_out_pages(ids)
+    sync_all(torch)
+    t0 = time.perf_counter()
+    payloads = eng.swap_out_pages(ids)
+    out_ms = (time.perf_counter() - t0) * 1e3 / pages
+    eng.cache.k[:, :pages].zero_()
+    eng.cache.v[:, :pages].zero_()
+    sync_all(torch)
+    t0 = time.perf_counter()
+    eng.swap_in_pages(ids, payloads)
+    sync_all(torch)
+    in_ms = (time.perf_counter() - t0) * 1e3 / pages
+    check(eng.swap_out_pages(ids) == payloads, "swap: the pages' bytes changed in a round trip")
+    out = {"pages": pages, "page_bytes": len(payloads[0]), "swap_out_ms_per_page": out_ms,
+           "swap_in_ms_per_page": in_ms}
+    del eng
+    torch.cuda.empty_cache()
+    log("paged swap (engine, full width): " + json.dumps(out))
+    return out
+
+
+def paged_phase(torch, q, rc, cs, model: str, tok: str, default: dict, layers: dict,
+                attn: dict) -> dict:
+    """The paged KV cache on the card: (a) the paged attention kernel;
+    (b) the paged decode and verify steps against the contiguous ones, at
+    one rank and at tp=2 on the host's cards; the swap tier's ms per page;
+    (c) a ``dllama_api --paged-kv on`` default pass, its streams (2 greedy, 2
+    seeded, alone and concurrent) byte-identical to the contiguous default
+    pass's, 0 graphs captured after warmup, with (d) the shared prompt;
+    (e) and (f) on a server with a small pool and the host tier."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+
+    t0 = time.perf_counter()
+    out = {"attn": paged_attn_phase(torch, attn)}
+    config, params = load_params_from_m_quantized(model, load_model_header(model),
+                                                  dtype=torch.bfloat16, device="cuda")
+    out["step"] = paged_step_check(torch, q, rc, cs, config, params)
+    mesh = make_mesh(MeshPlan(tp=2), rank_devices(torch, 2))
+    out["tp2_step"] = paged_step_check(torch, q, rc, cs, config, params, mesh=mesh,
+                                       label="tp2 v4", steps=5)
+    out["swap_engine"] = swap_page_ms(torch, config, params)
+    del params
+    torch.cuda.empty_cache()
+
+    p = serve_pass(model, tok, None, GEN_TOKENS, extra_args=PAGED_ARGS, alone=True,
+                   name="v4-paged", extra=paged_prefix_check)
+    check_serving_paths(p)
+    check(p["jit_compiles_after_warmup"] == 0 and p["decode_attn_paged_launches"] > 0
+          and p["pool"].get("pool_pages_in_use") == 0,
+          f"v4-paged: {p['jit_compiles_after_warmup']} graphs captured after warmup, "
+          f"{p['decode_attn_paged_launches']} paged attention launches, pool {p['pool']}")
+    check("Paged KV: 256 pages x 64 tokens" in p["log"],
+          "v4-paged: the startup log does not announce the pool")
+    for how in ("alone", "concurrent"):
+        for i, (a, b) in enumerate(zip(default[f"{how}_texts"], p[f"{how}_texts"])):
+            check(a == b, f"request {i} {how}: the paged stream differs from the contiguous "
+                          f"default pass's:\n{a!r}\n{b!r}")
+    check(default["greedy_text"] == p["greedy_text"], "v4-paged: greedy text differs")
+    prefix = p["extra"]
+    check(prefix["warm"]["text"] == layers["prefix_warm"]["text"]
+          == layers["watchdog"]["cold"]["text"],
+          "paged prefix: the tree hit's stream differs from the cold one")
+    log(f"v4-paged pass: streams byte-identical to the contiguous default pass (alone and "
+        f"concurrent); batch {p['tokens_per_s_batch']:.1f} tok/s against "
+        f"{default['tokens_per_s_batch']:.1f}, TTFT p50 {p['ttft_ms_p50']:.1f} ms against "
+        f"{default['ttft_ms_p50']:.1f} ms; tree hit TTFT {prefix['warm']['ttft_ms']:.1f} ms "
+        f"against {prefix['cold_same_length']['ttft_ms']:.1f} ms cold")
+    out["serving"] = p
+    out["swap"] = swap_exhaust_check(model, tok)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"paged phase: {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the kernel lab
 # ---------------------------------------------------------------------------
 
@@ -3189,7 +3675,7 @@ def lab_line_entries(lab, lab_result) -> list:
 
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
-                 forms=(), attn=None, row_plans=()) -> dict:
+                 forms=(), attn=None, row_plans=(), paged=None) -> dict:
     """One entry per kernel. ``launches`` is the main path's count: the
     serving passes, the CLI runs and the durability servers, each counting
     from the end of its warmup. For a Q40
@@ -3361,6 +3847,37 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
             "profiled_ms_per_verify_step": {b["mode"]: b["verify"]["decode_attn_ms_per_step"]
                                             for b in breakdown if b.get("verify")},
         })
+    if paged is not None:
+        pa, w = paged["attn"], paged["attn"]["window"]
+        out.append({
+            "name": "decode_attn (paged)", "route": "cuda", "source": ca.KERNEL_SOURCE,
+            "replaces": "distributed_llama_multiusers_tpu/models/llama.py:512",
+            "replaces_note": "counterpart of the paged forward's gather through the page table "
+                             "(models/llama.py:512-521) and the _dense_attention after it, in "
+                             "decode and verify steps; no Pallas site",
+            "launches": sum(p_.get("decode_attn_paged_launches", 0) for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_.get("decode_attn_paged_launches", 0)
+                                 for p_ in passes},
+            "max_abs_err": pa["max_abs_err"], "tol": ATTN_TOL,
+            "tol_rule": f"max|d| <= {ATTN_TOL:.0e} * max|plain| ({pa['max_abs_ref']:.3e}); "
+                        f"bit-equal to the contiguous kernel on the same slots ({pa['cases']})",
+            "ms": pa["ms"], "contiguous_ms": pa["contiguous_ms"], "plain_ms": pa["plain_ms"],
+            "library_ms": pa["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention (f32, boolean mask) "
+                       "on the contiguous slots",
+            "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
+            "window": w,
+            "timed_as": f"the decode_attn entry's layer with the cache in {pa['page']}-slot "
+                        "pages permuted at random: paged and contiguous kernels in turns "
+                        "(contiguous, paged, paged, contiguous), one CUDA graph each; plain "
+                        "eager",
+            "launches_per_decode_step": {
+                s_["label"]: s_["launches_per_step"]["paged"]["decode_attn_paged"]
+                for s_ in (paged["step"], paged["tp2_step"])},
+            "profiled_ms_per_decode_step": {
+                s_["label"]: s_["paged"]["decode_attn_ms_per_step"]
+                for s_ in (paged["step"], paged["tp2_step"])},
+        })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
     return {"kernels": out}
@@ -3442,6 +3959,7 @@ def main() -> int:
         durability = durability_phase(model, tok)
         breakdown, tp, tp_logits, hop_step, products, prefix_bits = decode_phase(
             torch, q, rc, cs, model)
+        paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
             "80GB HBM3 at 700 W: 349.1 tok/s, 4.76 ms)")
@@ -3453,14 +3971,16 @@ def main() -> int:
                        "prefix_bits": prefix_bits,
                        "decode_step": breakdown, "tp_decode_step": tp,
                        "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
-                       "decode_step_products": products}, f, indent=1)
+                       "decode_step_products": products,
+                       "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
+                                                      if k != "log"}}}, f, indent=1)
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
-        main_path = passes + cli + durability["passes"]
+        main_path = passes + [paged["serving"]] + cli + durability["passes"]
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
-                            row_plans)
+                            row_plans, paged)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

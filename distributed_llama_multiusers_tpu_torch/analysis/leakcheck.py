@@ -7,7 +7,10 @@ drift):
 
 - ``ContinuousBatchingScheduler.stop()``: after the loop thread joins and
   ``_resolve_exit`` has settled every lane, live session-mirror records,
-  pending device ops and open journal progress marks must all be zero;
+  open journal progress marks and, on a paged engine, lane-held KV pages
+  (``pool_pages_in_use``, which counts the pages some lane maps: parked
+  sessions' pages stay resident at rest and are not lane pages) and
+  staged swap-outs no drain took (``pool_swap_pending``) must all be zero;
 - ``StreamRegistry.close()``: entries whose request future never resolved
   are orphans nothing can ever reap.
 

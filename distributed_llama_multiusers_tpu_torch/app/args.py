@@ -156,6 +156,49 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "only the tail prefilled, so the stream is a cold "
                         "prefill's); 0 disables; default: scheduler default "
                         "(16)")
+    # paged KV pool (runtime/kvpool.py), the JAX package's flags
+    p.add_argument("--paged-kv", default="off", choices=["on", "off"],
+                   help="serving: store KV as a pooled set of fixed-size "
+                        "pages behind a per-lane page table instead of "
+                        "contiguous per-lane planes. Prefix sharing "
+                        "becomes a refcount bump on the SAME physical "
+                        "pages (zero copies; copy_lane dies) in whole "
+                        "prompt chunks, and finished sessions park their "
+                        "sharable pages so resident sessions exceed lanes; "
+                        "pool exhaustion sheds with a retryable 429. Token "
+                        "streams are byte-identical to the contiguous "
+                        "layout. 'off' (default) keeps contiguous planes")
+    p.add_argument("--kv-page-size", type=int, default=None,
+                   help="--paged-kv on: tokens per KV page (power of two; "
+                        "shrunk automatically to fit short contexts). "
+                        "Smaller pages = finer sharing granularity and "
+                        "less tail waste, larger = smaller page tables; "
+                        "default: pool default (64)")
+    p.add_argument("--kv-pool-pages", type=int, default=None,
+                   help="--paged-kv on: total pages in the device pool "
+                        "(default: the contiguous layout's exact "
+                        "footprint, max-lanes x blocks-per-full-lane — "
+                        "oversubscription then comes from sessions "
+                        "reserving only prompt + max_tokens, not from a "
+                        "bigger pool)")
+    p.add_argument("--kv-max-parked", type=int, default=None,
+                   help="--paged-kv on: max finished sessions whose "
+                        "sharable prefix pages stay resident (refcounted, "
+                        "LRU-evicted under pool pressure; evicted "
+                        "sessions rebuild deterministically from the "
+                        "request journal on next activity); 0 disables "
+                        "parking; default: pool default (64)")
+    p.add_argument("--kv-host-bytes", type=int, default=None,
+                   help="--paged-kv on: host-RAM byte budget for the KV "
+                        "swap tier (runtime/kvpool.py HostTier). Parked "
+                        "pages evicted under pool pressure swap their "
+                        "bytes to host RAM (sha256-framed, LRU within "
+                        "the budget) instead of dropping; a later "
+                        "admission that misses the card but hits the host "
+                        "tier swaps pages back in — cheaper than a "
+                        "journal rebuild, dearer than resident reuse. "
+                        "0 (default) disables the tier and restores "
+                        "drop-to-rebuild behavior bit-for-bit")
     # crash-durable serving (serving/journal.py, recovery.py, resume.py)
     p.add_argument("--journal-path", default=None,
                    help="serving: append-only CRC-framed request journal "

@@ -68,7 +68,7 @@ def _sync_suffix(engine, hops0: int, steps0: int) -> str:
 
 
 def run_inference(args) -> None:
-    config, params, tokenizer, engine = load_stack(args, n_lanes=1)
+    config, params, tokenizer, engine = load_stack(args, n_lanes=1, serving=False)
     prompt = args.prompt or "Hello"
     tokens = tokenizer.encode(prompt)
     log("📄", f"Prompt tokens: {len(tokens)}")
@@ -142,7 +142,7 @@ def run_inference(args) -> None:
 
 
 def run_chat(args) -> None:
-    config, params, tokenizer, engine = load_stack(args, n_lanes=1)
+    config, params, tokenizer, engine = load_stack(args, n_lanes=1, serving=False)
     generator = chat_generator_for(tokenizer, args.chat_template)
     stops = TokenizerChatStops(tokenizer)
     # an unseeded chat draws OS entropy, not wall-clock seconds; `is not

@@ -19,7 +19,9 @@ from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
 from ..runtime.engine import warmup_engine
+from ..runtime.kvpool import DEFAULT_MAX_PARKED, DEFAULT_PAGE_SIZE
 from ..serving import DeadlinePolicy, QosQueue, RequestJournal
+from ..serving.qos import page_cost
 from ..tokenizer import Tokenizer
 from .args import parse_mesh_spec
 
@@ -28,9 +30,11 @@ def log(emoji: str, msg: str) -> None:
     print(f"{emoji} {msg}", flush=True)
 
 
-def load_stack(args, n_lanes: int | None = None):
+def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     """Returns (config, params, tokenizer, engine) on ``args.device``; with
-    ``--workers N`` the params are the per-rank shards of a tp=N mesh."""
+    ``--workers N`` the params are the per-rank shards of a tp=N mesh. The
+    paged KV flags apply to a serving engine (the scheduler admits its
+    lanes' pages); the CLI's (``serving`` False) keeps contiguous planes."""
     plan = parse_mesh_spec(args.workers)
     if plan is not None and plan.n_devices > 1:
         devices = mesh_devices(args.device, plan.n_devices)
@@ -107,8 +111,34 @@ def load_stack(args, n_lanes: int | None = None):
                              emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
                              ring_sync=ring_sync,
                              # async decode pipeline ring bound (None: 2)
-                             pipeline_depth=getattr(args, "pipeline_depth", None))
+                             pipeline_depth=getattr(args, "pipeline_depth", None),
+                             **(paged_kwargs(args) if serving else {}))
+    if not serving and getattr(args, "paged_kv", "off") == "on":
+        log("📑", "--paged-kv applies to dllama-api; the CLI keeps contiguous planes")
+    pool = engine.kvpool
+    if pool is not None:
+        log("📑", f"Paged KV: {pool.n_pages} pages x {pool.page_size} tokens, "
+                  f"{pool.blocks_per_lane} blocks/lane, max parked {pool.max_parked}, "
+                  + (f"host swap tier {pool.host_tier.budget_bytes // (1 << 20)} MiB"
+                     if pool.host_tier.enabled else "host swap tier off")
+                  + " (--paged-kv off restores contiguous planes)")
     return config, params, tokenizer, engine
+
+
+def paged_kwargs(args) -> dict:
+    """The engine's paged-KV keywords from the flags. Explicit values pass
+    through unmodified (None = flag absent): a 0 or negative
+    --kv-page-size must die in the pool's validation, not silently become
+    the default."""
+    page = getattr(args, "kv_page_size", None)
+    parked = getattr(args, "kv_max_parked", None)
+    return {
+        "paged_kv": getattr(args, "paged_kv", "off") == "on",
+        "kv_page_size": DEFAULT_PAGE_SIZE if page is None else page,
+        "kv_pool_pages": getattr(args, "kv_pool_pages", None),
+        "kv_max_parked": DEFAULT_MAX_PARKED if parked is None else parked,
+        "kv_host_bytes": getattr(args, "kv_host_bytes", None) or 0,
+    }
 
 
 def warm_engine(engine, spec: bool, multi_step: int, pipeline: bool = True) -> float:
@@ -168,9 +198,16 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
               f"{policy.queue_timeout_s or 'off'}, request budget "
               f"{policy.request_budget_s or 'off'}")
     # speculation is on unless --no-spec, as in the JAX package
+    # a paged engine charges DRR fair share in pages, what admission takes
+    # from the pool, with the quantum rescaled to ~128 tokens' worth
+    qos_kw = {}
+    pool = getattr(engine, "kvpool", None)
+    if pool is not None:
+        qos_kw = {"cost": page_cost(pool.page_size),
+                  "quantum": max(1.0, 128.0 / pool.page_size)}
     sched = ContinuousBatchingScheduler(engine, tokenizer,
                                         speculative=not getattr(args, "no_spec", False),
-                                        queue_=QosQueue(capacity=max_queue),
+                                        queue_=QosQueue(capacity=max_queue, **qos_kw),
                                         deadlines=policy, **overrides)
     log("⏳", "Warming serving paths (kernel build, prefill buckets, decode graphs)...")
     # horizons are captured only where serving can pick one (a pipelining

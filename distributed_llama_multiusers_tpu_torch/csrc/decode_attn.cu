@@ -51,6 +51,18 @@
 // the lane's slots for themselves (the rows after the first mostly from
 // L2). Staging a split's slots once for all of a lane's rows in one block
 // was measured slower: the block ran the rows' chains one after another.
+//
+// The paged form (the JAX package's paged layout, models/llama.py: a pool
+// of fixed-size pages shared by every lane and a per-lane page table; JAX
+// gathers each lane's [S] view through the table before its dense
+// attention) reads the pool in place through the table: slot s of lane b
+// lies at (table[b, s >> lp] << lp | (s & (page - 1))) * n_kv * hd. Only
+// the slot-to-address map differs (Paged below): the split plan, the slots
+// a thread takes and every sum's order are the contiguous kernel's, so a
+// paged lane's bits equal the contiguous kernel's on the same contents.
+// With pages of at least kWarpSlots slots (64 at the 1B shape) a warp's
+// slots lie in one page, so a thread loads one table word a split; smaller
+// pages (tiny configs) look up each slot.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,6 +117,29 @@ __device__ __forceinline__ uint4 load16(const KV* p, bool vec_ok, int d0, int hd
   return r;
 }
 
+// slot s's offset (elements) from the (kv head, chunk) base: contiguous,
+// one lane's slots one after another
+struct Dense {
+  size_t stride;
+  __device__ __forceinline__ size_t operator()(int s) const { return (size_t)s * stride; }
+};
+
+// through the lane's page-table row: pages of 2^lp slots, nb entries; big
+// (pages of at least kWarpSlots slots): every slot the caller asks for lies
+// in the page of the warp's first slot, whose start is s + delta
+struct Paged {
+  const int* tbl;
+  int lp, nb;
+  bool big;
+  long long delta;
+  size_t stride;
+  __device__ __forceinline__ size_t operator()(int s) const {
+    if (big) return (size_t)(s + delta) * stride;
+    const int pg = __ldg(tbl + min(s >> lp, nb - 1));
+    return ((size_t)pg << lp | (size_t)(s & ((1 << lp) - 1))) * stride;
+  }
+};
+
 // a row's slots: 0 .. min(pos, s_len - 1)
 __device__ __forceinline__ int row_slots(long long p, int s_len) {
   return (int)(p < (long long)s_len - 1 ? p : (long long)s_len - 1) + 1;
@@ -145,10 +180,10 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[N], int c) {
 // One query row's share of split j: its scores, the split's softmax and
 // weighted V, written as the row's output (a row with one split, ns == 1)
 // or as the split's partial state (max, sum, weighted V) in rec.
-template <int G, int TPS, typename KV>
+template <int G, int TPS, typename KV, typename Addr>
 __device__ __forceinline__ void split_row(const float* __restrict__ qb,
                                           const KV* __restrict__ kc, const KV* __restrict__ vc,
-                                          size_t slot_stride, bool vec_ok, int n, int j,
+                                          const Addr& addr, bool vec_ok, int n, int j,
                                           int ns, float* __restrict__ rec,
                                           float* __restrict__ ob, int g_n, int hd,
                                           float scale) {
@@ -187,7 +222,7 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int s = s0 + (u0 + u) * SPW;
-      kr[u] = load16(kc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+      kr[u] = load16(kc + addr(s), vec_ok, d0, hd, s < n);
     }
     float dot[NV];  // [g][u]
 #pragma unroll
@@ -206,7 +241,7 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int s = s0 + u * SPW;
-        vr[u] = load16(vc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+        vr[u] = load16(vc + addr(s), vec_ok, d0, hd, s < n);
       }
     }
     // each dot summed over its slot's TPS threads; each sum stored by one
@@ -267,7 +302,7 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int s = s0 + (u0 + u) * SPW;
-        vr[u] = load16(vc + (size_t)s * slot_stride, vec_ok, d0, hd, s < n);
+        vr[u] = load16(vc + addr(s), vec_ok, d0, hd, s < n);
       }
     }
 #pragma unroll
@@ -394,15 +429,24 @@ __device__ __forceinline__ void fold_row(const float* __restrict__ rec0, size_t 
   }
 }
 
+// Where a lane's slots lie: contiguous (table null), lane b's slot s at b
+// lane_stride + s n_kv hd; else paged through tbl [lanes, nb] (pages of 2^lp
+// slots)
+struct Layout {
+  long long lane_stride;
+  const int* tbl;
+  int nb, lp;
+};
+
 // G: query heads per kv head (the runtime group g_n <= G); TPS: threads per
-// slot (the runtime head size hd <= TPS * VEC). Block (kv head, row, split):
-// the row's cache lane is row / lane_rows.
-template <int G, int TPS, typename KV>
+// slot (the runtime head size hd <= TPS * VEC); PAGED: the layout's form.
+// Block (kv head, row, split): the row's cache lane is row / lane_rows.
+template <int G, int TPS, typename KV, bool PAGED>
 __global__ void __launch_bounds__(kThreads, G <= 4 && TPS <= 8 ? kMinBlocks : 1)
 decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                    const KV* __restrict__ v, const long long* __restrict__ pos,
                    float* __restrict__ out, float* __restrict__ part,
-                   unsigned* __restrict__ tickets, long long lane_stride, int lane_rows,
+                   unsigned* __restrict__ tickets, Layout lay, int lane_rows,
                    int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale) {
   constexpr int VEC = 16 / sizeof(KV);
   const int kvh = blockIdx.x;
@@ -414,14 +458,28 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const int c = (threadIdx.x % 32) % TPS;
   const size_t head = (size_t)b * n_kv + kvh;
   const size_t lane = (size_t)(b / lane_rows);
-  const size_t at = lane * lane_stride + (size_t)kvh * hd + c * VEC;
+  const size_t slot_stride = (size_t)n_kv * hd;
+  const size_t at = (PAGED ? 0 : lane * lay.lane_stride) + (size_t)kvh * hd + c * VEC;
   const int rec_len = g_n * (hd + 2);
   // split j' of this (row, kv head) keeps its partial state at part + (head
   // S + j') rec_len
   float* rec = ns > 1 ? part + (head * gridDim.z + j) * rec_len : nullptr;
   float* ob = out + head * g_n * hd;
-  split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, (size_t)n_kv * hd, vec_ok != 0, n,
-                        j, ns, rec, ob, g_n, hd, scale);
+  if constexpr (PAGED) {
+    const int* row = lay.tbl + lane * lay.nb;
+    const int ws = j * kSplit + (int)(threadIdx.x / 32) * kWarpSlots;  // the warp's first slot
+    const bool big = lay.lp >= 5;  // 2^lp >= kWarpSlots
+    long long delta = 0;
+    if (big)
+      delta = ((long long)__ldg(row + min(ws >> lay.lp, lay.nb - 1)) << lay.lp) -
+              (ws & ~((1 << lay.lp) - 1));
+    const Paged addr{row, lay.lp, lay.nb, big, delta, slot_stride};
+    split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, addr, vec_ok != 0, n, j, ns, rec,
+                          ob, g_n, hd, scale);
+  } else {
+    split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, Dense{slot_stride},
+                          vec_ok != 0, n, j, ns, rec, ob, g_n, hd, scale);
+  }
   if (ns == 1) return;
 
   // the last block of this (row, kv head) to arrive folds the partial
@@ -438,13 +496,18 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 
 template <int G, int TPS, typename KV>
 cudaError_t launch(const float* q, const void* k, const void* v, const long long* pos,
-                   float* out, float* part, unsigned* tickets, long long lane_stride, int rows,
+                   float* out, float* part, unsigned* tickets, Layout lay, int rows,
                    int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
                    cudaStream_t stream) {
   const dim3 grid(n_kv, rows, (s_len + kSplit - 1) / kSplit);
-  decode_attn_kernel<G, TPS, KV><<<grid, kThreads, 0, stream>>>(
-      q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets,
-      lane_stride, lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
+  if (lay.tbl != nullptr)
+    decode_attn_kernel<G, TPS, KV, true><<<grid, kThreads, 0, stream>>>(
+        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, lay,
+        lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
+  else
+    decode_attn_kernel<G, TPS, KV, false><<<grid, kThreads, 0, stream>>>(
+        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, lay,
+        lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
   return cudaGetLastError();
 }
 
@@ -452,12 +515,12 @@ cudaError_t launch(const float* q, const void* k, const void* v, const long long
 // cover the head
 template <int G, typename KV>
 cudaError_t by_dims(const float* q, const void* k, const void* v, const long long* pos,
-                    float* out, float* part, unsigned* tickets, long long lane_stride,
+                    float* out, float* part, unsigned* tickets, Layout lay,
                     int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
                     float scale, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(KV);
 #define DECODE_ATTN_LAUNCH(TPS)                                                        \
-  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lane_stride, rows,       \
+  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lay, rows,               \
                             lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (hd <= 4 * VEC) DECODE_ATTN_LAUNCH(4);
   if (hd <= 8 * VEC) DECODE_ATTN_LAUNCH(8);
@@ -469,17 +532,42 @@ cudaError_t by_dims(const float* q, const void* k, const void* v, const long lon
 
 template <typename KV>
 cudaError_t by_group(const float* q, const void* k, const void* v, const long long* pos,
-                     float* out, float* part, unsigned* tickets, long long lane_stride,
+                     float* out, float* part, unsigned* tickets, Layout lay,
                      int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len,
                      int vec_ok, float scale, cudaStream_t stream) {
 #define DECODE_ATTN_GROUP(G)                                                            \
-  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, lane_stride, rows, lane_rows, \
+  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, lay, rows, lane_rows,         \
                         n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (g_n <= 1) DECODE_ATTN_GROUP(1);
   if (g_n <= 2) DECODE_ATTN_GROUP(2);
   if (g_n <= 4) DECODE_ATTN_GROUP(4);
   DECODE_ATTN_GROUP(8);
 #undef DECODE_ATTN_GROUP
+}
+
+}  // namespace
+
+namespace {
+
+int launch_any(const float* q, const void* k, const void* v, const long long* pos, float* out,
+               float* part, unsigned* tickets, Layout lay, int lanes, int rows, int n_kv,
+               int g_n, int hd, int s_len, int split, int kv_bf16, float scale, void* stream) {
+  if (lanes < 1 || rows < 1 || rows > kWindow || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 ||
+      hd > 128 || s_len < 1 || split != kSplit ||
+      (s_len > kSplit && (part == nullptr || tickets == nullptr)) ||
+      (lay.tbl != nullptr && (lay.nb < 1 || lay.lp < 0 || lay.lp > 20 ||
+                              ((long long)lay.nb << lay.lp) < s_len)))
+    return (int)cudaErrorInvalidValue;
+  const int vec = kv_bf16 ? 8 : 4;
+  const int vec_ok = hd % vec == 0 && (n_kv * hd) % vec == 0 && lay.lane_stride % vec == 0 &&
+                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kv_bf16)
+    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lay, lanes * rows,
+                                        rows, n_kv, g_n, hd, s_len, vec_ok, scale, st);
+  return (int)by_group<float>(q, k, v, pos, out, part, tickets, lay, lanes * rows, rows, n_kv,
+                              g_n, hd, s_len, vec_ok, scale, st);
 }
 
 }  // namespace
@@ -496,19 +584,20 @@ extern "C" int decode_attn_launch(const float* q, const void* k, const void* v,
                                   unsigned* tickets, long long lane_stride, int lanes, int rows,
                                   int n_kv, int g_n, int hd, int s_len, int split, int kv_bf16,
                                   float scale, void* stream) {
-  if (lanes < 1 || rows < 1 || rows > kWindow || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 ||
-      hd > 128 || s_len < 1 || split != kSplit ||
-      (s_len > kSplit && (part == nullptr || tickets == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const int vec = kv_bf16 ? 8 : 4;
-  const int vec_ok = hd % vec == 0 && lane_stride % vec == 0 &&
-                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (kv_bf16)
-    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lane_stride,
-                                        lanes * rows, rows, n_kv, g_n, hd, s_len, vec_ok, scale,
-                                        st);
-  return (int)by_group<float>(q, k, v, pos, out, part, tickets, lane_stride, lanes * rows, rows,
-                              n_kv, g_n, hd, s_len, vec_ok, scale, st);
+  return launch_any(q, k, v, pos, out, part, tickets, Layout{lane_stride, nullptr, 0, 0}, lanes,
+                    rows, n_kv, g_n, hd, s_len, split, kv_bf16, scale, stream);
+}
+
+// The paged form: k, v: one layer's pool, page p's slot i at (p 2^log2_page
+// + i) n_kv hd (elements); table: int32 [lanes, nb], lane b's block i in
+// page table[b, i] (nb 2^log2_page >= s_len); the rest as above.
+extern "C" int decode_attn_paged_launch(const float* q, const void* k, const void* v,
+                                        const long long* pos, float* out, float* part,
+                                        unsigned* tickets, const int* table, int nb,
+                                        int log2_page, int lanes, int rows, int n_kv, int g_n,
+                                        int hd, int s_len, int split, int kv_bf16, float scale,
+                                        void* stream) {
+  if (table == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_any(q, k, v, pos, out, part, tickets, Layout{0, table, nb, log2_page}, lanes,
+                    rows, n_kv, g_n, hd, s_len, split, kv_bf16, scale, stream);
 }

@@ -1,4 +1,5 @@
-"""Llama forward pass over a contiguous per-lane KV cache, in PyTorch.
+"""Llama forward pass over a contiguous per-lane or a paged KV cache, in
+PyTorch.
 
 Layer math (the JAX package's ``llama_forward``):
     x += attn(rms_norm(x)) ; x += ffn(rms_norm(x))
@@ -14,6 +15,18 @@ drops (positions at or past ``seq_len``: idle lanes parked there, padded
 prefill tails near the end of the context; a forward of several rows a lane
 writes zeros there). Attention never reads it for a real query, whose mask
 is s <= pos < seq_len.
+
+The paged layout (``PagedKVCache``, the JAX package's): one pool of
+fixed-size pages shared by every lane and a per-lane page table (block i of
+lane b in page ``table[b, i]``). The pool holds one page more than the
+table addresses, the scratch page at index ``n_pages``: the JAX sentinel
+``n_pages`` marks an unmapped block and indexes it directly, so writes
+through an unmapped entry or at a position at or past seq_len land there
+(with T > 1, as zeros, as on the contiguous layout). Attention reads each
+lane's slots through the table: the attention kernel in place for decode
+and verify rows, a gather of the lane's view into the dense attention for
+a prompt chunk. A lane's results equal the contiguous layout's on the same
+slot contents, bit for bit.
 
 Tensor parallelism (``mesh``): one process drives every rank, as the JAX
 package's single controller does. Each layer runs rank by rank on local
@@ -32,7 +45,14 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..formats.model_file import HiddenAct
 from ..ops.activations import gelu, silu
-from ..ops.cuda_attn import WINDOW, decode_attention, dense_attention
+from ..ops.cuda_attn import (
+    WINDOW,
+    decode_attention,
+    decode_attention_paged,
+    dense_attention,
+    paged_gather_index,
+    paged_view,
+)
 from ..ops.linear import matmul, shared_q80_acts
 from ..ops.norm import rms_norm
 from ..ops.ring_collective import (
@@ -107,6 +127,48 @@ class KVCache:
         return KVCache(k=self.k[:, lane:lane + 1], v=self.v[:, lane:lane + 1])
 
 
+@dataclass
+class PagedKVCache:
+    """The paged layout: pool planes [L, n_pages + 1, page, n_kv, hd] (page
+    ``n_pages`` the scratch page) and the page table [B, blocks_per_lane]
+    int32, whose ``n_pages`` entries are unmapped. Every layer's K/V of a
+    token lie at the same (page, slot), so one table drives all layers."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    def lane(self, lane: int) -> "PagedKVCache":
+        """One lane as a batch of 1: the pool and that lane's table row."""
+        return PagedKVCache(k=self.k, v=self.v, table=self.table[lane:lane + 1])
+
+
+def init_paged_kv_cache(config: LlamaConfig, n_lanes: int, n_pages: int, page_size: int,
+                        n_blocks: int | None = None, dtype=torch.float32,
+                        device=DEFAULT_DEVICE) -> PagedKVCache:
+    """A zero-filled pool (the scratch page included: a masked slot's V is
+    weighted by 0 and must not be NaN) and all-unmapped tables. ``n_blocks``
+    is the table width, the pool's ``blocks_per_lane`` (default: enough
+    blocks for seq_len)."""
+    device = resolve_device(device)
+    if page_size < 1 or page_size & (page_size - 1):
+        raise ValueError(f"page_size must be a power of two, got {page_size}")
+    blocks = n_blocks if n_blocks is not None else -(-config.seq_len // page_size)
+    shape = (config.n_layers, n_pages + 1, page_size, config.n_kv_heads, config.head_size)
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                        v=torch.zeros(shape, dtype=dtype, device=device),
+                        table=torch.full((n_lanes, blocks), n_pages, dtype=torch.int32,
+                                         device=device))
+
+
 def init_kv_cache(config: LlamaConfig, n_lanes: int, dtype=torch.float32,
                   device=DEFAULT_DEVICE) -> KVCache:
     device = resolve_device(device)
@@ -153,6 +215,9 @@ def llama_forward(
     lane's own slots only, in an order each row's position fixes.
     ``logit_rows`` (optional) selects the T positions whose logits are
     computed (T' = len(logit_rows)); None computes all T.
+
+    ``cache`` may be a ``PagedKVCache`` (per rank on a mesh): the KV append
+    goes through the table to (page, slot), and attention reads through it.
 
     ``emulate_q80_activations``: Q80 quantize-dequantize at the reference's
     activation casts (before wq/wk/wv, wo, w1/w3, w2 and wcls, and on the
@@ -211,22 +276,44 @@ def llama_forward(
     poss = [positions.to(d) for d in devs]
     xs = [p.embedding[tokens.to(d)] for p, d in zip(ranks, devs)]  # [B, T, dim]
     lane_idx = [torch.arange(b, device=d)[:, None].expand(b, t) for d in devs]
-    # writes at or past seq_len land in the scratch slot (the JAX scatter
-    # drops them); with T > 1 several rows of a lane may land there, and a
-    # scatter leaves any one of them, so they all write zeros: the cache
-    # stays a function of the inputs
-    w_pos = [p.clamp(0, cfg.seq_len) for p in poss]
-    dropped = None if t == 1 else [(p >= cfg.seq_len)[:, :, None, None] for p in poss]
+    paged = isinstance(caches[0], PagedKVCache)
+    if paged:
+        # the table is the same for every layer: the write targets and
+        # the prompt chunk's gather index are computed once a call. A
+        # sentinel entry or a position at or past seq_len writes the
+        # scratch page (the JAX scatter drops such writes)
+        page, n_pages = caches[0].page_size, caches[0].n_pages
+        tables = [c.table for c in caches]
+        w_page = []
+        for tb, p in zip(tables, poss):
+            blk = (p // page).clamp(0, tb.shape[1] - 1)
+            pg = torch.gather(tb.to(torch.int64), 1, blk)
+            w_page.append(torch.where(p < cfg.seq_len, pg, n_pages))
+        w_idx = [(wp, p % page) for wp, p in zip(w_page, poss)]
+        unmapped = [wp == n_pages for wp in w_page]
+    else:
+        # writes at or past seq_len land in the scratch slot (the JAX
+        # scatter drops them)
+        w_idx = [(lane_idx[r], p.clamp(0, cfg.seq_len)) for r, p in enumerate(poss)]
+        unmapped = [p >= cfg.seq_len for p in poss]
+    # with T > 1 several rows of a lane may land in the scratch slot or
+    # page, and a scatter leaves any one of them, so they all write zeros:
+    # the cache stays a function of the inputs
+    dropped = None if t == 1 else [u[:, :, None, None] for u in unmapped]
     # a decode step or a verify window runs the attention kernel, which masks
     # each row by its position; a prompt chunk the dense attention
     windowed = t == 1 or (attn_len is None and t <= WINDOW)
     masks = None if windowed else [
         torch.arange(s_len, device=d)[None, None, :] <= p[:, :, None]  # [B, T, S]
         for d, p in zip(devs, poss)]
+    # a prompt chunk over the paged layout gathers each lane's [S] view
+    gather = [paged_gather_index(tb, page, s_len) for tb in tables] \
+        if paged and not windowed else None
 
     def attention(r: int, lp: LlamaLayerParams, l: int) -> torch.Tensor:
         x, pos, p = xs[r], poss[r], ranks[r]
-        k_cache, v_cache = caches[r].k[l], caches[r].v[l]  # [B, S+1, n_kv, hd]
+        # contiguous [B, S+1, n_kv, hd]; paged [n_pages+1, page, n_kv, hd]
+        k_cache, v_cache = caches[r].k[l], caches[r].v[l]
         y = rms_norm(x, lp.rms_att, eps)
         yq = share_q80(maybe_qdq(y))
         q = _maybe_bias(matmul(yq, lp.wq), lp.bq).reshape(b, t, n_heads, hd)
@@ -238,12 +325,19 @@ def llama_forward(
 
         if dropped is not None:
             k, v = (torch.where(dropped[r], 0.0, x) for x in (k, v))
-        k_cache[lane_idx[r], w_pos[r]] = k.to(k_cache.dtype)
-        v_cache[lane_idx[r], w_pos[r]] = v.to(v_cache.dtype)
+        k_cache[w_idx[r]] = k.to(k_cache.dtype)
+        v_cache[w_idx[r]] = v.to(v_cache.dtype)
 
         qf = q.to(torch.float32).reshape(b, t, n_kv, group, hd)
-        if windowed:
+        if windowed and paged:
+            attn = decode_attention_paged(qf, k_cache, v_cache, tables[r], pos, scale, s_len)
+        elif windowed:
             attn = decode_attention(qf, k_cache, v_cache, pos, scale, s_len)
+        elif paged:
+            attn = dense_attention(
+                qf, paged_view(k_cache, gather[r]).to(torch.float32),
+                paged_view(v_cache, gather[r]).to(torch.float32), masks[r], scale,
+            )
         else:
             attn = dense_attention(
                 qf, k_cache[:, :s_len].to(torch.float32),

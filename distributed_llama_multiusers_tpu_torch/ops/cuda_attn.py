@@ -20,9 +20,21 @@ splits follow from its position alone), and folds their partial states in
 split order inside the same launch; the wrapper allocates the partials and
 the arrival tickets per call. A window runs the same kernel with a row a
 lane (one launch over the B * T rows, row r reading cache lane r // T), so
-row t gives the bits of a T = 1 call at positions[b, t]. ``COUNTS`` holds
-the launches (one a call, whatever T), the window launches among them and
-the plain calls.
+row t gives the bits of a T = 1 call at positions[b, t].
+
+``decode_attention_paged(qf, k_pool, v_pool, table, positions, scale,
+s_len)`` is the same attention over the paged KV layout (one pool of
+fixed-size pages, a per-lane page table; ``models/llama.PagedKVCache``),
+the counterpart of the JAX forward's gather through the table before its
+dense attention. The kernel reads the pool in place through the table,
+with the contiguous kernel's split plan and summation order, so a paged
+lane's result is bit-equal to the contiguous kernel's on the same slot
+contents; on a CPU tensor the wrapper runs ``decode_attention_paged_plain``
+(the gather, then the plain version).
+
+``COUNTS`` holds the launches (one a call, whatever T or layout), the window
+launches among them and the plain calls; ``PAGED_COUNTS`` the launches of
+the paged form (counted in ``COUNTS`` too).
 """
 
 from __future__ import annotations
@@ -45,23 +57,31 @@ WINDOW = 4  # query rows per lane at most: kWindow (runtime/spec.SPEC_DRAFT + 1)
 # launches (every call on the card), those of them with T > 1 rows a lane
 # (verify windows), and plain calls (CPU tensors)
 COUNTS = {"launches": 0, "window_launches": 0, "plain_calls": 0}
+# the launches through a page table
+PAGED_COUNTS = {"launches": 0}
 _counts_lock = threading.Lock()
 # q, k, v, pos, out, part, tickets, lane_stride, lanes, rows, n_kv, group,
 # head_size, s_len, split, kv_bf16, scale, stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+# q, k, v, pos, out, part, tickets, table, nb, log2_page, lanes, rows, n_kv,
+# group, head_size, s_len, split, kv_bf16, scale, stream
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
 
 
 def reset_counts() -> None:
     with _counts_lock:
-        for k in COUNTS:
-            COUNTS[k] = 0
+        for table in (COUNTS, PAGED_COUNTS):
+            for k in table:
+                table[k] = 0
 
 
 def attn_counts() -> dict:
     """The kernel's counters, for ``/stats``."""
     with _counts_lock:
-        return {f"{KERNEL}_{k}": v for k, v in COUNTS.items()}
+        return {**{f"{KERNEL}_{k}": v for k, v in COUNTS.items()},
+                f"{KERNEL}_paged_launches": PAGED_COUNTS["launches"]}
 
 
 def add_counts(delta: dict) -> None:
@@ -71,9 +91,16 @@ def add_counts(delta: dict) -> None:
             COUNTS[k] += v
 
 
-def _bump(key: str) -> None:
+def add_paged_counts(delta: dict) -> None:
+    """``add_counts`` for the paged launches."""
     with _counts_lock:
-        COUNTS[key] += 1
+        for k, v in delta.items():
+            PAGED_COUNTS[k] += v
+
+
+def _bump(key: str, table: dict = COUNTS) -> None:
+    with _counts_lock:
+        table[key] += 1
 
 
 def launch_grid(lanes: int, n_kv: int, s_len: int) -> tuple[int, int, int]:
@@ -100,51 +127,147 @@ def decode_attention_plain(qf, k_cache, v_cache, positions, scale: float, s_len:
                            v_cache[:, :s_len].to(torch.float32), mask, scale)
 
 
-def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     positions: torch.Tensor, scale: float, s_len: int) -> torch.Tensor:
-    """qf: f32 [B, T, n_kv, G, H], 1 <= T <= WINDOW; k_cache, v_cache: one
-    layer's cache [B, S, n_kv, H] (bf16 or f32; S >= s_len); positions: int
-    [B, T] on the same device. Returns f32 [B, T, n_kv, G, H]."""
+def paged_gather_index(table: torch.Tensor, page_size: int, s_len: int) -> torch.Tensor:
+    """The flat pool slot of each lane's logical slots 0 .. s_len - 1
+    through its page-table row: int64 [B, s_len] (the JAX forward's
+    ``gather_idx``)."""
+    s = torch.arange(s_len, device=table.device)
+    return table.to(torch.int64)[:, s // page_size] * page_size + s % page_size
+
+
+def paged_view(pool: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """One layer's pool [P, page, n_kv, H] gathered at ``index`` [B, S]:
+    each lane's logical [B, S, n_kv, H] view."""
+    return pool.reshape(-1, *pool.shape[2:])[index]
+
+
+def decode_attention_paged_plain(qf, k_pool, v_pool, table, positions, scale: float,
+                                 s_len: int):
+    """The paged plain version: each lane's first ``s_len`` slots gathered
+    through its table row, then ``decode_attention_plain``."""
+    index = paged_gather_index(table, k_pool.shape[1], s_len)
+    return decode_attention_plain(qf, paged_view(k_pool, index), paged_view(v_pool, index),
+                                  positions, scale, s_len)
+
+
+def _check_q(qf: torch.Tensor, positions: torch.Tensor) -> None:
     if qf.dim() != 5 or not 1 <= qf.shape[1] <= WINDOW:
         raise ValueError(f"qf must be [lanes, 1..{WINDOW}, n_kv, group, head], got "
                          f"{tuple(qf.shape)}")
-    b, t, n_kv, group, hd = qf.shape
-    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or k_cache.shape[0] != b \
-            or tuple(k_cache.shape[2:]) != (n_kv, hd) or not 1 <= s_len <= k_cache.shape[1]:
-        raise ValueError(f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not "
-                         f"hold [{b}, >= {s_len}, {n_kv}, {hd}]")
+    b, t = qf.shape[:2]
     if tuple(positions.shape) != (b, t):
         raise ValueError(f"positions {tuple(positions.shape)} must be [{b}, {t}]")
-    if qf.device.type == "cpu":
-        _bump("plain_calls")
-        return decode_attention_plain(qf, k_cache, v_cache, positions, scale, s_len)
+
+
+def _check_card(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The kernel's range and the caches' dtypes and devices."""
+    group, hd = qf.shape[3:]
     if qf.device.type != "cuda":
         raise ValueError(f"the attention kernel runs on CUDA or CPU tensors, not {qf.device}")
     if hd > MAX_HEAD_SIZE or group > MAX_GROUP:
         raise ValueError(f"head size {hd} (at most {MAX_HEAD_SIZE}) or group {group} (at "
                          f"most {MAX_GROUP}) out of the kernel's range")
-    if k_cache.dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"caches must be bf16 or f32, got {k_cache.dtype} / {v_cache.dtype}")
+    if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
+        raise ValueError(f"caches must be bf16 or f32, got {k.dtype} / {v.dtype}")
+    for name, cache in (("k", k), ("v", v)):
+        if cache.device != qf.device:
+            raise ValueError(f"{name} cache on {cache.device}, qf on {qf.device}")
+
+
+def _scratch(qf: torch.Tensor, s_len: int):
+    """Per-call partial states and zeroed arrival tickets (None, None for
+    one split)."""
+    b, t, n_kv, group, hd = qf.shape
+    splits = launch_grid(b, n_kv, s_len)[2]
+    if splits == 1:
+        return None, None
+    part = torch.empty(b * t * n_kv * splits * group * (hd + 2), dtype=torch.float32,
+                       device=qf.device)
+    tickets = torch.zeros(b * t * n_kv, dtype=torch.int32, device=qf.device)
+    return part, tickets
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def decode_attention_paged(qf: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           table: torch.Tensor, positions: torch.Tensor, scale: float,
+                           s_len: int) -> torch.Tensor:
+    """``decode_attention`` over the paged layout. k_pool, v_pool: one
+    layer's pool [P, page, n_kv, H] (bf16 or f32; page a power of two);
+    table: int32 [B, nb] page ids (< P) with nb * page >= s_len; slot s of
+    lane b is slot s % page of page table[b, s // page]. Returns f32 [B, T,
+    n_kv, G, H], bit-equal to ``decode_attention`` on a contiguous cache
+    that holds the same slot contents."""
+    _check_q(qf, positions)
+    b, t, n_kv, group, hd = qf.shape
+    page = k_pool.shape[1] if k_pool.dim() == 4 else 0
+    if k_pool.shape != v_pool.shape or k_pool.dim() != 4 \
+            or tuple(k_pool.shape[2:]) != (n_kv, hd) or page & (page - 1) or page < 1:
+        raise ValueError(f"pools {tuple(k_pool.shape)} / {tuple(v_pool.shape)} do not hold "
+                         f"[pages, 2^k, {n_kv}, {hd}]")
+    if table.dim() != 2 or table.shape[0] != b or not 1 <= s_len <= table.shape[1] * page:
+        raise ValueError(f"table {tuple(table.shape)} does not map [{b}, >= {s_len} / {page}] "
+                         "blocks")
+    if qf.device.type == "cpu":
+        _bump("plain_calls")
+        return decode_attention_paged_plain(qf, k_pool, v_pool, table, positions, scale, s_len)
+    _check_card(qf, k_pool, v_pool)
+    if table.dtype != torch.int32 or table.device != qf.device:
+        raise ValueError(f"table must be int32 on {qf.device}, got {table.dtype} on "
+                         f"{table.device}")
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not pool.is_contiguous():
+            raise ValueError(f"{name} must be dense, strides {pool.stride()}")
+    q = qf.to(torch.float32).contiguous()
+    pos = positions.to(device=qf.device, dtype=torch.int64).reshape(b * t).contiguous()
+    tbl = table.contiguous()
+    out = torch.empty_like(q)
+    part, tickets = _scratch(qf, s_len)
+    with torch.cuda.device(qf.device):
+        err = load_kernel(KERNEL, _PAGED_ARGTYPES, "decode_attn_paged_launch")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), _ptr(part), _ptr(tickets), tbl.data_ptr(), tbl.shape[1],
+            page.bit_length() - 1, b, t, n_kv, group, hd, s_len, SPLIT,
+            int(k_pool.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream(qf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} (paged) launch failed: CUDA error {err}")
+    _bump("launches")
+    _bump("launches", PAGED_COUNTS)
+    if t > 1:
+        _bump("window_launches")
+    return out
+
+
+def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     positions: torch.Tensor, scale: float, s_len: int) -> torch.Tensor:
+    """qf: f32 [B, T, n_kv, G, H], 1 <= T <= WINDOW; k_cache, v_cache: one
+    layer's cache [B, S, n_kv, H] (bf16 or f32; S >= s_len); positions: int
+    [B, T] on the same device. Returns f32 [B, T, n_kv, G, H]."""
+    _check_q(qf, positions)
+    b, t, n_kv, group, hd = qf.shape
+    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or k_cache.shape[0] != b \
+            or tuple(k_cache.shape[2:]) != (n_kv, hd) or not 1 <= s_len <= k_cache.shape[1]:
+        raise ValueError(f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not "
+                         f"hold [{b}, >= {s_len}, {n_kv}, {hd}]")
+    if qf.device.type == "cpu":
+        _bump("plain_calls")
+        return decode_attention_plain(qf, k_cache, v_cache, positions, scale, s_len)
+    _check_card(qf, k_cache, v_cache)
     slot = n_kv * hd
     for name, cache in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if cache.device != qf.device:
-            raise ValueError(f"{name} on {cache.device}, qf on {qf.device}")
         if cache.stride()[1:] != (slot, hd, 1) or cache.stride(0) != k_cache.stride(0):
             raise ValueError(f"{name}'s slots must be dense, strides {cache.stride()}")
     q = qf.to(torch.float32).contiguous()
     pos = positions.to(device=qf.device, dtype=torch.int64).reshape(b * t).contiguous()
     out = torch.empty_like(q)
-    splits = launch_grid(b, n_kv, s_len)[2]
-    part = tickets = None
-    if splits > 1:  # per-call scratch: each row's partial states, the arrival tickets
-        part = torch.empty(b * t * n_kv * splits * group * (hd + 2), dtype=torch.float32,
-                           device=qf.device)
-        tickets = torch.zeros(b * t * n_kv, dtype=torch.int32, device=qf.device)
+    part, tickets = _scratch(qf, s_len)
     with torch.cuda.device(qf.device):
         err = load_kernel(KERNEL, _ARGTYPES)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), k_cache.stride(0), b, t, n_kv,
+            out.data_ptr(), _ptr(part), _ptr(tickets), k_cache.stride(0), b, t, n_kv,
             group, hd, s_len, SPLIT, int(k_cache.dtype == torch.bfloat16), float(scale),
             torch.cuda.current_stream(qf.device).cuda_stream)
     if err != 0:

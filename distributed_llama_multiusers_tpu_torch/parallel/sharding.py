@@ -6,6 +6,9 @@ as per-rank copies.
     col-sliced (split d_in):   wo, w2
     replicated:                embedding, norms, RoPE tables
     KV cache:                  split on the kv heads
+    paged KV pool:             split on the kv heads; one page table for
+                               every rank (``paged_cache_shardings`` in
+                               the JAX package)
 
 A col-sliced rank's weight is stored as its column-chunk stack
 [n, d_in/n, d_out/n] (packed: [n, d_in/2/n, d_out/n] nibbles and [n,
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.llama import KVCache, LlamaLayerParams, LlamaParams
+from ..models.llama import KVCache, LlamaLayerParams, LlamaParams, PagedKVCache
 from ..quants.packed import PackedQ40
 from .mesh import Mesh
 
@@ -97,3 +100,22 @@ def shard_kv_cache(cache: KVCache, mesh: Mesh) -> list:
     return [KVCache(k=cache.k[:, :, :, r * h:(r + 1) * h].contiguous().to(dev),
                     v=cache.v[:, :, :, r * h:(r + 1) * h].contiguous().to(dev))
             for r, dev in enumerate(mesh.devices)]
+
+
+def shard_paged_kv_cache(cache: PagedKVCache, mesh: Mesh) -> list:
+    """Rank r's share of a paged pool [L, P, page, n_kv, hd]: kv heads
+    r*n_kv/tp .. (r+1)*n_kv/tp, on rank r's device. The page table is the
+    same for every rank: ranks on one device share one table tensor (read
+    only inside a step; the engine rewrites it between steps), others hold
+    a copy on their own device."""
+    n = mesh.tp
+    h = cache.k.shape[3] // n
+    tables: dict = {}
+    out = []
+    for r, dev in enumerate(mesh.devices):
+        if dev not in tables:
+            tables[dev] = cache.table.to(dev, copy=True)
+        out.append(PagedKVCache(k=cache.k[:, :, :, r * h:(r + 1) * h].contiguous().to(dev),
+                                v=cache.v[:, :, :, r * h:(r + 1) * h].contiguous().to(dev),
+                                table=tables[dev]))
+    return out

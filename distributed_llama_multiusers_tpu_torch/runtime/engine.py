@@ -20,7 +20,21 @@ cache, the JAX engine's serving programs.
 - ``prefill_chunk`` / ``prefill``: a bucketed prompt chunk for ONE lane,
   on that lane's slice of the cache;
 - ``copy_lane``: one lane's leading KV slots into another's, in place (the
-  scheduler's per-lane prefix cache).
+  scheduler's per-lane prefix cache on the contiguous layout).
+
+With ``paged_kv`` the KV cache is the JAX engine's paged layout
+(``models/llama.PagedKVCache``): one device pool of fixed-size pages, a
+per-lane page table, and the host bookkeeping of ``runtime/kvpool.py``
+(the ref-counted prefix tree, parking, the host swap tier). ``paged_admit``
+maps a lane's pages (shared prefix pages by refcount, a copy-on-write page,
+pages swapped back in from the host tier), ``paged_commit`` registers its
+prompt blocks, ``paged_finish`` parks or frees them; ``export_kv_page`` and
+``import_kv_page`` carry one page's bytes (K then V, row-major, in the
+cache dtype: the JAX engine's bytes at the same geometry). Every table
+write, page copy and swap-in is an in-place op on the compute stream from
+pinned host memory: ordered after every step dispatched before it and
+before every step after it, so an in-flight pipelined chain never sees a
+half-written row. The decode graphs read the table as a static input.
 
 Prompt chunks are padded to the same buckets as the JAX engine, so a chunk
 runs the same product shapes there and here; a chunk's attention reads the
@@ -56,8 +70,8 @@ Every dispatch family and the lagged consume fire the seeded fault plan
 argument checks and before any device work; an unarmed process pays one
 global read.
 
-The paged and grammar families are later work, which the ``supports_*``
-flags say to the scheduler.
+The grammar family is later work, which ``supports_grammar`` says to the
+scheduler.
 """
 
 from __future__ import annotations
@@ -74,11 +88,12 @@ import torch
 from ..analysis import jitcheck
 from ..device import resolve_device
 from ..models.config import LlamaConfig
-from ..models.llama import LlamaParams, init_kv_cache, llama_forward
+from ..models.llama import LlamaParams, init_kv_cache, init_paged_kv_cache, llama_forward
 from ..ops.ring_collective import ring_counts
-from ..parallel.sharding import shard_kv_cache
+from ..parallel.sharding import shard_kv_cache, shard_paged_kv_cache
 from ..utils import faults
 from .graphs import StepGraphs
+from .kvpool import DEFAULT_MAX_PARKED, DEFAULT_PAGE_SIZE, KVPagePool
 from .sampling import MASK32, sample_lanes
 from .spec import SPEC_DRAFT, pow2_floor
 
@@ -88,6 +103,8 @@ DEFAULT_TOPP = 0.9
 # 2 = consume step k while step k+1 runs; 0 or 1 disables pipelining
 DEFAULT_PIPELINE_DEPTH = 2
 ATTN_BUCKET_FLOOR = 64
+# pages a swap gather or scatter moves at once
+_SWAP_BATCH = 8
 
 
 def attn_buckets(seq_len: int) -> tuple[int, ...]:
@@ -203,6 +220,11 @@ class InferenceEngine:
         q80_sync: bool = False,
         ring_sync: bool = True,
         pipeline_depth: int | None = None,
+        paged_kv: bool = False,
+        kv_page_size: int = DEFAULT_PAGE_SIZE,
+        kv_pool_pages: int | None = None,
+        kv_max_parked: int = DEFAULT_MAX_PARKED,
+        kv_host_bytes: int = 0,
     ):
         """``device`` defaults to CUDA and raises where there is none; tests
         pass ``device="cpu"``. The parameters must already live there.
@@ -213,7 +235,15 @@ class InferenceEngine:
         sampling runs and logits land; the KV cache is split on kv heads.
         ``emulate_q80_activations``, ``q80_sync`` and ``ring_sync`` go to
         ``llama_forward``. ``pipeline_depth`` bounds the pipelined ring
-        (None: 2; 0 or 1 turns the scheduler's pipelined path off)."""
+        (None: 2; 0 or 1 turns the scheduler's pipelined path off).
+
+        ``paged_kv`` (the JAX engine's ``--paged-kv on``): the KV cache is a
+        pool of ``kv_page_size``-token pages (a power of two, shrunk to fit
+        short contexts) behind per-lane page tables; ``kv_pool_pages``
+        sizes the pool (None: the contiguous layout's footprint),
+        ``kv_max_parked`` bounds parked sessions and ``kv_host_bytes``
+        budgets the host swap tier (0 disables it). A dp or sp mesh
+        refuses it."""
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.devices[0])
         self.devices = [self.device] if mesh is None else list(mesh.devices)
@@ -231,9 +261,31 @@ class InferenceEngine:
         if cache_dtype is None:
             cache_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
         self.cache_dtype = cache_dtype
-        self.cache = init_kv_cache(config, n_lanes, dtype=cache_dtype, device=self.device)
-        if mesh is not None:
-            self.cache = shard_kv_cache(self.cache, mesh)
+        self.kvpool = None
+        if paged_kv:
+            if mesh is not None and (mesh.shape.get("dp", 1) > 1
+                                     or mesh.shape.get("sp", 1) > 1):
+                raise ValueError(
+                    "paged_kv requires a pure-TP mesh (dp=1, sp=1): the "
+                    "page pool replicates over dp and cannot shard over "
+                    "sp — use --paged-kv off on dp/sp meshes"
+                )
+            self.kvpool = KVPagePool.for_seq_len(
+                config.seq_len, n_lanes, page_size=kv_page_size, pool_pages=kv_pool_pages,
+                max_parked=kv_max_parked, host_bytes=kv_host_bytes)
+            # swap traffic, written on the scheduler loop thread only
+            self.reset_swap_stats()
+            pool = self.kvpool
+            self._host_tables = np.asarray([pool.table_row([])] * n_lanes, np.int32)
+            self.cache = init_paged_kv_cache(config, n_lanes, pool.n_pages, pool.page_size,
+                                             n_blocks=pool.blocks_per_lane, dtype=cache_dtype,
+                                             device=self.device)
+            if mesh is not None:
+                self.cache = shard_paged_kv_cache(self.cache, mesh)
+        else:
+            self.cache = init_kv_cache(config, n_lanes, dtype=cache_dtype, device=self.device)
+            if mesh is not None:
+                self.cache = shard_kv_cache(self.cache, mesh)
         self._forward_flags = {"emulate_q80_activations": emulate_q80_activations,
                                "mesh": mesh, "q80_sync": q80_sync, "ring_sync": ring_sync}
         self.stats = EngineStats()
@@ -939,6 +991,11 @@ class InferenceEngine:
         plane of each rank, into the planes the decode graphs captured:
         ordered after every step dispatched before it and before every
         step after it. ``src == dst`` or a zero length moves nothing."""
+        if self.kvpool is not None:
+            raise RuntimeError(
+                "copy_lane is the contiguous layout's primitive; a paged "
+                "engine shares prefix pages by refcount via paged_admit"
+            )
         if not (0 <= src < self.n_lanes and 0 <= dst < self.n_lanes):
             raise ValueError(f"copy_lane({src}, {dst}) outside {self.n_lanes} lanes")
         n = self.config.seq_len if prefix_len is None else int(prefix_len)
@@ -947,6 +1004,257 @@ class InferenceEngine:
         for c in ([self.cache] if self.mesh is None else self.cache):
             for plane in (c.k, c.v):
                 plane[:, dst, :n].copy_(plane[:, src, :n])
+
+    # -- the paged KV pool (runtime/kvpool.py): the host/device seam ----------
+
+    def _caches(self) -> list:
+        return [self.cache] if self.mesh is None else list(self.cache)
+
+    def _need_paged(self, what: str) -> None:
+        if self.kvpool is None:
+            raise RuntimeError(f"{what} needs a paged engine")
+
+    @torch.inference_mode()
+    def _write_tables(self) -> None:
+        """The host table mirror into every device table, in place (the
+        graphs captured these tensors): one non-blocking copy from pinned
+        memory on each table's stream, ordered between the steps around it.
+        Ranks on one device share their table."""
+        tables = {id(c.table): c.table for c in self._caches()}
+        for tb in tables.values():
+            tb.copy_(self._staged(self._host_tables, torch.int32), non_blocking=True)
+
+    @torch.inference_mode()
+    def _copy_page(self, src: int, dst: int) -> None:
+        """One page's K and V, every layer and rank, from ``src`` to
+        ``dst``: the copy-on-write unit (the JAX engine's ``_copy_page``).
+        Slots past the divergence point carry the source's content, which
+        the tail prefill rewrites before any query reads them."""
+        for c in self._caches():
+            for plane in (c.k, c.v):
+                plane[:, dst].copy_(plane[:, src])
+
+    def apply_paged_admit(self, lane: int, row, copies) -> None:
+        """Device half of a paged admission (or release): the COW page
+        ``copies``, then lane ``lane``'s new table ``row``, each ordered
+        before any later-dispatched prefill or step."""
+        self._need_paged("apply_paged_admit")
+        for src, dst in copies:
+            self._copy_page(int(src), int(dst))
+        self._host_tables[lane] = row
+        self._write_tables()
+
+    def paged_admit(self, lane: int, tokens, reserve_tokens: int, min_share_tokens: int = 1,
+                    share_quantum: int = 1) -> int:
+        """Reserve lane ``lane``'s pages for a request (prompt ``tokens``,
+        whole potential range ``reserve_tokens``) and apply the device
+        half. Returns ``start``, the prompt tokens already resident through
+        the prefix tree (``KVPagePool.admit``; ``share_quantum`` cuts it to
+        whole quanta); the caller prefills ``tokens[start:]``. Raises
+        ``PoolExhausted`` when the pool cannot serve the reservation even
+        after evicting parked sessions. Order: (1) the admission may evict
+        parked pages and stage them for swap-out; (2) those drain (device
+        read, host tier) before anything writes; (3) host-tier hits swap
+        back in; (4) the COW copy and the table row apply."""
+        self._need_paged("paged_admit")
+        start, blocks, copies, swapins = self.kvpool.admit(
+            lane, list(tokens), reserve_tokens, min_share_tokens, share_quantum)
+        self.drain_kv_swapouts()
+        if swapins:
+            self.swap_in_pages([p for p, _ in swapins], [b for _, b in swapins])
+        self.apply_paged_admit(lane, self.kvpool.table_row(blocks), copies)
+        return start
+
+    def paged_commit(self, lane: int, tokens) -> None:
+        """Register lane ``lane``'s committed tokens' full blocks into the
+        prefix tree (host bookkeeping: the KV is on the card already)."""
+        self._need_paged("paged_commit")
+        self.kvpool.commit(lane, list(tokens))
+
+    def paged_finish(self, lane: int, park: bool = True) -> None:
+        """Release lane ``lane``'s pages at request end: ``park`` keeps its
+        tree-registered blocks resident for later sharing, else all free
+        (the failure path). The lane's row goes all-unmapped, skipped when
+        the lane held nothing (a shed admission). Parking may overflow the
+        LRU bound and stage swap-outs, drained here before the unmap."""
+        self._need_paged("paged_finish")
+        held = self.kvpool.finish(lane, park=park)
+        self.drain_kv_swapouts()
+        if held:
+            self.apply_paged_admit(lane, self.kvpool.table_row([]), [])
+
+    def paged_unmap_all(self) -> None:
+        """Every lane's table row all-unmapped."""
+        self._need_paged("paged_unmap_all")
+        self._host_tables[:] = self.kvpool.table_row([])
+        self._write_tables()
+
+    def paged_reset(self) -> None:
+        """Containment: after an engine-scoped failure the pool's contents
+        are not trusted: drop every mapping, parked session and tree node,
+        and unmap every lane."""
+        self._need_paged("paged_reset")
+        self.kvpool.reset()
+        self.paged_unmap_all()
+
+    def pool_stats(self) -> dict:
+        """The pool's pressure snapshot for /stats (bridged to /metrics)
+        with the engine's swap traffic beside it; ``{}`` on a contiguous
+        engine."""
+        if self.kvpool is None:
+            return {}
+        out = self.kvpool.stats()
+        out.update({
+            "swap_ins": self.swap_ins,
+            "swap_outs": self.swap_outs,
+            "swap_in_bytes": self.swap_in_bytes,
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_in_ms": round(self.swap_in_ms, 3),
+        })
+        return out
+
+    def _page_geometry(self) -> tuple[tuple, torch.dtype, int]:
+        """One page's K (or V) shape [L, page, n_kv, hd] (all ranks' heads),
+        dtype and byte size."""
+        k = self._caches()[0].k
+        shape = (k.shape[0], k.shape[2], self.config.n_kv_heads, k.shape[4])
+        return shape, k.dtype, int(np.prod(shape)) * k.element_size()
+
+    def _read_pages(self, pages: list[int]) -> list[bytes]:
+        """Pages' K then V bytes, each [L, page, n_kv, hd] row-major (ranks'
+        heads joined): one gather a plane and rank on the card, one copy
+        into pinned host memory (a host sync, after every step before it)."""
+        idx = torch.as_tensor(pages, dtype=torch.int64)
+        planes = []
+        for plane in ("k", "v"):
+            parts = [getattr(c, plane).index_select(1, idx.to(c.k.device)).to(self.device)
+                     for c in self._caches()]
+            planes.append(torch.cat(parts, dim=3))  # [L, n, page, n_kv, hd]
+        # [n, K/V, L, page, n_kv, hd]: each page's K then V, contiguous
+        joined = torch.stack(planes).permute(2, 0, 1, 3, 4, 5).contiguous()
+        host = torch.empty(joined.shape, dtype=joined.dtype,
+                           pin_memory=self.device.type == "cuda")
+        host.copy_(joined)
+        raw = host.view(torch.uint8).reshape(len(pages), -1).numpy()
+        return [raw[i].tobytes() for i in range(len(pages))]
+
+    @torch.inference_mode()
+    def _write_pages(self, pages: list[int], payloads: list[bytes]) -> None:
+        """Write pages' K then V bytes (``_read_pages``' encoding) into the
+        pool, in place: one non-blocking copy from pinned memory a device,
+        then one indexed copy a plane and rank, ordered before every later
+        dispatch."""
+        shape, dtype, _ = self._page_geometry()
+        raw = torch.frombuffer(bytearray().join(payloads), dtype=torch.uint8)
+        host = raw.view(dtype).reshape((len(pages), 2) + shape)  # [n, K/V, L, ...]
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        heads = self._caches()[0].k.shape[3]
+        on_device: dict = {}
+        for r, c in enumerate(self._caches()):
+            if c.k.device not in on_device:
+                on_device[c.k.device] = host.to(c.k.device, non_blocking=True)
+            src = on_device[c.k.device][..., r * heads:(r + 1) * heads, :]
+            idx = torch.as_tensor(pages, dtype=torch.int64).to(c.k.device)
+            for j, plane in enumerate((c.k, c.v)):
+                # [n, L, page, heads, hd] -> [L, n, page, heads, hd]
+                plane.index_copy_(1, idx, src[:, j].transpose(0, 1))
+
+    def _check_payloads(self, payloads) -> None:
+        shape, dtype, half = self._page_geometry()
+        for i, data in enumerate(payloads):
+            if len(data) != 2 * half:
+                raise ValueError(f"kv page payload {i} is {len(data)} bytes, expected "
+                                 f"{2 * half} for page geometry {shape} {dtype}")
+
+    def export_kv_page(self, page: int) -> bytes:
+        """Physical page ``page``'s K then V bytes, raw row-major [L, page,
+        n_kv, hd] in the cache dtype (the JAX engine's encoding). A host
+        sync: it runs on committed pages, whose bytes are stable."""
+        self._need_paged("export_kv_page")
+        return self._read_pages([int(page)])[0]
+
+    def import_kv_page(self, page: int, payload: bytes) -> None:
+        """Write a page's K then V bytes (``export_kv_page``'s encoding)
+        into physical page ``page``, ordered before every later dispatch.
+        Raises ``ValueError`` on a size mismatch before touching the card."""
+        self._need_paged("import_kv_page")
+        self._check_payloads([payload])
+        self._write_pages([int(page)], [bytes(payload)])
+
+    def swap_out_pages(self, pages) -> list:
+        """Pages' bytes for the host swap tier (``export_kv_page``'s
+        encoding), ``_SWAP_BATCH`` pages a gather. A host sync by design:
+        the pages just left the pool, their bytes are stable."""
+        self._need_paged("swap_out_pages")
+        pages = [int(p) for p in pages]
+        out: list = []
+        for off in range(0, len(pages), _SWAP_BATCH):
+            out.extend(self._read_pages(pages[off:off + _SWAP_BATCH]))
+        return out
+
+    def swap_in_pages(self, pages, payloads) -> None:
+        """Write swapped pages back (the inverse of ``swap_out_pages``):
+        every payload is size-checked before anything is written, then
+        ``_SWAP_BATCH`` pages a scatter, ordered before the tail prefill.
+        Raises ``ValueError`` on a size or count mismatch."""
+        self._need_paged("swap_in_pages")
+        if len(pages) != len(payloads):
+            raise ValueError(f"swap_in_pages: {len(pages)} pages vs {len(payloads)} payloads")
+        if not pages:
+            return
+        self._check_payloads(payloads)
+        t0 = time.perf_counter()
+        pages = [int(p) for p in pages]
+        for off in range(0, len(pages), _SWAP_BATCH):
+            self._write_pages(pages[off:off + _SWAP_BATCH],
+                              list(payloads[off:off + _SWAP_BATCH]))
+        self.swap_ins += len(pages)
+        self.swap_in_bytes += sum(len(b) for b in payloads)
+        self.swap_in_ms += (time.perf_counter() - t0) * 1000.0
+
+    def drain_kv_swapouts(self) -> int:
+        """Move the pool's staged swap-outs into the host tier: take the
+        pending (node key, block, page) triples, read the pages and store
+        each payload under its chain key, before any write that could
+        reuse the pages. A failed read discards the batch and re-raises (the
+        sessions then rebuild from the journal); an over-budget put drops.
+        Returns how many pages the tier stored."""
+        if self.kvpool is None or not self.kvpool.host_tier.enabled:
+            return 0
+        tier = self.kvpool.host_tier
+        pending = self.kvpool.take_pending_swapouts()
+        if not pending:
+            return 0
+        try:
+            payloads = self.swap_out_pages([p for _, _, p in pending])
+        except BaseException:
+            for node_key, _blk, _page in pending:
+                tier.discard(node_key)
+            raise
+        stored = sum(1 for (node_key, blk, _), payload in zip(pending, payloads)
+                     if tier.put(node_key, blk, payload))
+        self.swap_outs += len(pending)
+        self.swap_out_bytes += sum(len(b) for b in payloads)
+        return stored
+
+    def swap_out_parked(self) -> int:
+        """Evict every parked session into the host tier (the swap tier's
+        lever; pressure eviction takes the same path). Returns how many
+        sessions were evicted."""
+        if self.kvpool is None:
+            return 0
+        n = self.kvpool.swap_out_parked()
+        self.drain_kv_swapouts()
+        return n
+
+    def reset_swap_stats(self) -> None:
+        """Zero the swap-traffic counters."""
+        self.swap_ins = 0
+        self.swap_outs = 0
+        self.swap_in_bytes = 0
+        self.swap_out_bytes = 0
+        self.swap_in_ms = 0.0
 
 
 def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 0,

@@ -50,11 +50,13 @@ def _counters() -> dict:
         "ring": {k: ring_collective.COUNTS[k] for k in ("launches", "bytes")},
         "sample": {"launches": cuda_sample.COUNTS["launches"]},
         "attn": {k: cuda_attn.COUNTS[k] for k in ("launches", "window_launches")},
+        "attn_paged": dict(cuda_attn.PAGED_COUNTS),
     }
 
 
 _ADD = {"q40": cuda_q40.add_launches, "ring": ring_collective.add_counts,
-        "sample": cuda_sample.add_counts, "attn": cuda_attn.add_counts}
+        "sample": cuda_sample.add_counts, "attn": cuda_attn.add_counts,
+        "attn_paged": cuda_attn.add_paged_counts}
 
 
 def _delta(after: dict, before: dict) -> dict:

@@ -39,7 +39,12 @@ admission writes an admit record with the resolved seed and every ending a
 finish record, so ``serving/recovery.py`` can regenerate the in-flight set
 after a crash through ``build_recovered_request``; ``stop()`` witnesses
 that no session record or journal mark outlived the loop
-(``analysis/leakcheck.py``). Grammar and paged KV are later work.
+(``analysis/leakcheck.py``). On a paged engine (``engine.kvpool``) the
+prefix cache is the pool's ref-counted prefix tree instead: an admission
+reserves its pages (prompt + max_tokens + 1) and maps the shared whole
+chunks' pages copy-free, its prompt blocks are committed as they are
+written, a finished session parks them, and an exhausted pool sheds the
+request with a typed retryable 429. Grammar is later work.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from ..tokenizer import EosDetector, EosResult, Tokenizer, TokenizerChatStops
 from ..utils import faults
 from ..utils.seeds import fresh_seed
 from .engine import DEFAULT_TOPP
+from .kvpool import PoolExhausted
 from .spec import NgramDraftIndex, pow2_floor
 
 
@@ -346,11 +352,16 @@ class ContinuousBatchingScheduler:
     def leak_counts(self) -> dict[str, int]:
         """Live counts of every resource this scheduler owns, the leak
         witness's drain snapshot (also ``resources_live`` on /stats between
-        drains): session-mirror records and open journal marks. The port
-        has no page pool and no admin device-op queue, so the JAX
-        scheduler's ``kv_lane_pages``, ``kv_swap_pending`` and
-        ``device_ops`` kinds do not arise."""
+        drains): session-mirror records, open journal marks and, on a
+        paged engine, the pages lanes hold (parked pages are not lane
+        pages) and the staged swap-outs no drain took. The port has no
+        admin device-op queue, so the JAX scheduler's ``device_ops`` kind
+        does not arise."""
         counts = {"session_records": len(self._session_records)}
+        if self._paged():
+            pstats = self.engine.pool_stats()
+            counts["kv_lane_pages"] = pstats["pool_pages_in_use"]
+            counts["kv_swap_pending"] = pstats["pool_swap_pending"]
         if self.journal is not None:
             counts["journal_marks"] = int(self.journal.stats().get("journal_open_marks", 0))
         return counts
@@ -512,6 +523,10 @@ class ContinuousBatchingScheduler:
         self._lanes[lane_idx] = _Lane()
         self._lane_kv[lane_idx] = []
         try:
+            # paged: free the lane's pages without parking: after a failed
+            # step the cache contents are unknown, and the prefix tree must
+            # never serve them
+            self._paged_release(lane_idx, park=False)
             self.engine.reset_lane(lane_idx)
         except Exception:  # noqa: BLE001 — containment must not throw
             pass
@@ -527,6 +542,24 @@ class ContinuousBatchingScheduler:
 
     def _free_lanes(self) -> list[int]:
         return [i for i, l in enumerate(self._lanes) if l.request is None]
+
+    def _paged(self) -> bool:
+        return getattr(self.engine, "kvpool", None) is not None
+
+    def _paged_commit(self, lane_idx: int) -> None:
+        """Register lane ``lane_idx``'s newly completed full prompt blocks
+        into the paged pool's prefix tree (incremental; a no-op on the
+        contiguous layout). Called wherever ``_lane_kv`` grows, which is
+        only at prompt chunks: generated tokens' blocks are never shared."""
+        if self._paged():
+            self.engine.paged_commit(lane_idx, self._lane_kv[lane_idx])
+
+    def _paged_release(self, lane_idx: int, park: bool) -> None:
+        """Release a lane's pages at request end: ``park`` keeps its
+        tree-registered blocks resident for later sharing, else all free
+        (the failure path). A no-op on the contiguous layout."""
+        if self._paged():
+            self.engine.paged_finish(lane_idx, park=park)
 
     def _sweep_queue(self, now: float) -> None:
         """Resolve queued requests that expired or were cancelled while
@@ -603,7 +636,16 @@ class ContinuousBatchingScheduler:
         plan, under ``auto`` another kernel with Q80 activations) and its
         greedy stream can part from the cold one (PERF.md §7). At least
         one token is left to prefill, whose logits pick the first
-        generated token."""
+        generated token.
+
+        On a paged engine the pool's prefix tree serves the same rule
+        (``KVPagePool.admit`` with ``share_quantum`` the largest prefill
+        bucket): the admission reserves its pages, the shared whole
+        chunks' pages map copy-free and no copy-on-write block is served.
+        The JAX scheduler shares every full block, and a partial one by
+        copy-on-write (ROADMAP C3). An exhausted pool sheds the request
+        with ``AdmissionRejected`` (``pool_exhausted``, or
+        ``host_tier_full`` when the swap tier is at its budget)."""
         req.state = RequestState.PROMPT_PROCESSING
         tokens = self.tokenizer.encode(
             req.prompt, add_bos=req.add_bos, add_special_tokens=req.add_special_tokens
@@ -617,7 +659,27 @@ class ContinuousBatchingScheduler:
                       if max_ctx > req.max_tokens + 1 else tokens[-max_ctx + 1:])
         req.n_prompt_tokens = len(tokens)
         start = 0
-        if self.prefix_min_tokens > 0 and getattr(self.engine, "copy_lane", None) is not None:
+        if self._paged():
+            # +1: the slot the boundary token's own KV write needs when
+            # generation runs to max_tokens exactly
+            reserve = min(len(tokens) + req.max_tokens + 1, max_ctx)
+            # the engine's swap_in_ms moves only inside this call on this
+            # thread: the delta is what this admission paid to swap in
+            swap_ms0 = self.engine.swap_in_ms
+            try:
+                start = self.engine.paged_admit(
+                    lane_idx, list(tokens), reserve, min_share_tokens=self.prefix_min_tokens,
+                    share_quantum=self.engine.max_chunk())
+            except PoolExhausted as e:
+                # a typed retryable shed (429 + Retry-After), never a 500:
+                # a pool pinned by active lanes is load, not failure
+                reason = "host_tier_full" if e.host_tier_full else "pool_exhausted"
+                self.queue.note_rejection(reason)
+                raise AdmissionRejected(reason, retry_after_s=1.0) from e
+            if self.engine.swap_in_ms > swap_ms0:
+                self.telemetry.trace_of(req).swap_in_s = (
+                    self.engine.swap_in_ms - swap_ms0) / 1e3
+        elif self.prefix_min_tokens > 0 and getattr(self.engine, "copy_lane", None) is not None:
             best_lane, best_lcp = -1, 0
             for j, kv in enumerate(self._lane_kv):
                 if kv:  # an empty map: a never-used lane or a failed one
@@ -701,6 +763,7 @@ class ContinuousBatchingScheduler:
         lane.pos += len(chunk)
         lane.pending = lane.pending[len(chunk):]
         self._lane_kv[lane_idx].extend(chunk)  # committed: prefix-cacheable
+        self._paged_commit(lane_idx)
         if lane.pending:
             return True
         lane.next_token = int(greedy) if req.temperature == 0.0 else int(sampled)
@@ -755,6 +818,9 @@ class ContinuousBatchingScheduler:
             if req.on_delta:
                 req.on_delta(delta)
         self._lanes[lane_idx] = _Lane()
+        # paged: the finished session parks its tree-registered blocks
+        # (resident for later sharing, LRU-bounded); its tail frees now
+        self._paged_release(lane_idx, park=True)
         self.engine.reset_lane(lane_idx)
         # summary, spans and the log line before the future resolves: the
         # HTTP thread reads req.summary the moment result() returns
@@ -812,6 +878,13 @@ class ContinuousBatchingScheduler:
                 self._fail_request(i, req, err)
             except Exception:  # noqa: BLE001 — containment must not throw
                 pass
+        # paged: after an engine-scoped failure the pool's contents are not
+        # trusted: drop the parked sessions and the whole prefix tree too
+        try:
+            if self._paged():
+                self.engine.paged_reset()
+        except Exception:  # noqa: BLE001 — containment must not throw
+            pass
 
     def _resolve_exit(self) -> None:
         """stop()/drain() cleanup: in-flight lanes resolve as cancelled,
@@ -1010,6 +1083,7 @@ class ContinuousBatchingScheduler:
         lane.pos += len(chunk)
         lane.pending = lane.pending[len(chunk):]
         self._lane_kv[target].extend(chunk)  # committed: prefix-cacheable
+        self._paged_commit(target)
         return (target, lane, not lane.pending, len(chunk)), spec_drafted
 
     def _commit_window(self, i: int, lane: _Lane, emitted, cnt: int, drafted: bool) -> bool:

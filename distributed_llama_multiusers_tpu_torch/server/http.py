@@ -296,6 +296,11 @@ class ApiServer:
         out.update(ring_counts())
         out.update(sample_counts())
         out.update(attn_counts())
+        # the paged pool's pressure (occupancy, sharing, COW, parking,
+        # evictions, sheds) and swap traffic; a contiguous engine has none
+        pool = getattr(engine, "pool_stats", None)
+        if callable(pool):
+            out.update(pool())
         qos = getattr(sched, "qos_stats", None)
         if callable(qos):  # queue depth/wait/rejections, timeouts, breaker
             out.update(qos())
@@ -313,7 +318,7 @@ class ApiServer:
         breaker = getattr(sched, "breaker", None)
         draining = bool(getattr(sched, "draining", False))
         state = breaker.state if breaker is not None else "closed"
-        return {
+        out = {
             "status": "draining" if draining else ("unhealthy" if state != "closed" else "ok"),
             "model": self.model_name,
             "queue_depth": sched.queue.depth(),
@@ -321,11 +326,19 @@ class ApiServer:
             "lanes_total": total,
             "breaker": state,
             "draining": draining,
-            # this process's position on the /trace timebase (µs since the
-            # span tracer's origin): the anchor for merging traces
-            "trace_clock_us": round(
-                (time.perf_counter() - self._telemetry().tracer.origin) * 1e6, 1),
         }
+        pool = getattr(sched.engine, "pool_stats", None)
+        ps = pool() if callable(pool) else {}
+        if ps:  # paged engines only: contiguous ones omit the fields (a
+            # literal 0 pages free would read as a full pool)
+            out["pool_pages_free"] = ps.get("pool_pages_free", 0)
+            out["pool_pages_total"] = ps.get("pool_pages_total", 0)
+            out["pool_parked_pages"] = ps.get("pool_parked_pages", 0)
+        # this process's position on the /trace timebase (µs since the span
+        # tracer's origin): the anchor for merging traces
+        out["trace_clock_us"] = round(
+            (time.perf_counter() - self._telemetry().tracer.origin) * 1e6, 1)
+        return out
 
     def handle_health(self) -> tuple[int, dict, dict | None]:
         """(status, body, headers): 503 while draining or while the breaker

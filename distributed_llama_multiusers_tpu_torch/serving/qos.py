@@ -73,7 +73,8 @@ class AdmissionRejected(RuntimeError):
     ``"breaker_open"`` (the engine circuit breaker is shedding while the
     engine is unhealthy, HTTP 503 — serving/breaker.py), or
     ``"pool_exhausted"`` (the paged KV pool is pinned by active lanes,
-    HTTP 429, once the paged KV pool lands); all carry a ``retry_after_s`` hint
+    HTTP 429) or ``"host_tier_full"`` (the same, with the host swap tier
+    at its byte budget, HTTP 429); all carry a ``retry_after_s`` hint
     for the ``Retry-After`` header."""
 
     def __init__(
@@ -100,7 +101,13 @@ class AdmissionRejected(RuntimeError):
         elif reason == "pool_exhausted":
             msg = (
                 "kv page pool exhausted (pinned by active requests; "
-                ""
+                "see --kv-pool-pages/--kv-max-parked); "
+                f"retry in ~{retry_after_s:.0f}s"
+            )
+        elif reason == "host_tier_full":
+            msg = (
+                "kv page pool exhausted with the host swap tier at its "
+                "budget (see --kv-host-bytes/--kv-pool-pages); "
                 f"retry in ~{retry_after_s:.0f}s"
             )
         else:
@@ -118,8 +125,8 @@ def _default_cost(req) -> float:
 
 
 def page_cost(page_size: int) -> Callable[[object], float]:
-    """DRR cost in KV PAGES for paged engines (kept for the paged KV pool,
-    a later slice of the port; the contiguous layout charges tokens): the
+    """DRR cost in KV PAGES for paged engines (the contiguous layout
+    charges tokens; ``app/runtime_setup.make_scheduler`` wires it): the
     pages this request's admission will reserve — prompt + max_tokens
     (+1 for the boundary token's KV write), rounded up to page granularity.
 

@@ -154,6 +154,17 @@ class Telemetry:
             "stream-registry close (the /stats resource_leaks_total "
             "field, delta-fed); non-zero means a lifecycle leak",
         )
+        # the paged pool's host swap tier: pages across the HBM / host-RAM
+        # boundary by direction, delta-fed from the /stats swap_ins and
+        # swap_outs fields (a drop means the engine's counters were reset:
+        # re-baseline, the counter never goes back)
+        self.kv_swap = reg.counter(
+            "dllama_kv_swap_total",
+            "KV pages moved across the residency boundary by direction "
+            "label: 'in' host-RAM->HBM reactivations, 'out' HBM->host-RAM "
+            "swap-outs (the /stats swap_ins / swap_outs fields, delta-fed)",
+        )
+        self._kv_swap_seen: dict[str, float] = {"in": 0.0, "out": 0.0}
         self._sync_bytes_seen = 0.0
         self._jit_compiles_seen = 0.0
         self._spec_emitted_seen = 0.0
@@ -431,6 +442,15 @@ class Telemetry:
                 if v > seen:
                     ctr.inc(float(v - seen))
                 setattr(self, seen_attr, float(v))
+        # the paged pool's swap tier, delta-fed from the engine's swap
+        # counters (monotone while the engine lives; a drop re-baselines)
+        for fld, direction in (("swap_ins", "in"), ("swap_outs", "out")):
+            v = stats.get(fld)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                if v > self._kv_swap_seen[direction]:
+                    self.kv_swap.inc(float(v - self._kv_swap_seen[direction]),
+                                     direction=direction)
+                self._kv_swap_seen[direction] = float(v)
         # breaker exposition (serving/breaker.py): the state gauge tracks
         # breaker_state_code verbatim; the classified-failure counter is
         # delta-fed from the engine_failures dict, same recipe as above

@@ -157,7 +157,7 @@ class RequestTrace:
     __slots__ = (
         "submitted_at", "admitted_at", "first_token_at", "last_token_at",
         "gaps", "n_tokens", "fused_admitted", "prefix_saved",
-        "span_t0", "lane",
+        "span_t0", "lane", "swap_in_s",
     )
 
     def __init__(self, submitted_at: float | None = None):
@@ -175,6 +175,9 @@ class RequestTrace:
         # span clock (perf_counter) for the lifecycle slices
         self.span_t0 = time.perf_counter()
         self.lane: int | None = None
+        # host time the paged admission spent swapping this request's
+        # pages back from the host tier
+        self.swap_in_s = 0.0
 
     def on_token(self, now: float) -> None:
         """Stamp one consumed token (``now`` = time.monotonic())."""
@@ -212,9 +215,10 @@ class RequestTrace:
         request's wall time went, phase by phase. Attached to completion
         responses, with the JAX package's keys.
 
-        ``migration_gap_ms``, ``swap_in_ms`` and ``sync_ms`` are 0 in the
-        port: it has no migration, no host KV tier and no measured
-        collective time per request."""
+        ``swap_in_ms`` is the paged admission's host-tier swap-in time
+        (0 on the contiguous layout). ``migration_gap_ms`` and ``sync_ms``
+        are 0 in the port: it has no migration and no measured collective
+        time per request."""
         ms = lambda v: 0.0 if v is None else round(max(0.0, v) * 1e3, 3)
         prefill_s = None
         if self.admitted_at is not None and self.first_token_at is not None:
@@ -232,7 +236,7 @@ class RequestTrace:
             "itl_p50_ms": ms(self.tbt_quantile(0.50)),
             "itl_p99_ms": ms(self.tbt_quantile(0.99)),
             "migration_gap_ms": 0.0,
-            "swap_in_ms": 0.0,
+            "swap_in_ms": ms(self.swap_in_s),
             "sync_ms": 0.0,
             "ttft_ms": ms(self.ttft_s),
             "total_ms": ms(total_s),

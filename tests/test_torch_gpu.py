@@ -1092,3 +1092,74 @@ def test_capture_after_warmup_raises_under_jitcheck(cuda, tmp_path):
     finally:
         jitcheck.force(None, fresh=True)
     assert engine.graphs.captures_after_warmup == 1
+
+
+def _paged_from(k, v, page, seed):
+    """A contiguous cache's slots [B, S, n_kv, hd] laid into a pool of
+    ``page``-slot pages permuted at random (from ``seed``), a page more for
+    the scratch page: (k_pool, v_pool, int32 table [B, ceil(S / page)])."""
+    b, slots = k.shape[:2]
+    nb = -(-slots // page)
+    perm = torch.randperm(b * nb, generator=torch.Generator().manual_seed(seed))
+    table = perm.reshape(b, nb).to(device=k.device, dtype=torch.int32)
+    pools = []
+    for x in (k, v):
+        padded = torch.zeros((b, nb * page) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        padded[:, :slots] = x
+        pool = torch.zeros((b * nb + 1, page) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+        pool[table.reshape(-1).long()] = padded.reshape((b * nb, page) + tuple(x.shape[2:]))
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rule", [(1, "spread"), (1, "boundaries"), (1, "parked"),
+                                    (4, "serving"), (4, "boundaries"), (2, "at_2047")])
+@pytest.mark.parametrize("n_kv,group,hd,dtype,s_len,page", [
+    (8, 4, 64, torch.bfloat16, 2048, 64),  # Llama-3.2-1B at the pool's default page
+    (4, 4, 64, torch.bfloat16, 2048, 64),  # one rank of it at tp=2
+    (8, 4, 64, torch.bfloat16, 2048, 256),
+    (8, 4, 64, torch.bfloat16, 2048, 16),  # pages below a warp's 32 slots
+    (2, 2, 16, torch.float32, 64, 4),  # the tiny test model at a tiny page
+    (4, 7, 128, torch.bfloat16, 300, 32),  # no multiple of the split
+    (2, 3, 36, torch.bfloat16, 777, 8),  # a head of no whole 16-byte chunks
+    (3, 8, 128, torch.float32, 1000, 1)])
+def test_decode_attn_paged_equals_contiguous_and_matches_plain(cuda, n_kv, group, hd, dtype,
+                                                               s_len, page, t, rule):
+    """The paged form over pages permuted at random: bit-equal to the
+    contiguous kernel on the same slot contents, and within ATTN_TOL of
+    its plain version (the gather, then the plain attention)."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8 * t, n_kv, group, hd, s_len, dtype, seed=hd + t + page)
+    qf, k, v = qf.reshape(8, t, n_kv, group, hd), k[:8], v[:8]
+    if t == 1:
+        positions = _attn_positions(rule, s_len, cuda_attn.SPLIT).to(cuda)
+    else:
+        positions = _window_positions(rule, 8, t, s_len, cuda_attn.SPLIT).to(cuda)
+    k_pool, v_pool, table = _paged_from(k, v, page, seed=page + t)
+    scale = 1.0 / hd ** 0.5
+    cuda_attn.reset_counts()
+    got = cuda_attn.decode_attention_paged(qf, k_pool, v_pool, table, positions, scale, s_len)
+    torch.cuda.synchronize()
+    assert cuda_attn.PAGED_COUNTS == {"launches": 1}
+    assert cuda_attn.COUNTS["launches"] == 1 and cuda_attn.COUNTS["plain_calls"] == 0
+    contiguous = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
+    assert torch.equal(got, contiguous)
+    want = cuda_attn.decode_attention_paged_plain(qf, k_pool, v_pool, table, positions, scale,
+                                                  s_len)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_decode_attn_paged_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8, 8, 4, 64, 2048, torch.bfloat16, seed=9)
+    k_pool, v_pool, table = _paged_from(k, v, 64, seed=1)
+    serving = torch.tensor([[40], [63], [64], [100]] + [[2048]] * 4, device=cuda)
+    _graph_replay_equals_eager(
+        [lambda: cuda_attn.decode_attention_paged(qf, k_pool, v_pool, table, serving, 0.125,
+                                                  2048)])

@@ -299,3 +299,41 @@ def test_dllama_cli_raises_without_cuda(tmp_path):
     """, str(tmp_path))
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("raised")
+
+
+def test_paged_kv_modules_are_the_ports_own():
+    """The page pool, its host swap tier and the page integrity frame the
+    port's engine uses are its own copies (``runtime/kvpool.py``,
+    ``disagg/kvtransfer.py``), importable and working without jax or the
+    JAX package, and the pool takes its lock from the port's lock
+    witness."""
+    r = _run("""
+        import os
+        import distributed_llama_multiusers_tpu_torch as pkg
+        from distributed_llama_multiusers_tpu_torch import disagg, lockcheck
+        from distributed_llama_multiusers_tpu_torch.disagg import kvtransfer
+        from distributed_llama_multiusers_tpu_torch.models import llama
+        from distributed_llama_multiusers_tpu_torch.parallel import sharding
+        from distributed_llama_multiusers_tpu_torch.runtime import engine, kvpool, scheduler
+        root = os.path.dirname(pkg.__file__)
+        for m in (disagg, kvtransfer, kvpool):
+            assert m.__file__.startswith(root), m.__file__
+        assert kvpool.page_hash is kvtransfer.page_hash is disagg.page_hash
+        assert kvpool.make_lock is lockcheck.make_lock
+        assert engine.KVPagePool is kvpool.KVPagePool
+        assert scheduler.PoolExhausted is kvpool.PoolExhausted
+        assert sharding.PagedKVCache is llama.PagedKVCache
+        pool = kvpool.KVPagePool.for_seq_len(64, 2, page_size=16, host_bytes=1 << 10)
+        start, blocks, copies, swapins = pool.admit(0, list(range(20)), 24)
+        assert (start, len(blocks), copies, swapins) == (0, 2, [], [])
+        pool.commit(0, list(range(20)))
+        pool.finish(0)
+        assert pool.admit(1, list(range(20)), 24, min_share_tokens=4)[0] == 16
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print("own")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("own")
