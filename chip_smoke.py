@@ -7,8 +7,8 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels, the ring step, the sampler, the decode attention and the
-   lab's kernels from ``distributed_llama_multiusers_tpu_torch/
+   Q40 kernels, the ring step, the sampler, the decode attention, the
+   grammar kernels and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time
    and the slab, blockdot and i8blockdot kernels' geometry (ring stages,
    shared memory per thread block, registers and spills, the plan at each
@@ -160,6 +160,29 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    readmission, byte-identical, the swap counters equal on /stats and
    /metrics; (e) a request the pool cannot hold beside a long one gets 429
    with Retry-After, and serving goes on.
+4c. Structured output: (a) the grammar kernels (``csrc/grammar.cu``) with
+   five schemas compiled against the 1B synthetic tokenizer (their compile
+   time, first and cached, printed), four in a default slab: the masked
+   argmax at 8 and 32 x 128,256 rows on random states, 0 included, indices
+   equal to its plain version's and masked rows bit-equal, FREE rows equal
+   to ``torch.argmax``; at vocabularies of 1 to 151,936 with ties, -inf,
+   -0.0, all -inf and NaN rows, a one-token and an empty state; the
+   automaton step on random (state, token) pairs, stepped and walked,
+   exact; each timed beside its plain version (the masked argmax also
+   beside the torch pair where + argmax) and its bound; (b) the engine on
+   the 1B model, 8 lanes, 4 constrained (json_object and a schema, greedy
+   and seeded) and 4 free, through the step, multi-step, verify, pipelined
+   and fused families: replays equal the eager bodies (tokens and launch
+   counts), constrained tokens legal, the free lanes' tokens those of the
+   same batch with no constrained lane; (c) ``dllama_api`` with its
+   defaults: 4 constrained requests beside the default pass's 4, all at
+   once, every constrained answer parsing and conforming, the plain texts
+   the default pass's, the grammar fields on /stats, no flush and no graph
+   captured after three schemas, 400 on a malformed schema; ``--workers
+   2`` with a slab too small for two schemas: a 429 ``grammar_slab_full``
+   with Retry-After beside a live one, whose answer at tp2 is its string;
+   ``--grammar off``: 400; then the v4 decode step's device time and
+   operations with the grammar kernels in it (phase 4).
 5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
@@ -1518,7 +1541,9 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                                         "decode_attn_window_launches", "spec_steps",
                                         "spec_pipelined_steps", "spec_lane_steps",
                                         "spec_emitted", "spec_tokens_per_lane_step",
-                                        "spec_accept_hist")}}
+                                        "spec_accept_hist", "grammar_mask_argmax_launches",
+                                        "grammar_next_launches", "grammar_lanes",
+                                        "grammar_masked_steps")}}
         log(f"TTFT ms [{name}]: p50 {out['ttft_ms_p50']} per request {ttft}")
         log(f"decode tok/s [{name}]: per request {per_req}, batch of 4 "
             f"{out['tokens_per_s_batch']:.1f} tok/s ({total_tokens} tokens in {batch_s:.2f}s)")
@@ -1566,6 +1591,9 @@ def check_serving_paths(p: dict, sync: bool = False, spec: bool = True) -> None:
     name = p["mode"]
     check(p["gumbel_sample_launches"] > 0, f"{name}: gumbel_sample never launched")
     check(p["decode_attn_launches"] > 0, f"{name}: decode_attn never launched")
+    check(p["grammar_mask_argmax_launches"] > 0 and p["grammar_next_launches"] > 0,
+          f"{name}: the grammar kernels never launched (mask "
+          f"{p['grammar_mask_argmax_launches']}, step {p['grammar_next_launches']})")
     graphs = 4 if spec else 2
     check(p["decode_graphs"] == graphs and p["graphs_captured"] == p["decode_graphs"]
           and p["decode_graph_replays"] > 0,
@@ -1913,7 +1941,9 @@ def _check_serving_kernels(stats: dict, label: str) -> None:
     request)."""
     for k, n in (("q40_slab", stats["kernel_launches"]["q40_slab"]),
                  ("gumbel_sample", stats["gumbel_sample_launches"]),
-                 ("decode_attn", stats["decode_attn_launches"])):
+                 ("decode_attn", stats["decode_attn_launches"]),
+                 ("grammar_mask_argmax", stats["grammar_mask_argmax_launches"]),
+                 ("grammar_next", stats["grammar_next_launches"])):
         check(n > 0, f"{label}: {k} never launched")
 
 
@@ -2090,6 +2120,7 @@ CHAT_STOP_FRACTION = 16
 def _launch_counts() -> dict:
     """The kernels' launch counters, keyed as a serving pass's /stats."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
     from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
     from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
@@ -2098,7 +2129,9 @@ def _launch_counts() -> dict:
             "ring_hop_bytes": rc.COUNTS["bytes"],
             "gumbel_sample_launches": cs.COUNTS["launches"],
             "decode_attn_launches": ca.COUNTS["launches"],
-            "decode_attn_window_launches": ca.COUNTS["window_launches"]}
+            "decode_attn_window_launches": ca.COUNTS["window_launches"],
+            "grammar_mask_argmax_launches": cg.COUNTS["mask_argmax_launches"],
+            "grammar_next_launches": cg.COUNTS["next_launches"]}
 
 
 def run_cli(torch, name: str, argv: list, stdin: str | None = None) -> dict:
@@ -2113,11 +2146,12 @@ def run_cli(torch, name: str, argv: list, stdin: str | None = None) -> dict:
 
     from distributed_llama_multiusers_tpu_torch.app import dllama
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
     from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
     from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
-    for mod in (q, rc, cs, ca):
+    for mod in (q, rc, cs, ca, cg):
         mod.reset_counts()
     mode = q.DEQUANT_MODE
     buf, old_stdin = io.StringIO(), sys.stdin
@@ -2505,7 +2539,8 @@ def durability_phase(model: str, tok: str) -> dict:
         "passes": [plain, journaled, {"mode": "durability-recover", **{
             k: stats[k] for k in ("kernel_launches", "ring_hop_launches", "ring_hop_bytes",
                                   "gumbel_sample_launches", "decode_attn_launches",
-                                  "decode_attn_window_launches")}}],
+                                  "decode_attn_window_launches", "grammar_mask_argmax_launches",
+                                  "grammar_next_launches")}}],
     })
     log(f"durability: 4 streams SIGKILLed after {[len(ev) for ev in before]} deltas, recovered "
         f"at 4 lanes and reattached at their Last-Event-ID: byte-identical to the reference, 0 "
@@ -2538,7 +2573,9 @@ def _kernel_of(name: str) -> str | None:
                         ("slab_kernel", "q40_slab"), ("reduce_splits", "reduce_splits"),
                         ("ring_seg_kernel", "ring_hop"), ("ring_step2_kernel", "ring_hop"),
                         ("gumbel_sample_kernel", "gumbel_sample"),
-                        ("decode_attn_kernel", "decode_attn")):
+                        ("decode_attn_kernel", "decode_attn"),
+                        ("mask_argmax_kernel", "grammar_mask_argmax"),
+                        ("grammar_next_kernel", "grammar_next")):
         if tag in name:
             return kernel
     return None
@@ -2557,11 +2594,13 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
 
     for _ in range(3):
         step()
     sync_all(torch)
     wall = []
+    grammar_before = dict(cg.COUNTS)
     before = dict(q.LAUNCHES)
     ring_before = rc.ring_counts()
     sample_before = cs.COUNTS["launches"]
@@ -2577,6 +2616,9 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     launches["decode_attn"] = (ca.COUNTS["launches"] - attn_before) / steps
     launches["decode_attn_window"] = (ca.COUNTS["window_launches"] - window_before) / steps
     launches["decode_attn_paged"] = (ca.PAGED_COUNTS["launches"] - paged_before) / steps
+    for k in ("mask_argmax", "next"):
+        launches[f"grammar_{k}"] = (cg.COUNTS[f"{k}_launches"]
+                                    - grammar_before[f"{k}_launches"]) / steps
     ring = {k: (v - ring_before[k]) / steps for k, v in rc.ring_counts().items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2608,7 +2650,8 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
             host[e.key] = (e.self_cpu_time_total / steps, e.count // steps)
     device_ms = sum(by_name.values()) / 1e3
     q40_ms = sum(v[0] for k, v in kernels.items()
-                 if k not in ("ring_hop", "gumbel_sample", "decode_attn")) / 1e3
+                 if k not in ("ring_hop", "gumbel_sample", "decode_attn", "grammar_mask_argmax",
+                              "grammar_next")) / 1e3
     hop_ms = kernels.get("ring_hop", [0.0, 0.0])[0] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {"step_ms_p50": statistics.median(wall), "step_ms": wall,
@@ -2620,6 +2663,8 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
            "ring_hop_ms_per_step": hop_ms,
            "gumbel_sample_ms_per_step": kernels.get("gumbel_sample", [0.0, 0.0])[0] / 1e3,
            "decode_attn_ms_per_step": kernels.get("decode_attn", [0.0, 0.0])[0] / 1e3,
+           "grammar_ms_per_step": {k: kernels.get(k, [0.0, 0.0])[0] / 1e3
+                                   for k in ("grammar_mask_argmax", "grammar_next")},
            "launches_per_step": launches,
            "device_ops_per_step": device_ops / steps,
            "fill_ms_per_step": fills[0] / 1e3, "fills_per_step": fills[1],
@@ -2651,10 +2696,13 @@ def multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds
     equal. The first call runs eagerly and captures; the second replays;
     then the cache is put back and the same call runs eagerly."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
 
     def counts():
         return {**q.LAUNCHES, **rc.ring_counts(), "gumbel_sample": cs.COUNTS["launches"],
-                "decode_attn": ca.COUNTS["launches"]}
+                "decode_attn": ca.COUNTS["launches"],
+                "grammar_mask_argmax": cg.COUNTS["mask_argmax_launches"],
+                "grammar_next": cg.COUNTS["next_launches"]}
 
     def call():
         sync_all(torch)
@@ -2683,8 +2731,9 @@ def multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds
     check(bool((got == want).all()), f"decode_multi [{label}]: replayed tokens differ from "
                                       f"the eager bodies'")
     check(kv_equal, f"decode_multi [{label}]: replayed KV cache differs from the eager one")
-    check(got_counts == want_counts, f"decode_multi [{label}]: replayed counts {got_counts} "
-                                     f"against eager {want_counts}")
+    check(got_counts == want_counts and got_counts["grammar_mask_argmax"] == h
+          and got_counts["grammar_next"] == h,
+          f"decode_multi [{label}]: replayed counts {got_counts} against eager {want_counts}")
     per_step = sum(v for k, v in got_counts.items() if k in q.KERNELS) / h
     log(f"decode_multi [{label}]: h={h} replay equals the eager bodies (tokens, KV, counts; "
         f"{per_step} Q40 launches per step, {got_counts['gumbel_sample']} gumbel_sample)")
@@ -2747,7 +2796,10 @@ def verify_step(torch, q, rc, cs, engine, config, tokens, positions, temps, seed
     n_layers = config.n_layers * len(engine.devices)
     check(sum(v for k_, v in per_step.items() if k_ in q.KERNELS) == n_products
           and per_step["decode_attn"] == per_step["decode_attn_window"] == n_layers
-          and per_step["gumbel_sample"] == 1,
+          and per_step["gumbel_sample"] == 1
+          # one masked argmax over the window's rows; the window's walk and
+          # the carry's step
+          and per_step["grammar_mask_argmax"] == 1 and per_step["grammar_next"] == 2,
           f"verify step [{label}]: launches per step {per_step}")
     out["rows_bit_equal_to_decode_steps"] = equal
     return out
@@ -2826,6 +2878,11 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
                   f"decode step [{label}, {name}]: attention launches "
                   f"{run['launches_per_step']['decode_attn']} per step, expected "
                   f"{n * n_layers}")
+            check(run["launches_per_step"]["grammar_mask_argmax"] == 1
+                  and run["launches_per_step"]["grammar_next"] == 1,
+                  f"decode step [{label}, {name}]: grammar launches "
+                  f"{run['launches_per_step']['grammar_mask_argmax']} (mask) and "
+                  f"{run['launches_per_step']['grammar_next']} (step) per step, expected 1 each")
         check(graph["launches_per_step"] == eager["launches_per_step"]
               and graph["ring_hop_launches_per_step"] == eager["ring_hop_launches_per_step"]
               and graph["ring_hop_bytes_per_step"] == eager["ring_hop_bytes_per_step"],
@@ -3518,6 +3575,632 @@ def paged_phase(torch, q, rc, cs, model: str, tok: str, default: dict, layers: d
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: structured output (grammar-constrained decoding) on the card
+# ---------------------------------------------------------------------------
+
+G_OBJECT = {"type": "json_object"}
+G_FLAGS = {"type": "json_schema", "json_schema": {"name": "flags", "schema": {
+    "type": "object",
+    "properties": {"ok": {"type": "boolean"}, "mood": {"enum": ["a", "b"]},
+                   "n": {"type": "null"}},
+    "required": ["ok", "mood", "n"]}}}
+G_ENUM = {"type": "json_schema", "json_schema": {"schema": {"enum": ["happy", "sad", 3]}}}
+G_PAIR = {"type": "json_schema", "json_schema": {"schema": {
+    "type": "object",
+    "properties": {"color": {"enum": ["red", "green", "blue"]}, "big": {"type": "boolean"}},
+    "required": ["color", "big"]}}}
+# one legal token a step for a few hundred steps, whatever the model: the
+# request that holds its schema live in the small slab
+G_LONG_TEXT = "structured output " * 4
+G_LONG = {"type": "json_schema", "json_schema": {"schema": {"enum": [G_LONG_TEXT]}}}
+G_SCHEMAS = {"json_object": G_OBJECT, "flags": G_FLAGS, "enum": G_ENUM, "pair": G_PAIR,
+             "long": G_LONG}
+# the masked argmax's edge vocabularies: one entry, under one word, no
+# multiple of 32, across one chunk, a 151,936-entry vocabulary
+G_EDGE_VOCABS = (1, 31, 1000, 2049, 151936)
+G_WINDOW = DECODE_M * 4  # a verify step's rows at 8 lanes (SPEC_DRAFT + 1 a lane)
+# the engine check's lanes: json_object and flags, greedy and sampled, then
+# four free lanes
+G_LANE_RF = ("json_object", "json_object", "flags", "flags", None, None, None, None)
+G_TEMPS = (0.0, 0.8, 0.0, 0.8, 0.0, 0.8, 0.0, 0.8)
+G_SERVE_BODIES = [
+    ("/v1/completions", {"prompt": "fill the flags", "max_tokens": 96, "temperature": 0,
+                         "response_format": G_FLAGS}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "pick a mood"}],
+                              "max_tokens": 96, "temperature": 0.8, "seed": 5,
+                              "response_format": G_FLAGS}),
+    ("/v1/completions", {"prompt": "one word", "max_tokens": 32, "temperature": 0,
+                         "response_format": G_ENUM}),
+    ("/v1/completions", {"prompt": "a color", "max_tokens": 96, "temperature": 0.7, "seed": 9,
+                         "response_format": G_PAIR}),
+]
+
+
+def _conforms(rf: dict, obj) -> bool:
+    """A parsed answer is what its schema allows."""
+    if rf is G_FLAGS:
+        return (isinstance(obj, dict) and set(obj) == {"ok", "mood", "n"}
+                and isinstance(obj["ok"], bool) and obj["mood"] in ("a", "b")
+                and obj["n"] is None)
+    if rf is G_ENUM:
+        return obj in ("happy", "sad") or (obj == 3 and not isinstance(obj, bool))
+    if rf is G_PAIR:
+        return (isinstance(obj, dict) and set(obj) == {"color", "big"}
+                and obj["color"] in ("red", "green", "blue") and isinstance(obj["big"], bool))
+    if rf is G_LONG:
+        return obj == G_LONG_TEXT
+    return isinstance(obj, dict)
+
+
+def grammar_table(tok: str):
+    """The tokenizer's piece table as ``runtime_setup`` registers it (special
+    tokens, from bos_id up, None) and its EOS ids."""
+    from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
+
+    t = Tokenizer(tok)
+    return ([t.vocab[i] if i < t.bos_id else None for i in range(t.vocab_size)],
+            list(t.eos_token_ids))
+
+
+def _bits_err(torch, got, want) -> float:
+    """max |got - want| over the entries whose bits differ (inf where only
+    one side is infinite or NaN); 0 when every bit agrees."""
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    if not bool(diff.any()):
+        return 0.0
+    return float((got[diff] - want[diff]).abs().nan_to_num(nan=math.inf).max())
+
+
+def _grammar_edge_tables(torch, vocab: int, seed: int):
+    """Random mask words for 16 states: state 0 all ones (FREE), state 1 one
+    legal token (the last), state 2 none."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = -(-vocab // 32)
+    masks = rng.integers(0, 2**32, (16, words), dtype=np.uint64).astype(np.uint32)
+    masks[0] = 0xFFFFFFFF
+    masks[1:3] = 0
+    masks[1, (vocab - 1) >> 5] = np.uint32(1 << ((vocab - 1) & 31))
+    return torch.from_numpy(masks.view(np.int32)).cuda()
+
+
+def grammar_kernel_phase(torch, cg, table, eos) -> dict:
+    """The two grammar kernels on the card at the 1B vocabulary, with four
+    schemas compiled against the 1B synthetic tokenizer and installed in a
+    default slab (their compile time, first and cached, on this host):
+    ``grammar_mask_argmax`` at 8 x 128,256 (a decode step) and 32 x 128,256
+    (a verify window, the masked first row of each lane written) on random
+    states, 0 included: indices equal to the plain version's and masked rows
+    bit-equal; FREE rows' indices equal to ``torch.argmax``'s. At the edge
+    vocabularies on tables with a one-token state and an empty one, with
+    ties, -inf, -0.0, all -inf and NaN rows: the same, exactly.
+    ``grammar_next`` on random (state, token) pairs (half legal, half not)
+    one step and walked over 3 tokens: the plain version's states exactly.
+    Then each timed beside its plain version, the masked argmax beside the
+    torch pair where + argmax, and each beside its bound."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.grammar import GrammarSlab, compile_automaton
+    from distributed_llama_multiusers_tpu_torch.grammar.automaton import vocab_fingerprint
+
+    vocab = len(table)
+    # an admission compiles under the vocab key the engine took once at
+    # grammar_init, as here
+    t0 = time.perf_counter()
+    key = vocab_fingerprint(table)
+    compiles = {"vocab_fingerprint_s": time.perf_counter() - t0}
+    autos = {}
+    for name, rf in G_SCHEMAS.items():
+        t0 = time.perf_counter()
+        autos[name] = compile_automaton(rf, table, eos, vocab_key=key)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compile_automaton(rf, table, eos, vocab_key=key)
+        compiles[name] = {"states": autos[name].n_states, "edges": len(autos[name].edge_keys),
+                          "first_s": first, "cached_s": time.perf_counter() - t0}
+    log("grammar compiles at the 1B vocabulary (host): " + json.dumps(compiles))
+    slab = GrammarSlab(vocab)
+    handles = [slab.attach(autos[k]) for k in ("json_object", "flags", "enum", "pair")]
+    masks_np, keys_np, nxt_np, dflt_np = slab.arrays()
+    masks = torch.from_numpy(masks_np.view(np.int32)).cuda()
+    keys, nxt, dflt = (torch.from_numpy(a).cuda() for a in (keys_np, nxt_np, dflt_np))
+    words = masks.shape[1]
+    rng = np.random.default_rng(15)
+    pool = np.asarray([0] + [h.base + s for h in handles for s in range(h.automaton.n_states)])
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    checks, inputs = [], {}
+    a_err = 0.0  # the largest index or masked-row difference from the plain version
+    for n, every in ((DECODE_M, 1), (G_WINDOW, 4)):
+        x = torch.randn((n, vocab), device="cuda", generator=gen) * 3
+        x[1, 5] = x[1, vocab - 9] = x[1].max() + 1.0  # a tie: the lower index wins
+        st_np = rng.choice(pool, n)
+        st_np[:3] = [0, 0, handles[1].start_state]
+        st = torch.from_numpy(st_np).cuda()
+        out = torch.empty((-(-n // every), vocab), device="cuda")
+        work = cg.workspace(n, vocab, "cuda")
+        got = cg.mask_argmax(x, st, masks, masked_out=out, masked_every=every, work=work)
+        want, wrows = cg.mask_argmax_plain(x, st, masks)
+        rows_eq = torch.equal(out.view(torch.int32), wrows[::every].view(torch.int32))
+        a_err = max(a_err, float((got - want).abs().max()), _bits_err(torch, out,
+                                                                       wrows[::every]))
+        free = st == 0
+        check(torch.equal(got, want) and rows_eq, f"grammar_mask_argmax [{n} x {vocab}]: "
+              f"indices {got.tolist()} against plain {want.tolist()}, masked rows equal "
+              f"{rows_eq}")
+        check(torch.equal(got[free], torch.argmax(x[free], dim=-1)),
+              f"grammar_mask_argmax [{n} x {vocab}]: FREE rows differ from torch.argmax")
+        check(int(work[-n:].abs().sum()) == 0, "grammar_mask_argmax left a ticket set")
+        checks.append({"rows": n, "vocab": vocab, "masked_every": every,
+                       "constrained_rows": int((~free).sum()), "equal": True})
+        inputs[n] = (x, st, out, work, every, got)
+    edges = []
+    for v in G_EDGE_VOCABS:
+        t = _grammar_edge_tables(torch, v, seed=v)
+        x = torch.randn((DECODE_M, v), device="cuda", generator=gen) * 3
+        if v > 3:
+            top = x.max(dim=-1).values + 1.0
+            x[:, 1] = top
+            x[:, v - 2] = top
+            x[3, ::3] = float("-inf")
+            x[4] = 0.0
+            x[4, v // 2] = -0.0
+            x[5] = float("-inf")
+            x[6, v // 3] = float("nan")
+            x[6, v - 1] = float("nan")
+        st = torch.tensor([0, 1, 2, 0, 0, 0, 0, 5], device="cuda")
+        out = torch.empty_like(x)
+        got = cg.mask_argmax(x, st, t, masked_out=out)
+        ref_rows = torch.zeros((DECODE_M, v))
+        want = cg.mask_argmax(x.cpu(), st.cpu(), t.cpu(), masked_out=ref_rows)
+        a_err = max(a_err, float((got.cpu() - want).abs().max()),
+                    _bits_err(torch, out.cpu(), ref_rows))
+        ok = (got.cpu().tolist() == want.tolist()
+              and torch.equal(out.cpu().view(torch.int32), ref_rows.view(torch.int32))
+              and int(got[1]) == v - 1 and int(got[2]) == 0
+              and torch.equal(got[[0, 3, 4, 5, 6]], torch.argmax(x[[0, 3, 4, 5, 6]], dim=-1)))
+        check(ok, f"grammar_mask_argmax edges at vocab {v}: {got.tolist()} against plain "
+              f"{want.tolist()}")
+        edges.append({"vocab": v, "indices": got.tolist()})
+    # the automaton step: random pairs, half of them legal
+    n_pairs = 256
+    st_np = rng.choice(pool, n_pairs)
+    tok_np = rng.integers(0, vocab, (n_pairs, 3))
+    for i in range(0, n_pairs, 2):
+        s = int(st_np[i])
+        for h in handles:
+            if h.base <= s < h.base + h.automaton.n_states:
+                for j in range(3):
+                    legal = h.automaton.legal_ids(s - h.base)
+                    tok_np[i, j] = int(legal[rng.integers(len(legal))])
+                    s = h.next_state(s, int(tok_np[i, j]))
+                break
+    st, tk = torch.from_numpy(st_np).cuda(), torch.from_numpy(tok_np).cuda()
+    got1 = cg.grammar_next(st, tk[:, :1], keys, nxt, dflt, vocab)
+    gotw = cg.grammar_next(st, tk, keys, nxt, dflt, vocab, walk=True)
+    want_w = cg.grammar_next_plain(st, tk, keys, nxt, dflt, vocab)
+    b_err = max(float((got1 - want_w[:, 1]).abs().max()), float((gotw - want_w).abs().max()))
+    check(torch.equal(got1, want_w[:, 1]) and torch.equal(gotw, want_w) and b_err == 0,
+          "grammar_next: states differ from the plain version's")
+    check(a_err == 0, f"grammar_mask_argmax: {a_err} from the plain version")
+    def owner(s):
+        return next((h for h in handles if h.base <= s < h.base + h.automaton.n_states), None)
+
+    host = [0 if owner(int(st_np[i])) is None  # FREE loops on itself
+            else owner(int(st_np[i])).next_state(int(st_np[i]), int(tok_np[i, 0]))
+            for i in range(0, n_pairs, 2)]
+    check(got1[::2].tolist() == host, "grammar_next: legal steps differ from the host mirror")
+
+    # times: the decode step's form (8 rows, no masked rows), with the
+    # masked rows (a sampled step), the verify window; the plain versions
+    # eagerly on the card; the torch pair on precomputed legal bits
+    x8, st8, _, w8, _, g8 = inputs[DECODE_M]
+    x32, st32, o32, w32, e32, _ = inputs[G_WINDOW]
+    o8 = torch.empty_like(x8)
+    ids = torch.arange(vocab, device="cuda")
+    bits8 = ((masks[st8][:, ids >> 5] >> (ids & 31).to(torch.int32)) & 1).bool()
+    ninf = torch.tensor(float("-inf"), device="cuda")
+    reps = 20
+    a_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks, work=w8)] * reps)
+    a_masked_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks, masked_out=o8,
+                                                          work=w8)] * reps)
+    a_window_ms = graph_ms(torch, [lambda: cg.mask_argmax(
+        x32, st32, masks, masked_out=o32, masked_every=e32, work=w32)] * reps)
+    a_library_ms = graph_ms(torch, [lambda: torch.argmax(torch.where(bits8, x8, ninf),
+                                                         dim=-1)] * reps)
+    argmax_ms = graph_ms(torch, [lambda: torch.argmax(x8, dim=-1)] * reps)
+    a_plain_ms = eager_ms(torch, lambda: cg.mask_argmax_plain(x8, st8, masks), 5)
+    a_bytes = DECODE_M * vocab * 4 + DECODE_M * words * 4 + DECODE_M * 16
+    a_ops = 2 * DECODE_M * vocab  # the bit test and the compare of each entry
+    a_tb, a_to = a_bytes / HBM_BYTES_S, a_ops / LANE_OPS_S
+    tok8 = g8[:, None]
+    b_ms = graph_ms(torch, [lambda: cg.grammar_next(st8, tok8, keys, nxt, dflt, vocab)] * reps)
+    b_plain_ms = eager_ms(torch, lambda: cg.grammar_next_plain(st8, tok8, keys, nxt, dflt,
+                                                               vocab), 5)
+    probes = math.ceil(math.log2(keys.shape[0])) + 1  # the lower-bound search's key reads
+    b_bytes = DECODE_M * (8 + 8 + 8 + probes * 4 + 4)
+    b_ops = DECODE_M * probes * 3
+    b_tb, b_to = b_bytes / HBM_BYTES_S, b_ops / LANE_OPS_S
+    out = {
+        "compiles": compiles, "checks": checks, "edge_checks": edges,
+        "grammar_mask_argmax": {
+            "max_abs_err": a_err, "ms": a_ms, "ms_with_masked_rows": a_masked_ms,
+            "ms_verify_window": a_window_ms, "plain_ms": a_plain_ms,
+            "library_ms": a_library_ms, "torch_argmax_ms": argmax_ms,
+            "bound_ms": max(a_tb, a_to) * 1e3, "bound_by": "bytes" if a_tb >= a_to
+            else "operations", "bound_bytes": a_bytes, "bound_ops": a_ops,
+            "bound_ms_with_masked_rows": (a_bytes + DECODE_M * vocab * 4) / HBM_BYTES_S * 1e3,
+            "rows": DECODE_M, "vocab": vocab, "words": words, "chunk": cg.CHUNK},
+        "grammar_next": {
+            "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, "library_ms": None,
+            "bound_ms": max(b_tb, b_to) * 1e3, "bound_by": "bytes" if b_tb >= b_to
+            else "operations", "bound_bytes": b_bytes, "bound_ops": b_ops, "rows": DECODE_M,
+            "steps": 1, "edges": int(keys.shape[0]), "pairs_checked": n_pairs},
+    }
+    log("grammar kernels: " + json.dumps({k: out[k] for k in cg.KERNELS}))
+    return out
+
+
+def _grammar_engine_run(engine, config, family: str, constrain: bool, handles: list):
+    """Prefill 8 lanes (lanes 0-3 constrained by json_object and flags where
+    ``constrain``, greedy and sampled; 4-7 free), then one family's
+    dispatches; every constrained token is checked legal on the host
+    mirror (in the fused family, lane 3's from its readmission state on).
+    Returns (per-lane streams, every token read back)."""
+    import numpy as np
+
+    n = engine.n_lanes
+    temps = np.asarray(G_TEMPS, np.float32)
+    topps = np.full(n, 0.9, np.float32)
+    seeds = np.arange(n, dtype=np.int64) + 3
+    hs = [handles[G_LANE_RF[i]] if constrain and G_LANE_RF[i] else None for i in range(n)]
+    g = [h.start_state if h is not None else 0 for h in hs]
+    streams = [[] for _ in range(n)]
+    raw = []
+
+    def adv(i, tok):
+        tok = int(tok)
+        streams[i].append(tok)
+        if hs[i] is not None:
+            check(hs[i].is_legal(g[i], tok), f"grammar engine [{family}]: lane {i} emitted "
+                                              f"{tok}, illegal in state {g[i]}")
+            g[i] = hs[i].next_state(g[i], tok)
+
+    toks, pos = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    for lane in range(n):
+        prompt = [(97 * lane + 13 * i) % 100 + 1 for i in range(40)]
+        _, gr, sa = engine.prefill_chunk(lane, prompt, 0, temp=float(temps[lane]), topp=0.9,
+                                         seed=int(seeds[lane]), g_state=g[lane])
+        toks[lane], pos[lane] = (gr if temps[lane] == 0 else sa), len(prompt)
+        adv(lane, toks[lane])
+    if family == "step":
+        for _ in range(4):
+            _, gr, sa = engine.decode(toks, pos, temps, topps, seeds, want_logits=False,
+                                      g_states=np.asarray(g))
+            toks, pos = np.where(temps == 0, gr, sa), pos + 1
+            raw.append(toks)
+            for i in range(n):
+                adv(i, toks[i])
+    elif family == "multi":
+        for _ in range(2):
+            chosen = engine.decode_multi(toks, pos, temps, topps, seeds, h=4,
+                                         g_states=np.asarray(g))
+            raw.append(chosen)
+            for i in range(n):
+                for j in range(4):
+                    adv(i, chosen[j, i])
+            toks, pos = chosen[-1].astype(np.int64), pos + 4
+    elif family == "verify":
+        k = engine.SPEC_DRAFT
+        for step in range(3):
+            drafts, dlen = np.zeros((n, k), np.int64), np.zeros(n, np.int64)
+            for i in range(n):
+                if temps[i] != 0:
+                    continue
+                if hs[i] is not None and step != 1:  # legal candidates, then junk
+                    s, d = g[i], []
+                    for _ in range(k):
+                        d.append(int(hs[i].automaton.legal_ids(s - hs[i].base)[0]))
+                        s = hs[i].next_state(s, d[-1])
+                else:
+                    d = [int(toks[i])] * k
+                drafts[i], dlen[i] = d, k
+            _, em, ne = engine.decode_spec(toks, drafts, dlen, pos, temps, topps, seeds,
+                                           want_logits=False, g_states=np.asarray(g))
+            raw += [em, ne]
+            for i in range(n):
+                for t in em[i, :ne[i]]:
+                    adv(i, t)
+                toks[i] = em[i, ne[i] - 1]
+            pos = pos + ne
+    elif family == "pipelined":
+        engine.decode_pipelined(pos, temps, topps, seeds, tokens=toks, g_states=np.asarray(g))
+        for step in range(4):
+            if step < 3:
+                engine.decode_pipelined(np.full(n, -1), temps, topps, seeds)
+            gr, sa = engine.pipeline_consume()
+            raw.append(np.stack([gr, sa]))
+            for i in range(n):
+                adv(i, gr[i] if temps[i] == 0 else sa[i])
+        engine.pipeline_flush()
+    else:  # fused: lane 3 re-admits a prompt chunk under its start state
+        park = pos.copy()
+        park[3] = config.seq_len
+        g0 = np.asarray(g)
+        g0[3] = 0
+        engine.decode_pipelined(park, temps, topps, seeds, tokens=toks, g_states=g0)
+        chained = np.full(n, -1)
+        chained[3] = config.seq_len
+        engine.decode_prefill_fused(chained, temps, topps, seeds, p_lane=3, chunk=[4, 4, 4],
+                                    p_start=int(pos[3]), p_temp=0.8, p_topp=0.9, p_seed=3,
+                                    p_g=hs[3].start_state if hs[3] is not None else 0)
+        raw.append(np.stack(engine.pipeline_consume()))
+        engine.decode_pipelined(np.full(n, -1), temps, topps, seeds)
+        raw.append(np.stack(engine.pipeline_consume()))
+        raw.append(np.stack(engine.pipeline_consume()))
+        engine.pipeline_flush()
+        for i in range(n):
+            if i != 3:
+                for r in raw:
+                    adv(i, r[0 if temps[i] == 0 else 1][i])
+        # lane 3 from its readmission state: the boundary token (the extra
+        # column, picked at p_temp 0.8), then the step fed from the carry
+        # next(p_g, boundary); its column in the first readback is parked
+        if hs[3] is not None:
+            g[3] = hs[3].start_state
+        adv(3, raw[1][1][n])
+        adv(3, raw[2][0 if temps[3] == 0 else 1][3])
+    return streams, np.concatenate([np.asarray(r).reshape(-1) for r in raw])
+
+
+def grammar_engine_phase(torch, q, cg, model: str, table, eos) -> dict:
+    """The engine on the 1B model with 8 lanes, 4 constrained (json_object
+    and flags, greedy and seeded) and 4 free, through the step, multi-step,
+    verify, pipelined and fused families: the replayed graphs' tokens and
+    launch counts equal the eager bodies', every constrained token is legal
+    in its automaton, and the free lanes' tokens equal those of the same
+    batch with no constrained lane."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    t0 = time.perf_counter()
+    q.set_dequant_mode(None)
+    config, params = load_params_from_m_quantized(model, load_model_header(model),
+                                                  dtype=torch.bfloat16, device="cuda")
+    engines = []
+    for _ in range(2):
+        e = InferenceEngine(config, params, n_lanes=DECODE_M, device="cuda")
+        e.grammar_init(table, eos)
+        engines.append(e)
+    graphed, eager = engines
+    eager.graphs = None
+    handles = [{k: e.grammar_attach(G_SCHEMAS[k]) for k in ("json_object", "flags")}
+               for e in engines]
+    families = {}
+    for family in ("step", "multi", "verify", "pipelined", "fused"):
+        sync_all(torch)
+        before = _launch_counts()
+        got_streams, got = _grammar_engine_run(graphed, config, family, True, handles[0])
+        sync_all(torch)
+        mid = _launch_counts()
+        _, want = _grammar_engine_run(eager, config, family, True, handles[1])
+        sync_all(torch)
+        after = _launch_counts()
+        free_streams, _ = _grammar_engine_run(graphed, config, family, False, handles[0])
+        counts = [{k: (b[k] - a[k]) for k in ("gumbel_sample_launches", "decode_attn_launches",
+                                              "grammar_mask_argmax_launches",
+                                              "grammar_next_launches")}
+                  for a, b in ((before, mid), (mid, after))]
+        check(got.tolist() == want.tolist(), f"grammar engine [{family}]: graph replays "
+              "differ from the eager bodies")
+        check(counts[0] == counts[1] and counts[0]["grammar_mask_argmax_launches"] > 0
+              and counts[0]["grammar_next_launches"] > 0,
+              f"grammar engine [{family}]: launches replayed {counts[0]}, eager {counts[1]}")
+        check(got_streams[4:] == free_streams[4:], f"grammar engine [{family}]: free lanes "
+              "changed beside constrained ones")
+        families[family] = {"tokens": len(got), "launches": counts[0],
+                            "constrained_streams": got_streams[:4]}
+    graphs = graphed.graphs  # None only where the engine runs eagerly (a CPU rehearsal)
+    captures = 0 if graphs is None else len(graphs)
+    check(graphs is None or graphs.replays > 0, "grammar engine: no graph replayed")
+    del engines, graphed, eager, params, graphs
+    torch.cuda.empty_cache()
+    out = {"families": families, "graphs": captures, "seconds": time.perf_counter() - t0}
+    log(f"grammar engine: {list(families)} on 8 lanes (4 constrained): replays equal eager, "
+        f"constrained tokens legal, free lanes unchanged; {captures} graphs "
+        f"({out['seconds']:.1f}s)")
+    return out
+
+
+def _grammar_concurrent(base: str, bodies: list) -> list:
+    """Every body at once; (status, text, finish) each."""
+    results: list = [None] * len(bodies)
+
+    def worker(i, route, body):
+        try:
+            if body.get("stream"):
+                status, text, last, _ = _stream(base + route, body)
+                results[i] = (status, text, last["choices"][0].get("finish_reason"))
+                return
+            status, _, raw = _request(base + route, body)
+            b = json.loads(raw)
+            results[i] = (status, _text(b) if status == 200 else b,
+                          b["choices"][0]["finish_reason"] if status == 200 else None)
+        except Exception as e:  # noqa: BLE001 — failed below
+            results[i] = (None, f"{type(e).__name__}: {e}", None)
+
+    threads = [threading.Thread(target=worker, args=(i, r, b))
+               for i, (r, b) in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
+def _grammar_pass(name: str, stats: dict) -> dict:
+    """A grammar server's launch counts, keyed as a serving pass's."""
+    return {"mode": name, **{k: stats[k] for k in (
+        "kernel_launches", "ring_hop_launches", "ring_hop_bytes", "gumbel_sample_launches",
+        "decode_attn_launches", "decode_attn_window_launches", "decode_attn_paged_launches",
+        "grammar_mask_argmax_launches", "grammar_next_launches", "grammar_lanes",
+        "grammar_masked_steps")}}
+
+
+def grammar_serving_phase(torch, model: str, tok: str, default: dict, compiles: dict) -> dict:
+    """``dllama_api`` with its defaults serves 4 constrained requests (two
+    schemas of flags, an enum and an object of an enum and a boolean;
+    greedy and seeded; completion and chat) beside the default pass's 4
+    plain ones, all at once: every constrained answer parses and conforms,
+    the plain texts equal the default pass's, /stats shows the grammar
+    fields with no flush and no graph captured after three schemas; a
+    malformed schema gets 400. Then ``--workers 2`` with a slab that holds
+    the long enum or flags but not both: flags beside the live long enum
+    gets 429 ``grammar_slab_full`` with Retry-After, the long enum's answer
+    at tp2 is its string, and flags is served after it. Then ``--grammar
+    off``: a constrained request gets 400, a plain one 200."""
+    t0 = time.perf_counter()
+    passes = []
+    srv = Server(model, tok, "grammar")
+    try:
+        bodies = G_SERVE_BODIES + list(default["bodies"])
+        res = _grammar_concurrent(srv.base, bodies)
+        answers = []
+        for (route, body), (status, text, finish) in zip(G_SERVE_BODIES, res):
+            check(status == 200 and finish == "stop", f"grammar server: {route} "
+                  f"{body['response_format']} got {status}, finish {finish}: {text}")
+            try:
+                obj = json.loads(text)
+            except ValueError:
+                raise SmokeFailure(f"grammar server: {text!r} does not parse") from None
+            check(_conforms(body["response_format"], obj), f"grammar server: {obj!r} does "
+                  f"not conform to {body['response_format']}")
+            answers.append(obj)
+        plain = [r[1] for r in res[len(G_SERVE_BODIES):]]
+        check(all(r[0] == 200 for r in res[len(G_SERVE_BODIES):])
+              and plain == default["concurrent_texts"],
+              "grammar server: the plain requests' texts beside constrained ones differ from "
+              "the default pass's")
+        for bad in ({"type": "yaml"}, {"type": "json_schema", "json_schema": {
+                "schema": {"type": "object", "additionalProperties": True}}}):
+            status, _, _ = _request(srv.base + "/v1/completions", {
+                "prompt": "x", "max_tokens": 4, "response_format": bad})
+            check(status == 400, f"grammar server: malformed {bad} got {status}")
+        stats = srv.stats()
+        check(stats["grammar_lanes"] == len(G_SERVE_BODIES)
+              and stats["grammar_masked_steps"] > 0
+              and stats["grammar_schemas_installed"] == 3
+              and stats["grammar_schemas_live"] == 0
+              and stats["pipeline_flushes"] == 0 and stats["jit_compiles_after_warmup"] == 0
+              and stats["grammar_mask_argmax_launches"] > 0
+              and stats["grammar_next_launches"] > 0,
+              "grammar server /stats: " + json.dumps({k: v for k, v in stats.items()
+                                                     if "grammar" in k or k in (
+                                                         "pipeline_flushes",
+                                                         "jit_compiles_after_warmup")}))
+        passes.append(_grammar_pass("grammar", stats))
+        log_text = srv.stop()
+        check("Structured output: json_object / json_schema enabled" in log_text,
+              "grammar server: the startup log does not announce structured output")
+    except BaseException:
+        srv.tail()
+        raise
+    finally:
+        srv.kill()
+    first = {"answers": answers, "stats": {k: v for k, v in stats.items()
+                                          if k.startswith("grammar")}}
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    slab = compiles["long"]["states"] + compiles["flags"]["states"]
+    srv = Server(model, tok, "grammar-tp2", ("--workers", "2", "--device", devices,
+                                             "--grammar-slab-states", str(slab)))
+    try:
+        long_body = {"prompt": "say it", "max_tokens": len(G_LONG_TEXT) + 16, "temperature": 0,
+                     "response_format": G_LONG}
+        held: list = []
+        thread = threading.Thread(target=lambda: held.append(
+            _request(srv.base + "/v1/completions", long_body)))
+        thread.start()
+        _poll(lambda: srv.stats()["grammar_schemas_live"] == 1, 120,
+              "grammar-tp2: the long enum never went live")
+        flags = {"prompt": "fill the flags", "max_tokens": 96, "temperature": 0,
+                 "response_format": G_FLAGS}
+        url = srv.base + "/v1/completions"
+        status, headers, raw = _request(url, flags)
+        shed = (status, headers, json.loads(raw))
+        thread.join(timeout=600)
+        check(shed[0] == 429 and shed[2].get("reason") == "grammar_slab_full"
+              and int(shed[1].get("Retry-After", 0)) >= 1,
+              f"grammar-tp2: flags beside the live long enum got {shed[0]} {shed[2]}")
+        check(held and held[0][0] == 200, f"grammar-tp2: the long enum got {held}")
+        long_text = _text(json.loads(held[0][2]))
+        check(json.loads(long_text) == G_LONG_TEXT, f"grammar-tp2: {long_text!r}")
+        status, _, raw = _request(url, flags)
+        check(status == 200 and _conforms(G_FLAGS, json.loads(_text(json.loads(raw)))),
+              f"grammar-tp2: flags after the long enum got {status} {raw[:200]!r}")
+        stats = srv.stats()
+        check(stats["mesh"] is not None and stats["mesh"]["tp"] == 2
+              and stats["ring_hop_launches"] > 0 and stats["jit_compiles_after_warmup"] == 0
+              and stats["grammar_mask_argmax_launches"] > 0,
+              f"grammar-tp2 /stats: mesh {stats['mesh']}, ring hops "
+              f"{stats['ring_hop_launches']}, captures {stats['jit_compiles_after_warmup']}")
+        passes.append(_grammar_pass("grammar-tp2", stats))
+        srv.stop()
+    except BaseException:
+        srv.tail()
+        raise
+    finally:
+        srv.kill()
+    tp2 = {"slab_states": slab, "shed": {"status": shed[0], "reason": shed[2].get("reason"),
+                                         "retry_after": shed[1].get("Retry-After")},
+           "long_answer_chars": len(long_text)}
+    srv = Server(model, tok, "grammar-off", ("--grammar", "off"))
+    try:
+        status, _, raw = _request(srv.base + "/v1/completions", {
+            "prompt": "x", "max_tokens": 8, "response_format": G_FLAGS})
+        check(status == 400 and b"structured output is disabled" in raw,
+              f"--grammar off: a constrained request got {status} {raw[:200]!r}")
+        status, _, _ = _request(srv.base + "/v1/completions", {"prompt": "x", "max_tokens": 8})
+        check(status == 200, f"--grammar off: a plain request got {status}")
+        passes.append(_grammar_pass("grammar-off", srv.stats()))
+        srv.stop()
+    except BaseException:
+        srv.tail()
+        raise
+    finally:
+        srv.kill()
+    out = {"default": first, "tp2_small_slab": tp2, "passes": passes,
+           "seconds": time.perf_counter() - t0}
+    log(f"grammar serving: 4 constrained answers {answers} beside the default pass's 4 "
+        f"(texts equal); 400 on malformed schemas; tp2 slab of {slab} states: 429 "
+        f"grammar_slab_full, the long enum served; --grammar off: 400 "
+        f"({out['seconds']:.1f}s)")
+    return out
+
+
+def grammar_phase(torch, q, model: str, tok: str, default: dict, breakdown: list) -> dict:
+    """Phase 4c: the grammar kernels, the engine's constrained families and
+    the server's structured output, and the v4 decode step's device time
+    and operations with the grammar kernels in it (``step_breakdown``)."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+
+    t0 = time.perf_counter()
+    table, eos = grammar_table(tok)
+    kernels = grammar_kernel_phase(torch, cg, table, eos)
+    engine = grammar_engine_phase(torch, q, cg, model, table, eos)
+    serving = grammar_serving_phase(torch, model, tok, default, kernels["compiles"])
+    v4 = next(b for b in breakdown if b["mode"] == "v4")
+    step = {"device_ms_per_step": v4["device_ms_per_step"],
+            "device_ops_per_step": v4["device_ops_per_step"],
+            "step_ms_p50": v4["step_ms_p50"], "grammar_ms_per_step": v4["grammar_ms_per_step"],
+            "launches_per_step": {k: v4["launches_per_step"][k]
+                                  for k in ("grammar_mask_argmax", "grammar_next")}}
+    log("v4 decode step with the grammar kernels: " + json.dumps(step))
+    return {"kernels": kernels, "engine": engine, "serving": serving, "v4_step": step,
+            "passes": serving["passes"], "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the kernel lab
 # ---------------------------------------------------------------------------
 
@@ -3675,7 +4358,7 @@ def lab_line_entries(lab, lab_result) -> list:
 
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
-                 forms=(), attn=None, row_plans=(), paged=None) -> dict:
+                 forms=(), attn=None, row_plans=(), paged=None, grammar=None) -> dict:
     """One entry per kernel. ``launches`` is the main path's count: the
     serving passes, the CLI runs and the durability servers, each counting
     from the end of its warmup. For a Q40
@@ -3878,6 +4561,51 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                 s_["label"]: s_["paged"]["decode_attn_ms_per_step"]
                 for s_ in (paged["step"], paged["tp2_step"])},
         })
+    if grammar is not None:
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+
+        gk = grammar["kernels"]
+        for name in cg.KERNELS:
+            k = gk[name]
+            key = f"{name}_launches"
+            out.append({
+                "name": name, "route": "cuda", "source": cg.KERNEL_SOURCE,
+                "replaces": cg.KERNEL_REPLACES[name],
+                "replaces_note": ("counterpart of XLA's _g_mask_row + jnp.argmax inside every "
+                                  "decode step family (runtime/engine.py:493-505, 613-614); no "
+                                  "Pallas site" if name == "grammar_mask_argmax" else
+                                  "counterpart of XLA's _g_next1 (and the _g_walk_greedy walk "
+                                  "of a verify window) inside every decode step family "
+                                  "(runtime/engine.py:507-545); no Pallas site"),
+                "launches": sum(p_.get(key, 0) for p_ in passes),
+                "launches_by_mode": {p_["mode"]: p_.get(key, 0) for p_ in passes},
+                "max_abs_err": k["max_abs_err"], "tol": 0.0,
+                "tol_rule": ("indices equal to the plain version's and masked rows bit-equal "
+                             "(8 and 32 x 128,256, the edge vocabularies); FREE rows equal "
+                             "torch.argmax" if name == "grammar_mask_argmax" else
+                             "states equal to the plain version's on "
+                             f"{k['pairs_checked']} (state, token) pairs, stepped and walked"),
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
+                "library": ("torch.argmax(torch.where(bits, rows, -inf)) on precomputed legal "
+                            "bits (no one torch call computes the masked argmax)"
+                            if name == "grammar_mask_argmax" else None),
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "timed_as": (f"one decode step's masked argmax, {k['rows']} x {k['vocab']} f32 "
+                             "rows on random states of a slab holding four schemas: kernel "
+                             "and the torch pair in one CUDA graph each; plain eager"
+                             if name == "grammar_mask_argmax" else
+                             f"one decode step's automaton step, {k['rows']} rows over "
+                             f"{k['edges']} edge keys: kernel in one CUDA graph; plain eager"),
+                "launches_per_decode_step": {b["mode"]: b["launches_per_step"][name]
+                                             for b in breakdown + tp},
+                "profiled_ms_per_decode_step": {b["mode"]: b["grammar_ms_per_step"][name]
+                                                for b in breakdown + tp},
+                **({"ms_with_masked_rows": k["ms_with_masked_rows"],
+                    "ms_verify_window": k["ms_verify_window"],
+                    "torch_argmax_ms": k["torch_argmax_ms"],
+                    "bound_ms_with_masked_rows": k["bound_ms_with_masked_rows"]}
+                   if name == "grammar_mask_argmax" else {}),
+            })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
     return {"kernels": out}
@@ -3913,11 +4641,12 @@ def main() -> int:
         from distributed_llama_multiusers_tpu_torch.ops import cuda_lab as lab
         from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
         from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
         from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
         from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
         t0 = time.perf_counter()
-        names = q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL) + lab.KERNELS
+        names = q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL, cg.KERNEL) + lab.KERNELS
         one_kernel_build = build_one_kernel(q, rc)
         try:
             libs = q.build_kernels(names)
@@ -3960,6 +4689,7 @@ def main() -> int:
         breakdown, tp, tp_logits, hop_step, products, prefix_bits = decode_phase(
             torch, q, rc, cs, model)
         paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
+        grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown)
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
             "80GB HBM3 at 700 W: 349.1 tok/s, 4.76 ms)")
@@ -3973,14 +4703,15 @@ def main() -> int:
                        "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
                        "decode_step_products": products,
                        "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
-                                                      if k != "log"}}}, f, indent=1)
+                                                      if k != "log"}},
+                       "grammar": grammar}, f, indent=1)
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
-        main_path = passes + [paged["serving"]] + cli + durability["passes"]
+        main_path = passes + [paged["serving"]] + cli + durability["passes"] + grammar["passes"]
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
-                            row_plans, paged)
+                            row_plans, paged, grammar)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -199,6 +199,23 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "journal rebuild, dearer than resident reuse. "
                         "0 (default) disables the tier and restores "
                         "drop-to-rebuild behavior bit-for-bit")
+    # structured output (grammar/), the JAX package's flags
+    p.add_argument("--grammar", default="on", choices=["on", "off"],
+                   help="serving: grammar-constrained decoding — requests "
+                        "with response_format {'type':'json_object'} or "
+                        "{'type':'json_schema',...} compile into a "
+                        "token-level automaton enforced inside every decode "
+                        "step family (the masked argmax before the exact "
+                        "top-p sort, the state carried on the card), so "
+                        "constrained and unconstrained lanes coexist with "
+                        "zero pipeline flushes. 'off' (escape hatch) makes "
+                        "such requests fail with a typed 400")
+    p.add_argument("--grammar-slab-states", type=int, default=None,
+                   help="structured output: device slab capacity in "
+                        "automaton states shared by all live schemas "
+                        "(fixed at startup, so schema churn never captures "
+                        "a CUDA graph; admissions beyond it shed "
+                        "retryably). Default: grammar default (1024)")
     # crash-durable serving (serving/journal.py, recovery.py, resume.py)
     p.add_argument("--journal-path", default=None,
                    help="serving: append-only CRC-framed request journal "

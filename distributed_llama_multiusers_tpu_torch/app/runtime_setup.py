@@ -11,7 +11,7 @@ import torch
 from ..formats import load_model_header
 from ..models import load_params_from_m
 from ..models.loader import load_params_from_m_quantized
-from ..ops import cuda_attn, cuda_q40, cuda_sample, ring_collective
+from ..ops import cuda_attn, cuda_grammar, cuda_q40, cuda_sample, ring_collective
 from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
@@ -112,6 +112,7 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                              ring_sync=ring_sync,
                              # async decode pipeline ring bound (None: 2)
                              pipeline_depth=getattr(args, "pipeline_depth", None),
+                             grammar_slab_states=getattr(args, "grammar_slab_states", None),
                              **(paged_kwargs(args) if serving else {}))
     if not serving and getattr(args, "paged_kv", "off") == "on":
         log("📑", "--paged-kv applies to dllama-api; the CLI keeps contiguous planes")
@@ -122,6 +123,15 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                   + (f"host swap tier {pool.host_tier.budget_bytes // (1 << 20)} MiB"
                      if pool.host_tier.enabled else "host swap tier off")
                   + " (--paged-kv off restores contiguous planes)")
+    # structured output: register the tokenizer's piece table (special
+    # tokens, from bos_id up, are illegal everywhere) so response_format
+    # requests compile token-level automata; --grammar off refuses them
+    if getattr(args, "grammar", "on") != "off":
+        engine.grammar_init([tokenizer.vocab[i] if i < tokenizer.bos_id else None
+                             for i in range(tokenizer.vocab_size)],
+                            tokenizer.eos_token_ids)
+        log("🧩", "Structured output: json_object / json_schema enabled "
+                  "(--grammar off disables)")
     return config, params, tokenizer, engine
 
 
@@ -156,6 +166,7 @@ def warm_engine(engine, spec: bool, multi_step: int, pipeline: bool = True) -> f
     ring_collective.reset_counts()
     cuda_sample.reset_counts()
     cuda_attn.reset_counts()
+    cuda_grammar.reset_counts()
     if engine.graphs is not None:
         engine.graphs.mark_warm()
     return time.perf_counter() - t0

@@ -70,8 +70,17 @@ Every dispatch family and the lagged consume fire the seeded fault plan
 argument checks and before any device work; an unarmed process pays one
 global read.
 
-The grammar family is later work, which ``supports_grammar`` says to the
-scheduler.
+Grammar-constrained decoding (``grammar/``, the JAX engine's) runs inside
+every step family, on every lane, every step: each lane carries an
+automaton state (0 is FREE: an all-ones mask and a self-loop, so an
+unconstrained lane's tokens are the plain ones bit for bit), its row is
+masked by that state before the argmax and the nucleus sort
+(``ops/cuda_grammar.mask_argmax``), and the state advances on the card by
+the chosen token (``grammar_next``) like the position carry: a host state
+of -1 reads the carry, >= 0 overrides it. The slab's tables live on rank
+0's device in tensors of fixed shape and address, rewritten in place from
+pinned memory when an admission changes the slab, so a new schema captures
+no graph.
 """
 
 from __future__ import annotations
@@ -87,8 +96,10 @@ import torch
 
 from ..analysis import jitcheck
 from ..device import resolve_device
+from ..grammar.slab import DEFAULT_SLAB_STATES, GrammarSlab
 from ..models.config import LlamaConfig
 from ..models.llama import LlamaParams, init_kv_cache, init_paged_kv_cache, llama_forward
+from ..ops import cuda_grammar
 from ..ops.ring_collective import ring_counts
 from ..parallel.sharding import shard_kv_cache, shard_paged_kv_cache
 from ..utils import faults
@@ -163,6 +174,10 @@ class EngineStats:
     # prefix, and the prompt tokens they did not prefill
     prefix_hits: int = 0
     prefix_tokens_saved: int = 0
+    # grammar-constrained decoding: admissions that attached an automaton,
+    # and dispatches that carried at least one constrained lane
+    grammar_lanes: int = 0
+    grammar_masked_steps: int = 0
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                  compare=False)
 
@@ -203,7 +218,6 @@ class InferenceEngine:
     supports_multi_step = True
     supports_speculative = True
     supports_spec_pipelined = True
-    supports_grammar = False
     # drafts per verify step (SPEC_DRAFT + 1 rows a lane)
     SPEC_DRAFT = SPEC_DRAFT
 
@@ -225,6 +239,7 @@ class InferenceEngine:
         kv_pool_pages: int | None = None,
         kv_max_parked: int = DEFAULT_MAX_PARKED,
         kv_host_bytes: int = 0,
+        grammar_slab_states: int | None = None,
     ):
         """``device`` defaults to CUDA and raises where there is none; tests
         pass ``device="cpu"``. The parameters must already live there.
@@ -243,7 +258,11 @@ class InferenceEngine:
         sizes the pool (None: the contiguous layout's footprint),
         ``kv_max_parked`` bounds parked sessions and ``kv_host_bytes``
         budgets the host swap tier (0 disables it). A dp or sp mesh
-        refuses it."""
+        refuses it.
+
+        ``grammar_slab_states`` sizes the grammar slab (None: 1024 states;
+        its edge capacity is the slab's default); structured output is off
+        until ``grammar_init`` registers the tokenizer's pieces."""
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.devices[0])
         self.devices = [self.device] if mesh is None else list(mesh.devices)
@@ -293,21 +312,42 @@ class InferenceEngine:
                                else max(0, pipeline_depth))
 
         # the step families' static inputs: host tokens, host positions (-1
-        # reads the carried position) and seeds; temperatures and top-p;
-        # the verify step's candidates and their counts; the pipeline's
-        # token and position carry
+        # reads the carried position), seeds and grammar states (-1 reads
+        # the carried state); temperatures and top-p; the verify step's
+        # candidates and their counts; the pipeline's token, position and
+        # grammar-state carry
         n = n_lanes
-        self._in_i = torch.zeros((3, n), dtype=torch.int64, device=self.device)
+        self._in_i = torch.zeros((4, n), dtype=torch.int64, device=self.device)
         self._in_f = torch.zeros((2, n), dtype=torch.float32, device=self.device)
         self._drafts = torch.zeros((n, SPEC_DRAFT + 1), dtype=torch.int64, device=self.device)
         self._dlen = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._feed = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._cpos = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._cg = torch.zeros(n, dtype=torch.int64, device=self.device)
+        # the grammar slab (grammar/slab.py) and its tables on the device:
+        # masks [S, ceil(V/32)] (uint32 words as int32), edge keys and
+        # targets [E], default targets [S]; rewritten in place when the
+        # slab's version moves, never reallocated (the graphs read them)
+        self.grammar_slab = GrammarSlab(config.vocab_size,
+                                        n_states=grammar_slab_states or DEFAULT_SLAB_STATES)
+        self._g_vocab = None  # the tokenizer's piece table (grammar_init)
+        self._g_vocab_key = None
+        self._g_eos: tuple = ()
+        self._g_tabs = tuple(torch.from_numpy(self._g_host_arrays()[i].copy()).to(self.device)
+                             for i in range(4))
+        self._g_version = self.grammar_slab.version
+        # the masked rows the sampler sorts, and the masked argmax's
+        # workspaces (one a row count; their tickets stay 0 between launches)
+        vocab = config.vocab_size
+        self._g_rows = torch.zeros((n, vocab), dtype=torch.float32, device=self.device)
+        self._g_work = {r: cuda_grammar.workspace(r, vocab, self.device)
+                        for r in (1, n, n * (SPEC_DRAFT + 1))}
         # a mesh across cards stays eager (its ranks' streams would join
         # the capture through events); one card, ranks on it included, is
         # captured
         one_card = self.device.type == "cuda" and all(d == self.device for d in self.devices)
-        self.graphs = StepGraphs(self.device, [self._feed, self._cpos]) if one_card else None
+        self.graphs = (StepGraphs(self.device, [self._feed, self._cpos, self._cg])
+                       if one_card else None)
         # pipelined ring: (kind "tok" or "spec", host readback, ready event
         # or None, t_dispatch)
         self._pl_inflight: deque = deque()
@@ -336,14 +376,17 @@ class InferenceEngine:
         least bucket at or past it."""
         return next(b for b in self.attn_buckets if b >= end)
 
-    def _fill(self, tokens, positions, temps, topps, seeds) -> None:
+    def _fill(self, tokens, positions, temps, topps, seeds, g_states) -> None:
         """Host metadata into the static inputs (tokens None: keep the
-        carry; else they reseed it: the JAX engine's ``_pl_feed``)."""
+        carry; else they reseed it: the JAX engine's ``_pl_feed``), after
+        the grammar tables are brought up to the slab."""
+        self._sync_gtab()
         n = self.n_lanes
-        ints = np.empty((3, n), np.int64)
+        ints = np.empty((4, n), np.int64)
         ints[0] = 0 if tokens is None else np.asarray(tokens, np.int64)
         ints[1] = np.asarray(positions, np.int64)
         ints[2] = np.asarray(seeds, np.int64) & MASK32
+        ints[3] = np.asarray(g_states, np.int64)
         self._in_i.copy_(self._staged(ints), non_blocking=True)
         self._in_f.copy_(self._staged(np.stack([temps, topps]), torch.float32),
                          non_blocking=True)
@@ -355,6 +398,33 @@ class InferenceEngine:
         guess at the fed token) and counts into the static inputs."""
         self._drafts.copy_(self._staged(drafts), non_blocking=True)
         self._dlen.copy_(self._staged(draft_len), non_blocking=True)
+
+    def _g_host_arrays(self) -> tuple:
+        """The slab's arrays as the device tables hold them (the masks'
+        uint32 words viewed as int32)."""
+        masks, keys, targets, defaults = self.grammar_slab.arrays()
+        return masks.view(np.int32), keys, targets, defaults
+
+    def _sync_gtab(self) -> None:
+        """Rewrite the device tables from the slab when its version moved
+        (an admission installed a schema or evicted one; the JAX engine's
+        ``_gtab``): one non-blocking copy a table from pinned memory on the
+        stream, in place, so it is ordered after every step dispatched
+        before it and before the dispatch that needs it, and the captured
+        graphs keep their pointers."""
+        if self._g_version == self.grammar_slab.version:
+            return
+        for dst, src in zip(self._g_tabs, self._g_host_arrays()):
+            dst.copy_(self._staged(src, torch.int32), non_blocking=True)
+        self._g_version = self.grammar_slab.version
+
+    def _g_vec(self, g_states, reseed: bool) -> np.ndarray:
+        """The grammar states of a pipelined dispatch: as given, else FREE
+        on a reseed (there is no carry) and -1 (the carry) when chained, so
+        an engine serving no constrained lane steps as before."""
+        if g_states is not None:
+            return np.asarray(g_states, np.int64)
+        return np.full(self.n_lanes, 0 if reseed else -1, np.int64)
 
     def _defaults(self, temps, topps, seeds):
         n = self.n_lanes
@@ -373,25 +443,38 @@ class InferenceEngine:
         )
         return logits[:, 0, :]
 
-    def _pick(self, step, positions, sample: bool):
-        """(greedy, sampled) per lane: argmax, and the nucleus draw where
-        ``sample`` (the host's "some lane samples"; the twin of the JAX
-        engine's ``lax.cond``)."""
-        greedy = torch.argmax(step, dim=-1)
+    def _pick(self, step, positions, states, sample: bool):
+        """(greedy, sampled) per lane: the argmax of the row masked by the
+        lane's grammar state, and the nucleus draw from the masked row
+        where ``sample`` (the host's "some lane samples"; the twin of the
+        JAX engine's ``lax.cond``; the JAX engine masks before both)."""
+        greedy = cuda_grammar.mask_argmax(
+            step.contiguous(), states, self._g_tabs[0],
+            masked_out=self._g_rows if sample else None, work=self._g_work[self.n_lanes])
         if not sample:
             return greedy, greedy
         temps, topps = self._in_f[0], self._in_f[1]
-        return greedy, sample_lanes(step, temps, topps, self._in_i[2], positions, greedy)
+        return greedy, sample_lanes(self._g_rows, temps, topps, self._in_i[2], positions, greedy)
+
+    def _g_next(self, states, tokens, walk: bool = False, out=None):
+        """The grammar states after ``tokens`` [R, T] (``grammar_next``)."""
+        _, keys, targets, defaults = self._g_tabs
+        return cuda_grammar.grammar_next(states, tokens, keys, targets, defaults,
+                                         self.config.vocab_size, walk=walk, out=out)
 
     def _step_body(self, sample: bool):
-        """One decode step from the static inputs: positions are the host's
-        where >= 0, else the carry; the chosen tokens and next positions
+        """One decode step from the static inputs: positions and grammar
+        states are the host's where >= 0, else the carry; the chosen
+        tokens, the next positions and the states the chosen tokens lead to
         become the carry. Returns (logits [n, vocab], [2, n] int32 greedy
         and sampled rows)."""
         pos = torch.where(self._in_i[1] < 0, self._cpos, self._in_i[1])
+        gs = torch.where(self._in_i[3] < 0, self._cg, self._in_i[3])
         step = self._forward(self._feed, pos)
-        greedy, sampled = self._pick(step, pos, sample)
-        self._feed.copy_(torch.where(self._in_f[0] == 0.0, greedy, sampled))
+        greedy, sampled = self._pick(step, pos, gs, sample)
+        chosen = torch.where(self._in_f[0] == 0.0, greedy, sampled)
+        self._feed.copy_(chosen)
+        self._g_next(gs, chosen[:, None], out=self._cg)
         self._cpos.copy_(torch.clamp(pos + 1, max=self.config.seq_len))
         return step, torch.stack([greedy, sampled]).to(torch.int32)
 
@@ -407,10 +490,22 @@ class InferenceEngine:
         above 0 (its draft count is 0). The carry becomes the token after
         the accepted prefix and pos + emitted. Returns (row 0's logits
         [n, vocab], pack [n, K + 2] int32: the emitted tokens, then their
-        count)."""
+        count).
+
+        Grammar (the JAX engine's ``_g_walk_greedy``): row t's state is the
+        lane's state advanced by the fed tokens full[:, 1..t], which do not
+        depend on the logits, so one ``grammar_next`` walk gives every
+        row's state and one masked argmax takes all n x (K + 1) rows. Along
+        the accepted prefix the fed tokens are the masked greedy ones, so
+        the walk is exact; past it the states are junk nothing reads (an
+        illegal candidate takes its state's default target, as in JAX). The
+        state carry becomes the accepted prefix's state advanced by the
+        token after it."""
         seq_len = self.config.seq_len
         k1 = SPEC_DRAFT + 1
+        n = self.n_lanes
         pos = torch.where(self._in_i[1] < 0, self._cpos, self._in_i[1])
+        gs = torch.where(self._in_i[3] < 0, self._cg, self._in_i[3])
         feed, drafts = self._feed, self._drafts
         hit0 = (drafts[:, 0] == feed) & (self._dlen > 0)
         eff = torch.where(hit0, self._dlen - 1, torch.zeros_like(self._dlen))
@@ -419,29 +514,40 @@ class InferenceEngine:
         steps = torch.arange(k1, device=pos.device)
         logits, _ = llama_forward(self.config, self.params, full, pos[:, None] + steps,
                                   self.cache, **self._forward_flags)
-        greedy = torch.argmax(logits, dim=-1)  # [n, K + 1]
+        gst = self._g_next(gs, full[:, 1:], walk=True)  # [n, K + 1]: row t's state
+        greedy = cuda_grammar.mask_argmax(
+            logits.reshape(n * k1, -1).contiguous(), gst.reshape(-1), self._g_tabs[0],
+            masked_out=self._g_rows if sample else None, masked_every=k1,
+            work=self._g_work[n * k1]).view(n, k1)
         match = (full[:, 1:] == greedy[:, :-1]).to(torch.int64)
         lead = torch.cumprod(match, dim=1)
         accepted = (lead * (steps[None, :-1] < eff[:, None])).sum(dim=1)
         n_emit = accepted + 1
         row0 = logits[:, 0, :]
-        _, sampled0 = self._pick(row0, pos, sample)
+        sampled0 = greedy[:, 0]
+        if sample:  # row 0's masked rows, written by the masked argmax
+            sampled0 = sample_lanes(self._g_rows, self._in_f[0], self._in_f[1], self._in_i[2],
+                                    pos, greedy[:, 0])
         emitted = torch.cat([torch.where(self._in_f[0] > 0.0, sampled0, greedy[:, 0])[:, None],
                              greedy[:, 1:]], dim=1)
-        self._feed.copy_(emitted.gather(1, (n_emit - 1)[:, None])[:, 0])
+        nxt = emitted.gather(1, (n_emit - 1)[:, None])
+        self._feed.copy_(nxt[:, 0])
+        self._g_next(gst.gather(1, accepted[:, None])[:, 0], nxt, out=self._cg)
         self._cpos.copy_(torch.clamp(pos + n_emit, max=seq_len))
         return row0, torch.cat([emitted, n_emit[:, None]], dim=1).to(torch.int32)
 
     def _multi_body(self, h: int, sample: bool):
         """h chained steps: each lane feeds its greedy token at temperature
-        0, else its draw, at position + 1. Returns chosen [h, n] int32."""
-        tok, pos = self._feed, self._in_i[1]
+        0, else its draw, at position + 1, its grammar state advanced by
+        it. Returns chosen [h, n] int32."""
+        tok, pos, g = self._feed, self._in_i[1], self._in_i[3]
         chosen = []
         for _ in range(h):
             step = self._forward(tok, pos)
-            greedy, sampled = self._pick(step, pos, sample)
+            greedy, sampled = self._pick(step, pos, g, sample)
             tok = torch.where(self._in_f[0] == 0.0, greedy, sampled)
             chosen.append(tok)
+            g = self._g_next(g, tok[:, None])
             pos = pos + 1
         return torch.stack(chosen).to(torch.int32)
 
@@ -484,9 +590,11 @@ class InferenceEngine:
                                    ("multi", sample))
 
     def _prefill_half(self, lane: int, chunk: list[int], start_pos: int,
-                      temp: float, topp: float, seed: int):
+                      temp: float, topp: float, seed: int, g_state: int):
         """One bucketed prompt chunk on one lane's cache, and its boundary
-        token: (last logits [vocab], greedy, sampled) as device tensors."""
+        token, picked from the last row masked by grammar state
+        ``g_state`` (the admitting request's start state; 0 = FREE):
+        (last logits [vocab], greedy, sampled) as device tensors."""
         n = len(chunk)
         bucket = self.bucket_for(n)
         padded = np.zeros(bucket, np.int64)
@@ -499,14 +607,19 @@ class InferenceEngine:
             logit_rows=self._upload([n - 1]), **self._forward_flags,
         )
         last = logits[0, 0]
-        greedy = torch.argmax(last)
+        self._sync_gtab()
+        masked = (torch.empty((1, last.shape[0]), dtype=torch.float32, device=last.device)
+                  if temp > 0.0 else None)
+        greedy = cuda_grammar.mask_argmax(last[None].contiguous(), self._upload([g_state]),
+                                          self._g_tabs[0], masked_out=masked,
+                                          work=self._g_work[1])
         sampled = greedy
         if temp > 0.0:  # a greedy admission skips the sampler
             sampled = sample_lanes(
-                last[None], self._upload([temp], torch.float32),
+                masked, self._upload([temp], torch.float32),
                 self._upload([topp], torch.float32), self._upload([seed & MASK32]),
-                self._upload([start_pos + n - 1]), greedy[None])[0]
-        return last, greedy, sampled
+                self._upload([start_pos + n - 1]), greedy)
+        return last, greedy[0], sampled[0]
 
     def _validate_chunk(self, chunk, start_pos: int) -> None:
         if not chunk:
@@ -532,16 +645,19 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def prefill_chunk(self, lane: int, chunk: list[int], start_pos: int,
-                      temp: float = 0.0, topp: float = DEFAULT_TOPP, seed: int = 0):
+                      temp: float = 0.0, topp: float = DEFAULT_TOPP, seed: int = 0,
+                      g_state: int = 0):
         """One bucketed prompt chunk for one lane. Returns (last_logits
         [vocab] device tensor, greedy_token int, sampled_token int — equals
-        greedy at temp 0)."""
+        greedy at temp 0); both tokens are picked under grammar state
+        ``g_state`` (the request's start state on its final chunk)."""
         self._validate_chunk(chunk, start_pos)
         if not 0 <= lane < self.n_lanes:
             raise ValueError(f"lane {lane} out of range")
         faults.fire("engine.dispatch")
         t0 = time.perf_counter()
-        last, greedy, sampled = self._prefill_half(lane, chunk, start_pos, temp, topp, seed)
+        last, greedy, sampled = self._prefill_half(lane, chunk, start_pos, temp, topp, seed,
+                                                   g_state)
         toks = torch.stack([greedy, sampled]).to(torch.int32).cpu()
         with self.stats.lock:
             self.stats.host_bytes_in += toks.numel() * 4
@@ -550,7 +666,8 @@ class InferenceEngine:
         return last, int(toks[0]), int(toks[1])
 
     def prefill(self, lane: int, tokens: list[int], start_pos: int = 0,
-                temp: float = 0.0, topp: float = DEFAULT_TOPP, seed: int = 0):
+                temp: float = 0.0, topp: float = DEFAULT_TOPP, seed: int = 0,
+                g_state: int = 0):
         """A whole prompt on one lane in bucketed chunks. Returns
         (last_logits [vocab], greedy_token int, total_positions)."""
         if not tokens:
@@ -562,7 +679,7 @@ class InferenceEngine:
             chunk = remaining[: self.max_chunk()]
             remaining = remaining[len(chunk):]
             last, greedy, _ = self.prefill_chunk(
-                lane, chunk, pos, temp=temp, topp=topp, seed=seed)
+                lane, chunk, pos, temp=temp, topp=topp, seed=seed, g_state=g_state)
             pos += len(chunk)
         return last, greedy, pos
 
@@ -573,12 +690,13 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode(self, tokens, positions, temps=None, topps=None, seeds=None,
-               want_logits: bool = True):
+               want_logits: bool = True, g_states=None):
         """One decode step for all lanes. tokens/positions: int [n_lanes]
-        (idle lanes at seq_len: their KV write lands in the scratch slot).
-        Returns (logits [n_lanes, vocab] device tensor or None, greedy
-        np[n_lanes], sampled np[n_lanes] — equals greedy where temp 0), the
-        pair in one [2, n] readback."""
+        (idle lanes at seq_len: their KV write lands in the scratch slot);
+        ``g_states``: each lane's grammar state (None: all FREE).
+        Returns (logits [n_lanes, vocab] device tensor or None, the unmasked
+        rows; greedy np[n_lanes], sampled np[n_lanes] — equals greedy where
+        temp 0), the pair in one [2, n] readback."""
         self._check_sync()
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         positions = np.asarray(positions, np.int64)
@@ -587,7 +705,7 @@ class InferenceEngine:
         faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
-        self._fill(tokens, positions, temps, topps, seeds)
+        self._fill(tokens, positions, temps, topps, seeds, self._g_vec(g_states, True))
         step, packed = self._run_step(bool(np.any(temps > 0)))
         toks = packed.cpu().numpy()
         with self.stats.lock:
@@ -599,7 +717,7 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode_multi(self, tokens, positions, temps=None, topps=None, seeds=None,
-                     h: int = 8) -> np.ndarray:
+                     h: int = 8, g_states=None) -> np.ndarray:
         """``h`` chained decode steps for all lanes in one dispatch. Per
         lane and step the feed is its greedy token at temperature 0, else
         its draw (the same fold_in(seed, pos) draw h single steps make), at
@@ -607,7 +725,8 @@ class InferenceEngine:
         after step j. The caller consumes its next token plus chosen[:h-1]
         and adopts chosen[h-1]; steps past a lane's stop write junk KV above
         its committed tokens, rewritten before any query reads it; steps
-        past seq_len write the scratch slot."""
+        past seq_len write the scratch slot. ``g_states`` (None: all FREE)
+        thread the steps as the position does."""
         self._check_sync()
         if h < 1:
             raise ValueError(f"horizon {h} < 1")
@@ -618,7 +737,7 @@ class InferenceEngine:
         faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
-        self._fill(tokens, positions, temps, topps, seeds)
+        self._fill(tokens, positions, temps, topps, seeds, self._g_vec(g_states, True))
         chosen = self._run_multi(h, bool(np.any(temps > 0))).cpu().numpy()
         with self.stats.lock:
             self.stats.host_bytes_in += chosen.nbytes
@@ -631,7 +750,7 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode_spec(self, tokens, drafts, draft_len, positions, temps=None, topps=None,
-                    seeds=None, want_logits: bool = True):
+                    seeds=None, want_logits: bool = True, g_states=None):
         """One speculative verify step for all lanes: each lane's next token
         plus up to SPEC_DRAFT drafted continuations in one forward.
         tokens/positions/draft_len: int [n_lanes]; drafts: [n_lanes,
@@ -641,7 +760,8 @@ class InferenceEngine:
         token. Per lane, draft_len <= seq_len - positions - 1 (the step
         clamps it there too). Returns (logits [n, vocab] of each lane's
         first row, device tensor, or None; emitted np[n, K + 1]; n_emit
-        np[n]), the pack in one readback."""
+        np[n]), the pack in one readback. ``g_states`` (None: all FREE)
+        walk the window: each row's greedy is the masked one."""
         self._check_sync()
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         n = self.n_lanes
@@ -655,7 +775,7 @@ class InferenceEngine:
         faults.fire("engine.dispatch")
         t0 = time.perf_counter()
         hop_bytes = ring_counts()["ring_hop_bytes"]
-        self._fill(tokens, positions, temps, topps, seeds)
+        self._fill(tokens, positions, temps, topps, seeds, self._g_vec(g_states, True))
         # the synchronous form of the in-chain step: candidate 0 is the fed token
         self._fill_drafts(np.concatenate([np.asarray(tokens, np.int64)[:, None], drafts], 1),
                           np.where(draft_len > 0, draft_len + 1, 0))
@@ -681,7 +801,7 @@ class InferenceEngine:
         carry): direct decode callers must flush first."""
         return len(self._pl_inflight) > 0 or self._pl_seeded
 
-    def check_pipelined_dispatch(self, reseed: bool, positions=None) -> None:
+    def check_pipelined_dispatch(self, reseed: bool, positions=None, g_states=None) -> None:
         """Raise every host-side error a pipelined dispatch would, without
         dispatching."""
         if reseed and positions is not None and int(np.min(positions)) < 0:
@@ -689,6 +809,12 @@ class InferenceEngine:
                 "reseed dispatch with a -1 position: the carried-position "
                 "select has no carry to read on a reseed — pass real "
                 "positions for every lane"
+            )
+        if reseed and g_states is not None and int(np.min(g_states)) < 0:
+            raise ValueError(
+                "reseed dispatch with a -1 grammar state: the carried-"
+                "state select has no carry to read on a reseed — pass "
+                "real states (0 = unconstrained) for every lane"
             )
         if len(self._pl_inflight) >= max(1, self.pipeline_depth):
             raise RuntimeError(
@@ -702,12 +828,12 @@ class InferenceEngine:
             )
 
     def check_fused_dispatch(self, chunk, p_start: int, reseed: bool,
-                             positions=None) -> None:
+                             positions=None, g_states=None) -> None:
         """``check_pipelined_dispatch`` plus the prompt chunk's bounds."""
         if not chunk:
             raise ValueError("fused prefill needs a non-empty prompt chunk")
         self._validate_chunk(chunk, p_start)
-        self.check_pipelined_dispatch(reseed, positions)
+        self.check_pipelined_dispatch(reseed, positions, g_states)
 
     def check_spec_drafts(self, drafts) -> None:
         """The in-chain verify step's draft shape, in one place."""
@@ -717,19 +843,21 @@ class InferenceEngine:
             raise ValueError(f"spec drafts shape {shape} != {want} (SPEC_DRAFT + 1 columns: "
                              "candidate 0 is the host's guess at the carry token itself)")
 
-    def check_spec_pipelined_dispatch(self, drafts, reseed: bool, positions=None) -> None:
+    def check_spec_pipelined_dispatch(self, drafts, reseed: bool, positions=None,
+                                      g_states=None) -> None:
         """``check_pipelined_dispatch`` plus the draft shape."""
         self.check_spec_drafts(drafts)
-        self.check_pipelined_dispatch(reseed, positions)
+        self.check_pipelined_dispatch(reseed, positions, g_states)
 
-    def _dispatch_step(self, positions, temps, topps, seeds, tokens, drafts=None,
+    def _dispatch_step(self, positions, temps, topps, seeds, tokens, g_states, drafts=None,
                        draft_len=None):
         """Fill the static inputs and run one step of the chain (the verify
         step where ``drafts`` are given); returns the step's int32 output,
         [2, n] or the [n, K + 2] pack (static on the card: read it before
         the next replay)."""
         hop_bytes = ring_counts()["ring_hop_bytes"]
-        self._fill(tokens, positions, temps, topps, seeds)
+        self._fill(tokens, positions, temps, topps, seeds,
+                   self._g_vec(g_states, tokens is not None))
         sample = bool(np.any(temps > 0))
         if drafts is None:
             _, packed = self._run_step(sample)
@@ -763,7 +891,7 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode_pipelined(self, positions, temps=None, topps=None, seeds=None,
-                         tokens=None) -> None:
+                         tokens=None, g_states=None) -> None:
         """Dispatch ONE pipelined decode step and return without reading
         anything back. ``tokens=None`` feeds the device carry (the previous
         step's where(temp == 0, greedy, sampled)); host ``tokens`` reseed
@@ -771,44 +899,52 @@ class InferenceEngine:
         (parked or admitting lanes at seq_len, every lane on a reseed).
         The ring holds at most ``pipeline_depth`` steps: consume the oldest
         before dispatching past it. Steps dispatched after a lane's
-        not-yet-read stop write junk KV above its committed tokens."""
+        not-yet-read stop write junk KV above its committed tokens.
+        ``g_states`` follow the positions' rule (-1 reads the state carry;
+        None: FREE on a reseed, the carry when chained)."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
-        self.check_pipelined_dispatch(tokens is not None, positions)
+        self.check_pipelined_dispatch(tokens is not None, positions, g_states)
         faults.fire("engine.dispatch")
-        self._enqueue(self._dispatch_step(positions, temps, topps, seeds, tokens))
+        self._enqueue(self._dispatch_step(positions, temps, topps, seeds, tokens, g_states))
 
     @torch.inference_mode()
     def decode_prefill_fused(self, positions, temps=None, topps=None, seeds=None,
                              p_lane: int = 0, chunk: list[int] | None = None,
                              p_start: int = 0, p_temp: float = 0.0,
                              p_topp: float = DEFAULT_TOPP, p_seed: int = 0,
-                             tokens=None) -> None:
+                             tokens=None, g_states=None, p_g: int = 0) -> None:
         """Dispatch one fused step into the ring: lane ``p_lane`` takes one
-        prompt chunk (``prefill_chunk``'s math) and every lane takes one
-        pipelined decode step (``decode_pipelined``'s, with the admitting
-        lane parked at seq_len by the caller). The carry slot of ``p_lane``
-        becomes the chunk's boundary token and its position the chunk's
-        end, so after the final chunk the next dispatch feeds the admitted
-        lane from the device. The readback is [2, n+1], the extra column
-        the boundary greedy/sampled pair."""
+        prompt chunk (``prefill_chunk``'s math, its boundary token picked
+        under grammar state ``p_g``) and every lane takes one pipelined
+        decode step (``decode_pipelined``'s, with the admitting lane parked
+        at seq_len by the caller). The carry slot of ``p_lane`` becomes the
+        chunk's boundary token, its position the chunk's end and its
+        grammar state ``p_g`` advanced by the boundary token, so after the
+        final chunk the next dispatch feeds the admitted lane from the
+        device. The readback is [2, n+1], the extra column the boundary
+        greedy/sampled pair."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
-        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions, g_states)
         faults.fire("engine.dispatch")
         self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
-                    p_seed, tokens)
+                    p_seed, tokens, g_states, p_g)
 
     def _fused(self, positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp,
-               p_topp, p_seed, tokens, drafts=None, draft_len=None) -> None:
+               p_topp, p_seed, tokens, g_states, p_g, drafts=None, draft_len=None) -> None:
         """A fused dispatch: the prompt chunk, then the chain's step (the
         verify step where ``drafts`` are given); the admitting lane's carry
-        becomes the chunk's boundary token at the chunk's end, and the
-        boundary greedy/sampled pair rides the readback (an extra column of
-        a [2, n] step, an extra row of a verify pack)."""
+        becomes the chunk's boundary token at the chunk's end with grammar
+        state ``p_g`` advanced by it, and the boundary greedy/sampled pair
+        rides the readback (an extra column of a [2, n] step, an extra row
+        of a verify pack)."""
         _, p_greedy, p_sampled = self._prefill_half(p_lane, chunk, p_start, p_temp,
-                                                    p_topp, p_seed)
-        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, drafts, draft_len)
+                                                    p_topp, p_seed, p_g)
+        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, g_states, drafts,
+                                     draft_len)
         end = p_start + len(chunk)
-        self._feed[p_lane:p_lane + 1].copy_((p_greedy if p_temp == 0.0 else p_sampled)[None])
+        p_first = (p_greedy if p_temp == 0.0 else p_sampled)[None]
+        self._feed[p_lane:p_lane + 1].copy_(p_first)
+        self._g_next(self._upload([p_g]), p_first[:, None], out=self._cg[p_lane:p_lane + 1])
         self._cpos[p_lane:p_lane + 1].fill_(end)
         pair = torch.stack([p_greedy, p_sampled]).to(torch.int32)
         if drafts is None:
@@ -824,7 +960,7 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode_spec_pipelined(self, positions, drafts, draft_len, temps=None, topps=None,
-                              seeds=None, tokens=None) -> None:
+                              seeds=None, tokens=None, g_states=None) -> None:
         """Dispatch ONE speculative verify step into the pipelined ring (the
         JAX engine's zero-flush composition of ``decode_spec`` and
         ``decode_pipelined``): the drafts are verified against the device's
@@ -835,12 +971,14 @@ class InferenceEngine:
         device; on a reseed it ships the feed), checked on the device
         before the rest count; ``draft_len`` counts the candidates with
         column 0, so a lane needs 2 or more to accept anything. Positions
-        as in ``decode_pipelined`` (-1 reads the carry); the draft clamp
-        near seq_len is on the device, from the carried positions."""
+        as in ``decode_pipelined`` (-1 reads the carry), grammar states too;
+        the draft clamp near seq_len is on the device, from the carried
+        positions."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
-        self.check_spec_pipelined_dispatch(drafts, tokens is not None, positions)
+        self.check_spec_pipelined_dispatch(drafts, tokens is not None, positions, g_states)
         faults.fire("engine.dispatch")
-        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, drafts, draft_len)
+        packed = self._dispatch_step(positions, temps, topps, seeds, tokens, g_states, drafts,
+                                     draft_len)
         self._enqueue(packed, kind="spec")
 
     @torch.inference_mode()
@@ -848,17 +986,17 @@ class InferenceEngine:
                                   seeds=None, p_lane: int = 0, chunk: list[int] | None = None,
                                   p_start: int = 0, p_temp: float = 0.0,
                                   p_topp: float = DEFAULT_TOPP, p_seed: int = 0,
-                                  tokens=None) -> None:
+                                  tokens=None, g_states=None, p_g: int = 0) -> None:
         """``decode_spec_pipelined`` that also takes one prompt chunk for lane
-        ``p_lane`` (``decode_prefill_fused``'s contract). The readback is
-        [n + 1, K + 2], the boundary greedy/sampled pair in the extra
-        row's first two columns."""
+        ``p_lane`` (``decode_prefill_fused``'s contract, ``p_g`` included).
+        The readback is [n + 1, K + 2], the boundary greedy/sampled pair in
+        the extra row's first two columns."""
         temps, topps, seeds = self._defaults(temps, topps, seeds)
         self.check_spec_drafts(drafts)
-        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions)
+        self.check_fused_dispatch(chunk, p_start, tokens is not None, positions, g_states)
         faults.fire("engine.dispatch")
         self._fused(positions, temps, topps, seeds, p_lane, chunk, p_start, p_temp, p_topp,
-                    p_seed, tokens, drafts, draft_len)
+                    p_seed, tokens, g_states, p_g, drafts, draft_len)
 
     def pipeline_consume(self):
         """Blocking readback of the OLDEST in-flight step, waiting on its
@@ -977,6 +1115,58 @@ class InferenceEngine:
         with self.stats.lock:
             self.stats.host_bytes_in += 4
         return int(tok[0])
+
+    # -- grammar-constrained decoding (grammar/) -------------------------------
+
+    @property
+    def supports_grammar(self) -> bool:
+        """True once ``grammar_init`` registered a piece table: the scheduler
+        gates ``response_format`` requests on it."""
+        return self._g_vocab is not None
+
+    def grammar_init(self, token_table, eos_ids) -> None:
+        """Register the tokenizer's piece table (raw bytes per token id, None
+        for special tokens) and EOS ids, what the automaton compiler walks.
+        Model vocab padding beyond the table compiles as illegal everywhere.
+        Without this call ``response_format`` requests are refused (the
+        --grammar off escape hatch)."""
+        from ..grammar.automaton import vocab_fingerprint
+
+        table = list(token_table)[: self.config.vocab_size]
+        table += [None] * (self.config.vocab_size - len(table))
+        self._g_vocab = table
+        self._g_vocab_key = vocab_fingerprint(table)
+        self._g_eos = tuple(int(e) for e in eos_ids)
+
+    def grammar_attach(self, rf: dict):
+        """Compile ``response_format`` (cached per vocab and schema) and
+        install it into the slab; returns the ``SlabHandle`` whose
+        ``start_state`` seeds the lane's state. Raises ``GrammarError`` (a
+        ``ValueError``: a 400) on a bad schema or when structured output is
+        off, and ``GrammarSlabFull`` when live schemas fill the slab (load:
+        the scheduler sheds it retryably). The device tables follow at the
+        next dispatch."""
+        if self._g_vocab is None:
+            raise ValueError(
+                "structured output is disabled on this engine "
+                "(--grammar off, or no tokenizer vocab registered)"
+            )
+        from ..grammar.automaton import compile_automaton
+
+        auto = compile_automaton(rf, self._g_vocab, self._g_eos, vocab_key=self._g_vocab_key)
+        handle = self.grammar_slab.attach(auto)
+        with self.stats.lock:
+            self.stats.grammar_lanes += 1
+        return handle
+
+    def grammar_detach(self, key: str) -> None:
+        """Release one attach reference (the tables park for the next
+        same-schema admission; evicted only under slab pressure)."""
+        self.grammar_slab.detach(key)
+
+    def grammar_stats(self) -> dict:
+        """The slab's pressure for /stats; {} when structured output is off."""
+        return self.grammar_slab.stats() if self._g_vocab is not None else {}
 
     def reset_lane(self, lane: int) -> None:
         """Nothing to clear: a new request's prefill rewrites the lane from

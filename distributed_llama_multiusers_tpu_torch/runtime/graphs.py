@@ -12,10 +12,10 @@ A body reads its inputs from static buffers the engine fills with ``copy_``
 before each replay and returns static outputs, which replays overwrite, so
 callers copy what they keep on the stream right after the replay. The
 launch counters the kernels' wrappers bump in Python (Q40 kernels, the
-ring step, the sampler, the attention) do not move under a replay, so
-each graph records its body's deltas at capture and adds them on every
-replay: the counts
-stay those of the launches the card ran.
+ring step, the sampler, the attention, the grammar mask and step) do not
+move under a replay, so each graph records its body's deltas at capture
+and adds them on every replay: the counts stay those of the launches the
+card ran.
 
 A key's first step runs its body eagerly and then captures it, so every
 kernel library is loaded before a capture meets it; the capture stream's
@@ -40,7 +40,7 @@ import time
 import torch
 
 from ..analysis import jitcheck
-from ..ops import cuda_attn, cuda_q40, cuda_sample, ring_collective
+from ..ops import cuda_attn, cuda_grammar, cuda_q40, cuda_sample, ring_collective
 
 
 def _counters() -> dict:
@@ -51,12 +51,14 @@ def _counters() -> dict:
         "sample": {"launches": cuda_sample.COUNTS["launches"]},
         "attn": {k: cuda_attn.COUNTS[k] for k in ("launches", "window_launches")},
         "attn_paged": dict(cuda_attn.PAGED_COUNTS),
+        "grammar": {k: cuda_grammar.COUNTS[k]
+                    for k in ("mask_argmax_launches", "next_launches")},
     }
 
 
 _ADD = {"q40": cuda_q40.add_launches, "ring": ring_collective.add_counts,
         "sample": cuda_sample.add_counts, "attn": cuda_attn.add_counts,
-        "attn_paged": cuda_attn.add_paged_counts}
+        "attn_paged": cuda_attn.add_paged_counts, "grammar": cuda_grammar.add_counts}
 
 
 def _delta(after: dict, before: dict) -> dict:

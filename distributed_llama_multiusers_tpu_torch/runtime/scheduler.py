@@ -44,7 +44,14 @@ prefix cache is the pool's ref-counted prefix tree instead: an admission
 reserves its pages (prompt + max_tokens + 1) and maps the shared whole
 chunks' pages copy-free, its prompt blocks are committed as they are
 written, a finished session parks them, and an exhausted pool sheds the
-request with a typed retryable 429. Grammar is later work.
+request with a typed retryable 429. A request with a ``response_format``
+(structured output, ``grammar/``) attaches its compiled automaton at
+admission, before the admit record; its lane's state rides every dispatch
+beside the positions (the device carry when chained, the host mirror on a
+reseed and on the synchronous paths), the host mirror follows every
+consumed token and trims drafts the mask would reject, and the automaton
+detaches when the request ends. A slab full of live schemas sheds with a
+typed retryable 429 (``grammar_slab_full``).
 """
 
 from __future__ import annotations
@@ -161,6 +168,11 @@ class Request:
     # request is a journal replay (its original id and resolved seed)
     api_kind: str | None = None
     recovered: bool = False
+    # structured output (grammar/): {"type": "json_object"} or {"type":
+    # "json_schema", ...}, compiled into a token-level automaton at
+    # admission and enforced on the card; None = unconstrained. Journaled,
+    # so a replay rebuilds the same automaton from (prompt, seed, schema)
+    response_format: dict | None = None
     id: int = field(default_factory=_next_request_id)
     state: RequestState = RequestState.QUEUED
     future: Future = field(default_factory=Future)
@@ -207,6 +219,13 @@ class _Lane:
     seed: int = 0
     # committed (prompt + consumed) tokens and their draft index
     drafter: NgramDraftIndex = field(default_factory=NgramDraftIndex)
+    # structured output: the attached slab handle (None = unconstrained)
+    # and the host mirror of the lane's automaton state (an absolute slab
+    # id), advanced by every new token the host consumes: exact on the
+    # synchronous paths, one ring behind on the pipelined chain, where the
+    # device carry is authoritative and the mirror only trims drafts
+    grammar: object = None
+    g_state: int = 0
 
 
 class ContinuousBatchingScheduler:
@@ -432,6 +451,7 @@ class ContinuousBatchingScheduler:
             budget_s=entry.budget_s,
             trace=entry.trace,
             api_kind=entry.kind,
+            response_format=entry.response_format,
             recovered=True,
             id=entry.request_id,
         )
@@ -477,6 +497,11 @@ class ContinuousBatchingScheduler:
         if self.recovery is not None:
             out.update(self.recovery.stats())
         out.update(self.queue.stats())
+        # the grammar slab's pressure (schemas installed and live, states
+        # used), bridged to /metrics like every field
+        gram = getattr(self.engine, "grammar_stats", None)
+        if callable(gram):
+            out.update(gram())
         return out
 
     def _on_watchdog_trip(self, waited_s: float) -> None:
@@ -520,6 +545,7 @@ class ContinuousBatchingScheduler:
         req.error = error
         req.finish_reason = "error"
         self._session_records.pop(req.id, None)
+        self._grammar_release(self._lanes[lane_idx])
         self._lanes[lane_idx] = _Lane()
         self._lane_kv[lane_idx] = []
         try:
@@ -560,6 +586,41 @@ class ContinuousBatchingScheduler:
         (the failure path). A no-op on the contiguous layout."""
         if self._paged():
             self.engine.paged_finish(lane_idx, park=park)
+
+    def _grammar_release(self, lane: _Lane) -> None:
+        """Detach a lane's automaton at request end (its tables park in the
+        slab for the next same-schema admission). Never raises: the
+        containment paths call it too."""
+        if lane.grammar is not None:
+            try:
+                self.engine.grammar_detach(lane.grammar.key)
+            except Exception:  # noqa: BLE001 — release must not throw
+                pass
+
+    def _g_adv(self, lane: _Lane, tok: int) -> None:
+        """Advance a constrained lane's host mirror by one new token: called
+        once per new token, so the mirror equals the device carry on the
+        synchronous paths and trails it by the ring on the pipelined chain
+        (where it only trims drafts)."""
+        if lane.grammar is not None:
+            lane.g_state = lane.grammar.next_state(lane.g_state, tok)
+
+    def _g_states_sync(self, active) -> np.ndarray | None:
+        """The grammar states of a synchronous dispatch (the exact host
+        mirror), or None when no lane is constrained (the engine's all-FREE
+        default); a constrained dispatch counts a masked step."""
+        constrained = [(i, lane) for i, lane in active if lane.grammar is not None]
+        if not constrained:
+            return None
+        gs = np.zeros(self.engine.n_lanes, np.int64)
+        for i, lane in constrained:
+            gs[i] = lane.g_state
+        self._count_masked_step()
+        return gs
+
+    def _count_masked_step(self) -> None:
+        with self.engine.stats.lock:
+            self.engine.stats.grammar_masked_steps += 1
 
     def _sweep_queue(self, now: float) -> None:
         """Resolve queued requests that expired or were cancelled while
@@ -703,6 +764,19 @@ class ContinuousBatchingScheduler:
         lane.pending = list(tokens[start:])
         lane.drafter = NgramDraftIndex(tokens)  # seeded with the prompt
         lane.seed = (req.seed if req.seed is not None else fresh_seed()) & 0xFFFFFFFF
+        # structured output: compile and attach the automaton before the
+        # admit record, so a schema that fails leaves nothing to recover. A
+        # bad schema (or an engine without grammar) raises the ValueError
+        # family, a 400; a slab full of live schemas sheds retryably
+        if req.response_format is not None:
+            from ..grammar.slab import GrammarSlabFull
+
+            try:
+                lane.grammar = self.engine.grammar_attach(req.response_format)
+            except GrammarSlabFull as e:
+                self.queue.note_rejection("grammar_slab_full")
+                raise AdmissionRejected("grammar_slab_full", retry_after_s=1.0) from e
+            lane.g_state = lane.grammar.start_state
         stops = list(req.stop) or self._chat_stops.stops
         lane.eos = EosDetector(self.tokenizer.eos_token_ids, stops,
                                self.eos_padding[0], self.eos_padding[1])
@@ -718,7 +792,7 @@ class ContinuousBatchingScheduler:
             user=req.user_id, priority=int(req.priority),
             queue_timeout_s=req.queue_timeout_s, budget_s=req.budget_s,
             stream=req.on_delta is not None, kind=req.api_kind,
-            response_format=None, trace=req.trace,
+            response_format=req.response_format, trace=req.trace,
         )
         self._session_records[req.id] = (admit_record(**admit_kw), req)
         if self.journal is not None:
@@ -743,9 +817,11 @@ class ContinuousBatchingScheduler:
         if wd is not None:
             wd.begin_step()
         try:
+            # the boundary token (on the final chunk the first generated
+            # one) is picked under the automaton's start state
             _, greedy, sampled = self.engine.prefill_chunk(
                 lane_idx, chunk, lane.pos, temp=req.temperature, topp=req.topp,
-                seed=lane.seed,
+                seed=lane.seed, g_state=lane.g_state,
             )
         except Exception as e:
             # an engine raise goes to the containment boundary (which fails
@@ -767,6 +843,7 @@ class ContinuousBatchingScheduler:
         if lane.pending:
             return True
         lane.next_token = int(greedy) if req.temperature == 0.0 else int(sampled)
+        self._g_adv(lane, lane.next_token)
         req.state = RequestState.GENERATING
         return True
 
@@ -817,6 +894,7 @@ class ContinuousBatchingScheduler:
             req.generated_text += delta
             if req.on_delta:
                 req.on_delta(delta)
+        self._grammar_release(self._lanes[lane_idx])
         self._lanes[lane_idx] = _Lane()
         # paged: the finished session parks its tree-registered blocks
         # (resident for later sharing, LRU-bounded); its tail frees now
@@ -1034,11 +1112,22 @@ class ContinuousBatchingScheduler:
         temps = np.zeros(n_lanes, np.float32)
         topps = np.full(n_lanes, DEFAULT_TOPP, np.float32)
         seeds = np.zeros(n_lanes, np.uint32)
+        # grammar states ride the dispatch like positions: -1 the device
+        # carry (authoritative in the chain), the host mirror on a reseed
+        # (the ring is empty: the mirror is exact), 0 (FREE) for idle and
+        # admitting lanes (an admitting lane's state enters as p_g below).
+        # The mirror never feeds a chained dispatch
+        g_any = any(lane.grammar is not None for lane in (*live.values(), *admitting.values()))
+        gs = np.zeros(n_lanes, np.int64) if g_any else None
         for i, lane in live.items():
             positions[i] = min(lane.pos, seq_len) if reseed else -1
+            if gs is not None:
+                gs[i] = lane.g_state if reseed else -1
             temps[i] = lane.request.temperature
             topps[i] = lane.request.topp
             seeds[i] = lane.seed
+        if g_any:
+            self._count_masked_step()
         drafts = draft_len = None
         drafted: dict[int, bool] = {}
         if spec_ok:
@@ -1053,6 +1142,14 @@ class ContinuousBatchingScheduler:
                 # step in flight, whose output the first continuation guesses
                 d = ([nt] + lane.drafter.draft(nt, spec_k) if reseed
                      else lane.drafter.draft(nt, spec_k + 1))
+                if lane.grammar is not None and d:
+                    # a candidate the mask would reject is not proposed: on
+                    # a reseed the mirror is exact (nt counted in it);
+                    # chained it trails the device by the step in flight,
+                    # so the trim is approximate and harmless (the device
+                    # verifies exactly)
+                    d = (d[:1 + lane.grammar.filter_prefix(lane.g_state, d[1:])] if reseed
+                         else d[:lane.grammar.filter_prefix(lane.g_state, d)])
                 if len(d) >= 2:  # candidate 0 alone cannot accept anything
                     if drafts is None:
                         drafts = np.zeros((n_lanes, spec_k + 1), np.int64)
@@ -1063,18 +1160,22 @@ class ContinuousBatchingScheduler:
         spec_drafted = drafted if drafts is not None else None
         if not admitting:
             if drafts is None:
-                engine.decode_pipelined(positions, temps, topps, seeds, tokens=feed)
+                engine.decode_pipelined(positions, temps, topps, seeds, tokens=feed, g_states=gs)
             else:
                 engine.decode_spec_pipelined(positions, drafts, draft_len, temps, topps, seeds,
-                                             tokens=feed)
+                                             tokens=feed, g_states=gs)
             return None, spec_drafted
         target = min(admitting, key=lambda i: (i - self._prefill_rr) % n_lanes)
         self._prefill_rr = (target + 1) % n_lanes
         lane = admitting[target]
         req = lane.request
         chunk = lane.pending[: engine.max_chunk()]
+        # the boundary token is picked under the admitting automaton's start
+        # state (lane.g_state until its first token): junk for a chunk mid-
+        # prompt, the first generated token's state on the final one
         prompt = dict(p_lane=target, chunk=chunk, p_start=lane.pos, p_temp=req.temperature,
-                      p_topp=req.topp, p_seed=lane.seed, tokens=feed)
+                      p_topp=req.topp, p_seed=lane.seed, tokens=feed, g_states=gs,
+                      p_g=lane.g_state)
         if drafts is None:
             engine.decode_prefill_fused(positions, temps, topps, seeds, **prompt)
         else:  # an admitting chunk and a verify step share the dispatch
@@ -1090,8 +1191,12 @@ class ContinuousBatchingScheduler:
         """A verify step's commit for one lane: next_token and the accepted
         tokens (the plain-decode stream, by the verification identity),
         then the model's token after them becomes the next token. Drafted
-        lanes that consumed anything feed the acceptance counters. Returns
-        False when the lane finished."""
+        lanes that consumed anything feed the acceptance counters, and a
+        constrained lane's mirror advances by the window's new tokens (the
+        last is the next token). Returns False when the lane finished."""
+        if lane.grammar is not None:
+            for t in emitted[:cnt]:
+                self._g_adv(lane, int(t))
         seq = [lane.next_token] + [int(t) for t in emitted[:cnt - 1]]
         n_fed = 0
         alive = True
@@ -1164,6 +1269,7 @@ class ContinuousBatchingScheduler:
                 continue
             # the token this lane fed into the next in-flight step
             lane.next_token = int(out_a[i]) if req.temperature == 0.0 else int(out_b[i])
+            self._g_adv(lane, lane.next_token)
         if fused is not None:
             i, lane, final, _ = fused
             if final and live.get(i) is lane:
@@ -1172,6 +1278,8 @@ class ContinuousBatchingScheduler:
                 greedy, sampled = ((int(out_a[-1, 0]), int(out_a[-1, 1])) if is_spec
                                    else (int(out_a[-1]), int(out_b[-1])))
                 lane.next_token = greedy if req.temperature == 0.0 else sampled
+                # the mirror: the start state advanced by the first token
+                self._g_adv(lane, lane.next_token)
                 req.state = RequestState.GENERATING
 
     def _run_pipelined(self, active) -> None:
@@ -1329,6 +1437,10 @@ class ContinuousBatchingScheduler:
                     d_max = min(spec_k, cfg.seq_len - lane.pos - 1)
                     if lane.request.temperature == 0.0 and d_max > 0:
                         d = lane.drafter.draft(lane.next_token, spec_k)[:d_max]
+                        if lane.grammar is not None and d:
+                            # the exact mirror trims what the mask rejects,
+                            # so verification follows the masked greedy path
+                            d = d[:lane.grammar.filter_prefix(lane.g_state, d)]
                         drafts[i, :len(d)] = d
                         draft_len[i] = len(d)
                 if not draft_len.any():
@@ -1354,6 +1466,8 @@ class ContinuousBatchingScheduler:
                 topps[i] = lane.request.topp
                 seeds[i] = lane.seed
             h = 0 if draft_len is not None else self._multi_horizon(active, prefilled)
+            # the exact host mirror; None: the engine's all-FREE default
+            g_states = self._g_states_sync(active)
             wd = self.watchdog
             if wd is not None:
                 wd.begin_step()
@@ -1362,13 +1476,14 @@ class ContinuousBatchingScheduler:
                 if draft_len is not None:
                     _, emitted, n_emit = self.engine.decode_spec(
                         tokens, drafts, draft_len, positions, temps, topps, seeds,
-                        want_logits=False)
+                        want_logits=False, g_states=g_states)
                 elif h > 1:
                     chosen = self.engine.decode_multi(tokens, positions, temps, topps,
-                                                      seeds, h)
+                                                      seeds, h, g_states=g_states)
                 else:
                     _, greedy, sampled = self.engine.decode(
-                        tokens, positions, temps, topps, seeds, want_logits=False)
+                        tokens, positions, temps, topps, seeds, want_logits=False,
+                        g_states=g_states)
             finally:
                 # a raised step is the containment layer's, not a stall
                 if wd is not None:
@@ -1388,6 +1503,8 @@ class ContinuousBatchingScheduler:
                     # next_token + the first h-1 chained choices; the last
                     # becomes the pending token; tokens past a stop are
                     # discarded (their junk KV is rewritten before any read)
+                    for j in range(h):  # h new tokens this horizon
+                        self._g_adv(lane, int(chosen[j, i]))
                     seq = [lane.next_token] + [int(chosen[j, i]) for j in range(h - 1)]
                     if all(self._consume(i, lane, t) for t in seq):
                         lane.next_token = int(chosen[h - 1, i])
@@ -1397,3 +1514,4 @@ class ContinuousBatchingScheduler:
                 if not self._consume(i, lane, lane.next_token):
                     continue
                 lane.next_token = int(greedy[i]) if req.temperature == 0.0 else int(sampled[i])
+                self._g_adv(lane, lane.next_token)

@@ -51,6 +51,10 @@ class InferenceParams:
     # admission class (serving/qos.py)
     user: str = ""
     priority: int = Priority.NORMAL
+    # structured output (grammar/): {"type": "json_object"} or {"type":
+    # "json_schema", ...}, validated at parse time so a malformed schema
+    # gets a 400 before any admission work
+    response_format: dict | None = None
 
     @staticmethod
     def from_body(body: dict) -> "InferenceParams":
@@ -69,13 +73,16 @@ class InferenceParams:
         elif isinstance(stop, list):
             p.stop = [str(s) for s in stop]
         p.stream = bool(body.get("stream", False))
+        if body.get("response_format") is not None:
+            # GrammarError is a ValueError -> the route's typed 400
+            from ..grammar.automaton import validate_response_format
+
+            validate_response_format(body["response_format"])
+            p.response_format = dict(body["response_format"])
         if body.get("user") is not None:
             p.user = str(body["user"])
         if body.get("priority") is not None:
             p.priority = Priority.parse(body["priority"])  # ValueError -> 400
-        if body.get("response_format") is not None:
-            # structured output is a later slice of the port
-            raise ValueError("response_format is not supported by this server")
         return p
 
 

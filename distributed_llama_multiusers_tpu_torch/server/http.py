@@ -57,6 +57,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from ..analysis import leakcheck
 from ..ops.cuda_attn import attn_counts
+from ..ops.cuda_grammar import grammar_counts
 from ..ops.cuda_q40 import kernel_counts
 from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
@@ -113,7 +114,8 @@ class ApiServer:
         req = Request(prompt=prompt, max_tokens=params.max_tokens,
                       temperature=params.temperature, topp=params.top_p,
                       seed=params.seed, stop=params.stop, user_id=params.user,
-                      priority=params.priority, trace=trace, api_kind=kind)
+                      priority=params.priority, response_format=params.response_format,
+                      trace=trace, api_kind=kind)
         relay = None
         if streaming:
             if self.resume is not None:
@@ -282,6 +284,11 @@ class ApiServer:
             # prefix and the prompt tokens they did not prefill
             "prefix_hits": stats["prefix_hits"],
             "prefix_tokens_saved": stats["prefix_tokens_saved"],
+            # structured output: admissions that attached an automaton and
+            # dispatches that carried a constrained lane (the slab's gauges
+            # ride qos_stats)
+            "grammar_lanes": stats["grammar_lanes"],
+            "grammar_masked_steps": stats["grammar_masked_steps"],
             # the JAX server's post-warmup compile count; here the decode
             # graphs captured after warmup, 0 in steady serving
             "jit_compiles_after_warmup": (0 if engine.graphs is None
@@ -296,6 +303,7 @@ class ApiServer:
         out.update(ring_counts())
         out.update(sample_counts())
         out.update(attn_counts())
+        out.update(grammar_counts())
         # the paged pool's pressure (occupancy, sharing, COW, parking,
         # evictions, sheds) and swap traffic; a contiguous engine has none
         pool = getattr(engine, "pool_stats", None)

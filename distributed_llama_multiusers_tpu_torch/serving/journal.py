@@ -87,9 +87,8 @@ def admit_record(*, request_id: int, prompt: str, tokens: list[int],
         "user": None if user is None else str(user),
         "prio": int(priority), "queue_timeout_s": queue_timeout_s,
         "budget_s": budget_s, "stream": bool(stream), "kind": kind,
-        # structured output: the request's response_format, kept in the
-        # record so the format stays the JAX package's; the port refuses
-        # response_format at the API, so it writes None here
+        # structured output (grammar/): the response_format the automaton
+        # is rebuilt from on replay (None = unconstrained)
         "response_format": response_format,
         # trace context (telemetry/tracectx.py, "tid-sid" wire form): a
         # recovered stream rejoins its original trace instead of starting
@@ -148,7 +147,7 @@ class JournalEntry:
     budget_s: float | None = None
     stream: bool = False
     kind: str | None = None  # "chat" | "completion" | None (CLI/bench)
-    response_format: dict | None = None  # structured output (None in the port)
+    response_format: dict | None = None  # structured output (grammar/)
     trace: str | None = None  # trace context, "tid-sid" wire form
     watermark: int = 0  # tokens already delivered to the client transport
     finished: bool = False

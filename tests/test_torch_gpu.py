@@ -2,9 +2,10 @@
 tensor-core kernels at their fragment edges), the dispatch's mode routing
 at the m = 32/33 boundary, a tiny model served by the engine on the card,
 the ring-step kernel's forms against its plain version, the tensor-parallel
-forward with two ranks on one card, the sampler and attention kernels
-against their plain versions and the decode graphs against the eager
-bodies. Marked ``gpu``; without a card every test skips.
+forward with two ranks on one card, the sampler, attention and grammar
+kernels against their plain versions and the decode graphs against the
+eager bodies (constrained lanes and a table upload between replays
+included). Marked ``gpu``; without a card every test skips.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -844,12 +845,14 @@ def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
 
 
 def _launch_counts():
-    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn, cuda_sample
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn, cuda_grammar, cuda_sample
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
     return {**q.LAUNCHES, "ring_hop": rc.COUNTS["launches"],
             "ring_bytes": rc.COUNTS["bytes"], "gumbel_sample": cuda_sample.COUNTS["launches"],
-            "decode_attn": cuda_attn.COUNTS["launches"]}
+            "decode_attn": cuda_attn.COUNTS["launches"],
+            "grammar_mask_argmax": cuda_grammar.COUNTS["mask_argmax_launches"],
+            "grammar_next": cuda_grammar.COUNTS["next_launches"]}
 
 
 def _family_run(engine, config, family):
@@ -951,6 +954,7 @@ def test_graph_replay_matches_eager(cuda, tmp_path, family):
     for a, b in zip(_caches(graphed), _caches(eager)):
         assert torch.equal(a, b)
     assert got_counts == want_counts and got_counts["decode_attn"] > 0
+    assert got_counts["grammar_mask_argmax"] > 0 and got_counts["grammar_next"] > 0
     if family != "step_greedy":
         assert got_counts["gumbel_sample"] > 0
 
@@ -1163,3 +1167,234 @@ def test_decode_attn_paged_graph_replay_equals_eager(cuda):
     _graph_replay_equals_eager(
         [lambda: cuda_attn.decode_attention_paged(qf, k_pool, v_pool, table, serving, 0.125,
                                                   2048)])
+
+
+# -- structured output: the masked argmax and the automaton step -------------
+
+
+def _grammar_tables(cuda, vocab, n_states=16, seed=0):
+    """A mask table: state 0 all ones (FREE), state 1 one legal token, state
+    2 none, the rest random bits; on the card, int32 words."""
+    rng = np.random.default_rng(seed)
+    words = -(-vocab // 32)
+    masks = rng.integers(0, 2**32, (n_states, words), dtype=np.uint64).astype(np.uint32)
+    masks[0] = 0xFFFFFFFF
+    masks[1] = 0
+    masks[1, (vocab - 1) >> 5] = np.uint32(1 << ((vocab - 1) & 31))
+    masks[2] = 0
+    return torch.from_numpy(masks.view(np.int32)).to(cuda)
+
+
+def _grammar_rows(cuda, n, vocab, seed):
+    """Rows with a tie at each row's maximum (lower index first), -inf
+    entries, a -0.0/+0.0 tie row, an all -inf row and a NaN row."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rows = torch.randn((n, vocab), device=cuda, generator=gen) * 3
+    if vocab > 3:
+        top = rows.max(dim=-1).values + 1.0
+        rows[:, 1] = top
+        rows[:, vocab - 2] = top
+    if n > 3:
+        rows[1, ::3] = float("-inf")
+        rows[2] = 0.0
+        rows[2, vocab // 2] = -0.0
+        rows[3] = float("-inf")
+    if n > 4:
+        rows[4, vocab // 3] = float("nan")
+        rows[4, vocab - 1] = float("nan")
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [1, 31, 1000, 2049, 128256, 151936])
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_grammar_mask_argmax_matches_plain(cuda, n, vocab):
+    """The masked argmax at every row count a step family gives it (1: a
+    prompt's boundary row, 8: a decode step, 32: a verify window) over
+    vocabularies of one chunk, of no multiple of 32 or of the chunk, and
+    the 1B one: indices equal the plain version's and the masked rows are
+    bit-equal; ties go to the lower index, a NaN wins at its first index,
+    an all -inf row gives 0, a state with one legal token gives it, a state
+    with none gives 0. The workspace's tickets are back at 0 afterwards."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    masks = _grammar_tables(cuda, vocab, seed=vocab)
+    rows = _grammar_rows(cuda, n, vocab, seed=n + vocab)
+    gen = torch.Generator(device=cuda).manual_seed(vocab)
+    states = torch.randint(0, masks.shape[0], (n,), device=cuda, generator=gen)
+    states[: min(n, 3)] = torch.tensor([0, 1, 2], device=cuda)[: min(n, 3)]
+    work = G.workspace(n, vocab, cuda)
+    for every in (1, 4):
+        m_rows = -(-n // every)
+        out = torch.full((m_rows, vocab), 7.0, device=cuda)
+        G.reset_counts()
+        got = G.mask_argmax(rows, states, masks, masked_out=out, masked_every=every, work=work)
+        ref_out = torch.zeros((m_rows, vocab))
+        want = G.mask_argmax(rows.cpu(), states.cpu(), masks.cpu(), masked_out=ref_out,
+                             masked_every=every)
+        torch.cuda.synchronize()
+        assert G.COUNTS["mask_argmax_launches"] == 1
+        assert got.cpu().tolist() == want.tolist()
+        assert torch.equal(out.cpu().view(torch.int32), ref_out.view(torch.int32))
+    if n >= 3:  # the one legal entry (0 where it is -inf: the row is), and none
+        one = 0 if bool(torch.isneginf(rows[1, vocab - 1])) else vocab - 1
+        assert int(got[1]) == one and int(got[2]) == 0
+    if work is not None:
+        assert int(work[-n:].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_grammar_free_state_is_torch_argmax(cuda, n):
+    """State 0 (FREE) gives torch.argmax's index on the card, on random
+    rows and on rows full of ties, so unconstrained lanes keep their bits."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    vocab = 128256
+    masks = _grammar_tables(cuda, vocab)
+    for seed in range(3):
+        rows = _grammar_rows(cuda, n, vocab, seed)
+        if seed == 2:
+            rows = torch.round(rows)  # many ties
+        zero = torch.zeros(n, dtype=torch.int64, device=cuda)
+        got = G.mask_argmax(rows, zero, masks)
+        assert torch.equal(got, torch.argmax(rows, dim=-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 4])
+@pytest.mark.parametrize("vocab", [258, 128256])
+def test_grammar_next_matches_plain(cuda, vocab, steps):
+    """The automaton step and walk on random (state, token) pairs, illegal
+    tokens and keys past every edge included: the plain version's states
+    exactly (the final state and, with ``walk``, every prefix's)."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    rng = np.random.default_rng(vocab + steps)
+    n_states, n_edges = 64, 4096
+    keys = np.unique(rng.integers(0, n_states * vocab, 3000)).astype(np.int32)
+    keys = np.concatenate([keys, np.full(n_edges - len(keys), np.iinfo(np.int32).max,
+                                         np.int32)])
+    targets = rng.integers(0, n_states, n_edges).astype(np.int32)
+    defaults = rng.integers(0, n_states, n_states).astype(np.int32)
+    tabs = [torch.from_numpy(a).to(cuda) for a in (keys, targets, defaults)]
+    n = 40
+    states = rng.integers(0, n_states, n)
+    tokens = rng.integers(0, vocab, (n, steps))
+    hit = keys[: n // 2]  # some pairs land on an edge
+    tokens[: n // 2, 0], states[: n // 2] = hit % vocab, hit // vocab
+    st, tk = torch.from_numpy(states).to(cuda), torch.from_numpy(tokens).to(cuda)
+    for walk in (False, True):
+        got = G.grammar_next(st, tk, *tabs, vocab, walk=walk)
+        want = G.grammar_next(st.cpu(), tk.cpu(), *(t.cpu() for t in tabs), vocab, walk=walk)
+        assert got.cpu().tolist() == want.tolist()
+    # a strided token view (a verify window's fed tokens) and a destination
+    wide = torch.cat([tk, tk[:, :1]], dim=1)
+    out = torch.empty(n, dtype=torch.int64, device=cuda)
+    G.grammar_next(st, wide[:, 1:], *tabs, vocab, out=out)
+    want = G.grammar_next(st.cpu(), wide[:, 1:].cpu(), *(t.cpu() for t in tabs), vocab)
+    assert out.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.gpu
+def test_grammar_kernels_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    vocab = 128256
+    masks = _grammar_tables(cuda, vocab)
+    rows = _grammar_rows(cuda, 8, vocab, seed=4)
+    states = torch.arange(8, device=cuda) % masks.shape[0]
+    work = G.workspace(8, vocab, cuda)
+    keys = torch.tensor([5 * vocab + 7, 2**31 - 1], dtype=torch.int32, device=cuda)
+    tabs = (keys, torch.tensor([3, 0], dtype=torch.int32, device=cuda),
+            torch.arange(masks.shape[0], dtype=torch.int32, device=cuda))
+    toks = torch.full((8, 1), 7, device=cuda)
+    _graph_replay_equals_eager([lambda: G.mask_argmax(rows, states, masks, work=work),
+                                lambda: G.grammar_next(states, toks, *tabs, vocab)])
+
+
+def _grammar_engines(cuda, tmp_path):
+    """Two engines on a 320-entry tiny model with the byte tokenizer's
+    pieces, warmed (graphs captured); the second's graphs set aside."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+        tiny_header,
+        write_synthetic_model,
+    )
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+    from distributed_llama_multiusers_tpu_torch.runtime.engine import warmup_engine
+    from distributed_llama_multiusers_tpu_torch.utils.testing import ByteJsonTokenizer
+
+    path = str(tmp_path / "m.m")
+    write_synthetic_model(path, tiny_header(vocab_size=320, seq_len=256), seed=0)
+    config, params = load_params_from_m_quantized(path, load_model_header(path),
+                                                  dtype=torch.bfloat16, device=cuda)
+    tok = ByteJsonTokenizer()
+    out = []
+    for _ in range(2):
+        e = InferenceEngine(config, params, n_lanes=4, prefill_buckets=(8, 16))
+        e.grammar_init(tok.token_table(), tok.eos_token_ids)
+        out.append(e)
+    warmup_engine(out[0], multi_step=4)
+    out[0].graphs.mark_warm()
+    out[1].graphs = None
+    return config, out
+
+
+def _grammar_run(engine, handles, rfs):
+    """Attach each schema in turn (an in-place table upload between
+    replays) and decode 6 steps with lanes 0-1 constrained, lane 2 free
+    and lane 3 a sampled constrained lane; returns every token."""
+    out = []
+    temps = np.asarray([0.0, 0.0, 0.0, 0.9], np.float32)
+    seeds = np.asarray([0, 0, 0, 17])
+    for rf in rfs:
+        h = engine.grammar_attach(rf)
+        handles.append(h)
+        g = [h.start_state, h.start_state, 0, h.start_state]
+        toks, pos = [], []
+        for lane in range(4):
+            _, gr, sa = engine.prefill_chunk(lane, [0, 10 + lane, 20], 0,
+                                             temp=float(temps[lane]), seed=int(seeds[lane]),
+                                             g_state=g[lane])
+            toks.append(gr if temps[lane] == 0 else sa)
+            pos.append(3)
+        for lane in (0, 1, 3):
+            g[lane] = h.next_state(g[lane], toks[lane])
+        toks, pos = np.asarray(toks), np.asarray(pos)
+        for _ in range(6):
+            _, gr, sa = engine.decode(toks, pos, temps, seeds=seeds, want_logits=False,
+                                      g_states=np.asarray(g))
+            toks = np.where(temps == 0, gr, sa)
+            for lane in (0, 1, 3):
+                assert h.is_legal(g[lane], int(toks[lane]))
+                g[lane] = h.next_state(g[lane], int(toks[lane]))
+            pos = pos + 1
+            out.append(toks)
+        engine.decode_pipelined(pos, temps, seeds=seeds, tokens=toks, g_states=np.asarray(g))
+        engine.decode_pipelined(np.full(4, -1), temps, seeds=seeds)
+        out += [np.stack(engine.pipeline_consume()), np.stack(engine.pipeline_consume())]
+        engine.pipeline_flush()
+    return np.concatenate([o.reshape(-1) for o in out])
+
+
+@pytest.mark.gpu
+def test_grammar_graph_replay_after_table_upload_equals_eager(cuda, tmp_path):
+    """Constrained lanes replayed from the warmed graphs equal the eager
+    bodies token for token across three schemas, each admitted between
+    replays: the tables are rewritten in place (same addresses) and no
+    graph is captured after warmup."""
+    config, (graphed, eager) = _grammar_engines(cuda, tmp_path)
+    rfs = [{"type": "json_object"},
+           {"type": "json_schema", "json_schema": {"schema": {"enum": ["a", "bb", 3]}}},
+           {"type": "json_schema", "json_schema": {"schema": {
+               "type": "object", "properties": {"ok": {"type": "boolean"}},
+               "required": ["ok"]}}}]
+    ptrs = [t.data_ptr() for t in graphed._g_tabs]
+    got = _grammar_run(graphed, [], rfs)
+    want = _grammar_run(eager, [], rfs)
+    np.testing.assert_array_equal(got, want)
+    assert [t.data_ptr() for t in graphed._g_tabs] == ptrs
+    assert graphed.graphs.captures_after_warmup == 0 and graphed.graphs.replays > 0
+    assert graphed.grammar_stats()["grammar_schemas_installed"] == 3

@@ -337,3 +337,48 @@ def test_paged_kv_modules_are_the_ports_own():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("own")
+
+
+def test_grammar_modules_are_the_ports_own():
+    """Structured output's modules (``grammar/``, ``ops/cuda_grammar.py``,
+    ``utils/testing.py``) are the port's own copies and work without jax
+    or the JAX package: an automaton compiles, installs in a slab, and the
+    two kernels' plain versions mask and step it; the engine's slab and
+    the scheduler's ``GrammarSlabFull`` are these."""
+    r = _run("""
+        import os
+        import torch
+        import distributed_llama_multiusers_tpu_torch as pkg
+        from distributed_llama_multiusers_tpu_torch import grammar
+        from distributed_llama_multiusers_tpu_torch.grammar import automaton, slab
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar
+        from distributed_llama_multiusers_tpu_torch.runtime import engine
+        from distributed_llama_multiusers_tpu_torch.utils import testing
+        root = os.path.dirname(pkg.__file__)
+        for m in (grammar, automaton, slab, cuda_grammar, testing):
+            assert m.__file__.startswith(root), m.__file__
+        assert engine.GrammarSlab is slab.GrammarSlab
+        tok = testing.ByteJsonTokenizer()
+        auto = grammar.compile_automaton({"type": "json_object"}, tok.token_table(),
+                                         tok.eos_token_ids)
+        s = grammar.GrammarSlab(258)
+        h = s.attach(auto)
+        masks, keys, nxt, dflt = (torch.from_numpy(a.view("int32") if i == 0 else a)
+                                  for i, a in enumerate(s.arrays()))
+        rows = torch.zeros((2, 258))
+        rows[:, 1 + ord("x")] = 1.0  # a bare 'x' is not a JSON object's start
+        states = torch.tensor([0, h.start_state])
+        idx = cuda_grammar.mask_argmax(rows, states, masks)
+        assert idx[0] == 1 + ord("x") and idx[1] != 1 + ord("x")
+        assert h.is_legal(h.start_state, int(idx[1]))
+        nxt_state = cuda_grammar.grammar_next(states, idx[:, None], keys, nxt, dflt, 258)
+        assert int(nxt_state[0]) == 0
+        assert int(nxt_state[1]) == h.next_state(h.start_state, int(idx[1]))
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m.split(".")[0] == "distributed_llama_multiusers_tpu")
+        assert not leaked, leaked
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
