@@ -6,9 +6,11 @@
 Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
-1. Setup: print the card's name and power limit (``nvidia-smi``), build the
-   Q40 kernels, the ring step, the sampler, the decode attention, the
-   grammar kernels and the lab's kernels from ``distributed_llama_multiusers_tpu_torch/
+1. Setup: print the card's name and power limit (``nvidia-smi``), start
+   writing the two synthetic models (phases 3 and 4d) in another process,
+   build the Q40 kernels, the ring step, the sampler, the decode
+   attention, the grammar kernels, the MoE router and the lab's kernels
+   from ``distributed_llama_multiusers_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the build time
    and the slab, blockdot and i8blockdot kernels' geometry (ring stages,
    shared memory per thread block, registers and spills, the plan at each
@@ -57,9 +59,9 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    all at and past 2047) against its plain version and each row bit for
    bit against a one-row call; timed beside the same rows as four one-row
    calls, its plain version and ``scaled_dot_product_attention``.
-3. Serving: write a full-width Llama-3.2-1B-shaped synthetic Q40 model (16
-   layers, seed 0) into ``build/synthetic`` (reused while header and seed
-   match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
+3. Serving: wait for the full-width Llama-3.2-1B-shaped synthetic Q40
+   model (16 layers, seed 0; written into ``build/synthetic`` since the
+   setup and reused while header and seed match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
    dllama_api`` once per dequant mode (default v4, ``auto``, ``blockdot``)
    under the serving defaults (pipelined decode of depth 2, fused
    admissions, speculation inside the chain; the pipelined and verify steps
@@ -183,6 +185,28 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    with Retry-After beside a live one, whose answer at tp2 is its string;
    ``--grammar off``: 400; then the v4 decode step's device time and
    operations with the grammar kernels in it (phase 4).
+4d. Mixture of experts: the router kernel (``csrc/moe_route.cu``) against
+   its plain version at Mixtral's router (dim 4096, 8 experts, 2 active)
+   on 8, 32 and 1,024 bf16 rows (expert ids equal on every row clear of a
+   near tie, weights within 1e-6) and on exact ties (lax.top_k's order),
+   each timed beside the library chain and the plain version; a
+   Mixtral-8x7B-width model (2 of its 32 layers, seq_len 2048, random Q40
+   blocks of std 0.02 from seed 0, 2.23 GB): its forward on the card
+   against the CPU's f32 forward on the same weights, a 64-row prompt
+   chunk (the sparse dispatch) and 8 greedy steps (the per-expert loop),
+   a run taking the other's experts only at a near tie that their logits'
+   difference explains; its v4 decode and verify steps replayed from their
+   graphs (launches, device time and operations, 57 Q40 products a step
+   against the experts' 0.473 ms byte bound) and an 8-step
+   ``decode_multi`` replay against its eager bodies; tp=2 (the host's
+   cards, one card named twice where there is one) on the f32 wire and
+   the Q80 wire against tp=1 over 16 greedy tokens; the scheduler in this
+   process, the drafting request's greedy stream with speculation equal
+   to the one without; then ``dllama_api`` with its defaults: 4 requests
+   at once (one a flags json_schema) finish, the constrained answer
+   conforms, the greedy and the seeded completions are the in-process
+   streams, no graph is captured after warmup, the router and the Q40
+   kernels launched.
 5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
@@ -1279,18 +1303,23 @@ def llama32_1b_header():
     return h
 
 
-def ensure_model(header, seed: int = 0, cache_dir: str | None = None) -> tuple[str, str]:
+def ensure_model(header, seed: int = 0, cache_dir: str | None = None,
+                 write=None) -> tuple[str, str]:
     """The synthetic .m/.t for ``header`` and ``seed`` in the cache
-    directory, written anew unless a previous run left the same ones."""
+    directory, written anew unless a previous run left the same ones;
+    ``write(path, header, seed)`` writes the .m (default: through the
+    quantizers, ``formats/synthetic.write_synthetic_model``)."""
     from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
         write_synthetic_model,
         write_synthetic_tokenizer,
     )
 
+    write = write or write_synthetic_model
     cache_dir = cache_dir or os.path.join(ROOT, "build", "synthetic")
     os.makedirs(cache_dir, exist_ok=True)
-    key = {"kv": header.to_kv_pairs(), "seed": seed}
-    stem = os.path.join(cache_dir, f"llama_d{header.dim}_l{header.n_layers}_s{seed}")
+    key = {"kv": header.to_kv_pairs(), "seed": seed, "writer": write.__name__}
+    experts = f"_e{header.n_experts}" if header.n_experts else ""
+    stem = os.path.join(cache_dir, f"llama_d{header.dim}_l{header.n_layers}{experts}_s{seed}")
     model, tok, meta = stem + ".m", stem + ".t", stem + ".json"
     if os.path.exists(meta) and os.path.exists(model) and os.path.exists(tok):
         with open(meta) as f:
@@ -1298,13 +1327,28 @@ def ensure_model(header, seed: int = 0, cache_dir: str | None = None) -> tuple[s
                 log(f"model: reusing {model}")
                 return model, tok
     t0 = time.perf_counter()
-    write_synthetic_model(model, header, seed=seed)
+    write(model, header, seed=seed)
     write_synthetic_tokenizer(tok, vocab_size=header.vocab_size)
     with open(meta, "w") as f:
         json.dump(key, f)
     log(f"model: wrote {model} ({os.path.getsize(model) / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f}s")
     return model, tok
+
+
+def write_models() -> None:
+    """Both synthetic models the serving phases load (the 1B's numpy
+    quantizers take about a minute, the Mixtral-width file ~10 s)."""
+    ensure_model(llama32_1b_header(), seed=0)
+    ensure_model(mixtral_header(), seed=0, write=write_random_q40_model)
+
+
+def start_model_writer():
+    """``write_models`` in another process, so that the host's minute of
+    numpy runs beside the kernels' build and the kernel phases; ``main``
+    waits for it before the first server and ends it on a failure."""
+    code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.write_models()"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
 
 
 def _free_port() -> int:
@@ -2121,6 +2165,7 @@ def _launch_counts() -> dict:
     """The kernels' launch counters, keyed as a serving pass's /stats."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
     from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
     from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
@@ -2131,7 +2176,8 @@ def _launch_counts() -> dict:
             "decode_attn_launches": ca.COUNTS["launches"],
             "decode_attn_window_launches": ca.COUNTS["window_launches"],
             "grammar_mask_argmax_launches": cg.COUNTS["mask_argmax_launches"],
-            "grammar_next_launches": cg.COUNTS["next_launches"]}
+            "grammar_next_launches": cg.COUNTS["next_launches"],
+            "moe_route_launches": cm.COUNTS["launches"]}
 
 
 def run_cli(torch, name: str, argv: list, stdin: str | None = None) -> dict:
@@ -2147,11 +2193,12 @@ def run_cli(torch, name: str, argv: list, stdin: str | None = None) -> dict:
     from distributed_llama_multiusers_tpu_torch.app import dllama
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
     from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
     from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
-    for mod in (q, rc, cs, ca, cg):
+    for mod in (q, rc, cs, ca, cg, cm):
         mod.reset_counts()
     mode = q.DEQUANT_MODE
     buf, old_stdin = io.StringIO(), sys.stdin
@@ -2481,6 +2528,15 @@ def durability_phase(model: str, tok: str) -> dict:
                  env={"DLLAMA_LEAKCHECK": "1", "DLLAMA_JITCHECK": "1"})
     try:
         healthy_s = time.perf_counter() - t_restart
+        # the replay thread re-admits the 4 streams 20 ms apart after the
+        # server listens, and a stream not yet re-admitted answers 404: wait
+        # until every one is (or failed, which fails the check below)
+        _poll(lambda: json.loads(_http(rec.base + "/stats")[1])["recovery_done"], 60,
+              "durability: the journal's replay never finished", every=0.02)
+        rstats = json.loads(_http(rec.base + "/stats")[1])
+        check(rstats["recovered_requests"] == 4 and rstats["recovery_failed"] == 0,
+              f"durability: recovery re-admitted {rstats['recovered_requests']}, failed "
+              f"{rstats['recovery_failed']} (retries {rstats['recovery_retries']})")
         again = [SseStream(rec.base + f"/v1/stream/{s.rid}",
                            headers={"Last-Event-ID": str(ev[-1][0])})
                  for s, ev in zip(streams, before)]
@@ -2557,12 +2613,27 @@ DECODE_MODE_OF = {"q40_slab": "v4", "q40_blockdot": "blockdot", "q40_i8blockdot"
 
 def step_products(params) -> list:
     """The packed weights of one decode step's Q40 products, in the order
-    llama_forward runs them: 7 per layer, then wcls."""
+    llama_forward runs them: 7 per layer (an MoE layer: wq, wk, wv, wo,
+    then w1, w3 and w2 of each expert), then wcls."""
     ws = []
     for layer in range(params.layers.wq.packed.shape[0]):
         lp = params.layers.layer(layer)
-        ws += [getattr(lp, name) for name in STEP_WEIGHTS]
+        if lp.moe_gate is None:
+            ws += [getattr(lp, name) for name in STEP_WEIGHTS]
+            continue
+        ws += [getattr(lp, name) for name in STEP_WEIGHTS[:4]]
+        for e in range(lp.moe_gate.shape[-1]):
+            ws += [getattr(lp, name)[e] for name in STEP_WEIGHTS[4:]]
     return ws + [params.wcls]
+
+
+def products_per_step(config, n: int) -> int:
+    """Q40 products of one decode step over n ranks: per rank and layer wq,
+    wk, wv and n column chunks of wo, then the FFN's (dense: w1, w3 and n
+    column chunks of w2; MoE: w1, w3 and w2 of every expert, its w2 a plain
+    row slice); then wcls."""
+    ffn = 3 * config.n_experts if config.n_experts > 0 else 2 + n
+    return n * (config.n_layers * (3 + n + ffn) + 1)
 
 
 def _kernel_of(name: str) -> str | None:
@@ -2575,7 +2646,8 @@ def _kernel_of(name: str) -> str | None:
                         ("gumbel_sample_kernel", "gumbel_sample"),
                         ("decode_attn_kernel", "decode_attn"),
                         ("mask_argmax_kernel", "grammar_mask_argmax"),
-                        ("grammar_next_kernel", "grammar_next")):
+                        ("grammar_next_kernel", "grammar_next"),
+                        ("moe_route_kernel", "moe_route")):
         if tag in name:
             return kernel
     return None
@@ -2595,11 +2667,13 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
 
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
 
     for _ in range(3):
         step()
     sync_all(torch)
     wall = []
+    moe_before = cm.COUNTS["launches"]
     grammar_before = dict(cg.COUNTS)
     before = dict(q.LAUNCHES)
     ring_before = rc.ring_counts()
@@ -2616,6 +2690,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     launches["decode_attn"] = (ca.COUNTS["launches"] - attn_before) / steps
     launches["decode_attn_window"] = (ca.COUNTS["window_launches"] - window_before) / steps
     launches["decode_attn_paged"] = (ca.PAGED_COUNTS["launches"] - paged_before) / steps
+    launches["moe_route"] = (cm.COUNTS["launches"] - moe_before) / steps
     for k in ("mask_argmax", "next"):
         launches[f"grammar_{k}"] = (cg.COUNTS[f"{k}_launches"]
                                     - grammar_before[f"{k}_launches"]) / steps
@@ -2651,7 +2726,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
     device_ms = sum(by_name.values()) / 1e3
     q40_ms = sum(v[0] for k, v in kernels.items()
                  if k not in ("ring_hop", "gumbel_sample", "decode_attn", "grammar_mask_argmax",
-                              "grammar_next")) / 1e3
+                              "grammar_next", "moe_route")) / 1e3
     hop_ms = kernels.get("ring_hop", [0.0, 0.0])[0] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {"step_ms_p50": statistics.median(wall), "step_ms": wall,
@@ -2663,6 +2738,7 @@ def _measure_steps(torch, q, rc, cs, step, steps: int, label: str) -> dict:
            "ring_hop_ms_per_step": hop_ms,
            "gumbel_sample_ms_per_step": kernels.get("gumbel_sample", [0.0, 0.0])[0] / 1e3,
            "decode_attn_ms_per_step": kernels.get("decode_attn", [0.0, 0.0])[0] / 1e3,
+           "moe_route_ms_per_step": kernels.get("moe_route", [0.0, 0.0])[0] / 1e3,
            "grammar_ms_per_step": {k: kernels.get(k, [0.0, 0.0])[0] / 1e3
                                    for k in ("grammar_mask_argmax", "grammar_next")},
            "launches_per_step": launches,
@@ -2697,10 +2773,11 @@ def multi_replay_check(torch, q, rc, cs, engine, tokens, positions, temps, seeds
     then the cache is put back and the same call runs eagerly."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
 
     def counts():
         return {**q.LAUNCHES, **rc.ring_counts(), "gumbel_sample": cs.COUNTS["launches"],
-                "decode_attn": ca.COUNTS["launches"],
+                "decode_attn": ca.COUNTS["launches"], "moe_route": cm.COUNTS["launches"],
                 "grammar_mask_argmax": cg.COUNTS["mask_argmax_launches"],
                 "grammar_next": cg.COUNTS["next_launches"]}
 
@@ -2799,7 +2876,8 @@ def verify_step(torch, q, rc, cs, engine, config, tokens, positions, temps, seed
           and per_step["gumbel_sample"] == 1
           # one masked argmax over the window's rows; the window's walk and
           # the carry's step
-          and per_step["grammar_mask_argmax"] == 1 and per_step["grammar_next"] == 2,
+          and per_step["grammar_mask_argmax"] == 1 and per_step["grammar_next"] == 2
+          and per_step["moe_route"] == (n_layers if config.n_experts > 0 else 0),
           f"verify step [{label}]: launches per step {per_step}")
     out["rows_bit_equal_to_decode_steps"] = equal
     return out
@@ -2862,10 +2940,8 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
             eager = _measure_steps(torch, q, rc, cs, step, steps, f"{label}, eager")
         finally:
             engine.graphs = graphs
-        # per rank and layer: wq, wk, wv, w1, w3 and n column chunks each of
-        # wo and w2; then wcls (n = 1: the 7 products of one device)
         n, n_layers = len(engine.devices), config.n_layers
-        n_products = n * (n_layers * (5 + 2 * n) + 1)
+        n_products = products_per_step(config, n)
         for run, name in ((graph, "graph"), (eager, "eager")):
             got = sum(v for k, v in run["launches_per_step"].items() if k in q.KERNELS)
             check(got == n_products, f"decode step [{label}, {name}]: "
@@ -2878,6 +2954,10 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
                   f"decode step [{label}, {name}]: attention launches "
                   f"{run['launches_per_step']['decode_attn']} per step, expected "
                   f"{n * n_layers}")
+            check(run["launches_per_step"]["moe_route"]
+                  == (n * n_layers if config.n_experts > 0 else 0),
+                  f"decode step [{label}, {name}]: router launches "
+                  f"{run['launches_per_step']['moe_route']} per step")
             check(run["launches_per_step"]["grammar_mask_argmax"] == 1
                   and run["launches_per_step"]["grammar_next"] == 1,
                   f"decode step [{label}, {name}]: grammar launches "
@@ -4201,6 +4281,600 @@ def grammar_phase(torch, q, model: str, tok: str, default: dict, breakdown: list
 
 
 # ---------------------------------------------------------------------------
+# Phase 4d: mixture of experts at Mixtral-8x7B's widths
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json: dim 4096, hidden 14336, 32
+# heads, 8 KV heads, vocab 32000, 8 experts, 2 active, rope theta 1e6; cut to
+# 2 of its 32 layers and a seq_len of 2048 (its 32,768), for the phase's time
+MOE_LAYERS = 2
+MOE_SEQ_LEN = 2048
+MOE_W_STD = 0.02  # the random Q40 weights' std (the f32 tensors' too)
+# the router's rows: a decode step at 8 lanes, a verify step at 8 lanes
+# (4 rows a lane), one 1,024-row prompt chunk (one lane)
+MOE_ROUTE_ROWS = (DECODE_M, VERIFY_M, 1024)
+# rows whose top k + 1 router logits lie closer than this share of the
+# row's largest |logit| may take their experts in another order: the
+# kernel's f32 product sums in another order than cuBLAS's
+MOE_TIE_GAP = 1e-5
+MOE_ROUTE_TOL = 1e-6  # the routing weights' max|kernel - plain| on the other rows
+MOE_PREFILL_ROWS = 64  # the CPU check's prompt chunk: the sparse dispatch
+MOE_DECODE_STEPS = 8
+MOE_TP_PROMPT = 40
+MOE_TP_TOKENS = 16
+# the card (bf16 activations, the bf16 dot) against the CPU's f32 forward on
+# the same weights and expert choices: max|d| <= tol * max|cpu| (2 layers of
+# bf16 rounding, the class of TP_LOGITS_TOL)
+MOE_CPU_TOL = 5e-2
+# tp2 against tp1 with the Q80 casts on (and, at tp2, the Q80 wire): each
+# of a layer's Q80 casts may round a value one step of its block's scale
+# the other way, which the next layers carry; twice the f32 wire's class
+MOE_TP_Q80_TOL = 2 * TP_LOGITS_TOL
+
+
+def mixtral_header():
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import tiny_header
+
+    return tiny_header(dim=4096, hidden_dim=14336, n_layers=MOE_LAYERS, n_heads=32,
+                       n_kv_heads=8, vocab_size=32000, seq_len=MOE_SEQ_LEN,
+                       rope_theta=1000000.0, n_experts=8, n_active_experts=2)
+
+
+def write_random_q40_model(path: str, header, seed: int) -> None:
+    """A ``.m`` of ``header`` in the port's tensor order
+    (``formats/model_file.model_tensor_specs``) with random weights drawn as
+    the file holds them: each Q40 block 16 random nibble bytes and an f16
+    scale of one magnitude and a random sign, so that a weight (nibble - 8,
+    uniform on -8..7, std sqrt(255/12)) times its scale has std MOE_W_STD;
+    the F32 tensors (embedding, router) N(0, MOE_W_STD), the norms 1 plus
+    that. No quantizer runs: the 1B model's numpy quantizers took 60-66 s
+    for 1.75 GB."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.formats.model_file import (
+        model_tensor_specs,
+        write_model_header,
+    )
+    from distributed_llama_multiusers_tpu_torch.quants.codec import (
+        Q40_BLOCK_BYTES,
+        Q40_BLOCK_SIZE,
+        FloatType,
+    )
+
+    rng = np.random.default_rng(seed)
+    scale = MOE_W_STD / math.sqrt(255 / 12)
+    plus, minus = (np.asarray([s], "<f2").view(np.uint8) for s in (scale, -scale))
+    with open(path, "wb") as f:
+        write_model_header(f, header)
+        for spec in model_tensor_specs(header):
+            n = spec.shape[0] * spec.shape[1]
+            if spec.float_type == FloatType.Q40:
+                blocks = rng.integers(0, 256, (n // Q40_BLOCK_SIZE, Q40_BLOCK_BYTES),
+                                      dtype=np.uint8)
+                sign = rng.integers(0, 2, n // Q40_BLOCK_SIZE, dtype=np.uint8).astype(bool)
+                blocks[:, :2] = np.where(sign[:, None], plus, minus)
+                f.write(blocks.tobytes())
+            else:
+                check(spec.float_type == FloatType.F32, f"{spec.name}: float type "
+                                                         f"{spec.float_type}")
+                x = rng.standard_normal(n, dtype=np.float32) * MOE_W_STD
+                if "rms_norm" in spec.name:
+                    x += 1.0
+                f.write(x.astype("<f4").tobytes())
+
+
+def _route_inputs(torch, n: int, dim: int, e: int, seed: int, ties: bool = False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn((n, dim), device="cuda", generator=gen).to(torch.bfloat16)
+    gate = torch.randn((dim, e), device="cuda", generator=gen) * MOE_W_STD
+    if ties:  # experts 0, 1 and e-1 score the same on every row; some rows 0
+        gate[:, 1] = gate[:, 0]
+        gate[:, e - 1] = gate[:, 0]
+        y[::3] = 0.0
+    return y, gate
+
+
+def moe_route_bound(n: int, dim: int, e: int, k: int, x_bytes: int = 2) -> tuple:
+    """(bound ms, by): the rows, the gate and the three outputs moved once,
+    against the product's 2 n dim e operations at the f32 rate."""
+    n_bytes = n * dim * x_bytes + dim * e * 4 + n * k * 8 + n * e * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, 2 * n * dim * e / F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def moe_route_compare(torch, cm, y, gate, k: int, label: str, ties: bool = False) -> dict:
+    """The kernel against its plain version on the same card tensors:
+    expert ids equal on every row clear of a near tie (MOE_TIE_GAP); with
+    ``ties`` (experts 0, 1 and e-1 tie exactly on every row), those in index
+    order (as lax.top_k takes them) in both; weights and dense weights
+    within MOE_ROUTE_TOL wherever the chosen experts are the same."""
+    got = cm.moe_route(y, gate, k)
+    want = cm.moe_route_plain(y, gate, k)
+    torch.cuda.synchronize()
+    e = gate.shape[1]
+    logits = y.float() @ gate
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    gaps = (srt[:, :-1] - srt[:, 1:])[:, :k]
+    clear = (gaps > MOE_TIE_GAP * logits.abs().amax(dim=-1, keepdim=True)).all(dim=-1)
+    check(torch.equal(got[1][clear], want[1][clear]),
+          f"moe_route [{label}]: expert ids differ from the plain version's on clear rows")
+    same = (torch.sort(got[1], dim=-1).values == torch.sort(want[1], dim=-1).values).all(-1)
+    err = max([float(d.abs().max()) for d in ((got[0] - want[0])[same],
+                                               (got[2] - want[2])[same]) if d.numel()] + [0.0])
+    check(err <= MOE_ROUTE_TOL and bool(torch.isfinite(got[2]).all()),
+          f"moe_route [{label}]: weights max|kernel - plain| {err:.3e}")
+    check(torch.equal((got[2] > 0).sum(-1), torch.full_like(got[2][:, 0], k, dtype=torch.int64)),
+          f"moe_route [{label}]: a row's dense weights do not hold {k} experts")
+    for ids in (got[1].tolist(), want[1].tolist()) if ties else ():
+        for row in ids:
+            tied = [i for i in row if i in (0, 1, e - 1)]
+            check(tied == sorted(tied), f"moe_route [{label}]: tied experts {row} out of "
+                                        "lax.top_k's order")
+    return {"rows": int(y.shape[0]), "rows_clear": int(clear.sum()),
+            "rows_same_experts": int(same.sum()), "max_abs_err": err}
+
+
+def moe_kernel_phase(torch, cm) -> dict:
+    """``moe_route`` against its plain version at Mixtral's router (dim
+    4096, 8 experts, 2 active) on N = 8, 32 and 1,024 bf16 rows, and on
+    rows with exact ties; each N timed in a CUDA graph beside the library
+    chain (the f32 product, ``torch.topk``, ``softmax``, ``scatter_``), the
+    plain version (eager) and the bound."""
+    dim, e, k = 4096, 8, 2
+    out = {"by_rows": {}, "ties": None}
+    for n in MOE_ROUTE_ROWS:
+        y, gate = _route_inputs(torch, n, dim, e, seed=n)
+        cmp = moe_route_compare(torch, cm, y, gate, k, f"{n} rows")
+
+        def library(y=y, gate=gate):
+            logits = torch.matmul(y.float(), gate)
+            v, i = torch.topk(logits, k)
+            return torch.zeros_like(logits).scatter_(-1, i, torch.softmax(v, dim=-1))
+
+        bound_ms, bound_by = moe_route_bound(n, dim, e, k)
+        out["by_rows"][str(n)] = {
+            **cmp, "ms": graph_ms(torch, [lambda y=y, gate=gate: cm.moe_route(y, gate, k)],
+                                  reps=20),
+            "library_ms": graph_ms(torch, [library], reps=20),
+            "plain_ms": eager_ms(torch, lambda y=y, gate=gate: cm.moe_route_plain(y, gate, k),
+                                 10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    y, gate = _route_inputs(torch, 64, dim, e, seed=7, ties=True)
+    out["ties"] = moe_route_compare(torch, cm, y, gate, 3, "ties", ties=True)
+    check(out["ties"]["rows_same_experts"] == 64, "moe_route [ties]: the kernel's experts "
+                                                  "differ from the plain version's")
+    head = out["by_rows"][str(DECODE_M)]
+    out.update({k_: head[k_] for k_ in ("ms", "library_ms", "plain_ms", "bound_ms",
+                                         "bound_by")})
+    out["max_abs_err"] = max([r["max_abs_err"] for r in out["by_rows"].values()]
+                             + [out["ties"]["max_abs_err"]])
+    log("moe_route: " + json.dumps(out))
+    return out
+
+
+class RouteLog:
+    """Every ``moe_route`` call of the forwards run while it is installed
+    (``models/llama.moe_route`` replaced): each row's experts and its router
+    logits (the f32 product, recomputed). With ``follow`` (another run's
+    log), each call's logits must lie within ``tol`` of max|logit| of that
+    run's, and a row whose experts part from that run's takes them instead,
+    weighed by its own logits, where the parting is a near tie the
+    difference explains: for every expert i it chose and the other did not
+    and every j the other chose and it did not, its own a_i - a_j is at most
+    |a_i - b_i| + |a_j - b_j| (two runs of the same function on close
+    inputs rank two experts apart only so). A parting it does not explain
+    fails the check. ``stride`` maps this run's calls onto the other's (a
+    tp = n forward calls the router once a rank)."""
+
+    def __init__(self, torch, follow=None, tol: float = 0.0, stride: int = 1,
+                 follow_stride: int = 1):
+        self.torch, self.follow, self.tol = torch, follow, tol
+        self.stride, self.follow_stride = stride, follow_stride
+        self.calls, self.followed, self.max_logit_diff = [], 0, 0.0
+
+    def __enter__(self):
+        from distributed_llama_multiusers_tpu_torch.models import llama
+
+        self._real, self._mod = llama.moe_route, llama
+        llama.moe_route = self
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_route = self._real
+
+    def __call__(self, y, gate, k):
+        torch = self.torch
+        topw, topi, rw = self._real(y, gate, k)
+        logits = y.float() @ gate.float()
+        i = len(self.calls)
+        self.calls.append((topi.cpu(), logits.cpu()))
+        if self.follow is None:
+            return topw, topi, rw
+        ref_i, ref_l = self.follow[(i // self.stride) * self.follow_stride]
+        own_i, own_l = self.calls[-1]
+        delta = (own_l - ref_l).abs()
+        scale = float(ref_l.abs().max())
+        self.max_logit_diff = max(self.max_logit_diff, float(delta.max()) / max(scale, 1e-30))
+        check(float(delta.max()) <= self.tol * scale,
+              f"router call {i}: logits {float(delta.max()):.3e} from the other run's "
+              f"(max {scale:.3e}, tol {self.tol})")
+        parted = [r for r in range(own_i.shape[0])
+                  if set(own_i[r].tolist()) != set(ref_i[r].tolist())]
+        if not parted:
+            return topw, topi, rw
+        for r in parted:
+            mine, theirs = set(own_i[r].tolist()), set(ref_i[r].tolist())
+            for a in mine - theirs:
+                for b in theirs - mine:
+                    lead = float(own_l[r, a] - own_l[r, b])
+                    check(lead <= float(delta[r, a] + delta[r, b]) + 2 * MOE_TIE_GAP * scale,
+                          f"router call {i}, row {r}: expert {a} chosen over the other run's "
+                          f"{b} by {lead:.3e}, more than the runs' difference on them "
+                          f"({float(delta[r, a]):.3e}, {float(delta[r, b]):.3e})")
+        self.followed += len(parted)
+        ref = ref_i.to(topi.device)
+        p = torch.zeros(topi.shape[0], 1, dtype=torch.bool)
+        p[parted] = True
+        p = p.to(topi.device)
+        w = torch.softmax(logits.gather(-1, ref.long()), dim=-1)
+        topi = torch.where(p, ref, topi)
+        topw = torch.where(p, w, topw)
+        rw = torch.where(p, torch.zeros_like(rw).scatter_(-1, ref.long(), w), rw)
+        return topw, topi, rw
+
+
+def moe_cpu_check(torch, config, params) -> dict:
+    """The card's forward against the port's CPU forward on the same
+    weights: one 64-row prompt chunk (the sparse dispatch) and 8 greedy
+    decode steps (the per-expert loop), each step feeding the card's argmax
+    to both. The CPU runs in f32 with every matmul dense (the planes'
+    dequantized values, the same numbers), so its MoE layers take the
+    sparse dispatch; it takes the card's experts where they part at a near
+    tie (``RouteLog``). Logits within MOE_CPU_TOL of max|cpu| a step."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.models.llama import (
+        LlamaLayerParams,
+        LlamaParams,
+        init_kv_cache,
+        llama_forward,
+    )
+    from distributed_llama_multiusers_tpu_torch.quants.packed import PackedQ40, unpack_q40
+
+    t0 = time.perf_counter()
+    dev = params.device
+    prompt = np.random.default_rng(11).integers(0, config.vocab_size, MOE_PREFILL_ROWS)
+    steps = [(prompt[None], np.arange(MOE_PREFILL_ROWS)[None])]
+    card_logits = []
+    with RouteLog(torch) as card_log, torch.inference_mode():
+        cache = init_kv_cache(config, 1, dtype=torch.bfloat16, device=dev)
+        for s in range(MOE_DECODE_STEPS + 1):
+            toks, pos = steps[s]
+            logits, _ = llama_forward(config, params, torch.as_tensor(toks, device=dev),
+                                      torch.as_tensor(pos, device=dev), cache)
+            card_logits.append(logits[0].float().cpu())  # reads back: synchronized
+            if s < MOE_DECODE_STEPS:
+                steps.append((np.asarray([[int(logits[0, -1].argmax())]]),
+                              np.asarray([[MOE_PREFILL_ROWS + s]])))
+    card_s = time.perf_counter() - t0
+    del cache
+
+    # the CPU's parameters: the card's values, every matmul dense f32 (each
+    # packed plane unpacked on the card, one expert at a time, and copied:
+    # (nibble - 8) times an f16 scale is exact in f32 on either device)
+    t1 = time.perf_counter()
+
+    def host(w):
+        if not isinstance(w, PackedQ40):
+            return w.to("cpu", torch.float32)
+        out = torch.empty((*w.packed.shape[:-2], w.d_in, w.d_out), dtype=torch.float32)
+        flat_p = w.packed.reshape(-1, *w.packed.shape[-2:])
+        flat_s = w.scales.reshape(-1, *w.scales.shape[-2:])
+        for i, o in enumerate(out.view(-1, w.d_in, w.d_out)):
+            o.copy_(unpack_q40(PackedQ40(flat_p[i], flat_s[i])))
+        return out
+
+    lay = params.layers
+    cpu = LlamaParams(
+        embedding=host(params.embedding), rms_final=host(params.rms_final),
+        wcls=host(params.wcls), rope_cos=host(params.rope_cos), rope_sin=host(params.rope_sin),
+        layers=LlamaLayerParams(**{k: host(getattr(lay, k)) for k in (
+            "wq", "wk", "wv", "wo", "w1", "w2", "w3", "rms_att", "rms_ffn", "moe_gate")}))
+    unpack_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    errs = []
+    with RouteLog(torch, follow=card_log.calls, tol=MOE_CPU_TOL) as cpu_log, \
+            torch.inference_mode():
+        cache = init_kv_cache(config, 1, dtype=torch.float32, device="cpu")
+        for (toks, pos), want in zip(steps, card_logits):
+            logits, _ = llama_forward(config, cpu, torch.as_tensor(toks),
+                                      torch.as_tensor(pos), cache)
+            ref = logits[0]
+            err, scale = float((want - ref).abs().max()), float(ref.abs().max())
+            check(bool(torch.isfinite(want).all()) and err <= MOE_CPU_TOL * scale,
+                  f"moe forward, card against CPU, step {len(errs)}: max|d| {err:.4e} against "
+                  f"max|cpu| {scale:.4e}")
+            errs.append({"rows": int(ref.shape[0]), "max_abs_err": err, "max_abs_ref": scale,
+                         "argmax_equal": int((want.argmax(-1) == ref.argmax(-1)).sum())})
+    out = {"steps": errs, "tol": MOE_CPU_TOL, "router_calls": len(card_log.calls),
+           "rows_following_the_card": cpu_log.followed,
+           "max_router_logit_diff": cpu_log.max_logit_diff,
+           "card_s": card_s, "cpu_unpack_s": unpack_s, "cpu_s": time.perf_counter() - t2}
+    log("moe forward, card against CPU: " + json.dumps(out))
+    del cpu, cache
+    return out
+
+
+def _greedy_forward(torch, config, params, prompt, n: int, mesh=None, follow=None,
+                    feed=None, tol: float = TP_LOGITS_TOL, **flags):
+    """A one-lane greedy run through ``llama_forward``: the prompt, then
+    each step fed its argmax (or ``feed``'s tokens, teacher-forced), n
+    forwards; returns (the n tokens chosen, each forward's last logits on
+    the CPU, the run's RouteLog)."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.models.llama import init_kv_cache, llama_forward
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_kv_cache
+
+    dev = (params if mesh is None else params[0]).device
+    cache = init_kv_cache(config, 1, dtype=torch.bfloat16, device=dev)
+    if mesh is not None:
+        cache = shard_kv_cache(cache, mesh)
+    n_ranks = 1 if mesh is None else mesh.tp
+    toks, pos = np.asarray([prompt]), np.arange(len(prompt))[None]
+    chosen, logits_all = [], []
+    follow_stride = 1 if follow is None else follow.stride
+    with RouteLog(torch, None if follow is None else follow.calls, tol=tol,
+                  stride=n_ranks, follow_stride=follow_stride) as rlog, torch.inference_mode():
+        for s in range(n):
+            logits, _ = llama_forward(config, params, torch.as_tensor(toks, device=dev),
+                                      torch.as_tensor(pos, device=dev), cache, mesh=mesh,
+                                      logit_rows=torch.as_tensor([toks.shape[1] - 1]),
+                                      **flags)
+            row = logits[0, -1].float().cpu()
+            logits_all.append(row)
+            chosen.append(int(row.argmax()))
+            nxt = chosen[-1] if feed is None else feed[s]
+            toks, pos = np.asarray([[nxt]]), np.asarray([[len(prompt) + s]])
+    return chosen, logits_all, rlog
+
+
+def moe_tp_check(torch, config, params) -> list:
+    """A tp = 2 decode (two ranks on the host's cards, one card named twice
+    where there is one) on the f32 wire and on the Q80 wire (Q80 activation
+    casts on, as ``--buffer-float-type q80`` serves), against tp = 1: tp2
+    greedy for 16 tokens, then tp1 fed tp2's tokens (taking tp2's experts
+    only at near ties, ``RouteLog``). Each step's logits within
+    TP_LOGITS_TOL of max|tp1| (MOE_TP_Q80_TOL with the Q80 casts), and tp1's greedy token tp2's wherever tp1's
+    top two logits lie apart by more than twice that step's measured
+    difference; tp1's own greedy stream's common prefix with tp2's is
+    printed."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
+
+    mesh = make_mesh(MeshPlan(tp=2), rank_devices(torch, 2))
+    shards = shard_params(params, mesh)
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, config.vocab_size,
+                                                              MOE_TP_PROMPT)]
+    out = []
+    for wire in ("f32", "q80"):
+        q80 = wire == "q80"
+        tol = MOE_TP_Q80_TOL if q80 else TP_LOGITS_TOL
+        check(not q80 or q80_sync_engages(config, mesh.shape), "the Q80 wire does not engage")
+        got, got_logits, tp2_log = _greedy_forward(
+            torch, config, shards, prompt, MOE_TP_TOKENS, mesh=mesh, q80_sync=q80,
+            emulate_q80_activations=q80)
+        tp1_choice, ref_logits, tp1_log = _greedy_forward(
+            torch, config, params, prompt, MOE_TP_TOKENS, follow=tp2_log, feed=got, tol=tol,
+            emulate_q80_activations=q80)
+        free, _, _ = _greedy_forward(torch, config, params, prompt, MOE_TP_TOKENS,
+                                     emulate_q80_activations=q80)
+        steps, excused = [], 0
+        for s, (g, r) in enumerate(zip(got_logits, ref_logits)):
+            err, scale = float((g - r).abs().max()), float(r.abs().max())
+            check(bool(torch.isfinite(g).all()) and err <= tol * scale,
+                  f"moe tp2 [{wire} wire] step {s}: max|tp2 - tp1| {err:.4e} against max|tp1| "
+                  f"{scale:.4e} (tol {tol})")
+            top2 = torch.topk(r, 2).values
+            margin = float(top2[0] - top2[1])
+            if tp1_choice[s] != got[s]:
+                check(margin <= 2 * err, f"moe tp2 [{wire} wire] step {s}: token {got[s]} "
+                                         f"where tp1 takes {tp1_choice[s]} by a margin of "
+                                         f"{margin:.4e} "
+                                         f"(step difference {err:.4e})")
+                excused += 1
+            steps.append({"max_abs_err": err, "max_abs_ref": scale, "top2_margin": margin})
+        prefix = next((i for i, (a, b) in enumerate(zip(free, got)) if a != b), len(got))
+        res = {"wire": wire, "tol": tol, "tokens": len(got), "tokens_equal_fed": len(got) - excused,
+               "near_tie_tokens": excused, "free_run_common_prefix": prefix,
+               "rows_following_tp2": tp1_log.followed,
+               "max_router_logit_diff": tp1_log.max_logit_diff,
+               "router_calls_tp2": len(tp2_log.calls), "router_calls_tp1": len(tp1_log.calls),
+               "max_abs_err": max(x["max_abs_err"] for x in steps), "steps": steps}
+        check(res["router_calls_tp2"] == 2 * res["router_calls_tp1"],
+              f"moe tp2 [{wire} wire]: {res['router_calls_tp2']} router calls, tp1 "
+              f"{res['router_calls_tp1']}")
+        log(f"moe tp2 [{wire} wire]: {len(got) - excused} of {len(got)} greedy tokens tp1's "
+            f"choice ({excused} at near ties), free-run common prefix {prefix}, "
+            f"{tp1_log.followed} rows following tp2's experts, max|tp2 - tp1| "
+            f"{res['max_abs_err']:.4e}")
+        out.append(res)
+    del shards
+    return out
+
+
+def moe_stream_check(torch, config, params, tok: str) -> dict:
+    """In this process, the scheduler on the Mixtral-width engine: a probe
+    (16 greedy tokens after SPEC_RUN 'a's), then the drafting request built
+    from it (as ``serve_pass`` builds it) with speculation off and on: the
+    two streams equal (the JAX package's MoE identity, tests/test_moe.py),
+    verify steps run; and a seeded request. Returns the prompt and the
+    streams the server must give."""
+    from distributed_llama_multiusers_tpu_torch.runtime import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        Request,
+    )
+    from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
+
+    tokenizer = Tokenizer(tok)
+
+    def serve(spec: bool, reqs: list) -> dict:
+        engine = InferenceEngine(config, params, n_lanes=DECODE_M, device=params.device)
+        sched = ContinuousBatchingScheduler(engine, tokenizer, speculative=spec)
+        sched.start()
+        try:
+            for r in reqs:
+                sched.submit(r)
+                r.future.result(timeout=600)
+        finally:
+            sched.stop()
+        for r in reqs:
+            check(r.error is None, f"moe in-process request failed: {r.error}")
+        stats = engine.stats.snapshot()
+        del engine
+        return stats
+
+    t0 = time.perf_counter()
+    probe = Request(prompt="a" * SPEC_RUN, max_tokens=SPEC_PROBE_TOKENS, temperature=0.0)
+    serve(False, [probe])
+    prompt = "a" + probe.generated_text + "a" * SPEC_RUN
+    plain = Request(prompt=prompt, max_tokens=GEN_TOKENS, temperature=0.0)
+    # a seeded stream too: its draws follow every step's logits (the long
+    # run of one token may settle the greedy stream on one token)
+    seeded = Request(prompt="once upon a time", max_tokens=GEN_TOKENS, temperature=0.8,
+                     topp=0.9, seed=7)
+    serve(False, [plain, seeded])
+    spec = Request(prompt=prompt, max_tokens=GEN_TOKENS, temperature=0.0)
+    stats = serve(True, [spec])
+    check(spec.generated_tokens == plain.generated_tokens,
+          f"moe: the greedy stream with speculation parts from the one without at token "
+          f"{_common_prefix(spec.generated_tokens, plain.generated_tokens)}")
+    check(stats["spec_steps"] > 0, "moe: no verify step ran with speculation on")
+    out = {"prompt": prompt, "text": plain.generated_text, "seeded_text": seeded.generated_text,
+           "tokens": len(plain.generated_tokens),
+           "distinct_tokens": {"greedy": len(set(plain.generated_tokens)),
+                               "seeded": len(set(seeded.generated_tokens))},
+           "spec_steps": stats["spec_steps"],
+           "spec_lane_steps": stats["spec_lane_steps"], "spec_emitted": stats["spec_emitted"],
+           "seconds": time.perf_counter() - t0}
+    log("moe streams in process (speculation on equals off): "
+        + json.dumps({k: v for k, v in out.items() if k not in ("prompt", "text",
+                                                                 "seeded_text")}))
+    return out
+
+
+def moe_serving_check(model: str, tok: str, stream: dict) -> dict:
+    """``dllama_api`` with its defaults (speculation and grammar on) on the
+    Mixtral-width file: 4 requests at once on its 8 lanes (the drafting
+    greedy completion, a seeded one, a streamed greedy chat and a flags
+    json_schema): every stream finishes, the constrained answer parses and
+    conforms, the greedy and the seeded completions are the in-process
+    streams, no graph is captured after warmup, the router and the Q40
+    kernels launched."""
+    srv = Server(model, tok, "moe")
+    try:
+        bodies = [
+            ("/v1/completions", {"prompt": stream["prompt"], "max_tokens": GEN_TOKENS,
+                                 "temperature": 0}),
+            ("/v1/completions", {"prompt": "once upon a time", "max_tokens": GEN_TOKENS,
+                                 "temperature": 0.8, "top_p": 0.9, "seed": 7}),
+            ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hello"}],
+                                      "max_tokens": GEN_TOKENS, "temperature": 0,
+                                      "stream": True}),
+            ("/v1/completions", {"prompt": "fill the flags", "max_tokens": 96,
+                                 "temperature": 0, "response_format": G_FLAGS}),
+        ]
+        t0 = time.perf_counter()
+        results = _grammar_concurrent(srv.base, bodies)
+        batch_s = time.perf_counter() - t0
+        for (route, body), (status, text, finish) in zip(bodies, results):
+            check(status == 200 and finish in ("stop", "length"),
+                  f"moe server: {route} gave {status} {text!r} finish {finish}")
+        for i, key in ((0, "text"), (1, "seeded_text")):
+            check(results[i][1] == stream[key], f"moe server: completion {i} differs from "
+                  f"the in-process stream:\n{results[i][1]!r}\n{stream[key]!r}")
+        check(results[3][2] == "stop", f"moe server: the flags answer did not finish: "
+                                       f"{results[3][1]!r}")
+        try:
+            obj = json.loads(results[3][1])
+        except ValueError:
+            obj = None
+        check(_conforms(G_FLAGS, obj), f"moe server: the flags answer {results[3][1]!r}")
+        stats = srv.stats()
+        check(stats["jit_compiles_after_warmup"] == 0,
+              f"moe server: {stats['jit_compiles_after_warmup']} graphs captured after warmup")
+        check(stats["moe_route_launches"] > 0 and stats["kernel_launches"]["q40_slab"] > 0,
+              f"moe server: moe_route {stats['moe_route_launches']}, Q40 "
+              f"{stats['kernel_launches']}")
+        check(stats["grammar_masked_steps"] > 0 and stats["spec_steps"] > 0,
+              f"moe server: grammar masked steps {stats['grammar_masked_steps']}, verify "
+              f"steps {stats['spec_steps']}")
+        p = {**_grammar_pass("moe", stats), "moe_route_launches": stats["moe_route_launches"],
+             "batch_s": batch_s, "startup_s": srv.startup_s,
+             "spec_steps": stats["spec_steps"], "decode_graphs": stats["decode_graphs"],
+             "decode_graph_replays": stats["decode_graph_replays"]}
+        log_text = srv.stop()
+        for phrase in ("Experts: 8  Active: 2", "Q40 weights resident"):
+            check(phrase in log_text, f"moe server: the startup log does not say {phrase!r}")
+        log(f"moe server: 4 streams in {batch_s:.2f}s (started in {srv.startup_s:.1f}s), "
+            f"launches: moe_route {p['moe_route_launches']}, Q40 {p['kernel_launches']}, "
+            f"decode_attn {p['decode_attn_launches']}; flags answer {obj}")
+        return p
+    except BaseException:
+        srv.tail()
+        raise
+    finally:
+        srv.kill()
+
+
+def moe_phase(torch, q, rc, cs, cm) -> dict:
+    """Phase 4d: the router kernel, then the Mixtral-width MoE model (2
+    layers, random Q40 blocks) on the card: the forward against the CPU's,
+    its v4 decode and verify steps replayed from their graphs
+    (``step_breakdown``), tp = 2 on both wires against tp = 1, speculation
+    on against off in process, and ``dllama_api`` serving it."""
+    from distributed_llama_multiusers_tpu_torch.formats import load_model_header
+    from distributed_llama_multiusers_tpu_torch.models import load_params_from_m_quantized
+
+    t0 = time.perf_counter()
+    kernel = moe_kernel_phase(torch, cm)
+    model, tok = ensure_model(mixtral_header(), seed=0, write=write_random_q40_model)
+    t_load = time.perf_counter()
+    config, params = load_params_from_m_quantized(model, load_model_header(model),
+                                                  dtype=torch.bfloat16, device="cuda")
+    load_s = time.perf_counter() - t_load
+    cpu = moe_cpu_check(torch, config, params)
+    step = step_breakdown(torch, q, rc, cs, config, params, "v4", label="moe v4")
+    # the expert stacks' packed planes, every expert read once a step
+    expert_bytes = sum(w.packed.numel() + 2 * w.scales.numel()
+                       for w in (params.layers.w1, params.layers.w2, params.layers.w3))
+    all_bytes = sum(q.bound_bytes(DECODE_M, w.d_in, w.d_out, "v4")
+                    for w in step_products(params))
+    step["bound_ms_expert_bytes"] = expert_bytes / HBM_BYTES_S * 1e3
+    step["bound_ms_products"] = all_bytes / HBM_BYTES_S * 1e3
+    step["products_per_step"] = len(step_products(params))
+    tp = moe_tp_check(torch, config, params)
+    stream = moe_stream_check(torch, config, params, tok)
+    del params
+    torch.cuda.empty_cache()
+    serving = moe_serving_check(model, tok, stream)
+    out = {"kernel": kernel, "load_s": load_s, "cpu": cpu, "tp2": tp,
+           "stream": {k: v for k, v in stream.items() if k != "prompt"},
+           "serving": serving,
+           "step": {k: v for k, v in step.items() if k not in ("eager", "prefill_logits")},
+           "seconds": time.perf_counter() - t0}
+    log(f"moe phase: {out['seconds']:.1f}s; v4 decode step {step['device_ms_per_step']:.3f} ms "
+        f"of device time ({step['device_ops_per_step']} operations, "
+        f"{step['products_per_step']} products, Q40 kernels {step['q40_kernels_ms_per_step']:.3f} "
+        f"ms against the expert bytes' {step['bound_ms_expert_bytes']:.3f} ms)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the kernel lab
 # ---------------------------------------------------------------------------
 
@@ -4358,7 +5032,8 @@ def lab_line_entries(lab, lab_result) -> list:
 
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
-                 forms=(), attn=None, row_plans=(), paged=None, grammar=None) -> dict:
+                 forms=(), attn=None, row_plans=(), paged=None, grammar=None,
+                 moe=None) -> dict:
     """One entry per kernel. ``launches`` is the main path's count: the
     serving passes, the CLI runs and the durability servers, each counting
     from the end of its warmup. For a Q40
@@ -4606,6 +5281,36 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                     "bound_ms_with_masked_rows": k["bound_ms_with_masked_rows"]}
                    if name == "grammar_mask_argmax" else {}),
             })
+    if moe is not None:
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
+
+        k, st = moe["kernel"], moe["step"]
+        out.append({
+            "name": cm.KERNEL, "route": "cuda", "source": cm.KERNEL_SOURCE,
+            "replaces": cm.KERNEL_REPLACES,
+            "replaces_note": "counterpart of XLA's _moe_topk + _moe_router_weights (an f32 "
+                             "einsum, lax.top_k, jax.nn.softmax, a one-hot einsum; "
+                             "models/llama.py:171-188) inside every step family of an MoE "
+                             "model; no Pallas site",
+            "launches": sum(p_.get("moe_route_launches", 0) for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_.get("moe_route_launches", 0) for p_ in passes},
+            "max_abs_err": k["max_abs_err"], "tol": MOE_ROUTE_TOL,
+            "tol_rule": f"expert ids equal to the plain version's on every row clear of a "
+                        f"near tie ({MOE_TIE_GAP:.0e} of max|logit|), lax.top_k's order on "
+                        "exact ties; weights within tol where the experts are the same",
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
+            "library": "torch.matmul (f32) + torch.topk + torch.softmax + scatter_ in one "
+                       "graph (topk's tie order is unspecified)",
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "by_rows": k["by_rows"],
+            "timed_as": f"one decode step's router call at {DECODE_M} lanes: {DECODE_M} bf16 "
+                        "rows of 4096 over 8 experts, 2 active (Mixtral-8x7B): kernel and "
+                        "library chain in one CUDA graph each; plain eager; by_rows also "
+                        f"{VERIFY_M} (a verify step) and 1024 (a prompt chunk)",
+            "launches_per_decode_step": st["launches_per_step"]["moe_route"],
+            "launches_per_verify_step": st["verify"]["launches_per_step"]["moe_route"],
+            "profiled_ms_per_decode_step": st["moe_route_ms_per_step"],
+        })
     if lab_result:
         out += lab_line_entries(lab, lab_result)
     return {"kernels": out}
@@ -4628,6 +5333,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    writer = None
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -4642,11 +5348,14 @@ def main() -> int:
         from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
         from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
         from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
+        from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
         from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
         from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
+        writer = start_model_writer()
         t0 = time.perf_counter()
-        names = q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL, cg.KERNEL) + lab.KERNELS
+        names = (q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL, cg.KERNEL, cm.KERNEL)
+                 + lab.KERNELS)
         one_kernel_build = build_one_kernel(q, rc)
         try:
             libs = q.build_kernels(names)
@@ -4668,6 +5377,15 @@ def main() -> int:
             log(f"{kernel} {opcode} in SASS: "
                 + json.dumps(geometry[kernel][f"{opcode.lower()}_in_sass"]))
 
+        seconds = {"setup": round(time.perf_counter() - t_start, 1)}  # the build included
+        mark = [time.perf_counter()]
+
+        def lap(name: str) -> None:
+            """The seconds since the last lap, as phase ``name``."""
+            now = time.perf_counter()
+            seconds[name] = round(now - mark[0], 1)
+            mark[0] = now
+
         checks, timings = kernel_phase(torch, q)
         row_plans = row_plan_phase(torch, q)
         hops = hop_phase(torch, rc)
@@ -4680,16 +5398,27 @@ def main() -> int:
                        "hop_forms": forms, "collectives": collectives, "geometry": geometry,
                        "sampler": sampler, "attn": attn, "verify_shaped_products": row_plans},
                       f, indent=1)
-
+        lap("kernels")
+        check(writer.wait() == 0, f"the model writer exited {writer.returncode}")
+        lap("model_wait")
         passes = serving_phase(torch, q)
+        lap("serving")
         model, tok = ensure_model(llama32_1b_header(), seed=0)
         layers = serving_layers_phase(model, tok, passes[0])
+        lap("serving_layers")
         cli = cli_phase(torch, model, tok, passes)
+        lap("cli")
         durability = durability_phase(model, tok)
+        lap("durability")
         breakdown, tp, tp_logits, hop_step, products, prefix_bits = decode_phase(
             torch, q, rc, cs, model)
+        lap("decode")
         paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
+        lap("paged")
         grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown)
+        lap("grammar")
+        moe = moe_phase(torch, q, rc, cs, cm)
+        lap("moe")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
             "80GB HBM3 at 700 W: 349.1 tok/s, 4.76 ms)")
@@ -4704,17 +5433,24 @@ def main() -> int:
                        "decode_step_products": products,
                        "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
                                                       if k != "log"}},
-                       "grammar": grammar}, f, indent=1)
+                       "grammar": grammar, "moe": moe}, f, indent=1)
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
-        main_path = passes + [paged["serving"]] + cli + durability["passes"] + grammar["passes"]
+        lap("lab")
+        log("phase seconds: " + json.dumps(seconds))
+        main_path = (passes + [paged["serving"]] + cli + durability["passes"]
+                     + grammar["passes"] + [moe["serving"]])
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
-                            row_plans, paged, grammar)
+                            row_plans, paged, grammar, moe)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if writer is not None and writer.poll() is None:
+            writer.kill()
+            writer.wait()
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(line))

@@ -11,7 +11,7 @@ import torch
 from ..formats import load_model_header
 from ..models import load_params_from_m
 from ..models.loader import load_params_from_m_quantized
-from ..ops import cuda_attn, cuda_grammar, cuda_q40, cuda_sample, ring_collective
+from ..ops import cuda_attn, cuda_grammar, cuda_moe, cuda_q40, cuda_sample, ring_collective
 from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
@@ -46,6 +46,8 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     # bf16 activations and weights on the card; f32 on the CPU (parity)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     log("💡", f"Dim: {header.dim}  HiddenDim: {header.hidden_dim}  Layers: {header.n_layers}")
+    if header.n_experts > 0:
+        log("💡", f"Experts: {header.n_experts}  Active: {header.n_active_experts}")
     log("💡", f"Heads: {header.n_heads}/{header.n_kv_heads}  Vocab: {header.vocab_size}  "
               f"SeqLen: {header.seq_len}")
     tokenizer = Tokenizer(args.tokenizer)
@@ -93,14 +95,17 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     # the predicates llama_forward reads, so that what is announced is what runs
     q80_sync = emulate_q80 and mesh is not None and q80_sync_engages(config, mesh.shape)
     ring_sync = args.ring_sync == "on"
+    # an MoE model syncs only wo on the ring: its FFN's partials meet in an
+    # f32 all-reduce
+    synced = "wo" if config.n_experts > 0 else "wo/w2"
     if q80_sync:
-        log("🔶", "Q80 sync transport: wo/w2 TP boundaries ship int8+scales "
+        log("🔶", f"Q80 sync transport: {synced} TP boundaries ship int8+scales "
                   "(--buffer-float-type q80 on a tp mesh)")
     elif emulate_q80:
         log("🔶", "Q80 activation-cast emulation enabled (--buffer-float-type q80)")
     if mesh is not None and ring_sync_engages(config, mesh.shape, ring_sync) \
             and ring_sync_supported(config.dim, mesh.tp, q80_sync):
-        log("🔗", "Ring TP sync: wo/w2 activation sync interleaved with the dequant "
+        log("🔗", f"Ring TP sync: {synced} activation sync interleaved with the dequant "
                   "matmul, every hop one ring_hop kernel launch"
                   + (" (Q80 wire)" if q80_sync else "") + " — --ring-sync off for "
                   "a local partial and a ring all-reduce")
@@ -167,6 +172,7 @@ def warm_engine(engine, spec: bool, multi_step: int, pipeline: bool = True) -> f
     cuda_sample.reset_counts()
     cuda_attn.reset_counts()
     cuda_grammar.reset_counts()
+    cuda_moe.reset_counts()
     if engine.graphs is not None:
         engine.graphs.mark_warm()
     return time.perf_counter() - t0

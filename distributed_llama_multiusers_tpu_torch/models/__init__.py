@@ -5,4 +5,5 @@ from .loader import (
     load_params_from_m_quantized,
     params_from_jax_numpy,
     params_from_random,
+    quantize_params,
 )

@@ -28,12 +28,19 @@ and verify rows, a gather of the lane's view into the dense attention for
 a prompt chunk. A lane's results equal the contiguous layout's on the same
 slot contents, bit for bit.
 
+Mixture-of-experts models (``config.n_experts`` > 0, the JAX package's
+Mixtral family): each layer's FFN is E gated experts behind a router
+(``moe_gate``), the top k of them mixed by the softmax of their logits. The
+router runs as one kernel a layer (``ops/cuda_moe.moe_route``); the experts
+take the JAX package's dispatch (``_moe_ffn``).
+
 Tensor parallelism (``mesh``): one process drives every rank, as the JAX
 package's single controller does. Each layer runs rank by rank on local
 shards (head-sharded attention, row-sliced wq/wk/wv/w1/w3), the replicated
-parts (embedding, norms, RoPE) on every rank; the wo/w2 outputs sync through
-the ring collectives (ops/ring_collective.py), and the logits shards gather
-onto rank 0.
+parts (embedding, norms, RoPE, the router) on every rank; the wo/w2 outputs
+sync through the ring collectives (ops/ring_collective.py), an MoE layer's
+routed partials through one f32 ring all-reduce, and the logits shards
+gather onto rank 0.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..ops.cuda_attn import (
     paged_gather_index,
     paged_view,
 )
+from ..ops.cuda_moe import moe_route
 from ..ops.linear import matmul, shared_q80_acts
 from ..ops.norm import rms_norm
 from ..ops.ring_collective import (
@@ -65,7 +73,7 @@ from ..ops.ring_collective import (
     ring_sync_supported,
 )
 from ..ops.rope import apply_rope
-from ..quants.packed import PackedQ40
+from ..quants.packed import PackedQ40, unpack_q40
 from ..parallel.collectives import q80_sync_engages, q80_sync_matmul
 from ..quants.torch_codec import qdq_q80
 from .config import LlamaConfig
@@ -79,17 +87,24 @@ class LlamaLayerParams:
     weights are [L, d_in, d_out] (y = x @ W) dense tensors or PackedQ40
     planes ([L, d_in/2, d_out] + [L, d_in/32, d_out]). A tensor-parallel
     rank's wo/w2 are column-chunk stacks [L, tp, d_in/tp, d_out/tp]
-    (parallel/sharding.py)."""
+    (parallel/sharding.py).
+
+    MoE models: w1/w2/w3 gain an expert axis after the layer's, [L, E, d_in,
+    d_out] (packed: [L, E, d_in/2, d_out] nibbles and [L, E, d_in/32, d_out]
+    scales), and ``moe_gate`` holds the router [L, dim, E] f32; expert e of
+    layer l is ``layer(l).w1[e]``. A rank's MoE w2 is its input-row slice
+    [L, E, hidden/tp, dim], no column-chunk stack."""
 
     wq: object  # [L, dim, dim]
     wk: object  # [L, dim, kv_dim]
     wv: object  # [L, dim, kv_dim]
     wo: object  # [L, dim, dim]
-    w1: object  # [L, dim, hidden]  gate
-    w2: object  # [L, hidden, dim]  down
-    w3: object  # [L, dim, hidden]  up
+    w1: object  # [L, dim, hidden]  gate  (MoE: [L, E, dim, hidden])
+    w2: object  # [L, hidden, dim]  down  (MoE: [L, E, hidden, dim])
+    w3: object  # [L, dim, hidden]  up    (MoE: [L, E, dim, hidden])
     rms_att: torch.Tensor  # [L, dim] f32
     rms_ffn: torch.Tensor  # [L, dim] f32
+    moe_gate: torch.Tensor | None = None  # [L, dim, E] f32 router; None for dense models
     # Qwen2-family q/k/v biases; None for the Llama family
     bq: torch.Tensor | None = None  # [L, dim]
     bk: torch.Tensor | None = None  # [L, kv_dim]
@@ -188,6 +203,113 @@ def _qdq(y: torch.Tensor) -> torch.Tensor:
     return qdq_q80(y, mode="runtime")
 
 
+# the JAX package's MOE_PACKED_SPARSE_MIN_TOKENS, gated on a call's rows a
+# lane (T), as there: below it (decode, the verify window, decode_multi,
+# the pipelined and fused steps' decode rows, short prompt chunks) packed
+# experts take the per-expert loop, bound by every expert's packed bytes,
+# which it reads once; at or above it (prompt chunks of 64 rows and more)
+# each expert is dequantized once and multiplies only its own rows
+MOE_PACKED_SPARSE_MIN_TOKENS = 32
+
+
+def _moe_topk(y: torch.Tensor, moe_gate: torch.Tensor, n_active: int):
+    """The router's top k (weights [B, T, k] f32, softmax over the k chosen
+    logits; expert ids [B, T, k] int32), from the unquantized normed rows."""
+    b, t, d = y.shape
+    topw, topi, _ = moe_route(y.reshape(b * t, d), moe_gate, n_active)
+    return topw.view(b, t, -1), topi.view(b, t, -1)
+
+
+def _moe_router_weights(y: torch.Tensor, moe_gate: torch.Tensor, n_active: int):
+    """Dense routing weights [B, T, E]: the top-k weights over the expert
+    axis, zero for the experts not chosen."""
+    b, t, d = y.shape
+    return moe_route(y.reshape(b * t, d), moe_gate, n_active)[2].view(b, t, -1)
+
+
+def _n_experts(w) -> int:
+    return (w.packed if isinstance(w, PackedQ40) else w).shape[0]
+
+
+def _expert(w, e: int, dtype: torch.dtype) -> torch.Tensor:
+    """Expert e's dense [d_in, d_out] weight in ``dtype``: a packed stack is
+    dequantized one expert at a time (the values of the whole stack's
+    ``unpack_q40``), never as a whole stack."""
+    return unpack_q40(w[e], dtype) if isinstance(w, PackedQ40) else w[e].to(dtype)
+
+
+def _moe_ffn_sparse(yq, topw, topi, w1, w2, w3, act_fn, maybe_qdq) -> torch.Tensor:
+    """The exact top-k dispatch: the B*T*k (token, expert) assignments
+    stably sorted by expert, each expert multiplying its own rows, the
+    contributions added back in token order, expert by expert in ascending
+    order (the JAX scatter-add's order). Reads the group sizes on the host,
+    so it runs outside a captured step only."""
+    b, t, d = yq.shape
+    k = topi.shape[-1]
+    n = b * t
+    x_flat = yq.reshape(n, d)
+    expert_flat = topi.reshape(n * k).to(torch.int64)
+    token_flat = torch.arange(n, device=yq.device).repeat_interleave(k)
+    weight_flat = topw.reshape(n * k)
+    order = torch.sort(expert_flat, stable=True).indices
+    sizes = torch.bincount(expert_flat, minlength=_n_experts(w1)).tolist()
+    out = torch.zeros((n, d), dtype=yq.dtype, device=yq.device)
+    start = 0
+    for e, size in enumerate(sizes):
+        if size == 0:
+            continue
+        rows = order[start:start + size]
+        start += size
+        tok = token_flat[rows]  # distinct within a group: no add collides
+        xs = x_flat[tok]
+        g = act_fn(torch.matmul(xs, _expert(w1, e, xs.dtype)))
+        u = torch.matmul(xs, _expert(w3, e, xs.dtype))
+        ds = torch.matmul(maybe_qdq(g * u), _expert(w2, e, xs.dtype))
+        out.index_add_(0, tok, ds * weight_flat[rows][:, None].to(ds.dtype))
+    return out.view(b, t, d)
+
+
+def _moe_ffn_loop(y, yq, lp: LlamaLayerParams, act_fn, n_active: int, maybe_qdq):
+    """Every expert on every row, mixed by the dense routing weights (zero
+    for the experts a row did not choose): the JAX package's static
+    per-expert loop. No host read and no data-dependent shape, so a
+    captured step holds it."""
+    rw = _moe_router_weights(y, lp.moe_gate, n_active)
+    # the w1/w3 operand is a function of yq alone: one build feeds all 2E
+    # of the layer's w1/w3 products (JAX builds it for each)
+    ys = shared_q80_acts(yq) if isinstance(lp.w1, PackedQ40) else yq
+    out = None
+    for e in range(_n_experts(lp.w1)):
+        g = act_fn(matmul(ys, lp.w1[e]))
+        u = matmul(ys, lp.w3[e])
+        d = matmul(maybe_qdq(g * u), lp.w2[e])
+        term = d * rw[..., e:e + 1].to(d.dtype)
+        out = term if out is None else out + term
+    return out
+
+
+def _moe_ffn(y, yq, lp: LlamaLayerParams, act_fn, n_active: int, maybe_qdq) -> torch.Tensor:
+    """The gated-FFN mixture of one rank, with the JAX package's dispatch
+    (its ``_moe_ffn`` on one shard):
+
+    - packed experts and T < MOE_PACKED_SPARSE_MIN_TOKENS: the per-expert
+      loop on the packed planes (``_moe_ffn_loop``);
+    - packed experts and T at or above it: one expert dequantized at a
+      time, the sparse dispatch (``_moe_ffn_sparse``);
+    - dense experts: the sparse dispatch, except on the card below the
+      threshold, where a step may be captured into a CUDA graph and cannot
+      read the group sizes back: there the loop, the same mixture (the
+      experts a row did not choose weigh exactly 0).
+
+    The router reads the unquantized normed ``y``, the experts ``yq``. On a
+    mesh the result is the rank's partial over its hidden slice."""
+    packed = isinstance(lp.w1, PackedQ40)
+    if y.shape[1] < MOE_PACKED_SPARSE_MIN_TOKENS and (packed or y.device.type == "cuda"):
+        return _moe_ffn_loop(y, yq, lp, act_fn, n_active, maybe_qdq)
+    topw, topi = _moe_topk(y, lp.moe_gate, n_active)
+    return _moe_ffn_sparse(yq, topw, topi, lp.w1, lp.w2, lp.w3, act_fn, maybe_qdq)
+
+
 def llama_forward(
     config: LlamaConfig,
     params,
@@ -221,7 +343,8 @@ def llama_forward(
 
     ``emulate_q80_activations``: Q80 quantize-dequantize at the reference's
     activation casts (before wq/wk/wv, wo, w1/w3, w2 and wcls, and on the
-    wo/w2 outputs unless the Q80 wire quantizes them).
+    wo/w2 outputs unless the Q80 wire quantizes them; on an MoE layer's
+    output after its all-reduce).
 
     ``mesh`` (parallel/mesh.Mesh, pure TP): ``params`` and ``cache`` are the
     per-rank lists of parallel/sharding.py; the logits come back on rank 0's
@@ -351,12 +474,25 @@ def llama_forward(
         u = matmul(yqs, lp.w3)
         return maybe_qdq(g * u)
 
+    def moe(r: int, lp: LlamaLayerParams) -> torch.Tensor:
+        y = rms_norm(xs[r], lp.rms_ffn, eps)
+        return _moe_ffn(y, maybe_qdq(y), lp, act_fn, cfg.n_active_experts, maybe_qdq)
+
     for l in range(cfg.n_layers):
         lps = [p.layers.layer(l) for p in ranks]
         attn = [attention(r, lps[r], l) for r in range(n)]
         xs = [x + o for x, o in zip(xs, synced_matmul(attn, [lp.wo for lp in lps]))]
-        hs = [ffn_in(r, lps[r]) for r in range(n)]
-        xs = [x + o for x, o in zip(xs, synced_matmul(hs, [lp.w2 for lp in lps]))]
+        if cfg.n_experts > 0:
+            ds = [moe(r, lps[r]) for r in range(n)]
+            if mesh is not None:
+                # the routed partials over each rank's hidden slice meet in
+                # one f32 ring all-reduce (never the Q80 wire: the JAX
+                # package's MoE output is a psum)
+                ds = ring_all_reduce([d.to(torch.float32) for d in ds])
+            xs = [x + maybe_qdq(d).to(x.dtype) for x, d in zip(xs, ds)]
+        else:
+            hs = [ffn_in(r, lps[r]) for r in range(n)]
+            xs = [x + o for x, o in zip(xs, synced_matmul(hs, [lp.w2 for lp in lps]))]
 
     logits = []
     for x, p in zip(xs, ranks):
@@ -366,4 +502,5 @@ def llama_forward(
         logits.append(matmul(y, p.wcls).to(torch.float32))
     # each rank's [B, T', vocab/tp] shard, gathered onto rank 0
     out = logits[0] if mesh is None else ring_all_gather(logits)[0]
-    return out[..., : cfg.vocab_size], cache
+    # a packed wcls may be padded past the vocabulary (quantize_params)
+    return out[..., : cfg.vocab_size].contiguous(), cache

@@ -4,7 +4,7 @@ as per-rank copies.
 
     row-sliced (split d_out):  wq, wk, wv, w1, w3, wcls, and the q/k/v biases
     col-sliced (split d_in):   wo, w2
-    replicated:                embedding, norms, RoPE tables
+    replicated:                embedding, norms, RoPE tables, the MoE router
     KV cache:                  split on the kv heads
     paged KV pool:             split on the kv heads; one page table for
                                every rank (``paged_cache_shardings`` in
@@ -16,6 +16,12 @@ d_in/32/n, d_out/n] scales, the same input range): the ring sync multiplies
 one output chunk per hop, and a column slice of a [d_in/2, d_out] plane is
 not contiguous, which the kernels refuse. Splitting once here costs nothing
 per call.
+
+MoE expert stacks shard as the JAX package's shardings do (experts on
+``ep``, which stays 1; the d axis on tp): w1/w3 [L, E, dim, hidden] row-
+sliced on hidden for every expert, w2 [L, E, hidden, dim] split on its input
+rows as a plain [L, E, hidden/tp, dim] stack (its partials meet in one
+all-reduce, never in ``ring_sync_matmul``, so it needs no column chunks).
 """
 
 from __future__ import annotations
@@ -59,6 +65,18 @@ def row_shards(w, mesh: Mesh) -> list:
             for r, dev in enumerate(mesh.devices)]
 
 
+def in_shards(w, mesh: Mesh) -> list:
+    """A weight split on d_in (its input rows): rank r's slice on its
+    device."""
+    n = mesh.tp
+
+    def rows(t, r):
+        c = t.shape[-2] // n
+        return t[..., r * c:(r + 1) * c, :].contiguous()
+
+    return [_map(w, lambda t: rows(t, r).to(dev)) for r, dev in enumerate(mesh.devices)]
+
+
 def col_shards(w, mesh: Mesh) -> list:
     """A col-sliced weight split on d_in: rank r's column-chunk stack on its
     device."""
@@ -69,8 +87,8 @@ def col_shards(w, mesh: Mesh) -> list:
 
 def shard_params(params: LlamaParams, mesh: Mesh) -> list:
     """Rank r's parameters on ``mesh.devices[r]``, one LlamaParams per rank.
-    Raises where a col-sliced packed weight's shard would split a quant
-    block (d_in / tp % 32 != 0)."""
+    Raises where a col-sliced packed weight's shard (an MoE w2's included)
+    would split a quant block (d_in / tp % 32 != 0)."""
     n = mesh.tp
     lp = params.layers
     for key in _COL_SLICED:
@@ -79,12 +97,15 @@ def shard_params(params: LlamaParams, mesh: Mesh) -> list:
             raise ValueError(f"{key}: d_in={w.d_in} / tp={n} is not a whole number "
                              "of 32-value quant blocks")
     split = {key: row_shards(getattr(lp, key), mesh) for key in _ROW_SLICED}
-    split.update({key: col_shards(getattr(lp, key), mesh) for key in _COL_SLICED})
+    moe = lp.moe_gate is not None
+    split.update({key: (in_shards if moe and key == "w2" else col_shards)(getattr(lp, key), mesh)
+                  for key in _COL_SLICED})
     wcls = row_shards(params.wcls, mesh)
     return [LlamaParams(
         embedding=params.embedding.to(dev),
         layers=LlamaLayerParams(**{k: v[r] for k, v in split.items()},
-                                rms_att=lp.rms_att.to(dev), rms_ffn=lp.rms_ffn.to(dev)),
+                                rms_att=lp.rms_att.to(dev), rms_ffn=lp.rms_ffn.to(dev),
+                                moe_gate=lp.moe_gate.to(dev) if moe else None),
         rms_final=params.rms_final.to(dev),
         wcls=wcls[r],
         rope_cos=params.rope_cos.to(dev),

@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .codec import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE
+from .codec import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, q40_to_planar, quantize_q40
 
 
 @dataclass
@@ -72,6 +72,50 @@ def pack_q40_planar(values: np.ndarray, scales: np.ndarray):
     scales_t = np.swapaxes(scales, -1, -2).astype(np.float16)
     # row-major, as the kernels read them (the swaps above leave strided views)
     return np.ascontiguousarray(packed), np.ascontiguousarray(scales_t)
+
+
+def pack_q40_host(w: np.ndarray):
+    """A float weight in file orientation [..., d_out, d_in] -> the device
+    layout as numpy, through the bit-exact Q40 encoder
+    (``codec.quantize_q40``); the JAX package's ``pack_q40_host``."""
+    lead = w.shape[:-2]
+    d_out, d_in = w.shape[-2], w.shape[-1]
+    values, scales = q40_to_planar(quantize_q40(np.ascontiguousarray(w, np.float32)))
+    return pack_q40_planar(values.reshape(*lead, d_out, d_in),
+                           scales.reshape(*lead, d_out, d_in // Q40_BLOCK_SIZE))
+
+
+# the JAX package's wide-slab output padding of wcls (its quants/packed.py
+# ``padded_d_out``, with the default 8192-wide slab): the same widths keep
+# both packages' packed wcls planes equal byte for byte
+PAD_W_MAX = 8192
+PAD_MAX_OVERHEAD = 0.125  # never inflate a tensor's bytes by more than this
+
+
+def _wide_tile(d_out: int) -> int | None:
+    if d_out <= PAD_W_MAX and (d_out % 128 == 0 or d_out <= 4096):
+        return d_out
+    return next((c for c in range(PAD_W_MAX, 127, -128) if d_out % c == 0), None)
+
+
+def padded_d_out(d_out: int) -> int:
+    """The output width ``pad_packed_d_out`` pads a tensor of width d_out to."""
+    tile = _wide_tile(d_out)
+    if d_out <= PAD_W_MAX or (tile is not None and tile >= 4096):
+        return d_out
+    pad = -d_out % PAD_W_MAX
+    return d_out if pad > d_out * PAD_MAX_OVERHEAD else d_out + pad
+
+
+def pad_packed_d_out(packed: np.ndarray, scales: np.ndarray):
+    """Zero-pad an output-only weight's (wcls) packed planes to
+    ``padded_d_out`` columns; zero scales make the pad columns exact zeros,
+    and ``llama_forward`` slices the logits back to the vocabulary."""
+    pad = padded_d_out(packed.shape[-1]) - packed.shape[-1]
+    if pad == 0:
+        return packed, scales
+    width = [(0, 0)] * (packed.ndim - 1) + [(0, pad)]
+    return np.pad(packed, width), np.pad(scales, width)
 
 
 def pack_q40_from_blocks(raw_blocks, shape: tuple[int, int], *, device):

@@ -12,7 +12,8 @@ A body reads its inputs from static buffers the engine fills with ``copy_``
 before each replay and returns static outputs, which replays overwrite, so
 callers copy what they keep on the stream right after the replay. The
 launch counters the kernels' wrappers bump in Python (Q40 kernels, the
-ring step, the sampler, the attention, the grammar mask and step) do not
+ring step, the sampler, the attention, the grammar mask and step, the MoE
+router) do not
 move under a replay, so each graph records its body's deltas at capture
 and adds them on every replay: the counts stay those of the launches the
 card ran.
@@ -40,7 +41,7 @@ import time
 import torch
 
 from ..analysis import jitcheck
-from ..ops import cuda_attn, cuda_grammar, cuda_q40, cuda_sample, ring_collective
+from ..ops import cuda_attn, cuda_grammar, cuda_moe, cuda_q40, cuda_sample, ring_collective
 
 
 def _counters() -> dict:
@@ -53,12 +54,14 @@ def _counters() -> dict:
         "attn_paged": dict(cuda_attn.PAGED_COUNTS),
         "grammar": {k: cuda_grammar.COUNTS[k]
                     for k in ("mask_argmax_launches", "next_launches")},
+        "moe": {"launches": cuda_moe.COUNTS["launches"]},
     }
 
 
 _ADD = {"q40": cuda_q40.add_launches, "ring": ring_collective.add_counts,
         "sample": cuda_sample.add_counts, "attn": cuda_attn.add_counts,
-        "attn_paged": cuda_attn.add_paged_counts, "grammar": cuda_grammar.add_counts}
+        "attn_paged": cuda_attn.add_paged_counts, "grammar": cuda_grammar.add_counts,
+        "moe": cuda_moe.add_counts}
 
 
 def _delta(after: dict, before: dict) -> dict:

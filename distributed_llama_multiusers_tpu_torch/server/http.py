@@ -31,8 +31,9 @@ request's admit record (``serving/journal.admit_record``) and watermark.
 ``/stats`` serves the engine counters, lane occupancy, the dequant mode
 and each Q40 kernel's launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
 plain-version calls of a CPU run), the sampler kernel's
-(``gumbel_sample_launches``) and the attention kernel's
-(``decode_attn_launches``), the serving paths' counters (multi-step
+(``gumbel_sample_launches``), the attention kernel's
+(``decode_attn_launches``) and an MoE model's router's
+(``moe_route_launches``), the serving paths' counters (multi-step
 dispatches, the pipeline's dispatches, flushes and depth histogram, fused
 admissions), the decode graphs captured and their replays since warmup,
 and on a tensor-parallel mesh its shape, the ring hop's launches, plain
@@ -58,6 +59,7 @@ from urllib.parse import parse_qs, urlsplit
 from ..analysis import leakcheck
 from ..ops.cuda_attn import attn_counts
 from ..ops.cuda_grammar import grammar_counts
+from ..ops.cuda_moe import moe_counts
 from ..ops.cuda_q40 import kernel_counts
 from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
@@ -304,6 +306,7 @@ class ApiServer:
         out.update(sample_counts())
         out.update(attn_counts())
         out.update(grammar_counts())
+        out.update(moe_counts())
         # the paged pool's pressure (occupancy, sharing, COW, parking,
         # evictions, sheds) and swap traffic; a contiguous engine has none
         pool = getattr(engine, "pool_stats", None)

@@ -2,10 +2,11 @@
 tensor-core kernels at their fragment edges), the dispatch's mode routing
 at the m = 32/33 boundary, a tiny model served by the engine on the card,
 the ring-step kernel's forms against its plain version, the tensor-parallel
-forward with two ranks on one card, the sampler, attention and grammar
-kernels against their plain versions and the decode graphs against the
-eager bodies (constrained lanes and a table upload between replays
-included). Marked ``gpu``; without a card every test skips.
+forward with two ranks on one card, the sampler, attention, grammar and
+MoE router kernels against their plain versions and the decode graphs
+against the eager bodies (constrained lanes, a table upload between
+replays and an MoE model included). Marked ``gpu``; without a card every
+test skips.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -813,9 +814,10 @@ def test_decode_attn_window_graph_replay_equals_eager(cuda):
          lambda: cuda_attn.decode_attention(qf, k, v, boundaries, 0.125, 2048)])
 
 
-def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
-    """Two engines on one tiny model on the card: the first replays its
-    decode families as CUDA graphs, the second runs the same bodies
+def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3, **header_kw):
+    """Two engines on one tiny model on the card (``header_kw``: the
+    header's other fields, e.g. an MoE model's experts): the first replays
+    its decode families as CUDA graphs, the second runs the same bodies
     eagerly (its graphs set aside: a test's comparison only)."""
     from distributed_llama_multiusers_tpu_torch.formats import load_model_header
     from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
@@ -828,7 +830,7 @@ def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
     from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
 
     path = str(tmp_path / "m.m")
-    write_synthetic_model(path, tiny_header(seq_len=256), seed=0)
+    write_synthetic_model(path, tiny_header(seq_len=256, **header_kw), seed=0)
     config, params = load_params_from_m_quantized(path, load_model_header(path),
                                                   dtype=torch.bfloat16, device=cuda)
     out = []
@@ -845,14 +847,20 @@ def _graph_engines(cuda, tmp_path, mesh_devices=None, n_lanes=3):
 
 
 def _launch_counts():
-    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn, cuda_grammar, cuda_sample
+    from distributed_llama_multiusers_tpu_torch.ops import (
+        cuda_attn,
+        cuda_grammar,
+        cuda_moe,
+        cuda_sample,
+    )
     from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
     return {**q.LAUNCHES, "ring_hop": rc.COUNTS["launches"],
             "ring_bytes": rc.COUNTS["bytes"], "gumbel_sample": cuda_sample.COUNTS["launches"],
             "decode_attn": cuda_attn.COUNTS["launches"],
             "grammar_mask_argmax": cuda_grammar.COUNTS["mask_argmax_launches"],
-            "grammar_next": cuda_grammar.COUNTS["next_launches"]}
+            "grammar_next": cuda_grammar.COUNTS["next_launches"],
+            "moe_route": cuda_moe.COUNTS["launches"]}
 
 
 def _family_run(engine, config, family):
@@ -1398,3 +1406,131 @@ def test_grammar_graph_replay_after_table_upload_equals_eager(cuda, tmp_path):
     assert [t.data_ptr() for t in graphed._g_tabs] == ptrs
     assert graphed.graphs.captures_after_warmup == 0 and graphed.graphs.replays > 0
     assert graphed.grammar_stats()["grammar_schemas_installed"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the MoE router (csrc/moe_route.cu) and an MoE model's decode graphs
+# ---------------------------------------------------------------------------
+
+ROUTE_TIE_GAP = 1e-5  # rows whose top k+1 logits lie closer, relative to max|logit|
+
+
+def _route_inputs(cuda, n, dim, e, dtype, seed, ties=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    y = torch.randn((n, dim), device=cuda, generator=g).to(dtype)
+    gate = torch.randn((dim, e), device=cuda, generator=g) * 0.02
+    if ties:  # repeated gate columns: exactly equal logits
+        gate[:, 1] = gate[:, 0]
+        gate[:, e - 1] = gate[:, 0]
+    return y, gate
+
+
+def _route_close(got, want, logits, k):
+    """topi equal on every row whose top k+1 logits are apart by more than
+    ROUTE_TIE_GAP of its largest |logit| (the product's f32 order may
+    swap closer ones); topw and rw within 1e-6 on rows with the same
+    experts. Returns the rows compared."""
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    gaps = (srt[:, :-1] - srt[:, 1:])[:, :k]  # positions 0..k (k - 1 when k = E)
+    clear = (gaps > ROUTE_TIE_GAP * logits.abs().amax(dim=-1, keepdim=True)).all(dim=-1)
+    assert torch.equal(got[1][clear], want[1][clear])
+    same = (torch.sort(got[1], dim=-1).values == torch.sort(want[1], dim=-1).values).all(-1)
+    for d in ((got[2] - want[2])[same], (got[0] - want[0])[clear]):
+        assert d.numel() == 0 or float(d.abs().max()) <= 1e-6
+    return int(clear.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dim,e,k", [(1, 4096, 8, 2), (8, 4096, 8, 2), (32, 4096, 8, 2),
+                                       (1024, 4096, 8, 2), (7, 64, 4, 2), (33, 64, 2, 1),
+                                       (5, 128, 16, 4), (3, 96, 40, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_route_matches_plain(cuda, n, dim, e, k, dtype):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    y, gate = _route_inputs(cuda, n, dim, e, dtype, seed=n + e)
+    before = cuda_moe.COUNTS["launches"]
+    got = cuda_moe.moe_route(y, gate, k)
+    want = cuda_moe.moe_route_plain(y, gate, k)
+    torch.cuda.synchronize()
+    assert cuda_moe.COUNTS["launches"] == before + 1
+    assert got[0].shape == (n, k) and got[1].shape == (n, k) and got[2].shape == (n, e)
+    assert got[1].dtype == torch.int32
+    logits = y.float() @ gate
+    assert _route_close(got, want, logits, k) >= n // 2
+    assert torch.equal((got[2] > 0).sum(-1), torch.full((n,), k, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_moe_route_ties_take_lax_order(cuda, k):
+    """Exactly equal logits (repeated gate columns, and all-zero rows):
+    the lower expert index first, as lax.top_k, in the kernel and the
+    plain version alike."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    y, gate = _route_inputs(cuda, 16, 256, 8, torch.bfloat16, seed=3, ties=True)
+    y[3] = 0.0
+    got = cuda_moe.moe_route(y, gate, k)
+    want = cuda_moe.moe_route_plain(y, gate, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert got[1][3].tolist() == list(range(k))
+    for row in got[1].tolist():  # experts 0, 1 and 7 tie: chosen in index order
+        tied = [i for i in row if i in (0, 1, 7)]
+        assert tied == sorted(tied)
+
+
+@pytest.mark.gpu
+def test_moe_route_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    y, gate = _route_inputs(cuda, 32, 4096, 8, torch.bfloat16, seed=11)
+    _graph_replay_equals_eager([lambda i=i: cuda_moe.moe_route(y, gate, 2)[i]
+                                for i in range(3)])
+
+
+@pytest.mark.gpu
+def test_moe_route_raises_on_a_failed_build(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor never falls back to the plain version: a build that
+    fails raises."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    monkeypatch.setenv("DLLAMA_KERNEL_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(q, "_nvcc", lambda: "/bin/false")
+    monkeypatch.setattr(q, "_libs", {})
+    y, gate = _route_inputs(cuda, 4, 64, 4, torch.float32, seed=1)
+    before = dict(cuda_moe.COUNTS)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_moe.moe_route(y, gate, 2)
+    assert cuda_moe.COUNTS == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["step", "multi", "pipelined", "fused", "spec"])
+def test_moe_graph_replay_matches_eager(cuda, tmp_path, family):
+    """An MoE model (4 experts, 2 active): each decode family replayed from
+    its CUDA graph (the per-expert loop and the router inside) equals the
+    eager bodies bit for bit, the router's launches counted on replay."""
+    config, (graphed, eager) = _graph_engines(cuda, tmp_path, n_experts=4,
+                                              n_active_experts=2)
+    got, got_counts = _family_run(graphed, config, family)
+    want, want_counts = _family_run(eager, config, family)
+    assert graphed.graphs.replays > 0
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(_caches(graphed), _caches(eager)):
+        assert torch.equal(a, b)
+    assert got_counts == want_counts and got_counts["moe_route"] > 0
+
+
+@pytest.mark.gpu
+def test_moe_graph_replay_tp_mesh_on_one_card(cuda, tmp_path):
+    """An MoE model at tp2 on one card: the pipelined family's replay
+    (wo's ring sync and the MoE output's all-reduce inside) equals eager."""
+    config, (graphed, eager) = _graph_engines(cuda, tmp_path, ["cuda:0", "cuda:0"],
+                                              n_experts=4, n_active_experts=2)
+    got, got_counts = _family_run(graphed, config, "pipelined")
+    want, want_counts = _family_run(eager, config, "pipelined")
+    np.testing.assert_array_equal(got, want)
+    assert got_counts == want_counts and got_counts["ring_hop"] > 0
+    assert got_counts["moe_route"] > 0

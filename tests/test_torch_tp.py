@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from distributed_llama_multiusers_tpu.formats import load_model_header as j_load_header
+from distributed_llama_multiusers_tpu.formats import synthetic as j_syn
 from distributed_llama_multiusers_tpu.models import init_kv_cache as j_init_cache
 from distributed_llama_multiusers_tpu.models import llama_forward as j_forward
 from distributed_llama_multiusers_tpu.models import loader as j_loader
@@ -73,9 +74,10 @@ def _np_tree(params):
 
 
 @pytest.fixture(scope="module")
-def models(tiny_model):
+def models(tiny_model, tmp_path_factory):
     """Packed f32 parameters of both packages, same values: the tiny model
-    (tp=2) and a wider random model quantized to Q40 (tp=4)."""
+    (tp=2), a wider random model quantized to Q40 (tp=4) and the tiny
+    Qwen2-family model with q/k/v biases (tp=2, key "2-qkv_bias")."""
     h = j_load_header(tiny_model["model"])
     jcfg, jtiny = j_loader.load_params_from_m_quantized(tiny_model["model"], h,
                                                         dtype=jnp.float32)
@@ -83,16 +85,25 @@ def models(tiny_model):
     jwide = j_loader.quantize_params(
         j_loader.params_from_random(jcfg4, seed=0, dtype=jnp.float32, to_device=False,
                                     scale=0.05), to_device=False)
+    bias_path = str(tmp_path_factory.mktemp("qkv_bias") / "qwen2.m")
+    j_syn.write_synthetic_model(bias_path, j_syn.tiny_header(qkv_bias=1), seed=3)
+    jcfgb, jbias = j_loader.load_params_from_m_quantized(bias_path, j_load_header(bias_path),
+                                                         dtype=jnp.float32)
     out = {}
-    for tp, cfg, jp in ((2, jcfg, jtiny), (4, jcfg4, jwide)):
+    for tp, cfg, jp in ((2, jcfg, jtiny), (4, jcfg4, jwide), ("2-qkv_bias", jcfgb, jbias)):
         tparams = _trim_wcls(params_from_jax_numpy(_np_tree(jp), device="cpu"), cfg.vocab_size)
         out[tp] = (cfg, jp, LlamaConfig(**{k: getattr(cfg, k) for k in
                                            LlamaConfig.__dataclass_fields__}), tparams)
     return out
 
 
+def _ranks(tp) -> int:
+    """The rank count of a ``models`` key (2, 4, or "2-qkv_bias")."""
+    return int(str(tp).split("-")[0])
+
+
 def _mesh(tp):
-    return make_mesh(MeshPlan(tp=tp), ["cpu"] * tp)
+    return make_mesh(MeshPlan(tp=_ranks(tp)), ["cpu"] * _ranks(tp))
 
 
 def _steps():
@@ -105,7 +116,7 @@ def _steps():
 
 
 def _jax_tp_logits(jcfg, jp, tp, ring, q80):
-    jmesh = j_make_mesh(JaxPlan(tp=tp))
+    jmesh = j_make_mesh(JaxPlan(tp=_ranks(tp)))
     sp = j_shard(jp, jmesh)
     cache = j_init_cache(jcfg, 2)
     prev = jrc.ring_sync_enabled()
@@ -138,13 +149,17 @@ def _port_logits(cfg, params, mesh=None, **kw):
     return out
 
 
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, "2-qkv_bias"])
 @pytest.mark.parametrize("ring", [True, False])
 @pytest.mark.parametrize("q80", [False, True])
 def test_tp_forward_matches_jax_mesh(models, tp, ring, q80):
     """Prefill and decode logits of the port's TP forward against the JAX
-    package's llama_forward(mesh=make_mesh(MeshPlan(tp)))."""
+    package's llama_forward(mesh=make_mesh(MeshPlan(tp))); "2-qkv_bias" is
+    the Qwen2 family at tp=2, its bq/bk/bv row-sliced with wq/wk/wv (the
+    JAX package's tests/test_qwen2.py model)."""
     jcfg, jp, cfg, tparams = models[tp]
+    if tp == "2-qkv_bias":
+        assert tparams.layers.bq is not None and jcfg.qkv_bias
     want = _jax_tp_logits(jcfg, jp, tp, ring, q80)
     rc.reset_counts()
     got = _port_logits(cfg, tparams, _mesh(tp), ring_sync=ring, q80_sync=q80,
