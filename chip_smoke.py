@@ -59,6 +59,16 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    all at and past 2047) against its plain version and each row bit for
    bit against a one-row call; timed beside the same rows as four one-row
    calls, its plain version and ``scaled_dot_product_attention``.
+   Its e4m3 instantiation (``--kv-dtype f8``) on the same shapes, the
+   cache written through ``_to_cache_dtype`` from random K/V with values
+   past +-448: T = 1, the 4-row window and 64-slot pages permuted at
+   random against their plain versions (the cache widened to f32) within
+   ATTN_TOL, bit for bit against the bf16 instantiation on the cache
+   widened to bf16, a lane's bits against another batch around it, each
+   window row against a one-row call, paged against contiguous; each form
+   timed beside the bf16 instantiation, its plain version and
+   ``scaled_dot_product_attention`` on the cache widened to f32, with its
+   byte bound (the e4m3 slots, half of bf16's).
 3. Serving: wait for the full-width Llama-3.2-1B-shaped synthetic Q40
    model (16 layers, seed 0; written into ``build/synthetic`` since the
    setup and reused while header and seed match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
@@ -152,7 +162,11 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    verify steps against a contiguous engine's, logits bit-equal on every
    live lane, at one rank and at tp=2 on the host's cards, with both steps
    measured in turns (host clock, device time, device operations), and the
-   swap tier's ms per page; (c) a ``dllama_api --paged-kv on`` default
+   swap tier's ms per page; an e4m3 engine's decode step (replayed from
+   its graph, the e4m3 attention launched) against a bf16 engine's on the
+   same prefilled lanes, logits within 0.5 + 0.1 x |bf16| (the JAX
+   package's own f8 tolerance), its KV bytes a lane half of bf16's; (c) a
+   ``dllama_api --paged-kv on`` default
    pass whose streams (alone and concurrent) equal the contiguous default
    pass's, with 0 graphs captured after warmup, and on it (d) a request on
    the 1,900-token run after a first one sharing 1,024 tokens from the
@@ -161,7 +175,13 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    session's pages swap to host under another's pressure and back on its
    readmission, byte-identical, the swap counters equal on /stats and
    /metrics; (e) a request the pool cannot hold beside a long one gets 429
-   with Retry-After, and serving goes on.
+   with Retry-After, and serving goes on. Then the f8 KV cache:
+   ``dllama_api --kv-dtype f8`` under the defaults and with ``--paged-kv
+   on``, each with the default pass's 4 requests: every stream alone
+   equals the four concurrent byte for byte (greedy and seeded), the
+   serving paths of the defaults, 0 graphs captured after warmup, every
+   attention launch the e4m3 instantiation's, the KV bytes a token from the
+   startup log (half of bf16's); nothing is compared with bf16 streams.
 4c. Structured output: (a) the grammar kernels (``csrc/grammar.cu``) with
    five schemas compiled against the 1B synthetic tokenizer (their compile
    time, first and cached, printed), four in a default slab: the masked
@@ -207,6 +227,27 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    conforms, the greedy and the seeded completions are the in-process
    streams, no graph is captured after warmup, the router and the Q40
    kernels launched.
+4e. Fleet: four ``dllama_api`` replicas started together and two
+   ``python -m distributed_llama_multiusers_tpu_torch.app.dllama_router``
+   processes. (a) A router over two paged replicas (``--replica-id r1``
+   with 8 lanes and ``r2`` with 4, ``--reconnect-grace 30``, journal on):
+   two requests on the 1,900-token run land on one replica, named in
+   ``X-DLlama-Replica``, whose prefix tree gives the second 1,024 tokens.
+   (b) The durability phase's 4 streamed requests (2 greedy, 2 seeded, 256
+   tokens) through that router land on r1, which is SIGKILLed once each
+   stream holds 32 deltas: the router migrates every one to r2, each
+   client's text equals the durability reference byte for byte with the
+   router's event ids 1..N (none lost or repeated); the time from the kill
+   to the first migrated byte printed. (c) A ``--role prefill`` and a
+   ``--role decode`` replica, both ``--kv-dtype f8 --paged-kv on``, behind
+   a router with ``--disagg-threshold 1000``: the f8 paged pass's
+   1,918-token greedy prompt, streamed, hands off at its first token
+   (KV-page bundle, ticket, reattach); the client's text equals the
+   monolithic f8 paged server's, the decode replica adopted the bundle and
+   shared 1,024 prompt tokens, neither replica captured a graph after
+   warmup; TTFT, the hand-off's ms and the bundle's bytes printed; a live
+   f8 session's bundle pushed to the bf16 replica r2 gets a typed 422
+   (``page_bytes``) and leaves its pool as it was.
 5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
@@ -224,6 +265,7 @@ no result. Detail goes to ``build/chip_smoke/`` (JSON and server logs).
 
 from __future__ import annotations
 
+import base64
 import ctypes
 import json
 import math
@@ -1289,6 +1331,172 @@ def window_phase(torch, ca, k, v, scale) -> dict:
             "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
+def _f8_cache(torch, shape, gen, outliers: bool):
+    """An e4m3 cache plane written as the engine writes one (through
+    ``_to_cache_dtype``) from ``attn_inputs``' random K/V; with
+    ``outliers`` one value in 64 is scaled past +-448, so that the clip is
+    exercised."""
+    from distributed_llama_multiusers_tpu_torch.models.llama import F8, _to_cache_dtype
+
+    x = torch.randn(shape, device="cuda", generator=gen)
+    if outliers:
+        x = torch.where(torch.rand(shape, device="cuda", generator=gen) < 1 / 64, x * 1000, x)
+    return _to_cache_dtype(x, F8)
+
+
+def attn_f8_phase(torch, attn: dict) -> dict:
+    """The attention kernel's e4m3 instantiation (``--kv-dtype f8``) at
+    ``attn_phase``'s shapes: a cache of 2048 slots written through
+    ``_to_cache_dtype`` from random K/V, V with values past +-448 (K's
+    scores stay those of ``attn_phase``: outliers there put scores in the
+    hundreds, where f32's exp carries a relative error of |score| x 2^-24
+    in both versions, the plain one included). T = 1, the
+    4-row window and the page-table form against their plain versions (the
+    cache widened to f32) within ATTN_TOL, and bit for bit against the bf16
+    instantiation on the cache widened to bf16 (every e4m3 value is one);
+    a lane's bits against another batch around it; each window row against
+    a one-row call; the paged form against the contiguous one. Each form
+    timed (one CUDA graph) beside the bf16 instantiation on the same
+    shapes, its plain version and ``scaled_dot_product_attention`` on the
+    cache widened to f32 beforehand, with its bound: the e4m3 slots the
+    rows read once, q and the output, or the f32 operations."""
+    from distributed_llama_multiusers_tpu_torch.models.llama import F8
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    lanes, n_kv, group, hd, s_len = DECODE_M, 8, 4, 64, ATTN_S_LEN
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (lanes, s_len + 1, n_kv, hd)
+    qf = torch.randn((lanes, 1, n_kv, group, hd), device="cuda", generator=gen)
+    k, v = _f8_cache(torch, shape, gen, False), _f8_cache(torch, shape, gen, True)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    check(float(v.float().abs().max()) == 448.0, "f8 cache: no value clipped at 448")
+    scale = 1.0 / hd ** 0.5
+    serving = attn_serving_positions(torch)
+    split = ca.SPLIT
+    spread = torch.tensor([[0], [1], [63], [511], [1024], [2046], [2047], [2048]], device="cuda")
+    boundaries = torch.tensor([[split - 1], [split], [split + 1], [2 * split - 1], [2 * split],
+                               [2 * split + 1], [3 * split], [s_len - 1]], device="cuda")
+    long_ctx = torch.full((lanes, 1), s_len - 1, device="cuda")
+    f8_before = ca.F8_COUNTS["launches"]
+    err, ref_max = 0.0, 0.0
+    for pos in (serving, spread, boundaries, long_ctx):
+        got = ca.decode_attention(qf, k, v, pos, scale, s_len)
+        want = ca.decode_attention_plain(qf, k, v, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and e <= ATTN_TOL * r,
+              f"decode_attn f8: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+        check(torch.equal(got, ca.decode_attention(qf, kb, vb, pos, scale, s_len)),
+              "decode_attn f8: differs from the bf16 instantiation on the widened cache")
+        err, ref_max = max(err, e), max(ref_max, r)
+    check(ca.F8_COUNTS["launches"] - f8_before == 4,
+          f"decode_attn f8: {ca.F8_COUNTS['launches'] - f8_before} e4m3 launches, expected 4")
+    base = ca.decode_attention(qf, k, v, serving, scale, s_len)
+    for pos, sl in ((spread, s_len), (serving, 128)):
+        got = ca.decode_attention(qf, k, v, torch.cat([serving[:1], pos[1:]]), scale, sl)
+        check(torch.equal(got[0], base[0]), "decode_attn f8: lane 0's bits moved with the batch")
+    on_split = ca.decode_attention(qf, k, v, torch.full_like(serving, split), scale, s_len)
+    got = ca.decode_attention(qf, k, v, torch.cat([boundaries[1:2], spread[1:]]), scale, s_len)
+    check(torch.equal(got[0], on_split[0]),
+          "decode_attn f8: a lane on a split boundary moved with the batch")
+
+    # the window: 4 rows a lane, each row against a one-row call
+    t = ca.WINDOW
+    qw = torch.randn((lanes, t, n_kv, group, hd), device="cuda", generator=gen)
+    w_serving = window_rows(torch, [40, 63, 64, 100] + [s_len] * 4)
+    w_bound = window_rows(torch, [split - 4, split - 2, split - 1, split, 2 * split - 3,
+                                  2 * split - 1, 3 * split - 2, s_len - 4])
+    w_err, w_ref, rows_checked = 0.0, 0.0, 0
+    for pos in (w_serving, w_bound, window_rows(torch, [s_len - 1] * lanes)):
+        got = ca.decode_attention(qw, k, v, pos, scale, s_len)
+        want = ca.decode_attention_plain(qw, k, v, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and e <= ATTN_TOL * r,
+              f"decode_attn f8 window: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+        w_err, w_ref = max(w_err, e), max(w_ref, r)
+        check(torch.equal(got, ca.decode_attention(qw, kb, vb, pos, scale, s_len)),
+              "decode_attn f8 window: differs from the bf16 instantiation")
+        for row in range(t):
+            one = ca.decode_attention(qw[:, row:row + 1].contiguous(), k, v,
+                                      pos[:, row:row + 1].contiguous(), scale, s_len)
+            check(torch.equal(got[:, row], one[:, 0]),
+                  f"decode_attn f8 window: row {row} differs from a T = 1 call")
+            rows_checked += lanes
+
+    # the paged form: 64-slot pages permuted at random (laid out as bytes)
+    page = 64
+    kp, vp, table = paged_pool(torch, k.view(torch.uint8), v.view(torch.uint8), page, seed=5)
+    kp, vp = kp.view(F8), vp.view(F8)
+    p_err, p_ref = 0.0, 0.0
+    for pos in (serving, boundaries, long_ctx):
+        got = ca.decode_attention_paged(qf, kp, vp, table, pos, scale, s_len)
+        check(torch.equal(got, ca.decode_attention(qf, k, v, pos, scale, s_len)),
+              "decode_attn f8 paged: differs from the contiguous kernel on the same slots")
+        want = ca.decode_attention_paged_plain(qf, kp, vp, table, pos, scale, s_len)
+        e, r = float((got - want).abs().max()), float(want.abs().max())
+        check(e <= ATTN_TOL * r, f"decode_attn f8 paged: max|d| {e:.3e} > {ATTN_TOL:.1e} x "
+                                 f"{r:.3e}")
+        p_err, p_ref = max(p_err, e), max(p_ref, r)
+    gotw = ca.decode_attention_paged(qw, kp, vp, table, w_serving, scale, s_len)
+    check(torch.equal(gotw, ca.decode_attention(qw, k, v, w_serving, scale, s_len)),
+          "decode_attn f8 paged window: differs from the contiguous window")
+
+    def bound_of(pos, n_q):
+        rows = pos.clamp(max=s_len - 1) + 1
+        slots = int(rows.max(dim=1).values.sum())  # once a lane, for all its rows
+        n_bytes = slots * n_kv * hd * 1 * 2 + 2 * n_q * 4 + pos.numel() * 8
+        n_ops = int(rows.sum()) * n_kv * group * hd * 4
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+        return {"slots_read": slots, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+    def library_of(q_rows, pos):
+        """sdpa on the cache widened to f32 and laid out beforehand."""
+        b_, t_ = q_rows.shape[:2]
+        q_l = q_rows.permute(0, 2, 3, 1, 4).reshape(b_, n_kv * group, t_, hd).contiguous()
+        k_l = k[:, :s_len].float().permute(0, 2, 1, 3).contiguous()
+        v_l = v[:, :s_len].float().permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(s_len, device="cuda")[None, None, :] <= pos[:, :, None])[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale, enable_gqa=True)
+            return lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale, enable_gqa=True)
+        except TypeError:  # a torch without enable_gqa: the kv heads expanded first
+            k_e, v_e = (x.repeat_interleave(group, dim=1) for x in (k_l, v_l))
+            return lambda: sdpa(q_l, k_e, v_e, attn_mask=mask, scale=scale)
+
+    reps = 20
+    forms = {}
+    for name, q_rows, pos, f8_call, bf16_call, plain_call in (
+            ("t1", qf, serving,
+             lambda: ca.decode_attention(qf, k, v, serving, scale, s_len),
+             lambda: ca.decode_attention(qf, kb, vb, serving, scale, s_len),
+             lambda: ca.decode_attention_plain(qf, k, v, serving, scale, s_len)),
+            ("window", qw, w_serving,
+             lambda: ca.decode_attention(qw, k, v, w_serving, scale, s_len),
+             lambda: ca.decode_attention(qw, kb, vb, w_serving, scale, s_len),
+             lambda: ca.decode_attention_plain(qw, k, v, w_serving, scale, s_len)),
+            ("paged", qf, serving,
+             lambda: ca.decode_attention_paged(qf, kp, vp, table, serving, scale, s_len),
+             lambda: ca.decode_attention(qf, kb, vb, serving, scale, s_len),
+             lambda: ca.decode_attention_paged_plain(qf, kp, vp, table, serving, scale,
+                                                     s_len))):
+        forms[name] = {"ms": graph_ms(torch, [f8_call] * reps),
+                       "bf16_ms": graph_ms(torch, [bf16_call] * reps),
+                       "plain_ms": eager_ms(torch, plain_call, 3),
+                       "library_ms": graph_ms(torch, [library_of(q_rows, pos)] * reps),
+                       **bound_of(pos, q_rows.numel())}
+    out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "s_len": s_len,
+           "positions": serving[:, 0].tolist(), "max_abs_err": max(err, w_err, p_err),
+           "max_abs_ref": max(ref_max, w_ref, p_ref), "tol": ATTN_TOL,
+           "t1_max_abs_err": err, "window_max_abs_err": w_err, "paged_max_abs_err": p_err,
+           "rows_bit_equal_to_one_row_calls": rows_checked,
+           "bf16_bound_ms": attn["bound_ms"], "forms": forms,
+           "library": "scaled_dot_product_attention on the cache widened to f32 beforehand"}
+    log("decode_attn f8: " + json.dumps(out))
+    return out
+
+
 def llama32_1b_header():
     from distributed_llama_multiusers_tpu_torch.formats.model_file import RopeType
     from distributed_llama_multiusers_tpu_torch.formats.synthetic import tiny_header
@@ -1575,6 +1783,7 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                "prefix_tokens_saved": stats["prefix_tokens_saved"],
                "jit_compiles_after_warmup": stats["jit_compiles_after_warmup"],
                "decode_attn_paged_launches": stats["decode_attn_paged_launches"],
+               "decode_attn_f8_launches": stats["decode_attn_f8_launches"],
                "pool": {k: v for k, v in stats.items() if k.startswith(("pool_", "swap_"))},
                "extra": extra_out,
                **{k: stats[k] for k in ("pipeline_dispatches", "pipeline_flushes",
@@ -2376,7 +2585,9 @@ class SseStream:
 
     def __init__(self, url: str, body: dict | None = None, headers: dict | None = None):
         self.rid = None
+        self.replica = None  # X-DLlama-Replica
         self.events: list = []
+        self.stamps: list = []  # each delta's perf_counter
         self.finish = None
         self.done = False
         self.error = None
@@ -2391,7 +2602,9 @@ class SseStream:
             "Content-Type": "application/json", **(headers or {})})
         try:
             with urllib.request.urlopen(req, timeout=600) as r:
-                self.rid = int(r.headers["X-DLlama-Request"])
+                rid = r.headers.get("X-DLlama-Request")  # a router's stream has none
+                self.rid = int(rid) if rid is not None else None
+                self.replica = r.headers.get("X-DLlama-Replica")
                 event_id = None
                 for line in r:
                     line = line.decode().strip()
@@ -2411,9 +2624,11 @@ class SseStream:
                             continue
                         piece = choice.get("text") or (choice.get("delta") or {}).get(
                             "content") or ""
+                        now = time.perf_counter()
                         if self.first_at is None:
-                            self.first_at = time.perf_counter()
+                            self.first_at = now
                         self.events.append((event_id, piece))
+                        self.stamps.append(now)
         except (OSError, ValueError) as e:  # the kill ends the read
             self.error = self.error or f"{type(e).__name__}: {e}"
 
@@ -2516,7 +2731,9 @@ def durability_phase(model: str, tok: str) -> dict:
     before = [list(s.events) for s in streams]
     img = read_journal(jpath)
     fifth_entry = img.entries.get(fifth_id)
-    check([e.request_id for e in img.incomplete()] == [s.rid for s in streams]
+    # the streams start together, so the server numbers them in arrival
+    # order; the journal lists them by id
+    check(sorted(e.request_id for e in img.incomplete()) == sorted(s.rid for s in streams)
           and fifth_entry is not None and fifth_entry.finished,
           f"durability: the journal's in-flight set {[e.request_id for e in img.incomplete()]} "
           f"is not the 4 streams {[s.rid for s in streams]} (fifth: {fifth_entry})")
@@ -2584,6 +2801,8 @@ def durability_phase(model: str, tok: str) -> dict:
           and "ResourceLeak" not in rec_log and "RecompileAfterWarmup" not in rec_log,
           "durability: the recovery server's log lacks the recovery line or names a witness")
     out.update({
+        "reference": [{"text": "".join(t for _, t in r.events), "finish": r.finish,
+                       "deltas": len(r.events)} for r in refs],
         "streams": [{"body": DUR_BODIES[i][1], "deltas_before_kill": len(ev),
                      "last_event_id_before_kill": ev[-1][0], "deltas_reattached": len(r.events),
                      "finish": r.finish} for i, (ev, r) in enumerate(zip(before, again))],
@@ -3621,6 +3840,7 @@ def paged_phase(torch, q, rc, cs, model: str, tok: str, default: dict, layers: d
     out["tp2_step"] = paged_step_check(torch, q, rc, cs, config, params, mesh=mesh,
                                        label="tp2 v4", steps=5)
     out["swap_engine"] = swap_page_ms(torch, config, params)
+    out["f8_step"] = f8_step_check(torch, q, config, params)
     del params
     torch.cuda.empty_cache()
 
@@ -3652,6 +3872,142 @@ def paged_phase(torch, q, rc, cs, model: str, tok: str, default: dict, layers: d
     out["seconds"] = time.perf_counter() - t0
     log(f"paged phase: {out['seconds']:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The f8 KV cache (--kv-dtype f8) on the card
+# ---------------------------------------------------------------------------
+
+F8_ARGS = ("--kv-dtype", "f8")
+# the JAX package's own tolerance for logits over an f8 cache against a
+# full-precision one (its tests/test_engine.py): e4m3 keeps 3 mantissa bits,
+# so every cached K and V value moves by up to 1/16 of itself, and the
+# attention and the logits move with them
+F8_LOGIT_ATOL, F8_LOGIT_RTOL = 0.5, 0.1
+
+
+def kv_bytes_per_lane(config, itemsize: int) -> int:
+    """A contiguous lane's K and V planes: every layer, seq_len + 1 slots."""
+    return 2 * config.n_layers * (config.seq_len + 1) * config.n_kv_heads * config.head_size \
+        * itemsize
+
+
+def f8_step_check(torch, q, config, params) -> dict:
+    """Two engines on the full-width model in v4, one with a bf16 cache and
+    one with an e4m3 cache, the same 4 of 8 lanes prefilled (the others
+    parked past the cache). First as they stand (each cache written by its
+    own prefill): the logits of one decode step replayed from its graph
+    are printed, not held (the e4m3 rounding of every cached value
+    compounds over 16 layers). Then on the same state: both caches set to
+    the bf16 engine's, rounded to e4m3 (``_to_cache_dtype``), so both
+    attentions read the same values (the e4m3 kernel equals the bf16 one
+    on a cache widened to bf16) and the steps differ only by the e4m3
+    rounding of each layer's fresh K/V row: that step's logits within
+    F8_LOGIT_ATOL + F8_LOGIT_RTOL x |bf16| on every live lane (the e4m3
+    attention launched in it). The KV bytes a lane of each."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.models.llama import F8, _to_cache_dtype, cache_bits
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    lanes, busy = DECODE_M, 4
+    q.set_dequant_mode("v4")
+    try:
+        engines = {name: InferenceEngine(config, params, n_lanes=lanes, device="cuda",
+                                         cache_dtype=dt)
+                   for name, dt in (("bf16", torch.bfloat16), ("f8", F8))}
+        tokens = np.zeros(lanes, np.int64)
+        positions = np.full(lanes, config.seq_len, np.int64)
+        for eng in engines.values():
+            for lane in range(busy):
+                prompt = [(97 * lane + 13 * i) % 100 + 1 for i in range(40)]
+                _, tokens[lane], positions[lane] = eng.prefill(lane, prompt)
+            eng.capture_graphs()
+
+        def step() -> dict:
+            out = {}
+            for name, eng in engines.items():
+                f8_before = ca.F8_COUNTS["launches"]
+                logits, greedy, _ = eng.decode(tokens, positions)
+                out[name] = (logits[:busy].float().cpu().numpy(), np.asarray(greedy)[:busy],
+                             ca.F8_COUNTS["launches"] - f8_before)
+            return out
+
+        own = step()
+        # the same state: both caches the bf16 engine's, rounded to e4m3
+        # (the step above wrote only each lane's next slot, which the step
+        # below writes again before it reads it)
+        for plane in ("k", "v"):
+            rounded = _to_cache_dtype(getattr(engines["bf16"].cache, plane), F8)
+            cache_bits(getattr(engines["f8"].cache, plane)).copy_(cache_bits(rounded))
+            getattr(engines["bf16"].cache, plane).copy_(rounded.to(torch.bfloat16))
+        same = step()
+        kv = {name: kv_bytes_per_lane(config, eng.cache.k.element_size())
+              for name, eng in engines.items()}
+        del engines
+        torch.cuda.empty_cache()
+    finally:
+        q.set_dequant_mode(None)
+
+    def diff(res):
+        a, b = res["f8"][0], res["bf16"][0]
+        return {"max_abs_diff": float(np.abs(a - b).max()), "max_abs_bf16": float(np.abs(b).max()),
+                "rel_diff": float(np.abs(a - b).max() / np.abs(b).max()),
+                "greedy_agree": int((res["f8"][1] == res["bf16"][1]).sum()),
+                "f8_launches_in_step": res["f8"][2]}
+
+    a, b = same["f8"][0], same["bf16"][0]
+    check(bool(np.isfinite(a).all()), "f8 step: logits not finite")
+    over = np.abs(a - b) > F8_LOGIT_ATOL + F8_LOGIT_RTOL * np.abs(b)
+    check(not over.any(), f"f8 step (same state): {int(over.sum())} logits past "
+                          f"{F8_LOGIT_ATOL} + {F8_LOGIT_RTOL} x |bf16| (max|d| "
+                          f"{float(np.abs(a - b).max()):.4f})")
+    check(same["f8"][2] > 0 and same["bf16"][2] == 0 and own["f8"][2] > 0,
+          f"f8 step: {same['f8'][2]} e4m3 attention launches in the f8 step")
+    check(kv["f8"] * 2 == kv["bf16"], "f8 step: an e4m3 lane is not half a bf16 lane")
+    res = {"lanes_compared": busy, "same_state": diff(same), "own_prefill": diff(own),
+           "tol": f"{F8_LOGIT_ATOL} + {F8_LOGIT_RTOL} x |bf16| (same state)",
+           "kv_bytes_per_lane": kv}
+    log("f8 step (engine, full width): " + json.dumps(res))
+    return res
+
+
+def f8_phase(model: str, tok: str) -> dict:
+    """``dllama_api --kv-dtype f8`` under the defaults and once with
+    ``--paged-kv on``, each with the default pass's 4 requests (2 greedy,
+    2 seeded), concurrent and then each alone: the alone and the
+    concurrent texts byte-identical, the serving paths of the defaults, 0
+    graphs captured after warmup, every attention launch the e4m3
+    instantiation's, the KV line of the startup log. Nothing is compared
+    with a bf16 server's streams: an e4m3 cache may part from them."""
+    t0 = time.perf_counter()
+    passes = []
+    for name, extra in (("v4-f8", F8_ARGS), ("v4-f8-paged", F8_ARGS + PAGED_ARGS)):
+        p = serve_pass(model, tok, None, GEN_TOKENS, extra_args=extra, alone=True, name=name)
+        check_serving_paths(p)
+        for i, (a, b) in enumerate(zip(p["alone_texts"], p["concurrent_texts"])):
+            check(a == b, f"{name}: request {i} alone differs from the 4 concurrent:\n"
+                          f"{a!r}\n{b!r}")
+        check(p["jit_compiles_after_warmup"] == 0, f"{name}: {p['jit_compiles_after_warmup']} "
+                                                   "graphs captured after warmup")
+        check(p["decode_attn_f8_launches"] > 0
+              and p["decode_attn_f8_launches"] == p["decode_attn_launches"],
+              f"{name}: {p['decode_attn_f8_launches']} e4m3 attention launches of "
+              f"{p['decode_attn_launches']}")
+        kv = re.search(r"KV cache: f8 \(torch.float8_e4m3fn\), (\d+) bytes a token, "
+                       r"([0-9.]+) MiB a lane", p["log"])
+        check(kv is not None, f"{name}: the startup log lacks the KV cache line")
+        p["kv_bytes_per_token"] = int(kv.group(1))
+        if "paged" in name:
+            check(p["decode_attn_paged_launches"] > 0, f"{name}: no paged attention launch")
+        log(f"{name} pass: streams alone = concurrent (2 greedy, 2 seeded), "
+            f"{p['decode_attn_f8_launches']} e4m3 attention launches, "
+            f"{p['kv_bytes_per_token']} KV bytes a token ({kv.group(2)} MiB a lane; bf16: "
+            f"{2 * p['kv_bytes_per_token']}), batch {p['tokens_per_s_batch']:.1f} tok/s, "
+            f"TTFT p50 {p['ttft_ms_p50']:.1f} ms")
+        passes.append(p)
+    return {"passes": passes, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -4875,6 +5231,300 @@ def moe_phase(torch, q, rc, cs, cm) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the fleet (dllama_router over replicas) and disaggregated prefill
+# ---------------------------------------------------------------------------
+
+# the launch counters a replica's /stats carries, kept as a main-path pass
+PASS_COUNTS = ("kernel_launches", "ring_hop_launches", "ring_hop_bytes",
+               "gumbel_sample_launches", "decode_attn_launches", "decode_attn_window_launches",
+               "decode_attn_paged_launches", "decode_attn_f8_launches",
+               "grammar_mask_argmax_launches", "grammar_next_launches", "moe_route_launches")
+# the disaggregation threshold of the fleet's router: below the default
+# pass's greedy prompt (about 1,918 characters), far below the default 8,000
+FLEET_DISAGG_CHARS = 1000
+
+
+class Router:
+    """One ``dllama_router`` process over ``replicas`` (``Server``s) on a
+    free port, healthy on return (it scrapes every replica before it
+    listens); ``stop`` SIGTERMs it and checks exit 0."""
+
+    def __init__(self, replicas: list, name: str, args=()):
+        self.name = name
+        self.base = f"http://127.0.0.1:{_free_port()}"
+        cmd = [sys.executable, "-m", f"{PKG}.app.dllama_router", "--replicas",
+               *[r.base.removeprefix("http://") for r in replicas], "--host", "127.0.0.1",
+               "--port", self.base.rsplit(":", 1)[1], *args]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
+        self.log_path = os.path.join(OUT_DIR, f"chip_smoke_router_{name}.log")
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                         stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        while True:
+            check(self.proc.poll() is None, f"router ({name}) exited {self.proc.returncode}; "
+                                            f"see {self.log_path}")
+            try:
+                if _http(self.base + "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < 60, f"router ({name}) not healthy")
+            time.sleep(0.2)
+
+    def stats(self) -> dict:
+        return json.loads(_http(self.base + "/stats")[1])
+
+    def stop(self) -> None:
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"router ({self.name}) did not exit after SIGTERM") from None
+        check(rc == 0, f"router ({self.name}) exited {rc} after SIGTERM")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def start_servers(model: str, tok: str, specs: list) -> list:
+    """``Server(model, tok, name, args)`` for each (name, args), all started
+    together (each loads the model and captures its graphs beside the
+    others; the kernels are already built); a failure ends them all."""
+    out: list = [None] * len(specs)
+    errors: list = []
+
+    def start(i, name, args):
+        try:
+            out[i] = Server(model, tok, name, args)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=start, args=(i, n, a)) for i, (n, a) in enumerate(specs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for srv in out:
+            if srv is not None:
+                srv.kill()
+        raise errors[0]
+    return out
+
+
+def _counts_pass(mode: str, stats: dict) -> dict:
+    """A replica's launch counters as a main-path pass."""
+    return {"mode": mode, **{k: stats.get(k, 0) for k in PASS_COUNTS}}
+
+
+def fleet_phase(model: str, tok: str, durability: dict, f8_paged: dict) -> dict:
+    """The router over port replicas, four servers started together: (a)
+    placement and affinity: ``dllama_router`` over two paged replicas (r1
+    with 8 lanes, r2 with 4, ``--reconnect-grace 30``, journal on; the
+    router scrapes once, so keyless requests go to the replica with more
+    free lanes): two requests on the 1,900-token run land on one replica,
+    which shares the second's first 1,024 tokens from its prefix tree;
+    every response names its replica (``X-DLlama-Replica``). (b) Live
+    migration: the durability phase's 4 streamed requests (2 greedy, 2
+    seeded, 256 tokens) through the router land on r1, which is SIGKILLed
+    once each stream holds 32 deltas; the router migrates each to r2, and
+    each client's whole text equals the durability phase's reference
+    stream of the same request on one server, its router event ids 1..N
+    with none lost or repeated; the time from the kill to the first
+    migrated byte. (c) Disaggregated prefill with the f8 KV cache: a
+    ``--role prefill`` and a ``--role decode`` replica, both ``--kv-dtype
+    f8 --paged-kv on``, behind a router with ``--disagg-threshold``
+    FLEET_DISAGG_CHARS: the f8 paged pass's greedy prompt (1,918 tokens),
+    streamed, hands off at its first token; the client's text equals that
+    monolithic f8 paged server's, the decode replica adopted the pages and
+    shared 1,024 prompt tokens, neither replica captured a graph after
+    warmup; TTFT, the hand-off's ms and the bundle's bytes printed; then a
+    live session's f8 bundle pushed to the bf16 replica r2 is refused with
+    a typed 422 and r2's pool is unchanged."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    journals = [os.path.join(OUT_DIR, f"chip_smoke_fleet_{n}.bin") for n in ("r1", "r2")]
+    for j in journals:
+        if os.path.exists(j):
+            os.remove(j)
+    grace = ("--reconnect-grace", DUR_GRACE)
+    r1, r2, pf, dc = start_servers(model, tok, [
+        ("fleet-r1", PAGED_ARGS + grace + ("--replica-id", "r1", "--journal-path", journals[0])),
+        ("fleet-r2", PAGED_ARGS + grace + ("--replica-id", "r2", "--journal-path", journals[1],
+                                           "--max-lanes", "4")),
+        ("fleet-prefill", F8_ARGS + PAGED_ARGS + ("--role", "prefill", "--replica-id", "p")),
+        ("fleet-decode", F8_ARGS + PAGED_ARGS + grace + ("--role", "decode",
+                                                          "--replica-id", "d"))])
+    servers = [r1, r2, pf, dc]
+    # a buffered answer carries the replica's own X-DLlama-Replica; a
+    # router's stream names the replica by the address it routes to
+    names = {}
+    for srv, rid in zip(servers, ("r1", "r2", "p", "d")):
+        names[rid] = names[srv.base.removeprefix("http://")] = rid
+    routers: list = []
+    out["startup_s"] = time.perf_counter() - t0
+    try:
+        # (a) placement and affinity
+        router = Router([r1, r2], "fleet", ("--scrape-interval", "60"))
+        routers.append(router)
+        served, saved = [], []
+        for tail in (" first", " second"):
+            status, headers, raw = _request(router.base + "/v1/completions", {
+                "prompt": "a" * SPEC_RUN + tail, "max_tokens": 8, "temperature": 0})
+            check(status == 200, f"fleet (a): status {status}: {raw[:200]!r}")
+            served.append(names.get(headers.get("X-DLlama-Replica")))
+            saved.append(json.loads(raw)["summary"]["prefix_tokens_saved"])
+        warm = {"r1": r1, "r2": r2}.get(served[0])
+        check(warm is not None and served[1] == served[0],
+              f"fleet (a): the shared run landed on {served}")
+        wstats = warm.stats()
+        check(saved == [0, 1024] and wstats["pool_prefix_admits"] >= 1,
+              f"fleet (a): prompt tokens shared {saved}, prefix admits "
+              f"{wstats['pool_prefix_admits']}")
+        out["affinity"] = {"replica": served[0], "prefix_tokens_saved": saved}
+        log(f"fleet (a): the 1,900-token run twice through the router, both on {served[0]} "
+            f"(X-DLlama-Replica), the second sharing {saved[1]} tokens from its prefix tree")
+
+        # (b) live migration off a SIGKILLed replica
+        streams = [SseStream(router.base + route, body) for route, body in DUR_BODIES]
+        _poll(lambda: all(len(st.events) >= DUR_MIN_EVENTS for st in streams)
+              or any(st.done or st.error for st in streams), 300,
+              "fleet (b): the streams never reached 32 deltas", every=0.005)
+        check(all(not st.done and st.error is None for st in streams),
+              "fleet (b): a stream ended before the kill")
+        homes = {names.get(st.replica) for st in streams}
+        check(homes == {"r1"}, f"fleet (b): the 4 streams are on {homes}, expected r1 (the "
+                               "replica with more free lanes)")
+        held = [len(st.events) for st in streams]
+        t_kill = time.perf_counter()
+        r1.proc.kill()  # SIGKILL: no drain
+        r1.proc.wait(timeout=60)
+        for st in streams:
+            st.join()
+        lost = dup = 0
+        for i, (st, ref) in enumerate(zip(streams, durability["reference"])):
+            check(st.done and st.error is None, f"fleet (b) stream {i}: done {st.done}, "
+                                                f"error {st.error}")
+            ids = [e for e, _ in st.events]
+            dup += len(ids) - len(set(ids))
+            lost += len(set(range(1, max(ids) + 1)) - set(ids))
+            text = "".join(t for _, t in st.events)
+            check(text == ref["text"], f"fleet (b) stream {i}: the migrated text differs from "
+                                       f"the reference:\n{text!r}\n{ref['text']!r}")
+            check(st.finish == ref["finish"], f"fleet (b) stream {i}: finish {st.finish}")
+        check(lost == 0 and dup == 0, f"fleet (b): {lost} event ids lost, {dup} repeated")
+        # deltas the router had read before the kill still arrive after it:
+        # a stream's first migrated delta follows its longest silence
+        firsts = []
+        for st in streams:
+            after = [i for i, t in enumerate(st.stamps) if t > t_kill]
+            gaps = [(st.stamps[i] - st.stamps[i - 1], i) for i in after if i > 0]
+            firsts.append(st.stamps[max(gaps)[1]] - t_kill)
+        first_byte = min(firsts)
+        mig_sum = _metric(router.base, "dllama_router_migration_seconds_sum")
+        mig_n = _metric(router.base, "dllama_router_migration_seconds_count")
+        rstats = router.stats()
+        check(rstats["router_migrations_ok"] == 4 and rstats["router_migrations_failed"] == 0,
+              f"fleet (b): router migrations ok {rstats['router_migrations_ok']}, failed "
+              f"{rstats['router_migrations_failed']}")
+        s2 = r2.stats()
+        check(s2["jit_compiles_after_warmup"] == 0 and s2["decode_attn_launches"] > 0,
+              f"fleet (b): r2 captured {s2['jit_compiles_after_warmup']} graphs after warmup")
+        out["migration"] = {"deltas_before_kill": held, "kill_to_first_migrated_byte_s":
+                            first_byte, "kill_to_first_migrated_byte_s_by_stream": firsts,
+                            "router_break_to_resumed_byte_s_mean":
+                                None if not mig_n else mig_sum / mig_n,
+                            "router": {k: rstats[k] for k in (
+                                "router_migrations_ok", "router_migrations_failed",
+                                "router_routed_total", "fleet_affinity_hits")}}
+        log(f"fleet (b): 4 streams (2 greedy, 2 seeded) on r1 SIGKILLed after {held} deltas, "
+            f"migrated to r2 by the router: byte-identical to the reference, 0 ids lost, 0 "
+            f"repeated; kill to the first migrated byte {first_byte * 1e3:.0f} ms (by stream "
+            f"{[round(f * 1e3) for f in firsts]} ms), the router's break to resumed byte "
+            f"{(mig_sum / mig_n * 1e3) if mig_n else float('nan'):.0f} ms on average")
+        router.stop()
+
+        # (c) disaggregated prefill over the f8 KV cache
+        route_, body = f8_paged["bodies"][0]
+        body = {**body, "stream": True}
+        dis = Router([pf, dc], "disagg", ("--disagg-threshold", str(FLEET_DISAGG_CHARS)))
+        routers.append(dis)
+        check(len(body["prompt"]) >= FLEET_DISAGG_CHARS, "fleet (c): the prompt is short")
+        t_req = time.perf_counter()
+        st = SseStream(dis.base + route_, body).join()
+        check(st.done and st.error is None, f"fleet (c): done {st.done}, error {st.error}")
+        text = "".join(t for _, t in st.events)
+        check(text == f8_paged["greedy_text"], "fleet (c): the disaggregated text differs from "
+                                               "the monolithic f8 paged server's:\n"
+                                               f"{text!r}\n{f8_paged['greedy_text']!r}")
+        check(names.get(st.replica) == "p", f"fleet (c): served first by {st.replica}, not the "
+                                            "prefill replica")
+        ds = dis.stats()
+        check(ds["router_disagg_handoffs_ok"] == 1 and ds["router_disagg_fallbacks"] == 0,
+              f"fleet (c): hand-offs {ds['router_disagg_handoffs_ok']}, fallbacks "
+              f"{ds['router_disagg_fallbacks']}")
+        handoff_s = _metric(dis.base, "dllama_router_disagg_handoff_seconds_sum")
+        sd, sp = dc.stats(), pf.stats()
+        check(sd["pool_adopts"] >= 1 and sd["prefix_tokens_saved"] == 1024,
+              f"fleet (c): the decode replica adopted {sd['pool_adopts']} bundles, shared "
+              f"{sd['prefix_tokens_saved']} prompt tokens (expected 1024)")
+        for name, st_ in (("prefill", sp), ("decode", sd)):
+            check(st_["jit_compiles_after_warmup"] == 0 and st_["decode_attn_f8_launches"] > 0,
+                  f"fleet (c): the {name} replica captured {st_['jit_compiles_after_warmup']} "
+                  f"graphs after warmup, {st_['decode_attn_f8_launches']} e4m3 attention "
+                  "launches")
+        # a live f8 session's bundle, pushed to the bf16 replica r2
+        live = SseStream(dc.base + route_, {**body, "max_tokens": DUR_TOKENS})
+        _poll(lambda: len(live.events) >= 1 or live.done or live.error, 120,
+              "fleet (c): the live f8 session never streamed")
+        status, _, raw = _request(dc.base + f"/admin/kvpages/{live.rid}")
+        check(status == 200, f"fleet (c): the decode replica's kvpages export: {status}")
+        bundle = json.loads(raw)
+        page_bytes = len(base64.b64decode(bundle["blocks"][0]["p"]))
+        before = r2.stats()
+        status, _, refusal = _request(r2.base + "/admin/kvimport", bundle)
+        after = r2.stats()
+        refusal = json.loads(refusal)
+        check(status == 422 and refusal.get("reason") == "page_bytes",
+              f"fleet (c): the bf16 replica answered {status} {refusal}")
+        check(all(after[k] == before[k] for k in ("pool_pages_free", "pool_adopts",
+                                                    "pool_pages_in_use")),
+              "fleet (c): the refused bundle changed the bf16 replica's pool")
+        live.join()
+        out["disagg"] = {
+            "prompt_chars": len(body["prompt"]), "ttft_ms": (st.first_at - t_req) * 1e3,
+            "handoff_ms": None if handoff_s is None else handoff_s * 1e3,
+            "pages_moved": ds["router_disagg_pages_moved"],
+            "pages_fresh": ds["router_disagg_pages_fresh"], "page_bytes": page_bytes,
+            "bundle_payload_bytes": ds["router_disagg_pages_moved"] * page_bytes,
+            "bundle_json_bytes": len(raw), "decode_prefix_tokens_saved": sd["prefix_tokens_saved"],
+            "refusal": {"status": status, "reason": refusal.get("reason")}}
+        log("fleet (c): " + json.dumps(out["disagg"]))
+        dis.stop()
+        out["passes"] = [_counts_pass("fleet-r2", r2.stats()), _counts_pass(
+            "fleet-prefill", pf.stats()), _counts_pass("fleet-decode", dc.stats())]
+        for srv in (r2, pf, dc):
+            srv.stop()
+    except BaseException:
+        for srv in servers:
+            if srv.proc.poll() is None:
+                srv.tail()
+        raise
+    finally:
+        for r in routers:
+            r.kill()
+        for srv in servers:
+            srv.kill()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fleet phase: {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the kernel lab
 # ---------------------------------------------------------------------------
 
@@ -5236,6 +5886,36 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                 s_["label"]: s_["paged"]["decode_attn_ms_per_step"]
                 for s_ in (paged["step"], paged["tp2_step"])},
         })
+    if attn is not None and attn.get("f8") is not None:
+        f8 = attn["f8"]
+        forms = f8["forms"]
+        out.append({
+            "name": "decode_attn (e4m3)", "route": "cuda", "source": ca.KERNEL_SOURCE,
+            "replaces": ca.KERNEL_REPLACES,
+            "replaces_note": "counterpart of XLA's _dense_attention over the JAX package's "
+                             "float8_e4m3fn cache (--kv-dtype f8; models/llama.py:132-140 "
+                             "writes it, :527-531 widens it to f32), in decode steps, verify "
+                             "windows and through the page table; no Pallas site",
+            "launches": sum(p_.get("decode_attn_f8_launches", 0) for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_.get("decode_attn_f8_launches", 0)
+                                 for p_ in passes},
+            "max_abs_err": f8["max_abs_err"], "tol": ATTN_TOL,
+            "tol_rule": f"max|d| <= {ATTN_TOL:.0e} * max|plain| ({f8['max_abs_ref']:.3e}) at "
+                        "T = 1, the window and paged; bit-equal to the bf16 instantiation on "
+                        "the cache widened to bf16; each window row bit-equal to a T = 1 call "
+                        f"({f8['rows_bit_equal_to_one_row_calls']} rows); paged bit-equal to "
+                        "contiguous",
+            "ms": forms["t1"]["ms"], "bf16_ms": forms["t1"]["bf16_ms"],
+            "plain_ms": forms["t1"]["plain_ms"], "library_ms": forms["t1"]["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention (f32, boolean mask) on "
+                       "the cache widened to f32 beforehand (sdpa takes no e4m3)",
+            "bound_ms": forms["t1"]["bound_ms"], "bound_by": forms["t1"]["bound_by"],
+            "forms": forms,
+            "timed_as": f"the decode_attn entry's layer over an e4m3 cache: each form (T = 1, "
+                        "the 4-row window, 64-slot pages) and the bf16 instantiation on the "
+                        "same shapes in one CUDA graph each; plain eager",
+            "step": attn.get("f8_step"),
+        })
     if grammar is not None:
         from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
 
@@ -5393,6 +6073,7 @@ def main() -> int:
         collectives = collectives_phase(torch, q, rc)
         sampler = sampler_phase(torch, cs)
         attn = attn_phase(torch)
+        attn["f8"] = attn_f8_phase(torch, attn)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
                        "hop_forms": forms, "collectives": collectives, "geometry": geometry,
@@ -5414,11 +6095,16 @@ def main() -> int:
             torch, q, rc, cs, model)
         lap("decode")
         paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
+        attn["f8_step"] = paged["f8_step"]
         lap("paged")
+        f8 = f8_phase(model, tok)
+        lap("f8")
         grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown)
         lap("grammar")
         moe = moe_phase(torch, q, rc, cs, cm)
         lap("moe")
+        fleet = fleet_phase(model, tok, durability, f8["passes"][1])
+        lap("fleet")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
             "80GB HBM3 at 700 W: 349.1 tok/s, 4.76 ms)")
@@ -5433,14 +6119,16 @@ def main() -> int:
                        "decode_step_products": products,
                        "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
                                                       if k != "log"}},
-                       "grammar": grammar, "moe": moe}, f, indent=1)
+                       "grammar": grammar, "moe": moe,
+                       "f8": [{k: v for k, v in p.items() if k != "log"} for p in f8["passes"]],
+                       "fleet": fleet}, f, indent=1)
         lab_result = lab_phase(torch, q, lab)
         with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
             json.dump({"card": card, **lab_result}, f, indent=1)
         lap("lab")
         log("phase seconds: " + json.dumps(seconds))
         main_path = (passes + [paged["serving"]] + cli + durability["passes"]
-                     + grammar["passes"] + [moe["serving"]])
+                     + grammar["passes"] + [moe["serving"]] + f8["passes"] + fleet["passes"])
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
                             row_plans, paged, grammar, moe)

@@ -1,12 +1,11 @@
 """CLI argument surface of the port's entry points, ``dllama`` (inference,
-chat, worker) and ``dllama-api``: the flags the port serves so far; the
-JAX package's ``app/args.py`` is the full set."""
+chat, worker), ``dllama-api`` and ``dllama_router``: the flags the port
+serves so far; the JAX package's ``app/args.py`` is the full set. Pure
+stdlib (the router imports it)."""
 
 from __future__ import annotations
 
 import argparse
-
-from ..parallel import MeshPlan
 
 # the JAX package's dequant knob, mirrored (ops/cuda_q40.SELECTABLE_MODES)
 DEQUANT_CHOICES = ("auto", "v4", "bf16chain", "repeat", "u8chain", "blockdot",
@@ -79,8 +78,12 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "the CPU")
     p.add_argument("--max-lanes", type=int, default=8,
                    help="concurrent request lanes (continuous batching)")
-    p.add_argument("--kv-dtype", default="auto", choices=["auto", "bf16", "f32"],
-                   help="KV cache dtype: auto = bf16 on CUDA, f32 on the CPU")
+    p.add_argument("--kv-dtype", default="auto", choices=["auto", "bf16", "f32", "f8"],
+                   help="KV cache dtype: auto = bf16 on CUDA, f32 on the CPU; "
+                        "f8 = float8_e4m3 storage (a quarter of the f32 "
+                        "bytes, half of bf16's: double the lanes or context "
+                        "per card; the attention kernel widens it as it "
+                        "reads)")
     p.add_argument("--chat-template", default=None,
                    choices=[None, "llama2", "llama3", "deepSeek3", "chatml"])
     p.add_argument("--dequant", default=None, choices=DEQUANT_CHOICES,
@@ -232,6 +235,26 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "re-admission is paced through the circuit "
                         "breaker so recovery cannot stampede a freshly "
                         "restarted engine")
+    # fleet serving (fleet/, disagg/), the JAX package's flags
+    p.add_argument("--replica-id", default=None,
+                   help="serving: this replica's name in a fleet — "
+                        "stamped as the X-DLlama-Replica header on every "
+                        "response and onto SSE terminal chunks so the "
+                        "dllama_router's traces and the migration path "
+                        "can attribute sheds and streams to their source "
+                        "replica. Default: host:port (the machine "
+                        "hostname when binding all interfaces — a fleet "
+                        "of 0.0.0.0:8080s would all share one id)")
+    p.add_argument("--role", default="mixed",
+                   choices=["mixed", "prefill", "decode"],
+                   help="serving: this replica's fleet role, advertised "
+                        "on GET /load. 'prefill': the dllama_router "
+                        "steers long-classified prompts here and hands "
+                        "their sessions (KV pages + migration ticket) to "
+                        "a decode replica at first token "
+                        "(disagg/). 'decode': preferred "
+                        "hand-off target. 'mixed' (default): the "
+                        "monolithic single-tier behavior")
     p.add_argument("--reconnect-grace", type=float, default=0.0,
                    help="serving: seconds a disconnected SSE client may "
                         "reattach (GET /v1/stream/<id> with "
@@ -261,9 +284,65 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
     return p
 
 
+def build_router_parser(prog: str = "dllama_router") -> argparse.ArgumentParser:
+    """The JAX package's ``build_router_parser``: the fleet front-end's
+    command line (fleet/router.py). Model-free by design: the router holds
+    no weights and no tokenizer, only the replica table and the client
+    sockets, so this module imports neither torch nor numpy."""
+    p = argparse.ArgumentParser(prog=prog)
+    p.add_argument("--replicas", nargs="+", required=True,
+                   help="engine replica addresses (host:port ...), each a "
+                        "dllama_api process; replica ids default to the "
+                        "addresses (match each replica's --replica-id)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9980)
+    p.add_argument("--affinity-block-chars", type=int, default=None,
+                   help="prefix-affinity block size in prompt characters "
+                        "(~4 chars/token x the KV pool's 64-token page); "
+                        "the affinity key chains content hashes over the "
+                        "prompt's leading blocks, the router twin of the "
+                        "KV prefix tree's node-key chain. Default: "
+                        "fleet default (256)")
+    p.add_argument("--affinity-blocks", type=int, default=None,
+                   help="how many leading blocks the affinity key covers "
+                        "(a long shared system prompt maps to ONE key "
+                        "regardless of what follows); 0 disables prefix "
+                        "affinity — every request balances by load. "
+                        "Default: fleet default (4)")
+    p.add_argument("--scrape-interval", type=float, default=0.5,
+                   help="seconds between /load scrapes of each replica "
+                        "(queue depth, free lanes, pool pressure, "
+                        "breaker, draining — the routing signals)")
+    p.add_argument("--migration", default="on", choices=["on", "off"],
+                   help="live session migration: cache each stream's "
+                        "exported journal admit record (its migration "
+                        "ticket) and, when the serving replica dies or "
+                        "drains mid-stream, regenerate the session "
+                        "byte-identically on another replica and splice "
+                        "the resumed stream onto the same client socket "
+                        "— zero lost, zero duplicated tokens. Replicas "
+                        "need --reconnect-grace > 0 for the reattach "
+                        "half. 'off': mid-stream failures surface to "
+                        "the client as typed errors instead")
+    p.add_argument("--disagg-threshold", type=int, default=None,
+                   help="disaggregated prefill: prompts at/above this "
+                        "many characters classify 'long' and route to a "
+                        "replica advertising role=prefill on /load; at "
+                        "first token the session (KV-page bundle + "
+                        "migration ticket) hands off to a decode "
+                        "replica, char-exact on the same client socket. "
+                        "0 disables the policy. Default: disagg default "
+                        "(8000). Needs --migration on and at least one "
+                        "--role prefill replica to take effect; without "
+                        "them every request rides the monolithic path")
+    return p
+
+
 def parse_mesh_spec(workers: list[str] | None):
     """--workers '8' -> tp=8 (the reference's pure TP); 'dp2,tp2,sp2,ep2' ->
     explicit axes."""
+    from ..parallel import MeshPlan
+
     if not workers:
         return None
     spec = workers[0]

@@ -18,6 +18,10 @@ after a crash, ``--recover-journal`` replays the unfinished requests through
 the normal admission path (paced behind the circuit breaker), and with
 ``--reconnect-grace`` > 0 their clients reattach with ``GET /v1/stream/<id>``
 and ``Last-Event-ID``.
+
+In a fleet (``app/dllama_router.py``) ``--replica-id`` names the replica on
+every response and ``--role prefill|decode|mixed`` rides its ``/load``;
+``--kv-dtype f8`` stores the KV cache in e4m3, half of bf16's bytes.
 """
 
 from __future__ import annotations
@@ -55,10 +59,10 @@ def main(argv=None) -> None:
                      " (no --reconnect-grace: regenerating without stream reattach)"))
     server = ApiServer(scheduler, tokenizer, model_name=os.path.basename(args.model),
                        template_type=template_type_from_name(args.chat_template),
-                       resume=registry)
+                       resume=registry, replica_id=args.replica_id, role=args.role)
     httpd = server.serve(host=args.host, port=args.port)
     log("⭐", f"Server listening on {args.host}:{args.port} ({engine.n_lanes} lanes, "
-              f"{engine.device})")
+              f"{engine.device}, replica {server.replica_id}, role {server.role})")
 
     def _sigterm(*_):
         log("⭐", "SIGTERM: draining (health 503, admissions shedding)")

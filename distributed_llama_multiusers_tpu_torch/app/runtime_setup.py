@@ -110,7 +110,10 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                   + (" (Q80 wire)" if q80_sync else "") + " — --ring-sync off for "
                   "a local partial and a ring all-reduce")
 
-    cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "auto": None}[args.kv_dtype]
+    # None: bf16 KV on the card, f32 on the CPU; f8 doubles the lanes or
+    # context a card holds against bf16
+    cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                   "f8": torch.float8_e4m3fn, "auto": None}[args.kv_dtype]
     engine = InferenceEngine(config, params, n_lanes=n_lanes or args.max_lanes,
                              cache_dtype=cache_dtype, device=device, mesh=mesh,
                              emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
@@ -121,6 +124,13 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                              **(paged_kwargs(args) if serving else {}))
     if not serving and getattr(args, "paged_kv", "off") == "on":
         log("📑", "--paged-kv applies to dllama-api; the CLI keeps contiguous planes")
+    if args.kv_dtype != "auto":
+        planes = engine.cache if mesh is None else engine.cache[0]
+        per_token = (2 * config.n_layers * config.n_kv_heads * config.head_size
+                     * planes.k.element_size())
+        log("🗄️", f"KV cache: {args.kv_dtype} ({planes.k.dtype}), {per_token} bytes a token, "
+                  f"{per_token * config.seq_len / (1 << 20):.1f} MiB a lane at seq_len "
+                  f"{config.seq_len}")
     pool = engine.kvpool
     if pool is not None:
         log("📑", f"Paged KV: {pool.n_pages} pages x {pool.page_size} tokens, "

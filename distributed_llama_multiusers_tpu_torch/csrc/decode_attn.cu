@@ -63,9 +63,20 @@
 // With pages of at least kWarpSlots slots (64 at the 1B shape) a warp's
 // slots lie in one page, so a thread loads one table word a split; smaller
 // pages (tiny configs) look up each slot.
+//
+// The e4m3 instantiation (--kv-dtype f8; the JAX package casts each K/V
+// write to float8_e4m3fn and its attention reads the cache upcast to f32)
+// loads 8 e4m3 values (8 bytes) where bf16 loads 8 bf16 (16 bytes) and
+// widens them exactly (e4m3 -> f16 x2 -> f32, Hopper's cvt). Every thread
+// then holds the same dims as in the bf16 instantiation and every sum keeps
+// its order, so the e4m3 kernel's result equals the bf16 kernel's on the
+// same cache widened to bf16 (every e4m3 value is a bf16 value), bit for
+// bit. Sixteen e4m3 a thread would have halved the loads but doubled the
+// slot groups' shared sums (64 KB at G = 8, past the static limit).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 #include <string.h>
 #include <math.h>
@@ -83,6 +94,38 @@ constexpr int kWindow = 4;  // query rows per lane at most (ops/cuda_attn.py WIN
 // the serving step's 544 live blocks of the 1B shape run in one wave); the
 // others would spill under it
 constexpr int kMinBlocks = 5;
+
+// one e4m3 cache element (the storage of torch.float8_e4m3fn)
+struct E4M3 {
+  uint8_t bits;
+};
+
+// the load unit of a cache element type: 16 bytes of bf16 or f32, 8 of e4m3
+template <typename KV>
+struct Vec {
+  using raw = uint4;
+  static constexpr int n = 16 / sizeof(KV);
+};
+template <>
+struct Vec<E4M3> {
+  using raw = uint2;
+  static constexpr int n = 8;
+};
+
+// 8 bytes of the cache to f32: 8 e4m3 dims, exactly (byte i is dim i)
+__device__ __forceinline__ void widen(const uint2& r, float (&x)[8]) {
+  const uint32_t w[2] = {r.x, r.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2_raw p = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * h)), __NV_E4M3);
+      const float2 f = __half22float2(__half2(p));
+      x[4 * i + 2 * h] = f.x;
+      x[4 * i + 2 * h + 1] = f.y;
+    }
+}
 
 // 16 bytes of the cache to f32: 8 bf16 or 4 f32 dims
 __device__ __forceinline__ void widen(const uint4& r, float (&x)[8]) {
@@ -103,11 +146,14 @@ __device__ __forceinline__ void widen(const uint4& r, float (&x)[4]) {
 // dims d0 .. d0 + VEC - 1 of one slot (zeros past hd, or for a slot the lane
 // does not attend: a masked slot's V is weighted by 0 and must not be NaN)
 template <typename KV>
-__device__ __forceinline__ uint4 load16(const KV* p, bool vec_ok, int d0, int hd, bool valid) {
-  constexpr int VEC = 16 / sizeof(KV);
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ typename Vec<KV>::raw load16(const KV* p, bool vec_ok, int d0, int hd,
+                                                        bool valid) {
+  using Raw = typename Vec<KV>::raw;
+  constexpr int VEC = Vec<KV>::n;
+  Raw r;
+  memset(&r, 0, sizeof(r));
   if (!valid || d0 >= hd) return r;
-  if (vec_ok) return __ldg(reinterpret_cast<const uint4*>(p));
+  if (vec_ok) return __ldg(reinterpret_cast<const Raw*>(p));
   KV e[VEC];
   memset(e, 0, sizeof(e));
 #pragma unroll
@@ -187,7 +233,8 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
                                           int ns, float* __restrict__ rec,
                                           float* __restrict__ ob, int g_n, int hd,
                                           float scale) {
-  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int VEC = Vec<KV>::n;
+  using Raw = typename Vec<KV>::raw;
   constexpr int SPW = 32 / TPS;  // slots one load instruction of a warp covers
   constexpr int SLOTS = kWarpSlots / SPW;  // slots per thread
   constexpr int U = SLOTS < kU ? SLOTS : kU;  // slots whose loads a thread issues together
@@ -215,10 +262,10 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
   __shared__ float s_red[kWarps][G];
   const int l0 = warp * kWarpSlots + r;  // local slot of the thread's first
   const int s0 = j * kSplit + l0;
-  uint4 vr[U];  // the first round's V, in flight while the scores are formed
+  Raw vr[U];  // the first round's V, in flight while the scores are formed
 #pragma unroll 1
   for (int u0 = 0; u0 < SLOTS; u0 += U) {
-    uint4 kr[U];
+    Raw kr[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int s = s0 + (u0 + u) * SPW;
@@ -365,7 +412,7 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 template <int G, int TPS, typename KV>
 __device__ __forceinline__ void fold_row(const float* __restrict__ rec0, size_t split_stride,
                                          int ns, float* __restrict__ ob, int g_n, int hd) {
-  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int VEC = Vec<KV>::n;
   static_assert(kFoldChunk == 16 && G * kFoldChunk <= kThreads, "the fold's lanes");
   __shared__ float s_w[kFoldChunk][G], s_mx[G], s_c[G], s_den[G];
   constexpr int E = (G * TPS * VEC + kThreads - 1) / kThreads;  // outputs per thread, at most
@@ -448,7 +495,7 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                    float* __restrict__ out, float* __restrict__ part,
                    unsigned* __restrict__ tickets, Layout lay, int lane_rows,
                    int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale) {
-  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int VEC = Vec<KV>::n;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int j = blockIdx.z;
@@ -518,7 +565,7 @@ cudaError_t by_dims(const float* q, const void* k, const void* v, const long lon
                     float* out, float* part, unsigned* tickets, Layout lay,
                     int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
                     float scale, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int VEC = Vec<KV>::n;
 #define DECODE_ATTN_LAUNCH(TPS)                                                        \
   return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lay, rows,               \
                             lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale, stream)
@@ -549,21 +596,26 @@ cudaError_t by_group(const float* q, const void* k, const void* v, const long lo
 
 namespace {
 
+// kv_dtype: 0 f32, 1 bf16, 2 e4m3 (ops/cuda_attn.py kv_code)
 int launch_any(const float* q, const void* k, const void* v, const long long* pos, float* out,
                float* part, unsigned* tickets, Layout lay, int lanes, int rows, int n_kv,
-               int g_n, int hd, int s_len, int split, int kv_bf16, float scale, void* stream) {
+               int g_n, int hd, int s_len, int split, int kv_dtype, float scale, void* stream) {
   if (lanes < 1 || rows < 1 || rows > kWindow || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 ||
-      hd > 128 || s_len < 1 || split != kSplit ||
+      hd > 128 || s_len < 1 || split != kSplit || kv_dtype < 0 || kv_dtype > 2 ||
       (s_len > kSplit && (part == nullptr || tickets == nullptr)) ||
       (lay.tbl != nullptr && (lay.nb < 1 || lay.lp < 0 || lay.lp > 20 ||
                               ((long long)lay.nb << lay.lp) < s_len)))
     return (int)cudaErrorInvalidValue;
-  const int vec = kv_bf16 ? 8 : 4;
+  const int vec = kv_dtype == 0 ? 4 : 8;  // elements a load takes
+  const uintptr_t unit = kv_dtype == 2 ? 8 : 16;  // its bytes
   const int vec_ok = hd % vec == 0 && (n_kv * hd) % vec == 0 && lay.lane_stride % vec == 0 &&
-                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+                     reinterpret_cast<uintptr_t>(k) % unit == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % unit == 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (kv_bf16)
+  if (kv_dtype == 2)
+    return (int)by_group<E4M3>(q, k, v, pos, out, part, tickets, lay, lanes * rows, rows, n_kv,
+                               g_n, hd, s_len, vec_ok, scale, st);
+  if (kv_dtype == 1)
     return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lay, lanes * rows,
                                         rows, n_kv, g_n, hd, s_len, vec_ok, scale, st);
   return (int)by_group<float>(q, k, v, pos, out, part, tickets, lay, lanes * rows, rows, n_kv,
@@ -573,8 +625,8 @@ int launch_any(const float* q, const void* k, const void* v, const long long* po
 }  // namespace
 
 // q: f32 [lanes, rows, n_kv, g_n, hd]; k, v: one layer's cache, slot s of
-// lane b at b * lane_stride + s * n_kv * hd (elements; kv_bf16: bf16, else
-// f32); pos: int64 [lanes, rows]; out: f32 [lanes, rows, n_kv, g_n, hd];
+// lane b at b * lane_stride + s * n_kv * hd (elements; kv_dtype 0: f32,
+// 1: bf16, 2: e4m3); pos: int64 [lanes, rows]; out: f32 [lanes, rows, n_kv, g_n, hd];
 // rows: 1 .. kWindow. split: the caller's split length, which must be
 // kSplit. With more than one split (s_len > split), part: f32 [lanes, rows,
 // n_kv, ceil(s_len / split), g_n * (hd + 2)] scratch and tickets: [lanes *
@@ -582,10 +634,10 @@ int launch_any(const float* q, const void* k, const void* v, const long long* po
 extern "C" int decode_attn_launch(const float* q, const void* k, const void* v,
                                   const long long* pos, float* out, float* part,
                                   unsigned* tickets, long long lane_stride, int lanes, int rows,
-                                  int n_kv, int g_n, int hd, int s_len, int split, int kv_bf16,
+                                  int n_kv, int g_n, int hd, int s_len, int split, int kv_dtype,
                                   float scale, void* stream) {
   return launch_any(q, k, v, pos, out, part, tickets, Layout{lane_stride, nullptr, 0, 0}, lanes,
-                    rows, n_kv, g_n, hd, s_len, split, kv_bf16, scale, stream);
+                    rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
 }
 
 // The paged form: k, v: one layer's pool, page p's slot i at (p 2^log2_page
@@ -595,9 +647,9 @@ extern "C" int decode_attn_paged_launch(const float* q, const void* k, const voi
                                         const long long* pos, float* out, float* part,
                                         unsigned* tickets, const int* table, int nb,
                                         int log2_page, int lanes, int rows, int n_kv, int g_n,
-                                        int hd, int s_len, int split, int kv_bf16, float scale,
+                                        int hd, int s_len, int split, int kv_dtype, float scale,
                                         void* stream) {
   if (table == nullptr) return (int)cudaErrorInvalidValue;
   return launch_any(q, k, v, pos, out, part, tickets, Layout{0, table, nb, log2_page}, lanes,
-                    rows, n_kv, g_n, hd, s_len, split, kv_bf16, scale, stream);
+                    rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
 }

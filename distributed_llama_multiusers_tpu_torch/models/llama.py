@@ -14,7 +14,9 @@ lane, the last one a scratch slot that takes the writes the JAX scatter
 drops (positions at or past ``seq_len``: idle lanes parked there, padded
 prefill tails near the end of the context; a forward of several rows a lane
 writes zeros there). Attention never reads it for a real query, whose mask
-is s <= pos < seq_len.
+is s <= pos < seq_len. An e4m3 cache (``--kv-dtype f8``) takes each write
+through ``_to_cache_dtype`` (clipped at +-448, then cast) and is widened to
+f32 where attention reads it.
 
 The paged layout (``PagedKVCache``, the JAX package's): one pool of
 fixed-size pages shared by every lane and a per-lane page table (block i of
@@ -191,6 +193,28 @@ def init_kv_cache(config: LlamaConfig, n_lanes: int, dtype=torch.float32,
              config.head_size)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+F8 = torch.float8_e4m3fn  # --kv-dtype f8: the JAX package's float8_e4m3fn
+
+
+def _to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Fresh K/V rows in the cache's storage dtype (the JAX package's
+    ``_to_cache_dtype``). e4m3 has no inf: an outlier clips to +-448, the
+    format's finite max, where a plain cast could give NaN. The clamp is
+    explicit, as in JAX, so both packages and both devices agree by
+    construction; the cast is straight from ``x``'s dtype."""
+    if dtype == F8:
+        lim = float(torch.finfo(F8).max)
+        x = x.clamp(-lim, lim)
+    return x.to(dtype)
+
+
+def cache_bits(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 plane as a uint8 view of the same storage (other dtypes as
+    they are): indexed copies and scatters lack Float8 kernels on some
+    backends, and moving the bits moves the values."""
+    return t.view(torch.uint8) if t.dtype == F8 else t
 
 
 def _maybe_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
@@ -448,8 +472,8 @@ def llama_forward(
 
         if dropped is not None:
             k, v = (torch.where(dropped[r], 0.0, x) for x in (k, v))
-        k_cache[w_idx[r]] = k.to(k_cache.dtype)
-        v_cache[w_idx[r]] = v.to(v_cache.dtype)
+        cache_bits(k_cache)[w_idx[r]] = cache_bits(_to_cache_dtype(k, k_cache.dtype))
+        cache_bits(v_cache)[w_idx[r]] = cache_bits(_to_cache_dtype(v, v_cache.dtype))
 
         qf = q.to(torch.float32).reshape(b, t, n_kv, group, hd)
         if windowed and paged:

@@ -32,9 +32,17 @@ lane's result is bit-equal to the contiguous kernel's on the same slot
 contents; on a CPU tensor the wrapper runs ``decode_attention_paged_plain``
 (the gather, then the plain version).
 
-``COUNTS`` holds the launches (one a call, whatever T or layout), the window
-launches among them and the plain calls; ``PAGED_COUNTS`` the launches of
-the paged form (counted in ``COUNTS`` too).
+Both forms read a bf16, f32 or e4m3 cache (``--kv-dtype f8``, the JAX
+package's float8_e4m3fn). The e4m3 instantiation widens what it loads
+exactly and keeps the bf16 instantiation's thread plan and summation order,
+so its result equals the bf16 kernel's on the cache widened to bf16; its
+plain version widens the cache to f32 before the plain attention, as the
+JAX forward does.
+
+``COUNTS`` holds the launches (one a call, whatever T, layout or dtype),
+the window launches among them and the plain calls; ``PAGED_COUNTS`` the
+launches of the paged form and ``F8_COUNTS`` those over an e4m3 cache (both
+counted in ``COUNTS`` too).
 """
 
 from __future__ import annotations
@@ -59,20 +67,24 @@ WINDOW = 4  # query rows per lane at most: kWindow (runtime/spec.SPEC_DRAFT + 1)
 COUNTS = {"launches": 0, "window_launches": 0, "plain_calls": 0}
 # the launches through a page table
 PAGED_COUNTS = {"launches": 0}
+# the launches over an e4m3 cache
+F8_COUNTS = {"launches": 0}
 _counts_lock = threading.Lock()
+# the cache dtypes the kernel reads, by their code in csrc/decode_attn.cu
+KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # q, k, v, pos, out, part, tickets, lane_stride, lanes, rows, n_kv, group,
-# head_size, s_len, split, kv_bf16, scale, stream
+# head_size, s_len, split, kv_dtype, scale, stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 # q, k, v, pos, out, part, tickets, table, nb, log2_page, lanes, rows, n_kv,
-# group, head_size, s_len, split, kv_bf16, scale, stream
+# group, head_size, s_len, split, kv_dtype, scale, stream
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
 
 
 def reset_counts() -> None:
     with _counts_lock:
-        for table in (COUNTS, PAGED_COUNTS):
+        for table in (COUNTS, PAGED_COUNTS, F8_COUNTS):
             for k in table:
                 table[k] = 0
 
@@ -81,7 +93,8 @@ def attn_counts() -> dict:
     """The kernel's counters, for ``/stats``."""
     with _counts_lock:
         return {**{f"{KERNEL}_{k}": v for k, v in COUNTS.items()},
-                f"{KERNEL}_paged_launches": PAGED_COUNTS["launches"]}
+                f"{KERNEL}_paged_launches": PAGED_COUNTS["launches"],
+                f"{KERNEL}_f8_launches": F8_COUNTS["launches"]}
 
 
 def add_counts(delta: dict) -> None:
@@ -98,9 +111,24 @@ def add_paged_counts(delta: dict) -> None:
             PAGED_COUNTS[k] += v
 
 
+def add_f8_counts(delta: dict) -> None:
+    """``add_counts`` for the e4m3 launches."""
+    with _counts_lock:
+        for k, v in delta.items():
+            F8_COUNTS[k] += v
+
+
 def _bump(key: str, table: dict = COUNTS) -> None:
     with _counts_lock:
         table[key] += 1
+
+
+def _bump_launch(t: int, dtype: torch.dtype) -> None:
+    _bump("launches")
+    if t > 1:
+        _bump("window_launches")
+    if dtype == torch.float8_e4m3fn:
+        _bump("launches", F8_COUNTS)
 
 
 def launch_grid(lanes: int, n_kv: int, s_len: int) -> tuple[int, int, int]:
@@ -137,7 +165,10 @@ def paged_gather_index(table: torch.Tensor, page_size: int, s_len: int) -> torch
 
 def paged_view(pool: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """One layer's pool [P, page, n_kv, H] gathered at ``index`` [B, S]:
-    each lane's logical [B, S, n_kv, H] view."""
+    each lane's logical [B, S, n_kv, H] view (an e4m3 pool gathered as its
+    bytes)."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return paged_view(pool.view(torch.uint8), index).view(pool.dtype)
     return pool.reshape(-1, *pool.shape[2:])[index]
 
 
@@ -167,8 +198,8 @@ def _check_card(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd > MAX_HEAD_SIZE or group > MAX_GROUP:
         raise ValueError(f"head size {hd} (at most {MAX_HEAD_SIZE}) or group {group} (at "
                          f"most {MAX_GROUP}) out of the kernel's range")
-    if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
-        raise ValueError(f"caches must be bf16 or f32, got {k.dtype} / {v.dtype}")
+    if k.dtype not in KV_CODES or v.dtype != k.dtype:
+        raise ValueError(f"caches must be bf16, f32 or e4m3, got {k.dtype} / {v.dtype}")
     for name, cache in (("k", k), ("v", v)):
         if cache.device != qf.device:
             raise ValueError(f"{name} cache on {cache.device}, qf on {qf.device}")
@@ -195,7 +226,7 @@ def decode_attention_paged(qf: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
                            table: torch.Tensor, positions: torch.Tensor, scale: float,
                            s_len: int) -> torch.Tensor:
     """``decode_attention`` over the paged layout. k_pool, v_pool: one
-    layer's pool [P, page, n_kv, H] (bf16 or f32; page a power of two);
+    layer's pool [P, page, n_kv, H] (bf16, f32 or e4m3; page a power of two);
     table: int32 [B, nb] page ids (< P) with nb * page >= s_len; slot s of
     lane b is slot s % page of page table[b, s // page]. Returns f32 [B, T,
     n_kv, G, H], bit-equal to ``decode_attention`` on a contiguous cache
@@ -230,21 +261,19 @@ def decode_attention_paged(qf: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos.data_ptr(),
             out.data_ptr(), _ptr(part), _ptr(tickets), tbl.data_ptr(), tbl.shape[1],
             page.bit_length() - 1, b, t, n_kv, group, hd, s_len, SPLIT,
-            int(k_pool.dtype == torch.bfloat16), float(scale),
+            KV_CODES[k_pool.dtype], float(scale),
             torch.cuda.current_stream(qf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} (paged) launch failed: CUDA error {err}")
-    _bump("launches")
+    _bump_launch(t, k_pool.dtype)
     _bump("launches", PAGED_COUNTS)
-    if t > 1:
-        _bump("window_launches")
     return out
 
 
 def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      positions: torch.Tensor, scale: float, s_len: int) -> torch.Tensor:
     """qf: f32 [B, T, n_kv, G, H], 1 <= T <= WINDOW; k_cache, v_cache: one
-    layer's cache [B, S, n_kv, H] (bf16 or f32; S >= s_len); positions: int
+    layer's cache [B, S, n_kv, H] (bf16, f32 or e4m3; S >= s_len); positions: int
     [B, T] on the same device. Returns f32 [B, T, n_kv, G, H]."""
     _check_q(qf, positions)
     b, t, n_kv, group, hd = qf.shape
@@ -268,11 +297,9 @@ def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         err = load_kernel(KERNEL, _ARGTYPES)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
             out.data_ptr(), _ptr(part), _ptr(tickets), k_cache.stride(0), b, t, n_kv,
-            group, hd, s_len, SPLIT, int(k_cache.dtype == torch.bfloat16), float(scale),
+            group, hd, s_len, SPLIT, KV_CODES[k_cache.dtype], float(scale),
             torch.cuda.current_stream(qf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
-    _bump("launches")
-    if t > 1:
-        _bump("window_launches")
+    _bump_launch(t, k_cache.dtype)
     return out

@@ -315,6 +315,11 @@ def q40_i8blockdot_plain(acts: Q80Acts, w: PackedQ40,
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# per source: decode_attn.cu instantiates 80 kernels (3 cache dtypes x group x
+# threads per slot x layout) and was the build's long pole (chip_smoke.py's
+# kernel build, all sources at once on an 8-core H100 host: 61.9 s; with its
+# optimizations split over the cores, 33.7 s)
+NVCC_EXTRA_FLAGS = {"decode_attn": ("--split-compile=0",)}
 _COMMON_HEADER = "q40_common.cuh"
 _libs: dict = {}
 _build_lock = threading.Lock()
@@ -346,7 +351,7 @@ def _lib_path(name: str) -> str:
     for part in (f"{name}.cu", _COMMON_HEADER):
         with open(os.path.join(_CSRC, part), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + NVCC_EXTRA_FLAGS.get(name, ())).encode())
     return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -361,7 +366,8 @@ def build_kernels(names=KERNELS, verbose: bool = False) -> dict:
     procs = {}
     for n, p in todo.items():
         tmp = f"{p}.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_EXTRA_FLAGS.get(n, ()),
+               *(["-Xptxas", "-v"] if verbose else []),
                "-o", tmp, os.path.join(_CSRC, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)

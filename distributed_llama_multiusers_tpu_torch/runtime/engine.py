@@ -30,7 +30,8 @@ maps a lane's pages (shared prefix pages by refcount, a copy-on-write page,
 pages swapped back in from the host tier), ``paged_commit`` registers its
 prompt blocks, ``paged_finish`` parks or frees them; ``export_kv_page`` and
 ``import_kv_page`` carry one page's bytes (K then V, row-major, in the
-cache dtype: the JAX engine's bytes at the same geometry). Every table
+cache dtype: the JAX engine's bytes at the same geometry; an e4m3 page,
+``cache_dtype=torch.float8_e4m3fn``, is half a bf16 page). Every table
 write, page copy and swap-in is an in-place op on the compute stream from
 pinned host memory: ordered after every step dispatched before it and
 before every step after it, so an in-flight pipelined chain never sees a
@@ -98,7 +99,14 @@ from ..analysis import jitcheck
 from ..device import resolve_device
 from ..grammar.slab import DEFAULT_SLAB_STATES, GrammarSlab
 from ..models.config import LlamaConfig
-from ..models.llama import LlamaParams, init_kv_cache, init_paged_kv_cache, llama_forward
+from ..models.llama import (
+    F8,
+    LlamaParams,
+    cache_bits,
+    init_kv_cache,
+    init_paged_kv_cache,
+    llama_forward,
+)
 from ..ops import cuda_grammar
 from ..ops.ring_collective import ring_counts
 from ..parallel.sharding import shard_kv_cache, shard_paged_kv_cache
@@ -243,7 +251,10 @@ class InferenceEngine:
     ):
         """``device`` defaults to CUDA and raises where there is none; tests
         pass ``device="cpu"``. The parameters must already live there.
-        ``cache_dtype`` None: bf16 KV on the card, f32 on the CPU.
+        ``cache_dtype`` None: bf16 KV on the card, f32 on the CPU;
+        ``torch.float8_e4m3fn`` (``--kv-dtype f8``) stores e4m3, written
+        through ``_to_cache_dtype`` and read by the attention kernel's e4m3
+        instantiation.
 
         With ``mesh`` (tensor parallel), ``params`` is the per-rank list of
         ``parallel.sharding.shard_params`` and the device is rank 0's, where
@@ -1193,6 +1204,7 @@ class InferenceEngine:
             return
         for c in ([self.cache] if self.mesh is None else self.cache):
             for plane in (c.k, c.v):
+                plane = cache_bits(plane)
                 plane[:, dst, :n].copy_(plane[:, src, :n])
 
     # -- the paged KV pool (runtime/kvpool.py): the host/device seam ----------
@@ -1222,6 +1234,7 @@ class InferenceEngine:
         the tail prefill rewrites before any query reads them."""
         for c in self._caches():
             for plane in (c.k, c.v):
+                plane = cache_bits(plane)
                 plane[:, dst].copy_(plane[:, src])
 
     def apply_paged_admit(self, lane: int, row, copies) -> None:
@@ -1310,6 +1323,13 @@ class InferenceEngine:
         shape = (k.shape[0], k.shape[2], self.config.n_kv_heads, k.shape[4])
         return shape, k.dtype, int(np.prod(shape)) * k.element_size()
 
+    def kv_page_bytes(self) -> int:
+        """One page's payload size (K then V, every layer and kv head, in
+        the cache dtype): what ``export_kv_page`` gives and
+        ``import_kv_page`` takes."""
+        self._need_paged("kv_page_bytes")
+        return 2 * self._page_geometry()[2]
+
     def _read_pages(self, pages: list[int]) -> list[bytes]:
         """Pages' K then V bytes, each [L, page, n_kv, hd] row-major (ranks'
         heads joined): one gather a plane and rank on the card, one copy
@@ -1317,8 +1337,8 @@ class InferenceEngine:
         idx = torch.as_tensor(pages, dtype=torch.int64)
         planes = []
         for plane in ("k", "v"):
-            parts = [getattr(c, plane).index_select(1, idx.to(c.k.device)).to(self.device)
-                     for c in self._caches()]
+            parts = [cache_bits(getattr(c, plane)).index_select(1, idx.to(c.k.device))
+                     .to(self.device) for c in self._caches()]
             planes.append(torch.cat(parts, dim=3))  # [L, n, page, n_kv, hd]
         # [n, K/V, L, page, n_kv, hd]: each page's K then V, contiguous
         joined = torch.stack(planes).permute(2, 0, 1, 3, 4, 5).contiguous()
@@ -1336,7 +1356,8 @@ class InferenceEngine:
         dispatch."""
         shape, dtype, _ = self._page_geometry()
         raw = torch.frombuffer(bytearray().join(payloads), dtype=torch.uint8)
-        host = raw.view(dtype).reshape((len(pages), 2) + shape)  # [n, K/V, L, ...]
+        # an e4m3 page moves as its bytes (cache_bits)
+        host = (raw if dtype == F8 else raw.view(dtype)).reshape((len(pages), 2) + shape)
         if self.device.type == "cuda":
             host = host.pin_memory()
         heads = self._caches()[0].k.shape[3]
@@ -1348,7 +1369,7 @@ class InferenceEngine:
             idx = torch.as_tensor(pages, dtype=torch.int64).to(c.k.device)
             for j, plane in enumerate((c.k, c.v)):
                 # [n, L, page, heads, hd] -> [L, n, page, heads, hd]
-                plane.index_copy_(1, idx, src[:, j].transpose(0, 1))
+                cache_bits(plane).index_copy_(1, idx, src[:, j].transpose(0, 1))
 
     def _check_payloads(self, payloads) -> None:
         shape, dtype, half = self._page_geometry()

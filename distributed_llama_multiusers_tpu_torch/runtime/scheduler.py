@@ -52,6 +52,13 @@ reseed and on the synchronous paths), the host mirror follows every
 consumed token and trims drafts the mask would reject, and the automaton
 detaches when the request ends. A slab full of live schemas sheds with a
 typed retryable 429 (``grammar_slab_full``).
+
+For a fleet (``fleet/``, ``disagg/``) the scheduler exports a live
+session's admit record (``export_session``) and its committed KV pages
+(``export_session_pages``), takes a migrated session through normal
+admission like a recovered one (``build_recovered_request``), and runs the
+admin routes' device work on its own thread between steps
+(``run_device_op``), inside a pipelined chain too.
 """
 
 from __future__ import annotations
@@ -128,6 +135,13 @@ _req_ids_lock = threading.Lock()
 def _next_request_id() -> int:
     with _req_ids_lock:
         return next(_req_ids)
+
+
+def fresh_request_id() -> int:
+    """A new id from the shared counter: the migration route re-admits an
+    injected session whose original id names a live request here under
+    one (every replica numbers its requests from 1)."""
+    return _next_request_id()
 
 
 def ensure_request_id_floor(min_used_id: int) -> None:
@@ -316,6 +330,11 @@ class ContinuousBatchingScheduler:
         # and assigned or popped with single-key dict ops; one entry per
         # request holding a lane
         self._session_records: dict[int, tuple[dict, Request]] = {}
+        # admin device work (the fleet's KV page export and adoption),
+        # posted from HTTP threads and run by the loop between steps
+        # (run_device_op); only under its lock
+        self._device_ops: list = []
+        self._device_ops_lock = threading.Lock()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -373,9 +392,9 @@ class ContinuousBatchingScheduler:
         witness's drain snapshot (also ``resources_live`` on /stats between
         drains): session-mirror records, open journal marks and, on a
         paged engine, the pages lanes hold (parked pages are not lane
-        pages) and the staged swap-outs no drain took. The port has no
-        admin device-op queue, so the JAX scheduler's ``device_ops`` kind
-        does not arise."""
+        pages) and the staged swap-outs no drain took. Posted admin device
+        ops (``run_device_op``) are not counted: the loop's exit fails
+        every pending one, so none outlives a drain."""
         counts = {"session_records": len(self._session_records)}
         if self._paged():
             pstats = self.engine.pool_stats()
@@ -471,6 +490,69 @@ class ContinuousBatchingScheduler:
         out = dict(rec)
         out["watermark"] = len(req.generated_tokens)
         return out
+
+    def run_device_op(self, fn: Callable, timeout_s: float = 10.0):
+        """Run ``fn()`` on the batching loop's thread between two steps and
+        return its result (its exception re-raises here). The fleet's
+        admin routes (a KV page bundle's export and adoption) touch the
+        page pool, which only the loop mutates, and the cache planes the
+        steps and their graphs read and write on the loop's stream; from
+        an HTTP thread they would race an admission or a step. Runs
+        ``fn`` inline when the loop is not running or when called on it.
+        Raises ``TimeoutError`` when no step boundary comes within
+        ``timeout_s`` (a wedged step: the route answers a typed error)."""
+        thread = self._thread
+        if thread is None or not thread.is_alive() or threading.current_thread() is thread:
+            return fn()
+        box: dict = {}
+        done = threading.Event()
+        with self._device_ops_lock:
+            self._device_ops.append((fn, box, done))
+        if not done.wait(timeout_s):
+            with self._device_ops_lock:
+                # not taken yet: withdraw it, or it would run after the
+                # caller gave up
+                self._device_ops[:] = [op for op in self._device_ops if op[2] is not done]
+            if not done.is_set():
+                raise TimeoutError("device op timed out waiting for a scheduler step boundary")
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+    def _drain_device_ops(self) -> None:
+        """The loop's half of ``run_device_op``, at a step boundary: each
+        posted op runs; its exception goes to its caller, never into the
+        serving loop (a bad bundle cannot trip containment)."""
+        while True:
+            with self._device_ops_lock:
+                if not self._device_ops:
+                    return
+                fn, box, done = self._device_ops.pop(0)
+            try:
+                box["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 — relayed to the caller
+                box["error"] = e
+            finally:
+                done.set()
+
+    def export_session_pages(self, request_id: int) -> dict | None:
+        """A live session's committed KV pages as a transfer bundle
+        (``disagg/kvtransfer.export_bundle``; ``GET /admin/kvpages/<id>``):
+        the prompt's registered block chain, each page's bytes hashed. None
+        for unknown or finished requests and on a contiguous engine (the
+        hand-off then migrates by ticket alone). Only full committed blocks
+        export, whose bytes no later step changes, so the lane keeps
+        decoding meanwhile."""
+        if getattr(self.engine, "kvpool", None) is None:
+            return None
+        got = self._session_records.get(int(request_id))
+        if got is None:
+            return None
+        from ..disagg.kvtransfer import export_bundle
+
+        tokens = list(got[0].get("tokens") or ())
+        return self.run_device_op(
+            lambda: export_bundle(self.engine.kvpool, self.engine, tokens))
 
     def occupancy(self) -> tuple[int, int]:
         """(busy lanes, total lanes)."""
@@ -970,6 +1052,14 @@ class ContinuousBatchingScheduler:
         for i, lane in enumerate(self._lanes):
             if lane.request is not None:
                 self._finish(i, lane.request, reason="cancelled")
+        # posted device ops fail now: an admin thread never waits on a
+        # loop that is gone
+        with self._device_ops_lock:
+            pending = list(self._device_ops)
+            del self._device_ops[:]
+        for _fn, box, done in pending:
+            box["error"] = RuntimeError("scheduler stopped")
+            done.set()
         draining = self._draining.is_set()
         for req in self.queue.drain():
             if draining:
@@ -1323,6 +1413,12 @@ class ContinuousBatchingScheduler:
         while True:
             now = time.monotonic()
             self._sweep_queue(now)
+            # posted admin device ops run between dispatches: a hand-off's
+            # page export must not wait for the chain to end. Each op is
+            # ordered on the stream after the steps in flight; an export
+            # reads committed blocks, which no step writes, and an
+            # adoption writes pages no lane maps
+            self._drain_device_ops()
             # an admitting request cancelled or expired mid-prompt: stop
             # streaming its chunks (the in-flight ones write junk-safe KV)
             for i in [j for j, l in admitting.items()
@@ -1381,6 +1477,8 @@ class ContinuousBatchingScheduler:
                 # dead): the chain was drained; serve on (the breaker stays
                 # open until its cooldown and a probe)
                 self._wd_abort.clear()
+            # a step boundary: posted admin device ops run here
+            self._drain_device_ops()
             idle = all(l.request is None for l in self._lanes)
             self._admit(wait_s=0.25 if idle else 0.0)
             now = time.monotonic()

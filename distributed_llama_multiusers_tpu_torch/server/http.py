@@ -28,6 +28,20 @@ within the grace window with ``GET /v1/stream/<id>`` and ``Last-Event-ID``
 generating, and each delta written to the transport advances the
 journal's delivery watermark. ``GET /admin/session/<id>`` serves a live
 request's admit record (``serving/journal.admit_record``) and watermark.
+
+The fleet surface (``fleet/``, ``disagg/``; the JAX server's): every
+response names its replica in ``X-DLlama-Replica`` (``--replica-id``,
+default host:port), as do SSE terminal chunks and shed chunks
+(``replica``); ``/load`` carries the replica's ``role`` (``--role``:
+mixed, prefill or decode). ``POST /admin/migrate`` takes another replica's
+admit record and regenerates the session here through normal admission
+(deterministic replay; the client reattaches with ``GET /v1/stream/<id>``).
+``GET /admin/kvpages/<id>`` exports a live session's committed KV pages as
+an integrity-hashed bundle and ``POST /admin/kvimport`` verifies and adopts
+one (``disagg/kvtransfer.py``); both run their device work on the
+scheduler's loop thread (``run_device_op``). A bad bundle (a hash, a page
+size, a cache dtype) answers a typed 422 and leaves the pool as it was; an
+exhausted pool a 429.
 ``/stats`` serves the engine counters, lane occupancy, the dequant mode
 and each Q40 kernel's launch count (``kernel_launches``; ``kernel_plain_calls`` counts the
 plain-version calls of a CPU run), the sampler kernel's
@@ -51,6 +65,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import socket
 import time
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -64,8 +79,10 @@ from ..ops.cuda_q40 import kernel_counts
 from ..ops.cuda_sample import sample_counts
 from ..ops.dequant_select import dequant_stats
 from ..ops.ring_collective import ring_counts
-from ..runtime.scheduler import Request
+from ..runtime.scheduler import Request, fresh_request_id
 from ..serving import AdmissionRejected, StreamRelay, jittered_retry_after
+from ..serving.journal import entry_from_admit_record
+from ..serving.recovery import attach_recovered_stream
 from ..telemetry import TRACE_HEADER, Telemetry, TraceContext
 from ..tokenizer import ChatItem, TemplateType, chat_generator_for
 from . import api_types
@@ -89,16 +106,26 @@ class SchedulerStalled(RuntimeError):
 class ApiServer:
     def __init__(self, scheduler, tokenizer, model_name: str = "dllama",
                  template_type: TemplateType = TemplateType.UNKNOWN,
-                 result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S, resume=None):
+                 result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S, resume=None,
+                 replica_id: str | None = None, role: str = "mixed"):
         """``resume``: the ``StreamRegistry`` of resumable streams
         (``--reconnect-grace`` > 0), or None: a client that disconnects
-        then cancels its request."""
+        then cancels its request.
+
+        ``replica_id`` (``--replica-id``; None: host:port at ``serve()``)
+        names this replica in a fleet: the ``X-DLlama-Replica`` header on
+        every response and ``replica`` on SSE terminal and shed chunks.
+        ``role`` (``--role``): ``prefill`` replicas take long prompts and
+        hand their sessions off after the first token, ``decode`` and
+        ``mixed`` ones take the decode side; ``/load`` carries it."""
         self.scheduler = scheduler
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.chat_template = chat_generator_for(tokenizer, template_type)
         self.result_timeout_s = result_timeout_s
         self.resume = resume
+        self.replica_id = replica_id
+        self.role = str(role or "mixed")
         self._httpd: ThreadingHTTPServer | None = None
         self._fallback_tel: Telemetry | None = None
 
@@ -214,13 +241,19 @@ class ApiServer:
         except AdmissionRejected as e:
             # shed after the SSE headers went out (a drain flush): the typed
             # shed goes out as an error chunk with its Retry-After hint
-            send_chunk({"error": str(e), "reason": e.reason, "request_id": req.id,
-                        "retry_after_s": round(jittered_retry_after(e.retry_after_s,
-                                                                    req.id), 2)})
+            shed = {"error": str(e), "reason": e.reason, "request_id": req.id,
+                    "retry_after_s": round(jittered_retry_after(e.retry_after_s, req.id), 2)}
+            if self.replica_id:
+                shed["replica"] = self.replica_id
+            send_chunk(shed)
             req.finish_reason = "cancelled"
-        send_chunk(chunk_fn(self.model_name, req.id, None, True,
-                            req.finish_reason or "stop", summary=req.summary),
-                   event_id=len(req.generated_tokens))
+        # the terminal chunk names the replica too, so a router can
+        # attribute the stream when an intermediary consumed the headers
+        term = chunk_fn(self.model_name, req.id, None, True, req.finish_reason or "stop",
+                        summary=req.summary)
+        if self.replica_id:
+            term["replica"] = self.replica_id
+        send_chunk(term, event_id=len(req.generated_tokens))
         return True
 
     def handle_models(self) -> dict:
@@ -331,7 +364,9 @@ class ApiServer:
         state = breaker.state if breaker is not None else "closed"
         out = {
             "status": "draining" if draining else ("unhealthy" if state != "closed" else "ok"),
+            "replica": self.replica_id,
             "model": self.model_name,
+            "role": self.role,
             "queue_depth": sched.queue.depth(),
             "lanes_free": total - busy,
             "lanes_total": total,
@@ -407,6 +442,7 @@ class ApiServer:
                      headers: dict | None = None):
                 self.send_response(code)
                 self._cors()
+                self._replica()
                 self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
@@ -422,9 +458,15 @@ class ApiServer:
                 self._json(e.http_status, {"error": str(e), "reason": e.reason},
                            headers={"Retry-After": str(max(1, round(retry)))})
 
+            def _replica(self):
+                # fleet attribution: every response names its replica
+                if api.replica_id:
+                    self.send_header("X-DLlama-Replica", api.replica_id)
+
             def _sse_headers(self, request_id: int):
                 self.send_response(200)
                 self._cors()
+                self._replica()
                 self.send_header("X-DLlama-Request", str(request_id))
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
@@ -453,6 +495,8 @@ class ApiServer:
                     self._resume_stream()
                 elif path.startswith("/admin/session/"):
                     self._export_session()
+                elif path.startswith("/admin/kvpages/"):
+                    self._export_pages()
                 elif path == "/stats":
                     self._json(200, api.handle_stats())
                 elif path == "/load":
@@ -490,6 +534,106 @@ class ApiServer:
                                      "request_id": rid})
                     return
                 self._json(200, rec)
+
+            def _export_pages(self):
+                """``GET /admin/kvpages/<id>``: a live session's committed
+                KV pages as a transfer bundle (``disagg/kvtransfer.py``).
+                404 for unknown or finished requests and on a contiguous
+                engine (the router then migrates by ticket alone, which
+                prefills again); 503 when the export failed."""
+                try:
+                    rid = int(self.path.split("?", 1)[0].rsplit("/", 1)[1])
+                except ValueError:
+                    self._json(400, {"error": "bad session id"})
+                    return
+                try:
+                    bundle = api.scheduler.export_session_pages(rid)
+                except Exception as e:  # noqa: BLE001 — the admin plane answers JSON
+                    self._json(503, {"error": f"kv page export failed: {e}",
+                                     "reason": "export_failed", "request_id": rid})
+                    return
+                if bundle is None:
+                    self._json(404, {"error": "no exportable kv pages (unknown or finished "
+                                              "session, or a contiguous kv cache)",
+                                     "request_id": rid})
+                    return
+                self._json(200, bundle)
+
+            def _admin_kvimport(self, body: dict):
+                """``POST /admin/kvimport``: verify and adopt a bundle from
+                another replica's ``/admin/kvpages/<id>``. Every hash and
+                page size is checked before the pool changes (a bad bundle:
+                422, typed); the adoption pins the chain like a parked
+                session, so the following ``/admin/migrate`` of the same
+                session shares its prompt's whole chunks. An exhausted pool
+                sheds with the typed 429."""
+                from ..disagg.kvtransfer import KVTransferError, adopt_bundle
+                from ..runtime.kvpool import PoolExhausted
+
+                engine = api.scheduler.engine
+                pool = getattr(engine, "kvpool", None)
+                if pool is None:
+                    self._json(409, {"error": "kv import needs a paged engine "
+                                              "(--paged-kv on) on this replica"})
+                    return
+                try:
+                    # on the loop thread: the adoption changes the pool and
+                    # writes pages the steps read
+                    receipt = api.scheduler.run_device_op(
+                        lambda: adopt_bundle(pool, engine, body))
+                except KVTransferError as e:
+                    # the bundle itself is bad: not retryable against it
+                    self._json(422, {"error": str(e), "reason": e.reason})
+                    return
+                except PoolExhausted:
+                    self._reject(AdmissionRejected("pool_exhausted", retry_after_s=2.0))
+                    return
+                except Exception as e:  # noqa: BLE001 — the admin plane answers JSON
+                    self._json(500, {"error": str(e)})
+                    return
+                receipt["replica"] = api.replica_id
+                self._json(200, receipt)
+
+            def _admin_migrate(self, body: dict):
+                """``POST /admin/migrate``: take a session exported by
+                another replica (``/admin/session/<id>``'s admit record) and
+                regenerate it here through normal admission, byte for byte
+                (deterministic replay, as journal recovery does). The client
+                reattaches with ``GET /v1/stream/<id>``: the relay holds the
+                whole regenerated stream from index 0. A shed answers the
+                typed 429/503 with Retry-After."""
+                try:
+                    entry = entry_from_admit_record(body)
+                except ValueError as e:
+                    self._json(400, {"error": f"bad migration record: {e}"})
+                    return
+                if entry.stream and api.resume is None:
+                    self._json(409, {"error": "stream migration needs --reconnect-grace > 0 "
+                                              "on the target replica (no resume registry)"})
+                    return
+                # every replica numbers requests from 1: an injected id that
+                # names a live request here is re-admitted under a fresh
+                # one (the response's request_id is what the router
+                # reattaches by)
+                if (api.scheduler.export_session(entry.request_id) is not None
+                        or (api.resume is not None
+                            and api.resume.contains(entry.request_id))):
+                    entry.request_id = fresh_request_id()
+                req, registered = attach_recovered_stream(api.scheduler, entry, api.resume)
+                try:
+                    api.scheduler.submit(req)
+                except AdmissionRejected as e:
+                    if registered:
+                        api.resume.discard(req.id)  # nothing will resolve it
+                    self._reject(e, key=req.id)
+                    return
+                except Exception as e:  # noqa: BLE001 — the admin plane answers JSON
+                    if registered:
+                        api.resume.discard(req.id)
+                    self._json(500, {"error": str(e), "request_id": req.id})
+                    return
+                self._json(200, {"request_id": req.id, "stream_path": f"/v1/stream/{req.id}",
+                                 "watermark": entry.watermark, "replica": api.replica_id})
 
             def _resume_stream(self):
                 """``GET /v1/stream/<id>`` with ``Last-Event-ID``: reattach to a
@@ -544,7 +688,9 @@ class ApiServer:
                     ),
                 }
                 route = routes.get(self.path)
-                if route is None:
+                admin = {"/admin/migrate": self._admin_migrate,
+                         "/admin/kvimport": self._admin_kvimport}.get(self.path)
+                if route is None and admin is None:
                     self._json(404, {"error": "not found"})
                     return
                 try:
@@ -552,6 +698,9 @@ class ApiServer:
                     body = json.loads(self.rfile.read(length) or b"{}")
                 except (ValueError, json.JSONDecodeError) as e:
                     self._json(400, {"error": f"bad request: {e}"})
+                    return
+                if admin is not None:
+                    admin(body)
                     return
                 build_fn, chunk_fn, response_fn = route
                 # a valid X-DLlama-Trace rides the request; a malformed one
@@ -609,6 +758,14 @@ class ApiServer:
 
         httpd = ThreadingHTTPServer((host, port), Handler)
         httpd.daemon_threads = True
+        if self.replica_id is None:
+            # where this replica listens (the bound port, so port 0
+            # resolves); a wildcard bind takes the machine's name, or every
+            # replica would default to the same 0.0.0.0:port
+            id_host = host
+            if id_host in ("", "0.0.0.0", "::"):
+                id_host = socket.gethostname()
+            self.replica_id = f"{id_host}:{httpd.server_address[1]}"
         self._httpd = httpd
         return httpd
 

@@ -267,6 +267,12 @@ class StreamRegistry:
         with self._cv:
             self._rg_entries.pop(int(request_id), None)
 
+    def contains(self, request_id: int) -> bool:
+        """Whether ``request_id`` has an entry, without touching its timer
+        (the migration route's id-collision check)."""
+        with self._lock:
+            return int(request_id) in self._rg_entries
+
     def depth(self) -> int:
         with self._lock:
             return len(self._rg_entries)

@@ -204,6 +204,102 @@ class Histogram:
         return out
 
 
+class LabelledHistogram:
+    """A histogram FAMILY over one shared edge grid: ``observe(v,
+    **labels)`` bins into the per-label-set series, and ``render()``
+    emits ONE metric whose ``_bucket``/``_sum``/``_count`` lines carry
+    the labels alongside ``le`` — the shape a per-phase attribution
+    series (``dllama_request_phase_seconds{phase="prefill_ms"}``)
+    needs. Same fixed log-scale edges discipline as :class:`Histogram`:
+    every label set bins identically, so series are comparable without
+    re-bucketing."""
+
+
+    def __init__(self, name: str, help_: str = "",
+                 buckets: Iterable[float] = LATENCY_BUCKETS_S):
+        self.name = name
+        self.help = help_
+        self.edges = tuple(float(b) for b in buckets)
+        if not self.edges or any(
+            b >= a for a, b in zip(self.edges[1:], self.edges)
+        ):
+            raise ValueError("bucket edges must be strictly increasing")
+        self._m_lock = make_lock("LabelledHistogram._m_lock")
+        # label-set key -> [bucket counts (last = +Inf), sum, n]
+        self._hist_series: dict[tuple[tuple[str, str], ...], list] = {}
+
+    @staticmethod
+    def _key(labels: dict) -> tuple[tuple[str, str], ...]:
+        return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+    def observe(self, value: float, **labels: str) -> None:
+        idx = bisect_left(self.edges, value)  # first edge >= value
+        key = self._key(labels)
+        with self._m_lock:
+            s = self._hist_series.get(key)
+            if s is None:
+                s = self._hist_series[key] = [
+                    [0] * (len(self.edges) + 1), 0.0, 0,
+                ]
+            s[0][idx] += 1
+            s[1] += value
+            s[2] += 1
+
+    def snapshot(self, **labels: str) -> tuple[list[int], float, int] | None:
+        """One label set's ``(bucket counts, sum, n)``; None if unseen."""
+        with self._m_lock:
+            s = self._hist_series.get(self._key(labels))
+            return None if s is None else (list(s[0]), s[1], s[2])
+
+    def quantile(self, q: float, **labels: str) -> float | None:
+        """Bucket-interpolated q-quantile of one label set's series
+        (same estimate contract as :meth:`Histogram.quantile`)."""
+        if not 0.0 < q <= 1.0:
+            raise ValueError("q must be in (0, 1]")
+        snap = self.snapshot(**labels)
+        if snap is None or snap[2] == 0:
+            return None
+        counts, _, n = snap
+        target = q * n
+        cum = 0.0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            prev = cum
+            cum += c
+            if cum >= target:
+                if i >= len(self.edges):  # +Inf bucket: no upper edge
+                    return self.edges[-1]
+                lo = self.edges[i - 1] if i > 0 else 0.0
+                hi = self.edges[i]
+                return lo + (hi - lo) * (target - prev) / c
+        return self.edges[-1]
+
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} histogram"]
+        with self._m_lock:
+            items = sorted(
+                (k, (list(s[0]), s[1], s[2]))
+                for k, s in self._hist_series.items()
+            )
+        for labels, (counts, total_sum, n) in items:
+            cum = 0
+            for edge, c in zip(self.edges, counts):
+                cum += c
+                le = (("le", _fmt(edge)),)
+                out.append(
+                    f"{self.name}_bucket{_label_str(labels + le)} {cum}"
+                )
+            out.append(
+                f'{self.name}_bucket{_label_str(labels + (("le", "+Inf"),))}'
+                f" {n}"
+            )
+            out.append(f"{self.name}_sum{_label_str(labels)} {_fmt(total_sum)}")
+            out.append(f"{self.name}_count{_label_str(labels)} {n}")
+        return out
+
+
 class MetricsRegistry:
     """Name -> metric map with idempotent constructors and one-call text
     exposition. Re-registering a name returns the existing instance."""
@@ -238,6 +334,15 @@ class MetricsRegistry:
     def get(self, name: str):
         with self._reg_lock:
             return self._reg_metrics.get(name)
+
+    def labelled_histogram(
+        self, name: str, help_: str = "",
+        buckets: Iterable[float] = LATENCY_BUCKETS_S,
+    ) -> LabelledHistogram:
+        return self._get_or_make(
+            name, lambda: LabelledHistogram(name, help_, buckets),
+            LabelledHistogram,
+        )
 
     def render(self) -> str:
         """Full Prometheus text exposition (trailing newline included,

@@ -99,6 +99,72 @@ def tracer_chrome_trace(tracer: SpanTracer, since: int = 0,
     return doc
 
 
+FLEET_PROCESS_NAME = "dllama-fleet"
+
+
+def merge_chrome_traces(parts: list) -> dict:
+    """Merge per-process Chrome-trace docs into ONE fleet timeline.
+
+    ``parts`` is ``[(source, doc, offset_us, uncertainty_us), ...]`` —
+    ``source`` names the process (``router``, replica ids), ``doc`` is
+    that process's ``chrome_trace`` output, and ``offset_us`` is the
+    estimated clock offset to ADD to its timestamps to land them on the
+    merge caller's timebase (each process's ``perf_counter`` has its own
+    arbitrary origin). The correction is applied so the timeline lines
+    up, and it is NOT silent: every migrated event's args carry
+    ``clock_offset_us`` + ``clock_uncertainty_us`` (the RTT/2 error bound
+    of the /load-scrape estimate), so a viewer can tell measured
+    ordering from estimated alignment.
+
+    Tracks come out as ``<source>/<track>`` rows — router queue next to
+    the prefill replica's lane next to the decode replica's lane, the
+    adjacency a merged fleet timeline is read by."""
+    out: list[dict] = [{
+        "name": "process_name", "ph": "M", "pid": 1, "tid": 0, "ts": 0,
+        "args": {"name": FLEET_PROCESS_NAME},
+    }]
+    merged: list[dict] = []
+    tid_next = 1
+    for source, doc, offset_us, uncertainty_us in parts:
+        events = (doc or {}).get("traceEvents", [])
+        track_names = {
+            e.get("tid"): (e.get("args") or {}).get("name", "")
+            for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"
+        }
+        remap: dict = {}
+        for e in events:
+            if e.get("ph") == "M":
+                continue
+            old_tid = e.get("tid", 0)
+            if old_tid not in remap:
+                track = track_names.get(old_tid) or f"t{old_tid}"
+                remap[old_tid] = tid_next
+                out.append({
+                    "name": "thread_name", "ph": "M", "pid": 1,
+                    "tid": tid_next, "ts": 0,
+                    "args": {"name": f"{source}/{track}"},
+                })
+                out.append({
+                    "name": "thread_sort_index", "ph": "M", "pid": 1,
+                    "tid": tid_next, "ts": 0,
+                    "args": {"sort_index": tid_next},
+                })
+                tid_next += 1
+            ne = dict(e)
+            ne["pid"] = 1
+            ne["tid"] = remap[old_tid]
+            ne["ts"] = round(float(e.get("ts", 0.0)) + offset_us, 3)
+            args = dict(e.get("args") or {})
+            args["span_source"] = source
+            args["clock_offset_us"] = round(float(offset_us), 1)
+            args["clock_uncertainty_us"] = round(float(uncertainty_us), 1)
+            ne["args"] = args
+            merged.append(ne)
+    merged.sort(key=lambda e: e.get("ts", 0.0))
+    return {"traceEvents": out + merged, "displayTimeUnit": "ms"}
+
+
 def dump_chrome_trace(tracer: SpanTracer, path: str) -> dict:
     """Write the tracer's current window to ``path`` and return the
     rendered document."""

@@ -24,6 +24,8 @@ import os
 import re
 from dataclasses import dataclass
 
+from ..lockcheck import make_lock
+
 
 TRACE_HEADER = "X-DLlama-Trace"
 
@@ -75,6 +77,13 @@ class TraceContext:
             return None
         return TraceContext(trace_id=trace_id, span_id=span_id)
 
+    @staticmethod
+    def accept(value: str | None) -> "TraceContext":
+        """A front end's ingress rule (the fleet router's): honour a valid
+        client header, mint otherwise."""
+        ctx = TraceContext.parse(value)
+        return ctx if ctx is not None else TraceContext.mint()
+
 
 def trace_id_of(wire: str | None) -> str | None:
     """The trace id of a wire value, or None — the one-liner span
@@ -82,3 +91,69 @@ def trace_id_of(wire: str | None) -> str | None:
     request carried a context at all."""
     ctx = TraceContext.parse(wire)
     return None if ctx is None else ctx.trace_id
+
+
+# phase keys every producer emits, in display order. ``sync_ms`` is only
+# non-zero when the mesh reports measured collective time; off-mesh it
+# stays 0 rather than absent so consumers need no key probing.
+PHASE_KEYS = (
+    "queue_wait_ms", "prefill_ms", "decode_ms", "itl_p50_ms", "itl_p99_ms",
+    "migration_gap_ms", "swap_in_ms", "sync_ms", "ttft_ms", "total_ms",
+)
+
+
+class PhaseAccumulator:
+    """Router-side aggregation of per-request ``phases`` records.
+
+    The router sees every completion's terminal payload (streaming
+    terminal chunk or non-streaming body); folding the ``phases`` record
+    there gives fleet-wide TTFT/ITL/phase distributions measured at the
+    one vantage point that also knows about migrations. Kept deliberately
+    small: per-phase count/sum under one short lock; the bucketed
+    distribution lives in the caller's ``MetricsRegistry`` histogram
+    (``dllama_request_phase_seconds``), fed from the same observe call.
+    """
+
+
+    def __init__(self):
+        # witness-wrappable (DLLAMA_LOCKCHECK=1); the aggregation state
+        # moves only under it
+        self._phase_lock = make_lock("PhaseAccumulator._phase_lock")
+        self._phase_counts: dict[str, int] = {}
+        self._phase_sums_ms: dict[str, float] = {}
+        self._phase_records = 0
+
+    def observe(self, phases: dict | None) -> dict | None:
+        """Fold one ``phases`` record; returns the cleaned record (only
+        known keys, numeric values) or None if there was nothing usable.
+        Callers feed the same cleaned record into their histogram so the
+        accumulator and ``/metrics`` cannot drift."""
+        if not isinstance(phases, dict):
+            return None
+        clean = {}
+        for key in PHASE_KEYS:
+            v = phases.get(key)
+            if isinstance(v, (int, float)) and v >= 0:
+                clean[key] = float(v)
+        if not clean:
+            return None
+        with self._phase_lock:
+            self._phase_records += 1
+            for key, v in clean.items():
+                self._phase_counts[key] = self._phase_counts.get(key, 0) + 1
+                self._phase_sums_ms[key] = (
+                    self._phase_sums_ms.get(key, 0.0) + v
+                )
+        return clean
+
+    def snapshot(self) -> dict:
+        """{records, per-phase count + sum_ms} for /stats — dict-valued,
+        so the stats bridge republishes it as labelled gauges."""
+        with self._phase_lock:
+            return {
+                "phase_records": self._phase_records,
+                "phase_counts": dict(self._phase_counts),
+                "phase_sum_ms": {
+                    k: round(v, 3) for k, v in self._phase_sums_ms.items()
+                },
+            }

@@ -1177,6 +1177,80 @@ def test_decode_attn_paged_graph_replay_equals_eager(cuda):
                                                   2048)])
 
 
+def _f8_attn_inputs(cuda, lanes, n_kv, group, hd, slots, t, seed):
+    """Queries and an e4m3 cache written through ``_to_cache_dtype`` from
+    random K/V, one V value in 64 past +-448 (clipped)."""
+    from distributed_llama_multiusers_tpu_torch.models.llama import F8, _to_cache_dtype
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qf = torch.randn((lanes, t, n_kv, group, hd), device=cuda, generator=gen)
+    shape = (lanes, slots + 1, n_kv, hd)
+    k = torch.randn(shape, device=cuda, generator=gen)
+    v = torch.randn(shape, device=cuda, generator=gen)
+    v = torch.where(torch.rand(shape, device=cuda, generator=gen) < 1 / 64, v * 1000, v)
+    return qf, _to_cache_dtype(k, F8), _to_cache_dtype(v, F8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rule", [(1, "spread"), (1, "boundaries"), (1, "parked"),
+                                    (4, "serving"), (4, "boundaries"), (2, "at_2047")])
+@pytest.mark.parametrize("n_kv,group,hd,s_len,page", [
+    (8, 4, 64, 2048, 64),  # Llama-3.2-1B at the pool's default page
+    (4, 4, 64, 2048, 16),  # one rank of it at tp=2, pages below a warp's slots
+    (2, 2, 16, 64, 4),  # the tiny test model
+    (4, 7, 128, 300, 32),  # no multiple of the split
+    (2, 3, 36, 777, 8),  # a head of no whole 8-byte chunks
+    (3, 8, 128, 1000, 1)])
+def test_decode_attn_f8_matches_plain_and_the_bf16_kernel(cuda, n_kv, group, hd, s_len, page,
+                                                          t, rule):
+    """The e4m3 instantiation, contiguous and paged, one row a lane and the
+    window: within ATTN_TOL of its plain version (the cache widened to
+    f32), bit-equal to the bf16 instantiation on the cache widened to bf16,
+    paged bit-equal to contiguous, each window row a T = 1 call's bits;
+    one e4m3 launch a call."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _f8_attn_inputs(cuda, 8, n_kv, group, hd, s_len, t, seed=hd + t + page)
+    if t == 1:
+        positions = _attn_positions(rule, s_len, cuda_attn.SPLIT).to(cuda)
+    else:
+        positions = _window_positions(rule, 8, t, s_len, cuda_attn.SPLIT).to(cuda)
+    scale = 1.0 / hd ** 0.5
+    cuda_attn.reset_counts()
+    got = cuda_attn.decode_attention(qf, k, v, positions, scale, s_len)
+    torch.cuda.synchronize()
+    assert cuda_attn.F8_COUNTS == {"launches": 1} and cuda_attn.COUNTS["plain_calls"] == 0
+    want = cuda_attn.decode_attention_plain(qf, k, v, positions, scale, s_len)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATTN_TOL * float(want.abs().max())
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert torch.equal(got, cuda_attn.decode_attention(qf, kb, vb, positions, scale, s_len))
+    k_pool, v_pool, table = _paged_from(k.view(torch.uint8), v.view(torch.uint8), page,
+                                        seed=page + t)
+    paged = cuda_attn.decode_attention_paged(qf, k_pool.view(k.dtype), v_pool.view(k.dtype),
+                                             table, positions, scale, s_len)
+    assert torch.equal(paged, got)
+    for row in range(t):
+        one = cuda_attn.decode_attention(qf[:, row:row + 1].contiguous(), k, v,
+                                         positions[:, row:row + 1].contiguous(), scale, s_len)
+        assert torch.equal(got[:, row], one[:, 0])
+
+
+@pytest.mark.gpu
+def test_decode_attn_f8_lane_bits_and_graph_replay(cuda):
+    """A lane's bits over an e4m3 cache do not move with the batch, and two
+    calls in one CUDA graph replay equal to eager."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _f8_attn_inputs(cuda, 8, 8, 4, 64, 2048, 1, seed=3)
+    serving = torch.tensor([[40], [63], [64], [100]] + [[2048]] * 4, device=cuda)
+    base = cuda_attn.decode_attention(qf, k, v, serving, 0.125, 2048)
+    other = torch.tensor([[40], [1], [2047], [128], [129], [5], [2048], [0]], device=cuda)
+    assert torch.equal(cuda_attn.decode_attention(qf, k, v, other, 0.125, 2048)[0], base[0])
+    _graph_replay_equals_eager(
+        [lambda: cuda_attn.decode_attention(qf, k, v, serving, 0.125, 2048)])
+
+
 # -- structured output: the masked argmax and the automaton step -------------
 
 
