@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit (``nvidia-smi``), start
-   writing the two synthetic models (phases 3 and 4d) in another process,
+   writing the two synthetic models (phases 3 and 4d) in a process each,
    build the Q40 kernels, the ring step, the sampler, the decode
    attention, the grammar kernels, the MoE router and the lab's kernels
    from ``distributed_llama_multiusers_tpu_torch/
@@ -79,7 +79,8 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    ``--pipeline-depth 0 --multi-step 0`` (the synchronous loop and verify
    step), once in v4 with ``--no-spec``, and twice with ``--workers 2``
    (defaults; ``--buffer-float-type q80 --dequant auto``) on the host's
-   cards (one card named twice where there is one), send 4 concurrent
+   cards (one card named twice where there is one), the seven servers
+   started together and then driven one at a time, send 4 concurrent
    requests (greedy and sampled, completion and chat, one streamed; the
    greedy completion's prompt built from a probe request so that its lane
    drafts, ``SPEC_RUN``), check the answers, the startup log (graph count
@@ -120,7 +121,8 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    the top sixteenth of the vocabulary: a random model never emits the
    end-of-turn token). Eval and Pred tok/s and the verify steps are
    printed. Then crash durability: the default pass with and without
-   ``--journal-path`` (batch tok/s and TTFT); 2 greedy and 2 seeded
+   ``--journal-path`` (batch tok/s and TTFT; the two servers started
+   together); 2 greedy and 2 seeded
    streamed requests of 256 tokens on a reference server, then on one
    with ``--journal-path --reconnect-grace 30`` that completes a fifth
    request first and is SIGKILLed once each stream holds 32 deltas;
@@ -177,21 +179,29 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    /metrics; (e) a request the pool cannot hold beside a long one gets 429
    with Retry-After, and serving goes on. Then the f8 KV cache:
    ``dllama_api --kv-dtype f8`` under the defaults and with ``--paged-kv
-   on``, each with the default pass's 4 requests: every stream alone
+   on`` (the two servers started together), each with the default
+   pass's 4 requests: every stream alone
    equals the four concurrent byte for byte (greedy and seeded), the
    serving paths of the defaults, 0 graphs captured after warmup, every
    attention launch the e4m3 instantiation's, the KV bytes a token from the
    startup log (half of bf16's); nothing is compared with bf16 streams.
-4c. Structured output: (a) the grammar kernels (``csrc/grammar.cu``) with
+4c. Structured output: (a) the grammar kernels (``csrc/grammar.cu``; run
+   after phase 2, while the models are written, on the 1B synthetic
+   tokenizer written as the served model's) with
    five schemas compiled against the 1B synthetic tokenizer (their compile
    time, first and cached, printed), four in a default slab: the masked
    argmax at 8 and 32 x 128,256 rows on random states, 0 included, indices
    equal to its plain version's and masked rows bit-equal, FREE rows equal
-   to ``torch.argmax``; at vocabularies of 1 to 151,936 with ties, -inf,
-   -0.0, all -inf and NaN rows, a one-token and an empty state; the
-   automaton step on random (state, token) pairs, stepped and walked,
-   exact; each timed beside its plain version (the masked argmax also
-   beside the torch pair where + argmax) and its bound; (b) the engine on
+   to ``torch.argmax``, and on rows off a 16-byte boundary (the scalar
+   loads); at vocabularies of 1
+   to 151,936 with ties, -inf, -0.0, all -inf and NaN rows, a one-token
+   and an empty state; the automaton step on random (state, token) pairs,
+   stepped and walked, and walked over edge tables of 1 to 65,537 keys
+   (one to three search rounds), exact; each timed beside its plain
+   version, its library calls (the torch pair where + argmax; searchsorted,
+   the index and where) and its bound, beside the launch floor (a
+   one-element op in the same CUDA-graph harness), with ``-Xptxas -v``'s registers and shared memory
+   of both kernels (an ``nvcc`` beside the build); (b) the engine on
    the 1B model, 8 lanes, 4 constrained (json_object and a schema, greedy
    and seeded) and 4 free, through the step, multi-step, verify, pipelined
    and fused families: replays equal the eager bodies (tokens and launch
@@ -203,10 +213,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    captured after three schemas, 400 on a malformed schema; ``--workers
    2`` with a slab too small for two schemas: a 429 ``grammar_slab_full``
    with Retry-After beside a live one, whose answer at tp2 is its string;
-   ``--grammar off``: 400; then the v4 decode step's device time and
+   ``--grammar off``: 400 (the three servers started together); then the
+   v4 decode step's device time and
    operations with the grammar kernels in it (phase 4).
-4d. Mixture of experts: the router kernel (``csrc/moe_route.cu``) against
-   its plain version at Mixtral's router (dim 4096, 8 experts, 2 active)
+4d. Mixture of experts (run after phase 5, while the 1B model is
+   written): the router kernel (``csrc/moe_route.cu``) against its
+   plain version at Mixtral's router (dim 4096, 8 experts, 2 active)
    on 8, 32 and 1,024 bf16 rows (expert ids equal on every row clear of a
    near tie, weights within 1e-6) and on exact ties (lax.top_k's order),
    each timed beside the library chain and the plain version; a
@@ -248,7 +260,8 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    warmup; TTFT, the hand-off's ms and the bundle's bytes printed; a live
    f8 session's bundle pushed to the bf16 replica r2 gets a typed 422
    (``page_bytes``) and leaves its pool as it was.
-5. Kernel lab: the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
+5. Kernel lab (run after phase 4c's kernels, while the models are
+   written): the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
    lab's default shape (d_in 4096, d_out 14336, 8 stacked planes) for every
    stage, layout and rounding flag; kernel_lab3's ``--check`` on the card;
@@ -932,6 +945,45 @@ def build_one_kernel(q, rc):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path
 
 
+def start_ptxas_report(q, source: str):
+    """Start ``nvcc -Xptxas -v`` on ``source`` into a library nothing loads,
+    beside the kernel build; ``ptxas_usage`` reads its report."""
+    os.makedirs(q.build_dir(), exist_ok=True)
+    path = os.path.join(q.build_dir(), "ptxas_report.so")
+    cmd = [q._nvcc(), *q.NVCC_FLAGS, "-Xptxas", "-v", "-o", path, os.path.join(ROOT, source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_usage(proc, kernels: tuple) -> dict:
+    """{kernel: {registers, smem_bytes, spill_bytes}} from ``start_ptxas_report``'s
+    compiler output for each of ``kernels`` (names in the source), a
+    template's instantiations as ``name<true>`` and ``name<false>``."""
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{out}")
+    pattern = re.compile(r"(" + "|".join(kernels) + r")(ILb([01])E)?")
+    usage, fn = {}, None
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = pattern.search(line)
+            fn = None if m is None else m.group(1) + (
+                "" if m.group(2) is None else ("<true>" if m.group(3) == "1" else "<false>"))
+            if fn is not None:
+                usage.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            usage[fn]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[fn].update(registers=int(m.group(1)),
+                             smem_bytes=int(smem.group(1)) if smem else 0)
+    check(all(any(k.startswith(n) for k in usage) for n in kernels)
+          and all("registers" in u for u in usage.values()),
+          f"no register counts for {kernels} in nvcc -Xptxas -v's output:\n{out}")
+    return usage
+
+
 def one_kernel_launch(rc, build) -> object:
     """Wait for ``build_one_kernel``'s nvcc; its library's launch function."""
     proc, path = build
@@ -1544,19 +1596,26 @@ def ensure_model(header, seed: int = 0, cache_dir: str | None = None,
     return model, tok
 
 
-def write_models() -> None:
-    """Both synthetic models the serving phases load (the 1B's numpy
-    quantizers take about a minute, the Mixtral-width file ~10 s)."""
-    ensure_model(llama32_1b_header(), seed=0)
-    ensure_model(mixtral_header(), seed=0, write=write_random_q40_model)
+def write_model(name: str) -> None:
+    """One synthetic model the phases load: "1b" (the numpy quantizers,
+    about a minute) or "mixtral" (random Q40 blocks, ~10 s)."""
+    if name == "1b":
+        ensure_model(llama32_1b_header(), seed=0)
+    else:
+        ensure_model(mixtral_header(), seed=0, write=write_random_q40_model)
 
 
-def start_model_writer():
-    """``write_models`` in another process, so that the host's minute of
-    numpy runs beside the kernels' build and the kernel phases; ``main``
-    waits for it before the first server and ends it on a failure."""
-    code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.write_models()"
-    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+def start_model_writers() -> dict:
+    """``write_model`` for each model in a process of its own, so that the
+    host's numpy runs beside the kernels' build and the kernel phases;
+    ``main`` waits for each before its first use and ends them on a
+    failure."""
+    procs = {}
+    for name in ("1b", "mixtral"):
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                f"chip_smoke.write_model({name!r})")
+        procs[name] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+    return procs
 
 
 def _free_port() -> int:
@@ -1641,7 +1700,7 @@ class Server:
                 except OSError:
                     pass
                 check(time.perf_counter() - t0 < health_timeout, f"server ({name}) not healthy")
-                time.sleep(1.0)
+                time.sleep(0.1)
         except BaseException:
             self.tail()
             self.kill()
@@ -1673,17 +1732,26 @@ class Server:
             self.proc.wait(timeout=30)
 
 
+def pass_args(mode: str | None, extra_args=()) -> tuple:
+    """A serving pass's ``dllama_api`` arguments."""
+    return (*(["--dequant", mode] if mode else []), *extra_args)
+
+
 def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                extra_args=(), log_dir: str = OUT_DIR, health_timeout: float = 900.0,
-               name: str | None = None, alone: bool = False, extra=None) -> dict:
+               name: str | None = None, alone: bool = False, extra=None,
+               srv: "Server | None" = None) -> dict:
     """One dllama_api process: 4 concurrent requests, checks, /stats,
     SIGTERM (``alone``: then each request streamed alone, its text kept;
     ``extra``: then ``extra(base)`` runs on the server, its result kept as
-    ``extra``). Returns the pass's measurements, launch counts, bodies and
-    startup log."""
+    ``extra``). ``srv``: the pass's server, already started with
+    ``pass_args(mode, extra_args)`` (``start_servers``), else started here.
+    Returns the pass's measurements, launch counts, bodies and startup
+    log."""
     name = name or mode or "default"
-    srv = Server(model, tok, name, (*(["--dequant", mode] if mode else []), *extra_args),
-                 log_dir=log_dir, health_timeout=health_timeout)
+    if srv is None:
+        srv = Server(model, tok, name, pass_args(mode, extra_args), log_dir=log_dir,
+                     health_timeout=health_timeout)
     base = srv.base
     try:
         startup_s = srv.startup_s
@@ -1872,19 +1940,36 @@ def check_serving_paths(p: dict, sync: bool = False, spec: bool = True) -> None:
         check(p["spec_pipelined_steps"] > 0, f"{name}: no verify step inside the chain")
 
 
+# (name, mode, extra args, tokens, alone, the kernels its run must have
+# launched) of the one-card serving passes
+SERVING_PASSES = (
+    ("default", None, (), GEN_TOKENS, True, ("q40_slab",)),
+    ("v4-sync", None, SYNC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
+    ("v4-no-spec", None, NO_SPEC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
+    ("auto", "auto", (), GEN_TOKENS, False, ("q40_i8blockdot", "q40_slab")),
+    ("blockdot", "blockdot", (), 16, False, ("q40_blockdot", "q40_slab")))
+
+
 def serving_phase(torch, q) -> list:
+    """The serving passes (``SERVING_PASSES``, then ``tp_serving_passes``),
+    their servers all started together, then driven one at a time."""
     torch.cuda.empty_cache()  # the servers are other processes on this card
     model, tok = ensure_model(llama32_1b_header(), seed=0)
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    servers = start_servers(model, tok, [(s[0], pass_args(s[1], s[2])) for s in SERVING_PASSES]
+                            + [(s[0], pass_args(s[1], s[2])) for s in tp_pass_specs(devices)])
+    try:
+        return _serving_passes(torch, model, tok, servers)
+    finally:
+        for srv in servers:
+            srv.kill()
+
+
+def _serving_passes(torch, model: str, tok: str, servers: list) -> list:
     passes = []
-    # (mode, extra args, tokens, alone, the kernels its run must have launched)
-    for mode, extra, n_tokens, alone, expect in (
-            (None, (), GEN_TOKENS, True, ("q40_slab",)),
-            (None, SYNC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
-            (None, NO_SPEC_ARGS, GEN_TOKENS, True, ("q40_slab",)),
-            ("auto", (), GEN_TOKENS, False, ("q40_i8blockdot", "q40_slab")),
-            ("blockdot", (), 16, False, ("q40_blockdot", "q40_slab"))):
-        name = {SYNC_ARGS: "v4-sync", NO_SPEC_ARGS: "v4-no-spec"}.get(extra)
-        p = serve_pass(model, tok, mode, n_tokens, extra_args=extra, alone=alone, name=name)
+    for (name, mode, extra, n_tokens, alone, expect), srv in zip(SERVING_PASSES, servers):
+        p = serve_pass(model, tok, mode, n_tokens, extra_args=extra, alone=alone, name=name,
+                       srv=srv)
         check(p["device"].startswith("cuda"), f"server ran on {p['device']}")
         for k in expect:
             check(p["kernel_launches"][k] > 0, f"{p['mode']}: {k} never launched")
@@ -1901,7 +1986,7 @@ def serving_phase(torch, q) -> list:
     log(f"serving loops: {len(default['alone_texts'])} streams (2 greedy, 2 seeded), alone "
         "and concurrent, byte-identical between the defaults (speculation in the chain), "
         "--pipeline-depth 0 --multi-step 0 (the synchronous verify step) and --no-spec")
-    passes += tp_serving_passes(torch, model, tok, passes[0])
+    passes += tp_serving_passes(torch, model, tok, passes[0], servers[len(SERVING_PASSES):])
     return passes
 
 
@@ -1914,25 +1999,31 @@ def _common_prefix(a: list, b: list) -> int:
     return n
 
 
-def tp_serving_passes(torch, model: str, tok: str, single: dict) -> list:
+def tp_pass_specs(devices: str) -> tuple:
+    """(name, mode, extra args, the kernels its run must have launched, what
+    its startup log must say) of the tp = 2 serving passes on ``devices``."""
+    tp = ("--workers", "2", "--device", devices)
+    return (("tp2", None, tp, ("q40_slab",), ("Ring TP sync",)),
+            ("tp2-q80-auto", "auto", (*tp, "--buffer-float-type", "q80"),
+             ("q40_i8blockdot", "q40_slab"), ("Ring TP sync", "(Q80 wire)",
+                                              "Q80 sync transport")))
+
+
+def tp_serving_passes(torch, model: str, tok: str, single: dict, servers: list) -> list:
     """``dllama_api --workers 2`` at full width and depth on the host's
-    cards (one card named twice where there is one): the defaults (v4, f32
-    ring wire) and ``--buffer-float-type q80 --dequant auto`` (Q80 wire,
-    i8blockdot decode). Each checks what ``serve_pass`` checks, the startup
-    log's announcements and the ring hop's launches on /stats."""
+    cards (one card named twice where there is one; ``servers``, started
+    with ``tp_pass_specs``' arguments): the defaults (v4, f32 ring wire)
+    and ``--buffer-float-type q80 --dequant auto`` (Q80 wire, i8blockdot
+    decode). Each checks what ``serve_pass`` checks, the startup log's
+    announcements and the ring hop's launches on /stats."""
     from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
 
     devices = ",".join(str(d) for d in rank_devices(torch, 2))
     tokenizer = Tokenizer(tok)
     ref = tokenizer.encode(single["greedy_text"], add_bos=False)
     passes = []
-    for name, mode, extra, expect, says in (
-            ("tp2", None, (), ("q40_slab",), ("Ring TP sync",)),
-            ("tp2-q80-auto", "auto", ("--buffer-float-type", "q80"),
-             ("q40_i8blockdot", "q40_slab"), ("Ring TP sync", "(Q80 wire)",
-                                              "Q80 sync transport"))):
-        p = serve_pass(model, tok, mode, GEN_TOKENS, name=name,
-                       extra_args=("--workers", "2", "--device", devices, *extra))
+    for (name, mode, extra, expect, says), srv in zip(tp_pass_specs(devices), servers):
+        p = serve_pass(model, tok, mode, GEN_TOKENS, name=name, extra_args=extra, srv=srv)
         check(p["mesh"] is not None and p["mesh"]["tp"] == 2, f"{name}: /stats mesh {p['mesh']}")
         check(p["ring_hop_launches"] > 0, f"{name}: ring_hop never launched")
         check_serving_paths(p)
@@ -2667,9 +2758,15 @@ def durability_phase(model: str, tok: str) -> dict:
     jpath = os.path.join(OUT_DIR, "chip_smoke_journal_pass.bin")
     if os.path.exists(jpath):
         os.remove(jpath)
-    plain = serve_pass(model, tok, None, GEN_TOKENS, name="journal-off")
-    journaled = serve_pass(model, tok, None, GEN_TOKENS, name="journal-on",
-                           extra_args=("--journal-path", jpath))
+    journal_args = ("--journal-path", jpath)
+    servers = start_servers(model, tok, [("journal-off", ()), ("journal-on", journal_args)])
+    try:
+        plain = serve_pass(model, tok, None, GEN_TOKENS, name="journal-off", srv=servers[0])
+        journaled = serve_pass(model, tok, None, GEN_TOKENS, name="journal-on",
+                               extra_args=journal_args, srv=servers[1])
+    finally:
+        for srv in servers:
+            srv.kill()
     img = read_journal(jpath)
     check(img.records >= 2 * 7 and not img.torn and not img.incomplete(),
           f"journal pass: {img.records} records, torn {img.torn}, "
@@ -3982,32 +4079,43 @@ def f8_phase(model: str, tok: str) -> dict:
     instantiation's, the KV line of the startup log. Nothing is compared
     with a bf16 server's streams: an e4m3 cache may part from them."""
     t0 = time.perf_counter()
-    passes = []
-    for name, extra in (("v4-f8", F8_ARGS), ("v4-f8-paged", F8_ARGS + PAGED_ARGS)):
-        p = serve_pass(model, tok, None, GEN_TOKENS, extra_args=extra, alone=True, name=name)
-        check_serving_paths(p)
-        for i, (a, b) in enumerate(zip(p["alone_texts"], p["concurrent_texts"])):
-            check(a == b, f"{name}: request {i} alone differs from the 4 concurrent:\n"
-                          f"{a!r}\n{b!r}")
-        check(p["jit_compiles_after_warmup"] == 0, f"{name}: {p['jit_compiles_after_warmup']} "
-                                                   "graphs captured after warmup")
-        check(p["decode_attn_f8_launches"] > 0
-              and p["decode_attn_f8_launches"] == p["decode_attn_launches"],
-              f"{name}: {p['decode_attn_f8_launches']} e4m3 attention launches of "
-              f"{p['decode_attn_launches']}")
-        kv = re.search(r"KV cache: f8 \(torch.float8_e4m3fn\), (\d+) bytes a token, "
-                       r"([0-9.]+) MiB a lane", p["log"])
-        check(kv is not None, f"{name}: the startup log lacks the KV cache line")
-        p["kv_bytes_per_token"] = int(kv.group(1))
-        if "paged" in name:
-            check(p["decode_attn_paged_launches"] > 0, f"{name}: no paged attention launch")
-        log(f"{name} pass: streams alone = concurrent (2 greedy, 2 seeded), "
-            f"{p['decode_attn_f8_launches']} e4m3 attention launches, "
-            f"{p['kv_bytes_per_token']} KV bytes a token ({kv.group(2)} MiB a lane; bf16: "
-            f"{2 * p['kv_bytes_per_token']}), batch {p['tokens_per_s_batch']:.1f} tok/s, "
-            f"TTFT p50 {p['ttft_ms_p50']:.1f} ms")
-        passes.append(p)
+    specs = (("v4-f8", F8_ARGS), ("v4-f8-paged", F8_ARGS + PAGED_ARGS))
+    servers = start_servers(model, tok, specs)
+    try:
+        passes = [_f8_pass(model, tok, name, extra, srv)
+                  for (name, extra), srv in zip(specs, servers)]
+    finally:
+        for srv in servers:
+            srv.kill()
     return {"passes": passes, "seconds": time.perf_counter() - t0}
+
+
+def _f8_pass(model: str, tok: str, name: str, extra: tuple, srv) -> dict:
+    """One f8 pass on ``srv`` (started with ``extra``), checked."""
+    p = serve_pass(model, tok, None, GEN_TOKENS, extra_args=extra, alone=True, name=name,
+                   srv=srv)
+    check_serving_paths(p)
+    for i, (a, b) in enumerate(zip(p["alone_texts"], p["concurrent_texts"])):
+        check(a == b, f"{name}: request {i} alone differs from the 4 concurrent:\n"
+                      f"{a!r}\n{b!r}")
+    check(p["jit_compiles_after_warmup"] == 0, f"{name}: {p['jit_compiles_after_warmup']} "
+                                               "graphs captured after warmup")
+    check(p["decode_attn_f8_launches"] > 0
+          and p["decode_attn_f8_launches"] == p["decode_attn_launches"],
+          f"{name}: {p['decode_attn_f8_launches']} e4m3 attention launches of "
+          f"{p['decode_attn_launches']}")
+    kv = re.search(r"KV cache: f8 \(torch.float8_e4m3fn\), (\d+) bytes a token, "
+                   r"([0-9.]+) MiB a lane", p["log"])
+    check(kv is not None, f"{name}: the startup log lacks the KV cache line")
+    p["kv_bytes_per_token"] = int(kv.group(1))
+    if "paged" in name:
+        check(p["decode_attn_paged_launches"] > 0, f"{name}: no paged attention launch")
+    log(f"{name} pass: streams alone = concurrent (2 greedy, 2 seeded), "
+        f"{p['decode_attn_f8_launches']} e4m3 attention launches, "
+        f"{p['kv_bytes_per_token']} KV bytes a token ({kv.group(2)} MiB a lane; bf16: "
+        f"{2 * p['kv_bytes_per_token']}), batch {p['tokens_per_s_batch']:.1f} tok/s, "
+        f"TTFT p50 {p['ttft_ms_p50']:.1f} ms")
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -4031,9 +4139,14 @@ G_LONG_TEXT = "structured output " * 4
 G_LONG = {"type": "json_schema", "json_schema": {"schema": {"enum": [G_LONG_TEXT]}}}
 G_SCHEMAS = {"json_object": G_OBJECT, "flags": G_FLAGS, "enum": G_ENUM, "pair": G_PAIR,
              "long": G_LONG}
-# the masked argmax's edge vocabularies: one entry, under one word, no
-# multiple of 32, across one chunk, a 151,936-entry vocabulary
-G_EDGE_VOCABS = (1, 31, 1000, 2049, 151936)
+# the masked argmax's edge vocabularies: one entry, under one word and just
+# over it (fewer entries than 4 a cluster block: empty slices), a multiple
+# of 4 in short slices, no multiple of 4 (the scalar loads), a
+# 151,936-entry vocabulary
+G_EDGE_VOCABS = (1, 31, 33, 1000, 2049, 151936)
+# the automaton step's edge tables: one search round up to 256 keys, two up
+# to 65,536, three past it
+G_EDGE_COUNTS = (1, 255, 256, 257, 49152, 65537)
 G_WINDOW = DECODE_M * 4  # a verify step's rows at 8 lanes (SPEC_DRAFT + 1 a lane)
 # the engine check's lanes: json_object and flags, greedy and sampled, then
 # four free lanes
@@ -4078,6 +4191,20 @@ def grammar_table(tok: str):
             list(t.eos_token_ids))
 
 
+def grammar_tokenizer() -> str:
+    """The 1B synthetic tokenizer, written as ``ensure_model`` writes the
+    served model's (``write_synthetic_tokenizer`` at its vocabulary), beside
+    the smoke's outputs: the grammar kernels' phase runs on it while the
+    model's weights are still being written."""
+    from distributed_llama_multiusers_tpu_torch.formats.synthetic import (
+        write_synthetic_tokenizer,
+    )
+
+    path = os.path.join(OUT_DIR, "grammar_tokenizer.t")
+    write_synthetic_tokenizer(path, vocab_size=llama32_1b_header().vocab_size)
+    return path
+
+
 def _bits_err(torch, got, want) -> float:
     """max |got - want| over the entries whose bits differ (inf where only
     one side is infinite or NaN); 0 when every bit agrees."""
@@ -4112,9 +4239,15 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
     vocabularies on tables with a one-token state and an empty one, with
     ties, -inf, -0.0, all -inf and NaN rows: the same, exactly.
     ``grammar_next`` on random (state, token) pairs (half legal, half not)
-    one step and walked over 3 tokens: the plain version's states exactly.
-    Then each timed beside its plain version, the masked argmax beside the
-    torch pair where + argmax, and each beside its bound."""
+    one step and walked over 3 tokens, and walked over 4 tokens on edge
+    tables of G_EDGE_COUNTS keys: the plain version's states exactly. The
+    masked argmax's checks also run on rows off a 16-byte boundary (the
+    scalar loads). Then each timed beside its plain version and its
+    library calls (the torch pair where + argmax; searchsorted, the index
+    and where), the masked argmax with and without the masked rows and on
+    the verify window, the step at T = 1 and walked over T = 4, each beside
+    its bound and the launch floor (a one-element op in the same
+    harness)."""
     import numpy as np
 
     from distributed_llama_multiusers_tpu_torch.grammar import GrammarSlab, compile_automaton
@@ -4154,22 +4287,36 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
         st_np[:3] = [0, 0, handles[1].start_state]
         st = torch.from_numpy(st_np).cuda()
         out = torch.empty((-(-n // every), vocab), device="cuda")
-        work = cg.workspace(n, vocab, "cuda")
-        got = cg.mask_argmax(x, st, masks, masked_out=out, masked_every=every, work=work)
         want, wrows = cg.mask_argmax_plain(x, st, masks)
+        free = st == 0
+        out.fill_(7.0)
+        got = cg.mask_argmax(x, st, masks, masked_out=out, masked_every=every)
         rows_eq = torch.equal(out.view(torch.int32), wrows[::every].view(torch.int32))
         a_err = max(a_err, float((got - want).abs().max()), _bits_err(torch, out,
                                                                        wrows[::every]))
-        free = st == 0
         check(torch.equal(got, want) and rows_eq, f"grammar_mask_argmax [{n} x {vocab}]: "
               f"indices {got.tolist()} against plain {want.tolist()}, masked rows equal "
               f"{rows_eq}")
         check(torch.equal(got[free], torch.argmax(x[free], dim=-1)),
               f"grammar_mask_argmax [{n} x {vocab}]: FREE rows differ from torch.argmax")
-        check(int(work[-n:].abs().sum()) == 0, "grammar_mask_argmax left a ticket set")
         checks.append({"rows": n, "vocab": vocab, "masked_every": every,
                        "constrained_rows": int((~free).sum()), "equal": True})
-        inputs[n] = (x, st, out, work, every, got)
+        inputs[n] = (x, st, out, every, got)
+    # rows 4 bytes off a 16-byte boundary: the scalar instantiation at 1B
+    x8, st8 = inputs[DECODE_M][:2]
+    off = torch.empty(x8.numel() + 1, device="cuda")[1:].view_as(x8)
+    off.copy_(x8)
+    off_out = torch.empty(x8.numel() + 1, device="cuda")[1:].view_as(x8)
+    check(not cg.mask_plan(vocab, off.data_ptr() % 16 == 0)[0],
+          "grammar_mask_argmax: the offset rows would take 16-byte loads")
+    got = cg.mask_argmax(off, st8, masks, masked_out=off_out)
+    want, wrows = cg.mask_argmax_plain(x8, st8, masks)
+    a_err = max(a_err, float((got - want).abs().max()), _bits_err(torch, off_out, wrows))
+    check(torch.equal(got, want) and torch.equal(off_out.view(torch.int32),
+                                                 wrows.view(torch.int32)),
+          f"grammar_mask_argmax [{DECODE_M} x {vocab}, rows off 16 bytes]: differs from plain")
+    checks.append({"rows": DECODE_M, "vocab": vocab, "masked_every": 1,
+                   "rows_off_16_bytes": True, "equal": True})
     edges = []
     for v in G_EDGE_VOCABS:
         t = _grammar_edge_tables(torch, v, seed=v)
@@ -4197,7 +4344,8 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
               and torch.equal(got[[0, 3, 4, 5, 6]], torch.argmax(x[[0, 3, 4, 5, 6]], dim=-1)))
         check(ok, f"grammar_mask_argmax edges at vocab {v}: {got.tolist()} against plain "
               f"{want.tolist()}")
-        edges.append({"vocab": v, "indices": got.tolist()})
+        edges.append({"vocab": v, "indices": got.tolist(),
+                      "plan": dict(zip(("vec", "slice"), cg.mask_plan(v, True)))})
     # the automaton step: random pairs, half of them legal
     n_pairs = 256
     st_np = rng.choice(pool, n_pairs)
@@ -4219,6 +4367,7 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
     check(torch.equal(got1, want_w[:, 1]) and torch.equal(gotw, want_w) and b_err == 0,
           "grammar_next: states differ from the plain version's")
     check(a_err == 0, f"grammar_mask_argmax: {a_err} from the plain version")
+
     def owner(s):
         return next((h for h in handles if h.base <= s < h.base + h.automaton.n_states), None)
 
@@ -4226,31 +4375,73 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
             else owner(int(st_np[i])).next_state(int(st_np[i]), int(tok_np[i, 0]))
             for i in range(0, n_pairs, 2)]
     check(got1[::2].tolist() == host, "grammar_next: legal steps differ from the host mirror")
+    # the search's round edges: sorted unique keys over 64 states at 1B,
+    # pairs on every tenth edge, the first and last, below and past every key
+    edge_tables = []
+    for e in G_EDGE_COUNTS:
+        erng = np.random.default_rng(e)
+        ek = np.sort(erng.choice(64 * vocab, e, replace=False)).astype(np.int32)
+        et = erng.integers(0, 64, e).astype(np.int32)
+        ed = erng.integers(0, 64, 64).astype(np.int32)
+        on = np.concatenate([ek[::10], ek[:1], ek[-1:]]).astype(np.int64)
+        es = np.concatenate([on // vocab, [0, 63], erng.integers(0, 64, 16)])
+        etk = erng.integers(0, vocab, (len(es), 4))
+        etk[: len(on), 0] = on % vocab
+        etk[len(on)] = 0
+        etk[len(on) + 1] = vocab - 1
+        tabs = [torch.from_numpy(a).cuda() for a in (ek, et, ed)]
+        est, etkt = torch.from_numpy(es).cuda(), torch.from_numpy(etk).cuda()
+        gw = cg.grammar_next(est, etkt, *tabs, vocab, walk=True)
+        ww = cg.grammar_next_plain(est, etkt, *tabs, vocab)
+        check(torch.equal(gw, ww), f"grammar_next over {e} edge keys "
+              f"({cg.search_rounds(e)} rounds): walks differ from the plain version's")
+        b_err = max(b_err, float((gw - ww).abs().max()))
+        edge_tables.append({"edges": e, "rounds": cg.search_rounds(e), "rows": len(es),
+                            "steps": 4, "equal": True})
+    log("grammar_next edge tables: " + json.dumps(edge_tables))
 
     # times: the decode step's form (8 rows, no masked rows), with the
     # masked rows (a sampled step), the verify window; the plain versions
-    # eagerly on the card; the torch pair on precomputed legal bits
-    x8, st8, _, w8, _, g8 = inputs[DECODE_M]
-    x32, st32, o32, w32, e32, _ = inputs[G_WINDOW]
+    # eagerly on the card; the library calls on precomputed legal bits (the
+    # mask) and int64 tables (the step); the launch floor, a one-element op
+    x8, st8, _, _, g8 = inputs[DECODE_M]
+    x32, st32, o32, e32, _ = inputs[G_WINDOW]
     o8 = torch.empty_like(x8)
     ids = torch.arange(vocab, device="cuda")
     bits8 = ((masks[st8][:, ids >> 5] >> (ids & 31).to(torch.int32)) & 1).bool()
     ninf = torch.tensor(float("-inf"), device="cuda")
     reps = 20
-    a_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks, work=w8)] * reps)
-    a_masked_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks, masked_out=o8,
-                                                          work=w8)] * reps)
-    a_window_ms = graph_ms(torch, [lambda: cg.mask_argmax(
-        x32, st32, masks, masked_out=o32, masked_every=e32, work=w32)] * reps)
+    clusters = cg.active_clusters(torch.device("cuda"))
+    log(f"grammar_mask_argmax: clusters of {cg.CLUSTER} the card holds at once: {clusters}")
+    a_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks)] * reps)
+    a_masked_ms = graph_ms(torch, [lambda: cg.mask_argmax(x8, st8, masks, masked_out=o8)] * reps)
+    a_window_ms = graph_ms(torch, [lambda: cg.mask_argmax(x32, st32, masks, masked_out=o32,
+                                                          masked_every=e32)] * reps)
     a_library_ms = graph_ms(torch, [lambda: torch.argmax(torch.where(bits8, x8, ninf),
                                                          dim=-1)] * reps)
     argmax_ms = graph_ms(torch, [lambda: torch.argmax(x8, dim=-1)] * reps)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(torch, [lambda: one.add_(1.0)] * reps)
     a_plain_ms = eager_ms(torch, lambda: cg.mask_argmax_plain(x8, st8, masks), 5)
     a_bytes = DECODE_M * vocab * 4 + DECODE_M * words * 4 + DECODE_M * 16
     a_ops = 2 * DECODE_M * vocab  # the bit test and the compare of each entry
     a_tb, a_to = a_bytes / HBM_BYTES_S, a_ops / LANE_OPS_S
     tok8 = g8[:, None]
+    tok84 = torch.cat([tok8, tk[:DECODE_M, :3]], dim=1)  # a verify window's 4 fed tokens
     b_ms = graph_ms(torch, [lambda: cg.grammar_next(st8, tok8, keys, nxt, dflt, vocab)] * reps)
+    b_walk_ms = graph_ms(torch, [lambda: cg.grammar_next(st8, tok84, keys, nxt, dflt, vocab,
+                                                         walk=True)] * reps)
+    keys64, nxt64, dflt64 = (t.to(torch.int64) for t in (keys, nxt, dflt))
+    last = keys.shape[0] - 1
+
+    def library_next():
+        key = st8 * vocab + tok8[:, 0]
+        j = torch.searchsorted(keys64, key).clamp_(max=last)
+        return torch.where(keys64[j] == key, nxt64[j], dflt64[st8])
+
+    check(torch.equal(library_next(), cg.grammar_next(st8, tok8, keys, nxt, dflt, vocab)),
+          "grammar_next: the library composition differs from the kernel")
+    b_library_ms = graph_ms(torch, [library_next] * reps)
     b_plain_ms = eager_ms(torch, lambda: cg.grammar_next_plain(st8, tok8, keys, nxt, dflt,
                                                                vocab), 5)
     probes = math.ceil(math.log2(keys.shape[0])) + 1  # the lower-bound search's key reads
@@ -4258,20 +4449,27 @@ def grammar_kernel_phase(torch, cg, table, eos) -> dict:
     b_ops = DECODE_M * probes * 3
     b_tb, b_to = b_bytes / HBM_BYTES_S, b_ops / LANE_OPS_S
     out = {
-        "compiles": compiles, "checks": checks, "edge_checks": edges,
+        "vocab_key": key, "compiles": compiles, "checks": checks, "edge_checks": edges,
+        "launch_floor_ms": floor_ms,
         "grammar_mask_argmax": {
-            "max_abs_err": a_err, "ms": a_ms, "ms_with_masked_rows": a_masked_ms,
-            "ms_verify_window": a_window_ms, "plain_ms": a_plain_ms,
-            "library_ms": a_library_ms, "torch_argmax_ms": argmax_ms,
+            "max_abs_err": a_err, "ms": a_ms,
+            "ms_with_masked_rows": a_masked_ms, "ms_verify_window": a_window_ms,
+            "plain_ms": a_plain_ms, "library_ms": a_library_ms,
+            "kernel_over_library": a_ms / a_library_ms, "torch_argmax_ms": argmax_ms,
+            "launch_floor_ms": floor_ms, "cluster": cg.CLUSTER, "active_clusters": clusters,
             "bound_ms": max(a_tb, a_to) * 1e3, "bound_by": "bytes" if a_tb >= a_to
             else "operations", "bound_bytes": a_bytes, "bound_ops": a_ops,
             "bound_ms_with_masked_rows": (a_bytes + DECODE_M * vocab * 4) / HBM_BYTES_S * 1e3,
-            "rows": DECODE_M, "vocab": vocab, "words": words, "chunk": cg.CHUNK},
+            "rows": DECODE_M, "vocab": vocab, "words": words,
+            "plan": dict(zip(("vec", "slice"), cg.mask_plan(vocab, True)))},
         "grammar_next": {
-            "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, "library_ms": None,
+            "max_abs_err": b_err, "ms": b_ms, "ms_walk_t4": b_walk_ms, "plain_ms": b_plain_ms,
+            "library_ms": b_library_ms, "launch_floor_ms": floor_ms,
             "bound_ms": max(b_tb, b_to) * 1e3, "bound_by": "bytes" if b_tb >= b_to
             else "operations", "bound_bytes": b_bytes, "bound_ops": b_ops, "rows": DECODE_M,
-            "steps": 1, "edges": int(keys.shape[0]), "pairs_checked": n_pairs},
+            "steps": 1, "edges": int(keys.shape[0]),
+            "search_rounds": cg.search_rounds(keys.shape[0]), "pairs_checked": n_pairs,
+            "edge_tables": edge_tables},
     }
     log("grammar kernels: " + json.dumps({k: out[k] for k in cg.KERNELS}))
     return out
@@ -4495,10 +4693,32 @@ def grammar_serving_phase(torch, model: str, tok: str, default: dict, compiles: 
     the long enum or flags but not both: flags beside the live long enum
     gets 429 ``grammar_slab_full`` with Retry-After, the long enum's answer
     at tp2 is its string, and flags is served after it. Then ``--grammar
-    off``: a constrained request gets 400, a plain one 200."""
+    off``: a constrained request gets 400, a plain one 200. The three
+    servers start together."""
     t0 = time.perf_counter()
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    slab = compiles["long"]["states"] + compiles["flags"]["states"]
+    servers = start_servers(model, tok, [
+        ("grammar", ()),
+        ("grammar-tp2", ("--workers", "2", "--device", devices,
+                         "--grammar-slab-states", str(slab))),
+        ("grammar-off", ("--grammar", "off"))])
+    try:
+        out = _grammar_serving(servers, default, slab)
+    finally:
+        for srv in servers:
+            srv.kill()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"grammar serving: 4 constrained answers {out['default']['answers']} beside the "
+        f"default pass's 4 (texts equal); 400 on malformed schemas; tp2 slab of {slab} "
+        f"states: 429 grammar_slab_full, the long enum served; --grammar off: 400 "
+        f"({out['seconds']:.1f}s)")
+    return out
+
+
+def _grammar_serving(servers: list, default: dict, slab: int) -> dict:
     passes = []
-    srv = Server(model, tok, "grammar")
+    srv = servers[0]
     try:
         bodies = G_SERVE_BODIES + list(default["bodies"])
         res = _grammar_concurrent(srv.base, bodies)
@@ -4546,10 +4766,7 @@ def grammar_serving_phase(torch, model: str, tok: str, default: dict, compiles: 
         srv.kill()
     first = {"answers": answers, "stats": {k: v for k, v in stats.items()
                                           if k.startswith("grammar")}}
-    devices = ",".join(str(d) for d in rank_devices(torch, 2))
-    slab = compiles["long"]["states"] + compiles["flags"]["states"]
-    srv = Server(model, tok, "grammar-tp2", ("--workers", "2", "--device", devices,
-                                             "--grammar-slab-states", str(slab)))
+    srv = servers[1]
     try:
         long_body = {"prompt": "say it", "max_tokens": len(G_LONG_TEXT) + 16, "temperature": 0,
                      "response_format": G_LONG}
@@ -4590,7 +4807,7 @@ def grammar_serving_phase(torch, model: str, tok: str, default: dict, compiles: 
     tp2 = {"slab_states": slab, "shed": {"status": shed[0], "reason": shed[2].get("reason"),
                                          "retry_after": shed[1].get("Retry-After")},
            "long_answer_chars": len(long_text)}
-    srv = Server(model, tok, "grammar-off", ("--grammar", "off"))
+    srv = servers[2]
     try:
         status, _, raw = _request(srv.base + "/v1/completions", {
             "prompt": "x", "max_tokens": 8, "response_format": G_FLAGS})
@@ -4605,24 +4822,23 @@ def grammar_serving_phase(torch, model: str, tok: str, default: dict, compiles: 
         raise
     finally:
         srv.kill()
-    out = {"default": first, "tp2_small_slab": tp2, "passes": passes,
-           "seconds": time.perf_counter() - t0}
-    log(f"grammar serving: 4 constrained answers {answers} beside the default pass's 4 "
-        f"(texts equal); 400 on malformed schemas; tp2 slab of {slab} states: 429 "
-        f"grammar_slab_full, the long enum served; --grammar off: 400 "
-        f"({out['seconds']:.1f}s)")
-    return out
+    return {"default": first, "tp2_small_slab": tp2, "passes": passes}
 
 
-def grammar_phase(torch, q, model: str, tok: str, default: dict, breakdown: list) -> dict:
-    """Phase 4c: the grammar kernels, the engine's constrained families and
-    the server's structured output, and the v4 decode step's device time
-    and operations with the grammar kernels in it (``step_breakdown``)."""
+def grammar_phase(torch, q, model: str, tok: str, default: dict, breakdown: list,
+                  kernels: dict) -> dict:
+    """Phase 4c: the engine's constrained families and the server's
+    structured output beside the grammar kernels' phase (``kernels``, run
+    before the model was written, on the same tokenizer), and the v4
+    decode step's device time and operations with the grammar kernels in it
+    (``step_breakdown``)."""
+    from distributed_llama_multiusers_tpu_torch.grammar.automaton import vocab_fingerprint
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as cg
 
     t0 = time.perf_counter()
     table, eos = grammar_table(tok)
-    kernels = grammar_kernel_phase(torch, cg, table, eos)
+    check(vocab_fingerprint(table) == kernels["vocab_key"],
+          "the grammar kernels' phase ran on another tokenizer than the served model's")
     engine = grammar_engine_phase(torch, q, cg, model, table, eos)
     serving = grammar_serving_phase(torch, model, tok, default, kernels["compiles"])
     v4 = next(b for b in breakdown if b["mode"] == "v4")
@@ -5943,14 +6159,21 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
                 "library": ("torch.argmax(torch.where(bits, rows, -inf)) on precomputed legal "
                             "bits (no one torch call computes the masked argmax)"
-                            if name == "grammar_mask_argmax" else None),
+                            if name == "grammar_mask_argmax" else
+                            "torch.searchsorted, the clip, the index and torch.where on int64 "
+                            "tables (one step, no one torch call computes it)"),
+                "launch_floor_ms": k["launch_floor_ms"],
+                "ptxas": geometry.get("grammar", {}).get(
+                    "mask_argmax_kernel" if name == "grammar_mask_argmax"
+                    else "grammar_next_kernel"),
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "timed_as": (f"one decode step's masked argmax, {k['rows']} x {k['vocab']} f32 "
                              "rows on random states of a slab holding four schemas: kernel "
                              "and the torch pair in one CUDA graph each; plain eager"
                              if name == "grammar_mask_argmax" else
                              f"one decode step's automaton step, {k['rows']} rows over "
-                             f"{k['edges']} edge keys: kernel in one CUDA graph; plain eager"),
+                             f"{k['edges']} edge keys ({k['search_rounds']} search rounds): "
+                             "kernel and the library calls in one CUDA graph each; plain eager"),
                 "launches_per_decode_step": {b["mode"]: b["launches_per_step"][name]
                                              for b in breakdown + tp},
                 "profiled_ms_per_decode_step": {b["mode"]: b["grammar_ms_per_step"][name]
@@ -5958,8 +6181,11 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                 **({"ms_with_masked_rows": k["ms_with_masked_rows"],
                     "ms_verify_window": k["ms_verify_window"],
                     "torch_argmax_ms": k["torch_argmax_ms"],
-                    "bound_ms_with_masked_rows": k["bound_ms_with_masked_rows"]}
-                   if name == "grammar_mask_argmax" else {}),
+                    "bound_ms_with_masked_rows": k["bound_ms_with_masked_rows"],
+                    "kernel_over_library": k["kernel_over_library"], "cluster": k["cluster"],
+                    "active_clusters": k["active_clusters"]}
+                   if name == "grammar_mask_argmax" else
+                   {"ms_walk_t4": k["ms_walk_t4"], "search_rounds": k["search_rounds"]}),
             })
     if moe is not None:
         from distributed_llama_multiusers_tpu_torch.ops import cuda_moe as cm
@@ -6013,7 +6239,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
-    writer = None
+    writers = {}
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -6032,21 +6258,34 @@ def main() -> int:
         from distributed_llama_multiusers_tpu_torch.ops import cuda_sample as cs
         from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
 
-        writer = start_model_writer()
+        writers = start_model_writers()
         t0 = time.perf_counter()
         names = (q.KERNELS + (rc.KERNEL, cs.KERNEL, ca.KERNEL, cg.KERNEL, cm.KERNEL)
                  + lab.KERNELS)
         one_kernel_build = build_one_kernel(q, rc)
+        grammar_ptxas = start_ptxas_report(q, cg.KERNEL_SOURCE)
         try:
             libs = q.build_kernels(names)
         finally:
             one_kernel = one_kernel_launch(rc, one_kernel_build)
+            grammar_usage = ptxas_usage(grammar_ptxas,
+                                        ("mask_argmax_kernel", "grammar_next_kernel"))
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
         geometry = {"q40_slab": kernel_geometry(torch, q, q.slab_info),
                     "q40_blockdot": kernel_geometry(torch, q, q.blockdot_info),
                     "q40_i8blockdot": kernel_geometry(torch, q, q.i8blockdot_info)}
         for kernel, geo in geometry.items():
             log(f"{kernel} geometry: " + json.dumps(geo))
+        # the grammar kernels' registers and shared memory (-Xptxas -v):
+        # the masked argmax's two instantiations under one key
+        geometry["grammar"] = {
+            "mask_argmax_kernel": {k.removeprefix("mask_argmax_kernel"): v
+                                   for k, v in grammar_usage.items()
+                                   if k.startswith("mask_argmax_kernel")},
+            "grammar_next_kernel": grammar_usage.get("grammar_next_kernel")}
+        log("grammar kernels (-Xptxas -v): " + json.dumps(geometry["grammar"]))
+        check(all(u.get("spill_bytes", 0) == 0 for u in grammar_usage.values()),
+              f"a grammar kernel spills registers: {grammar_usage}")
         for kernel, opcode in (("q40_blockdot", "HMMA"), ("q40_i8blockdot", "IMMA")):
             check(all(n == 0 for n in geometry[kernel]["spill_bytes_per_thread"].values()),
                   f"{kernel} spills registers")
@@ -6074,13 +6313,27 @@ def main() -> int:
         sampler = sampler_phase(torch, cs)
         attn = attn_phase(torch)
         attn["f8"] = attn_f8_phase(torch, attn)
+        # phase 4c's kernel part needs only the tokenizer: it runs while the
+        # model's weights are written
+        grammar_kernels = grammar_kernel_phase(torch, cg, *grammar_table(grammar_tokenizer()))
+        # as is phase 5, which needs no model
+        lab_result = lab_phase(torch, q, lab)
+        with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
+            json.dump({"card": card, **lab_result}, f, indent=1)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
             json.dump({"card": card, "checks": checks, "timings": timings, "hops": hops,
                        "hop_forms": forms, "collectives": collectives, "geometry": geometry,
                        "sampler": sampler, "attn": attn, "verify_shaped_products": row_plans},
                       f, indent=1)
         lap("kernels")
-        check(writer.wait() == 0, f"the model writer exited {writer.returncode}")
+        # phase 4d needs only the Mixtral-width model, written in seconds:
+        # it runs while the 1B model is written
+        check(writers["mixtral"].wait() == 0,
+              f"the Mixtral model's writer exited {writers['mixtral'].returncode}")
+        moe = moe_phase(torch, q, rc, cs, cm)
+        lap("moe")
+        check(writers["1b"].wait() == 0,
+              f"the 1B model's writer exited {writers['1b'].returncode}")
         lap("model_wait")
         passes = serving_phase(torch, q)
         lap("serving")
@@ -6099,10 +6352,8 @@ def main() -> int:
         lap("paged")
         f8 = f8_phase(model, tok)
         lap("f8")
-        grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown)
+        grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown, grammar_kernels)
         lap("grammar")
-        moe = moe_phase(torch, q, rc, cs, cm)
-        lap("moe")
         fleet = fleet_phase(model, tok, durability, f8["passes"][1])
         lap("fleet")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
@@ -6122,10 +6373,6 @@ def main() -> int:
                        "grammar": grammar, "moe": moe,
                        "f8": [{k: v for k, v in p.items() if k != "log"} for p in f8["passes"]],
                        "fleet": fleet}, f, indent=1)
-        lab_result = lab_phase(torch, q, lab)
-        with open(os.path.join(OUT_DIR, "chip_smoke_lab.json"), "w") as f:
-            json.dump({"card": card, **lab_result}, f, indent=1)
-        lap("lab")
         log("phase seconds: " + json.dumps(seconds))
         main_path = (passes + [paged["serving"]] + cli + durability["passes"]
                      + grammar["passes"] + [moe["serving"]] + f8["passes"] + fleet["passes"])
@@ -6136,9 +6383,10 @@ def main() -> int:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if writer is not None and writer.poll() is None:
-            writer.kill()
-            writer.wait()
+        for writer in writers.values():
+            if writer.poll() is None:
+                writer.kill()
+                writer.wait()
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(line))

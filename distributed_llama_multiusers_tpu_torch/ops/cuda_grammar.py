@@ -24,9 +24,14 @@ and defaults int32, all on the rows' device.
 
 On a CUDA tensor each wrapper launches its kernel (built with ``nvcc`` for
 ``sm_90a`` at first use, like the other kernels) on the current stream, or
-raises; on a CPU tensor it runs its plain version below. ``COUNTS`` holds
-the launches and the plain calls; ``add_counts`` adds a CUDA graph's
-recorded launches on each replay.
+raises; on a CPU tensor it runs its plain version below. The launch plans
+are computed here: ``mask_plan`` (each cluster block's slice of a row, and
+whether the loads are 16 bytes wide) and ``search_rounds`` (the step's
+probe rounds). ``mask_argmax`` launches one cluster of CLUSTER blocks a
+row and raises at first use on a card that cannot schedule such a
+cluster (``active_clusters``). ``COUNTS`` holds the launches and the
+plain calls; ``add_counts`` adds a CUDA graph's recorded launches on each
+replay.
 """
 
 from __future__ import annotations
@@ -46,17 +51,24 @@ KERNEL_REPLACES = {
     "grammar_mask_argmax": "distributed_llama_multiusers_tpu/runtime/engine.py:493",
     "grammar_next": "distributed_llama_multiusers_tpu/runtime/engine.py:507",
 }
-CHUNK = 2048  # entries per thread block: kChunk in csrc/grammar.cu
+# grammar_mask_argmax: the thread blocks of a row's cluster (kMaxCluster in
+# csrc/grammar.cu; above 8 is Hopper's non-portable size), chosen against 8
+# on the H100 (PERF.md)
+CLUSTER = 16
+THREADS = 256  # a cluster block's threads: kThreads
+# grammar_next: the keys one search round probes, one a thread (kNextThreads)
+SEARCH_FAN = 256
 COUNTS = {"mask_argmax_launches": 0, "mask_argmax_plain_calls": 0,
           "next_launches": 0, "next_plain_calls": 0}
 _counts_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# rows, states, masks, out, masked, masked_every, work, n_rows, vocab, words,
-# n_states, chunk, stream
-_MASK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+# rows, states, masks, out, masked, masked_every, n_rows, vocab, words,
+# n_states, cluster, slice, vec, stream
+_MASK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # states, tokens, tok_stride, steps, keys, targets, defaults, n_edges,
-# n_states, vocab, walk, walk_stride, final, n_rows, stream
-_NEXT_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P]
+# n_states, vocab, rounds, walk, walk_stride, final, n_rows, stream
+_NEXT_ARGTYPES = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P]
+_active_clusters: dict = {}  # device index -> clusters of CLUSTER the card holds at once
 
 
 def reset_counts() -> None:
@@ -83,19 +95,45 @@ def _bump(key: str) -> None:
         COUNTS[key] += 1
 
 
-def workspace_words(n_rows: int, vocab: int) -> int:
-    """32-bit words of ``mask_argmax``'s workspace for ``n_rows`` rows: each
-    chunk's (value, index) pair and each row's ticket (0 with one chunk)."""
-    chunks = -(-vocab // CHUNK)
-    return n_rows * (2 * chunks + 1) if chunks > 1 else 0
+def mask_plan(vocab: int, aligned: bool) -> tuple[bool, int]:
+    """(vec, slice): whether ``grammar_mask_argmax`` takes 16-byte loads (a
+    vocabulary of a multiple of 4 entries and 16-byte aligned row pointers,
+    ``aligned``), and the entries of each of a row's CLUSTER blocks'
+    contiguous slice: block c takes [c * slice, min((c + 1) * slice, vocab)),
+    a multiple of 4 entries with 16-byte loads. Blocks past the row's end
+    take none."""
+    vec = aligned and vocab % 4 == 0
+    if vec:
+        return True, -(-vocab // (4 * CLUSTER)) * 4
+    return False, -(-vocab // CLUSTER)
 
 
-def workspace(n_rows: int, vocab: int, device) -> torch.Tensor | None:
-    """A zeroed workspace for ``mask_argmax`` on ``device``. The kernel
-    leaves its tickets at 0, so one workspace serves every later launch of
-    up to ``n_rows`` rows on one stream (a captured graph included)."""
-    words = workspace_words(n_rows, vocab)
-    return torch.zeros(words, dtype=torch.int32, device=device) if words else None
+def search_rounds(n_edges: int) -> int:
+    """``grammar_next``'s probe rounds a step over ``n_edges`` sorted keys:
+    the fewest R >= 1 with SEARCH_FAN ** R >= n_edges (two up to 65,536
+    keys)."""
+    rounds = 1
+    while SEARCH_FAN ** rounds < n_edges:
+        rounds += 1
+    return rounds
+
+
+def active_clusters(device) -> int:
+    """The clusters of CLUSTER blocks of ``grammar_mask_argmax`` the card
+    holds at once (the fewer of its two instantiations'), asked of the card
+    once (which also allows a size above 8 there). Raises when it holds
+    none: there is no other launch shape."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _active_clusters:
+        fn = load_kernel(KERNEL, [_I, _I], "grammar_mask_argmax_clusters")
+        with torch.cuda.device(idx):
+            got = min(fn(CLUSTER, vec) for vec in (1, 0))
+        if got <= 0:
+            raise RuntimeError(f"grammar_mask_argmax: clusters of {CLUSTER} blocks cannot be "
+                               f"scheduled on cuda:{idx} (cudaOccupancyMaxActiveClusters: "
+                               f"{got})")
+        _active_clusters[idx] = got
+    return _active_clusters[idx]
 
 
 def _clamped(states: torch.Tensor, n_states: int) -> torch.Tensor:
@@ -114,14 +152,12 @@ def mask_argmax_plain(rows: torch.Tensor, states: torch.Tensor, masks: torch.Ten
 
 
 def mask_argmax(rows: torch.Tensor, states: torch.Tensor, masks: torch.Tensor,
-                masked_out: torch.Tensor | None = None, masked_every: int = 1,
-                work: torch.Tensor | None = None) -> torch.Tensor:
+                masked_out: torch.Tensor | None = None, masked_every: int = 1) -> torch.Tensor:
     """rows: f32 [R, V]; states: int [R]; masks: int32 [S, ceil(V/32)].
     Returns int64 [R], each row's masked argmax. ``masked_out`` (f32
     [ceil(R / masked_every), V]) takes row r's masked values at row
     r / masked_every, for the rows r with r % masked_every == 0 (a verify
-    window samples its first row a lane). ``work``: a ``workspace`` of at
-    least R rows, or None for one allocated (and zeroed) here."""
+    window samples its first row a lane)."""
     if rows.dim() != 2:
         raise ValueError(f"rows must be [R, vocab], got {tuple(rows.shape)}")
     n, vocab = rows.shape
@@ -156,18 +192,16 @@ def mask_argmax(rows: torch.Tensor, states: torch.Tensor, masks: torch.Tensor,
     if not masks.is_contiguous():
         raise ValueError("masks must be contiguous")
     states = states.to(torch.int64).contiguous()
-    need = workspace_words(n, vocab)
-    if work is None:
-        work = workspace(n, vocab, rows.device)
-    elif need and (work.numel() < need or work.dtype != torch.int32
-                   or work.device != rows.device):
-        raise ValueError(f"work must be int32 with >= {need} words on {rows.device}")
+    aligned = rows.data_ptr() % 16 == 0 and (masked_out is None
+                                             or masked_out.data_ptr() % 16 == 0)
+    vec, slice_ = mask_plan(vocab, aligned)
     out = torch.empty(n, dtype=torch.int64, device=rows.device)
     with torch.cuda.device(rows.device):
+        active_clusters(rows.device)
         err = load_kernel(KERNEL, _MASK_ARGTYPES, "grammar_mask_argmax_launch")(
             rows.data_ptr(), states.data_ptr(), masks.data_ptr(), out.data_ptr(),
-            None if masked_out is None else masked_out.data_ptr(), masked_every,
-            None if not need else work.data_ptr(), n, vocab, words, masks.shape[0], CHUNK,
+            None if masked_out is None else masked_out.data_ptr(), masked_every, n, vocab,
+            masks.shape[1], masks.shape[0], CLUSTER, slice_, int(vec),
             torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grammar_mask_argmax launch failed: CUDA error {err}")
@@ -238,7 +272,7 @@ def grammar_next(states: torch.Tensor, tokens: torch.Tensor, keys: torch.Tensor,
         err = load_kernel(KERNEL, _NEXT_ARGTYPES, "grammar_next_launch")(
             states.data_ptr(), tokens.data_ptr(), tokens.stride(0), steps, keys.data_ptr(),
             targets.data_ptr(), defaults.data_ptr(), keys.shape[0], defaults.shape[0],
-            vocab, out.data_ptr() if walk else None, steps + 1,
+            vocab, search_rounds(keys.shape[0]), out.data_ptr() if walk else None, steps + 1,
             None if walk else out.data_ptr(), n,
             torch.cuda.current_stream(states.device).cuda_stream)
     if err != 0:

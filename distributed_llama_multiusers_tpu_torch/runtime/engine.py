@@ -347,12 +347,9 @@ class InferenceEngine:
         self._g_tabs = tuple(torch.from_numpy(self._g_host_arrays()[i].copy()).to(self.device)
                              for i in range(4))
         self._g_version = self.grammar_slab.version
-        # the masked rows the sampler sorts, and the masked argmax's
-        # workspaces (one a row count; their tickets stay 0 between launches)
-        vocab = config.vocab_size
-        self._g_rows = torch.zeros((n, vocab), dtype=torch.float32, device=self.device)
-        self._g_work = {r: cuda_grammar.workspace(r, vocab, self.device)
-                        for r in (1, n, n * (SPEC_DRAFT + 1))}
+        # the masked rows the sampler sorts
+        self._g_rows = torch.zeros((n, config.vocab_size), dtype=torch.float32,
+                                   device=self.device)
         # a mesh across cards stays eager (its ranks' streams would join
         # the capture through events); one card, ranks on it included, is
         # captured
@@ -461,7 +458,7 @@ class InferenceEngine:
         JAX engine's ``lax.cond``; the JAX engine masks before both)."""
         greedy = cuda_grammar.mask_argmax(
             step.contiguous(), states, self._g_tabs[0],
-            masked_out=self._g_rows if sample else None, work=self._g_work[self.n_lanes])
+            masked_out=self._g_rows if sample else None)
         if not sample:
             return greedy, greedy
         temps, topps = self._in_f[0], self._in_f[1]
@@ -528,8 +525,7 @@ class InferenceEngine:
         gst = self._g_next(gs, full[:, 1:], walk=True)  # [n, K + 1]: row t's state
         greedy = cuda_grammar.mask_argmax(
             logits.reshape(n * k1, -1).contiguous(), gst.reshape(-1), self._g_tabs[0],
-            masked_out=self._g_rows if sample else None, masked_every=k1,
-            work=self._g_work[n * k1]).view(n, k1)
+            masked_out=self._g_rows if sample else None, masked_every=k1).view(n, k1)
         match = (full[:, 1:] == greedy[:, :-1]).to(torch.int64)
         lead = torch.cumprod(match, dim=1)
         accepted = (lead * (steps[None, :-1] < eff[:, None])).sum(dim=1)
@@ -622,8 +618,7 @@ class InferenceEngine:
         masked = (torch.empty((1, last.shape[0]), dtype=torch.float32, device=last.device)
                   if temp > 0.0 else None)
         greedy = cuda_grammar.mask_argmax(last[None].contiguous(), self._upload([g_state]),
-                                          self._g_tabs[0], masked_out=masked,
-                                          work=self._g_work[1])
+                                          self._g_tabs[0], masked_out=masked)
         sampled = greedy
         if temp > 0.0:  # a greedy admission skips the sampler
             sampled = sample_lanes(

@@ -1288,16 +1288,18 @@ def _grammar_rows(cuda, n, vocab, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("vocab", [1, 31, 1000, 2049, 128256, 151936])
+@pytest.mark.parametrize("vocab", [1, 31, 33, 1000, 2049, 128256, 151936])
 @pytest.mark.parametrize("n", [1, 8, 32])
 def test_grammar_mask_argmax_matches_plain(cuda, n, vocab):
     """The masked argmax at every row count a step family gives it (1: a
-    prompt's boundary row, 8: a decode step, 32: a verify window) over
-    vocabularies of one chunk, of no multiple of 32 or of the chunk, and
-    the 1B one: indices equal the plain version's and the masked rows are
-    bit-equal; ties go to the lower index, a NaN wins at its first index,
-    an all -inf row gives 0, a state with one legal token gives it, a state
-    with none gives 0. The workspace's tickets are back at 0 afterwards."""
+    prompt's boundary row, 8: a decode step, 32: a verify window) over the
+    cluster's edge vocabularies (fewer entries than the cluster's blocks
+    times 4, so that some blocks get empty slices; 31 and 2049, no multiple
+    of 4, on the scalar loads; 1000, a multiple of 4 in short slices) and
+    the 1B and 151,936-entry ones, each with masked_every 1 and 4: indices
+    equal the plain version's and the masked rows are bit-equal; ties go to
+    the lower index, a NaN wins at its first index, an all -inf row gives
+    0, a state with one legal token gives it, a state with none gives 0."""
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
 
     masks = _grammar_tables(cuda, vocab, seed=vocab)
@@ -1305,12 +1307,11 @@ def test_grammar_mask_argmax_matches_plain(cuda, n, vocab):
     gen = torch.Generator(device=cuda).manual_seed(vocab)
     states = torch.randint(0, masks.shape[0], (n,), device=cuda, generator=gen)
     states[: min(n, 3)] = torch.tensor([0, 1, 2], device=cuda)[: min(n, 3)]
-    work = G.workspace(n, vocab, cuda)
     for every in (1, 4):
         m_rows = -(-n // every)
         out = torch.full((m_rows, vocab), 7.0, device=cuda)
         G.reset_counts()
-        got = G.mask_argmax(rows, states, masks, masked_out=out, masked_every=every, work=work)
+        got = G.mask_argmax(rows, states, masks, masked_out=out, masked_every=every)
         ref_out = torch.zeros((m_rows, vocab))
         want = G.mask_argmax(rows.cpu(), states.cpu(), masks.cpu(), masked_out=ref_out,
                              masked_every=every)
@@ -1321,8 +1322,29 @@ def test_grammar_mask_argmax_matches_plain(cuda, n, vocab):
     if n >= 3:  # the one legal entry (0 where it is -inf: the row is), and none
         one = 0 if bool(torch.isneginf(rows[1, vocab - 1])) else vocab - 1
         assert int(got[1]) == one and int(got[2]) == 0
-    if work is not None:
-        assert int(work[-n:].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [1000, 128256])
+def test_grammar_mask_argmax_unaligned_rows_match_plain(cuda, vocab):
+    """Rows and masked rows 4 bytes past a 16-byte boundary take the scalar
+    loads at a vocabulary of a multiple of 4: the plain version's indices
+    and masked rows exactly."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    n = 8
+    masks = _grammar_tables(cuda, vocab, seed=vocab + 1)
+    buf = torch.empty(n * vocab + 1, device=cuda)
+    rows = buf[1:].view(n, vocab)
+    rows.copy_(_grammar_rows(cuda, n, vocab, seed=vocab + 1))
+    states = torch.arange(n, device=cuda) % masks.shape[0]
+    out = torch.empty(n * vocab + 1, device=cuda)[1:].view(n, vocab)
+    assert rows.data_ptr() % 16 and not G.mask_plan(vocab, False)[0]
+    got = G.mask_argmax(rows, states, masks, masked_out=out)
+    ref_out = torch.zeros((n, vocab))
+    want = G.mask_argmax(rows.cpu(), states.cpu(), masks.cpu(), masked_out=ref_out)
+    assert got.cpu().tolist() == want.tolist()
+    assert torch.equal(out.cpu().view(torch.int32), ref_out.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -1378,6 +1400,45 @@ def test_grammar_next_matches_plain(cuda, vocab, steps):
     assert out.cpu().tolist() == want.tolist()
 
 
+def _edge_tables(rng, n_edges, n_states, vocab):
+    """``n_edges`` sorted unique keys over (state, token) pairs, targets and
+    defaults, int32."""
+    keys = np.sort(rng.choice(n_states * vocab, n_edges, replace=False)).astype(np.int32)
+    targets = rng.integers(0, n_states, n_edges).astype(np.int32)
+    defaults = rng.integers(0, n_states, n_states).astype(np.int32)
+    return keys, targets, defaults
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_edges", [1, 255, 256, 257, 49152, 65537])
+def test_grammar_next_edge_tables_match_plain(cuda, n_edges):
+    """The search at its round edges (one round up to 256 keys, two up to
+    65,536, three at 65,537), walked over 4 tokens: pairs on every tenth
+    edge, on the first and the last key, below every key and past every
+    key (the clip), and random pairs; the plain version's walk exactly."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
+
+    rng = np.random.default_rng(n_edges)
+    vocab, n_states = 128256, 64
+    keys, targets, defaults = _edge_tables(rng, n_edges, n_states, vocab)
+    tabs = [torch.from_numpy(a).to(cuda) for a in (keys, targets, defaults)]
+    on = np.concatenate([keys[::10], keys[:1], keys[-1:]]).astype(np.int64)
+    states = np.concatenate([on // vocab, [0, n_states - 1, int(keys[0]) // vocab],
+                             rng.integers(0, n_states, 16)])
+    tokens = rng.integers(0, vocab, (len(states), 4))
+    tokens[: len(on), 0] = on % vocab
+    tokens[len(on)] = 0  # state 0, token 0: at or below every key
+    tokens[len(on) + 1] = vocab - 1  # past every key
+    tokens[len(on) + 2, 0] = max(int(keys[0]) % vocab - 1, 0)
+    st, tk = torch.from_numpy(states).to(cuda), torch.from_numpy(tokens).to(cuda)
+    assert G.search_rounds(n_edges) == (1 if n_edges <= 256 else 2 if n_edges <= 65536 else 3)
+    got = G.grammar_next(st, tk, *tabs, vocab, walk=True)
+    want = G.grammar_next(st.cpu(), tk.cpu(), *(t.cpu() for t in tabs), vocab, walk=True)
+    assert got.cpu().tolist() == want.tolist()
+    one = G.grammar_next(st, tk[:, :1], *tabs, vocab)
+    assert one.cpu().tolist() == want[:, 1].tolist()
+
+
 @pytest.mark.gpu
 def test_grammar_kernels_graph_replay_equals_eager(cuda):
     from distributed_llama_multiusers_tpu_torch.ops import cuda_grammar as G
@@ -1386,12 +1447,11 @@ def test_grammar_kernels_graph_replay_equals_eager(cuda):
     masks = _grammar_tables(cuda, vocab)
     rows = _grammar_rows(cuda, 8, vocab, seed=4)
     states = torch.arange(8, device=cuda) % masks.shape[0]
-    work = G.workspace(8, vocab, cuda)
     keys = torch.tensor([5 * vocab + 7, 2**31 - 1], dtype=torch.int32, device=cuda)
     tabs = (keys, torch.tensor([3, 0], dtype=torch.int32, device=cuda),
             torch.arange(masks.shape[0], dtype=torch.int32, device=cuda))
     toks = torch.full((8, 1), 7, device=cuda)
-    _graph_replay_equals_eager([lambda: G.mask_argmax(rows, states, masks, work=work),
+    _graph_replay_equals_eager([lambda: G.mask_argmax(rows, states, masks),
                                 lambda: G.grammar_next(states, toks, *tabs, vocab)])
 
 

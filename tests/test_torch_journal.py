@@ -878,19 +878,26 @@ def test_stream_route_404s(loaded, grace):
 def test_admin_session_exports_the_admit_record(loaded):
     """``GET /admin/session/<id>`` of a live request: its admit wire record
     (the JAX package's encoding, resolved seed included) and watermark;
-    404 once it finished."""
+    404 once it finished. The first delta holds the stream (on the
+    scheduler thread) until the export has been read, so the request is
+    live when the GET lands however loaded the host is; the handler reads
+    the session mirror without the scheduler thread."""
     sched = _sched(loaded, n_lanes=2)
     _, httpd, base = _serve(sched)
     req = Request(prompt="session export", max_tokens=40, temperature=0.8)
     seen = []
-    req.on_delta = lambda d: (seen.append(d), time.sleep(THROTTLE_S))
+    exported = threading.Event()
+    req.on_delta = lambda d: (seen.append(d), exported.wait(60))
     try:
         sched.submit(req)
         deadline = time.monotonic() + 60
-        while len(seen) < 2 and time.monotonic() < deadline:
+        while not seen and time.monotonic() < deadline:
             time.sleep(0.002)
-        with urllib.request.urlopen(base + f"/admin/session/{req.id}", timeout=30) as r:
-            rec = json.loads(r.read())
+        try:
+            with urllib.request.urlopen(base + f"/admin/session/{req.id}", timeout=30) as r:
+                rec = json.loads(r.read())
+        finally:
+            exported.set()
         req.future.result(timeout=60)
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(base + f"/admin/session/{req.id}", timeout=30)
