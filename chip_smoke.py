@@ -221,7 +221,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    plain version at Mixtral's router (dim 4096, 8 experts, 2 active)
    on 8, 32 and 1,024 bf16 rows (expert ids equal on every row clear of a
    near tie, weights within 1e-6) and on exact ties (lax.top_k's order),
-   each timed beside the library chain and the plain version; a
+   each timed beside the library chain, the plain version and the launch
+   floor; a row's outputs bit-equal alone and inside 8 to 1,024 rows, bf16
+   and f32, on both sides of the switch from one cluster a row to tiles
+   and under either plan forced; both plans timed over 32 to 256 rows;
+   ``-Xptxas -v``'s registers and shared memory of both plans (an
+   ``nvcc`` beside the build); a
    Mixtral-8x7B-width model (2 of its 32 layers, seq_len 2048, random Q40
    blocks of std 0.02 from seed 0, 2.23 GB): its forward on the card
    against the CPU's f32 forward on the same weights, a 64-row prompt
@@ -949,7 +954,8 @@ def start_ptxas_report(q, source: str):
     """Start ``nvcc -Xptxas -v`` on ``source`` into a library nothing loads,
     beside the kernel build; ``ptxas_usage`` reads its report."""
     os.makedirs(q.build_dir(), exist_ok=True)
-    path = os.path.join(q.build_dir(), "ptxas_report.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(q.build_dir(), f"ptxas_report_{name}.so")
     cmd = [q._nvcc(), *q.NVCC_FLAGS, "-Xptxas", "-v", "-o", path, os.path.join(ROOT, source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -957,16 +963,18 @@ def start_ptxas_report(q, source: str):
 def ptxas_usage(proc, kernels: tuple) -> dict:
     """{kernel: {registers, smem_bytes, spill_bytes}} from ``start_ptxas_report``'s
     compiler output for each of ``kernels`` (names in the source), a
-    template's instantiations as ``name<true>`` and ``name<false>``."""
+    template's instantiations as ``name<true>`` and ``name<false>`` (a bool
+    argument) or ``name<bf16>`` and ``name<f32>`` (the element type)."""
     out, _ = proc.communicate()
     check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{out}")
-    pattern = re.compile(r"(" + "|".join(kernels) + r")(ILb([01])E)?")
+    pattern = re.compile(r"(" + "|".join(kernels) + r")(I(Lb1|Lb0|13__nv_bfloat16|f)E)?")
+    args = {"Lb1": "<true>", "Lb0": "<false>", "13__nv_bfloat16": "<bf16>", "f": "<f32>"}
     usage, fn = {}, None
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             m = pattern.search(line)
-            fn = None if m is None else m.group(1) + (
-                "" if m.group(2) is None else ("<true>" if m.group(3) == "1" else "<false>"))
+            fn = None if m is None else m.group(1) + ("" if m.group(2) is None
+                                                      else args[m.group(3)])
             if fn is not None:
                 usage.setdefault(fn, {})
             continue
@@ -4865,6 +4873,9 @@ MOE_W_STD = 0.02  # the random Q40 weights' std (the f32 tensors' too)
 # the router's rows: a decode step at 8 lanes, a verify step at 8 lanes
 # (4 rows a lane), one 1,024-row prompt chunk (one lane)
 MOE_ROUTE_ROWS = (DECODE_M, VERIFY_M, 1024)
+# both router plans are timed over these rows (where they switch over)
+MOE_SWEEP_ROWS = (32, 48, 64, 96, 128, 256)
+MOE_TIME_CALLS = 20  # router calls captured back to back in one graph
 # rows whose top k + 1 router logits lie closer than this share of the
 # row's largest |logit| may take their experts in another order: the
 # kernel's f32 product sums in another order than cuBLAS's
@@ -4986,14 +4997,60 @@ def moe_route_compare(torch, cm, y, gate, k: int, label: str, ties: bool = False
             "rows_same_experts": int(same.sum()), "max_abs_err": err}
 
 
+def moe_route_bits_check(torch, cm) -> dict:
+    """A row's ``moe_route`` outputs are the same bits alone and inside 8,
+    32, TILE_MIN_ROWS - 1, TILE_MIN_ROWS and 1,024 random rows (the
+    cluster plan below the switch-over, tiles at and above it), at the
+    first, a middle and the last position, bf16 and f32, at Mixtral's
+    router; and under either plan forced at 1, 8 and 1,024 rows."""
+    dim, e, k = 4096, 8, 2
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        y, gate = _route_inputs(torch, 1024, dim, e, seed=19)
+        y = y.to(dtype)
+        probes = y[[5, 300, 1000]].clone()
+        alone = [[t.view(torch.int32) for t in cm.moe_route(p[None], gate, k)] for p in probes]
+        runs = []
+        for n in (8, 32, cm.TILE_MIN_ROWS - 1, cm.TILE_MIN_ROWS, 1024):
+            batch = y[:n].clone()
+            at = (0, n // 2, n - 1)
+            batch[list(at)] = probes
+            got = [t.view(torch.int32) for t in cm.moe_route(batch, gate, k)]
+            for i, pos in enumerate(at):
+                check(all(torch.equal(a[pos], b[0]) for a, b in zip(got, alone[i])),
+                      f"moe_route [{dtype}]: row {pos} of {n} differs from the row alone")
+            plan = cm.route_plan(n, dim, e, k, dtype, cm.n_sms(gate.device))
+            runs.append(f"{n}:{'cluster' if plan.cluster else 'tile'}")
+        for n in (1, 8, 1024):
+            for tile_min_rows in (1, 1 << 30):
+                plan = cm.route_plan(n, dim, e, k, dtype, cm.n_sms(gate.device),
+                                     tile_min_rows=tile_min_rows)
+                batch = y[:n].clone()
+                batch[n - 1] = probes[0]
+                got = [t.view(torch.int32) for t in cm.launch_plan(batch, gate, k, plan)]
+                check(all(torch.equal(a[n - 1], b[0]) for a, b in zip(got, alone[0])),
+                      f"moe_route [{dtype}]: {plan} differs from the row alone")
+                runs.append(f"{n}:{'cluster' if plan.cluster else 'tile'} forced")
+        out[str(dtype).removeprefix("torch.")] = runs
+    torch.cuda.synchronize()
+    return {"bits_equal": True, "runs": out}
+
+
 def moe_kernel_phase(torch, cm) -> dict:
     """``moe_route`` against its plain version at Mixtral's router (dim
     4096, 8 experts, 2 active) on N = 8, 32 and 1,024 bf16 rows, and on
-    rows with exact ties; each N timed in a CUDA graph beside the library
-    chain (the f32 product, ``torch.topk``, ``softmax``, ``scatter_``), the
-    plain version (eager) and the bound."""
+    rows with exact ties; a row's bits across N and plans
+    (``moe_route_bits_check``); each N timed (MOE_TIME_CALLS calls captured
+    back to back in one CUDA graph) beside the library chain (the f32
+    product, ``torch.topk``, ``softmax``, ``scatter_``), the plain version
+    (eager), the bound and the launch floor (a one-element op in the same
+    harness); and both plans forced over MOE_SWEEP_ROWS, where they switch
+    over."""
     dim, e, k = 4096, 8, 2
-    out = {"by_rows": {}, "ties": None}
+    reps = MOE_TIME_CALLS
+    out = {"by_rows": {}, "ties": None, "bits": moe_route_bits_check(torch, cm),
+           "cluster": cm.SLICES, "tile_min_rows": cm.TILE_MIN_ROWS,
+           "active_clusters": cm.active_clusters(torch.device("cuda"))}
     for n in MOE_ROUTE_ROWS:
         y, gate = _route_inputs(torch, n, dim, e, seed=n)
         cmp = moe_route_compare(torch, cm, y, gate, k, f"{n} rows")
@@ -5004,17 +5061,30 @@ def moe_kernel_phase(torch, cm) -> dict:
             return torch.zeros_like(logits).scatter_(-1, i, torch.softmax(v, dim=-1))
 
         bound_ms, bound_by = moe_route_bound(n, dim, e, k)
+        plan = cm.route_plan(n, dim, e, k, y.dtype, cm.n_sms(y.device))
         out["by_rows"][str(n)] = {
-            **cmp, "ms": graph_ms(torch, [lambda y=y, gate=gate: cm.moe_route(y, gate, k)],
-                                  reps=20),
-            "library_ms": graph_ms(torch, [library], reps=20),
+            **cmp, "ms": graph_ms(torch, [lambda y=y, gate=gate: cm.moe_route(y, gate, k)] * reps),
+            "library_ms": graph_ms(torch, [library] * reps),
             "plain_ms": eager_ms(torch, lambda y=y, gate=gate: cm.moe_route_plain(y, gate, k),
                                  10),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": "cluster" if plan.cluster else f"tiles of {plan.tile_rows}"}
     y, gate = _route_inputs(torch, 64, dim, e, seed=7, ties=True)
     out["ties"] = moe_route_compare(torch, cm, y, gate, 3, "ties", ties=True)
     check(out["ties"]["rows_same_experts"] == 64, "moe_route [ties]: the kernel's experts "
                                                   "differ from the plain version's")
+    one = torch.zeros(1, device="cuda")
+    out["launch_floor_ms"] = graph_ms(torch, [lambda: one.add_(1.0)] * reps)
+    sweep = {}
+    for n in MOE_SWEEP_ROWS:
+        y, gate = _route_inputs(torch, n, dim, e, seed=n + 1)
+        sweep[str(n)] = {}
+        for name, tile_min_rows in (("cluster", 1 << 30), ("tile", 1)):
+            plan = cm.route_plan(n, dim, e, k, y.dtype, cm.n_sms(y.device),
+                                 tile_min_rows=tile_min_rows)
+            sweep[str(n)][name] = graph_ms(
+                torch, [lambda y=y, gate=gate, plan=plan: cm.launch_plan(y, gate, k, plan)] * reps)
+    out["sweep_ms"] = sweep
     head = out["by_rows"][str(DECODE_M)]
     out.update({k_: head[k_] for k_ in ("ms", "library_ms", "plain_ms", "bound_ms",
                                          "bound_by")})
@@ -6208,11 +6278,15 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
             "library": "torch.matmul (f32) + torch.topk + torch.softmax + scatter_ in one "
                        "graph (topk's tie order is unspecified)",
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "by_rows": k["by_rows"],
+            "by_rows": k["by_rows"], "launch_floor_ms": k["launch_floor_ms"],
+            "bits_across_rows": k["bits"], "sweep_ms": k["sweep_ms"],
+            "cluster": k["cluster"], "active_clusters": k["active_clusters"],
+            "tile_min_rows": k["tile_min_rows"], "ptxas": geometry.get("moe_route"),
             "timed_as": f"one decode step's router call at {DECODE_M} lanes: {DECODE_M} bf16 "
                         "rows of 4096 over 8 experts, 2 active (Mixtral-8x7B): kernel and "
-                        "library chain in one CUDA graph each; plain eager; by_rows also "
-                        f"{VERIFY_M} (a verify step) and 1024 (a prompt chunk)",
+                        f"library chain, {MOE_TIME_CALLS} calls back to back in one CUDA graph "
+                        f"each; plain eager; by_rows also {VERIFY_M} (a verify step) and 1024 "
+                        "(a prompt chunk)",
             "launches_per_decode_step": st["launches_per_step"]["moe_route"],
             "launches_per_verify_step": st["verify"]["launches_per_step"]["moe_route"],
             "profiled_ms_per_decode_step": st["moe_route_ms_per_step"],
@@ -6264,12 +6338,15 @@ def main() -> int:
                  + lab.KERNELS)
         one_kernel_build = build_one_kernel(q, rc)
         grammar_ptxas = start_ptxas_report(q, cg.KERNEL_SOURCE)
+        moe_ptxas = start_ptxas_report(q, cm.KERNEL_SOURCE)
         try:
             libs = q.build_kernels(names)
         finally:
             one_kernel = one_kernel_launch(rc, one_kernel_build)
             grammar_usage = ptxas_usage(grammar_ptxas,
                                         ("mask_argmax_kernel", "grammar_next_kernel"))
+            moe_usage = ptxas_usage(moe_ptxas, ("moe_route_kernel_cluster",
+                                                "moe_route_kernel_tile"))
         log(f"kernel build: {time.perf_counter() - t0:.1f}s ({', '.join(names)})")
         geometry = {"q40_slab": kernel_geometry(torch, q, q.slab_info),
                     "q40_blockdot": kernel_geometry(torch, q, q.blockdot_info),
@@ -6286,6 +6363,12 @@ def main() -> int:
         log("grammar kernels (-Xptxas -v): " + json.dumps(geometry["grammar"]))
         check(all(u.get("spill_bytes", 0) == 0 for u in grammar_usage.values()),
               f"a grammar kernel spills registers: {grammar_usage}")
+        # the router's plans, each in its bf16 and f32 instantiation
+        geometry["moe_route"] = moe_usage
+        log("moe_route kernels (-Xptxas -v): " + json.dumps(moe_usage))
+        check(len(moe_usage) == 4 and all(u.get("spill_bytes", 0) == 0
+                                          for u in moe_usage.values()),
+              f"moe_route: not four instantiations, or one spills registers: {moe_usage}")
         for kernel, opcode in (("q40_blockdot", "HMMA"), ("q40_i8blockdot", "IMMA")):
             check(all(n == 0 for n in geometry[kernel]["spill_bytes_per_thread"].values()),
                   f"{kernel} spills registers")

@@ -1577,7 +1577,9 @@ def _route_close(got, want, logits, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,dim,e,k", [(1, 4096, 8, 2), (8, 4096, 8, 2), (32, 4096, 8, 2),
                                        (1024, 4096, 8, 2), (7, 64, 4, 2), (33, 64, 2, 1),
-                                       (5, 128, 16, 4), (3, 96, 40, 40)])
+                                       (5, 128, 16, 4), (3, 96, 40, 40), (70, 4096, 8, 2),
+                                       (2, 68, 6, 3), (9, 100, 300, 5), (1, 4096, 4096, 8),
+                                       (100, 96, 40, 40)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_moe_route_matches_plain(cuda, n, dim, e, k, dtype):
     from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
@@ -1593,6 +1595,73 @@ def test_moe_route_matches_plain(cuda, n, dim, e, k, dtype):
     logits = y.float() @ gate
     assert _route_close(got, want, logits, k) >= n // 2
     assert torch.equal((got[2] > 0).sum(-1), torch.full((n,), k, device=cuda))
+
+
+def _route_bits(out):
+    """A router call's three outputs as integers: bit equality."""
+    return [t.view(torch.int32) for t in out]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,e,k", [(4096, 8, 2), (96, 40, 40), (100, 6, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_route_row_bits_do_not_depend_on_n_or_plan(cuda, dim, e, k, dtype):
+    """A row's topw, topi and rw are the same bits alone and inside 8, 32,
+    TILE_MIN_ROWS - 1, TILE_MIN_ROWS and 1,024 random rows (the cluster
+    plan below the switch-over, tiles at and above it), at the first, a
+    middle and the last position, and under either plan forced at any N:
+    the dim alone sets the fold order."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    y, gate = _route_inputs(cuda, 1024, dim, e, dtype, seed=dim + e)
+    probes = y[[5, 300, 1000]].clone()
+    alone = [_route_bits(cuda_moe.moe_route(p[None], gate, k)) for p in probes]
+    ns = (8, 32, cuda_moe.TILE_MIN_ROWS - 1, cuda_moe.TILE_MIN_ROWS, 1024)
+    plans = {n: cuda_moe.route_plan(n, dim, e, k, dtype).cluster for n in ns}
+    assert plans[8] and not plans[1024]  # both sides of the switch-over
+    for n in ns:
+        batch = y[:n].clone()
+        at = (0, n // 2, n - 1)
+        batch[list(at)] = probes
+        got = _route_bits(cuda_moe.moe_route(batch, gate, k))
+        for i, pos in enumerate(at):
+            for a, b in zip(got, alone[i]):
+                assert torch.equal(a[pos], b[0]), f"row {pos} of {n} differs from alone"
+    for n in (1, 8, 1024):  # each plan forced
+        for tile_min_rows in (1, 1 << 30):
+            plan = cuda_moe.route_plan(n, dim, e, k, dtype, tile_min_rows=tile_min_rows)
+            batch = y[:n].clone()
+            batch[n - 1] = probes[0]
+            got = _route_bits(cuda_moe.launch_plan(batch, gate, k, plan))
+            for a, b in zip(got, alone[0]):
+                assert torch.equal(a[n - 1], b[0]), f"{plan} differs from alone"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_moe_route_refused_launches_raise(cuda, monkeypatch):
+    """A card that cannot schedule the cluster raises before any launch,
+    and a launch the kernel refuses (a slice length the dim does not set,
+    more tile rows than it holds) raises: nothing falls back to another
+    plan or to the plain version, and no launch is counted."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_moe
+
+    y, gate = _route_inputs(cuda, 4, 4096, 8, torch.bfloat16, seed=2)
+    before = dict(cuda_moe.COUNTS)
+    real = cuda_moe.load_kernel
+    monkeypatch.setattr(cuda_moe, "_active_clusters", {})
+    monkeypatch.setattr(cuda_moe, "load_kernel", lambda name, argtypes, symbol=None: (
+        (lambda: 0) if symbol == "moe_route_prepare" else real(name, argtypes, symbol)))
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        cuda_moe.moe_route(y, gate, 2)
+    monkeypatch.undo()
+    plan = cuda_moe.route_plan(4, 4096, 8, 2, torch.bfloat16)
+    bad = [cuda_moe.RoutePlan(plan.slice_len + cuda_moe.VEC, 0, 4, plan.smem_bytes),
+           cuda_moe.RoutePlan(plan.slice_len, cuda_moe.TILE_ROWS[torch.bfloat16] + 1, 1, 0)]
+    for p in bad:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cuda_moe.launch_plan(y, gate, 2, p)
+    assert cuda_moe.COUNTS == before
 
 
 @pytest.mark.gpu

@@ -10,10 +10,12 @@ function of (prompt, position). Here the scheduler runs the tiny model
 (packed Q40, the kernels' plain versions, exact f32 dot): a lane's bits do
 not depend on the other lanes or the lane count, so streams across a
 crash and a restart at other lanes are compared for byte equality, as
-there. Requests are throttled by a 10 ms sleep in their delta callback so
-that the simulated crash lands mid-stream. Every wait is bounded.
+there. A simulated crash lands mid-stream because the delta callback holds
+the scheduler thread on an event until it has landed; other requests are
+throttled by a 10 ms sleep in their delta callback. Every wait is bounded.
 """
 
+import itertools
 import json
 import struct
 import threading
@@ -43,6 +45,7 @@ from distributed_llama_multiusers_tpu_torch.runtime import (
     InferenceEngine,
     Request,
 )
+from distributed_llama_multiusers_tpu_torch.runtime import scheduler as t_scheduler
 from distributed_llama_multiusers_tpu_torch.runtime.scheduler import ensure_request_id_floor
 from distributed_llama_multiusers_tpu_torch.server import ApiServer
 from distributed_llama_multiusers_tpu_torch.serving import (
@@ -407,8 +410,24 @@ def test_scheduler_journals_resolved_seed_and_finish(loaded, tmp_path):
         journal.close()
     img = read_journal(p)
     e = img.entries[unseeded.id]
-    assert e.seed != 0 and e.finished and e.finish_reason == "length"
+    # the journaled finish is the one the client got: "length" after 4
+    # tokens, or "stop" where the random seed drew EOS first
+    assert e.finished and e.finish_reason == unseeded.finish_reason
+    assert e.finish_reason in ("length", "stop")
+    assert e.finish_reason == "stop" or len(unseeded.generated_tokens) == 4
     assert e.tokens == loaded[2].encode("no seed given")
+    # the journaled seed is the one the lane drew: seeded with it, the
+    # request gives the client's stream again
+    assert e.seed != 0
+    sched = _sched(loaded, n_lanes=2)
+    try:
+        replay = Request(prompt="no seed given", max_tokens=4, temperature=0.9, seed=e.seed)
+        sched.submit(replay)
+        replay.future.result(timeout=60)
+    finally:
+        sched.stop()
+    assert replay.generated_tokens == unseeded.generated_tokens
+    assert replay.finish_reason == unseeded.finish_reason
     assert cancelled.id not in img.entries
     assert img.incomplete() == []
 
@@ -488,32 +507,43 @@ def _run_reference(loaded, reqs):
 
 def _crash_run(loaded, journal, reqs, min_deltas=5):
     """Submit together, record the client's view, then die: detach the
-    journal (nothing after this reaches the disk) and stop. Returns the
-    views and each request's delivered index."""
+    journal (nothing after this reaches the disk) and stop. Once every
+    request has min_deltas deltas, the next delta holds the scheduler
+    thread on an event until the crash has landed, so no request runs on
+    to its end first however loaded the host is; the client sees nothing
+    after the crash. Returns the views and each request's delivered
+    index."""
     sched = _sched(loaded, journal=journal, n_lanes=4)
     pre = [[] for _ in reqs]
     delivered = [0] * len(reqs)
+    ready, crashed = threading.Event(), threading.Event()
 
     def cb(i, rq):
         def on_delta(d):
+            if crashed.is_set():
+                return  # the client died with the process
             pre[i].append((len(rq.generated_tokens), d))
             delivered[i] = len(rq.generated_tokens)
             journal.note_progress(rq.id, delivered[i])
-            time.sleep(THROTTLE_S)
+            if all(len(v) >= min_deltas for v in pre):
+                ready.set()
+                crashed.wait(60)
         return on_delta
 
     for i, rq in enumerate(reqs):
         rq.on_delta = cb(i, rq)
         sched.submit(rq)
-    deadline = time.monotonic() + 60
-    while time.monotonic() < deadline and any(len(v) < min_deltas for v in pre):
-        time.sleep(0.002)
-    sched.journal = None  # the kill: no finish record lands from here
-    journal.flush()
-    journal.close()
+    try:
+        assert ready.wait(60), "the requests did not reach min_deltas"
+        sched.journal = None  # the kill: no finish record lands from here
+        journal.flush()
+        journal.close()
+        at_crash = [len(rq.generated_tokens) for rq in reqs]
+    finally:
+        crashed.set()
     sched.stop()
-    assert all(not rq.generated_tokens or len(rq.generated_tokens) < rq.max_tokens
-               for rq in reqs), "a request finished before the crash"
+    assert all(n < rq.max_tokens for n, rq in zip(at_crash, reqs)), \
+        "a request finished before the crash"
     return pre, delivered
 
 
@@ -529,13 +559,23 @@ def _drain(relay, gen, last):
         out.append((last, text))
 
 
-def test_crash_recovery_streams_byte_identical(loaded, tmp_path):
+# the scheduler's draws for requests without a seed in the crash test:
+# distinct, and each one a seed under which "unseeded sampled" runs to its
+# 40 tokens (about one random draw in twenty stops within 5 deltas, before
+# the crash can land mid-stream); then fresh values
+CRASH_DRAWS = (11, 13, 14, 15, 17, 18, 19, 21)
+
+
+def test_crash_recovery_streams_byte_identical(loaded, tmp_path, monkeypatch):
     """Crash mid-stream with 4 requests on 4 lanes (2 greedy, 1 seeded, 1
     unseeded sampled), restart at HALF the lanes with recovery, reattach
     each client at its Last-Event-ID: every stream equals its
     uninterrupted run, none lost, none duplicated. The unseeded request
     replays its journaled draw: its stream from index 0 starts with what
-    its client saw before the crash."""
+    its client saw before the crash (every draw is a new value, so a
+    replay that drew again would part from it)."""
+    draws = itertools.chain(CRASH_DRAWS, itertools.count(1000))
+    monkeypatch.setattr(t_scheduler, "fresh_seed", lambda: next(draws))
     ref_streams = _run_reference(loaded, _reqs(3))
     p = str(tmp_path / "j.bin")
     journal = RequestJournal(p, progress_every=1, fsync=False)

@@ -309,6 +309,153 @@ def test_router_refuses_bad_shapes():
         cuda_moe.moe_route(y, torch.zeros(6, 4), 2)
 
 
+# -- the router kernel's launch plan (ops/cuda_moe.route_plan) ---------------
+# the kernel runs only on the card (tests/test_torch_gpu.py); what it is
+# launched with, and its fold order, are checked here
+
+ROUTE_DIMS = (1, 7, 64, 96, 100, 128, 4096, 5120, 14336)
+ROUTE_NS = (1, 8, 32, cuda_moe.TILE_MIN_ROWS - 1, cuda_moe.TILE_MIN_ROWS, 1024, 4096)
+
+
+def _cu_constant(name: str) -> int:
+    """An ``int`` constant of csrc/moe_route.cu (a literal or a product)."""
+    with open(cuda_moe.KERNEL_SOURCE) as f:
+        m = re.search(rf"constexpr int {name} = ([\d\s*]+);", f.read())
+    assert m, f"{name} not found in {cuda_moe.KERNEL_SOURCE}"
+    return int(np.prod([int(x) for x in m.group(1).split("*")]))
+
+
+@pytest.mark.parametrize("dim", ROUTE_DIMS)
+def test_route_slices_cover_the_dim_once_in_one_order(dim):
+    """The SLICES slices cover [0, dim) once, in increasing order, each
+    starting on a VEC boundary; the lanes' vectors cover each slice once;
+    and every plan at every N and dtype launches with the slice length the
+    dim sets (the kernel refuses any other), so a row's fold order is the
+    same at every N and under both plans."""
+    sl = cuda_moe.slices(dim)
+    length = cuda_moe.slice_len(dim)
+    assert len(sl) == cuda_moe.SLICES and length % cuda_moe.VEC == 0
+    assert length * cuda_moe.SLICES >= dim > (length - cuda_moe.VEC) * cuda_moe.SLICES
+    covered = np.zeros(dim, dtype=np.int64)
+    end = 0
+    for lo, hi in sl:
+        assert lo == end and (lo % cuda_moe.VEC == 0 or lo == dim) and hi >= lo
+        end = hi
+        covered[lo:hi] += 1
+        lanes = np.zeros(dim, dtype=np.int64)
+        for lane in range(cuda_moe.LANES):
+            vecs = cuda_moe.lane_vectors(lo, hi, lane)
+            assert [d0 for d0, _ in vecs] == sorted(d0 for d0, _ in vecs)
+            for d0, d1 in vecs:
+                assert d0 % cuda_moe.VEC == 0 and lo <= d0 < d1 <= hi
+                lanes[d0:d1] += 1
+        assert (lanes[lo:hi] == 1).all() and lanes.sum() == hi - lo
+    assert end == dim and (covered == 1).all()
+    for n in ROUTE_NS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for tile_min_rows in (1, cuda_moe.TILE_MIN_ROWS, 1 << 30):
+                plan = cuda_moe.route_plan(n, dim, 8, 2, dtype, tile_min_rows=tile_min_rows)
+                assert plan.slice_len == length
+
+
+@pytest.mark.parametrize("n_exp,k", [(8, 2), (40, 40), (6, 3), (256, 8), (257, 8),
+                                     (4096, 4096)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_plan_switches_over_and_fits(n_exp, k, dtype):
+    """The cluster plan below TILE_MIN_ROWS rows while rank 0's shared
+    memory holds the experts' slice sums (beside its warps' staged gate
+    quads), tiles otherwise; a tile holds at
+    most TILE_ROWS rows of the dtype, as many as spread the
+    rows over the card's SMs, within TILE_MAX_SMEM beside the warps' staged
+    gate quads, and the tiles cover the rows once."""
+    for n in ROUTE_NS:
+        plan = cuda_moe.route_plan(n, 4096, n_exp, k, dtype)
+        assert plan.cluster == (n < cuda_moe.TILE_MIN_ROWS
+                                and n_exp <= cuda_moe.CLUSTER_MAX_EXPERTS)
+        assert 0 < plan.smem_bytes <= cuda_moe.TILE_MAX_SMEM
+        if plan.cluster:
+            assert plan.blocks == n
+            assert plan.smem_bytes == (cuda_moe.CLUSTER_THREADS // 32 * cuda_moe.STAGE_FLOATS
+                                       + (cuda_moe.SLICES + 1) * n_exp) * 4
+            continue
+        rows = plan.tile_rows
+        assert 1 <= rows <= cuda_moe.TILE_ROWS[dtype]
+        assert (plan.blocks - 1) * rows < n <= plan.blocks * rows
+        assert rows <= max(1, -(-n // cuda_moe.H100_SMS))
+        chunk = min(n_exp, cuda_moe.EXPERT_CHUNK)
+        assert plan.smem_bytes == (cuda_moe.SLICES * cuda_moe.STAGE_FLOATS
+                                   + rows * (cuda_moe.SLICES * chunk + n_exp)) * 4
+    big = cuda_moe.route_plan(1024, 4096, 8, 2, dtype)
+    assert big.tile_rows == cuda_moe.TILE_ROWS[dtype]  # 1,024 rows fill the card
+
+
+@pytest.mark.parametrize("n,dim,n_exp,k,dtype", [
+    (0, 64, 8, 2, torch.bfloat16), (4, 0, 8, 2, torch.bfloat16), (4, 64, 8, 0, torch.float32),
+    (4, 64, 8, 9, torch.float32), (4, 64, 0, 1, torch.bfloat16),
+    (4, 64, cuda_moe.MAX_EXPERTS + 1, 2, torch.bfloat16), (4, 64, 8, 2, torch.float16)])
+def test_route_plan_refuses_what_the_kernel_cannot_take(n, dim, n_exp, k, dtype):
+    with pytest.raises(ValueError):
+        cuda_moe.route_plan(n, dim, n_exp, k, dtype)
+
+
+@pytest.mark.parametrize("name,cu_name", [
+    ("SLICES", "kSlices"), ("VEC", "kVec"), ("CLUSTER_THREADS", "kClusterThreads"),
+    ("CLUSTER_MAX_EXPERTS", "kClusterMaxExperts"), ("EXPERT_CHUNK", "kExpertChunk"),
+    ("MAX_EXPERTS", "kMaxExperts"), ("TILE_MAX_SMEM", "kTileMaxSmem")])
+def test_route_launch_constants_match_the_kernel(name, cu_name):
+    """The plan's constants are the kernel's (its launch refuses a plan
+    made with others)."""
+    assert getattr(cuda_moe, name) == _cu_constant(cu_name)
+    assert cuda_moe.TILE_ROWS == {torch.bfloat16: _cu_constant("kTileRowsBf16"),
+                                  torch.float32: _cu_constant("kTileRowsF32")}
+    assert cuda_moe.TILE_THREADS == cuda_moe.SLICES * cuda_moe.LANES
+    with open(cuda_moe.KERNEL_SOURCE) as f:
+        src = f.read()
+    # a tile warp's staged quad: a vector a lane, 4 floats a row, a pad of 4
+    # every VEC rows
+    assert "constexpr int kRound = 32 * kVec;" in src
+    assert "constexpr int kStage = (kRound + kRound / kVec) * 4;" in src
+    assert cuda_moe.STAGE_FLOATS == (32 * cuda_moe.VEC + 32 * cuda_moe.VEC // cuda_moe.VEC) * 4
+
+
+def _xor_tree(a: np.ndarray) -> np.ndarray:
+    """The plain xor tree over 32 lanes of a [32, 4] float32: at each
+    offset 16 .. 1 lane i adds lane i ^ off's value to its own."""
+    a = a.copy()
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[lanes ^ off]
+    return a
+
+
+def _quad_reduce(a: np.ndarray) -> np.ndarray:
+    """csrc/moe_route.cu's quad_reduce, lane by lane in float32: each lane's
+    result (expert (lane >> 3) & 3's sum)."""
+    lanes = np.arange(32)
+    b4, b3 = (lanes & 16) > 0, (lanes & 8) > 0
+    shfl = lambda v, off: v[lanes ^ off]  # noqa: E731
+    k0 = np.where(b4, a[:, 2], a[:, 0]) + shfl(np.where(b4, a[:, 0], a[:, 2]), 16)
+    k1 = np.where(b4, a[:, 3], a[:, 1]) + shfl(np.where(b4, a[:, 1], a[:, 3]), 16)
+    v = np.where(b3, k1, k0) + shfl(np.where(b3, k0, k1), 8)
+    for off in (4, 2, 1):
+        v = v + shfl(v, off)
+    return v
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_transposed_reduce_is_the_xor_tree_bit_for_bit(seed):
+    """The kernel's transposed warp reduce gives each expert the plain xor
+    tree's sum bit for bit (values of mixed magnitudes and signs, where
+    another tree would round differently), in lane 8j for expert j."""
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((32, 4)) * 10.0 ** rng.integers(-6, 6, (32, 4))).astype(np.float32)
+    want = _xor_tree(a)
+    got = _quad_reduce(a)
+    lanes = np.arange(32)
+    assert (got.view(np.int32) == want[lanes, (lanes >> 3) & 3].view(np.int32)).all()
+    assert [float(got[8 * j]) for j in range(4)] == [float(want[0, j]) for j in range(4)]
+
+
 # -- _moe_ffn and its dispatch ----------------------------------------------
 
 
