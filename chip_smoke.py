@@ -265,6 +265,24 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    warmup; TTFT, the hand-off's ms and the bundle's bytes printed; a live
    f8 session's bundle pushed to the bf16 replica r2 gets a typed 422
    (``page_bytes``) and leaves its pool as it was.
+4f. Pod (spawned before the f8 phase's servers, served after 4e): three
+   two-process pods on ``cuda:0``, each ``dllama_api`` as the root
+   (``--process-id 0``) beside ``dllama worker`` (``--process-id 1``), one
+   rank of ``--workers 2`` a process, the ring steps between them through
+   the windows (CUDA IPC memory, stream memory operations); the card's
+   compute mode must let them share it. The f32-wire pod and the
+   ``--buffer-float-type q80 --dequant auto`` pod each serve the tp2
+   passes' 4 concurrent requests: the bodies, the greedy text and the
+   concurrent texts equal the one-process tp2 pass of the same wire byte
+   for byte; ring_hop, the sampler, attention and grammar kernels launched
+   in the root (``/stats``) and in the worker (its ``worker_exit`` line);
+   the pipelined chain with fused admissions and verify steps, no flush,
+   no graph; root and worker launched ring_hop equally often; the eager
+   step the root timed at startup (``pod_step_*`` in ``/stats``: its ring
+   waits and their share) and the packet broadcast's µs printed; both
+   processes exit 0 on the root's SIGTERM. The third pod
+   (``--step-deadline 5``) loses its worker to SIGKILL mid-stream: its
+   root exits nonzero within the deadline plus 30 s.
 5. Kernel lab (run after phase 4c's kernels, while the models are
    written): the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
@@ -945,8 +963,8 @@ def build_one_kernel(q, rc):
     process and the library's path."""
     os.makedirs(q.build_dir(), exist_ok=True)
     path = os.path.join(q.build_dir(), "ring_hop_one_kernel.so")
-    cmd = [q._nvcc(), *q.NVCC_FLAGS, "-DRING_HOP_ONE_KERNEL", "-o", path,
-           os.path.join(ROOT, rc.KERNEL_SOURCE)]
+    cmd = [q._nvcc(), *q.NVCC_FLAGS, *q.NVCC_EXTRA_FLAGS.get(rc.KERNEL, ()),
+           "-DRING_HOP_ONE_KERNEL", "-o", path, os.path.join(ROOT, rc.KERNEL_SOURCE)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path
 
 
@@ -3225,6 +3243,7 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
     from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
     from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+    from distributed_llama_multiusers_tpu_torch.runtime.engine import parked_step_ms
 
     import numpy as np
 
@@ -3262,6 +3281,7 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
         graphs, engine.graphs = engine.graphs, None  # the eager bodies the graph captured
         try:
             eager = _measure_steps(torch, q, rc, cs, step, steps, f"{label}, eager")
+            parked = parked_step_ms(engine) if mesh is not None else None
         finally:
             engine.graphs = graphs
         n, n_layers = len(engine.devices), config.n_layers
@@ -3313,7 +3333,7 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
         out = {"mode": label, "dequant": mode, "ranks": [str(d) for d in engine.devices],
                "q80_wire": q80_wire, "lanes": lanes, "busy_lanes": busy,
                **graph, "eager": eager, "graphs": capture, "multi_replay": multi,
-               "verify": verify,
+               "verify": verify, "parked_eager_step_ms": parked,
                "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode,
                "prefill_logits": prefill_logits}
         del engine, graphs
@@ -5811,6 +5831,247 @@ def fleet_phase(model: str, tok: str, durability: dict, f8_paged: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4f: the pod (tensor parallelism across two processes on the card)
+# ---------------------------------------------------------------------------
+
+POD_DEVICE = "cuda:0"  # both processes of a pod share the host's first card
+POD_KILL_DEADLINE_S = 5.0  # --step-deadline of the pod whose worker is killed
+POD_KILL_DELTAS = 3  # deltas the stream holds before the kill
+
+
+class PodServer:
+    """A two-process pod on ``cuda:0``: ``dllama worker`` (process 1) and
+    ``dllama_api`` as its root (process 0, serving HTTP), each holding one
+    rank of ``--workers 2``, the ring steps between them through their
+    windows. The processes start at once; ``wait`` returns when the root is
+    healthy. ``stop`` SIGTERMs the root, checks that both exit 0 (the
+    root's drain stops the worker) and returns the root's log; ``kill``
+    ends both; ``worker_exit`` is the worker's counters as it logged them
+    at its exit. Serves ``serve_pass`` as a ``Server`` does."""
+
+    def __init__(self, model: str, tok: str, name: str, args=(), log_dir: str = OUT_DIR):
+        os.makedirs(log_dir, exist_ok=True)
+        self.name = name
+        port = _free_port()
+        self.base = f"http://127.0.0.1:{port}"
+        pod = ["--model", model, "--tokenizer", tok, "--workers", "2", "--device", POD_DEVICE,
+               "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "2", *args]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
+        env.pop("DLLAMA_DEQUANT", None)
+        self.log_path = os.path.join(log_dir, f"chip_smoke_pod_{name}_root.log")
+        self.worker_log_path = os.path.join(log_dir, f"chip_smoke_pod_{name}_worker.log")
+        self.t0 = time.perf_counter()
+        with open(self.worker_log_path, "w") as logf:
+            self.worker = subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.app.dllama", "worker", *pod, "--process-id", "1"],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.app.dllama_api", *pod, "--process-id", "0",
+                 "--host", "127.0.0.1", "--port", str(port)],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        self.startup_s = None
+
+    def wait(self, timeout: float = 900.0) -> "PodServer":
+        try:
+            while True:
+                for proc, what in ((self.proc, "root"), (self.worker, "worker")):
+                    check(proc.poll() is None, f"pod ({self.name}): the {what} exited with "
+                                               f"{proc.returncode}")
+                try:
+                    if _http(self.base + "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() - self.t0 < timeout, f"pod ({self.name}) not healthy")
+                time.sleep(0.1)
+        except BaseException:
+            self.tail()
+            self.kill()
+            raise
+        self.startup_s = time.perf_counter() - self.t0
+        return self
+
+    def stop(self) -> str:
+        self.proc.send_signal(signal.SIGTERM)
+        for proc, what in ((self.proc, "root"), (self.worker, "worker")):
+            try:
+                rc = proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"pod ({self.name}): the {what} did not exit after the "
+                                   "root's SIGTERM") from None
+            check(rc == 0, f"pod ({self.name}): the {what} exited {rc} after the root's SIGTERM")
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def worker_exit(self) -> dict:
+        with open(self.worker_log_path, errors="replace") as f:
+            lines = [ln for ln in f if ln.startswith('{"event": "worker_exit"')]
+        check(bool(lines), f"pod ({self.name}): the worker logged no exit counters")
+        return json.loads(lines[-1])
+
+    def tail(self) -> None:
+        for path in (self.log_path, self.worker_log_path):
+            with open(path, errors="replace") as f:
+                lines = f.readlines()[-30:]
+            print(f"--- last lines of {path}:\n" + "".join(lines), file=sys.stderr, flush=True)
+
+    def kill(self) -> None:
+        for proc in (self.proc, self.worker):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def pod_specs(devices: str) -> list:
+    """(pod name, the tp=2 pass it must equal, its dequant mode, its
+    arguments) of the two serving pods: the tp2 passes' modes and wires
+    (``tp_pass_specs``), one rank a process."""
+    out = []
+    for (name, mode, extra, _, _), pod in zip(tp_pass_specs(devices), ("pod", "pod-q80-auto")):
+        out.append((pod, name, mode, extra[4:]))  # past --workers 2 --device ...
+    return out
+
+
+def start_pods(torch, model: str, tok: str) -> tuple[dict, str]:
+    """The pod phase's three pods, spawned at once (they load and warm
+    beside the phases before theirs): the two serving pods and one with
+    ``--step-deadline`` whose worker the phase kills; and the card's compute
+    mode, which must let several processes share it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    check("Exclusive_Process" not in mode,
+          f"the card's compute mode is {mode}: a pod's two processes cannot share it")
+    devices = ",".join(str(d) for d in rank_devices(torch, 2))
+    pods = {name: PodServer(model, tok, name, pass_args(mode_, extra))
+            for name, _, mode_, extra in pod_specs(devices)}
+    pods["pod-kill"] = PodServer(model, tok, "pod-kill",
+                                 ("--step-deadline", str(POD_KILL_DEADLINE_S)))
+    return pods, mode
+
+
+def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict) -> dict:
+    """One serving pod: ``serve_pass``'s 4 concurrent requests and checks;
+    its streams equal the tp=2 pass ``tp`` of the same wire, byte for byte
+    (the bodies, the greedy text, the concurrent texts); the ring hop
+    launched in the root and in the worker; the serving paths ran (the
+    pipelined chain with fused admissions and verify steps, no flush, no
+    decode graph); the root's and the worker's ring_hop launches equal (the
+    same ring steps, nothing replayed outside the pass after the warmup's
+    counter reset); the eager step the root timed at startup and its ring
+    waits (``pod_step_*`` in ``/stats``), the packet broadcast's
+    microseconds."""
+    p = serve_pass(model, tok, mode, GEN_TOKENS, name=pod.name, extra_args=extra,
+                   srv=pod.wait(), extra=lambda base: json.loads(_http(base + "/stats")[1]))
+    stats = p.pop("extra")
+    step = {"step_ms": stats["pod_step_ms"], "wait_ms": stats["pod_step_wait_ms"],
+            "wait_share": stats["pod_step_wait_share"]}
+    worker = pod.worker_exit()
+    name = pod.name
+    check(p["mesh"] is not None and p["mesh"]["tp"] == 2 and p["mesh"]["processes"] == 2,
+          f"{name}: /stats mesh {p['mesh']}")
+    for key in ("bodies", "greedy_text", "concurrent_texts"):
+        check(p[key] == tp[key], f"{name}: {key} differs from the one-process {tp['mode']} "
+                                 f"pass:\n{p[key]!r}\n{tp[key]!r}")
+    check(p["ring_hop_launches"] > 0 and worker["ring_hop_launches"] == p["ring_hop_launches"],
+          f"{name}: ring_hop launches root {p['ring_hop_launches']}, worker "
+          f"{worker['ring_hop_launches']}")
+    check(p["decode_graphs"] == 0 and p["graphs_captured"] == 0,
+          f"{name}: {p['decode_graphs']} decode graphs on a pod")
+    check(p["pipeline_dispatches"] > 0 and p["fused_steps"] > 0 and p["pipeline_flushes"] == 0
+          and p["spec_pipelined_steps"] > 0,
+          f"{name}: pipelined {p['pipeline_dispatches']}, fused {p['fused_steps']}, flushes "
+          f"{p['pipeline_flushes']}, verify steps in the chain {p['spec_pipelined_steps']}")
+    for k in ("gumbel_sample_launches", "decode_attn_launches", "grammar_mask_argmax_launches",
+              "grammar_next_launches"):
+        check(p[k] > 0 and worker[k] > 0, f"{name}: {k} root {p[k]}, worker {worker[k]}")
+    for phrase in ("Pod root: control plane up", "no CUDA graphs on a pod",
+                   "Pod workers sent stop"):
+        check(phrase in p["log"], f"{name}: the root's log does not say {phrase!r}")
+    check(step["step_ms"] > 0 and 0 <= step["wait_share"] <= 1, f"{name}: pod step {step}")
+    p["pod"] = {"step_ms": step["step_ms"], "wait_ms": step["wait_ms"],
+                "wait_share": step["wait_share"],
+                "broadcast_us": stats["pod_broadcast_us"], "packets": stats["pod_packets"],
+                "ring_steps": stats["pod_ring_steps"], "root_ring_hop_launches":
+                p["ring_hop_launches"], "worker": {k: v for k, v in worker.items()
+                                                   if k not in ("event", "ts", "mono_s")}}
+    # the main path's launches: the root's /stats and the worker's own
+    for k in ("ring_hop_launches", "ring_hop_bytes", "gumbel_sample_launches",
+              "decode_attn_launches", "decode_attn_window_launches",
+              "grammar_mask_argmax_launches", "grammar_next_launches"):
+        p[k] += worker[k]
+    p["kernel_launches"] = {k: v + worker["kernel_launches"][k]
+                            for k, v in p["kernel_launches"].items()}
+    log(f"pod [{name}]: streams byte-identical to {tp['mode']}; ring_hop launches root "
+        f"{p['pod']['root_ring_hop_launches']}, worker {worker['ring_hop_launches']}; eager step "
+        f"(lanes parked, at the root's startup) {p['pod']['step_ms']:.2f} ms, ring waits "
+        f"{p['pod']['wait_ms']:.2f} ms ({p['pod']['wait_share'] * 100:.1f}%); "
+        f"{p['pod']['packets']} packets, "
+        f"{p['pod']['broadcast_us']} us a broadcast; {p['pod']['ring_steps']} ring steps")
+    return p
+
+
+def pod_kill_check(pod: PodServer) -> dict:
+    """A pod whose worker is SIGKILLed mid-stream: the root (served with
+    ``--step-deadline``) exits nonzero within the deadline plus 30 s."""
+    pod.wait()
+    body = {"prompt": "a" * SPEC_RUN, "max_tokens": 256, "temperature": 0, "stream": True}
+    req = urllib.request.Request(pod.base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    deltas, t_kill = 0, None
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            for line in r:
+                deltas += line.startswith(b"data: {")
+                if deltas == POD_KILL_DELTAS:
+                    pod.worker.kill()
+                    t_kill = time.perf_counter()
+                    pod.worker.wait(timeout=30)
+                    break
+    except OSError:
+        pass
+    check(t_kill is not None, f"pod-kill: the stream ended after {deltas} deltas")
+    try:
+        rc = pod.proc.wait(timeout=POD_KILL_DEADLINE_S + 30)
+    except subprocess.TimeoutExpired:
+        pod.tail()
+        raise SmokeFailure("pod-kill: the root still runs "
+                           f"{POD_KILL_DEADLINE_S + 30:.0f} s after its worker died") from None
+    waited = time.perf_counter() - t_kill
+    check(rc != 0, f"pod-kill: the root exited {rc} after its worker died")
+    out = {"root_exit": rc, "seconds_to_exit": waited, "deadline_s": POD_KILL_DEADLINE_S,
+           "deltas_before_kill": deltas}
+    log("pod worker kill: " + json.dumps(out))
+    return out
+
+
+def pod_phase(model: str, tok: str, tp_passes: list, pods: dict, compute_mode: str) -> dict:
+    """The pods started by ``start_pods``: each serving pod's pass
+    (``_pod_pass``) against the tp=2 pass of its wire, then the worker
+    kill."""
+    t0 = time.perf_counter()
+    out = {"compute_mode": compute_mode, "passes": []}
+    try:
+        by_mode = {p["mode"]: p for p in tp_passes}
+        for name, tp_name, mode, extra in pod_specs("cuda:0,cuda:0"):
+            out["passes"].append(_pod_pass(model, tok, pods[name], mode, extra, by_mode[tp_name]))
+        out["kill"] = pod_kill_check(pods["pod-kill"])
+    except BaseException:
+        for pod in pods.values():
+            if pod.proc.poll() is None or pod.worker.poll() is None:
+                pod.tail()
+        raise
+    finally:
+        for pod in pods.values():
+            pod.kill()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"pod phase: {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the kernel lab
 # ---------------------------------------------------------------------------
 
@@ -5969,7 +6230,7 @@ def lab_line_entries(lab, lab_result) -> list:
 def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, products,
                  geometry, sampler, lab=None, lab_result=None, timings=(),
                  forms=(), attn=None, row_plans=(), paged=None, grammar=None,
-                 moe=None) -> dict:
+                 moe=None, pod=None) -> dict:
     """One entry per kernel. ``launches`` is the main path's count: the
     serving passes, the CLI runs and the durability servers, each counting
     from the end of its warmup. For a Q40
@@ -6064,6 +6325,15 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
                                                    for b in tp},
         "payloads": hops,
         "forms": list(forms),
+        **({"pod": {
+            "note": "two processes on one card, one rank each: the receiver's launch reads "
+                    "the sender's window through CUDA IPC after a stream wait on its epoch "
+                    "word (launches above count both processes, the staging copies "
+                    "included)",
+            "by_pod": {p["mode"]: p["pod"] for p in pod["passes"]},
+            "one_process_parked_eager_step_ms": {b["mode"]: b.get("parked_eager_step_ms")
+                                                 for b in tp},
+            "worker_kill": pod["kill"]}} if pod is not None else {}),
     })
     out.append({
         "name": cs.KERNEL, "route": "cuda", "source": cs.KERNEL_SOURCE,
@@ -6314,6 +6584,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
     writers = {}
+    pods = {}
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -6433,12 +6704,16 @@ def main() -> int:
         paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
         attn["f8_step"] = paged["f8_step"]
         lap("paged")
+        # the pods load and warm while the f8, grammar and fleet phases run
+        pods, compute_mode = start_pods(torch, model, tok)
         f8 = f8_phase(model, tok)
         lap("f8")
         grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown, grammar_kernels)
         lap("grammar")
         fleet = fleet_phase(model, tok, durability, f8["passes"][1])
         lap("fleet")
+        pod = pod_phase(model, tok, passes, pods, compute_mode)
+        lap("pod")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
             "80GB HBM3 at 700 W: 349.1 tok/s, 4.76 ms)")
@@ -6454,14 +6729,17 @@ def main() -> int:
                        "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
                                                       if k != "log"}},
                        "grammar": grammar, "moe": moe,
+                       "pod": {**pod, "passes": [{k: v for k, v in p.items() if k != "log"}
+                                                 for p in pod["passes"]]},
                        "f8": [{k: v for k, v in p.items() if k != "log"} for p in f8["passes"]],
                        "fleet": fleet}, f, indent=1)
         log("phase seconds: " + json.dumps(seconds))
         main_path = (passes + [paged["serving"]] + cli + durability["passes"]
-                     + grammar["passes"] + [moe["serving"]] + f8["passes"] + fleet["passes"])
+                     + grammar["passes"] + [moe["serving"]] + f8["passes"] + fleet["passes"]
+                     + pod["passes"])
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
-                            row_plans, paged, grammar, moe)
+                            row_plans, paged, grammar, moe, pod)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6470,6 +6748,8 @@ def main() -> int:
             if writer.poll() is None:
                 writer.kill()
                 writer.wait()
+        for pod in pods.values():
+            pod.kill()
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(line))

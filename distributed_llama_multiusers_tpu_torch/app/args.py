@@ -24,8 +24,9 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
     if not api:
         p.add_argument("mode", choices=["inference", "chat", "worker", "train"],
                        help="run mode: inference (a prompt, then --steps tokens), "
-                            "chat (turns from stdin), worker (a multi-process "
-                            "mesh member; not ported yet, prints guidance), "
+                            "chat (turns from stdin), worker (a pod member: joins "
+                            "with --coordinator/--num-processes/--process-id and "
+                            "replays the root's engine calls until it stops), "
                             "train (not ported yet; refused)")
         p.add_argument("--prompt", default=None,
                        help="inference: the prompt (default 'Hello'); chat: the "
@@ -58,7 +59,9 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "it each time (cuda:0,cuda:0)")
     p.add_argument("--workers", nargs="*", default=None,
                    help="tensor-parallel ranks: a count (2 -> tp2) or a mesh "
-                        "spec (tp2); this port serves pure TP")
+                        "spec (tp2); this port serves pure TP. In a pod: the "
+                        "global mesh, --device naming this process's ranks' "
+                        "devices")
     p.add_argument("--ring-sync", default="on", choices=["on", "off"],
                    help="TP mesh: sync the wo/w2 outputs through the ring "
                         "reduce-scatter + all-gather interleaved with the "
@@ -268,6 +271,17 @@ def build_parser(prog: str, api: bool | None = None) -> argparse.ArgumentParser:
                         "loadable) to this path when the server drains; the "
                         "live ring is always at GET /trace and metrics at GET "
                         "/metrics")
+    # a pod (parallel/multihost.py): processes of one host, each holding
+    # tp / N ranks of the --workers mesh on the devices --device names
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's bootstrap store for a pod "
+                        "(DLLAMA_COORDINATOR); with --num-processes and "
+                        "--process-id. --workers names the global mesh")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes in the pod (DLLAMA_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index in the pod, 0 = the root "
+                        "(DLLAMA_PROCESS_ID)")
     p.add_argument("--port", type=int, default=9990)
     p.add_argument("--host", default="0.0.0.0")
     # the JAX package's command line, accepted and ignored: the server

@@ -6,6 +6,9 @@
         [--temperature 0] [--benchmark] [--dequant auto] [--workers 2]
     python -m distributed_llama_multiusers_tpu_torch.app.dllama chat \\
         --model m.m --tokenizer t.t [--chat-template llama3]
+    python -m distributed_llama_multiusers_tpu_torch.app.dllama worker \\
+        --model m.m --tokenizer t.t --workers 2 --device cuda:0 \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
 
 - inference: prompt evaluation, then up to ``--steps`` tokens, with the
   per-token Pred readout under ``--benchmark`` and the Evaluation /
@@ -13,9 +16,11 @@
 - chat: turns read from stdin, rendered through the chat template, each
   reply streamed through the stop-string detector; the position carries
   across turns until the context window is full;
-- worker: the JAX package joins a multi-process pod here; the port runs
-  one process (``--workers N`` shards over this host's cards) and prints
-  that guidance.
+- worker: a pod member (parallel/multihost.py): joins the pod, loads the
+  model file itself and replays the root's engine calls until it stops;
+  ``inference`` (and ``dllama_api``) with the same pod flags and
+  ``--process-id 0`` is the root. Without pod flags it says there is no
+  pod to join.
 
 Greedy runs (``--temperature 0``) decode through ``SpecStream``:
 prompt-lookup speculation (unless ``--no-spec``) and, where no draft hits,
@@ -27,6 +32,7 @@ decode, verify and multi-step bodies captured as CUDA graphs at startup.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -36,7 +42,7 @@ from ..tokenizer import (ChatItem, EosDetector, EosResult, Sampler, TokenizerCha
                          chat_generator_for)
 from ..utils.seeds import fresh_seed
 from .args import build_parser
-from .runtime_setup import load_stack, log, warm_engine, warmup_log
+from .runtime_setup import load_stack, log, refuse, warm_engine, warmup_log
 
 MULTI_H = 8  # the greedy stream's multi-step horizon where no draft hits
 
@@ -76,6 +82,7 @@ def run_inference(args) -> None:
         # --max-seq-len only clamps down, so it is not the remedy
         log("🚫", f"Prompt ({len(tokens)} tokens) does not fit the context "
             f"window ({config.seq_len}); shorten the prompt")
+        _stop_workers(engine)
         raise SystemExit(2)
     # a fixed default seed keeps one-shot runs reproducible; `is not None`:
     # --seed 0 is a seed
@@ -136,9 +143,17 @@ def run_inference(args) -> None:
                 f"{m['device_busy_ms']:.2f} ms device, "
                 f"Sync {m['sync_ms']:.2f} ms ({m['sync_frac'] * 100:.1f}% "
                 f"of device, {m['source']})")
-        else:
+        elif m.get("step_ms") is not None:
             log("⏱", f"Measured/step: {m['step_ms']:.2f} ms wall "
                 "(sync split unavailable: the profiler recorded no device time)")
+    _stop_workers(engine)
+
+
+def _stop_workers(engine) -> None:
+    """A pod root's last word: the workers leave their replay loops."""
+    stop = getattr(engine, "stop_workers", None)
+    if stop is not None:
+        stop()
 
 
 def run_chat(args) -> None:
@@ -159,6 +174,7 @@ def run_chat(args) -> None:
             user = input("\n> ")
         except EOFError:
             print()
+            _stop_workers(engine)
             return
         items = []
         if first and args.prompt:
@@ -170,6 +186,7 @@ def run_chat(args) -> None:
         tokens = tokenizer.encode(chat.content, add_bos=(pos == 0))
         if pos + len(tokens) >= config.seq_len:
             log("🚫", "Context window full")
+            _stop_workers(engine)
             return
         spec.extend_history(tokens)
         logits, greedy, pos = engine.prefill(0, tokens, start_pos=pos)
@@ -204,13 +221,44 @@ def run_chat(args) -> None:
 
 
 def run_worker(args) -> None:
-    """The JAX package's pod worker. The port runs one process: a host's
-    cards join through ``--workers N`` (multi-process and multi-host tensor
-    parallelism are ROADMAP A7)."""
-    log("⭕", "Single process: no pod to join (multi-process workers are not "
-              "ported yet).")
-    log("⭕", "This host's cards need no worker: shard with dllama inference "
-              "--workers N ...")
+    """Join the pod and replay the root's engine calls until it sends stop
+    (the reference's runWorkerApp, src/app.cpp:405-464; the JAX package's
+    ``run_worker``). Launch, one host, two processes on one card::
+
+        root:   dllama_api (or dllama inference) --coordinator 127.0.0.1:29500 \\
+                    --num-processes 2 --process-id 0 --workers 2 --device cuda:0 ...
+        worker: dllama worker --coordinator 127.0.0.1:29500 --num-processes 2 \\
+                    --process-id 1 --workers 2 --device cuda:0 ...
+
+    Every process loads the same model file and takes the same serving
+    flags (lanes, pipeline depth, speculation); ``--workers`` is the global
+    mesh. Exits 0 on the root's stop, nonzero when the pod is lost."""
+    from ..ops import all_kernel_counts
+    from ..parallel.multihost import worker_serve
+    from ..telemetry.logs import log_event
+
+    if not (args.coordinator or os.environ.get("DLLAMA_COORDINATOR")):
+        log("⭕", "Single process: no pod to join (pass --coordinator, --num-processes "
+                  "and --process-id).")
+        log("⭕", "This host's cards need no worker to share one process: shard with "
+                  "dllama inference --workers N ...")
+        return
+    if not (args.model and args.tokenizer):
+        refuse("--model and --tokenizer are required")
+    _, _, _, engine = load_stack(args)
+    plane = getattr(engine, "control_plane", None)
+    if plane is None:
+        refuse("dllama worker runs as --process-id 1 or above; process 0 is the root "
+               "(dllama_api or dllama inference)")
+    log("⭕", "Worker ready; replaying the root's engine calls")
+    worker_serve(engine, plane, log=lambda m: log("⭕", m))
+    counts = all_kernel_counts()
+    log("⭕", f"Root sent stop; worker exiting (ring_hop launches "
+              f"{counts['ring_hop_launches']}, plain calls {counts['ring_hop_plain_calls']}, "
+              f"bytes {counts['ring_hop_bytes']}; packets {plane.stats()['pod_packets']})")
+    # the worker serves no /stats: its counters since warmup, as one line
+    log_event("worker_exit", **counts, **plane.stats(), **engine.pod_stats())
+    engine.release_pod()
 
 
 def main(argv=None) -> None:

@@ -22,6 +22,11 @@ and ``Last-Event-ID``.
 In a fleet (``app/dllama_router.py``) ``--replica-id`` names the replica on
 every response and ``--role prefill|decode|mixed`` rides its ``/load``;
 ``--kv-dtype f8`` stores the KV cache in e4m3, half of bf16's bytes.
+
+As a pod's root (``--coordinator H:P --num-processes N --process-id 0
+--workers tp``, beside ``dllama worker`` processes with the same flags and
+their own ids) it serves HTTP while every worker replays its engine calls;
+the drain ends with ``OP_STOP``, so the workers exit 0 too.
 """
 
 from __future__ import annotations
@@ -90,6 +95,12 @@ def main(argv=None) -> None:
                 recovery.stop()  # no new replays into a draining server
             clean = scheduler.drain(timeout=30.0)
             log("⭐", "Drained" if clean else "Drain window passed; cancelled the rest")
+            stop_workers = getattr(engine, "stop_workers", None)
+            if stop_workers is not None and scheduler._thread is None:
+                # a pod root whose loop has stopped: no broadcast can race
+                # this one
+                stop_workers()
+                log("⭕", "Pod workers sent stop")
         finally:
             httpd.shutdown()
             httpd.server_close()

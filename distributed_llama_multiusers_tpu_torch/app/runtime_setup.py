@@ -1,9 +1,11 @@
-"""Model/engine bootstrapping for the entry points: header -> tokenizer ->
-weights on the device (or sharded over a tensor-parallel mesh) -> engine ->
-warmed engine (``dllama``) or warmed scheduler (``dllama-api``)."""
+"""Model/engine bootstrapping for the entry points: (a pod's join) ->
+header -> tokenizer -> weights on the device (or sharded over a
+tensor-parallel mesh) -> engine -> warmed engine (``dllama``) or warmed
+scheduler (``dllama-api``)."""
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -11,10 +13,12 @@ import torch
 from ..formats import load_model_header
 from ..models import load_params_from_m
 from ..models.loader import load_params_from_m_quantized
-from ..ops import cuda_attn, cuda_grammar, cuda_moe, cuda_q40, cuda_sample, ring_collective
+from ..ops import cuda_q40, reset_kernel_counts
 from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
+from ..parallel.multihost import (ControlPlane, RootControlEngine, maybe_initialize_distributed,
+                                  pod_hostnames, requested_pod)
 from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
@@ -30,14 +34,55 @@ def log(emoji: str, msg: str) -> None:
     print(f"{emoji} {msg}", flush=True)
 
 
+def refuse(msg: str) -> None:
+    print(f"error: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(2)
+
+
+def join_pod(args) -> tuple[int, int]:
+    """Join the pod where ``--coordinator`` (or ``DLLAMA_COORDINATOR``) asks
+    for one, before anything touches a device; refuse (exit 2) what a pod
+    does not serve yet: the flags before joining, processes on different
+    hosts after. Returns (process index, process count)."""
+    req = requested_pod(args)
+    if req is None or req[1] == 1:
+        return 0, 1
+    _, n_proc, pid = req
+    plan = parse_mesh_spec(args.workers)
+    if plan is None or plan.n_devices <= 1:
+        refuse("a pod needs a --workers mesh spec spanning the global device set")
+    if plan.tp % n_proc:
+        refuse(f"--workers tp{plan.tp} does not split over {n_proc} processes")
+    if getattr(args, "paged_kv", "off") == "on":
+        refuse("--paged-kv on is not served on a pod yet (its table, page-import and swap "
+               "ops: ROADMAP A7); drop it or run one process")
+    if getattr(args, "role", "mixed") != "mixed":
+        refuse(f"--role {args.role} (disaggregated prefill) is not served on a pod yet "
+               "(ROADMAP A7)")
+    maybe_initialize_distributed(args)
+    hosts = pod_hostnames()
+    if len(set(hosts)) > 1:
+        refuse(f"the pod's processes run on different hosts ({', '.join(hosts)}): the "
+               "cross-host data plane is not ported yet (ROADMAP A7)")
+    return pid, n_proc
+
+
 def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     """Returns (config, params, tokenizer, engine) on ``args.device``; with
     ``--workers N`` the params are the per-rank shards of a tp=N mesh. The
     paged KV flags apply to a serving engine (the scheduler admits its
-    lanes' pages); the CLI's (``serving`` False) keeps contiguous planes."""
+    lanes' pages); the CLI's (``serving`` False) keeps contiguous planes.
+
+    A pod (``--coordinator``): the process joins first; each loads the
+    model file itself and keeps its own ranks' shards (``--device`` names
+    their devices). Process 0's engine comes back wrapped in
+    ``RootControlEngine`` (every call broadcast to the workers first); a
+    worker's carries ``control_plane`` for ``worker_serve``. Every process
+    takes ``--max-lanes`` lanes (``n_lanes`` applies to one process)."""
+    pid, n_proc = join_pod(args)
     plan = parse_mesh_spec(args.workers)
     if plan is not None and plan.n_devices > 1:
-        devices = mesh_devices(args.device, plan.n_devices)
+        devices = mesh_devices(args.device, plan.n_devices // n_proc)
         device = devices[0]
     else:
         plan = None
@@ -72,11 +117,14 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     mesh = None
     if plan is not None:
         validate_mesh_for_config(config, plan)
-        mesh = make_mesh(plan, devices)
+        mesh = make_mesh(plan, devices, process_index=pid, num_processes=n_proc)
         params = shard_params(params, mesh)
         log("⭕", f"Mesh: dp={plan.dp} pp={plan.pp} tp={plan.tp} sp={plan.sp} "
                   f"ep={plan.ep} over {plan.n_devices} devices "
-                  f"({','.join(str(d) for d in mesh.devices)})")
+                  + (f"({','.join(str(d) for d in mesh.devices)})" if n_proc == 1 else
+                     f"in {n_proc} processes (this one: ranks {mesh.local_ranks.start}.."
+                     f"{mesh.local_ranks.stop - 1} on "
+                     f"{','.join(str(d) for d in mesh.devices)})"))
     log("💿", f"Weights loaded in {time.perf_counter() - t0:.1f}s")
 
     # the dequant mode is set before anything runs
@@ -114,7 +162,8 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     # context a card holds against bf16
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "f8": torch.float8_e4m3fn, "auto": None}[args.kv_dtype]
-    engine = InferenceEngine(config, params, n_lanes=n_lanes or args.max_lanes,
+    engine = InferenceEngine(config, params,
+                             n_lanes=(n_lanes if n_proc == 1 else None) or args.max_lanes,
                              cache_dtype=cache_dtype, device=device, mesh=mesh,
                              emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
                              ring_sync=ring_sync,
@@ -147,6 +196,19 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                             tokenizer.eos_token_ids)
         log("🧩", "Structured output: json_object / json_schema enabled "
                   "(--grammar off disables)")
+    if n_proc > 1:
+        # a slot fits the largest prompt chunk, every per-lane vector and
+        # the in-chain drafts (ControlPlane's sizing)
+        plane = ControlPlane(engine.n_lanes, chunk=engine.prefill_buckets[-1], fatal=pid == 0)
+        log("⭕", f"Pod: {n_proc} processes, ring steps across them through per-rank "
+                  f"windows ({engine.pod.slot_bytes // 1024} KiB slots); decode families "
+                  "run eagerly (no CUDA graphs on a pod: ROADMAP A7)")
+        if pid == 0:
+            log("⭕", f"Pod root: control plane up ({plane.chunk}-word slots)")
+            engine = RootControlEngine(engine, plane)
+        else:
+            log("⭕", f"Pod worker {pid}/{n_proc}")
+            engine.control_plane = plane
     return config, params, tokenizer, engine
 
 
@@ -177,12 +239,9 @@ def warm_engine(engine, spec: bool, multi_step: int, pipeline: bool = True) -> f
     if engine.device.type == "cuda":
         for dev in dict.fromkeys(engine.devices):
             torch.cuda.synchronize(dev)
-    cuda_q40.reset_counts()
-    ring_collective.reset_counts()
-    cuda_sample.reset_counts()
-    cuda_attn.reset_counts()
-    cuda_grammar.reset_counts()
-    cuda_moe.reset_counts()
+    reset_kernel_counts()
+    if getattr(engine, "pod", None) is not None:
+        engine.pod.reset_stats()
     if engine.graphs is not None:
         engine.graphs.mark_warm()
     return time.perf_counter() - t0
@@ -232,6 +291,9 @@ def make_scheduler(engine, tokenizer, args=None) -> ContinuousBatchingScheduler:
     if pool is not None:
         qos_kw = {"cost": page_cost(pool.page_size),
                   "quantum": max(1.0, 128.0 / pool.page_size)}
+    # a pod root's watchdog ends the process on a trip: a dead worker
+    # leaves the root in a ring step that never completes
+    overrides["watchdog_fatal"] = isinstance(engine, RootControlEngine)
     sched = ContinuousBatchingScheduler(engine, tokenizer,
                                         speculative=not getattr(args, "no_spec", False),
                                         queue_=QosQueue(capacity=max_queue, **qos_kw),

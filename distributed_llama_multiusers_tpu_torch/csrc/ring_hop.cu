@@ -51,9 +51,27 @@
 //   32-bit index math and one 64-bit row offset per row: one unit a thread,
 //   or, where that grid would be too large to launch as a dependent, four,
 //   all loaded before any is stored.
+//
+// Across processes (a pod: parallel/multihost.py, parallel/window.py) the
+// sender's tensor is not in the receiver's address space. Each rank then
+// owns one window, a device allocation made at startup and exported with
+// cudaIpcGetMemHandle; every other process of the host opens it
+// (ring_window_open). A sender stages a step's sources in a slot of its own
+// window (this kernel, a copy segment) and the receiver's launch pulls from
+// that slot through the opened pointer: the same kernel, whatever address
+// the source has. The DMA semaphores become 32-bit epoch words in the
+// windows, written and waited on by stream memory operations
+// (cuStreamWriteValue32 / cuStreamWaitValue32, which hold no SM while they
+// wait): the sender writes "slot s holds epoch e" into the receiver's window
+// after the staging copy, the receiver's stream waits for it before the
+// pull and then writes "consumed e" into the sender's window, and the
+// sender waits for that before it stages into the slot again.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -412,4 +430,111 @@ extern "C" int ring_hop_enable_peer(int device, int peer) {
   }
   const cudaError_t back = cudaSetDevice(prev);
   return (int)(e != cudaSuccess ? e : back);
+}
+
+// ---------------------------------------------------------------------------
+// Windows across processes
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Runs `fn` with `device` current and puts the thread's device back.
+template <typename F>
+cudaError_t on_device(int device, F fn) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return e;
+  e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  e = fn();
+  const cudaError_t back = cudaSetDevice(prev);
+  return e != cudaSuccess ? e : back;
+}
+
+// The driver's stream memory operations, looked up in libcuda at first use
+// (no link against the driver library: the build needs only the toolkit).
+typedef CUresult (*StreamValueFn)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
+StreamValueFn g_wait_value = nullptr;
+StreamValueFn g_write_value = nullptr;
+
+StreamValueFn driver_symbol(void* lib, const char* v2, const char* v1) {
+  void* f = dlsym(lib, v2);
+  return reinterpret_cast<StreamValueFn>(f != nullptr ? f : dlsym(lib, v1));
+}
+
+int load_stream_ops() {
+  if (g_wait_value != nullptr && g_write_value != nullptr) return 0;
+  void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+  if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+  if (lib == nullptr) return (int)cudaErrorSharedObjectInitFailed;
+  g_wait_value = driver_symbol(lib, "cuStreamWaitValue32_v2", "cuStreamWaitValue32");
+  g_write_value = driver_symbol(lib, "cuStreamWriteValue32_v2", "cuStreamWriteValue32");
+  return g_wait_value != nullptr && g_write_value != nullptr
+             ? 0
+             : (int)cudaErrorSymbolNotFound;
+}
+
+}  // namespace
+
+// Allocates `bytes` of zeroed device memory on `device` for a rank's window
+// and writes its 64-byte IPC handle to `handle`. Returns the CUDA error.
+extern "C" int ring_window_alloc(int device, long long bytes, void** ptr, void* handle) {
+  if (ptr == nullptr || handle == nullptr || bytes <= 0) return (int)cudaErrorInvalidValue;
+  *ptr = nullptr;
+  return (int)on_device(device, [&]() {
+    cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+    if (e != cudaSuccess) return e;
+    e = cudaMemset(*ptr, 0, (size_t)bytes);
+    if (e != cudaSuccess) return e;
+    cudaIpcMemHandle_t h;
+    e = cudaIpcGetMemHandle(&h, *ptr);
+    if (e == cudaSuccess) memcpy(handle, &h, sizeof(h));
+    return e;
+  });
+}
+
+// Opens another process's window (its 64-byte handle) on `device`; peer
+// access is enabled lazily where the window lives on another card.
+extern "C" int ring_window_open(int device, const void* handle, void** ptr) {
+  if (ptr == nullptr || handle == nullptr) return (int)cudaErrorInvalidValue;
+  *ptr = nullptr;
+  return (int)on_device(device, [&]() {
+    cudaIpcMemHandle_t h;
+    memcpy(&h, handle, sizeof(h));
+    return cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  });
+}
+
+// Closes a window opened with ring_window_open, or frees one's own.
+extern "C" int ring_window_release(int device, void* ptr, int own) {
+  return (int)on_device(device, [&]() { return own ? cudaFree(ptr) : cudaIpcCloseMemHandle(ptr); });
+}
+
+// Copies `n` 32-bit words from host memory into a window (its epoch words'
+// first values) and waits for the copy.
+extern "C" int ring_window_put(int device, void* dst, const unsigned int* src, int n) {
+  return (int)on_device(device, [&]() {
+    return cudaMemcpy(dst, src, sizeof(unsigned int) * (size_t)n, cudaMemcpyHostToDevice);
+  });
+}
+
+// Enqueues on `stream` a wait until the 32-bit word at `addr` (device
+// memory of this process's window) equals `value`; later work on the
+// stream starts after it. Holds no SM while it waits.
+extern "C" int ring_wait_value(void* stream, void* addr, unsigned int value) {
+  const int e = load_stream_ops();
+  if (e != 0) return e;
+  return (int)g_wait_value(reinterpret_cast<CUstream>(stream),
+                           reinterpret_cast<CUdeviceptr>(addr), value, CU_STREAM_WAIT_VALUE_EQ);
+}
+
+// Enqueues on `stream` a write of `value` to the 32-bit word at `addr` (a
+// window, possibly another process's), after a memory barrier: the work
+// before it on the stream is visible wherever the word is seen.
+extern "C" int ring_write_value(void* stream, void* addr, unsigned int value) {
+  const int e = load_stream_ops();
+  if (e != 0) return e;
+  return (int)g_write_value(reinterpret_cast<CUstream>(stream),
+                            reinterpret_cast<CUdeviceptr>(addr), value,
+                            CU_STREAM_WRITE_VALUE_DEFAULT);
 }

@@ -36,13 +36,18 @@ Mixtral family): each layer's FFN is E gated experts behind a router
 router runs as one kernel a layer (``ops/cuda_moe.moe_route``); the experts
 take the JAX package's dispatch (``_moe_ffn``).
 
-Tensor parallelism (``mesh``): one process drives every rank, as the JAX
-package's single controller does. Each layer runs rank by rank on local
-shards (head-sharded attention, row-sliced wq/wk/wv/w1/w3), the replicated
-parts (embedding, norms, RoPE, the router) on every rank; the wo/w2 outputs
-sync through the ring collectives (ops/ring_collective.py), an MoE layer's
-routed partials through one f32 ring all-reduce, and the logits shards
-gather onto rank 0.
+Tensor parallelism (``mesh``): one process drives its ranks, every rank as
+the JAX package's single controller does, or in a pod
+(parallel/multihost.py) the block of ranks it holds. Each layer runs rank by
+rank on local shards (head-sharded attention, row-sliced wq/wk/wv/w1/w3),
+the replicated parts (embedding, norms, RoPE, the router) on every rank; the
+wo/w2 outputs sync through the ring collectives (ops/ring_collective.py,
+across processes through the pod's windows), an MoE layer's routed partials
+through one f32 ring all-reduce, and the logits shards gather onto every
+rank. The caller gets the first held rank's copy: in a pod each process
+holds the whole logits, so the sampler, the grammar mask and the pipelined
+carry run identically in every process (the JAX package's replicated
+outputs).
 """
 
 from __future__ import annotations
@@ -67,7 +72,9 @@ from ..ops.linear import matmul, shared_q80_acts
 from ..ops.norm import rms_norm
 from ..ops.ring_collective import (
     chunk_d_out,
+    held,
     local_matmul,
+    per_rank,
     ring_all_gather,
     ring_all_reduce,
     ring_sync_engages,
@@ -371,17 +378,22 @@ def llama_forward(
     output after its all-reduce).
 
     ``mesh`` (parallel/mesh.Mesh, pure TP): ``params`` and ``cache`` are the
-    per-rank lists of parallel/sharding.py; the logits come back on rank 0's
-    device. The wo/w2 outputs sync through the ring (``ring_sync``, the
+    per-rank lists of parallel/sharding.py (this process's ranks in a pod);
+    the logits come back on the first held rank's device. The wo/w2 outputs sync through the ring (``ring_sync``, the
     default) with the f32 wire, or the Q80 wire when ``q80_sync`` engages
     (parallel/collectives.q80_sync_engages); with ``ring_sync`` off, through
     ``q80_sync_matmul`` when q80 engages, else a ring all-reduce of the
     local partials."""
     b, t = tokens.shape
     cfg = config
-    ranks = [params] if mesh is None else list(params)
-    caches = [cache] if mesh is None else list(cache)
-    n = len(ranks)
+    # per-rank lists over every global rank, None where another process of
+    # a pod holds it
+    n = 1 if mesh is None else mesh.tp
+    ranks, caches = [None] * n, [None] * n
+    for i, r in enumerate([0] if mesh is None else mesh.local_ranks):
+        ranks[r] = params if mesh is None else params[i]
+        caches[r] = cache if mesh is None else cache[i]
+    first = held(ranks)[0]
     n_heads, n_kv, hd = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_size
     eps = cfg.norm_epsilon
     act_fn = silu if cfg.hidden_act == HiddenAct.SILU else gelu
@@ -402,59 +414,63 @@ def llama_forward(
         """A row-parallel (col-sliced) wo/w2 product and its TP sync."""
         if mesh is None:
             return [maybe_qdq(matmul(ys[0], ws[0]))]
-        if use_ring_sync and ring_sync_supported(chunk_d_out(ws[0]), n, use_q80_sync):
+        if use_ring_sync and ring_sync_supported(chunk_d_out(held(ws)[0]), n, use_q80_sync):
             out = ring_sync_matmul(ys, ws, q80_wire=use_q80_sync)
             # the Q80 wire quantizes on the wire; the f32 wire keeps the
             # output-side cast
-            return out if use_q80_sync else [maybe_qdq(o) for o in out]
+            return out if use_q80_sync else per_rank(maybe_qdq, out)
         if use_q80_sync:
             return q80_sync_matmul(ys, ws)
-        parts = ring_all_reduce([local_matmul(y, w) for y, w in zip(ys, ws)])
-        return [maybe_qdq(o) for o in parts]
+        return per_rank(maybe_qdq, ring_all_reduce(per_rank(local_matmul, ys, ws)))
+
+    def each(fn) -> list:
+        """``fn(r)`` for each held rank r, None for the others."""
+        return [None if ranks[r] is None else fn(r) for r in range(n)]
 
     # packed weights: one activation-operand build feeds wq/wk/wv, one w1/w3
-    share = isinstance(ranks[0].layers.wq, PackedQ40)
+    share = isinstance(first.layers.wq, PackedQ40)
     share_q80 = shared_q80_acts if share else (lambda y: y)
     group = n_heads // n_kv
     scale = 1.0 / float(hd) ** 0.5
 
     # per rank: its tokens, positions and masks on its own device
-    devs = [p.device for p in ranks]
-    poss = [positions.to(d) for d in devs]
-    xs = [p.embedding[tokens.to(d)] for p, d in zip(ranks, devs)]  # [B, T, dim]
-    lane_idx = [torch.arange(b, device=d)[:, None].expand(b, t) for d in devs]
-    paged = isinstance(caches[0], PagedKVCache)
+    devs = each(lambda r: ranks[r].device)
+    poss = each(lambda r: positions.to(devs[r]))
+    xs = each(lambda r: ranks[r].embedding[tokens.to(devs[r])])  # [B, T, dim]
+    paged = isinstance(held(caches)[0], PagedKVCache)
     if paged:
         # the table is the same for every layer: the write targets and
         # the prompt chunk's gather index are computed once a call. A
         # sentinel entry or a position at or past seq_len writes the
         # scratch page (the JAX scatter drops such writes)
-        page, n_pages = caches[0].page_size, caches[0].n_pages
-        tables = [c.table for c in caches]
-        w_page = []
-        for tb, p in zip(tables, poss):
-            blk = (p // page).clamp(0, tb.shape[1] - 1)
-            pg = torch.gather(tb.to(torch.int64), 1, blk)
-            w_page.append(torch.where(p < cfg.seq_len, pg, n_pages))
-        w_idx = [(wp, p % page) for wp, p in zip(w_page, poss)]
-        unmapped = [wp == n_pages for wp in w_page]
+        page, n_pages = held(caches)[0].page_size, held(caches)[0].n_pages
+        tables = each(lambda r: caches[r].table)
+
+        def write_page(r):
+            blk = (poss[r] // page).clamp(0, tables[r].shape[1] - 1)
+            pg = torch.gather(tables[r].to(torch.int64), 1, blk)
+            return torch.where(poss[r] < cfg.seq_len, pg, n_pages)
+
+        w_page = each(write_page)
+        w_idx = each(lambda r: (w_page[r], poss[r] % page))
+        unmapped = each(lambda r: w_page[r] == n_pages)
     else:
         # writes at or past seq_len land in the scratch slot (the JAX
         # scatter drops them)
-        w_idx = [(lane_idx[r], p.clamp(0, cfg.seq_len)) for r, p in enumerate(poss)]
-        unmapped = [p >= cfg.seq_len for p in poss]
+        w_idx = each(lambda r: (torch.arange(b, device=devs[r])[:, None].expand(b, t),
+                                poss[r].clamp(0, cfg.seq_len)))
+        unmapped = each(lambda r: poss[r] >= cfg.seq_len)
     # with T > 1 several rows of a lane may land in the scratch slot or
     # page, and a scatter leaves any one of them, so they all write zeros:
     # the cache stays a function of the inputs
-    dropped = None if t == 1 else [u[:, :, None, None] for u in unmapped]
+    dropped = None if t == 1 else each(lambda r: unmapped[r][:, :, None, None])
     # a decode step or a verify window runs the attention kernel, which masks
     # each row by its position; a prompt chunk the dense attention
     windowed = t == 1 or (attn_len is None and t <= WINDOW)
-    masks = None if windowed else [
-        torch.arange(s_len, device=d)[None, None, :] <= p[:, :, None]  # [B, T, S]
-        for d, p in zip(devs, poss)]
+    masks = None if windowed else each(
+        lambda r: torch.arange(s_len, device=devs[r])[None, None, :] <= poss[r][:, :, None])
     # a prompt chunk over the paged layout gathers each lane's [S] view
-    gather = [paged_gather_index(tb, page, s_len) for tb in tables] \
+    gather = each(lambda r: paged_gather_index(tables[r], page, s_len)) \
         if paged and not windowed else None
 
     def attention(r: int, lp: LlamaLayerParams, l: int) -> torch.Tensor:
@@ -502,29 +518,31 @@ def llama_forward(
         y = rms_norm(xs[r], lp.rms_ffn, eps)
         return _moe_ffn(y, maybe_qdq(y), lp, act_fn, cfg.n_active_experts, maybe_qdq)
 
+    add = lambda x, o: x + o  # noqa: E731
     for l in range(cfg.n_layers):
-        lps = [p.layers.layer(l) for p in ranks]
-        attn = [attention(r, lps[r], l) for r in range(n)]
-        xs = [x + o for x, o in zip(xs, synced_matmul(attn, [lp.wo for lp in lps]))]
+        lps = each(lambda r: ranks[r].layers.layer(l))
+        attn = each(lambda r: attention(r, lps[r], l))
+        xs = per_rank(add, xs, synced_matmul(attn, per_rank(lambda lp: lp.wo, lps)))
         if cfg.n_experts > 0:
-            ds = [moe(r, lps[r]) for r in range(n)]
+            ds = each(lambda r: moe(r, lps[r]))
             if mesh is not None:
                 # the routed partials over each rank's hidden slice meet in
                 # one f32 ring all-reduce (never the Q80 wire: the JAX
                 # package's MoE output is a psum)
-                ds = ring_all_reduce([d.to(torch.float32) for d in ds])
-            xs = [x + maybe_qdq(d).to(x.dtype) for x, d in zip(xs, ds)]
+                ds = ring_all_reduce(per_rank(lambda d: d.to(torch.float32), ds))
+            xs = per_rank(lambda x, d: x + maybe_qdq(d).to(x.dtype), xs, ds)
         else:
-            hs = [ffn_in(r, lps[r]) for r in range(n)]
-            xs = [x + o for x, o in zip(xs, synced_matmul(hs, [lp.w2 for lp in lps]))]
+            hs = each(lambda r: ffn_in(r, lps[r]))
+            xs = per_rank(add, xs, synced_matmul(hs, per_rank(lambda lp: lp.w2, lps)))
 
-    logits = []
-    for x, p in zip(xs, ranks):
-        if logit_rows is not None:
-            x = x[:, logit_rows.to(x.device)]
-        y = maybe_qdq(rms_norm(x, p.rms_final, eps))
-        logits.append(matmul(y, p.wcls).to(torch.float32))
-    # each rank's [B, T', vocab/tp] shard, gathered onto rank 0
-    out = logits[0] if mesh is None else ring_all_gather(logits)[0]
+    def head(r: int) -> torch.Tensor:
+        x = xs[r] if logit_rows is None else xs[r][:, logit_rows.to(devs[r])]
+        y = maybe_qdq(rms_norm(x, ranks[r].rms_final, eps))
+        return matmul(y, ranks[r].wcls).to(torch.float32)
+
+    logits = each(head)
+    # each rank's [B, T', vocab/tp] shard, gathered onto every rank; the
+    # first held rank's copy
+    out = logits[0] if mesh is None else held(ring_all_gather(logits))[0]
     # a packed wcls may be padded past the vocabulary (quantize_params)
     return out[..., : cfg.vocab_size].contiguous(), cache

@@ -319,7 +319,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # threads per slot x layout) and was the build's long pole (chip_smoke.py's
 # kernel build, all sources at once on an 8-core H100 host: 61.9 s; with its
 # optimizations split over the cores, 33.7 s)
-NVCC_EXTRA_FLAGS = {"decode_attn": ("--split-compile=0",)}
+# ring_hop.cu looks up the driver's stream memory operations with dlopen
+NVCC_EXTRA_FLAGS = {"decode_attn": ("--split-compile=0",), "ring_hop": ("-ldl",)}
 _COMMON_HEADER = "q40_common.cuh"
 _libs: dict = {}
 _build_lock = threading.Lock()

@@ -25,6 +25,17 @@ version (``ring_step_plain``) only for CPU tensors; ``ring_shift`` is the
 bare hop (one copy segment per rank) over it. ``COUNTS`` holds the kernel's
 launches, the plain version's calls (each one per receiving rank per step)
 and the wire bytes either moved.
+
+In a pod (parallel/multihost.py) this process holds only its local ranks:
+every per-rank list has ``None`` where a rank lives in another process, the
+collectives compute what their local ranks hold and nothing else, and a
+step whose sender is remote goes through the pod's windows (their
+``step``, parallel/window.py, installed with ``set_pod``): the sender stages its
+segments into its window (one copy launch of the same kernel), the
+receiver's launch reads them from there. The hop order, the arrival
+bookkeeping and the adds are the single process's, so a pod's results are
+its bits. ``COUNTS`` then counts this process's launches (the staging copies
+among them) and the wire bytes its receivers pulled.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ KERNEL_SOURCE = "distributed_llama_multiusers_tpu_torch/csrc/ring_hop.cu"
 KERNEL_REPLACES = "distributed_llama_multiusers_tpu/ops/ring_collective.py:130"
 COUNTS = {"launches": 0, "plain_calls": 0, "bytes": 0}
 _counts_lock = threading.Lock()
+# the process's pod (parallel/window.py's windows), or None: every rank local
+_POD = None
 _peers: set = set()  # (receiver, sender) device indices with peer access on
 MAX_SEGMENTS = 2
 
@@ -135,13 +148,8 @@ def _rows(t: torch.Tensor, name: str) -> tuple[int, int, int]:
     return math.prod(n for n, _ in lead), cols, pitch
 
 
-def _check_seg(seg: Seg) -> _HopSeg:
-    """The segment as the kernel takes it (kind, rows, pitches and row bytes;
-    a contiguous one as a single row), after the checks it relies on."""
-    src, dst, add = seg.src, seg.dst, seg.add
-    if src.shape != dst.shape or src.dtype != dst.dtype:
-        raise ValueError(f"ring step source {src.dtype} {tuple(src.shape)} does not match "
-                         f"destination {dst.dtype} {tuple(dst.shape)}")
+def _kind(dst: torch.Tensor, add) -> int:
+    """The kernel's segment kind for ``dst = src (+ add)``."""
     kind = _COPY
     if add is not None:
         if add.shape != dst.shape:
@@ -153,16 +161,53 @@ def _check_seg(seg: Seg) -> _HopSeg:
                              f"bf16, not {add.dtype} into {dst.dtype}")
         if add.device != dst.device:
             raise ValueError(f"ring step addend on {add.device}, destination on {dst.device}")
-    rows, cols, src_pitch = _rows(src, "source")
-    dst_pitch = _rows(dst, "destination")[2]
+    return kind
+
+
+def _desc(src_ptr: int, src_pitch: int, dst: torch.Tensor, add, rows: int, cols: int,
+          dst_pitch: int) -> _HopSeg:
+    """A segment descriptor: ``rows`` rows of ``cols`` elements of dst's
+    dtype, the source at ``src_ptr`` (rows ``src_pitch`` elements apart);
+    a contiguous segment as a single row."""
+    kind = _kind(dst, add)
     add_pitch = _rows(add, "addend")[2] if add is not None else cols
     if rows > 1 and src_pitch == dst_pitch == add_pitch == cols:
         rows, cols = 1, rows * cols  # contiguous: one row
     size = dst.element_size()
     add_size = add.element_size() if add is not None else 0
-    return _HopSeg(src.data_ptr(), add.data_ptr() if add is not None else None,
+    return _HopSeg(src_ptr, add.data_ptr() if add is not None else None,
                    dst.data_ptr(), src_pitch * size, add_pitch * add_size, dst_pitch * size,
                    cols * size, rows, kind, 0)
+
+
+def seg_desc(seg: Seg) -> _HopSeg:
+    """The segment as the kernel takes it (kind, rows, pitches and row bytes;
+    a contiguous one as a single row), after the checks it relies on."""
+    src, dst = seg.src, seg.dst
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError(f"ring step source {src.dtype} {tuple(src.shape)} does not match "
+                         f"destination {dst.dtype} {tuple(dst.shape)}")
+    rows, cols, src_pitch = _rows(src, "source")
+    return _desc(src.data_ptr(), src_pitch, dst, seg.add, rows, cols,
+                 _rows(dst, "destination")[2])
+
+
+def stage_desc(src: torch.Tensor, dst_ptr: int) -> _HopSeg:
+    """A copy of ``src`` to ``dst_ptr``, its rows laid out one after
+    another: how a pod sender stages a wire segment in its window."""
+    rows, cols, pitch = _rows(src, "source")
+    if rows > 1 and pitch == cols:
+        rows, cols = 1, rows * cols
+    size = src.element_size()
+    return _HopSeg(src.data_ptr(), None, dst_ptr, pitch * size, 0, cols * size, cols * size,
+                   rows, _COPY, 0)
+
+
+def pull_desc(src_ptr: int, dst: torch.Tensor, add) -> _HopSeg:
+    """``dst = src (+ add)`` with the source at ``src_ptr``, its rows laid
+    out one after another (a staged segment in a pod window)."""
+    rows, cols, pitch = _rows(dst, "destination")
+    return _desc(src_ptr, cols, dst, add, rows, cols, pitch)
 
 
 def ring_step_plain(recv: list) -> None:
@@ -189,15 +234,32 @@ def _enable_peer(receiver: torch.device, sender: torch.device) -> None:
     _peers.add(key)
 
 
-def _launch(segs: list, descs: list) -> None:
-    """One launch: the receiver (every destination's device) pulls its
-    segments on its current stream."""
-    device = segs[0].dst.device
-    stream = torch.cuda.current_stream(device)
+def launch_descs(device: torch.device, stream, descs: list, nbytes: int) -> None:
+    """One launch of the kernel on ``stream`` (of ``device``), counted with
+    the ``nbytes`` wire bytes its receiver pulls."""
     step = _HopStep()
     step.nseg = len(descs)
     for i, d in enumerate(descs):
         step.seg[i] = d
+    with torch.cuda.device(device):
+        err = load_kernel(KERNEL, _STEP_ARGTYPES)(ctypes.byref(step), stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_hop launch failed: CUDA error {err}")
+    _bump("launches", nbytes)
+
+
+def plain_step(recv: list, nbytes: int) -> None:
+    """``ring_step_plain``, counted as one plain call a receiving rank and
+    the ``nbytes`` wire bytes they pull."""
+    _bump("plain_calls", nbytes, len(recv))
+    ring_step_plain(recv)
+
+
+def _launch(segs: list, descs: list, nbytes: int) -> None:
+    """One launch: the receiver (every destination's device) pulls its
+    segments on its current stream."""
+    device = segs[0].dst.device
+    stream = torch.cuda.current_stream(device)
     for sender in {seg.src.device for seg in segs} - {device}:
         _enable_peer(device, sender)
         # the TPU kernel's semaphores as stream order: the receiver waits for
@@ -209,44 +271,64 @@ def _launch(segs: list, descs: list) -> None:
     for seg in segs:
         if seg.src.device != device:
             seg.src.record_stream(stream)
-    with torch.cuda.device(device):
-        err = load_kernel(KERNEL, _STEP_ARGTYPES)(ctypes.byref(step), stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ring_hop launch failed: CUDA error {err}")
+    launch_descs(device, stream, descs, nbytes)
+
+
+def set_pod(pod) -> None:
+    """Install this process's pod (parallel/window.py's windows: their
+    ``step(recv)`` runs a ring step across the pod's processes), or None to
+    take it out. Every ring step while it is installed is a pod step. One
+    pod a process: installing a second one raises."""
+    global _POD
+    if pod is not None and _POD is not None and pod is not _POD:
+        raise RuntimeError("this process already runs a pod's ring steps; a second pod "
+                           "engine in one process would share its windows")
+    _POD = pod
+
+
+def pod_installed() -> bool:
+    return _POD is not None
 
 
 def ring_step(recv: list) -> None:
     """One ring step: ``recv[r]`` is receiving rank r's list of at most two
     segments (``Seg``), all landing on that rank's device. One launch of the
     ring-step kernel per rank for CUDA tensors; the plain version for CPU
-    tensors. Counts one launch (or plain call) per rank and the wire bytes."""
+    tensors. Counts one launch (or plain call) per rank and the wire bytes.
+    In a pod (``set_pod``) ``recv`` spans every global rank: a remote
+    receiver's segments have no destination, a remote sender's no
+    source."""
+    if _POD is not None:
+        _POD.step(recv)
+        return
+    local_step(recv)
+
+
+def local_step(recv: list) -> None:
+    """``ring_step`` over ranks that all live in this process."""
     if not recv:
         raise ValueError("a ring step needs at least one receiving rank")
-    descs = []
-    nbytes = 0
+    descs, wire = [], []
     dev_type = recv[0][0].dst.device.type if recv[0] else None
     for segs in recv:
         if not 1 <= len(segs) <= MAX_SEGMENTS:
             raise ValueError(f"a rank receives 1 to {MAX_SEGMENTS} segments a step, "
                              f"not {len(segs)}")
-        descs.append([_check_seg(s) for s in segs])
+        descs.append([seg_desc(s) for s in segs])
         for s in segs:
             if s.dst.device != segs[0].dst.device:
                 raise ValueError("one rank's segments land on one device")
             if s.src.device.type != dev_type or s.dst.device.type != dev_type:
                 raise ValueError(f"ring step mixes {s.src.device} and {s.dst.device} "
                                  f"with {dev_type}")
-            if s.wire:
-                nbytes += s.src.numel() * s.src.element_size()
+        wire.append(sum(s.src.numel() * s.src.element_size() for s in segs if s.wire))
     if dev_type == "cpu":
-        _bump("plain_calls", nbytes, len(recv))
-        ring_step_plain(recv)
+        plain_step(recv, sum(wire))
         return
     if dev_type != "cuda":
         raise ValueError(f"the ring step runs on CUDA or CPU tensors, not {dev_type}")
-    for segs, ds in zip(recv, descs):
-        _launch(segs, ds)
-    _bump("launches", nbytes, len(recv))
+    for segs, ds, nbytes in zip(recv, descs, wire):
+        _launch(segs, ds, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +343,24 @@ def ring_shift_plain(xs: list) -> list:
     return [xs[(r - 1) % n].to(xs[r].device, copy=True) for r in range(n)]
 
 
+def held(xs: list) -> list:
+    """The tensors of a per-rank list this process holds (in a pod the
+    others are None)."""
+    return [x for x in xs if x is not None]
+
+
+def per_rank(fn, *lists) -> list:
+    """``fn`` over the ranks of per-rank lists, None where this process does
+    not hold the rank."""
+    return [None if args[0] is None else fn(*args) for args in zip(*lists)]
+
+
 def _check_ring(xs: list) -> None:
-    if not xs:
+    mine = held(xs)
+    if not mine:
         raise ValueError("a ring needs at least one rank")
-    x0 = xs[0]
-    for x in xs:
+    x0 = mine[0]
+    for x in mine:
         if x.dtype != x0.dtype or x.shape != x0.shape:
             raise ValueError(f"ring ranks disagree: {x.dtype} {tuple(x.shape)} against "
                              f"{x0.dtype} {tuple(x0.shape)}")
@@ -283,7 +378,7 @@ def ring_shift(xs: list) -> list:
     of a ring step."""
     _check_ring(xs)
     n = len(xs)
-    out = [torch.empty_like(x) for x in xs]
+    out = per_rank(torch.empty_like, xs)
     ring_step([[Seg(xs[(r - 1) % n], out[r])] for r in range(n)])
     return out
 
@@ -293,9 +388,9 @@ def ring_shift(xs: list) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _slot(x: torch.Tensor, k: int, c: int) -> torch.Tensor:
-    """Chunk k of width c along the last dim (a view)."""
-    return x[..., k * c:(k + 1) * c]
+def _slot(x: torch.Tensor | None, k: int, c: int) -> torch.Tensor | None:
+    """Chunk k of width c along the last dim (a view); None stays None."""
+    return None if x is None else x[..., k * c:(k + 1) * c]
 
 
 def ring_reduce_scatter(xs: list, out: list | None = None) -> list:
@@ -308,10 +403,10 @@ def ring_reduce_scatter(xs: list, out: list | None = None) -> list:
     n = len(xs)
     if n <= 1:
         return list(xs)
-    c = xs[0].shape[-1] // n
+    c = held(xs)[0].shape[-1] // n
     acc = [_slot(x, (r - 1) % n, c) for r, x in enumerate(xs)]
     for s in range(1, n):
-        dst = out if s == n - 1 and out is not None else [torch.empty_like(a) for a in acc]
+        dst = out if s == n - 1 and out is not None else per_rank(torch.empty_like, acc)
         ring_step([[Seg(acc[(r - 1) % n], dst[r], _slot(xs[r], (r - 1 - s) % n, c))]
                    for r in range(n)])
         acc = dst
@@ -339,7 +434,7 @@ def _gather_steps(outs: list, c: int, local: list | None = None) -> None:
 
 
 def _gather_outputs(xs: list, width: int, dtype) -> list:
-    return [torch.empty(*x.shape[:-1], width, dtype=dtype, device=x.device) for x in xs]
+    return per_rank(lambda x: torch.empty(*x.shape[:-1], width, dtype=dtype, device=x.device), xs)
 
 
 def ring_all_gather(xs: list) -> list:
@@ -348,8 +443,9 @@ def ring_all_gather(xs: list) -> list:
     n = len(xs)
     if n <= 1:
         return list(xs)
-    c = xs[0].shape[-1]
-    outs = _gather_outputs(xs, n * c, xs[0].dtype)
+    x0 = held(xs)[0]
+    c = x0.shape[-1]
+    outs = _gather_outputs(xs, n * c, x0.dtype)
     _gather_steps(outs, c, local=xs)
     return outs
 
@@ -364,21 +460,22 @@ def ring_all_gather_q80(xs: list) -> list:
     n = len(xs)
     if n <= 1:
         return list(xs)
-    x0 = xs[0]
+    x0 = held(xs)[0]
     lead, c = x0.shape[:-1], x0.shape[-1]
     cb = c // Q80_BLOCK
     qs = _gather_outputs(xs, n * c, torch.int8)
     ss = _gather_outputs(xs, n * cb, torch.float16)
     for r, x in enumerate(xs):
-        q80_encode_blocks(x.to(torch.float32), mode="converter",
-                          out=(_slot(qs[r], r, c).view(*lead, cb, Q80_BLOCK),
-                               _slot(ss[r], r, cb).unsqueeze(-1)))
+        if x is not None:
+            q80_encode_blocks(x.to(torch.float32), mode="converter",
+                              out=(_slot(qs[r], r, c).view(*lead, cb, Q80_BLOCK),
+                                   _slot(ss[r], r, cb).unsqueeze(-1)))
     for j in range(1, n):
         ring_step([[Seg(_slot(qs[(r - 1) % n], (r - j) % n, c), _slot(qs[r], (r - j) % n, c)),
                     Seg(_slot(ss[(r - 1) % n], (r - j) % n, cb), _slot(ss[r], (r - j) % n, cb))]
                    for r in range(n)])
-    return [q80_decode_blocks(q.view(*lead, n * cb, Q80_BLOCK), s.unsqueeze(-1),
-                              (*lead, n * c)).to(x0.dtype) for q, s in zip(qs, ss)]
+    return per_rank(lambda q, s: q80_decode_blocks(q.view(*lead, n * cb, Q80_BLOCK), s.unsqueeze(-1),
+                                                (*lead, n * c)).to(x0.dtype), qs, ss)
 
 
 def _arrivals_in_rank_order(xs: list) -> list:
@@ -387,12 +484,13 @@ def _arrivals_in_rank_order(xs: list) -> list:
     mod n, so rank k's tensor is arrival (r-k) mod n."""
     n = len(xs)
     arrivals = [[x] for x in xs]
-    cur = [x.contiguous() for x in xs]
+    cur = per_rank(torch.Tensor.contiguous, xs)
     for _ in range(1, n):
         cur = ring_shift(cur)
         for r in range(n):
             arrivals[r].append(cur[r])
-    return [[arrivals[r][(r - k) % n] for k in range(n)] for r in range(n)]
+    return [None if xs[r] is None else [arrivals[r][(r - k) % n] for k in range(n)]
+            for r in range(n)]
 
 
 def ring_all_reduce(xs: list) -> list:
@@ -404,14 +502,17 @@ def ring_all_reduce(xs: list) -> list:
     n = len(xs)
     if n <= 1:
         return list(xs)
-    if xs[0].shape[-1] % n == 0:
-        c = xs[0].shape[-1] // n
-        outs = [torch.empty_like(x) for x in xs]
+    if held(xs)[0].shape[-1] % n == 0:
+        c = held(xs)[0].shape[-1] // n
+        outs = per_rank(torch.empty_like, xs)
         ring_reduce_scatter(xs, out=[_slot(o, r, c) for r, o in enumerate(outs)])
         _gather_steps(outs, c)
         return outs
     out = []
     for parts in _arrivals_in_rank_order(xs):
+        if parts is None:
+            out.append(None)
+            continue
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p
@@ -472,7 +573,7 @@ def ring_sync_matmul(xs: list, ws: list, q80_wire: bool = False) -> list:
     column-chunk stacks [n, d_in/n, d_out/n] (parallel/sharding.py).
     Returns the full [..., d_out] on every rank, in x's dtype."""
     n = len(xs)
-    d_out = chunk_d_out(ws[0])
+    d_out = chunk_d_out(held(ws)[0])
     if not ring_sync_supported(d_out, n, q80_wire):
         raise ValueError(
             f"ring_sync_matmul needs d_out ({d_out}) divisible by tp ({n})"
@@ -482,13 +583,16 @@ def ring_sync_matmul(xs: list, ws: list, q80_wire: bool = False) -> list:
     # the first partial is the chunk that leaves each rank: cast to f32 once,
     # as the wire carries it; every later partial is added in the hop, in
     # x's dtype, widened exactly
-    acc = [matmul(xs[r], ws[r][(r - 1) % n]).to(torch.float32) for r in range(n)]
+    def part(r: int, s: int):
+        return None if xs[r] is None else matmul(xs[r], ws[r][(r - 1 - s) % n])
+
+    acc = per_rank(lambda p: p.to(torch.float32), [part(r, 0) for r in range(n)])
     outs = None if q80_wire else _gather_outputs(xs, d_out, torch.float32)
     for s in range(1, n):
         last = s == n - 1
-        parts = [matmul(xs[r], ws[r][(r - 1 - s) % n]) for r in range(n)]
+        parts = [part(r, s) for r in range(n)]
         dst = ([_slot(o, r, c) for r, o in enumerate(outs)] if last and outs is not None
-               else [torch.empty_like(a) for a in acc])
+               else per_rank(torch.empty_like, acc))
         ring_step([[Seg(acc[(r - 1) % n], dst[r], parts[r])] for r in range(n)])
         acc = dst
     if q80_wire:
@@ -496,4 +600,4 @@ def ring_sync_matmul(xs: list, ws: list, q80_wire: bool = False) -> list:
     else:
         _gather_steps(outs, c)
         out = outs
-    return [o.to(x.dtype) for o, x in zip(out, xs)]
+    return per_rank(lambda o, x: o.to(x.dtype), out, xs)

@@ -1,11 +1,13 @@
 """The Q80-compressed TP sync: the reference's default transport (int8
 values + f16 block scales instead of f32 on the wire), for a mesh served
 with ``--buffer-float-type q80 --ring-sync off``. Both halves run on the
-ring hop (ops/ring_collective.py)."""
+ring hop (ops/ring_collective.py), across a pod's processes too."""
 
 from __future__ import annotations
 
 from ..ops.ring_collective import (
+    per_rank,
+    held,
     chunk_d_out,
     local_matmul,
     ring_all_gather_q80,
@@ -40,12 +42,13 @@ def q80_sync_matmul(xs: list, ws: list) -> list:
     """Row-parallel matmul whose sync ships Q80: each rank's partial (in x's
     dtype), a ring reduce-scatter, then a Q80-wire ring all-gather. xs:
     per-rank [..., d_in/n]; ws: per-rank column-chunk stacks. Returns the
-    full [..., d_out] on every rank, in x's dtype; d_out % (32 * n) == 0."""
+    full [..., d_out] on every rank, in x's dtype; d_out % (32 * n) == 0. In a
+    pod the lists hold None for the ranks of other processes."""
     n = len(xs)
-    d_out = chunk_d_out(ws[0])
+    d_out = chunk_d_out(held(ws)[0])
     if d_out % (Q80_BLOCK * n) != 0:
         raise ValueError(f"q80_sync_matmul needs d_out ({d_out}) divisible by "
                          f"{Q80_BLOCK} * tp ({n})")
-    parts = [local_matmul(x, w) for x, w in zip(xs, ws)]
+    parts = per_rank(local_matmul, xs, ws)
     out = ring_all_gather_q80(ring_reduce_scatter(parts))
-    return [o.to(p.dtype) for o, p in zip(out, parts)]
+    return per_rank(lambda o, p: o.to(p.dtype), out, parts)

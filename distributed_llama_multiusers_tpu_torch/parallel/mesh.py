@@ -3,10 +3,16 @@
 The JAX package runs TP under a single controller over a ``jax.sharding.Mesh``
 with named axes (dp, pp, tp, sp, ep). The port keeps the same plan and
 checks, and its ``Mesh`` is the per-rank device list plus the axis sizes:
-one process drives every rank, layer by layer (models/llama.py). A device
+one process drives its ranks, layer by layer (models/llama.py). A device
 may repeat (``cuda:0,cuda:0``): the ranks then share one card, the
-counterpart of the JAX package's virtual devices on one host. This slice
-serves pure TP; dp, sp, ep and pp meshes are later work (ROADMAP A7/A8).
+counterpart of the JAX package's virtual devices on one host.
+
+A pod (parallel/multihost.py) spreads the ranks over processes: the plan
+stays global (``--workers`` names the global mesh, as in the JAX package)
+and process i holds the contiguous block of ``tp / num_processes`` ranks
+starting at ``i * tp / num_processes``, on the devices ``--device`` names.
+The port serves pure TP; dp, sp, ep and pp meshes are later work (ROADMAP
+A9).
 """
 
 from __future__ import annotations
@@ -35,14 +41,27 @@ class MeshPlan:
 
 @dataclass(frozen=True)
 class Mesh:
-    """Per-rank devices (rank r on ``devices[r]``) and the axis sizes."""
+    """This process's ranks' devices (rank ``first + i`` on ``devices[i]``;
+    every rank where the mesh is one process) and the global axis sizes."""
 
     devices: tuple
     shape: dict
+    process_index: int = 0
+    num_processes: int = 1
 
     @property
     def tp(self) -> int:
         return self.shape["tp"]
+
+    @property
+    def local_ranks(self) -> range:
+        """The global ranks this process holds, in order."""
+        per = self.tp // self.num_processes
+        return range(self.process_index * per, (self.process_index + 1) * per)
+
+    @property
+    def is_pod(self) -> bool:
+        return self.num_processes > 1
 
 
 def _require_cuda() -> None:
@@ -61,23 +80,33 @@ def _cuda_devices(n: int) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def make_mesh(plan: MeshPlan, devices=None) -> Mesh:
-    """A Mesh over ``devices`` (default ``cuda:0`` .. ``cuda:N-1``). Raises
-    when there are fewer devices than the plan needs, and for any axis but
-    tp above 1."""
+def make_mesh(plan: MeshPlan, devices=None, process_index: int = 0,
+              num_processes: int = 1) -> Mesh:
+    """A Mesh over ``devices`` (default ``cuda:0`` .. ``cuda:N-1``), the
+    devices of this process's ranks: all of them, or in a pod of
+    ``num_processes`` the ``tp / num_processes`` ranks of process
+    ``process_index``. Raises when there are fewer devices than the ranks it
+    holds, for any axis but tp above 1, and for a tp that the process count
+    does not divide."""
     others = {ax: getattr(plan, ax) for ax in ("dp", "sp", "ep", "pp") if getattr(plan, ax) > 1}
     if others:
         raise ValueError(
             f"the PyTorch port serves pure tensor parallelism; {others} is later "
-            "work (ROADMAP A7: multi-process TP, A8: sequence and pipeline "
-            "parallelism)"
+            "work (ROADMAP A9: data, sequence, expert and pipeline parallelism)"
         )
+    if num_processes < 1 or not 0 <= process_index < num_processes:
+        raise ValueError(f"process {process_index} of {num_processes}")
+    if plan.tp % num_processes:
+        raise ValueError(f"tp={plan.tp} does not split over {num_processes} processes: "
+                         "each process holds the same number of ranks")
+    held = plan.n_devices // num_processes
     if devices is None:
-        devices = _cuda_devices(plan.n_devices)
-    if plan.n_devices > len(devices):
-        raise ValueError(f"mesh plan needs {plan.n_devices} devices, have {len(devices)}")
-    devs = tuple(torch.device(d) for d in devices[: plan.n_devices])
-    return Mesh(devices=devs, shape={ax: getattr(plan, ax) for ax in AXES})
+        devices = _cuda_devices(held)
+    if held > len(devices):
+        raise ValueError(f"mesh plan needs {held} devices in this process, have {len(devices)}")
+    devs = tuple(torch.device(d) for d in devices[:held])
+    return Mesh(devices=devs, shape={ax: getattr(plan, ax) for ax in AXES},
+                process_index=process_index, num_processes=num_processes)
 
 
 def mesh_devices(spec: str, n: int) -> list:

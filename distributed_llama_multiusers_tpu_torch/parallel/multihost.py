@@ -1,0 +1,875 @@
+"""Multi-process serving (a pod): the ``torch.distributed`` bootstrap and the
+root->worker control plane (the JAX package's ``parallel/multihost.py``).
+
+Reference mapping (src/app.cpp):
+- cluster bootstrap (worker ``serve()`` and the root connecting and shipping
+  configs, src/app.cpp:405-464) -> ``maybe_initialize_distributed``: every
+  process runs the same program and loads the model file itself
+  (parallel/sharding.py keeps its own ranks' shards), then joins a gloo
+  process group over a TCP store. No weight crosses the wire.
+- ``LlmControlPacket{position, batchSize}`` written to every worker before
+  each forward (src/app.cpp:198-209) -> ``ControlPlane``: a fixed-size int32
+  packet broadcast from process 0 per engine call, carrying the op and its
+  host-side arguments; ``OP_STOP`` is batchSize = 0's stop signal.
+- the worker's poll loop (src/app.cpp:218-231) -> ``worker_loop``: receive
+  a packet, replay the identical engine call, so that every process runs
+  the same ring steps in the same order.
+
+Gloo carries the packets and the bootstrap's handle exchange only. The
+activations cross processes through the ring hop kernel reading a peer's
+window (parallel/window.py, ops/ring_collective.py).
+
+The pod-deadlock rule: in every ``RootControlEngine`` method argument
+validation runs BEFORE the packet broadcast, and no ``raise`` or early
+``return`` is reachable between a ``self._plane.send_*`` broadcast and its
+paired ``self._engine`` call. A packet with no root-side compute leaves
+every worker inside a ring step the root never takes. Nothing is broadcast
+while a lock is held.
+
+The packet layout (magic, version, op numbers, HEADER, SLOTS and the slot
+sizing) is the JAX package's, word for word, at its protocol version 6. This
+port serves the contiguous KV layout on a pod: the paged ops (OP_KV_TABLE,
+OP_KV_PAGES, OP_KV_SWAP) keep their numbers, the startup refuses
+``--paged-kv on`` and the disaggregation roles with more than one process,
+and a worker that receives one raises ``ReplayError`` (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import threading
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from ..ops import reset_kernel_counts
+from ..telemetry.logs import log_event
+from ..utils import faults
+from .window import PodPeerLost, alive
+
+# Control-packet integrity word: every packet leads with a magic constant
+# and the protocol version, validated on recv before the op dispatch, so a
+# torn packet or a version-skewed peer is a classified ReplayError.
+PACKET_MAGIC = 0x444C4C41  # "DLLA"
+PROTOCOL_VERSION = 6  # the JAX package's version: the same layout and ops
+
+OP_STOP = 0
+OP_PREFILL = 1
+OP_DECODE = 2
+OP_DECODE_SPEC = 3
+OP_STATS_RESET = 4  # zero worker-side counters (post-warmup hygiene)
+OP_COPY_LANE = 5  # prefix caching: copy one lane's KV into another
+OP_DECODE_MULTI = 6  # h chained decode steps in one dispatch (h in header)
+OP_DECODE_PIPELINED = 7  # a pipelined step: feed flag + ring depth in header
+OP_PIPELINE_FLUSH = 8  # the root ended or aborted a pipelined chain
+OP_DECODE_PREFILL_FUSED = 9  # a prompt chunk and a pipelined step together
+OP_DECODE_SPEC_PIPELINED = 10  # a verify step inside the pipelined ring
+OP_DECODE_SPEC_PREFILL_FUSED = 11  # a prompt chunk and an in-ring verify step
+OP_KV_TABLE = 12  # paged KV table row + COW copies (refused on a pod here)
+OP_GRAMMAR = 13  # a response_format's canonical JSON (or a detach key)
+OP_KV_PAGES = 14  # disaggregated prefill's page import (refused here)
+OP_KV_SWAP = 15  # the host swap tier's page import (refused here)
+_REFUSED_OPS = {OP_KV_TABLE: "OP_KV_TABLE", OP_KV_PAGES: "OP_KV_PAGES",
+                OP_KV_SWAP: "OP_KV_SWAP"}
+
+# a worker idles inside the packet broadcast while the root serves no
+# request: the process group's timeout only ends a root that is alive and
+# silent for this long (a dead root closes its sockets at once)
+POD_TIMEOUT = timedelta(days=7)
+# how long the bootstrap waits for every process to join and publish
+BOOTSTRAP_TIMEOUT = timedelta(minutes=30)
+# a pod process that lost a peer exits with this code
+POD_LOST_EXIT_CODE = 18
+# how often a pod process checks that its peers (same host) are alive
+PEER_CHECK_S = 0.5
+
+
+class ReplayError(RuntimeError):
+    """Classified control-plane replay failure: the packet itself is bad
+    (magic/version mismatch, unknown or refused op), detected before any
+    engine dispatch, so no ring step was entered and the pod cannot have
+    desynced on it. ``worker_serve`` does not burn its restart budget on
+    these."""
+
+
+class PodLost(RuntimeError):
+    """The packet broadcast failed: a process of the pod is gone."""
+
+
+_JOINED: dict = {}  # "store", "process_index", "num_processes" once joined
+_LEAVING = threading.Event()  # this process is leaving the pod on purpose
+
+
+def requested_pod(args=None):
+    """(coordinator, process count, process id) the flags or variables ask
+    for, or None outside a pod: ``--coordinator host:port --num-processes N
+    --process-id I``, or ``DLLAMA_COORDINATOR`` / ``DLLAMA_NUM_PROCESSES`` /
+    ``DLLAMA_PROCESS_ID``."""
+    coord = getattr(args, "coordinator", None) or os.environ.get("DLLAMA_COORDINATOR")
+    if not coord:
+        return None
+    n = int(getattr(args, "num_processes", None)
+            or os.environ.get("DLLAMA_NUM_PROCESSES", "0"))
+    pid_attr = getattr(args, "process_id", None)
+    pid = int(pid_attr if pid_attr is not None else os.environ.get("DLLAMA_PROCESS_ID", "-1"))
+    if n <= 0 or pid < 0:
+        raise ValueError(
+            "--coordinator requires --num-processes and --process-id "
+            "(or the DLLAMA_* env equivalents)"
+        )
+    return coord, n, pid
+
+
+def maybe_initialize_distributed(args=None) -> int:
+    """Join a pod when the coordinator flags or variables are present
+    (``requested_pod``); returns the process count (1 when not
+    distributed). Process 0 serves the TCP store at the coordinator's
+    ``host:port``; every process joins a gloo process group over it and
+    publishes its hostname."""
+    req = requested_pod(args)
+    if req is None:
+        return 1
+    coord, n, pid = req
+    if _JOINED:
+        return _JOINED["num_processes"]
+    host, _, port = coord.rpartition(":")
+    store = torch.distributed.TCPStore(host, int(port), n, pid == 0,
+                                       timeout=BOOTSTRAP_TIMEOUT)
+    torch.distributed.init_process_group("gloo", store=store, world_size=n, rank=pid,
+                                         timeout=POD_TIMEOUT)
+    store.set(f"pod/host/{pid}", socket.gethostname())
+    store.set(f"pod/pid/{pid}", str(os.getpid()))
+    _JOINED.update(store=store, process_index=pid, num_processes=n)
+    if len(set(pod_hostnames())) == 1:
+        _watch_peers({i: int(store.get(f"pod/pid/{i}")) for i in range(n) if i != pid})
+    return n
+
+
+def _watch_peers(pids: dict) -> None:
+    """End this process when a peer process of the host dies (the pod's
+    peer-failure detection): a rank waiting in a ring step for a dead peer
+    waits on the card, where no host timeout reaches it, and its host
+    thread soon blocks behind it. ``leave_pod`` disarms it."""
+    def run() -> None:
+        while not _LEAVING.wait(PEER_CHECK_S):
+            for index, pid in pids.items():
+                if not alive(pid) and not _LEAVING.is_set():
+                    log_event("pod_peer_lost", process=index, pid=pid)
+                    os._exit(POD_LOST_EXIT_CODE)
+
+    threading.Thread(target=run, name="pod-peers", daemon=True).start()
+
+
+def leave_pod() -> None:
+    """This process leaves the pod on purpose (the root stops its workers,
+    a worker got OP_STOP): a peer's exit from here on is no failure."""
+    _LEAVING.set()
+
+
+def pod_store():
+    """The pod's bootstrap store (``maybe_initialize_distributed``)."""
+    if not _JOINED:
+        raise RuntimeError("not in a pod: maybe_initialize_distributed found no coordinator")
+    return _JOINED["store"]
+
+
+def pod_hostnames() -> list:
+    """Every process's hostname, as each published it to the store."""
+    store = pod_store()
+    return [store.get(f"pod/host/{i}").decode() for i in range(_JOINED["num_processes"])]
+
+
+class ControlPlane:
+    """Fixed-size int32 packet, broadcast from process 0 each engine call.
+
+    Layout: [magic, version, op, lane, n, start_pos, payload_a[L] ..
+    payload_j[L]] with L = max(chunk, n_lanes, n_lanes * (SPEC_DRAFT + 1)):
+    the JAX package's ``ControlPlane``, whose docstring gives each op's
+    slots. Float arguments ride as their float32 bit patterns and seeds as
+    uint32 bits, so the root's call and every replay get byte-identical
+    values. ``recv`` validates magic and version before the op switch.
+    ``fatal``: a failed broadcast ends the process (the root: its workers
+    are gone and it cannot serve) instead of raising ``PodLost``."""
+
+    HEADER = 6  # [magic, version, op, lane, n, start_pos]
+    SLOTS = 10
+
+    def __init__(self, n_lanes: int, chunk: int = 1024, fatal: bool = False):
+        from ..runtime.spec import SPEC_DRAFT
+
+        self.n_lanes = n_lanes
+        # every slot fits its largest payload: prompt chunks (chunk),
+        # per-lane vectors (n_lanes), the flattened in-chain drafts
+        self.chunk = max(chunk, n_lanes, n_lanes * (SPEC_DRAFT + 1))
+        self._size = self.HEADER + self.SLOTS * self.chunk
+        self.fatal = fatal
+        self.packets = 0
+        self.bcast_s = 0.0
+
+    def _check_spec_payload(self, flat: np.ndarray) -> np.ndarray:
+        if len(flat) > self.chunk:
+            raise ValueError(
+                f"spec drafts payload {len(flat)} exceeds packet slot "
+                f"{self.chunk}; size ControlPlane for the engine's draft layout"
+            )
+        return flat
+
+    def _bcast(self, pkt: np.ndarray) -> np.ndarray:
+        """The packet from process 0 to every process: one gloo broadcast
+        of an int32 CPU tensor."""
+        t = torch.from_numpy(np.ascontiguousarray(pkt, np.int32))
+        t0 = time.perf_counter()
+        try:
+            torch.distributed.broadcast(t, src=0)
+        except Exception as e:  # noqa: BLE001 — any transport failure is a lost pod
+            log_event("pod_lost", error=f"{type(e).__name__}: {e}"[:200], fatal=self.fatal)
+            if self.fatal:
+                os._exit(POD_LOST_EXIT_CODE)
+            raise PodLost(f"control packet broadcast failed: {e}") from e
+        self.packets += 1
+        self.bcast_s += time.perf_counter() - t0
+        return t.numpy()
+
+    def stats(self) -> dict:
+        """Packets broadcast (or received) and the microseconds a broadcast
+        took on average, on this process's clock."""
+        return {"pod_packets": self.packets,
+                "pod_broadcast_us": round(self.bcast_s / self.packets * 1e6, 1)
+                if self.packets else None}
+
+    def slot(self, pkt: np.ndarray, i: int, n: int) -> np.ndarray:
+        start = self.HEADER + i * self.chunk
+        return pkt[start: start + n]
+
+    def _send(self, op: int, lane: int, n: int, start_pos: int, *payloads) -> None:
+        faults.fire("plane.broadcast")  # the seeded fault plan; no-op unarmed
+        pkt = np.zeros(self._size, np.int32)
+        pkt[0:6] = (PACKET_MAGIC, PROTOCOL_VERSION, op, lane, n, start_pos)
+        for i, payload in enumerate(payloads):
+            if payload is not None:
+                start = self.HEADER + i * self.chunk
+                pkt[start: start + len(payload)] = payload
+        self._bcast(pkt)
+
+    @staticmethod
+    def _f32(v) -> np.ndarray:
+        return np.asarray(v, np.float32).view(np.int32)
+
+    @staticmethod
+    def _u32(v) -> np.ndarray:
+        return np.asarray(v, np.uint32).view(np.int32)
+
+    @staticmethod
+    def _g(g_states):
+        return None if g_states is None else np.asarray(g_states, np.int32)
+
+    def send_prefill(self, lane: int, tokens, start_pos: int, temp: float = 0.0,
+                     topp: float | None = None, seed: int = 0, g_state: int = 0) -> None:
+        if topp is None:
+            from ..runtime.engine import DEFAULT_TOPP as topp
+        tbits = self._f32([temp])
+        pbits = self._f32([topp])
+        sbits = self._u32([seed & 0xFFFFFFFF])
+        gbits = np.asarray([g_state], np.int32)
+        for off in range(0, len(tokens), self.chunk):
+            part = tokens[off: off + self.chunk]
+            self._send(OP_PREFILL, lane, len(part), start_pos + off,
+                       part, tbits, pbits, sbits, gbits)
+
+    def send_decode(self, tokens, positions, temps=None, topps=None, seeds=None,
+                    want_logits: bool = True, g_states=None) -> None:
+        self._send(OP_DECODE, 1 if want_logits else 0, len(tokens), 0,
+                   tokens, positions,
+                   None if temps is None else self._f32(temps),
+                   None if topps is None else self._f32(topps),
+                   None if seeds is None else self._u32(seeds),
+                   self._g(g_states))
+
+    def send_decode_pipelined(self, tokens, positions, temps, topps, seeds, depth: int,
+                              g_states=None) -> None:
+        # feed flag rides `lane`, ring depth `start_pos`
+        self._send(OP_DECODE_PIPELINED, 0 if tokens is None else 1, len(positions), depth,
+                   tokens, positions, self._f32(temps), self._f32(topps), self._u32(seeds),
+                   self._g(g_states))
+
+    @staticmethod
+    def _prefill_header(p_lane, p_start, chunk, p_temp, p_topp, p_seed, p_g) -> np.ndarray:
+        """The 7-word fused-prefill header, one encoder for both fused ops."""
+        phdr = np.zeros(7, np.int32)
+        phdr[0:3] = (p_lane, p_start, len(chunk))
+        phdr[3] = np.asarray([p_temp], np.float32).view(np.int32)[0]
+        phdr[4] = np.asarray([p_topp], np.float32).view(np.int32)[0]
+        phdr[5] = np.asarray([p_seed & 0xFFFFFFFF], np.uint32).view(np.int32)[0]
+        phdr[6] = p_g
+        return phdr
+
+    def send_decode_prefill_fused(self, tokens, positions, temps, topps, seeds, depth: int,
+                                  p_lane: int, chunk, p_start: int, p_temp: float,
+                                  p_topp: float, p_seed: int, g_states=None,
+                                  p_g: int = 0) -> None:
+        # the DECODE_PIPELINED header; chunk slot 5, its header slot 6,
+        # grammar states slot 7
+        phdr = self._prefill_header(p_lane, p_start, chunk, p_temp, p_topp, p_seed, p_g)
+        self._send(OP_DECODE_PREFILL_FUSED, 0 if tokens is None else 1, len(positions), depth,
+                   tokens, positions, self._f32(temps), self._f32(topps), self._u32(seeds),
+                   np.asarray(chunk, np.int32), phdr, self._g(g_states))
+
+    def send_decode_spec_pipelined(self, tokens, positions, temps, topps, seeds, depth: int,
+                                   drafts, draft_len, g_states=None) -> None:
+        flat = self._check_spec_payload(np.asarray(drafts, np.int32).reshape(-1))
+        # drafts + lengths slots 5/6, grammar states slot 7
+        self._send(OP_DECODE_SPEC_PIPELINED, 0 if tokens is None else 1, len(positions),
+                   depth, tokens, positions, self._f32(temps), self._f32(topps),
+                   self._u32(seeds), flat, np.asarray(draft_len, np.int32),
+                   self._g(g_states))
+
+    def send_decode_spec_prefill_fused(self, tokens, positions, temps, topps, seeds,
+                                       depth: int, drafts, draft_len, p_lane: int, chunk,
+                                       p_start: int, p_temp: float, p_topp: float,
+                                       p_seed: int, g_states=None, p_g: int = 0) -> None:
+        flat = self._check_spec_payload(np.asarray(drafts, np.int32).reshape(-1))
+        phdr = self._prefill_header(p_lane, p_start, chunk, p_temp, p_topp, p_seed, p_g)
+        self._send(OP_DECODE_SPEC_PREFILL_FUSED, 0 if tokens is None else 1, len(positions),
+                   depth, tokens, positions, self._f32(temps), self._f32(topps),
+                   self._u32(seeds), flat, np.asarray(draft_len, np.int32),
+                   np.asarray(chunk, np.int32), phdr, self._g(g_states))
+
+    def send_decode_spec(self, tokens, drafts, draft_len, positions, temps, topps, seeds,
+                         g_states=None) -> None:
+        flat = self._check_spec_payload(np.asarray(drafts, np.int32).reshape(-1))
+        self._send(OP_DECODE_SPEC, 0, len(tokens), 0,
+                   tokens, positions, self._f32(temps), self._f32(topps), self._u32(seeds),
+                   flat, np.asarray(draft_len, np.int32), self._g(g_states))
+
+    def send_decode_multi(self, tokens, positions, temps, topps, seeds, h: int,
+                          g_states=None) -> None:
+        # the horizon rides the start_pos header field
+        self._send(OP_DECODE_MULTI, 0, len(tokens), h,
+                   tokens, positions, self._f32(temps), self._f32(topps), self._u32(seeds),
+                   self._g(g_states))
+
+    def send_grammar(self, blob: bytes, detach: bool = False) -> None:
+        """A grammar attach (canonical response_format JSON) or detach (the
+        schema key), in slot-sized fragments; workers act on the final one.
+        Every process compiles locally: tables never cross the wire."""
+        frag_bytes = self.chunk * 4  # an int32 word carries 4 bytes
+        frags = [blob[off: off + frag_bytes] for off in range(0, max(1, len(blob)), frag_bytes)]
+        for idx, frag in enumerate(frags):
+            flags = (1 if idx == len(frags) - 1 else 0) | (2 if detach else 0)
+            pad = (-len(frag)) % 4
+            words = np.frombuffer(frag + b"\0" * pad, np.uint8).view(np.int32)
+            self._send(OP_GRAMMAR, flags, len(frag), idx, words)
+
+    def send_pipeline_flush(self) -> None:
+        self._send(OP_PIPELINE_FLUSH, 0, 0, 0)
+
+    def send_stop(self) -> None:
+        self._send(OP_STOP, 0, 0, 0)
+
+    def send_stats_reset(self) -> None:
+        self._send(OP_STATS_RESET, 0, 0, 0)
+
+    def send_copy_lane(self, src: int, dst: int) -> None:
+        # header fields carry the operands: lane=src, start_pos=dst
+        self._send(OP_COPY_LANE, src, 0, dst)
+
+    def recv(self) -> np.ndarray:
+        faults.fire("plane.recv")  # the seeded fault plan; no-op unarmed
+        pkt = self._bcast(np.zeros(self._size, np.int32))
+        self.validate(pkt)
+        return pkt
+
+    @staticmethod
+    def validate(pkt: np.ndarray) -> None:
+        """Packet integrity gate, run on every recv before the op switch."""
+        if len(pkt) < ControlPlane.HEADER:
+            raise ReplayError(f"control packet truncated: {len(pkt)} words < header "
+                              f"{ControlPlane.HEADER}")
+        if int(pkt[0]) != PACKET_MAGIC:
+            raise ReplayError(
+                f"control packet magic mismatch: got 0x{int(pkt[0]) & 0xFFFFFFFF:08X}, "
+                f"want 0x{PACKET_MAGIC:08X} (torn packet, or a peer that is not a "
+                "dllama control plane)")
+        if int(pkt[1]) != PROTOCOL_VERSION:
+            raise ReplayError(
+                f"control packet protocol version {int(pkt[1])} != {PROTOCOL_VERSION}: "
+                "root and worker binaries are skewed (finish the rolling restart "
+                "before serving)")
+
+
+class RootControlEngine:
+    """Engine proxy for process 0: validates, broadcasts the control packet,
+    then makes the identical engine call the workers replay (the reference
+    root's writeAll-then-forward, src/app.cpp:198-209). Attributes it does
+    not define (stats, config, consume, lane_logits, ...) are the engine's:
+    host-only calls that dispatch no ring step."""
+
+    def __init__(self, engine, plane: ControlPlane):
+        self._engine = engine
+        self._plane = plane
+        self._pod_step: dict = {}  # measure_pod_step's
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def grammar_attach(self, rf: dict):
+        """Compile and install root-side first (a schema that cannot compile
+        dies with zero packets out), then broadcast the canonical JSON in
+        declaration order, so that every worker compiles the same automaton
+        at the same slab base."""
+        from ..grammar.automaton import validate_response_format
+
+        canon = validate_response_format(rf)
+        handle = self._engine.grammar_attach(rf)
+        self._plane.send_grammar(json.dumps(canon).encode())
+        return handle
+
+    def grammar_detach(self, key: str) -> None:
+        self._engine.grammar_detach(key)
+        self._plane.send_grammar(str(key).encode(), detach=True)
+
+    def prefill_chunk(self, lane: int, chunk, start_pos: int, temp: float = 0.0,
+                      topp: float | None = None, seed: int = 0, g_state: int = 0):
+        if topp is None:  # byte-identical default on packet and root call
+            from ..runtime.engine import DEFAULT_TOPP as topp
+        # validate before broadcasting: a chunk over the plane or the
+        # engine's bucket would raise after the packet went out
+        limit = min(self._plane.chunk, self._engine.max_chunk())
+        if not 1 <= len(chunk) <= limit:
+            raise ValueError(
+                f"prefill chunk of {len(chunk)} outside [1, {limit}] (plane packet capacity "
+                f"{self._plane.chunk}, engine bucket {self._engine.max_chunk()}); size "
+                "ControlPlane(chunk=...) >= engine.max_chunk()")
+        self._plane.send_prefill(lane, list(chunk), start_pos, temp, topp, seed,
+                                 g_state=g_state)
+        return self._engine.prefill_chunk(lane, list(chunk), start_pos, temp=temp, topp=topp,
+                                          seed=seed, g_state=g_state)
+
+    def prefill(self, lane: int, tokens, start_pos: int = 0, temp: float = 0.0,
+                topp: float | None = None, seed: int = 0):
+        if topp is None:
+            from ..runtime.engine import DEFAULT_TOPP as topp
+        # one packet, then its compute, per chunk: the workers replay each
+        # packet with a blocking call, so broadcasting the whole prompt first
+        # would deadlock on prompts over plane.chunk
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError("prefill needs at least one token (empty prompt)")
+        chunk = self._plane.chunk
+        out = None
+        for off in range(0, len(tokens), chunk):
+            part = tokens[off: off + chunk]
+            self._plane.send_prefill(lane, part, start_pos + off, temp, topp, seed)
+            out = self._engine.prefill(lane, part, start_pos=start_pos + off, temp=temp,
+                                       topp=topp, seed=seed)
+        # the engine's (last logits, greedy, end position) of the last chunk
+        return out
+
+    def _normalize_sampling(self, temps, topps, seeds):
+        """Packet and root-side call carry byte-identical sampling values."""
+        from ..runtime.engine import DEFAULT_TOPP
+
+        n = self._engine.n_lanes
+        return (
+            np.zeros(n, np.float32) if temps is None else np.asarray(temps, np.float32),
+            np.full(n, DEFAULT_TOPP, np.float32) if topps is None
+            else np.asarray(topps, np.float32),
+            np.zeros(n, np.uint32) if seeds is None else np.asarray(seeds, np.uint32),
+        )
+
+    def _check_lane_vectors(self, *vecs) -> None:
+        """Pre-broadcast shape validation of the plain decode-family ops'
+        per-lane vectors (the pod-deadlock rule)."""
+        n = self._engine.n_lanes
+        for v in vecs:
+            if v is not None and len(v) != n:
+                raise ValueError(f"per-lane packet vector of length {len(v)} != n_lanes {n}: "
+                                 "decode-family packets carry exactly one entry per lane")
+
+    def decode(self, tokens, positions, temps=None, topps=None, seeds=None,
+               want_logits: bool = True, g_states=None):
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._check_lane_vectors(tokens, positions, temps, topps, seeds, g_states)
+        self._plane.send_decode(np.asarray(tokens, np.int32), np.asarray(positions, np.int32),
+                                temps, topps, seeds, want_logits=want_logits,
+                                g_states=g_states)
+        return self._engine.decode(tokens, positions, temps, topps, seeds,
+                                   want_logits=want_logits, g_states=g_states)
+
+    def decode_pipelined(self, positions, temps=None, topps=None, seeds=None, tokens=None,
+                         g_states=None):
+        """The packet first, then the root's half of the async chain;
+        consume is host-only and forwards through __getattr__."""
+        self._engine.check_pipelined_dispatch(tokens is not None, positions, g_states)
+        # the default grammar vector, materialized now: packet and root
+        # call carry the same values
+        g_states = self._engine._g_vec(g_states, tokens is not None)
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._plane.send_decode_pipelined(
+            None if tokens is None else np.asarray(tokens, np.int32),
+            np.asarray(positions, np.int32), temps, topps, seeds,
+            depth=getattr(self._engine, "pipeline_depth", 2), g_states=g_states)
+        return self._engine.decode_pipelined(positions, temps, topps, seeds, tokens=tokens,
+                                             g_states=g_states)
+
+    def _check_fused_chunk(self, chunk, p_topp):
+        """One copy of the fused admissions' chunk validation and topp
+        default; returns the resolved p_topp."""
+        if p_topp is None:
+            from ..runtime.engine import DEFAULT_TOPP as p_topp
+        limit = min(self._plane.chunk, self._engine.max_chunk())
+        if chunk is None or not 1 <= len(chunk) <= limit:
+            raise ValueError(
+                f"fused prefill chunk of {0 if chunk is None else len(chunk)} outside "
+                f"[1, {limit}] (plane packet capacity {self._plane.chunk}, engine bucket "
+                f"{self._engine.max_chunk()})")
+        return p_topp
+
+    def decode_prefill_fused(self, positions, temps=None, topps=None, seeds=None,
+                             p_lane: int = 0, chunk=None, p_start: int = 0,
+                             p_temp: float = 0.0, p_topp: float | None = None,
+                             p_seed: int = 0, tokens=None, g_states=None, p_g: int = 0):
+        """A stall-free admission on a pod: the engine's whole validation
+        set before the packet, then the packet, then the root's half."""
+        p_topp = self._check_fused_chunk(chunk, p_topp)
+        self._engine.check_fused_dispatch(list(chunk), p_start, tokens is not None, positions,
+                                          g_states)
+        g_states = self._engine._g_vec(g_states, tokens is not None)
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._plane.send_decode_prefill_fused(
+            None if tokens is None else np.asarray(tokens, np.int32),
+            np.asarray(positions, np.int32), temps, topps, seeds,
+            depth=getattr(self._engine, "pipeline_depth", 2), p_lane=p_lane,
+            chunk=list(chunk), p_start=p_start, p_temp=p_temp, p_topp=p_topp,
+            p_seed=p_seed, g_states=g_states, p_g=p_g)
+        return self._engine.decode_prefill_fused(
+            positions, temps, topps, seeds, p_lane=p_lane, chunk=list(chunk), p_start=p_start,
+            p_temp=p_temp, p_topp=p_topp, p_seed=p_seed, tokens=tokens, g_states=g_states,
+            p_g=p_g)
+
+    def decode_spec_pipelined(self, positions, drafts, draft_len, temps=None, topps=None,
+                              seeds=None, tokens=None, g_states=None):
+        drafts = np.asarray(drafts, np.int32)
+        self._engine.check_spec_pipelined_dispatch(drafts, tokens is not None, positions,
+                                                   g_states)
+        g_states = self._engine._g_vec(g_states, tokens is not None)
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._plane.send_decode_spec_pipelined(
+            None if tokens is None else np.asarray(tokens, np.int32),
+            np.asarray(positions, np.int32), temps, topps, seeds,
+            depth=getattr(self._engine, "pipeline_depth", 2), drafts=drafts,
+            draft_len=np.asarray(draft_len, np.int32), g_states=g_states)
+        return self._engine.decode_spec_pipelined(positions, drafts, draft_len, temps, topps,
+                                                  seeds, tokens=tokens, g_states=g_states)
+
+    def decode_spec_prefill_fused(self, positions, drafts, draft_len, temps=None, topps=None,
+                                  seeds=None, p_lane: int = 0, chunk=None, p_start: int = 0,
+                                  p_temp: float = 0.0, p_topp: float | None = None,
+                                  p_seed: int = 0, tokens=None, g_states=None, p_g: int = 0):
+        p_topp = self._check_fused_chunk(chunk, p_topp)
+        drafts = np.asarray(drafts, np.int32)
+        self._engine.check_spec_drafts(drafts)
+        self._engine.check_fused_dispatch(list(chunk), p_start, tokens is not None, positions,
+                                          g_states)
+        g_states = self._engine._g_vec(g_states, tokens is not None)
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._plane.send_decode_spec_prefill_fused(
+            None if tokens is None else np.asarray(tokens, np.int32),
+            np.asarray(positions, np.int32), temps, topps, seeds,
+            depth=getattr(self._engine, "pipeline_depth", 2), drafts=drafts,
+            draft_len=np.asarray(draft_len, np.int32), p_lane=p_lane, chunk=list(chunk),
+            p_start=p_start, p_temp=p_temp, p_topp=p_topp, p_seed=p_seed,
+            g_states=g_states, p_g=p_g)
+        return self._engine.decode_spec_prefill_fused(
+            positions, drafts, draft_len, temps, topps, seeds, p_lane=p_lane,
+            chunk=list(chunk), p_start=p_start, p_temp=p_temp, p_topp=p_topp, p_seed=p_seed,
+            tokens=tokens, g_states=g_states, p_g=p_g)
+
+    def pipeline_flush(self) -> int:
+        """The chain's end or abort: the workers drain and drop their rings
+        too (a flush replays no ring step; the packet is its only
+        exchange)."""
+        self._plane.send_pipeline_flush()
+        return self._engine.pipeline_flush()
+
+    def pipeline_abort(self) -> int:
+        """Containment on a pod root: the workers drop their rings and
+        carries (the flush packet), the root aborts without reading back."""
+        self._plane.send_pipeline_flush()
+        return self._engine.pipeline_abort()
+
+    def decode_spec(self, tokens, drafts, draft_len, positions, temps=None, topps=None,
+                    seeds=None, g_states=None):
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._check_lane_vectors(tokens, positions, temps, topps, seeds, drafts, draft_len,
+                                 g_states)
+        self._plane.send_decode_spec(
+            np.asarray(tokens, np.int32), np.asarray(drafts, np.int32),
+            np.asarray(draft_len, np.int32), np.asarray(positions, np.int32),
+            temps, topps, seeds, g_states=g_states)
+        return self._engine.decode_spec(tokens, drafts, draft_len, positions, temps, topps,
+                                        seeds, g_states=g_states)
+
+    def decode_multi(self, tokens, positions, temps=None, topps=None, seeds=None, h: int = 8,
+                     g_states=None):
+        temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
+        self._check_lane_vectors(tokens, positions, temps, topps, seeds, g_states)
+        if h < 1:
+            raise ValueError(f"decode_multi horizon h={h} must be >= 1")
+        self._plane.send_decode_multi(np.asarray(tokens, np.int32),
+                                      np.asarray(positions, np.int32), temps, topps, seeds,
+                                      h, g_states=g_states)
+        return self._engine.decode_multi(tokens, positions, temps, topps, seeds, h,
+                                         g_states=g_states)
+
+    def measured_sync_stats(self, steps: int = 4) -> dict:
+        """Off on a pod root: the probe's direct decode calls would not be
+        broadcast, and the workers would never take their half of its ring
+        steps. ``measure_pod_step`` is the pod's probe."""
+        del steps
+        return {}
+
+    def measure_pod_step(self, steps: int = 8) -> None:
+        """The pod's eager decode step, timed once at startup (the end of
+        ``warmup_engine``, before either side's counters are reset) through
+        the proxy, so that every worker replays it: the wall ms a step
+        (``parked_step_ms``) and the ms this process's streams waited in the
+        ring steps' waits, with its share; ``pod_stats`` reports them."""
+        from ..runtime.engine import parked_step_ms
+
+        pod = self._engine.pod
+        step_ms = parked_step_ms(self, steps, timer=pod)
+        wait_ms = pod.stop_timing() / steps
+        self._pod_step = {"pod_step_ms": step_ms, "pod_step_wait_ms": wait_ms,
+                          "pod_step_wait_share": wait_ms / step_ms}
+
+    def pod_stats(self) -> dict:
+        """The control plane's packets and broadcast time, beside the
+        engine's window counters and the startup step's time."""
+        return {**self._plane.stats(), **self._engine.pod_stats(), **self._pod_step}
+
+    def stop_workers(self) -> None:
+        leave_pod()
+        self._plane.send_stop()
+        self._engine.release_pod()
+
+    def reset_worker_stats(self) -> None:
+        """Workers drop warmup traffic from their counters too."""
+        self._plane.send_stats_reset()
+
+    def copy_lane(self, src: int, dst: int, prefix_len: int | None = None) -> None:
+        """Prefix caching on a pod: every process copies its own ranks'
+        caches, so the operands ride a packet before the root's copy."""
+        if getattr(self._engine, "kvpool", None) is not None:
+            raise RuntimeError("copy_lane is the contiguous layout's primitive; a paged "
+                               "engine shares prefix pages by refcount via paged_admit")
+        if src == dst or prefix_len == 0:
+            return  # the engine's own short-circuit, before any packet
+        n = self._engine.n_lanes
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"copy_lane {src} -> {dst} outside lane range [0, {n})")
+        self._plane.send_copy_lane(src, dst)
+        self._engine.copy_lane(src, dst)
+
+    def _refused(self, *_, **__):
+        raise RuntimeError("the paged KV pool, page import and the swap tier are not "
+                           "served on a pod by this port (ROADMAP A7)")
+
+    apply_paged_admit = paged_admit = paged_finish = paged_reset = _refused
+    import_kv_page = swap_in_pages = _refused
+
+
+def worker_loop(engine, plane: ControlPlane, on_replay=None) -> None:
+    """Replay root-broadcast engine calls until OP_STOP (the reference's
+    runWorkerApp poll loop, src/app.cpp:405-464): every process takes the
+    same ring steps in the same order. ``on_replay`` (if given) runs after
+    each replayed packet."""
+    gram_buf = bytearray()  # OP_GRAMMAR fragment accumulator
+    while True:
+        pkt = plane.recv()
+        # header: [magic, version, op, lane, n, start_pos]; magic/version
+        # already validated by plane.recv()
+        op, lane, n, start_pos = (int(x) for x in pkt[2:6])
+        if op == OP_STOP:
+            leave_pod()
+            return
+        if op == OP_PREFILL:
+            engine.prefill(
+                lane, [int(t) for t in plane.slot(pkt, 0, n)], start_pos=start_pos,
+                temp=float(plane.slot(pkt, 1, 1).view(np.float32)[0]),
+                topp=float(plane.slot(pkt, 2, 1).view(np.float32)[0]),
+                seed=int(plane.slot(pkt, 3, 1).view(np.uint32)[0]),
+                g_state=int(plane.slot(pkt, 4, 1)[0]),
+            )
+        elif op == OP_DECODE:
+            engine.decode(
+                plane.slot(pkt, 0, n), plane.slot(pkt, 1, n),
+                plane.slot(pkt, 2, n).view(np.float32), plane.slot(pkt, 3, n).view(np.float32),
+                plane.slot(pkt, 4, n).view(np.uint32),
+                want_logits=bool(lane), g_states=plane.slot(pkt, 5, n),
+            )
+        elif op in (OP_DECODE_PIPELINED, OP_DECODE_PREFILL_FUSED, OP_DECODE_SPEC_PIPELINED,
+                    OP_DECODE_SPEC_PREFILL_FUSED):
+            # feed flag in `lane`, ring depth in `start_pos`: the worker
+            # mirrors the root's bounded lag, consuming (its own readback)
+            # only when its ring would pass the bound, and drops the chain
+            # when the root reseeds after a flush
+            if lane:
+                engine.pipeline_flush(count=False)
+            elif engine.pipeline_inflight() >= max(1, start_pos):
+                engine.pipeline_consume()
+            _replay_pipelined(engine, plane, pkt, op, lane, n)
+        elif op == OP_DECODE_SPEC:
+            k = engine.SPEC_DRAFT
+            engine.decode_spec(
+                plane.slot(pkt, 0, n), plane.slot(pkt, 5, n * k).reshape(n, k),
+                plane.slot(pkt, 6, n), plane.slot(pkt, 1, n),
+                plane.slot(pkt, 2, n).view(np.float32), plane.slot(pkt, 3, n).view(np.float32),
+                plane.slot(pkt, 4, n).view(np.uint32), g_states=plane.slot(pkt, 7, n),
+            )
+        elif op == OP_DECODE_MULTI:
+            engine.decode_multi(
+                plane.slot(pkt, 0, n), plane.slot(pkt, 1, n),
+                plane.slot(pkt, 2, n).view(np.float32), plane.slot(pkt, 3, n).view(np.float32),
+                plane.slot(pkt, 4, n).view(np.uint32),
+                start_pos,  # the horizon rides start_pos
+                g_states=plane.slot(pkt, 5, n),
+            )
+        elif op == OP_GRAMMAR:
+            # schema-byte fragments accumulate; the final one attaches or
+            # (bit 1) detaches. Compiling is deterministic, so this worker's
+            # slab lands the automaton at the root's base
+            frag = plane.slot(pkt, 0, (n + 3) // 4).view(np.uint8)[:n]
+            gram_buf += frag.tobytes()
+            if lane & 1:
+                blob = bytes(gram_buf)
+                gram_buf = bytearray()
+                if lane & 2:
+                    engine.grammar_detach(blob.decode())
+                else:
+                    engine.grammar_attach(json.loads(blob))
+        elif op == OP_PIPELINE_FLUSH:
+            # count=False: the worker's ring lags the root's by design, so
+            # holding steps at a clean chain end is no abort
+            engine.pipeline_flush(count=False)
+        elif op == OP_STATS_RESET:
+            # the root zeroes the same after its warmup (runtime_setup)
+            engine.stats.reset()
+            reset_kernel_counts()
+            if getattr(engine, "pod", None) is not None:
+                engine.pod.reset_stats()
+        elif op == OP_COPY_LANE:
+            engine.copy_lane(lane, start_pos)  # src, dst ride the header
+        elif op in _REFUSED_OPS:
+            raise ReplayError(f"{_REFUSED_OPS[op]}: the paged KV ops are not served on a pod "
+                              "by this port (ROADMAP A7); root and worker flags are skewed")
+        else:
+            # classified, pre-dispatch: worker_serve resubscribes without
+            # burning a restart
+            raise ReplayError(f"unknown control op {op}")
+        if on_replay is not None:
+            on_replay()
+
+
+def _replay_pipelined(engine, plane: ControlPlane, pkt, op: int, lane: int, n: int) -> None:
+    """The four in-ring ops' dispatch, after the ring's bounded-lag rule:
+    the DECODE_PIPELINED slots, plus the chunk and its 7-word header
+    (fused), the drafts and their lengths (spec), or all of them."""
+    tokens = plane.slot(pkt, 0, n) if lane else None
+    sampling = (plane.slot(pkt, 2, n).view(np.float32), plane.slot(pkt, 3, n).view(np.float32),
+                plane.slot(pkt, 4, n).view(np.uint32))
+    spec = op in (OP_DECODE_SPEC_PIPELINED, OP_DECODE_SPEC_PREFILL_FUSED)
+    prompt = {}
+    if op in (OP_DECODE_PREFILL_FUSED, OP_DECODE_SPEC_PREFILL_FUSED):
+        chunk_slot = 7 if spec else 5
+        phdr = plane.slot(pkt, chunk_slot + 1, 7)
+        prompt = {"p_lane": int(phdr[0]),
+                  "chunk": [int(t) for t in plane.slot(pkt, chunk_slot, int(phdr[2]))],
+                  "p_start": int(phdr[1]),
+                  "p_temp": float(phdr[3:4].view(np.float32)[0]),
+                  "p_topp": float(phdr[4:5].view(np.float32)[0]),
+                  "p_seed": int(phdr[5:6].view(np.uint32)[0]),
+                  "p_g": int(phdr[6])}
+    # the grammar states follow the op's last payload slot
+    g_slot = {OP_DECODE_PIPELINED: 5, OP_DECODE_PREFILL_FUSED: 7,
+              OP_DECODE_SPEC_PIPELINED: 7, OP_DECODE_SPEC_PREFILL_FUSED: 9}[op]
+    g_states = plane.slot(pkt, g_slot, n)
+    positions = plane.slot(pkt, 1, n)
+    if spec:
+        k1 = engine.SPEC_DRAFT + 1
+        drafts = plane.slot(pkt, 5, n * k1).reshape(n, k1)
+        draft_len = plane.slot(pkt, 6, n)
+        if prompt:
+            engine.decode_spec_prefill_fused(positions, drafts, draft_len, *sampling,
+                                             tokens=tokens, g_states=g_states, **prompt)
+        else:
+            engine.decode_spec_pipelined(positions, drafts, draft_len, *sampling,
+                                         tokens=tokens, g_states=g_states)
+    elif prompt:
+        engine.decode_prefill_fused(positions, *sampling, tokens=tokens, g_states=g_states,
+                                    **prompt)
+    else:
+        engine.decode_pipelined(positions, *sampling, tokens=tokens, g_states=g_states)
+
+
+def worker_serve(engine, plane: ControlPlane, max_restarts: int | None = 3,
+                 healthy_window: int = 64, log=None) -> None:
+    """Supervised worker: re-enter ``worker_loop`` after a replay error (the
+    reference's outer loop, src/app.cpp:455-463), within a restart budget
+    that ``healthy_window`` consecutive good replays refresh, so a
+    persistent error (the desync signature) still ends the process.
+    Classified ``ReplayError``\\ s burn no restart: they have their own,
+    larger storm bound. A lost pod (``PodLost``, ``PodPeerLost``) is never
+    retried. Every restart emits a structured log event
+    (``worker_restart`` / ``worker_protocol_error``) and bumps
+    ``engine.stats.worker_restarts`` / ``worker_replay_errors``; ``log``
+    (optional) receives a one-line summary."""
+    restarts = 0
+    healthy = 0
+    protocol_errors = 0
+    protocol_budget = max(64, (max_restarts or 0) * 16)
+    stats = getattr(engine, "stats", None)
+
+    def _count(name: str) -> None:
+        if stats is not None:
+            with stats.lock:
+                setattr(stats, name, getattr(stats, name) + 1)
+
+    def _replayed() -> None:
+        nonlocal restarts, healthy, protocol_errors
+        healthy += 1
+        if healthy >= healthy_window:
+            restarts = 0
+            protocol_errors = 0
+            healthy = 0
+
+    while True:
+        try:
+            worker_loop(engine, plane, on_replay=_replayed)
+            return
+        except (PodLost, PodPeerLost):
+            raise
+        except ReplayError as e:
+            healthy = 0
+            protocol_errors += 1
+            _count("worker_replay_errors")
+            log_event("worker_protocol_error", error=str(e)[:200],
+                      protocol_errors=protocol_errors, protocol_budget=protocol_budget)
+            if log is not None:
+                log(f"worker protocol error ({protocol_errors}): {e}")
+            if protocol_errors > protocol_budget:
+                raise
+        except Exception as e:  # noqa: BLE001 — the supervised restart boundary
+            healthy = 0
+            restarts += 1
+            _count("worker_restarts")
+            log_event("worker_restart", error=f"{type(e).__name__}: {e}"[:200],
+                      restarts=restarts, max_restarts=max_restarts)
+            if log is not None:
+                log(f"worker replay error (restart {restarts}): {e!r}")
+            if max_restarts is not None and restarts > max_restarts:
+                raise

@@ -17,6 +17,9 @@ one output chunk per hop, and a column slice of a [d_in/2, d_out] plane is
 not contiguous, which the kernels refuse. Splitting once here costs nothing
 per call.
 
+In a pod (``mesh.is_pod``) a process keeps only its local ranks' shards:
+every list here holds ``mesh.local_ranks``' entries, in order.
+
 MoE expert stacks shard as the JAX package's shardings do (experts on
 ``ep``, which stays 1; the d axis on tp): w1/w3 [L, E, dim, hidden] row-
 sliced on hidden for every expert, w2 [L, E, hidden, dim] split on its input
@@ -34,6 +37,11 @@ from .mesh import Mesh
 
 _ROW_SLICED = ("wq", "wk", "wv", "w1", "w3", "bq", "bk", "bv")
 _COL_SLICED = ("wo", "w2")
+
+
+def _ranks(mesh: Mesh):
+    """(global rank, device) of the ranks this process holds."""
+    return zip(mesh.local_ranks, mesh.devices)
 
 
 def _map(w, fn):
@@ -62,7 +70,7 @@ def row_shards(w, mesh: Mesh) -> list:
     device."""
     n = mesh.tp
     return [_map(w, lambda t: _out_slice(t, r, n).contiguous().to(dev))
-            for r, dev in enumerate(mesh.devices)]
+            for r, dev in _ranks(mesh)]
 
 
 def in_shards(w, mesh: Mesh) -> list:
@@ -74,7 +82,7 @@ def in_shards(w, mesh: Mesh) -> list:
         c = t.shape[-2] // n
         return t[..., r * c:(r + 1) * c, :].contiguous()
 
-    return [_map(w, lambda t: rows(t, r).to(dev)) for r, dev in enumerate(mesh.devices)]
+    return [_map(w, lambda t: rows(t, r).to(dev)) for r, dev in _ranks(mesh)]
 
 
 def col_shards(w, mesh: Mesh) -> list:
@@ -82,11 +90,11 @@ def col_shards(w, mesh: Mesh) -> list:
     device."""
     n = mesh.tp
     return [_map(w, lambda t: _col_chunks(t, r, n).to(dev))
-            for r, dev in enumerate(mesh.devices)]
+            for r, dev in _ranks(mesh)]
 
 
 def shard_params(params: LlamaParams, mesh: Mesh) -> list:
-    """Rank r's parameters on ``mesh.devices[r]``, one LlamaParams per rank.
+    """Each held rank's parameters on its device, one LlamaParams per rank.
     Raises where a col-sliced packed weight's shard (an MoE w2's included)
     would split a quant block (d_in / tp % 32 != 0)."""
     n = mesh.tp
@@ -103,14 +111,14 @@ def shard_params(params: LlamaParams, mesh: Mesh) -> list:
     wcls = row_shards(params.wcls, mesh)
     return [LlamaParams(
         embedding=params.embedding.to(dev),
-        layers=LlamaLayerParams(**{k: v[r] for k, v in split.items()},
+        layers=LlamaLayerParams(**{k: v[i] for k, v in split.items()},
                                 rms_att=lp.rms_att.to(dev), rms_ffn=lp.rms_ffn.to(dev),
                                 moe_gate=lp.moe_gate.to(dev) if moe else None),
         rms_final=params.rms_final.to(dev),
-        wcls=wcls[r],
+        wcls=wcls[i],
         rope_cos=params.rope_cos.to(dev),
         rope_sin=params.rope_sin.to(dev),
-    ) for r, dev in enumerate(mesh.devices)]
+    ) for i, dev in enumerate(mesh.devices)]
 
 
 def shard_kv_cache(cache: KVCache, mesh: Mesh) -> list:
@@ -120,7 +128,7 @@ def shard_kv_cache(cache: KVCache, mesh: Mesh) -> list:
     h = cache.k.shape[3] // n
     return [KVCache(k=cache.k[:, :, :, r * h:(r + 1) * h].contiguous().to(dev),
                     v=cache.v[:, :, :, r * h:(r + 1) * h].contiguous().to(dev))
-            for r, dev in enumerate(mesh.devices)]
+            for r, dev in _ranks(mesh)]
 
 
 def shard_paged_kv_cache(cache: PagedKVCache, mesh: Mesh) -> list:
@@ -133,7 +141,7 @@ def shard_paged_kv_cache(cache: PagedKVCache, mesh: Mesh) -> list:
     h = cache.k.shape[3] // n
     tables: dict = {}
     out = []
-    for r, dev in enumerate(mesh.devices):
+    for r, dev in _ranks(mesh):
         if dev not in tables:
             tables[dev] = cache.table.to(dev, copy=True)
         out.append(PagedKVCache(k=cache.k[:, :, :, r * h:(r + 1) * h].contiguous().to(dev),

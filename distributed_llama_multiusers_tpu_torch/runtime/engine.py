@@ -59,12 +59,17 @@ key's first use) from the same step bodies the CPU runs eagerly. Host inputs rea
 copies from pinned memory and a pipelined step's tokens come back the same
 way behind an event, so nothing in a pipelined dispatch waits on the card.
 The prompt-chunk and fused families run eagerly on the stream, as does a
-tensor-parallel mesh across cards; a mesh whose ranks share one card is
-captured.
+tensor-parallel mesh across cards or processes; a one-process mesh whose
+ranks share one card is captured.
 
 With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
-KV caches; sampling and the returned logits stay on rank 0's device, so the
-scheduler sees one engine either way.
+KV caches; sampling and the returned logits stay on its first rank's
+device, so the scheduler sees one engine either way. On a pod mesh
+(parallel/multihost.py) the engine holds this process's ranks and opens the
+pod's windows (parallel/window.py) at construction: every process runs the
+same calls (the root's through ``RootControlEngine``, a worker's replayed
+from its packets), takes the same ring steps, gets the whole logits and so
+samples, masks and carries the same tokens.
 
 Every dispatch family and the lagged consume fire the seeded fault plan
 (``utils/faults.py``: ``engine.dispatch``, ``engine.consume``) after their
@@ -108,7 +113,7 @@ from ..models.llama import (
     llama_forward,
 )
 from ..ops import cuda_grammar
-from ..ops.ring_collective import ring_counts
+from ..ops.ring_collective import pod_installed, ring_counts, set_pod
 from ..parallel.sharding import shard_kv_cache, shard_paged_kv_cache
 from ..utils import faults
 from .graphs import StepGraphs
@@ -186,6 +191,10 @@ class EngineStats:
     # and dispatches that carried at least one constrained lane
     grammar_lanes: int = 0
     grammar_masked_steps: int = 0
+    # a pod worker's supervised restarts and classified packet errors
+    # (parallel/multihost.worker_serve)
+    worker_restarts: int = 0
+    worker_replay_errors: int = 0
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                  compare=False)
 
@@ -351,11 +360,24 @@ class InferenceEngine:
         self._g_rows = torch.zeros((n, config.vocab_size), dtype=torch.float32,
                                    device=self.device)
         # a mesh across cards stays eager (its ranks' streams would join
-        # the capture through events); one card, ranks on it included, is
+        # the capture through events), as does a pod (its ring steps'
+        # epochs change every step); one card, ranks on it included, is
         # captured
         one_card = self.device.type == "cuda" and all(d == self.device for d in self.devices)
+        pod = mesh is not None and mesh.is_pod
         self.graphs = (StepGraphs(self.device, [self._feed, self._cpos, self._cg])
-                       if one_card else None)
+                       if one_card and not pod else None)
+        self.pod = None
+        if pod:
+            from ..parallel.multihost import pod_store
+            from ..parallel.window import open_windows
+
+            self.pod = open_windows(mesh.tp, dict(zip(mesh.local_ranks, mesh.devices)),
+                                    self.pod_slot_bytes(), pod_store())
+            set_pod(self.pod)
+        elif mesh is not None and pod_installed():
+            raise RuntimeError("this process runs a pod's ring steps: a mesh engine beside "
+                               "it would take them through the pod's windows")
         # pipelined ring: (kind "tok" or "spec", host readback, ready event
         # or None, t_dispatch)
         self._pl_inflight: deque = deque()
@@ -373,6 +395,33 @@ class InferenceEngine:
     def _upload(self, a, dtype=torch.int64) -> torch.Tensor:
         """A host array on the engine's device, without waiting."""
         return self._staged(a, dtype).to(self.device, non_blocking=True)
+
+    def pod_slot_bytes(self) -> int:
+        """The largest ring step's wire bytes a pod window slot must hold:
+        a prompt chunk's (or a verify window's) f32 wo/w2 chunk, or the
+        verify step's f32 logits shard (the fused steps run their prompt
+        chunk and their decode rows as two forwards)."""
+        from ..quants.packed import PackedQ40
+
+        rows = max(self.max_chunk(), self.n_lanes * (SPEC_DRAFT + 1))
+        wcls = (self.params[0] if self.mesh is not None else self.params).wcls
+        shard = (wcls.packed if isinstance(wcls, PackedQ40) else wcls).shape[-1]
+        tp = 1 if self.mesh is None else self.mesh.tp
+        return 4 * max(rows * (self.config.dim // tp), self.n_lanes * (SPEC_DRAFT + 1) * shard)
+
+    def release_pod(self) -> None:
+        """Take this engine's windows out of the ring steps (at the pod's
+        stop); their memory goes with the process."""
+        if self.pod is not None:
+            set_pod(None)
+
+    def pod_stats(self) -> dict:
+        """A pod process's window counters: ring steps, staging copies and
+        pulls, waits and (when timed) the ms its streams waited; {} off a
+        pod."""
+        if self.pod is None:
+            return {}
+        return {f"pod_ring_{k}": v for k, v in self.pod.stats.items()}
 
     def _lane_cache(self, lane: int):
         if self.mesh is None:
@@ -1463,6 +1512,25 @@ class InferenceEngine:
         self.swap_in_ms = 0.0
 
 
+def parked_step_ms(engine, steps: int = 8, timer=None) -> float:
+    """Host ms of an eager decode step with every lane parked at seq_len
+    (the scratch slot), greedy, no logits kept, each step read back: one
+    untimed step, then ``steps`` timed. ``timer`` (a pod's windows) starts
+    timing its ring waits before the timed steps. The engine's counters are
+    restored; the kernel counters are not."""
+    n = engine.n_lanes
+    park = np.full(n, engine.config.seq_len, np.int64)
+    z = np.zeros(n, np.int64)
+    with engine.stats.preserved():
+        engine.decode(z, park, want_logits=False)
+        if timer is not None:
+            timer.start_timing()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.decode(z, park, want_logits=False)
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+
 def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 0,
                   pipeline: bool = True) -> None:
     """Run every serving program once before serving, so that no request
@@ -1514,3 +1582,10 @@ def warmup_engine(engine: InferenceEngine, spec: bool = True, multi_step: int = 
                         engine.decode_spec_prefill_fused(
                             neg, np.zeros((n, k1), np.int64), z, p_lane=0, chunk=[0] * bucket)
                         engine.pipeline_flush()
+    # a pod root: its eager step timed through the proxy (the workers
+    # replay it), then the workers drop the replayed warmup traffic and the
+    # probe's from their counters too
+    reset_workers = getattr(engine, "reset_worker_stats", None)
+    if reset_workers is not None:
+        engine.measure_pod_step()
+        reset_workers()

@@ -248,7 +248,7 @@ class ContinuousBatchingScheduler:
                  fused_prefill: bool = True, speculative: bool = True,
                  prefix_min_tokens: int = 16, deadlines: DeadlinePolicy | None = None,
                  telemetry: Telemetry | None = None, breaker: CircuitBreaker | None = None,
-                 step_deadline_s: float | None = None,
+                 step_deadline_s: float | None = None, watchdog_fatal: bool = False,
                  journal: RequestJournal | None = None):
         """``speculative``: prompt-lookup speculative decoding of greedy
         lanes, wherever the engine has the verify families (inside the
@@ -277,8 +277,9 @@ class ContinuousBatchingScheduler:
         JSON logger hub (a default one is built); ``breaker``: the circuit
         breaker the containment layer feeds (a default one is built);
         ``step_deadline_s``: the step watchdog's deadline, None reads
-        ``DLLAMA_STEP_DEADLINE``, 0 disables (a trip never ends the
-        process: the port has no multi-process mesh); ``journal``: the
+        ``DLLAMA_STEP_DEADLINE``, 0 disables; ``watchdog_fatal`` (a pod
+        root): a trip also ends the process, so that a dead worker ends
+        the pod rather than wedging it; ``journal``: the
         crash-durable request journal (``--journal-path``; None, the
         default, journals nothing). Its creator closes it; ``stop()``
         only flushes it."""
@@ -308,7 +309,8 @@ class ContinuousBatchingScheduler:
         self._prefill_rr = 0  # round-robin cursor over admitting lanes
         self.breaker = breaker or CircuitBreaker()
         deadline = deadline_from_env(step_deadline_s)
-        self.watchdog = (StepWatchdog(deadline, on_trip=self._on_watchdog_trip)
+        self.watchdog = (StepWatchdog(deadline, on_trip=self._on_watchdog_trip,
+                                      fatal=watchdog_fatal)
                          if deadline > 0 else None)
         # watchdog -> loop: abort the pipelined chain at the next host-side
         # opportunity (a slow step returns eventually; the chain must not
@@ -594,7 +596,8 @@ class ContinuousBatchingScheduler:
         the blocked step returns when it returns."""
         self.breaker.trip(f"watchdog: no step progress within {waited_s:.1f}s")
         self._wd_abort.set()
-        self.telemetry.on_watchdog_trip(waited_s, fatal=False)
+        self.telemetry.on_watchdog_trip(
+            waited_s, fatal=self.watchdog is not None and self.watchdog.fatal)
 
     # -- internals ----------------------------------------------------------
 

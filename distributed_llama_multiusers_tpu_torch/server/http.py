@@ -72,13 +72,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from ..analysis import leakcheck
-from ..ops.cuda_attn import attn_counts
-from ..ops.cuda_grammar import grammar_counts
-from ..ops.cuda_moe import moe_counts
-from ..ops.cuda_q40 import kernel_counts
-from ..ops.cuda_sample import sample_counts
+from ..ops import all_kernel_counts
 from ..ops.dequant_select import dequant_stats
-from ..ops.ring_collective import ring_counts
 from ..runtime.scheduler import Request, fresh_request_id
 from ..serving import AdmissionRejected, StreamRelay, jittered_retry_after
 from ..serving.journal import entry_from_admit_record
@@ -277,7 +272,8 @@ class ApiServer:
             "queue_depth": sched.queue.depth(),
             "device": str(engine.device),
             "mesh": None if engine.mesh is None else {
-                **engine.mesh.shape, "devices": [str(d) for d in engine.mesh.devices]},
+                **engine.mesh.shape, "devices": [str(d) for d in engine.mesh.devices],
+                "processes": engine.mesh.num_processes},
             "sync_bytes_per_decode": stats["sync_bytes_per_decode"],
             # multi-step horizons taken (each several decode steps in one
             # dispatch; decode_steps counts the chained steps)
@@ -334,17 +330,17 @@ class ApiServer:
         out.update(leakcheck.stats())
         out["resources_live"] = sched.leak_counts()
         out.update(dequant_stats())
-        out.update(kernel_counts())
-        out.update(ring_counts())
-        out.update(sample_counts())
-        out.update(attn_counts())
-        out.update(grammar_counts())
-        out.update(moe_counts())
+        out.update(all_kernel_counts())
         # the paged pool's pressure (occupancy, sharing, COW, parking,
         # evictions, sheds) and swap traffic; a contiguous engine has none
         pool = getattr(engine, "pool_stats", None)
         if callable(pool):
             out.update(pool())
+        # a pod root: its control packets, its windows' ring steps and the
+        # eager step it timed at startup (pod_step_*)
+        pod = getattr(engine, "pod_stats", None)
+        if callable(pod):
+            out.update(pod())
         qos = getattr(sched, "qos_stats", None)
         if callable(qos):  # queue depth/wait/rejections, timeouts, breaker
             out.update(qos())

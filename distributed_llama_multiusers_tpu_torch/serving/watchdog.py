@@ -17,10 +17,10 @@ OUTSIDE of the process finds out (clients get 503s and the HTTP layer's
 bounded waits, operators get the log line and metrics) instead of a
 silent wedge.
 
-``fatal=True`` (the JAX package's multi-process mode) also ends the
-process after the trip, so that peers see a dead process rather than a
-silent one; the port has no multi-process mesh yet and serves with
-``fatal=False``.
+``fatal=True`` (a pod root, parallel/multihost.py, as in the JAX package)
+also ends the process after the trip, so that its peers see a dead process
+rather than a silent one: a root whose worker died waits in a ring step
+that never completes.
 
 Off by default: ``deadline_s <= 0`` never constructs one. The CLI
 surface is ``--step-deadline`` / ``DLLAMA_STEP_DEADLINE`` (seconds).
