@@ -303,6 +303,7 @@ from __future__ import annotations
 
 import base64
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -3658,7 +3659,7 @@ def paged_attn_phase(torch, attn: dict) -> dict:
 
 
 def paged_step_check(torch, q, rc, cs, config, params, mesh=None, label: str = "v4",
-                     steps: int = 10) -> dict:
+                     steps: int = 10, export_tokens=None) -> dict:
     """(b) Two engines on the full-width model in v4, contiguous and
     ``paged_kv`` (the pool's default 64-slot pages; with ``mesh``, tensor
     parallel on its ranks), the same 4 of 8 lanes prefilled (each paged
@@ -3668,7 +3669,10 @@ def paged_step_check(torch, q, rc, cs, config, params, mesh=None, label: str = "
     bits on every live lane and the same tokens. Then each engine's decode
     step measured as ``step_breakdown`` measures it, in turns (contiguous,
     paged, paged, contiguous): host clock, device time and device
-    operations per step."""
+    operations per step. ``export_tokens``: then a free lane of the paged
+    engine prefills them and its whole pages are exported (``export``: each
+    page's sha256 and the ms an export takes), the reference of the paged
+    pod's export (``pod_export_check``)."""
     import numpy as np
 
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
@@ -3763,6 +3767,21 @@ def paged_step_check(torch, q, rc, cs, config, params, mesh=None, label: str = "
         log(f"paged step [{label}]: prefill, {PAGED_STEPS} graph, {PAGED_STEPS} eager and "
             f"{PAGED_STEPS} verify steps bit-equal to the contiguous engine's; "
             + json.dumps({k: out[k] for k in ("contiguous", "paged")}))
+        if export_tokens is not None:
+            eng = engines["paged"]
+            lane = lanes - 1  # parked past the cache until now
+            eng.paged_admit(lane, export_tokens, len(export_tokens) + 1)
+            eng.prefill(lane, export_tokens)
+            pages = eng.kvpool.lane_blocks(lane)[:len(export_tokens) // eng.kvpool.page_size]
+            eng.export_kv_page(pages[0])
+            sync_all(torch)
+            t0 = time.perf_counter()
+            payloads = [eng.export_kv_page(pg) for pg in pages]
+            out["export"] = {"sha256": [hashlib.sha256(b).hexdigest() for b in payloads],
+                             "page_bytes": len(payloads[0]),
+                             "export_ms_per_page": (time.perf_counter() - t0) * 1e3 / len(pages)}
+            log(f"paged step [{label}]: {len(pages)} pages of a {len(export_tokens)}-token "
+                f"prompt exported, {out['export']['export_ms_per_page']:.3f} ms a page")
         del engines
         torch.cuda.empty_cache()
         return out
@@ -3961,9 +3980,14 @@ def paged_phase(torch, q, rc, cs, model: str, tok: str, default: dict, layers: d
     config, params = load_params_from_m_quantized(model, load_model_header(model),
                                                   dtype=torch.bfloat16, device="cuda")
     out["step"] = paged_step_check(torch, q, rc, cs, config, params)
+    from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
+
     mesh = make_mesh(MeshPlan(tp=2), rank_devices(torch, 2))
+    # the server's encoding of a completion prompt
+    export_tokens = Tokenizer(tok).encode(POD_EXPORT_PROMPT, add_bos=True,
+                                          add_special_tokens=True)
     out["tp2_step"] = paged_step_check(torch, q, rc, cs, config, params, mesh=mesh,
-                                       label="tp2 v4", steps=5)
+                                       label="tp2 v4", steps=5, export_tokens=export_tokens)
     out["swap_engine"] = swap_page_ms(torch, config, params)
     out["f8_step"] = f8_step_check(torch, q, config, params)
     del params
@@ -5837,6 +5861,25 @@ def fleet_phase(model: str, tok: str, durability: dict, f8_paged: dict) -> dict:
 POD_DEVICE = "cuda:0"  # both processes of a pod share the host's first card
 POD_KILL_DEADLINE_S = 5.0  # --step-deadline of the pod whose worker is killed
 POD_KILL_DELTAS = 3  # deltas the stream holds before the kill
+# the paged pod: 48 pages of 64 tokens (a 1,900-token run reserves 30 and
+# parks 29, so a second run's admission swaps the first's parked pages out
+# to the host tier), 4 parked sessions, a 256 MiB host tier; the decode end
+# of the pods' hand-off
+POD_PAGED_POOL = 48
+POD_PAGED_ARGS = (*PAGED_ARGS, "--kv-pool-pages", str(POD_PAGED_POOL), "--kv-max-parked", "4",
+                  "--kv-host-bytes", str(256 << 20), "--role", "decode",
+                  "--reconnect-grace", DUR_GRACE)
+# the pod whose worker is killed is paged too, and first the hand-off's
+# prefill end
+POD_PREFILL_ARGS = (*PAGED_ARGS, "--role", "prefill", "--step-deadline",
+                    str(POD_KILL_DEADLINE_S))
+# a prompt of 3 whole pages, exported from the paged pod's root and from the
+# paged phase's one-process tp2 engine
+POD_EXPORT_PROMPT = "e" * 200
+# the hand-off's prompt: its first 1,024 tokens (16 pages) are shared on the
+# decode pod after the adoption
+HANDOFF_PROMPT = "c" * 1100 + " hand-off"
+HANDOFF_TOKENS = 48
 
 
 class PodServer:
@@ -5935,10 +5978,12 @@ def pod_specs(devices: str) -> list:
 
 
 def start_pods(torch, model: str, tok: str) -> tuple[dict, str]:
-    """The pod phase's three pods, spawned at once (they load and warm
-    beside the phases before theirs): the two serving pods and one with
-    ``--step-deadline`` whose worker the phase kills; and the card's compute
-    mode, which must let several processes share it."""
+    """The pod phase's four pods, spawned at once (they load and warm
+    beside the phases before theirs): the two contiguous serving pods, the
+    paged pod (``--role decode``) and a paged ``--role prefill`` pod with
+    ``--step-deadline``, the hand-off's source, whose worker the phase then
+    kills; and the card's compute mode, which must let several processes
+    share it."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
@@ -5947,25 +5992,46 @@ def start_pods(torch, model: str, tok: str) -> tuple[dict, str]:
     devices = ",".join(str(d) for d in rank_devices(torch, 2))
     pods = {name: PodServer(model, tok, name, pass_args(mode_, extra))
             for name, _, mode_, extra in pod_specs(devices)}
-    pods["pod-kill"] = PodServer(model, tok, "pod-kill",
-                                 ("--step-deadline", str(POD_KILL_DEADLINE_S)))
+    pods["pod-paged"] = PodServer(model, tok, "pod-paged", pass_args(None, POD_PAGED_ARGS))
+    pods["pod-kill"] = PodServer(model, tok, "pod-kill", POD_PREFILL_ARGS)
     return pods, mode
 
 
-def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict) -> dict:
+def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
+              checks=None) -> dict:
     """One serving pod: ``serve_pass``'s 4 concurrent requests and checks;
     its streams equal the tp=2 pass ``tp`` of the same wire, byte for byte
     (the bodies, the greedy text, the concurrent texts); the ring hop
     launched in the root and in the worker; the serving paths ran (the
     pipelined chain with fused admissions and verify steps, no flush, no
     decode graph); the root's and the worker's ring_hop launches equal (the
-    same ring steps, nothing replayed outside the pass after the warmup's
-    counter reset); the eager step the root timed at startup and its ring
-    waits (``pod_step_*`` in ``/stats``), the packet broadcast's
-    microseconds."""
+    same ring steps, nothing replayed outside the pod's requests after the
+    warmup's counter reset); the eager step the root timed at startup and
+    its ring waits (``pod_step_*`` in ``/stats``), the packet broadcast's
+    microseconds. ``checks(base)`` (the paged pod's) runs after the pass,
+    before the stop; its result is the pass's ``paged``, and the pod's
+    launch counts are then those after it."""
+    def after(base):
+        stats = json.loads(_http(base + "/stats")[1])
+        if checks is None:
+            return stats, None, stats
+        found = checks(base)
+        return stats, found, json.loads(_http(base + "/stats")[1])
+
     p = serve_pass(model, tok, mode, GEN_TOKENS, name=pod.name, extra_args=extra,
-                   srv=pod.wait(), extra=lambda base: json.loads(_http(base + "/stats")[1]))
-    stats = p.pop("extra")
+                   srv=pod.wait(), extra=after)
+    stats, found, final = p.pop("extra")
+    launch_keys = ("ring_hop_launches", "ring_hop_bytes", "gumbel_sample_launches",
+                   "decode_attn_launches", "decode_attn_window_launches",
+                   "decode_attn_paged_launches", "grammar_mask_argmax_launches",
+                   "grammar_next_launches")
+    if found is not None:
+        # the root's counts after every request the pod served, as the
+        # worker's at its exit
+        for k in (*launch_keys, "kernel_launches"):
+            p[k] = final[k]
+        p["paged"] = {**found, "root": {k: final[k] for k in ("swap_ins", "swap_in_bytes",
+                                                             "kv_page_writes")}}
     step = {"step_ms": stats["pod_step_ms"], "wait_ms": stats["pod_step_wait_ms"],
             "wait_share": stats["pod_step_wait_share"]}
     worker = pod.worker_exit()
@@ -5998,9 +6064,7 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict) -> di
                 p["ring_hop_launches"], "worker": {k: v for k, v in worker.items()
                                                    if k not in ("event", "ts", "mono_s")}}
     # the main path's launches: the root's /stats and the worker's own
-    for k in ("ring_hop_launches", "ring_hop_bytes", "gumbel_sample_launches",
-              "decode_attn_launches", "decode_attn_window_launches",
-              "grammar_mask_argmax_launches", "grammar_next_launches"):
+    for k in launch_keys:
         p[k] += worker[k]
     p["kernel_launches"] = {k: v + worker["kernel_launches"][k]
                             for k, v in p["kernel_launches"].items()}
@@ -6011,6 +6075,146 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict) -> di
         f"{p['pod']['packets']} packets, "
         f"{p['pod']['broadcast_us']} us a broadcast; {p['pod']['ring_steps']} ring steps")
     return p
+
+
+def _sse_text(resp) -> str:
+    """The text of an SSE response's deltas (a reattached stream)."""
+    text = ""
+    for line in resp:
+        line = line.decode().strip()
+        if line.startswith("data: {"):
+            chunk = json.loads(line[6:])
+            check("error" not in chunk, f"stream error: {chunk}")
+            for choice in chunk.get("choices") or ():
+                text += choice.get("text") or ""
+    return text
+
+
+def pod_swap_check(base: str) -> dict:
+    """On the paged pod (POD_PAGED_POOL pages, the host tier): X on the
+    1,900-token run parks its pages, Y on another run needs them (X's swap
+    out), X again comes back from the host tier: its stream X's, ``swap_ins``
+    on the root's ``/stats``; the bytes the swap-in batch broadcast (whole
+    pages in OP_KV_SWAP fragments of a packet slot each)."""
+    from distributed_llama_multiusers_tpu_torch.parallel.multihost import ControlPlane
+
+    def run(prompt):
+        status, _, body = _json_call(base, "/v1/completions", {
+            "prompt": prompt, "max_tokens": 8, "temperature": 0})
+        check(status == 200, f"pod swap: {status} {body}")
+        return body
+
+    # runs no earlier request shares a chunk with: X's first admission is
+    # cold, its second the one swap-in batch
+    x, y = "x" * SPEC_RUN + " first", "y" * SPEC_RUN + " other"
+    s1 = _json_call(base, "/stats")[2]
+    first = run(x)
+    run(y)
+    s2 = _json_call(base, "/stats")[2]
+    again = run(x)
+    s3 = _json_call(base, "/stats")[2]
+    check(_text(again) == _text(first), "pod swap: the swapped-in stream differs:\n"
+                                        f"{_text(first)!r}\n{_text(again)!r}")
+    pages = s3["swap_ins"] - s2["swap_ins"]
+    check(s2["swap_outs"] > s1["swap_outs"] and s2["swap_ins"] == s1["swap_ins"]
+          and pages > 0 and s3["pool_swap_in_admits"] == s1["pool_swap_in_admits"] + 1,
+          f"pod swap: swap_outs {s1['swap_outs']} -> {s2['swap_outs']}, swap_ins "
+          f"{s1['swap_ins']} -> {s2['swap_ins']} -> {s3['swap_ins']}")
+    payload = s3["swap_in_bytes"] - s2["swap_in_bytes"]
+    lanes = _load(base)["lanes_total"]
+    plane = ControlPlane(lanes, chunk=1024)  # the server's: its largest prefill bucket
+    packets = pages * -(-(payload // pages) // (plane.chunk * 4))
+    out = {"swap_outs": s3["swap_outs"], "swap_ins": s3["swap_ins"], "batch_pages": pages,
+           "batch_payload_bytes": payload, "batch_packets": packets,
+           "batch_wire_bytes": packets * plane._size * 4,
+           "request_swap_in_ms": again["summary"]["phases"]["swap_in_ms"],
+           "ttft_ms_first": first["summary"]["ttft_s"] * 1e3,
+           "ttft_ms_swapped_in": again["summary"]["ttft_s"] * 1e3}
+    log("pod swap: " + json.dumps(out))
+    return out
+
+
+def pod_export_check(base: str, reference: dict) -> dict:
+    """A live session of POD_EXPORT_PROMPT on the paged pod: its bundle
+    (``GET /admin/kvpages/<id>``, the root reading the worker's heads of each
+    page from its CUDA IPC region) holds the pages of the paged phase's
+    one-process tp2 engine, byte for byte (sha256 of each payload); the
+    route's ms and the root engine's export ms a page."""
+    before = _json_call(base, "/stats")[2]
+    live = SseStream(base + "/v1/completions", {"prompt": POD_EXPORT_PROMPT, "max_tokens": 48,
+                                                "temperature": 0})
+    _poll(lambda: len(live.events) >= 1 or live.done or live.error, 300,
+          "pod export: the session never streamed")
+    t0 = time.perf_counter()
+    status, _, raw = _request(base + f"/admin/kvpages/{live.rid}")
+    route_ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200, f"pod export: /admin/kvpages answered {status}: {raw[:200]!r}")
+    blocks = json.loads(raw)["blocks"]
+    got = [hashlib.sha256(base64.b64decode(b["p"])).hexdigest() for b in blocks]
+    check(got == reference["sha256"],
+          f"pod export: {len(got)} pages whose bytes differ from the one-process tp2 engine's "
+          f"{len(reference['sha256'])}")
+    live.join()
+    after = _json_call(base, "/stats")[2]
+    exports = after["kv_exports"] - before["kv_exports"]
+    out = {"pages": len(got), "page_bytes": reference["page_bytes"], "route_ms": route_ms,
+           "export_ms_per_page": (after["kv_export_ms"] - before["kv_export_ms"]) / exports,
+           "one_process_tp2_export_ms_per_page": reference["export_ms_per_page"]}
+    log("pod export: pages byte-equal to the one-process tp2 engine's; " + json.dumps(out))
+    return out
+
+
+def pod_handoff_check(prefill: PodServer, decode_base: str) -> dict:
+    """A disaggregated hand-off with a pod at each end: a live session on
+    the paged ``--role prefill`` pod moves to the paged pod
+    (``disagg.prefill.hand_off``: the ticket, the bundle read across the
+    prefill pod's processes, its adoption through OP_KV_PAGES on both of the
+    decode pod's, the session regenerated there); the decode pod's stream
+    equals the prefill pod's own (the monolithic stream), byte for byte."""
+    from distributed_llama_multiusers_tpu_torch.disagg.prefill import hand_off
+
+    prefill.wait()
+    before = _json_call(decode_base, "/stats")[2]
+    src = SseStream(prefill.base + "/v1/completions", {"prompt": HANDOFF_PROMPT,
+                                                       "max_tokens": HANDOFF_TOKENS,
+                                                       "temperature": 0})
+    _poll(lambda: len(src.events) >= 1 or src.done or src.error, 300,
+          "pod hand-off: the prefill pod's session never streamed")
+    host = "127.0.0.1"
+    t0 = time.perf_counter()
+    conn, resp, _, receipt = hand_off(host, int(prefill.base.rsplit(":", 1)[1]), src.rid, host,
+                                      int(decode_base.rsplit(":", 1)[1]), timeout=120,
+                                      read_timeout=600)
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        text = _sse_text(resp)
+    finally:
+        conn.close()
+    src.join()
+    check(src.done and src.error is None, f"pod hand-off: the prefill pod's stream: {src.error}")
+    mono = "".join(t for _, t in src.events)
+    check(text == mono, "pod hand-off: the decode pod's stream differs from the prefill pod's:"
+                        f"\n{text!r}\n{mono!r}")
+    after = _json_call(decode_base, "/stats")[2]
+    check(receipt.get("fresh", 0) == receipt.get("pages", -1) > 0
+          and after["pool_adopts"] == before["pool_adopts"] + 1
+          and after["prefix_tokens_saved"] - before["prefix_tokens_saved"] == 1024,
+          f"pod hand-off: receipt {receipt}, adopts {after['pool_adopts']}, tokens shared "
+          f"{after['prefix_tokens_saved'] - before['prefix_tokens_saved']}")
+    out = {"receipt": receipt, "handoff_ms": handoff_ms, "chars": len(text),
+           "decode_kv_page_writes": after["kv_page_writes"] - before["kv_page_writes"]}
+    log("pod hand-off (prefill pod -> paged pod): the stream byte-identical to the prefill "
+        "pod's; " + json.dumps(out))
+    return out
+
+
+def pod_paged_checks(pods: dict, reference: dict):
+    """The paged pod's checks after its pass: the swap tier, a page export
+    against the one-process tp2 engine, the hand-off from the prefill pod."""
+    def run(base):
+        return {"swap": pod_swap_check(base), "export": pod_export_check(base, reference),
+                "handoff": pod_handoff_check(pods["pod-kill"], base)}
+    return run
 
 
 def pod_kill_check(pod: PodServer) -> dict:
@@ -6047,16 +6251,34 @@ def pod_kill_check(pod: PodServer) -> dict:
     return out
 
 
-def pod_phase(model: str, tok: str, tp_passes: list, pods: dict, compute_mode: str) -> dict:
-    """The pods started by ``start_pods``: each serving pod's pass
-    (``_pod_pass``) against the tp=2 pass of its wire, then the worker
-    kill."""
+def pod_phase(model: str, tok: str, tp_passes: list, pods: dict, compute_mode: str,
+              export_reference: dict) -> dict:
+    """The pods started by ``start_pods``: each contiguous serving pod's
+    pass (``_pod_pass``) against the tp=2 pass of its wire, the paged pod's
+    against the f32-wire one with its swap, export and hand-off checks
+    (``pod_paged_checks``; the ring_hop launches of root and worker equal
+    over all of it), then the worker kill."""
     t0 = time.perf_counter()
     out = {"compute_mode": compute_mode, "passes": []}
     try:
         by_mode = {p["mode"]: p for p in tp_passes}
-        for name, tp_name, mode, extra in pod_specs("cuda:0,cuda:0"):
+        specs = pod_specs("cuda:0,cuda:0")
+        for name, tp_name, mode, extra in specs:
             out["passes"].append(_pod_pass(model, tok, pods[name], mode, extra, by_mode[tp_name]))
+        _, tp_name, _, _ = specs[0]
+        paged = _pod_pass(model, tok, pods["pod-paged"], None, POD_PAGED_ARGS, by_mode[tp_name],
+                          checks=pod_paged_checks(pods, export_reference))
+        # the worker replayed every swap-in batch and page write the root made
+        worker, root = paged["pod"]["worker"], paged["paged"]["root"]
+        check(all(worker[k] == root[k] for k in root) and root["swap_ins"] > 0
+              and root["kv_page_writes"] >= paged["paged"]["handoff"]["receipt"]["fresh"],
+              f"pod-paged: worker {[worker[k] for k in root]}, root {root}")
+        out["passes"].append(paged)
+        out["paged"] = {**paged["paged"], "tokens_per_s_batch": paged["tokens_per_s_batch"],
+                        "contiguous_pod_tokens_per_s_batch":
+                            out["passes"][0]["tokens_per_s_batch"]}
+        log(f"pod-paged: batch {paged['tokens_per_s_batch']:.1f} tok/s against the contiguous "
+            f"pod's {out['passes'][0]['tokens_per_s_batch']:.1f} in this run")
         out["kill"] = pod_kill_check(pods["pod-kill"])
     except BaseException:
         for pod in pods.values():
@@ -6712,7 +6934,7 @@ def main() -> int:
         lap("grammar")
         fleet = fleet_phase(model, tok, durability, f8["passes"][1])
         lap("fleet")
-        pod = pod_phase(model, tok, passes, pods, compute_mode)
+        pod = pod_phase(model, tok, passes, pods, compute_mode, paged["tp2_step"]["export"])
         lap("pod")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "

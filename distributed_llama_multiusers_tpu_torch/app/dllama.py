@@ -257,7 +257,11 @@ def run_worker(args) -> None:
               f"{counts['ring_hop_launches']}, plain calls {counts['ring_hop_plain_calls']}, "
               f"bytes {counts['ring_hop_bytes']}; packets {plane.stats()['pod_packets']})")
     # the worker serves no /stats: its counters since warmup, as one line
-    log_event("worker_exit", **counts, **plane.stats(), **engine.pod_stats())
+    # (a paged worker's swap-ins: the OP_KV_SWAP batches it replayed)
+    swaps = ({"swap_ins": engine.swap_ins, "swap_in_bytes": engine.swap_in_bytes,
+              "kv_page_writes": engine.pool_stats()["kv_page_writes"]}
+             if engine.kvpool is not None else {})
+    log_event("worker_exit", **counts, **plane.stats(), **engine.pod_stats(), **swaps)
     engine.release_pod()
 
 

@@ -17,8 +17,8 @@ from ..ops import cuda_q40, reset_kernel_counts
 from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
-from ..parallel.multihost import (ControlPlane, RootControlEngine, maybe_initialize_distributed,
-                                  pod_hostnames, requested_pod)
+from ..parallel.multihost import (ControlPlane, ReplayError, RootControlEngine,
+                                  maybe_initialize_distributed, pod_hostnames, requested_pod)
 from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
@@ -42,8 +42,9 @@ def refuse(msg: str) -> None:
 def join_pod(args) -> tuple[int, int]:
     """Join the pod where ``--coordinator`` (or ``DLLAMA_COORDINATOR``) asks
     for one, before anything touches a device; refuse (exit 2) what a pod
-    does not serve yet: the flags before joining, processes on different
-    hosts after. Returns (process index, process count)."""
+    does not serve: a mesh the processes cannot split before joining,
+    processes on different hosts after. Returns (process index, process
+    count)."""
     req = requested_pod(args)
     if req is None or req[1] == 1:
         return 0, 1
@@ -53,17 +54,11 @@ def join_pod(args) -> tuple[int, int]:
         refuse("a pod needs a --workers mesh spec spanning the global device set")
     if plan.tp % n_proc:
         refuse(f"--workers tp{plan.tp} does not split over {n_proc} processes")
-    if getattr(args, "paged_kv", "off") == "on":
-        refuse("--paged-kv on is not served on a pod yet (its table, page-import and swap "
-               "ops: ROADMAP A7); drop it or run one process")
-    if getattr(args, "role", "mixed") != "mixed":
-        refuse(f"--role {args.role} (disaggregated prefill) is not served on a pod yet "
-               "(ROADMAP A7)")
     maybe_initialize_distributed(args)
     hosts = pod_hostnames()
     if len(set(hosts)) > 1:
         refuse(f"the pod's processes run on different hosts ({', '.join(hosts)}): the "
-               "cross-host data plane is not ported yet (ROADMAP A7)")
+               "cross-host data plane is not ported yet (ROADMAP A7.2)")
     return pid, n_proc
 
 
@@ -162,15 +157,20 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     # context a card holds against bf16
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "f8": torch.float8_e4m3fn, "auto": None}[args.kv_dtype]
-    engine = InferenceEngine(config, params,
-                             n_lanes=(n_lanes if n_proc == 1 else None) or args.max_lanes,
-                             cache_dtype=cache_dtype, device=device, mesh=mesh,
-                             emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
-                             ring_sync=ring_sync,
-                             # async decode pipeline ring bound (None: 2)
-                             pipeline_depth=getattr(args, "pipeline_depth", None),
-                             grammar_slab_states=getattr(args, "grammar_slab_states", None),
-                             **(paged_kwargs(args) if serving else {}))
+    try:
+        engine = InferenceEngine(config, params,
+                                 n_lanes=(n_lanes if n_proc == 1 else None) or args.max_lanes,
+                                 cache_dtype=cache_dtype, device=device, mesh=mesh,
+                                 emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
+                                 ring_sync=ring_sync,
+                                 # async decode pipeline ring bound (None: 2)
+                                 pipeline_depth=getattr(args, "pipeline_depth", None),
+                                 grammar_slab_states=getattr(args, "grammar_slab_states", None),
+                                 **(paged_kwargs(args) if serving else {}))
+    except ReplayError as e:
+        # a pod whose processes disagree on the KV layout (multihost.agree)
+        refuse(f"{e}; a dllama inference/chat root keeps contiguous planes, so its "
+               "workers run without --paged-kv")
     if not serving and getattr(args, "paged_kv", "off") == "on":
         log("📑", "--paged-kv applies to dllama-api; the CLI keeps contiguous planes")
     if args.kv_dtype != "auto":
@@ -202,7 +202,7 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
         plane = ControlPlane(engine.n_lanes, chunk=engine.prefill_buckets[-1], fatal=pid == 0)
         log("⭕", f"Pod: {n_proc} processes, ring steps across them through per-rank "
                   f"windows ({engine.pod.slot_bytes // 1024} KiB slots); decode families "
-                  "run eagerly (no CUDA graphs on a pod: ROADMAP A7)")
+                  "run eagerly (no CUDA graphs on a pod: ROADMAP A7.3)")
         if pid == 0:
             log("⭕", f"Pod root: control plane up ({plane.chunk}-word slots)")
             engine = RootControlEngine(engine, plane)

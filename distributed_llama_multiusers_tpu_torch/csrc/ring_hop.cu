@@ -528,6 +528,16 @@ extern "C" int ring_wait_value(void* stream, void* addr, unsigned int value) {
                            reinterpret_cast<CUdeviceptr>(addr), value, CU_STREAM_WAIT_VALUE_EQ);
 }
 
+// Enqueues on `stream` a wait until the 32-bit word at `addr` has reached
+// `value`, cyclically ((int32_t)(word - value) >= 0): a count another process
+// may have passed already (the KV pool's page-write counts). Holds no SM.
+extern "C" int ring_wait_value_geq(void* stream, void* addr, unsigned int value) {
+  const int e = load_stream_ops();
+  if (e != 0) return e;
+  return (int)g_wait_value(reinterpret_cast<CUstream>(stream),
+                           reinterpret_cast<CUdeviceptr>(addr), value, CU_STREAM_WAIT_VALUE_GEQ);
+}
+
 // Enqueues on `stream` a write of `value` to the 32-bit word at `addr` (a
 // window, possibly another process's), after a memory barrier: the work
 // before it on the stream is visible wherever the word is seen.

@@ -27,11 +27,17 @@ every worker inside a ring step the root never takes. Nothing is broadcast
 while a lock is held.
 
 The packet layout (magic, version, op numbers, HEADER, SLOTS and the slot
-sizing) is the JAX package's, word for word, at its protocol version 6. This
-port serves the contiguous KV layout on a pod: the paged ops (OP_KV_TABLE,
-OP_KV_PAGES, OP_KV_SWAP) keep their numbers, the startup refuses
-``--paged-kv on`` and the disaggregation roles with more than one process,
-and a worker that receives one raises ``ReplayError`` (ROADMAP A7).
+sizing) is the JAX package's, word for word, at its protocol version 6,
+the paged KV ops included: OP_KV_TABLE (a lane's table row and its
+copy-on-write pairs, lane -1 the reset), OP_KV_PAGES (a disaggregated
+hand-off's page import) and OP_KV_SWAP (a host swap tier batch). The pool's
+bookkeeping is host state and runs on the root only; a worker keeps a pool
+for its geometry alone. Page payloads are whole pages, every rank's heads:
+each process writes its own ranks' heads, and the root reads its peers'
+heads of a page it exports or swaps out straight from their pool planes
+(parallel/kvshare.py), which no packet carries. A process whose KV layout
+differs from its peers' stops at startup (``agree``), and a worker that
+receives a paged op on a contiguous engine raises ``ReplayError``.
 """
 
 from __future__ import annotations
@@ -69,12 +75,11 @@ OP_PIPELINE_FLUSH = 8  # the root ended or aborted a pipelined chain
 OP_DECODE_PREFILL_FUSED = 9  # a prompt chunk and a pipelined step together
 OP_DECODE_SPEC_PIPELINED = 10  # a verify step inside the pipelined ring
 OP_DECODE_SPEC_PREFILL_FUSED = 11  # a prompt chunk and an in-ring verify step
-OP_KV_TABLE = 12  # paged KV table row + COW copies (refused on a pod here)
+OP_KV_TABLE = 12  # paged KV table row + COW copies (lane -1: unmap every lane)
 OP_GRAMMAR = 13  # a response_format's canonical JSON (or a detach key)
-OP_KV_PAGES = 14  # disaggregated prefill's page import (refused here)
-OP_KV_SWAP = 15  # the host swap tier's page import (refused here)
-_REFUSED_OPS = {OP_KV_TABLE: "OP_KV_TABLE", OP_KV_PAGES: "OP_KV_PAGES",
-                OP_KV_SWAP: "OP_KV_SWAP"}
+OP_KV_PAGES = 14  # disaggregated prefill's page import, in payload fragments
+OP_KV_SWAP = 15  # the host swap tier's page batch, in payload fragments
+_PAGED_OPS = {OP_KV_TABLE: "OP_KV_TABLE", OP_KV_PAGES: "OP_KV_PAGES", OP_KV_SWAP: "OP_KV_SWAP"}
 
 # a worker idles inside the packet broadcast while the root serves no
 # request: the process group's timeout only ends a root that is alive and
@@ -181,6 +186,21 @@ def pod_hostnames() -> list:
     """Every process's hostname, as each published it to the store."""
     store = pod_store()
     return [store.get(f"pod/host/{i}").decode() for i in range(_JOINED["num_processes"])]
+
+
+def agree(key: str, value: str) -> None:
+    """Every process of the pod publishes ``value`` under ``key`` and reads
+    every other's; raises ``ReplayError`` on every process when they
+    differ (a startup skew, such as one process's paged KV layout against
+    another's contiguous one, classified before any packet)."""
+    store = pod_store()
+    me, n = _JOINED["process_index"], _JOINED["num_processes"]
+    store.set(f"{key}/{me}", value)
+    values = {i: store.get(f"{key}/{i}").decode() for i in range(n)}
+    if len(set(values.values())) > 1:
+        raise ReplayError(f"the pod's processes disagree on {key}: "
+                          + "; ".join(f"process {i}: {v}" for i, v in values.items())
+                          + " (start every process with the same flags)")
 
 
 class ControlPlane:
@@ -352,17 +372,71 @@ class ControlPlane:
                    tokens, positions, self._f32(temps), self._f32(topps), self._u32(seeds),
                    self._g(g_states))
 
+    def _fragments(self, blob: bytes) -> list:
+        """``blob`` in slot-sized fragments (an int32 word carries 4 bytes),
+        each as (byte length, zero-padded words); one empty fragment for an
+        empty blob."""
+        frag_bytes = self.chunk * 4
+        out = []
+        for off in range(0, max(1, len(blob)), frag_bytes):
+            frag = blob[off: off + frag_bytes]
+            words = np.frombuffer(frag + b"\0" * ((-len(frag)) % 4), np.uint8).view(np.int32)
+            out.append((len(frag), words))
+        return out
+
     def send_grammar(self, blob: bytes, detach: bool = False) -> None:
         """A grammar attach (canonical response_format JSON) or detach (the
         schema key), in slot-sized fragments; workers act on the final one.
         Every process compiles locally: tables never cross the wire."""
-        frag_bytes = self.chunk * 4  # an int32 word carries 4 bytes
-        frags = [blob[off: off + frag_bytes] for off in range(0, max(1, len(blob)), frag_bytes)]
-        for idx, frag in enumerate(frags):
+        frags = self._fragments(blob)
+        for idx, (nbytes, words) in enumerate(frags):
             flags = (1 if idx == len(frags) - 1 else 0) | (2 if detach else 0)
-            pad = (-len(frag)) % 4
-            words = np.frombuffer(frag + b"\0" * pad, np.uint8).view(np.int32)
-            self._send(OP_GRAMMAR, flags, len(frag), idx, words)
+            self._send(OP_GRAMMAR, flags, nbytes, idx, words)
+
+    def send_kv_table(self, lane: int, row, copies) -> None:
+        """A paged table update: the row in slot 0 (its length in ``n``),
+        the copy-on-write (src, dst) pairs flattened in slot 1 (their count
+        in ``start_pos``); lane -1 unmaps every lane. Raises before the
+        broadcast when the row or the pairs outgrow a slot."""
+        row = np.asarray(row, np.int32)
+        flat = np.asarray([c for pair in copies for c in pair], np.int32)
+        if len(row) > self.chunk or len(flat) > self.chunk:
+            raise ValueError(f"kv table payload (row {len(row)}, copies {len(flat)}) exceeds "
+                             f"packet slot {self.chunk}; size ControlPlane(chunk=...) >= the "
+                             "engine's blocks-per-lane")
+        self._send(OP_KV_TABLE, lane, len(row), len(copies), row, flat)
+
+    def send_kv_pages(self, pages) -> None:
+        """Imported pages, each ``(page, payload)`` in slot-sized fragments:
+        flags in ``lane`` (bit 0: the page's last fragment), the fragment's
+        bytes in ``n``, the page in ``start_pos``. Raises before any
+        broadcast on a negative page; the payload's size is the caller's
+        check (``RootControlEngine.import_kv_page``)."""
+        for page, payload in pages:
+            if int(page) < 0:
+                raise ValueError(f"kv page id must be >= 0, got {page}")
+            frags = self._fragments(bytes(payload))
+            for idx, (nbytes, words) in enumerate(frags):
+                self._send(OP_KV_PAGES, 1 if idx == len(frags) - 1 else 0, nbytes, int(page),
+                           words)
+
+    def send_kv_swap(self, pages) -> None:
+        """A host-tier swap-in batch, fragmented as ``send_kv_pages``, with
+        bit 1 of the flags on the batch's last page's last fragment: the
+        workers write the batch in one ``swap_in_pages`` call, as the root
+        does. Raises before any broadcast on an empty batch or a negative
+        page."""
+        if not pages:
+            raise ValueError("kv swap batch must not be empty")
+        for p, _ in pages:
+            if int(p) < 0:
+                raise ValueError(f"kv page id must be >= 0, got {p}")
+        for j, (page, payload) in enumerate(pages):
+            frags = self._fragments(bytes(payload))
+            for idx, (nbytes, words) in enumerate(frags):
+                last = idx == len(frags) - 1
+                flags = (1 if last else 0) | (2 if last and j == len(pages) - 1 else 0)
+                self._send(OP_KV_SWAP, flags, nbytes, int(page), words)
 
     def send_pipeline_flush(self) -> None:
         self._send(OP_PIPELINE_FLUSH, 0, 0, 0)
@@ -603,7 +677,10 @@ class RootControlEngine:
         return self._engine.pipeline_abort()
 
     def decode_spec(self, tokens, drafts, draft_len, positions, temps=None, topps=None,
-                    seeds=None, g_states=None):
+                    seeds=None, want_logits: bool = True, g_states=None):
+        """The synchronous verify step. ``want_logits`` stays on the root
+        (the JAX packet has no field for it): a worker's step keeps its
+        logits, which nothing reads, and computes the same tokens."""
         temps, topps, seeds = self._normalize_sampling(temps, topps, seeds)
         self._check_lane_vectors(tokens, positions, temps, topps, seeds, drafts, draft_len,
                                  g_states)
@@ -612,7 +689,7 @@ class RootControlEngine:
             np.asarray(draft_len, np.int32), np.asarray(positions, np.int32),
             temps, topps, seeds, g_states=g_states)
         return self._engine.decode_spec(tokens, drafts, draft_len, positions, temps, topps,
-                                        seeds, g_states=g_states)
+                                        seeds, want_logits=want_logits, g_states=g_states)
 
     def decode_multi(self, tokens, positions, temps=None, topps=None, seeds=None, h: int = 8,
                      g_states=None):
@@ -675,12 +752,101 @@ class RootControlEngine:
         self._plane.send_copy_lane(src, dst)
         self._engine.copy_lane(src, dst)
 
-    def _refused(self, *_, **__):
-        raise RuntimeError("the paged KV pool, page import and the swap tier are not "
-                           "served on a pod by this port (ROADMAP A7)")
+    # -- the paged KV pool: host bookkeeping on the root, device halves on
+    # every process. The pool, the page export and the swap-outs stay the
+    # engine's (through __getattr__): host state, or reads that no worker
+    # takes part in.
 
-    apply_paged_admit = paged_admit = paged_finish = paged_reset = _refused
-    import_kv_page = swap_in_pages = _refused
+    def _need_paged(self, what: str):
+        pool = getattr(self._engine, "kvpool", None)
+        if pool is None:
+            raise RuntimeError(f"{what} needs a paged engine")
+        return pool
+
+    def _check_pages(self, what: str, pages, payloads) -> None:
+        """Pre-broadcast: each page in the pool, each payload one whole page
+        (the engine's own size check, a ``ValueError``)."""
+        pool = self._need_paged(what)
+        for p in pages:
+            if not 0 <= int(p) < pool.n_pages:
+                raise ValueError(f"{what}: page {p} outside the pool's {pool.n_pages} pages")
+        self._engine._check_payloads(payloads)
+
+    def apply_paged_admit(self, lane: int, row, copies) -> None:
+        """The device half of a paged admission or release on every
+        process: the row and its copy-on-write pairs ride OP_KV_TABLE, then
+        the root applies them. Lane, row width and pages are checked
+        first."""
+        pool = self._need_paged("apply_paged_admit")
+        n = self._engine.n_lanes
+        if not 0 <= lane < n:
+            raise ValueError(f"apply_paged_admit: lane {lane} outside [0, {n})")
+        if len(row) != pool.blocks_per_lane:
+            raise ValueError(f"apply_paged_admit: a row of {len(row)} entries, the pool's "
+                             f"{pool.blocks_per_lane} blocks a lane")
+        for pair in copies:
+            if any(not 0 <= int(p) < pool.n_pages for p in pair):
+                raise ValueError(f"apply_paged_admit: copy {tuple(pair)} outside the pool's "
+                                 f"{pool.n_pages} pages")
+        self._plane.send_kv_table(lane, row, copies)
+        self._engine.apply_paged_admit(lane, row, copies)
+
+    def paged_admit(self, lane: int, tokens, reserve_tokens: int, min_share_tokens: int = 1,
+                    share_quantum: int = 1) -> int:
+        """A paged admission on a pod, in the engine's order: the pool's
+        bookkeeping on the root before any packet (an admission that
+        ``PoolExhausted`` sheds sends none), the staged swap-outs drained
+        (a read of whole pages, the peers' heads from their planes: no
+        packet), the host-tier hits as one OP_KV_SWAP batch, then the table
+        row and its copies."""
+        pool = self._need_paged("paged_admit")
+        start, blocks, copies, swapins = pool.admit(
+            lane, list(tokens), reserve_tokens, min_share_tokens, share_quantum)
+        self._engine.drain_kv_swapouts()
+        if swapins:
+            self.swap_in_pages([p for p, _ in swapins], [b for _, b in swapins])
+        self.apply_paged_admit(lane, pool.table_row(blocks), copies)
+        return start
+
+    def paged_finish(self, lane: int, park: bool = True) -> None:
+        """A paged release on a pod: the bookkeeping on the root, the
+        overflow's swap-outs drained there, then the unmapped row on every
+        process; no packet for a lane that mapped nothing (a shed
+        admission), as the engine skips its own write."""
+        pool = self._need_paged("paged_finish")
+        held = pool.finish(lane, park=park)
+        self._engine.drain_kv_swapouts()
+        if held:
+            self.apply_paged_admit(lane, pool.table_row([]), [])
+
+    def paged_reset(self) -> None:
+        """Containment on a pod: the root drops its pool's contents, then
+        every process unmaps every lane (OP_KV_TABLE's lane -1)."""
+        pool = self._need_paged("paged_reset")
+        pool.reset()
+        self._plane.send_kv_table(-1, [], [])
+        self._engine.paged_unmap_all()
+
+    def import_kv_page(self, page: int, payload: bytes) -> None:
+        """A hand-off's page import on every process: the page and the
+        payload's size checked, then OP_KV_PAGES carries the whole page and
+        each process writes its own ranks' heads."""
+        self._check_pages("import_kv_page", [page], [payload])
+        self._plane.send_kv_pages([(int(page), payload)])
+        self._engine.import_kv_page(page, payload)
+
+    def swap_in_pages(self, pages, payloads) -> None:
+        """A host-tier swap-in on every process: the count, pages and sizes
+        checked, then the batch as OP_KV_SWAP fragments, which each worker
+        writes in one ``swap_in_pages`` call as the root does here."""
+        self._need_paged("swap_in_pages")
+        if len(pages) != len(payloads):
+            raise ValueError(f"swap_in_pages: {len(pages)} pages vs {len(payloads)} payloads")
+        if not pages:
+            return
+        self._check_pages("swap_in_pages", pages, payloads)
+        self._plane.send_kv_swap(list(zip(pages, payloads)))
+        self._engine.swap_in_pages(pages, payloads)
 
 
 def worker_loop(engine, plane: ControlPlane, on_replay=None) -> None:
@@ -689,6 +855,9 @@ def worker_loop(engine, plane: ControlPlane, on_replay=None) -> None:
     same ring steps in the same order. ``on_replay`` (if given) runs after
     each replayed packet."""
     gram_buf = bytearray()  # OP_GRAMMAR fragment accumulator
+    page_buf = bytearray()  # OP_KV_PAGES: the page's fragments so far
+    swap_buf = bytearray()  # OP_KV_SWAP: the page's fragments so far
+    swap_batch: list = []  # OP_KV_SWAP: the batch's whole pages so far
     while True:
         pkt = plane.recv()
         # header: [magic, version, op, lane, n, start_pos]; magic/version
@@ -764,9 +933,47 @@ def worker_loop(engine, plane: ControlPlane, on_replay=None) -> None:
                 engine.pod.reset_stats()
         elif op == OP_COPY_LANE:
             engine.copy_lane(lane, start_pos)  # src, dst ride the header
-        elif op in _REFUSED_OPS:
-            raise ReplayError(f"{_REFUSED_OPS[op]}: the paged KV ops are not served on a pod "
-                              "by this port (ROADMAP A7); root and worker flags are skewed")
+        elif op in (OP_KV_TABLE, OP_KV_PAGES, OP_KV_SWAP):
+            # each skew is classified before any dispatch: a contiguous
+            # engine, a table width or a page size other than the root's
+            if getattr(engine, "kvpool", None) is None:
+                raise ReplayError(f"{_PAGED_OPS[op]} on a non-paged engine: root and worker "
+                                  "--paged-kv flags are skewed")
+            if op == OP_KV_TABLE:
+                # row length in n, pair count in start_pos, lane -1 the reset
+                if lane < 0:
+                    engine.paged_unmap_all()
+                else:
+                    if n != engine.kvpool.blocks_per_lane:
+                        raise ReplayError(
+                            f"OP_KV_TABLE row of {n} entries vs this worker's "
+                            f"{engine.kvpool.blocks_per_lane} blocks/lane: root and worker "
+                            "paged-KV geometry flags are skewed")
+                    pairs = plane.slot(pkt, 1, 2 * start_pos)
+                    engine.apply_paged_admit(lane, plane.slot(pkt, 0, n).copy(),
+                                             list(zip((int(p) for p in pairs[0::2]),
+                                                      (int(p) for p in pairs[1::2]))))
+            else:
+                # fragments accumulate (one page's are contiguous in the
+                # ordered stream); the page rides start_pos
+                frag = plane.slot(pkt, 0, (n + 3) // 4).view(np.uint8)[:n].tobytes()
+                try:
+                    if op == OP_KV_PAGES:
+                        page_buf += frag
+                        if lane & 1:  # the page's last fragment
+                            blob, page_buf = bytes(page_buf), bytearray()
+                            engine.import_kv_page(start_pos, blob)
+                    else:
+                        swap_buf += frag
+                        if lane & 1:
+                            swap_batch.append((start_pos, bytes(swap_buf)))
+                            swap_buf = bytearray()
+                        if lane & 2:  # the batch's last page: one call, as the root's
+                            batch, swap_batch = swap_batch, []
+                            engine.swap_in_pages([p for p, _ in batch], [b for _, b in batch])
+                except ValueError as e:
+                    raise ReplayError(f"{_PAGED_OPS[op]} payload rejected: {e}; root and "
+                                      "worker paged-KV geometry flags are skewed") from e
         else:
             # classified, pre-dispatch: worker_serve resubscribes without
             # burning a restart

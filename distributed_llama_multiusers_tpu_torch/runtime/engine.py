@@ -368,13 +368,27 @@ class InferenceEngine:
         self.graphs = (StepGraphs(self.device, [self._feed, self._cpos, self._cg])
                        if one_card and not pod else None)
         self.pod = None
+        self.kvshare = None
+        self._page_writes = 0  # imports, swap-in batches and page copies made
         if pod:
-            from ..parallel.multihost import pod_store
+            from ..parallel.kvshare import open_pool_share
+            from ..parallel.multihost import agree, pod_store
             from ..parallel.window import open_windows
 
-            self.pod = open_windows(mesh.tp, dict(zip(mesh.local_ranks, mesh.devices)),
-                                    self.pod_slot_bytes(), pod_store())
+            # a process whose KV layout differs from its peers' stops here,
+            # before either side waits for the other's pool planes
+            agree("pod/kv_layout", self._kv_layout())
+            local = dict(zip(mesh.local_ranks, mesh.devices))
+            self.pod = open_windows(mesh.tp, local, self.pod_slot_bytes(), pod_store())
             set_pod(self.pod)
+            if self.kvpool is not None:
+                # the pool planes in memory the peers map: the root reads
+                # their heads of the pages it exports or swaps out
+                c0 = self.cache[0]
+                self.kvshare = open_pool_share(mesh.tp, local, tuple(c0.k.shape), c0.k.dtype,
+                                               pod_store())
+                for r, c in zip(mesh.local_ranks, self.cache):
+                    c.k, c.v = self.kvshare.planes[r]
         elif mesh is not None and pod_installed():
             raise RuntimeError("this process runs a pod's ring steps: a mesh engine beside "
                                "it would take them through the pod's windows")
@@ -414,6 +428,14 @@ class InferenceEngine:
         stop); their memory goes with the process."""
         if self.pod is not None:
             set_pod(None)
+
+    def _kv_layout(self) -> str:
+        """The KV cache's layout as every process of a pod must share it."""
+        if self.kvpool is None:
+            return f"contiguous {self.cache_dtype}"
+        pool = self.kvpool
+        return (f"paged {pool.n_pages} pages x {pool.page_size} tokens, "
+                f"{pool.blocks_per_lane} blocks/lane, {self.cache_dtype}")
 
     def pod_stats(self) -> dict:
         """A pod process's window counters: ring steps, staging copies and
@@ -1254,7 +1276,20 @@ class InferenceEngine:
     # -- the paged KV pool (runtime/kvpool.py): the host/device seam ----------
 
     def _caches(self) -> list:
+        """This process's ranks' caches (a pod's other ranks' are not
+        here)."""
         return [self.cache] if self.mesh is None else list(self.cache)
+
+    def _ranks(self) -> list:
+        """The global rank of each of ``_caches()``."""
+        return [0] if self.mesh is None else list(self.mesh.local_ranks)
+
+    def _pool_planes(self) -> list:
+        """(K, V) of every rank of the mesh, in rank order: a pod's peers'
+        mapped (parallel/kvshare.py)."""
+        if self.kvshare is not None:
+            return [self.kvshare.planes[r] for r in range(self.mesh.tp)]
+        return [(c.k, c.v) for c in self._caches()]
 
     def _need_paged(self, what: str) -> None:
         if self.kvpool is None:
@@ -1262,24 +1297,33 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _write_tables(self) -> None:
-        """The host table mirror into every device table, in place (the
-        graphs captured these tensors): one non-blocking copy from pinned
-        memory on each table's stream, ordered between the steps around it.
-        Ranks on one device share their table."""
+        """The host table mirror into this process's ranks' device tables,
+        in place (the graphs captured these tensors): one non-blocking copy
+        from pinned memory on each table's stream, ordered between the
+        steps around it. Ranks on one device share their table."""
         tables = {id(c.table): c.table for c in self._caches()}
         for tb in tables.values():
             tb.copy_(self._staged(self._host_tables, torch.int32), non_blocking=True)
 
     @torch.inference_mode()
     def _copy_page(self, src: int, dst: int) -> None:
-        """One page's K and V, every layer and rank, from ``src`` to
-        ``dst``: the copy-on-write unit (the JAX engine's ``_copy_page``).
-        Slots past the divergence point carry the source's content, which
-        the tail prefill rewrites before any query reads them."""
+        """One page's K and V, every layer and this process's ranks, from
+        ``src`` to ``dst``: the copy-on-write unit (the JAX engine's
+        ``_copy_page``). Slots past the divergence point carry the source's
+        content, which the tail prefill rewrites before any query reads
+        them."""
         for c in self._caches():
             for plane in (c.k, c.v):
                 plane = cache_bits(plane)
                 plane[:, dst].copy_(plane[:, src])
+        self._wrote_pages()
+
+    def _wrote_pages(self) -> None:
+        """Count a page write; on a pod, tell the peers (their reads of this
+        process's heads wait for it: parallel/kvshare.py)."""
+        self._page_writes += 1
+        if self.kvshare is not None:
+            self.kvshare.post(self._page_writes)
 
     def apply_paged_admit(self, lane: int, row, copies) -> None:
         """Device half of a paged admission (or release): the COW page
@@ -1331,7 +1375,7 @@ class InferenceEngine:
             self.apply_paged_admit(lane, self.kvpool.table_row([]), [])
 
     def paged_unmap_all(self) -> None:
-        """Every lane's table row all-unmapped."""
+        """Every lane's table row all-unmapped (this process's tables)."""
         self._need_paged("paged_unmap_all")
         self._host_tables[:] = self.kvpool.table_row([])
         self._write_tables()
@@ -1357,6 +1401,11 @@ class InferenceEngine:
             "swap_in_bytes": self.swap_in_bytes,
             "swap_out_bytes": self.swap_out_bytes,
             "swap_in_ms": round(self.swap_in_ms, 3),
+            "kv_exports": self.kv_exports,
+            "kv_export_ms": round(self.kv_export_ms, 3),
+            # imports, swap-in batches and page copies: a pod's worker
+            # makes the same ones (its worker_exit line)
+            "kv_page_writes": self._page_writes,
         })
         return out
 
@@ -1375,29 +1424,38 @@ class InferenceEngine:
         return 2 * self._page_geometry()[2]
 
     def _read_pages(self, pages: list[int]) -> list[bytes]:
-        """Pages' K then V bytes, each [L, page, n_kv, hd] row-major (ranks'
-        heads joined): one gather a plane and rank on the card, one copy
-        into pinned host memory (a host sync, after every step before it)."""
+        """Pages' K then V bytes, each [L, page, n_kv, hd] row-major, every
+        rank's heads joined in rank order (on a pod the peers' from their
+        mapped planes, parallel/kvshare.py): one gather a plane and rank on
+        the card, one copy into pinned host memory (a host sync, after
+        every step before it), on a pod after the peers' page writes. A pod's
+        read whose peer died raises."""
         idx = torch.as_tensor(pages, dtype=torch.int64)
+        if self.kvshare is not None:
+            # the peers have made every page write this process made
+            self.kvshare.wait(self._page_writes)
         planes = []
-        for plane in ("k", "v"):
-            parts = [cache_bits(getattr(c, plane)).index_select(1, idx.to(c.k.device))
-                     .to(self.device) for c in self._caches()]
+        for j in (0, 1):  # K, V
+            parts = [cache_bits(kv[j]).index_select(1, idx.to(kv[j].device)).to(self.device)
+                     for kv in self._pool_planes()]
             planes.append(torch.cat(parts, dim=3))  # [L, n, page, n_kv, hd]
         # [n, K/V, L, page, n_kv, hd]: each page's K then V, contiguous
         joined = torch.stack(planes).permute(2, 0, 1, 3, 4, 5).contiguous()
         host = torch.empty(joined.shape, dtype=joined.dtype,
                            pin_memory=self.device.type == "cuda")
         host.copy_(joined)
+        if self.kvshare is not None:
+            self.kvshare.check_peers()
         raw = host.view(torch.uint8).reshape(len(pages), -1).numpy()
         return [raw[i].tobytes() for i in range(len(pages))]
 
     @torch.inference_mode()
     def _write_pages(self, pages: list[int], payloads: list[bytes]) -> None:
-        """Write pages' K then V bytes (``_read_pages``' encoding) into the
-        pool, in place: one non-blocking copy from pinned memory a device,
-        then one indexed copy a plane and rank, ordered before every later
-        dispatch."""
+        """Write pages' K then V bytes (``_read_pages``' encoding, every
+        rank's heads) into this process's ranks' planes, in place, each
+        rank its own heads by its global rank: one non-blocking copy from
+        pinned memory a device, then one indexed copy a plane and rank,
+        ordered before every later dispatch."""
         shape, dtype, _ = self._page_geometry()
         raw = torch.frombuffer(bytearray().join(payloads), dtype=torch.uint8)
         # an e4m3 page moves as its bytes (cache_bits)
@@ -1406,7 +1464,7 @@ class InferenceEngine:
             host = host.pin_memory()
         heads = self._caches()[0].k.shape[3]
         on_device: dict = {}
-        for r, c in enumerate(self._caches()):
+        for r, c in zip(self._ranks(), self._caches()):
             if c.k.device not in on_device:
                 on_device[c.k.device] = host.to(c.k.device, non_blocking=True)
             src = on_device[c.k.device][..., r * heads:(r + 1) * heads, :]
@@ -1414,6 +1472,7 @@ class InferenceEngine:
             for j, plane in enumerate((c.k, c.v)):
                 # [n, L, page, heads, hd] -> [L, n, page, heads, hd]
                 cache_bits(plane).index_copy_(1, idx, src[:, j].transpose(0, 1))
+        self._wrote_pages()
 
     def _check_payloads(self, payloads) -> None:
         shape, dtype, half = self._page_geometry()
@@ -1427,7 +1486,11 @@ class InferenceEngine:
         n_kv, hd] in the cache dtype (the JAX engine's encoding). A host
         sync: it runs on committed pages, whose bytes are stable."""
         self._need_paged("export_kv_page")
-        return self._read_pages([int(page)])[0]
+        t0 = time.perf_counter()
+        out = self._read_pages([int(page)])[0]
+        self.kv_exports += 1
+        self.kv_export_ms += (time.perf_counter() - t0) * 1000.0
+        return out
 
     def import_kv_page(self, page: int, payload: bytes) -> None:
         """Write a page's K then V bytes (``export_kv_page``'s encoding)
@@ -1504,12 +1567,14 @@ class InferenceEngine:
         return n
 
     def reset_swap_stats(self) -> None:
-        """Zero the swap-traffic counters."""
+        """Zero the swap-traffic and page-export counters."""
         self.swap_ins = 0
         self.swap_outs = 0
         self.swap_in_bytes = 0
         self.swap_out_bytes = 0
         self.swap_in_ms = 0.0
+        self.kv_exports = 0  # export_kv_page calls and their host ms
+        self.kv_export_ms = 0.0
 
 
 def parked_step_ms(engine, steps: int = 8, timer=None) -> float:

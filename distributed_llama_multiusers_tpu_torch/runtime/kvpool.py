@@ -70,6 +70,13 @@ overwrite-before-readable invariant the contiguous path relies on.
   untouched) and the retry re-prefills. ``--kv-host-bytes 0`` disables
   the tier and restores drop-to-rebuild bit-for-bit.
 
+- **On a pod** (parallel/multihost.py) this bookkeeping runs on the root
+  only, before any packet goes out; the workers replay its device half
+  (table rows, copy-on-write copies, imports, swap-ins). A worker's pool
+  holds its geometry alone (``blocks_per_lane`` for the table packets'
+  check, the page size the engine's payloads are held to): its free list,
+  tree and host tier are never used.
+
 - **Share quantum** — ``admit(..., share_quantum=q)`` shares only a
   multiple of ``q`` tokens (and, for q > 1, no copy-on-write block). The
   default, 1, is the JAX rule. The port's scheduler passes the largest

@@ -58,7 +58,11 @@ session's admit record (``export_session``) and its committed KV pages
 (``export_session_pages``), takes a migrated session through normal
 admission like a recovered one (``build_recovered_request``), and runs the
 admin routes' device work on its own thread between steps
-(``run_device_op``), inside a pipelined chain too.
+(``run_device_op``), inside a pipelined chain too. On a pod's root the
+engine is ``parallel/multihost.RootControlEngine``: every paged call of
+this module (admission, release, containment, a bundle's adoption) goes
+through it, so its device half reaches every process, and a page export
+reads every rank's heads.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """A pod's ring step on a CUDA card: the per-rank windows
-(parallel/window.py) and their epoch waits, and the ring collectives across
-two processes against the same collectives in one. Marked ``gpu``; without
+(parallel/window.py) and their epoch waits, the ring collectives across
+two processes against the same collectives in one, and a paged KV pool's
+pages read across the two (parallel/kvshare.py). Marked ``gpu``; without
 a card every test skips. Imports neither jax nor the JAX package:
 
     python -m pytest tests/test_torch_gpu_pod.py -m gpu -q
@@ -94,3 +95,24 @@ def test_pod_collectives_match_one_process(cuda, tp, small):
         assert all(row["checks"].values()) and not row["failed"], row
         assert row["counts"]["ring_hop_launches"] > 0, row
         assert row["pod_ring_steps"] > 0, row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+def test_ipc_page_read_matches_local(cuda, dtype):
+    """A paged KV pool's pages across two processes on the card
+    (``tools/pod_pages.py``, parallel/kvshare.py): each process's ranks'
+    planes in a CUDA IPC region, the peer's opened; every rank's heads of
+    random pages read through the share, after the peer's count of page
+    writes, equal what the owner wrote, byte for byte, at the 1B geometry
+    (an e4m3 plane as its bytes), and joined in rank order they are the
+    whole page."""
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "pod_pages.py"), "--device", "cuda:0",
+           "--dtypes", dtype, "--reps", "5", "--timeout", "240"]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    rows = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+    assert [row["ranks"] for row in rows] == [[0], [1]]
+    for row in rows:
+        assert row["checks"][f"{dtype}_joined"] and all(row["checks"].values()), row
+        assert not row["failed"] and row["read_us"][dtype]["peer"] > 0, row

@@ -21,8 +21,8 @@ version. Each pod process blocks jax and the JAX package from importing.
   nonzero exit within a bound;
 - ``dllama_api`` root plus ``dllama worker`` answer like the one-process
   ``--workers 2 --device cpu`` server, and the root's SIGTERM stops the
-  worker with exit 0;
-- the startup refuses ``--paged-kv on`` and ``--role`` in a pod (exit 2).
+  worker with exit 0 (the paged pod, its ops and ``--role``:
+  tests/test_torch_pod_paged.py).
 
 Every subprocess runs under a timeout.
 """
@@ -546,7 +546,8 @@ def test_root_proxy_packets_match_jax(name, method, args, kwargs):
 def test_root_proxy_refuses_before_any_packet():
     """The pod-deadlock rule: a call the engine would refuse dies with no
     packet out (a ragged lane vector, an oversized or empty chunk, a copy
-    outside the lanes, a paged call, an empty prompt)."""
+    outside the lanes, a paged call on a contiguous engine, an empty
+    prompt)."""
     from distributed_llama_multiusers_tpu_torch.parallel import multihost as P
 
     pp = P.ControlPlane(N_LANES, chunk=CHUNK)
@@ -564,7 +565,7 @@ def test_root_proxy_refuses_before_any_packet():
         root.prefill(0, [])
     with pytest.raises(ValueError):
         root.decode_multi(_TOK, _POS, h=0)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="needs a paged engine"):
         root.paged_admit(0, [1, 2], 4)
     assert root.measured_sync_stats() == {}
     assert sent == []
@@ -712,9 +713,10 @@ def test_stats_reset_op_clears_worker_counters():
                                              (2, 12, "OP_KV_TABLE")])
 def test_bad_packet_is_a_replay_error_that_burns_no_restart(word, value, what):
     """A torn packet (bad magic), a version-skewed root, an unknown op and
-    a paged op this port does not serve on a pod are classified
-    ``ReplayError``\\ s before any dispatch: the worker resubscribes without
-    spending its restart budget (max_restarts=0 here) and replays on."""
+    a paged op on a worker whose engine is contiguous (its flags skewed
+    against the root's) are classified ``ReplayError``\\ s before any
+    dispatch: the worker resubscribes without spending its restart budget
+    (max_restarts=0 here) and replays on."""
     from distributed_llama_multiusers_tpu_torch.parallel.multihost import (
         OP_DECODE,
         OP_STOP,
@@ -875,26 +877,6 @@ def test_killed_worker_ends_the_root(model_dir, tmp_path):
         _stop(root, worker)
     assert rc != 0, open(root_log).read()[-3000:]
     assert waited < deadline + 30
-
-
-@pytest.mark.parametrize("flags,what", [(["--paged-kv", "on"], "--paged-kv on"),
-                                        (["--role", "decode"], "--role decode")])
-def test_pod_refuses_what_it_does_not_serve(model_dir, tmp_path, flags, what):
-    """(7) With ``--num-processes 2`` the startup refuses the paged KV
-    layout and the disaggregation roles (exit 2, the message naming
-    ROADMAP) before it joins the pod."""
-    log = os.path.join(str(tmp_path), "refuse.log")
-    p = _entry(API, ["--model", os.path.join(model_dir, "m.m"), "--tokenizer",
-                     os.path.join(model_dir, "t.t"), "--workers", "2", "--device", "cpu",
-                     "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "2",
-                     "--process-id", "0", *flags], log)
-    try:
-        rc = p.wait(timeout=60)
-    finally:
-        _stop(p)
-    text = open(log).read()
-    assert rc == 2, text[-2000:]
-    assert what in text and "ROADMAP" in text
 
 
 def test_cli_inference_root_matches_one_process(model_dir, tmp_path):
