@@ -265,12 +265,19 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    warmup; TTFT, the hand-off's ms and the bundle's bytes printed; a live
    f8 session's bundle pushed to the bf16 replica r2 gets a typed 422
    (``page_bytes``) and leaves its pool as it was.
-4f. Pod (spawned before the f8 phase's servers, served after 4e): three
+4f. Pod (spawned before the f8 phase's servers, served after 4e): four
    two-process pods on ``cuda:0``, each ``dllama_api`` as the root
    (``--process-id 0``) beside ``dllama worker`` (``--process-id 1``), one
    rank of ``--workers 2`` a process, the ring steps between them through
-   the windows (CUDA IPC memory, stream memory operations); the card's
-   compute mode must let them share it. The f32-wire pod and the
+   the windows (CUDA IPC memory, stream memory operations), or for the
+   f32-wire pod and the killed pod over TCP links on loopback
+   (``DLLAMA_POD_TRANSPORT=socket``, the transport of a pod across hosts:
+   pinned host slots mapped into the card, the same stream memory
+   operations on host-mapped words); the card's compute mode must let them
+   share it. First ``tools/pod_hop.py --small --transport socket``: the
+   collectives' bits equal over the links and over the IPC windows, the
+   32 KiB hop's ms a step each way beside the socket hop's bound at a
+   measured loopback bandwidth. The f32-wire pod and the
    ``--buffer-float-type q80 --dequant auto`` pod each serve the tp2
    passes' 4 concurrent requests: the bodies, the greedy text and the
    concurrent texts equal the one-process tp2 pass of the same wire byte
@@ -280,9 +287,13 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    no graph; root and worker launched ring_hop equally often; the eager
    step the root timed at startup (``pod_step_*`` in ``/stats``: its ring
    waits and their share) and the packet broadcast's µs printed; both
-   processes exit 0 on the root's SIGTERM. The third pod
-   (``--step-deadline 5``) loses its worker to SIGKILL mid-stream: its
-   root exits nonzero within the deadline plus 30 s.
+   processes exit 0 on the root's SIGTERM. The paged IPC pod adds the
+   swap tier, a page export and a hand-off from the fourth pod, a paged
+   ``--role prefill`` socket pod (``--step-deadline 5``), whose export is
+   then held against the one-process tp2 engine's pages and whose worker
+   is SIGKILLed mid-stream: its root exits 18 within the deadline plus 30
+   s. A summary line sets each pod's transport, eager step and batch tok/s
+   side by side.
 5. Kernel lab (run after phase 4c's kernels, while the models are
    written): the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
@@ -5869,6 +5880,10 @@ POD_PAGED_POOL = 48
 POD_PAGED_ARGS = (*PAGED_ARGS, "--kv-pool-pages", str(POD_PAGED_POOL), "--kv-max-parked", "4",
                   "--kv-host-bytes", str(256 << 20), "--role", "decode",
                   "--reconnect-grace", DUR_GRACE)
+# the pods whose ring steps and page reads go over TCP links on loopback (the
+# transport of a pod across hosts, DLLAMA_POD_TRANSPORT=socket); the other
+# two keep CUDA IPC
+POD_SOCKET = ("pod", "pod-kill")
 # the pod whose worker is killed is paged too, and first the hand-off's
 # prefill end
 POD_PREFILL_ARGS = (*PAGED_ARGS, "--role", "prefill", "--step-deadline",
@@ -5890,11 +5905,19 @@ class PodServer:
     healthy. ``stop`` SIGTERMs the root, checks that both exit 0 (the
     root's drain stops the worker) and returns the root's log; ``kill``
     ends both; ``worker_exit`` is the worker's counters as it logged them
-    at its exit. Serves ``serve_pass`` as a ``Server`` does."""
+    at its exit, ``idle_counters`` the root's ``/stats`` and the worker's
+    counters (SIGUSR1) once the pod idles. With ``kill_at_stop`` set,
+    ``stop`` runs ``pod_kill_check`` instead (its result in ``kill_out``)
+    and returns the root's log. Serves ``serve_pass`` as a ``Server`` does.
+    ``transport``: ``socket`` (both processes with
+    ``DLLAMA_POD_TRANSPORT=socket``) or ``ipc``."""
 
-    def __init__(self, model: str, tok: str, name: str, args=(), log_dir: str = OUT_DIR):
+    def __init__(self, model: str, tok: str, name: str, args=(), log_dir: str = OUT_DIR,
+                 transport: str = "ipc"):
         os.makedirs(log_dir, exist_ok=True)
         self.name = name
+        self.transport = transport
+        self.kill_at_stop, self.kill_out = False, None
         port = _free_port()
         self.base = f"http://127.0.0.1:{port}"
         pod = ["--model", model, "--tokenizer", tok, "--workers", "2", "--device", POD_DEVICE,
@@ -5902,6 +5925,9 @@ class PodServer:
         env = dict(os.environ)
         env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
         env.pop("DLLAMA_DEQUANT", None)
+        env.pop("DLLAMA_POD_TRANSPORT", None)
+        if transport == "socket":
+            env["DLLAMA_POD_TRANSPORT"] = "socket"
         self.log_path = os.path.join(log_dir, f"chip_smoke_pod_{name}_root.log")
         self.worker_log_path = os.path.join(log_dir, f"chip_smoke_pod_{name}_worker.log")
         self.t0 = time.perf_counter()
@@ -5937,6 +5963,10 @@ class PodServer:
         return self
 
     def stop(self) -> str:
+        if self.kill_at_stop:
+            self.kill_out = pod_kill_check(self)
+            with open(self.log_path, errors="replace") as f:
+                return f.read()
         self.proc.send_signal(signal.SIGTERM)
         for proc, what in ((self.proc, "root"), (self.worker, "worker")):
             try:
@@ -5953,6 +5983,30 @@ class PodServer:
             lines = [ln for ln in f if ln.startswith('{"event": "worker_exit"')]
         check(bool(lines), f"pod ({self.name}): the worker logged no exit counters")
         return json.loads(lines[-1])
+
+    def idle_counters(self, timeout: float = 60.0) -> tuple:
+        """(the root's ``/stats``, the worker's counters) once the pod
+        idles: the worker's ``worker_counters`` line (SIGUSR1; it stays
+        up, its keys ``worker_exit``'s) shows the root's packets and ring
+        steps in two rounds running."""
+        def lines():
+            with open(self.worker_log_path, errors="replace") as f:
+                return [ln for ln in f if ln.startswith('{"event": "worker_counters"')]
+
+        end, seen, last = time.perf_counter() + timeout, len(lines()), None
+        while time.perf_counter() < end:
+            stats = _json_call(self.base, "/stats")[2]
+            self.worker.send_signal(signal.SIGUSR1)
+            _poll(lambda: len(lines()) > seen, 30,
+                  f"pod ({self.name}): the worker logged no counters on SIGUSR1")
+            got = lines()
+            seen, counters = len(got), json.loads(got[-1])
+            now = tuple((stats[k], counters[k]) for k in ("pod_packets", "pod_ring_steps"))
+            if all(a == b for a, b in now) and now == last:
+                return stats, counters
+            last = now
+            time.sleep(0.2)
+        raise SmokeFailure(f"pod ({self.name}) never idled: root and worker at {last}")
 
     def tail(self) -> None:
         for path in (self.log_path, self.worker_log_path):
@@ -5977,28 +6031,34 @@ def pod_specs(devices: str) -> list:
     return out
 
 
-def start_pods(torch, model: str, tok: str) -> tuple[dict, str]:
+def start_pods(torch, model: str, tok: str) -> tuple[dict, str, subprocess.Popen]:
     """The pod phase's four pods, spawned at once (they load and warm
     beside the phases before theirs): the two contiguous serving pods, the
     paged pod (``--role decode``) and a paged ``--role prefill`` pod with
     ``--step-deadline``, the hand-off's source, whose worker the phase then
-    kills; and the card's compute mode, which must let several processes
-    share it."""
+    kills; the card's compute mode, which must let several processes share
+    it; and the hop's processes (``start_pod_hop``)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     check("Exclusive_Process" not in mode,
           f"the card's compute mode is {mode}: a pod's two processes cannot share it")
     devices = ",".join(str(d) for d in rank_devices(torch, 2))
-    pods = {name: PodServer(model, tok, name, pass_args(mode_, extra))
+
+    def transport(name):
+        return "socket" if name in POD_SOCKET else "ipc"
+
+    pods = {name: PodServer(model, tok, name, pass_args(mode_, extra), transport=transport(name))
             for name, _, mode_, extra in pod_specs(devices)}
-    pods["pod-paged"] = PodServer(model, tok, "pod-paged", pass_args(None, POD_PAGED_ARGS))
-    pods["pod-kill"] = PodServer(model, tok, "pod-kill", POD_PREFILL_ARGS)
-    return pods, mode
+    pods["pod-paged"] = PodServer(model, tok, "pod-paged", pass_args(None, POD_PAGED_ARGS),
+                                  transport=transport("pod-paged"))
+    pods["pod-kill"] = PodServer(model, tok, "pod-kill", POD_PREFILL_ARGS,
+                                 transport=transport("pod-kill"))
+    return pods, mode, start_pod_hop()
 
 
 def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
-              checks=None) -> dict:
+              checks=None, kill: bool = False) -> dict:
     """One serving pod: ``serve_pass``'s 4 concurrent requests and checks;
     its streams equal the tp=2 pass ``tp`` of the same wire, byte for byte
     (the bodies, the greedy text, the concurrent texts); the ring hop
@@ -6010,17 +6070,24 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
     its ring waits (``pod_step_*`` in ``/stats``), the packet broadcast's
     microseconds. ``checks(base)`` (the paged pod's) runs after the pass,
     before the stop; its result is the pass's ``paged``, and the pod's
-    launch counts are then those after it."""
+    launch counts are then those after it. ``kill``: after the checks,
+    the idle worker's counters (SIGUSR1) stand for its exit line, and
+    ``pod_kill_check`` kills it in place of the stop (the pass's
+    ``kill``)."""
     def after(base):
         stats = json.loads(_http(base + "/stats")[1])
+        found = checks(base) if checks is not None else None
+        if kill:
+            pod.kill_at_stop = True
+            return stats, found, *pod.idle_counters()
         if checks is None:
-            return stats, None, stats
-        found = checks(base)
-        return stats, found, json.loads(_http(base + "/stats")[1])
+            return stats, None, stats, None
+        return stats, found, json.loads(_http(base + "/stats")[1]), None
 
     p = serve_pass(model, tok, mode, GEN_TOKENS, name=pod.name, extra_args=extra,
                    srv=pod.wait(), extra=after)
-    stats, found, final = p.pop("extra")
+    stats, found, final, worker = p.pop("extra")
+    killed = pod.kill_out
     launch_keys = ("ring_hop_launches", "ring_hop_bytes", "gumbel_sample_launches",
                    "decode_attn_launches", "decode_attn_window_launches",
                    "decode_attn_paged_launches", "grammar_mask_argmax_launches",
@@ -6034,7 +6101,10 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
                                                              "kv_page_writes")}}
     step = {"step_ms": stats["pod_step_ms"], "wait_ms": stats["pod_step_wait_ms"],
             "wait_share": stats["pod_step_wait_share"]}
-    worker = pod.worker_exit()
+    if killed is None:
+        worker = pod.worker_exit()
+    else:
+        p["kill"] = killed
     name = pod.name
     check(p["mesh"] is not None and p["mesh"]["tp"] == 2 and p["mesh"]["processes"] == 2,
           f"{name}: /stats mesh {p['mesh']}")
@@ -6054,10 +6124,16 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
               "grammar_next_launches"):
         check(p[k] > 0 and worker[k] > 0, f"{name}: {k} root {p[k]}, worker {worker[k]}")
     for phrase in ("Pod root: control plane up", "no CUDA graphs on a pod",
-                   "Pod workers sent stop"):
+                   *(("Pod workers sent stop",) if killed is None else ())):
         check(phrase in p["log"], f"{name}: the root's log does not say {phrase!r}")
     check(step["step_ms"] > 0 and 0 <= step["wait_share"] <= 1, f"{name}: pod step {step}")
-    p["pod"] = {"step_ms": step["step_ms"], "wait_ms": step["wait_ms"],
+    want = ("socket" if pod.transport == "socket" else
+            "cuda-ipc" if POD_DEVICE.startswith("cuda") else "shared-memory files")
+    check(stats["pod_transport"] == worker["pod_transport"] == want
+          and f"ring steps across them over {want}" in p["log"],
+          f"{name}: transport root {stats['pod_transport']}, worker {worker['pod_transport']}, "
+          f"started as {pod.transport}")
+    p["pod"] = {"transport": want, "step_ms": step["step_ms"], "wait_ms": step["wait_ms"],
                 "wait_share": step["wait_share"],
                 "broadcast_us": stats["pod_broadcast_us"], "packets": stats["pod_packets"],
                 "ring_steps": stats["pod_ring_steps"], "root_ring_hop_launches":
@@ -6068,7 +6144,7 @@ def _pod_pass(model: str, tok: str, pod: PodServer, mode, extra, tp: dict,
         p[k] += worker[k]
     p["kernel_launches"] = {k: v + worker["kernel_launches"][k]
                             for k, v in p["kernel_launches"].items()}
-    log(f"pod [{name}]: streams byte-identical to {tp['mode']}; ring_hop launches root "
+    log(f"pod [{name}, {want}]: streams byte-identical to {tp['mode']}; ring_hop launches root "
         f"{p['pod']['root_ring_hop_launches']}, worker {worker['ring_hop_launches']}; eager step "
         f"(lanes parked, at the root's startup) {p['pod']['step_ms']:.2f} ms, ring waits "
         f"{p['pod']['wait_ms']:.2f} ms ({p['pod']['wait_share'] * 100:.1f}%); "
@@ -6164,15 +6240,18 @@ def pod_export_check(base: str, reference: dict) -> dict:
     return out
 
 
-def pod_handoff_check(prefill: PodServer, decode_base: str) -> dict:
+def pod_handoff_check(prefill: PodServer, decode: PodServer) -> dict:
     """A disaggregated hand-off with a pod at each end: a live session on
     the paged ``--role prefill`` pod moves to the paged pod
     (``disagg.prefill.hand_off``: the ticket, the bundle read across the
     prefill pod's processes, its adoption through OP_KV_PAGES on both of the
     decode pod's, the session regenerated there); the decode pod's stream
-    equals the prefill pod's own (the monolithic stream), byte for byte."""
-    from distributed_llama_multiusers_tpu_torch.disagg.prefill import hand_off
+    equals the prefill pod's own (the monolithic stream), byte for byte. A
+    refused hand-off fails with the decode pod's logged cause
+    (``kvimport_failed``) and both pods' last log lines."""
+    from distributed_llama_multiusers_tpu_torch.disagg.prefill import HandoffAborted, hand_off
 
+    decode_base = decode.base
     prefill.wait()
     before = _json_call(decode_base, "/stats")[2]
     src = SseStream(prefill.base + "/v1/completions", {"prompt": HANDOFF_PROMPT,
@@ -6182,9 +6261,16 @@ def pod_handoff_check(prefill: PodServer, decode_base: str) -> dict:
           "pod hand-off: the prefill pod's session never streamed")
     host = "127.0.0.1"
     t0 = time.perf_counter()
-    conn, resp, _, receipt = hand_off(host, int(prefill.base.rsplit(":", 1)[1]), src.rid, host,
-                                      int(decode_base.rsplit(":", 1)[1]), timeout=120,
-                                      read_timeout=600)
+    try:
+        conn, resp, _, receipt = hand_off(host, int(prefill.base.rsplit(":", 1)[1]), src.rid,
+                                          host, int(decode_base.rsplit(":", 1)[1]), timeout=120,
+                                          read_timeout=600)
+    except HandoffAborted as e:
+        with open(decode.log_path, errors="replace") as f:
+            causes = [ln.strip() for ln in f if ln.startswith('{"event": "kvimport_failed"')]
+        prefill.tail()
+        decode.tail()
+        raise SmokeFailure(f"pod hand-off: {e}; the decode pod logged {causes}") from None
     handoff_ms = (time.perf_counter() - t0) * 1e3
     try:
         text = _sse_text(resp)
@@ -6213,13 +6299,20 @@ def pod_paged_checks(pods: dict, reference: dict):
     against the one-process tp2 engine, the hand-off from the prefill pod."""
     def run(base):
         return {"swap": pod_swap_check(base), "export": pod_export_check(base, reference),
-                "handoff": pod_handoff_check(pods["pod-kill"], base)}
+                "handoff": pod_handoff_check(pods["pod-kill"], pods["pod-paged"])}
     return run
 
 
 def pod_kill_check(pod: PodServer) -> dict:
-    """A pod whose worker is SIGKILLed mid-stream: the root (served with
-    ``--step-deadline``) exits nonzero within the deadline plus 30 s."""
+    """A pod whose worker is SIGKILLed mid-stream: the root, its stream
+    waiting on the card for the dead worker's ring steps, exits with
+    ``POD_LOST_EXIT_CODE`` (18) within ``POD_KILL_DEADLINE_S`` plus 30 s.
+    Over CUDA IPC the pid watcher finds the lost worker; over sockets, with
+    no pid watcher armed, a link does (or, either way, the control plane's
+    broadcast); on ``pod-kill`` the step watchdog's deadline (exit 17) has
+    not come. ``found_by``: the root's log line that named the loss."""
+    from distributed_llama_multiusers_tpu_torch.parallel.multihost import POD_LOST_EXIT_CODE
+
     pod.wait()
     body = {"prompt": "a" * SPEC_RUN, "max_tokens": 256, "temperature": 0, "stream": True}
     req = urllib.request.Request(pod.base + "/v1/completions", data=json.dumps(body).encode(),
@@ -6244,30 +6337,100 @@ def pod_kill_check(pod: PodServer) -> dict:
         raise SmokeFailure("pod-kill: the root still runs "
                            f"{POD_KILL_DEADLINE_S + 30:.0f} s after its worker died") from None
     waited = time.perf_counter() - t_kill
-    check(rc != 0, f"pod-kill: the root exited {rc} after its worker died")
-    out = {"root_exit": rc, "seconds_to_exit": waited, "deadline_s": POD_KILL_DEADLINE_S,
+    with open(pod.log_path, errors="replace") as f:
+        lost = [json.loads(ln) for ln in f
+                if ln.startswith(('{"event": "pod_peer_lost"', '{"event": "pod_lost"'))]
+    check(rc == POD_LOST_EXIT_CODE, f"{pod.name}: the {pod.transport} pod's root exited {rc} "
+                                    f"after its worker died, not {POD_LOST_EXIT_CODE}")
+    found_by = ("none" if not lost else "control plane" if lost[-1]["event"] == "pod_lost"
+                else "link" if "detail" in lost[-1] else "pid watcher")
+    out = {"pod": pod.name, "transport": pod.transport, "root_exit": rc,
+           "seconds_to_exit": waited, "found_by": found_by, "deadline_s": POD_KILL_DEADLINE_S,
            "deltas_before_kill": deltas}
     log("pod worker kill: " + json.dumps(out))
     return out
 
 
+POD_HOP_GO = os.path.join(OUT_DIR, "pod_hop.go")
+
+
+def start_pod_hop() -> subprocess.Popen:
+    """``tools/pod_hop.py --small --transport socket`` started with the pods:
+    its two processes join their pod and open their windows while the
+    phases before the pod phase run, then wait for ``pod_hop_phase`` to
+    create ``POD_HOP_GO``."""
+    if os.path.exists(POD_HOP_GO):
+        os.unlink(POD_HOP_GO)
+    return subprocess.Popen([sys.executable, os.path.join(ROOT, "tools", "pod_hop.py"),
+                             "--device", POD_DEVICE, "--small", "--transport", "socket",
+                             "--go", POD_HOP_GO, "--timeout", "1200"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def pod_hop_phase(hop: subprocess.Popen) -> dict:
+    """The 32 KiB hop across two processes on the card over each transport
+    (``start_pod_hop``'s processes, let go while the pods idle): every
+    collective bit-equal to one process over the TCP links and over this
+    host's CUDA IPC windows in the same processes, the two transports'
+    digests equal; the hop's ms a step each way and the socket hop's bound
+    (its wire bytes over one socket pair's loopback bandwidth)."""
+    t0 = time.perf_counter()
+    with open(POD_HOP_GO, "w"):
+        pass
+    try:
+        stdout, stderr = hop.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        hop.kill()
+        raise SmokeFailure("pod_hop --transport socket did not finish in 300 s") from None
+    rows = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    check(hop.returncode == 0 and len(rows) == 2,
+          f"pod_hop --transport socket: exit {hop.returncode}\n{stdout[-2000:]}{stderr[-2000:]}")
+    for row in rows:
+        check(all(row["checks"].values()) and all(row["shared"]["checks"].values())
+              and not row["failed"], f"pod_hop --transport socket: {row['failed']}")
+        check(row["digests"] == row["shared"]["digests"],
+              "pod_hop: the socket links' collectives differ from the shared windows'")
+    out = {"hop_bytes": 32 * 1024,
+           "socket_hop_ms": [r["pod_hop_us"] / 1e3 for r in rows],
+           "ipc_hop_ms": [r["shared"]["pod_hop_us"] / 1e3 for r in rows],
+           "one_process_hop_ms": [r["one_process_hop_us"] / 1e3 for r in rows],
+           "socket_all_reduce_ms": [r["pod_all_reduce_us"] / 1e3 for r in rows],
+           "ipc_all_reduce_ms": [r["shared"]["pod_all_reduce_us"] / 1e3 for r in rows],
+           "socket_wait_ms": [r["pod_hop_wait_us"] / 1e3 for r in rows],
+           "loopback_gbps": rows[0]["loopback_gbps"],
+           "socket_hop_bound_ms": rows[0]["hop_bound_us"] / 1e3,
+           "seconds": time.perf_counter() - t0}
+    log(f"pod hop ({out['seconds']:.1f}s; 32 KiB, 2 processes, one card): socket "
+        + json.dumps(out["socket_hop_ms"]) + " ms a step, IPC " + json.dumps(out["ipc_hop_ms"])
+        + f" ms; socket bound {out['socket_hop_bound_ms']:.4f} ms at "
+        f"{out['loopback_gbps']:.2f} GB/s loopback")
+    return out
+
+
 def pod_phase(model: str, tok: str, tp_passes: list, pods: dict, compute_mode: str,
-              export_reference: dict) -> dict:
-    """The pods started by ``start_pods``: each contiguous serving pod's
-    pass (``_pod_pass``) against the tp=2 pass of its wire, the paged pod's
+              export_reference: dict, card: str, hop: subprocess.Popen) -> dict:
+    """The pods started by ``start_pods``: the hop over both transports
+    (``pod_hop_phase``), each contiguous serving pod's pass
+    (``_pod_pass``) against the tp=2 pass of its wire, the paged pod's
     against the f32-wire one with its swap, export and hand-off checks
     (``pod_paged_checks``; the ring_hop launches of root and worker equal
-    over all of it), then the worker kill."""
+    over all of it), then the paged pod's worker kill (over CUDA IPC), a
+    page export from the socket prefill pod against the one-process tp2
+    engine, then that pod's worker kill (over sockets). ``POD_SOCKET``'s
+    pods run over TCP links, the others over CUDA IPC; the summary line
+    sets each pod's eager step and batch tok/s beside the others', and the
+    two kills' seconds to exit, with the card's name and power limit."""
     t0 = time.perf_counter()
     out = {"compute_mode": compute_mode, "passes": []}
     try:
+        out["hop"] = pod_hop_phase(hop)
         by_mode = {p["mode"]: p for p in tp_passes}
         specs = pod_specs("cuda:0,cuda:0")
         for name, tp_name, mode, extra in specs:
             out["passes"].append(_pod_pass(model, tok, pods[name], mode, extra, by_mode[tp_name]))
         _, tp_name, _, _ = specs[0]
         paged = _pod_pass(model, tok, pods["pod-paged"], None, POD_PAGED_ARGS, by_mode[tp_name],
-                          checks=pod_paged_checks(pods, export_reference))
+                          checks=pod_paged_checks(pods, export_reference), kill=True)
         # the worker replayed every swap-in batch and page write the root made
         worker, root = paged["pod"]["worker"], paged["paged"]["root"]
         check(all(worker[k] == root[k] for k in root) and root["swap_ins"] > 0
@@ -6279,7 +6442,21 @@ def pod_phase(model: str, tok: str, tp_passes: list, pods: dict, compute_mode: s
                             out["passes"][0]["tokens_per_s_batch"]}
         log(f"pod-paged: batch {paged['tokens_per_s_batch']:.1f} tok/s against the contiguous "
             f"pod's {out['passes'][0]['tokens_per_s_batch']:.1f} in this run")
+        # the socket prefill pod's root reads its worker's heads over TCP
+        out["socket_export"] = pod_export_check(pods["pod-kill"].base, export_reference)
         out["kill"] = pod_kill_check(pods["pod-kill"])
+        out["ipc_kill"] = paged["kill"]
+        summary = {p["mode"]: {"transport": p["pod"]["transport"],
+                               "eager_step_ms": p["pod"]["step_ms"],
+                               "tokens_per_s_batch": p["tokens_per_s_batch"]}
+                   for p in out["passes"]}
+        log(f"pod transports ({card}): " + json.dumps(summary) + "; 32 KiB hop ms a step: "
+            f"socket {json.dumps(out['hop']['socket_hop_ms'])}, IPC "
+            f"{json.dumps(out['hop']['ipc_hop_ms'])} (socket bound "
+            f"{out['hop']['socket_hop_bound_ms']:.4f}); kill to exit "
+            + ", ".join(f"{k['seconds_to_exit']:.2f} s ({k['pod']}, {k['transport']}, exit "
+                        f"{k['root_exit']}, found by {k['found_by']})"
+                        for k in (out["ipc_kill"], out["kill"])))
     except BaseException:
         for pod in pods.values():
             if pod.proc.poll() is None or pod.worker.poll() is None:
@@ -6548,14 +6725,18 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
         "payloads": hops,
         "forms": list(forms),
         **({"pod": {
-            "note": "two processes on one card, one rank each: the receiver's launch reads "
-                    "the sender's window through CUDA IPC after a stream wait on its epoch "
-                    "word (launches above count both processes, the staging copies "
-                    "included)",
+            "note": "two processes on one card, one rank each: over CUDA IPC the receiver's "
+                    "launch reads the sender's window after a stream wait on its epoch word; "
+                    f"over sockets ({', '.join(POD_SOCKET)}) the sender's launch stages into "
+                    "pinned host memory mapped into the card, a transport thread sends it on "
+                    "a TCP link, and the receiver's launch reads the received slot after a "
+                    "stream wait on a host-mapped word (launches above count both processes, "
+                    "the staging copies included)",
             "by_pod": {p["mode"]: p["pod"] for p in pod["passes"]},
+            "hop_by_transport": pod["hop"],
             "one_process_parked_eager_step_ms": {b["mode"]: b.get("parked_eager_step_ms")
                                                  for b in tp},
-            "worker_kill": pod["kill"]}} if pod is not None else {}),
+            "worker_kill": [pod["ipc_kill"], pod["kill"]]}} if pod is not None else {}),
     })
     out.append({
         "name": cs.KERNEL, "route": "cuda", "source": cs.KERNEL_SOURCE,
@@ -6807,6 +6988,7 @@ def main() -> int:
     t_start = time.perf_counter()
     writers = {}
     pods = {}
+    hop = None
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -6927,14 +7109,15 @@ def main() -> int:
         attn["f8_step"] = paged["f8_step"]
         lap("paged")
         # the pods load and warm while the f8, grammar and fleet phases run
-        pods, compute_mode = start_pods(torch, model, tok)
+        pods, compute_mode, hop = start_pods(torch, model, tok)
         f8 = f8_phase(model, tok)
         lap("f8")
         grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown, grammar_kernels)
         lap("grammar")
         fleet = fleet_phase(model, tok, durability, f8["passes"][1])
         lap("fleet")
-        pod = pod_phase(model, tok, passes, pods, compute_mode, paged["tp2_step"]["export"])
+        pod = pod_phase(model, tok, passes, pods, compute_mode, paged["tp2_step"]["export"],
+                        card, hop)
         lap("pod")
         log(f"default v4 pass: batch {passes[0]['tokens_per_s_batch']:.1f} tok/s, graph step "
             f"p50 {breakdown[0]['step_ms_p50']:.2f} ms (before the serving layers, NVIDIA H100 "
@@ -6972,6 +7155,9 @@ def main() -> int:
                 writer.wait()
         for pod in pods.values():
             pod.kill()
+        if hop is not None and hop.poll() is None:
+            hop.kill()
+            hop.wait()
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(line))

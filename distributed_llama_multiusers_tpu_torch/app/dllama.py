@@ -33,7 +33,9 @@ decode, verify and multi-step bodies captured as CUDA graphs at startup.
 from __future__ import annotations
 
 import os
+import signal
 import sys
+import threading
 import time
 
 from ..ops.ring_collective import ring_counts
@@ -250,19 +252,45 @@ def run_worker(args) -> None:
     if plane is None:
         refuse("dllama worker runs as --process-id 1 or above; process 0 is the root "
                "(dllama_api or dllama inference)")
-    log("⭕", "Worker ready; replaying the root's engine calls")
+    def counters() -> dict:
+        # the worker serves no /stats: its counters since warmup (a paged
+        # worker's swap-ins: the OP_KV_SWAP batches it replayed)
+        swaps = ({"swap_ins": engine.swap_ins, "swap_in_bytes": engine.swap_in_bytes,
+                  "kv_page_writes": engine.pool_stats()["kv_page_writes"]}
+                 if engine.kvpool is not None else {})
+        return {**all_kernel_counts(), **plane.stats(), **engine.pod_stats(), **swaps}
+
+    _log_counters_on(signal.SIGUSR1, counters)
+    log("⭕", "Worker ready; replaying the root's engine calls (SIGUSR1 logs its counters)")
     worker_serve(engine, plane, log=lambda m: log("⭕", m))
-    counts = all_kernel_counts()
+    counts = counters()
     log("⭕", f"Root sent stop; worker exiting (ring_hop launches "
               f"{counts['ring_hop_launches']}, plain calls {counts['ring_hop_plain_calls']}, "
-              f"bytes {counts['ring_hop_bytes']}; packets {plane.stats()['pod_packets']})")
-    # the worker serves no /stats: its counters since warmup, as one line
-    # (a paged worker's swap-ins: the OP_KV_SWAP batches it replayed)
-    swaps = ({"swap_ins": engine.swap_ins, "swap_in_bytes": engine.swap_in_bytes,
-              "kv_page_writes": engine.pool_stats()["kv_page_writes"]}
-             if engine.kvpool is not None else {})
-    log_event("worker_exit", **counts, **plane.stats(), **engine.pod_stats(), **swaps)
+              f"bytes {counts['ring_hop_bytes']}; packets {counts['pod_packets']})")
+    log_event("worker_exit", **counts)
     engine.release_pod()
+
+
+def _log_counters_on(signum: int, counters) -> None:
+    """Log ``counters()`` as a ``worker_counters`` line whenever this
+    process gets ``signum``, without stopping it: a caller reads an idle
+    worker's counters, the ``worker_exit`` line's, and may then kill it.
+    The worker's main thread may sit in the packet broadcast for days, where
+    no Python handler runs, so the signal's byte wakes a thread of its own
+    (``signal.set_wakeup_fd``)."""
+    from ..telemetry.logs import log_event
+
+    rfd, wfd = os.pipe()
+    os.set_blocking(wfd, False)
+    signal.signal(signum, lambda *_: None)
+    signal.set_wakeup_fd(wfd)
+
+    def run() -> None:
+        while got := os.read(rfd, 1):
+            if got[0] == signum:
+                log_event("worker_counters", **counters())
+
+    threading.Thread(target=run, name="worker-counters", daemon=True).start()
 
 
 def main(argv=None) -> None:

@@ -18,7 +18,8 @@ from ..ops.ring_collective import ring_sync_engages, ring_sync_supported
 from ..parallel import make_mesh, mesh_devices, validate_mesh_for_config
 from ..parallel.collectives import q80_sync_engages
 from ..parallel.multihost import (ControlPlane, ReplayError, RootControlEngine,
-                                  maybe_initialize_distributed, pod_hostnames, requested_pod)
+                                  maybe_initialize_distributed, pod_hostnames, pod_transport,
+                                  requested_pod)
 from ..parallel.sharding import shard_params
 from ..quants.packed import PackedQ40
 from ..runtime import ContinuousBatchingScheduler, InferenceEngine, resolve_device
@@ -42,9 +43,10 @@ def refuse(msg: str) -> None:
 def join_pod(args) -> tuple[int, int]:
     """Join the pod where ``--coordinator`` (or ``DLLAMA_COORDINATOR``) asks
     for one, before anything touches a device; refuse (exit 2) what a pod
-    does not serve: a mesh the processes cannot split before joining,
-    processes on different hosts after. Returns (process index, process
-    count)."""
+    does not serve: a mesh the processes cannot split, or processes that
+    disagree on the data plane's transport. Processes on different hosts
+    take the socket transport (``DLLAMA_POD_TRANSPORT=socket`` takes it on
+    one host). Returns (process index, process count)."""
     req = requested_pod(args)
     if req is None or req[1] == 1:
         return 0, 1
@@ -54,11 +56,13 @@ def join_pod(args) -> tuple[int, int]:
         refuse("a pod needs a --workers mesh spec spanning the global device set")
     if plan.tp % n_proc:
         refuse(f"--workers tp{plan.tp} does not split over {n_proc} processes")
-    maybe_initialize_distributed(args)
-    hosts = pod_hostnames()
-    if len(set(hosts)) > 1:
-        refuse(f"the pod's processes run on different hosts ({', '.join(hosts)}): the "
-               "cross-host data plane is not ported yet (ROADMAP A7.2)")
+    try:
+        maybe_initialize_distributed(args)
+    except (ReplayError, ValueError) as e:
+        refuse(str(e))
+    hosts = sorted(set(pod_hostnames()))
+    log("⭕", f"Pod transport: {pod_transport()} ({n_proc} processes on "
+              f"{len(hosts)} host{'s' if len(hosts) > 1 else ''}: {', '.join(hosts)})")
     return pid, n_proc
 
 
@@ -200,9 +204,9 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
         # a slot fits the largest prompt chunk, every per-lane vector and
         # the in-chain drafts (ControlPlane's sizing)
         plane = ControlPlane(engine.n_lanes, chunk=engine.prefill_buckets[-1], fatal=pid == 0)
-        log("⭕", f"Pod: {n_proc} processes, ring steps across them through per-rank "
-                  f"windows ({engine.pod.slot_bytes // 1024} KiB slots); decode families "
-                  "run eagerly (no CUDA graphs on a pod: ROADMAP A7.3)")
+        log("⭕", f"Pod: {n_proc} processes, ring steps across them over "
+                  f"{engine.pod.transport} ({engine.pod.slot_bytes // 1024} KiB slots); "
+                  "decode families run eagerly (no CUDA graphs on a pod: ROADMAP A7.3)")
         if pid == 0:
             log("⭕", f"Pod root: control plane up ({plane.chunk}-word slots)")
             engine = RootControlEngine(engine, plane)

@@ -66,12 +66,24 @@
 // after the staging copy, the receiver's stream waits for it before the
 // pull and then writes "consumed e" into the sender's window, and the
 // sender waits for that before it stages into the slot again.
+//
+// Across hosts (parallel/window.py, SocketWindows) no process maps another's
+// memory. Each end of a ring link then owns a buffer of pinned host memory
+// mapped into the card (ring_host_alloc): the sender's staging launch writes
+// the slot there, the receiver's pull launch reads its received copy from
+// there, and the epoch words live there too, written and waited on by the
+// same stream memory operations. A transport thread on each end moves the
+// slot over a TCP socket between the two buffers; it polls the words the
+// streams write with ring_host_wait, which spins on the host without the
+// Python lock.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
+#include <sched.h>
 #include <stdint.h>
 #include <string.h>
+#include <time.h>
 
 namespace {
 
@@ -547,4 +559,52 @@ extern "C" int ring_write_value(void* stream, void* addr, unsigned int value) {
   return (int)g_write_value(reinterpret_cast<CUstream>(stream),
                             reinterpret_cast<CUdeviceptr>(addr), value,
                             CU_STREAM_WRITE_VALUE_DEFAULT);
+}
+
+// Allocates `bytes` of zeroed pinned host memory, mapped into the address
+// space of every device (portable): a socket link's buffer. *host is its
+// host address, *dev the address kernels and stream memory operations on
+// `device` use for it. Returns the CUDA error.
+extern "C" int ring_host_alloc(int device, long long bytes, void** host, void** dev) {
+  if (host == nullptr || dev == nullptr || bytes <= 0) return (int)cudaErrorInvalidValue;
+  *host = nullptr;
+  *dev = nullptr;
+  return (int)on_device(device, [&]() {
+    cudaError_t e =
+        cudaHostAlloc(host, (size_t)bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+    if (e != cudaSuccess) return e;
+    memset(*host, 0, (size_t)bytes);
+    return cudaHostGetDevicePointer(dev, *host, 0);
+  });
+}
+
+// Frees a buffer of ring_host_alloc.
+extern "C" int ring_host_free(void* host) { return (int)cudaFreeHost(host); }
+
+// Waits on the calling host thread until the 32-bit word at `addr` (host
+// memory a stream writes) equals `value`: spins a few microseconds, yields
+// the core up to 50 us, then sleeps 20 us at a time, so a wait behind a long
+// step leaves the host's cores to the pod's other threads and processes.
+// Returns 0 once it does, 1 after about `timeout_us` microseconds. Called
+// through ctypes, which releases the Python lock, so the waiting transport
+// thread holds up no other thread of the process.
+extern "C" int ring_host_wait(const volatile unsigned int* addr, unsigned int value,
+                              long long timeout_us) {
+  for (int i = 0; i < 4096; ++i) {
+    if (*addr == value) return 0;
+  }
+  timespec t0, now;
+  clock_gettime(CLOCK_MONOTONIC, &t0);
+  const timespec nap = {0, 20000};
+  while (*addr != value) {
+    clock_gettime(CLOCK_MONOTONIC, &now);
+    const long long us = (now.tv_sec - t0.tv_sec) * 1000000LL + (now.tv_nsec - t0.tv_nsec) / 1000;
+    if (us >= timeout_us) return 1;
+    if (us < 50) {
+      sched_yield();
+    } else {
+      nanosleep(&nap, nullptr);
+    }
+  }
+  return 0;
 }

@@ -17,7 +17,14 @@ Reference mapping (src/app.cpp):
 
 Gloo carries the packets and the bootstrap's handle exchange only. The
 activations cross processes through the ring hop kernel reading a peer's
-window (parallel/window.py, ops/ring_collective.py).
+window (parallel/window.py, ops/ring_collective.py). The data plane's
+transport is chosen once, at the join (``pod_transport``): CUDA IPC on the
+card or shared-memory files on the CPU when every process runs on one host,
+TCP sockets between the processes when they run on different hosts (or
+when ``DLLAMA_POD_TRANSPORT=socket`` asks for them on one). A dead peer is
+found by a pid watcher on one host's shared memory, and by the links
+themselves over sockets (EOF, a reset, a frame that stalls or tears);
+either ends the process with ``POD_LOST_EXIT_CODE``.
 
 The pod-deadlock rule: in every ``RootControlEngine`` method argument
 validation runs BEFORE the packet broadcast, and no ``raise`` or early
@@ -42,6 +49,7 @@ receives a paged op on a contiguous engine raises ``ReplayError``.
 
 from __future__ import annotations
 
+import ipaddress
 import json
 import os
 import socket
@@ -91,6 +99,12 @@ BOOTSTRAP_TIMEOUT = timedelta(minutes=30)
 POD_LOST_EXIT_CODE = 18
 # how often a pod process checks that its peers (same host) are alive
 PEER_CHECK_S = 0.5
+# a socket link that ends while this process is leaving the pod is no
+# failure; a peer that stops on purpose may close its links just before this
+# process reads its stop packet, so a lost link waits this long to see it
+LEAVE_GRACE_S = 0.5
+# forces the socket transport on one host (tests, tools, the smoke)
+TRANSPORT_ENV = "DLLAMA_POD_TRANSPORT"
 
 
 class ReplayError(RuntimeError):
@@ -133,14 +147,24 @@ def maybe_initialize_distributed(args=None) -> int:
     """Join a pod when the coordinator flags or variables are present
     (``requested_pod``); returns the process count (1 when not
     distributed). Process 0 serves the TCP store at the coordinator's
-    ``host:port``; every process joins a gloo process group over it and
-    publishes its hostname."""
+    ``host:port``; every process joins a gloo process group over it,
+    publishes its hostname and takes the pod's data-plane transport
+    (``pod_transport``; every process must take the same, or ``agree``
+    raises ``ReplayError``). The pid watcher arms only where the processes
+    share one host's memory: over sockets the links find a dead peer. Over
+    sockets each process publishes the address its links listen at
+    (``link_addresses``); an address that resolves to loopback on a peer's
+    host raises ``ValueError`` on every process."""
     req = requested_pod(args)
     if req is None:
         return 1
     coord, n, pid = req
     if _JOINED:
         return _JOINED["num_processes"]
+    forced = os.environ.get(TRANSPORT_ENV, "")
+    if forced not in ("", "socket"):
+        raise ValueError(f"{TRANSPORT_ENV}={forced!r}: the only transport it can force is "
+                         "'socket'")
     host, _, port = coord.rpartition(":")
     store = torch.distributed.TCPStore(host, int(port), n, pid == 0,
                                        timeout=BOOTSTRAP_TIMEOUT)
@@ -149,9 +173,96 @@ def maybe_initialize_distributed(args=None) -> int:
     store.set(f"pod/host/{pid}", socket.gethostname())
     store.set(f"pod/pid/{pid}", str(os.getpid()))
     _JOINED.update(store=store, process_index=pid, num_processes=n)
-    if len(set(pod_hostnames())) == 1:
+    hosts = pod_hostnames()
+    transport = "socket" if forced or len(set(hosts)) > 1 else "shared"
+    _JOINED["transport"] = transport
+    agree("pod/transport", transport)
+    if transport == "shared":
         _watch_peers({i: int(store.get(f"pod/pid/{i}")) for i in range(n) if i != pid})
+        return n
+    listen, publish = link_addresses(host, routed_address(host, int(port)), len(set(hosts)) > 1)
+    _JOINED.update(listen=listen, address=publish)
+    store.set(f"pod/addr/{pid}", publish)
+    # each process resolves its peers' addresses as it will connect to them;
+    # a process on another host that publishes loopback is unreachable, and
+    # every process stops on it, not only the one that found it
+    problems = []
+    for i in range(n):
+        addr = store.get(f"pod/addr/{i}").decode()
+        why = _unreachable(addr) if hosts[i] != hosts[pid] else ""
+        if why:
+            problems.append(f"process {i} on {hosts[i]} publishes {addr}, which resolves "
+                            f"to {why} on {hosts[pid]}")
+    store.set(f"pod/addr_ok/{pid}", "; ".join(problems))
+    found = [store.get(f"pod/addr_ok/{i}").decode() for i in range(n)]
+    if any(found):
+        raise ValueError("the pod's socket links cannot reach every process: "
+                         + "; ".join(f for f in found if f) + " (give --coordinator a "
+                         "name or address the other hosts reach this host at)")
     return n
+
+
+def routed_address(host: str, port: int) -> str:
+    """This host's address on the route to ``host`` (the coordinator):
+    the local end of a UDP socket connected there, which sends nothing. A
+    peer on another host reaches this process at it, where the hostname may
+    resolve to a loopback alias."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect((host, port))
+        return s.getsockname()[0]
+
+
+def link_addresses(coordinator: str, routed: str, spans_hosts: bool) -> tuple[str, str]:
+    """(the address this process's socket links listen at, the one it
+    publishes to its peers). On one host both are ``routed``. Across hosts
+    the links listen on every interface, and a process whose route to the
+    coordinator is loopback (it runs on the coordinator's host, whose name
+    may resolve to 127.0.1.1 there) publishes the coordinator's name or
+    address as given: its peers reach this host by it, as they reached the
+    pod's store."""
+    if not spans_hosts:
+        return routed, routed
+    return "0.0.0.0", coordinator if _loopback(routed) else routed
+
+
+def _loopback(addr: str) -> bool:
+    return ipaddress.ip_address(addr).is_loopback
+
+
+def _unreachable(addr: str) -> str:
+    """Why a peer on another host cannot be reached at ``addr`` from this
+    host ('' when it can): it resolves to a loopback address, or not at
+    all."""
+    try:
+        resolved = socket.gethostbyname(addr)
+    except OSError as e:
+        return f"nothing ({e})"
+    return f"loopback ({resolved})" if _loopback(resolved) else ""
+
+
+def pod_transport() -> str:
+    """The pod's data plane: ``"socket"`` (TCP links between the
+    processes), or ``"shared"`` (CUDA IPC on the card, shared-memory files on
+    the CPU) for processes of one host, and outside a pod."""
+    return _JOINED.get("transport", "shared")
+
+
+def pod_address() -> tuple[str, str]:
+    """(listen, publish): where this process's socket links listen and
+    the address its peers connect to (``link_addresses``)."""
+    return _JOINED.get("listen", "127.0.0.1"), _JOINED.get("address", "127.0.0.1")
+
+
+def peer_lost(detail: str) -> None:
+    """A socket link of the pod failed (parallel/window.py,
+    parallel/kvshare.py): a stream may wait on the card for a peer that is
+    gone, where no host timeout reaches it, so the process ends with
+    ``POD_LOST_EXIT_CODE``, as the pid watcher ends it, unless it is leaving
+    the pod (given ``LEAVE_GRACE_S`` to find that out)."""
+    if _LEAVING.wait(LEAVE_GRACE_S):
+        return
+    log_event("pod_peer_lost", detail=detail[:200])
+    os._exit(POD_LOST_EXIT_CODE)
 
 
 def _watch_peers(pids: dict) -> None:

@@ -382,7 +382,7 @@ class InferenceEngine:
             self.pod = open_windows(mesh.tp, local, self.pod_slot_bytes(), pod_store())
             set_pod(self.pod)
             if self.kvpool is not None:
-                # the pool planes in memory the peers map: the root reads
+                # the pool planes shared with the peers: the root reads
                 # their heads of the pages it exports or swaps out
                 c0 = self.cache[0]
                 self.kvshare = open_pool_share(mesh.tp, local, tuple(c0.k.shape), c0.k.dtype,
@@ -438,12 +438,13 @@ class InferenceEngine:
                 f"{pool.blocks_per_lane} blocks/lane, {self.cache_dtype}")
 
     def pod_stats(self) -> dict:
-        """A pod process's window counters: ring steps, staging copies and
-        pulls, waits and (when timed) the ms its streams waited; {} off a
-        pod."""
+        """A pod process's transport and window counters: ring steps,
+        staging copies and pulls, waits and (when timed) the ms its streams
+        waited; {} off a pod."""
         if self.pod is None:
             return {}
-        return {f"pod_ring_{k}": v for k, v in self.pod.stats.items()}
+        return {"pod_transport": self.pod.transport,
+                **{f"pod_ring_{k}": v for k, v in self.pod.stats.items()}}
 
     def _lane_cache(self, lane: int):
         if self.mesh is None:
@@ -1284,13 +1285,6 @@ class InferenceEngine:
         """The global rank of each of ``_caches()``."""
         return [0] if self.mesh is None else list(self.mesh.local_ranks)
 
-    def _pool_planes(self) -> list:
-        """(K, V) of every rank of the mesh, in rank order: a pod's peers'
-        mapped (parallel/kvshare.py)."""
-        if self.kvshare is not None:
-            return [self.kvshare.planes[r] for r in range(self.mesh.tp)]
-        return [(c.k, c.v) for c in self._caches()]
-
     def _need_paged(self, what: str) -> None:
         if self.kvpool is None:
             raise RuntimeError(f"{what} needs a paged engine")
@@ -1425,20 +1419,19 @@ class InferenceEngine:
 
     def _read_pages(self, pages: list[int]) -> list[bytes]:
         """Pages' K then V bytes, each [L, page, n_kv, hd] row-major, every
-        rank's heads joined in rank order (on a pod the peers' from their
-        mapped planes, parallel/kvshare.py): one gather a plane and rank on
-        the card, one copy into pinned host memory (a host sync, after
-        every step before it), on a pod after the peers' page writes. A pod's
-        read whose peer died raises."""
+        rank's heads joined in rank order (on a pod the peers' through the
+        pool share's read, parallel/kvshare.py, once they have made every
+        page write this process made): one gather a plane and rank on the
+        card, one copy into pinned host memory (a host sync, after every
+        step before it). A pod's read whose peer died raises."""
         idx = torch.as_tensor(pages, dtype=torch.int64)
         if self.kvshare is not None:
-            # the peers have made every page write this process made
-            self.kvshare.wait(self._page_writes)
-        planes = []
-        for j in (0, 1):  # K, V
-            parts = [cache_bits(kv[j]).index_select(1, idx.to(kv[j].device)).to(self.device)
-                     for kv in self._pool_planes()]
-            planes.append(torch.cat(parts, dim=3))  # [L, n, page, n_kv, hd]
+            heads = self.kvshare.read(idx, self._page_writes)
+        else:
+            heads = [tuple(cache_bits(p).index_select(1, idx.to(p.device)) for p in (c.k, c.v))
+                     for c in self._caches()]
+        # [L, n, page, n_kv, hd] a plane
+        planes = [torch.cat([kv[j].to(self.device) for kv in heads], dim=3) for j in (0, 1)]
         # [n, K/V, L, page, n_kv, hd]: each page's K then V, contiguous
         joined = torch.stack(planes).permute(2, 0, 1, 3, 4, 5).contiguous()
         host = torch.empty(joined.shape, dtype=joined.dtype,

@@ -506,7 +506,11 @@ class ContinuousBatchingScheduler:
         an HTTP thread they would race an admission or a step. Runs
         ``fn`` inline when the loop is not running or when called on it.
         Raises ``TimeoutError`` when no step boundary comes within
-        ``timeout_s`` (a wedged step: the route answers a typed error)."""
+        ``timeout_s`` (a wedged step: the route answers a typed error). The
+        limit ends at the boundary: an op the loop has taken runs to its end
+        however long it takes (a pod's page import broadcasts its pages in
+        packet fragments, seconds a page batch), and the caller waits for
+        it."""
         thread = self._thread
         if thread is None or not thread.is_alive() or threading.current_thread() is thread:
             return fn()
@@ -518,9 +522,11 @@ class ContinuousBatchingScheduler:
             with self._device_ops_lock:
                 # not taken yet: withdraw it, or it would run after the
                 # caller gave up
+                waiting = any(op[2] is done for op in self._device_ops)
                 self._device_ops[:] = [op for op in self._device_ops if op[2] is not done]
-            if not done.is_set():
+            if waiting:
                 raise TimeoutError("device op timed out waiting for a scheduler step boundary")
+            done.wait()
         if "error" in box:
             raise box["error"]
         return box.get("value")

@@ -79,6 +79,7 @@ from ..serving import AdmissionRejected, StreamRelay, jittered_retry_after
 from ..serving.journal import entry_from_admit_record
 from ..serving.recovery import attach_recovered_stream
 from ..telemetry import TRACE_HEADER, Telemetry, TraceContext
+from ..telemetry.logs import log_event
 from ..tokenizer import ChatItem, TemplateType, chat_generator_for
 from . import api_types
 
@@ -585,6 +586,9 @@ class ApiServer:
                     self._reject(AdmissionRejected("pool_exhausted", retry_after_s=2.0))
                     return
                 except Exception as e:  # noqa: BLE001 — the admin plane answers JSON
+                    # the caller sees only the status (disagg.prefill's
+                    # import_rejected): the log keeps the cause
+                    log_event("kvimport_failed", error=f"{type(e).__name__}: {e}")
                     self._json(500, {"error": str(e)})
                     return
                 receipt["replica"] = api.replica_id

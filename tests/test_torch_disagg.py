@@ -435,6 +435,38 @@ def test_run_device_op_executes_on_loop_thread_and_relays_errors(loaded, tiny_mo
     assert sched.run_device_op(threading.current_thread) is here
 
 
+
+def test_run_device_op_limit_ends_at_the_step_boundary(loaded, tiny_model):
+    """``timeout_s`` bounds the wait for a step boundary, not the op: an op
+    the loop has taken runs to its end and returns its value however long
+    it takes (a pod's page import runs for seconds); an op that no boundary
+    takes in time is withdrawn, raises ``TimeoutError`` and never runs."""
+    engine = _paged_engine(loaded)
+    sched = ContinuousBatchingScheduler(engine, Tokenizer(tiny_model["tokenizer"]),
+                                        speculative=False, multi_step=0)
+    sched.start()
+    try:
+        # the idle loop looks for ops every 0.25 s; the op outlasts its limit
+        assert sched.run_device_op(lambda: time.sleep(2.0) or 7, timeout_s=1.0) == 7
+        taken, gate = threading.Event(), threading.Event()
+
+        def hold():
+            taken.set()
+            gate.wait(30)
+
+        held = threading.Thread(target=sched.run_device_op, args=(hold,),
+                                kwargs={"timeout_s": 30})
+        held.start()
+        assert taken.wait(30)  # the loop is busy in the held op
+        ran = []
+        with pytest.raises(TimeoutError, match="step boundary"):
+            sched.run_device_op(lambda: ran.append(1), timeout_s=0.2)
+        gate.set()
+        held.join(timeout=30)
+        assert sched.run_device_op(lambda: 8) == 8 and ran == []
+    finally:
+        sched.stop()
+
 def test_role_advertised_on_load_scrape(replica_model):
     p = _paged_replica(replica_model, "pf", role="prefill")
     m = _paged_replica(replica_model, "mx")

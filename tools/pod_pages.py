@@ -3,22 +3,30 @@
 pages each process wrote, and a page read's time both ways.
 
     python3 tools/pod_pages.py [--device cuda:0] [--procs 2] [--tp 2] [--small]
-                               [--dtypes bf16,e4m3] [--reps 20] [--out FILE]
+                               [--dtypes bf16,e4m3] [--reps 20] [--transport ipc|socket]
+                               [--out FILE]
 
 Starts ``--procs`` processes of itself on one host (a gloo pod on a free
 localhost port, parallel/multihost.py), each holding ``tp / procs`` ranks'
 pool planes on ``--device`` in the pod's shared memory
 (parallel/kvshare.py: CUDA IPC on the card, a shared-memory file on the
-CPU), at the 1B geometry (16 layers, 64-token pages, 8 kv heads of 64 over
+CPU; ``--transport socket``: each process's own, its peers' heads read
+over TCP from its server thread), at the 1B geometry (16 layers, 64-token pages, 8 kv heads of 64 over
 the ranks; ``--small``: 2 layers, 8-token pages, 2 heads of 16). Each
 process fills its ranks' planes from a seed that every process knows,
 posts its count of page writes, then reads random pages of every rank
-through the share once every peer's count has reached its own, as a pod
-root reads its peers' heads of a page it exports: each rank's slice and
-the joined page must equal what the owner wrote, byte for byte (an e4m3
-plane moves as its bytes). Then it times one page's read (the gather of
-one rank's heads, K and V, a synchronize after) from a peer's planes and
-from its own. Prints the card's name and power limit where there is a
+through the share's read once every peer's count has reached its own, as
+a pod root reads its peers' heads of a page it exports: each rank's slice
+and the joined page must equal what the owner wrote, byte for byte (an e4m3
+plane moves as its bytes). Then each process rewrites a page without
+counting it, as a decode step writes its KV, on the card behind a kernel
+that spins for about 0.1 s, runs a ring all-reduce across the pod through
+its windows, as that step's ring steps, and reads the page at once: it
+must read the new bytes (``<dtype>_after_step``; a read waits for the steps
+its process dispatched, parallel/kvshare.py's Ordering). Then it times one page's read through the share
+(every rank's heads, K and V, the peers' over the transport, a synchronize
+after: ``peer``) and the gather of its own ranks' heads alone (``own``).
+Prints the card's name and power limit where there is a
 card, then one JSON line a process; exits nonzero if a process failed or
 a check disagreed.
 """
@@ -33,10 +41,13 @@ import subprocess
 import sys
 import time
 
+from pod_hop import pod_env
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # layers, pages (+1 scratch), page tokens, kv heads, head size
 GEOMETRY = {"full": (16, 17, 64, 8, 64), "small": (2, 7, 8, 2, 16)}
 PAGES_READ = 3
+SPIN_CYCLES = 200_000_000  # the kernel ahead of a step's page write (~0.1 s)
 
 
 def _free_port() -> int:
@@ -68,8 +79,10 @@ def child(args) -> int:
     import torch
 
     from distributed_llama_multiusers_tpu_torch.models.llama import cache_bits
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
     from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh, multihost
     from distributed_llama_multiusers_tpu_torch.parallel.kvshare import open_pool_share
+    from distributed_llama_multiusers_tpu_torch.parallel.window import open_windows
 
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
@@ -82,9 +95,14 @@ def child(args) -> int:
     shape = (layers, pages, page, heads // args.tp, hd)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn}
     out = {"rank": args.rank, "device": str(dev), "ranks": list(mesh.local_ranks),
-           "shape": list(shape), "checks": {}, "read_us": {}}
+           "transport": multihost.pod_transport(), "shape": list(shape), "checks": {},
+           "read_us": {}}
     failed = []
     idx = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(7))[:PAGES_READ]
+    local = dict(zip(mesh.local_ranks, mesh.devices))
+    windows = open_windows(args.tp, local, 4096, multihost.pod_store(), prefix="test/win")
+    step_parts = [torch.ones((1, 1, 64), device=dev) if r in local else None
+                  for r in range(args.tp)]
     for name in args.dtypes.split(","):
         dtype = dtypes[name]
         share = open_pool_share(args.tp, dict(zip(mesh.local_ranks, mesh.devices)), shape,
@@ -94,13 +112,13 @@ def child(args) -> int:
             for plane, src in zip(share.planes[r], want[r]):
                 cache_bits(plane).copy_(cache_bits(src).to(dev))
         # the engine's order: the writer posts its count of page writes,
-        # the reader's stream waits for every peer's before it reads
+        # the read waits for every peer's to reach the reader's
         share.post(1)
-        share.wait(1)
+        heads = share.read(idx, 1)
         joined, whole = [], []
         for r in range(args.tp):
             for j in (0, 1):
-                got = cache_bits(share.planes[r][j]).index_select(1, idx.to(dev)).cpu()
+                got = heads[r][j].cpu()
                 ref = cache_bits(want[r][j]).index_select(1, idx)
                 same = torch.equal(got, ref)
                 out["checks"][f"{name}_rank{r}_{'kv'[j]}"] = same
@@ -113,18 +131,36 @@ def child(args) -> int:
             torch.equal(torch.cat(joined[j::2], dim=3), torch.cat(whole[j::2], dim=3))
             for j in (0, 1))
         share.check_peers()
-        one = idx[:1].to(dev)
-
-        def read(r):
-            return lambda: [cache_bits(p).index_select(1, one) for p in share.planes[r]]
-
-        peer = next(r for r in range(args.tp) if r not in mesh.local_ranks)
-        out["read_us"][name] = {"peer": _time_us(torch, cuda, read(peer), args.reps),
-                                "own": _time_us(torch, cuda, read(mesh.local_ranks[0]),
-                                                args.reps)}
+        one = idx[:1]
+        # a step's uncounted page write, its ring steps, then the read (once
+        # every process has read the pages as first written)
+        torch.distributed.barrier()
+        fresh = {r: _planes(torch, shape, dtype, 100 + r) for r in range(args.tp)}
+        staged = {r: [cache_bits(p).to(dev) for p in fresh[r]] for r in mesh.local_ranks}
+        if cuda:
+            torch.cuda._sleep(SPIN_CYCLES)
+        for r in mesh.local_ranks:
+            for plane, src in zip(share.planes[r], staged[r]):
+                cache_bits(plane)[:, int(one)].copy_(src[:, int(one)])
+        rc.set_pod(windows)
+        rc.ring_all_reduce(step_parts)
+        rc.set_pod(None)
+        heads = share.read(one, 1)
+        same = all(torch.equal(heads[r][j].cpu(), cache_bits(fresh[r][j]).index_select(1, one))
+                   for r in range(args.tp) for j in (0, 1))
+        out["checks"][f"{name}_after_step"] = same
+        if not same:
+            failed.append(f"{name} after a step")
+        own = [p for r in mesh.local_ranks for p in share.planes[r]]
+        out["read_us"][name] = {
+            "peer": _time_us(torch, cuda, lambda: share.read(one, 1), args.reps),
+            "own": _time_us(torch, cuda, lambda: [cache_bits(p).index_select(1, one.to(dev))
+                                                  for p in own], args.reps)}
         torch.distributed.barrier()  # every process done reading before the next
+        share.close()
     multihost.leave_pod()
     torch.distributed.barrier()
+    windows.close()
     out["failed"] = failed
     print(json.dumps(out), flush=True)
     return 1 if failed or not all(out["checks"].values()) else 0
@@ -139,6 +175,8 @@ def main(argv=None) -> int:
     p.add_argument("--small", action="store_true")
     p.add_argument("--dtypes", default=None, help="default: bf16,e4m3 on a card, f32,e4m3 "
                                                   "on the CPU")
+    p.add_argument("--transport", choices=("ipc", "socket"), default="ipc",
+                   help="ipc: CUDA IPC on the card, shared-memory files on the CPU")
     p.add_argument("--out", default=None)
     p.add_argument("--timeout", type=float, default=600.0)
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -154,7 +192,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True, text=True)
         print(smi.stdout.strip(), flush=True)
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = pod_env(args.transport)
     if args.device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")  # processes sharing the host's cores
     cmd = [sys.executable, os.path.abspath(__file__), "--child", "--port", str(port),
