@@ -69,6 +69,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    timed beside the bf16 instantiation, its plain version and
    ``scaled_dot_product_attention`` on the cache widened to f32, with its
    byte bound (the e4m3 slots, half of bf16's).
+   Its partial-stats form (a sequence-parallel rank's block) at a tp2 x
+   sp2 rank's 1B shapes: each sp rank's serving positions shifted by its
+   block's start and rows at s0 - 1, s0, s0 + 1 against ``block_stats``
+   (o, l, m within ATTN_TOL; a row with no slot exactly (0, 0, -inf); o
+   bit-equal to the kernel without stats), timed beside its plain version
+   and ``scaled_dot_product_attention`` over the same block.
 3. Serving: wait for the full-width Llama-3.2-1B-shaped synthetic Q40
    model (16 layers, seed 0; written into ``build/synthetic`` since the
    setup and reused while header and seed match), start ``python -m distributed_llama_multiusers_tpu_torch.app.
@@ -154,7 +160,12 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    decode step; then a prefix-cache hit's KV and logits against a cold
    prefill's, bit for bit (information; the copied slots must be equal),
    and the default v4 pass's batch tok/s and graph step p50 beside the
-   numbers before the serving layers.
+   numbers before the serving layers. Then the dp and sp meshes' engines
+   on one card, teacher-forced by the tp2 engine's greedy tokens over 4
+   busy lanes of 8: dp2 x tp2's prefill and decode logits bit-equal to
+   tp2's (bf16); tp2 x sp2 on the exact-f32 path (f32 activations, cache
+   and Q40 dots) within 2e-5 of max|tp2| on the same path (its decode
+   attention through the stats form).
 4b. Paged KV (``--paged-kv on``): (a) the paged attention kernel at the
    decode step's shapes over 64-slot pages permuted at random, bit-equal to
    the contiguous kernel on the same slots (serving positions, split and
@@ -237,7 +248,10 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    against the experts' 0.473 ms byte bound) and an 8-step
    ``decode_multi`` replay against its eager bodies; tp=2 (the host's
    cards, one card named twice where there is one) on the f32 wire and
-   the Q80 wire against tp=1 over 16 greedy tokens; the scheduler in this
+   the Q80 wire, and tp=2 x ep=2 (each rank its own 4 experts) on the
+   f32 wire, against tp=1 over 16 greedy tokens; the tp2 and tp2 x ep2 v4
+   decode steps replayed from their graphs (device time, Q40 launches a
+   rank: L x (3 + tp + 3 E / ep), wcls on the ep-0 ranks); the scheduler in this
    process, the drafting request's greedy stream with speculation equal
    to the one without; then ``dllama_api`` with its defaults: 4 requests
    at once (one a flags json_schema) finish, the constrained answer
@@ -294,6 +308,13 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the run:
    is SIGKILLed mid-stream: its root exits 18 within the deadline plus 30
    s. A summary line sets each pod's transport, eager step and batch tok/s
    side by side.
+4g. Serving meshes (started beside the pods, served after 4e):
+   ``dllama_api --workers dp2,tp2,sp2`` with its 8 ranks on ``cuda:0``
+   serves the 4 requests of phase 3 with ``serve_pass``'s checks, its
+   decode graphs captured at warmup, the ring hop and the stats form
+   launched; its TTFT and batch tok/s beside the tp2 v4 pass's, the
+   card's free memory before it starts and the weights its ranks share
+   on the card.
 5. Kernel lab (run after phase 4c's kernels, while the models are
    written): the lab's three kernels (``q40_probe``, ``q40_lab_twodot``,
    ``dense_dot``) against their plain versions at a small shape and at the
@@ -1327,6 +1348,7 @@ def attn_phase(torch) -> dict:
     long_ms = graph_ms(torch, [lambda: ca.decode_attention(qf, k, v, long_ctx, scale,
                                                            s_len)] * reps)
     window = window_phase(torch, ca, k, v, scale)
+    stats_form = attn_stats_phase(torch, ca)
     out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "s_len": s_len,
            "positions": serving[:, 0].tolist(), "split": split,
            "grid": list(ca.launch_grid(lanes, n_kv, s_len)),
@@ -1335,9 +1357,98 @@ def attn_phase(torch) -> dict:
            "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, **bound_of(serving),
            "long_context": {"positions": long_ctx[:, 0].tolist(), "ms": long_ms,
-                            **bound_of(long_ctx)}, "window": window}
-    log("decode_attn: " + json.dumps({k: v for k, v in out.items() if k != "window"}))
+                            **bound_of(long_ctx)}, "window": window,
+           "stats_form": stats_form}
+    log("decode_attn: " + json.dumps({k: v for k, v in out.items()
+                                      if k not in ("window", "stats_form")}))
     log("decode_attn window: " + json.dumps(window))
+    return out
+
+
+SP_BLOCK = ATTN_S_LEN // 2  # an sp = 2 rank's slots of the smoke model's cache
+
+
+def attn_stats_phase(torch, ca) -> dict:
+    """``decode_attn``'s partial-stats form at the 1B serving shapes of a
+    tp2 x sp2 rank (8 lanes, 4 kv heads of 4 query heads, head size 64, a
+    bf16 block of SP_BLOCK slots): each sp rank's call at the smoke's
+    serving positions shifted by its block's start (rank 1: every live lane
+    before its block, the empty state; the parked lanes attend every slot),
+    and rows at s0 - 1, s0 and s0 + 1 of block 1, against the plain version
+    (``block_stats``): o, l and m within ATTN_TOL, the empty rows exactly
+    (0, 0, -inf), o bit-equal to the plain kernel's wherever a row has a
+    slot. Then each rank's call timed (launches back to back in one CUDA
+    graph), the plain version eager and ``scaled_dot_product_attention``
+    over rank 0's block (one CUDA graph), with the bound: the slots the rows
+    attend read once, q, the output and the stats, or the f32 operations of
+    the dots."""
+    lanes, n_kv, group, hd, blk = DECODE_M, 4, 4, 64, SP_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qf = torch.randn((lanes, 1, n_kv, group, hd), device="cuda", generator=gen)
+    k, v = (torch.randn((lanes, blk + 1, n_kv, hd), device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    scale = 1.0 / hd ** 0.5
+    serving = attn_serving_positions(torch)
+    edges = torch.tensor([[blk - 1], [blk], [blk + 1], [blk + ca.SPLIT - 1], [blk + ca.SPLIT],
+                          [2 * blk - 1], [0], [ATTN_S_LEN]], device="cuda")
+    cases = {"rank0": serving, "rank1": serving - blk, "rank1_edges": edges - blk}
+    err, ref_max = 0.0, 0.0
+    before = ca.STATS_COUNTS["launches"]
+    for name, pos in cases.items():
+        o, l, m = ca.decode_attention_stats(qf, k, v, pos, scale, blk)
+        po, pl, pm = ca.decode_attention_stats_plain(qf, k, v, pos, scale, blk)
+        empty = pos < 0
+        check(bool(torch.isneginf(m[empty]).all() and l[empty].eq(0).all()
+                   and o[empty].eq(0).all() and l[~empty].gt(0).all())
+              and torch.equal(torch.isneginf(m), torch.isneginf(pm)),
+              f"decode_attn stats [{name}]: the empty rows are not (0, 0, -inf)")
+        fin = torch.isfinite(pm)
+        for a, b in ((o, po), (l, pl), (m[fin], pm[fin])):
+            e, r = float((a - b).abs().max()), float(b.abs().max())
+            check(e <= ATTN_TOL * max(r, 1.0),
+                  f"decode_attn stats [{name}]: max|d| {e:.3e} > {ATTN_TOL:.1e} x {r:.3e}")
+            err, ref_max = max(err, e), max(ref_max, r)
+        live = (pos >= 0).all(dim=1)
+        check(torch.equal(o[live], ca.decode_attention(qf[live], k[live], v[live], pos[live],
+                                                       scale, blk)),
+              f"decode_attn stats [{name}]: o differs from the plain kernel's output")
+    check(ca.STATS_COUNTS["launches"] - before == len(cases),
+          f"decode_attn stats: {ca.STATS_COUNTS['launches'] - before} stats launches for "
+          f"{len(cases)} calls")
+    reps = 20
+
+    def bound_of(pos):
+        slots = int((pos.clamp(min=-1, max=blk - 1) + 1).sum())
+        n_bytes = (slots * n_kv * hd * 2 * 2 + 2 * qf.numel() * 4 + lanes * 8
+                   + lanes * n_kv * group * 2 * 4)
+        n_ops = slots * n_kv * group * hd * 4
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+        return {"slots_read": slots, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+    timed = {}
+    for name in ("rank0", "rank1"):
+        pos = cases[name]
+        timed[name] = {"positions": pos[:, 0].tolist(), **bound_of(pos),
+                       "ms": graph_ms(torch, [lambda pos=pos: ca.decode_attention_stats(
+                           qf, k, v, pos, scale, blk)] * reps)}
+    pos = cases["rank0"]
+    plain_ms = eager_ms(torch, lambda: ca.decode_attention_stats_plain(qf, k, v, pos, scale,
+                                                                      blk), 3)
+    q_l = qf.reshape(lanes, n_kv * group, 1, hd)
+    k_l, v_l = (t[:, :blk].permute(0, 2, 1, 3).float().repeat_interleave(group, dim=1)
+                .contiguous() for t in (k, v))
+    mask = (torch.arange(blk, device="cuda")[None, :] <= pos)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = graph_ms(torch, [lambda: sdpa(q_l, k_l, v_l, attn_mask=mask, scale=scale)]
+                          * reps)
+    out = {"lanes": lanes, "n_kv": n_kv, "group": group, "head_size": hd, "block": blk,
+           "max_abs_err": err, "max_abs_ref": ref_max, "tol": ATTN_TOL,
+           "ms": timed["rank0"]["ms"], "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": timed["rank0"]["bound_ms"], "bound_by": timed["rank0"]["bound_by"],
+           "slots_read": timed["rank0"]["slots_read"], "ranks": timed}
+    log("decode_attn stats form: " + json.dumps(out))
     return out
 
 
@@ -1889,6 +2000,7 @@ def serve_pass(model: str, tok: str, mode: str | None, n_tokens: int,
                "prefix_tokens_saved": stats["prefix_tokens_saved"],
                "jit_compiles_after_warmup": stats["jit_compiles_after_warmup"],
                "decode_attn_paged_launches": stats["decode_attn_paged_launches"],
+               "decode_attn_stats_launches": stats["decode_attn_stats_launches"],
                "decode_attn_f8_launches": stats["decode_attn_f8_launches"],
                "pool": {k: v for k, v in stats.items() if k.startswith(("pool_", "swap_"))},
                "extra": extra_out,
@@ -2079,6 +2191,84 @@ def tp_serving_passes(torch, model: str, tok: str, single: dict, servers: list) 
             f"bytes; sync_bytes_per_decode {p['sync_bytes_per_decode']}")
         passes.append(p)
     return passes
+
+
+MESH_SERVE_WORKERS = "dp2,tp2,sp2"
+MESH_SERVE_RANKS = 8
+
+
+def start_mesh_server(torch) -> dict:
+    """``dllama_api --workers dp2,tp2,sp2`` with its 8 ranks on the host's
+    first card, started in a thread (it loads and warms beside the phases
+    before its pass); the card's free memory logged before it starts."""
+    model, tok = ensure_model(llama32_1b_header(), seed=0)
+    free, total = torch.cuda.mem_get_info(0)
+    held = {"mem_before": {"free_bytes": free, "total_bytes": total}, "srv": None, "error": None}
+    args = ("--workers", MESH_SERVE_WORKERS, "--device", ",".join(["cuda:0"] * MESH_SERVE_RANKS))
+
+    def start():
+        try:
+            held["srv"] = Server(model, tok, "dp2tp2sp2", args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by mesh_serving_pass
+            held["error"] = e
+
+    held["thread"] = threading.Thread(target=start, daemon=True)
+    held["thread"].start()
+    log(f"dp2tp2sp2 server starting: card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+    return held
+
+
+def mesh_serving_pass(torch, passes: list, held: dict) -> dict:
+    """The dp2 x tp2 x sp2 server's pass (``start_mesh_server``): the 4
+    requests and every check of ``serve_pass``, the serving paths of a
+    one-card mesh (its decode graphs captured at warmup), the startup log's
+    mesh, sync and per-rank weight lines, the ring hop and the stats form
+    launched; its TTFT and batch tok/s beside the tp2 v4 pass's and the
+    greedy tokens it shares with it (information: bf16 sums in another
+    order)."""
+    from distributed_llama_multiusers_tpu_torch.tokenizer import Tokenizer
+
+    model, tok = ensure_model(llama32_1b_header(), seed=0)
+    held["thread"].join()
+    if held["error"] is not None:
+        raise held["error"]
+    free, total = torch.cuda.mem_get_info(0)
+    p = serve_pass(model, tok, None, GEN_TOKENS, name="dp2tp2sp2",
+                   extra_args=("--workers", MESH_SERVE_WORKERS), srv=held["srv"])
+    mesh = p["mesh"] or {}
+    check((mesh.get("dp"), mesh.get("tp"), mesh.get("sp")) == (2, 2, 2)
+          and len(mesh.get("devices", ())) == MESH_SERVE_RANKS,
+          f"dp2tp2sp2: /stats mesh {p['mesh']}")
+    check(p["ring_hop_launches"] > 0 and p["decode_attn_stats_launches"] > 0,
+          f"dp2tp2sp2: ring_hop {p['ring_hop_launches']}, stats form "
+          f"{p['decode_attn_stats_launches']} launches")
+    check(p["decode_attn_stats_launches"] == p["decode_attn_launches"],
+          f"dp2tp2sp2: {p['decode_attn_stats_launches']} stats-form launches of "
+          f"{p['decode_attn_launches']} attention launches (every one an sp rank's)")
+    check_serving_paths(p)
+    for phrase in ("Mesh: dp=2 pp=1 tp=2 sp=2 ep=1", "ring all-reduce within each tp group",
+                   "sp=2: each rank holds"):
+        check(phrase in p["log"], f"dp2tp2sp2: the startup log does not say {phrase!r}")
+    weights = re.findall(r"cuda:0: (\d+) MiB of weights for (\d+) ranks", p["log"])
+    check(bool(weights), "dp2tp2sp2: no per-card weights line in the startup log")
+    tp2 = next(x for x in passes if x["mode"] == "tp2")
+    tokenizer = Tokenizer(tok)
+    ref = tokenizer.encode(tp2["greedy_text"], add_bos=False)
+    got = tokenizer.encode(p["greedy_text"], add_bos=False)
+    p["greedy_tokens_matching_tp2"] = _common_prefix(got, ref)
+    p["greedy_tokens"] = len(got)
+    p["memory"] = {"before": held["mem_before"],
+                   "after_load": {"free_bytes": free, "total_bytes": total},
+                   "weights_mib_on_card": int(weights[0][0])}
+    p["beside_tp2"] = {"ttft_ms_p50": tp2["ttft_ms_p50"],
+                       "tokens_per_s_batch": tp2["tokens_per_s_batch"]}
+    log(f"dp2tp2sp2 pass: TTFT p50 {p['ttft_ms_p50']} ms, batch {p['tokens_per_s_batch']:.1f} "
+        f"tok/s against tp2's {tp2['ttft_ms_p50']} ms and {tp2['tokens_per_s_batch']:.1f} "
+        f"tok/s; greedy tokens: the first {p['greedy_tokens_matching_tp2']} of {len(got)} "
+        f"match tp2's; stats-form launches {p['decode_attn_stats_launches']}; weights "
+        f"{weights[0][0]} MiB on cuda:0 for 8 ranks; card free {free / 2**30:.2f} GiB after "
+        f"its load (other servers of the run load beside it)")
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -2981,13 +3171,17 @@ def step_products(params) -> list:
     return ws + [params.wcls]
 
 
-def products_per_step(config, n: int) -> int:
-    """Q40 products of one decode step over n ranks: per rank and layer wq,
-    wk, wv and n column chunks of wo, then the FFN's (dense: w1, w3 and n
-    column chunks of w2; MoE: w1, w3 and w2 of every expert, its w2 a plain
-    row slice); then wcls."""
-    ffn = 3 * config.n_experts if config.n_experts > 0 else 2 + n
-    return n * (config.n_layers * (3 + n + ffn) + 1)
+def products_per_step(config, n: int, mesh=None) -> int:
+    """Q40 products of one decode step over n ranks (of ``mesh``, tp = n
+    without one): per rank and layer wq, wk, wv and tp column chunks of wo,
+    then the FFN's (dense: w1, w3 and tp column chunks of w2; MoE: w1, w3
+    and w2 of each of the rank's E/ep experts, its w2 a plain row slice);
+    then wcls on the ranks whose sp and ep coordinates are 0 (the others
+    hold the same activations)."""
+    tp = n if mesh is None else mesh.tp
+    sp, ep = (1, 1) if mesh is None else (mesh.shape["sp"], mesh.shape["ep"])
+    ffn = 3 * config.n_experts // ep if config.n_experts > 0 else 2 + tp
+    return n * config.n_layers * (3 + tp + ffn) + n // (sp * ep)
 
 
 def _kernel_of(name: str) -> str | None:
@@ -3297,7 +3491,7 @@ def step_breakdown(torch, q, rc, cs, config, params, mode: str, lanes: int = 8,
         finally:
             engine.graphs = graphs
         n, n_layers = len(engine.devices), config.n_layers
-        n_products = products_per_step(config, n)
+        n_products = products_per_step(config, n, mesh)
         for run, name in ((graph, "graph"), (eager, "eager")):
             got = sum(v for k, v in run["launches_per_step"].items() if k in q.KERNELS)
             check(got == n_products, f"decode step [{label}, {name}]: "
@@ -3444,6 +3638,120 @@ def tp_step_hops(torch, rc, config, devices, lanes: int = DECODE_M) -> list:
     return sync * (2 * config.n_layers) + gather
 
 
+MESH_STEPS = 4  # decode steps of each mesh engine the check compares
+MESH_BUSY = (0, 3, 4, 7)  # busy lanes: two in each dp group of dp2 at 8 lanes
+# tp2 x sp2 against tp2 on the exact-f32 path (f32 activations, cache and
+# Q40 dots, as the CPU runs it): only the attention's f32 summation order
+# differs (the blocks' flash stats combined, against one kernel over every
+# slot), the stats form's own tolerance. With bf16 dots an f32 difference in
+# the last bits may flip a bf16 rounding, which 16 layers carry on (the
+# TP_LOGITS_TOL class)
+SP_LOGITS_TOL = 2e-5
+
+
+def _mesh_engine_steps(torch, config, params, plan, feed=None, cache_dtype=None) -> dict:
+    """An engine on ``plan``'s ranks (the host's cards, one card named for
+    every rank where there is one): the MESH_BUSY lanes of 8 prefilled with
+    ``step_breakdown``'s prompts, then MESH_STEPS greedy decode steps (each
+    busy lane fed ``feed``'s token of the step, else its own). Returns the
+    prefill logits and each step's logits on the CPU and greedy tokens."""
+    import numpy as np
+
+    from distributed_llama_multiusers_tpu_torch.parallel import make_mesh
+    from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
+    from distributed_llama_multiusers_tpu_torch.runtime import InferenceEngine
+
+    mesh = make_mesh(plan, rank_devices(torch, plan.n_devices))
+    engine = InferenceEngine(config, shard_params(params, mesh), n_lanes=DECODE_M,
+                             device="cuda", mesh=mesh, cache_dtype=cache_dtype)
+    busy = list(MESH_BUSY)
+    tokens = np.zeros(DECODE_M, np.int64)
+    positions = np.full(DECODE_M, config.seq_len, np.int64)
+    logits = []
+    for lane in busy:
+        prompt = [(97 * lane + 13 * i) % 100 + 1 for i in range(40)]
+        last, tokens[lane], positions[lane] = engine.prefill(lane, prompt)
+        logits.append(last.float().cpu()[None])
+    logits = [torch.cat(logits)]
+    chosen = []
+    for step in range(MESH_STEPS):
+        row, greedy, _ = engine.decode(tokens, positions)
+        logits.append(row[busy].float().cpu())
+        chosen.append(greedy[busy].copy())
+        tokens[busy] = greedy[busy] if feed is None else feed[step]
+        positions[busy] += 1
+    out = {"plan": {k: getattr(plan, k) for k in ("dp", "tp", "sp", "ep")},
+           "logits": logits, "tokens": chosen,
+           "graphs": 0 if engine.graphs is None else len(engine.graphs),
+           "sync_bytes_per_decode": engine.stats.sync_bytes_per_decode}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_step_check(torch, ca, config, params) -> dict:
+    """The dp and sp meshes' engines on the full-width model against the tp2
+    engine's, teacher-forced by its greedy tokens (``_mesh_engine_steps``):
+    dp2 x tp2 in bf16, as it serves: the prefill and every step's logits
+    bit-equal to tp2's; tp2 x sp2 on the exact-f32 path (f32 activations
+    and cache, the embedding widened, the same packed weights, the Q40
+    products' dots in f32: the CPU's parity path) beside tp2 on the same
+    path: within SP_LOGITS_TOL of max|tp2|, the decode steps' attention
+    through the stats form; the first step whose greedy token differs, with
+    tp2's top-2 margin there, is printed."""
+    import dataclasses
+
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan
+
+    t0 = time.perf_counter()
+    tp2 = _mesh_engine_steps(torch, config, params, MeshPlan(tp=2))
+    feed = tp2["tokens"]
+    dp = _mesh_engine_steps(torch, config, params, MeshPlan(dp=2, tp=2), feed=feed)
+    for s, (a, b) in enumerate(zip(dp["logits"], tp2["logits"])):
+        check(torch.equal(a, b), f"dp2 x tp2: logits of {'prefill' if s == 0 else f'step {s}'} "
+                                 f"differ from tp2's (max|d| {float((a - b).abs().max()):.3e})")
+    params32 = dataclasses.replace(params, embedding=params.embedding.float())
+    dot_dtype = q.default_dot_dtype
+    q.default_dot_dtype = lambda device: torch.float32  # the exact-f32 dots
+    try:
+        ref = _mesh_engine_steps(torch, config, params32, MeshPlan(tp=2), feed=feed,
+                                 cache_dtype=torch.float32)
+        before = ca.STATS_COUNTS["launches"]
+        sp = _mesh_engine_steps(torch, config, params32, MeshPlan(tp=2, sp=2), feed=feed,
+                                cache_dtype=torch.float32)
+        stats_launches = ca.STATS_COUNTS["launches"] - before
+    finally:
+        q.default_dot_dtype = dot_dtype
+    check(stats_launches == 2 * 2 * config.n_layers * MESH_STEPS,
+          f"tp2 x sp2: {stats_launches} stats-form launches for {MESH_STEPS} steps, expected "
+          f"{4 * config.n_layers * MESH_STEPS}")
+    steps, first_diff = [], None
+    for s, (a, b) in enumerate(zip(sp["logits"], ref["logits"])):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        steps.append({"max_abs_err": err, "max_abs_ref": scale})
+        check(bool(torch.isfinite(a).all()) and err <= SP_LOGITS_TOL * scale,
+              f"tp2 x sp2 (exact f32): {'prefill' if s == 0 else f'step {s}'} max|d| {err:.4e} "
+              f"against {SP_LOGITS_TOL} x max|tp2| {scale:.4e}")
+        if first_diff is None and not torch.equal(a.argmax(-1), b.argmax(-1)):
+            top2 = torch.topk(b, 2, dim=-1).values
+            lane = int((a.argmax(-1) != b.argmax(-1)).nonzero()[0])
+            first_diff = {"step": s, "lane": MESH_BUSY[lane],
+                          "top2_margin": float(top2[lane, 0] - top2[lane, 1])}
+    out = {"steps": MESH_STEPS, "busy_lanes": list(MESH_BUSY),
+           "dp2_tp2_bit_equal_tp2": True, "dp2_tp2_graphs": dp["graphs"],
+           "sp_tol": SP_LOGITS_TOL, "sp_steps": steps,
+           "sp_max_abs_err": max(x["max_abs_err"] for x in steps),
+           "sp_first_greedy_difference": first_diff, "sp_stats_launches": stats_launches,
+           "sp_graphs": sp["graphs"],
+           "sync_bytes_per_decode": {"tp2": tp2["sync_bytes_per_decode"],
+                                     "dp2_tp2": dp["sync_bytes_per_decode"],
+                                     "tp2_sp2_f32": sp["sync_bytes_per_decode"]},
+           "seconds": time.perf_counter() - t0}
+    log("mesh decode steps: " + json.dumps(out))
+    return out
+
+
 def decode_phase(torch, q, rc, cs, model: str):
     """Load the full-width model once; break a serving decode step down in
     each mode whose decode runs a different kernel, then tensor parallel at
@@ -3490,11 +3798,14 @@ def decode_phase(torch, q, rc, cs, model: str):
     log("ring steps of one tp2 decode step: " + json.dumps(hop_step))
     products = step_matmuls(torch, q, params)
     prefix_bits = prefix_bits_phase(torch, config, params)
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn as ca
+
+    meshes = mesh_step_check(torch, ca, config, params)
     for b in breakdown + tp:
         del b["prefill_logits"]
     del params
     torch.cuda.empty_cache()
-    return breakdown, tp, tp_logits, hop_step, products, prefix_bits
+    return breakdown, tp, tp_logits, hop_step, products, prefix_bits, meshes
 
 
 def prefix_bits_phase(torch, config, params, run: int = SPEC_RUN, tail: int = 18) -> dict:
@@ -5317,7 +5628,7 @@ def _greedy_forward(torch, config, params, prompt, n: int, mesh=None, follow=Non
     cache = init_kv_cache(config, 1, dtype=torch.bfloat16, device=dev)
     if mesh is not None:
         cache = shard_kv_cache(cache, mesh)
-    n_ranks = 1 if mesh is None else mesh.tp
+    n_ranks = 1 if mesh is None else mesh.n_ranks
     toks, pos = np.asarray([prompt]), np.arange(len(prompt))[None]
     chosen, logits_all = [], []
     follow_stride = 1 if follow is None else follow.stride
@@ -5339,30 +5650,34 @@ def _greedy_forward(torch, config, params, prompt, n: int, mesh=None, follow=Non
 def moe_tp_check(torch, config, params) -> list:
     """A tp = 2 decode (two ranks on the host's cards, one card named twice
     where there is one) on the f32 wire and on the Q80 wire (Q80 activation
-    casts on, as ``--buffer-float-type q80`` serves), against tp = 1: tp2
-    greedy for 16 tokens, then tp1 fed tp2's tokens (taking tp2's experts
+    casts on, as ``--buffer-float-type q80`` serves it), and a tp = 2 x ep =
+    2 decode (four ranks, each looping over its own E/ep experts, the routed
+    partials in one f32 all-reduce over the four), against tp = 1: the mesh
+    greedy for 16 tokens, then tp1 fed its tokens (taking the mesh's experts
     only at near ties, ``RouteLog``). Each step's logits within
-    TP_LOGITS_TOL of max|tp1| (MOE_TP_Q80_TOL with the Q80 casts), and tp1's greedy token tp2's wherever tp1's
-    top two logits lie apart by more than twice that step's measured
-    difference; tp1's own greedy stream's common prefix with tp2's is
-    printed."""
+    TP_LOGITS_TOL of max|tp1| (MOE_TP_Q80_TOL with the Q80 casts), and tp1's
+    greedy token the mesh's wherever tp1's top two logits lie apart by more
+    than twice that step's measured difference; tp1's own greedy stream's
+    common prefix with the mesh's is printed."""
     import numpy as np
 
     from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
     from distributed_llama_multiusers_tpu_torch.parallel.collectives import q80_sync_engages
     from distributed_llama_multiusers_tpu_torch.parallel.sharding import shard_params
 
-    mesh = make_mesh(MeshPlan(tp=2), rank_devices(torch, 2))
-    shards = shard_params(params, mesh)
+    tp2 = make_mesh(MeshPlan(tp=2), rank_devices(torch, 2))
+    tp2_ep2 = make_mesh(MeshPlan(tp=2, ep=2), rank_devices(torch, 4))
+    shards = {"tp2": shard_params(params, tp2), "tp2_ep2": shard_params(params, tp2_ep2)}
     prompt = [int(t) for t in np.random.default_rng(5).integers(0, config.vocab_size,
                                                               MOE_TP_PROMPT)]
     out = []
-    for wire in ("f32", "q80"):
+    for name, mesh, wire in (("tp2", tp2, "f32"), ("tp2", tp2, "q80"),
+                             ("tp2_ep2", tp2_ep2, "f32")):
         q80 = wire == "q80"
         tol = MOE_TP_Q80_TOL if q80 else TP_LOGITS_TOL
         check(not q80 or q80_sync_engages(config, mesh.shape), "the Q80 wire does not engage")
         got, got_logits, tp2_log = _greedy_forward(
-            torch, config, shards, prompt, MOE_TP_TOKENS, mesh=mesh, q80_sync=q80,
+            torch, config, shards[name], prompt, MOE_TP_TOKENS, mesh=mesh, q80_sync=q80,
             emulate_q80_activations=q80)
         tp1_choice, ref_logits, tp1_log = _greedy_forward(
             torch, config, params, prompt, MOE_TP_TOKENS, follow=tp2_log, feed=got, tol=tol,
@@ -5373,28 +5688,29 @@ def moe_tp_check(torch, config, params) -> list:
         for s, (g, r) in enumerate(zip(got_logits, ref_logits)):
             err, scale = float((g - r).abs().max()), float(r.abs().max())
             check(bool(torch.isfinite(g).all()) and err <= tol * scale,
-                  f"moe tp2 [{wire} wire] step {s}: max|tp2 - tp1| {err:.4e} against max|tp1| "
+                  f"moe {name} [{wire} wire] step {s}: max|mesh - tp1| {err:.4e} against max|tp1| "
                   f"{scale:.4e} (tol {tol})")
             top2 = torch.topk(r, 2).values
             margin = float(top2[0] - top2[1])
             if tp1_choice[s] != got[s]:
-                check(margin <= 2 * err, f"moe tp2 [{wire} wire] step {s}: token {got[s]} "
+                check(margin <= 2 * err, f"moe {name} [{wire} wire] step {s}: token {got[s]} "
                                          f"where tp1 takes {tp1_choice[s]} by a margin of "
                                          f"{margin:.4e} "
                                          f"(step difference {err:.4e})")
                 excused += 1
             steps.append({"max_abs_err": err, "max_abs_ref": scale, "top2_margin": margin})
         prefix = next((i for i, (a, b) in enumerate(zip(free, got)) if a != b), len(got))
-        res = {"wire": wire, "tol": tol, "tokens": len(got), "tokens_equal_fed": len(got) - excused,
+        res = {"mesh": name, "wire": wire, "tol": tol, "tokens": len(got),
+               "tokens_equal_fed": len(got) - excused,
                "near_tie_tokens": excused, "free_run_common_prefix": prefix,
                "rows_following_tp2": tp1_log.followed,
                "max_router_logit_diff": tp1_log.max_logit_diff,
                "router_calls_tp2": len(tp2_log.calls), "router_calls_tp1": len(tp1_log.calls),
                "max_abs_err": max(x["max_abs_err"] for x in steps), "steps": steps}
-        check(res["router_calls_tp2"] == 2 * res["router_calls_tp1"],
-              f"moe tp2 [{wire} wire]: {res['router_calls_tp2']} router calls, tp1 "
+        check(res["router_calls_tp2"] == mesh.n_ranks * res["router_calls_tp1"],
+              f"moe {name} [{wire} wire]: {res['router_calls_tp2']} router calls, tp1 "
               f"{res['router_calls_tp1']}")
-        log(f"moe tp2 [{wire} wire]: {len(got) - excused} of {len(got)} greedy tokens tp1's "
+        log(f"moe {name} [{wire} wire]: {len(got) - excused} of {len(got)} greedy tokens tp1's "
             f"choice ({excused} at near ties), free-run common prefix {prefix}, "
             f"{tp1_log.followed} rows following tp2's experts, max|tp2 - tp1| "
             f"{res['max_abs_err']:.4e}")
@@ -5528,6 +5844,37 @@ def moe_serving_check(model: str, tok: str, stream: dict) -> dict:
         srv.kill()
 
 
+def moe_mesh_steps(torch, q, rc, cs, config, params) -> dict:
+    """The MoE v4 decode step at tp = 2 and tp = 2 x ep = 2 (the host's
+    cards; one card named for every rank where there is one), replayed from
+    its graph (``step_breakdown``, which holds the Q40 launches to
+    ``products_per_step``): device time and Q40 launches a rank, L x (3 +
+    tp + 3 E / ep) for the layers, each ep rank running only its own
+    experts' products, and wcls on the ep-0 ranks."""
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+
+    out = {}
+    for name, plan in (("tp2", MeshPlan(tp=2)), ("tp2_ep2", MeshPlan(tp=2, ep=2))):
+        mesh = make_mesh(plan, rank_devices(torch, plan.n_devices))
+        b = step_breakdown(torch, q, rc, cs, config, params, "v4", mesh=mesh,
+                           label=f"moe {name} v4", steps=5)
+        q40 = sum(v for k, v in b["launches_per_step"].items() if k in q.KERNELS)
+        # a rank's layer products; wcls on the ep-0 ranks only
+        layers = config.n_layers * (3 + plan.tp + 3 * config.n_experts // plan.ep)
+        check(q40 == layers * plan.n_devices + plan.n_devices // plan.ep,
+              f"moe {name}: {q40} Q40 launches a step, {layers} a rank's layers expected")
+        out[name] = {"ranks": plan.n_devices, "q40_launches_per_step": q40,
+                     "q40_launches_per_rank": {"layers": layers, "ep0_with_wcls": layers + 1},
+                     "device_ms_per_step": b["device_ms_per_step"],
+                     "device_ops_per_step": b["device_ops_per_step"],
+                     "step_ms_p50": b["step_ms_p50"],
+                     "q40_kernels_ms_per_step": b["q40_kernels_ms_per_step"],
+                     "ring_hop_launches_per_step": b["ring_hop_launches_per_step"],
+                     "sync_bytes_per_decode": b["sync_bytes_per_decode"]}
+    log("moe mesh decode steps: " + json.dumps(out))
+    return out
+
+
 def moe_phase(torch, q, rc, cs, cm) -> dict:
     """Phase 4d: the router kernel, then the Mixtral-width MoE model (2
     layers, random Q40 blocks) on the card: the forward against the CPU's,
@@ -5555,11 +5902,13 @@ def moe_phase(torch, q, rc, cs, cm) -> dict:
     step["bound_ms_products"] = all_bytes / HBM_BYTES_S * 1e3
     step["products_per_step"] = len(step_products(params))
     tp = moe_tp_check(torch, config, params)
+    mesh_steps = moe_mesh_steps(torch, q, rc, cs, config, params)
     stream = moe_stream_check(torch, config, params, tok)
     del params
     torch.cuda.empty_cache()
     serving = moe_serving_check(model, tok, stream)
     out = {"kernel": kernel, "load_s": load_s, "cpu": cpu, "tp2": tp,
+           "mesh_steps": mesh_steps,
            "stream": {k: v for k, v in stream.items() if k != "prompt"},
            "serving": serving,
            "step": {k: v for k, v in step.items() if k not in ("eager", "prefill_logits")},
@@ -6814,6 +7163,32 @@ def kernels_line(q, rc, cs, checks, passes, breakdown, tp, hops, hop_step, produ
             "profiled_ms_per_verify_step": {b["mode"]: b["verify"]["decode_attn_ms_per_step"]
                                             for b in breakdown if b.get("verify")},
         })
+        st = attn["stats_form"]
+        out.append({
+            "name": "decode_attn (partial-stats form)", "route": "cuda",
+            "source": ca.KERNEL_SOURCE,
+            "replaces": "distributed_llama_multiusers_tpu/parallel/ring_attention.py:67",
+            "replaces_note": "counterpart of sp_attention's per-shard _block_stats (flash "
+                             "stats over an sp rank's block of the cache) in decode and verify "
+                             "steps; the stats pointer on the decode_attn kernel; no Pallas site",
+            "launches": sum(p_.get("decode_attn_stats_launches", 0) for p_ in passes),
+            "launches_by_mode": {p_["mode"]: p_.get("decode_attn_stats_launches", 0)
+                                 for p_ in passes},
+            "max_abs_err": st["max_abs_err"], "tol": ATTN_TOL,
+            "tol_rule": f"o, l and m: max|d| <= {ATTN_TOL:.0e} * max(max|plain|, 1) "
+                        f"({st['max_abs_ref']:.3e}); rows with no slot exactly (0, 0, -inf); o "
+                        "bit-equal to the kernel without stats",
+            "ms": st["ms"], "plain_ms": st["plain_ms"], "library_ms": st["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention over the same block "
+                       "(f32, boolean mask; its output only, no stats)",
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "ranks": st["ranks"],
+            "timed_as": f"one layer of a tp2 x sp2 decode step on sp rank 0: {st['lanes']} "
+                        f"lanes ({st['slots_read']} slots attended), {st['n_kv']} kv heads x "
+                        f"{st['group']}, head size {st['head_size']}, a bf16 block of "
+                        f"{st['block']} slots: kernel and library call in one CUDA graph "
+                        "each; plain eager",
+        })
     if paged is not None:
         pa, w = paged["attn"], paged["attn"]["window"]
         out.append({
@@ -6989,6 +7364,7 @@ def main() -> int:
     writers = {}
     pods = {}
     hop = None
+    mesh_srv = {}
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -7102,7 +7478,7 @@ def main() -> int:
         lap("cli")
         durability = durability_phase(model, tok)
         lap("durability")
-        breakdown, tp, tp_logits, hop_step, products, prefix_bits = decode_phase(
+        breakdown, tp, tp_logits, hop_step, products, prefix_bits, meshes = decode_phase(
             torch, q, rc, cs, model)
         lap("decode")
         paged = paged_phase(torch, q, rc, cs, model, tok, passes[0], layers, attn)
@@ -7110,12 +7486,15 @@ def main() -> int:
         lap("paged")
         # the pods load and warm while the f8, grammar and fleet phases run
         pods, compute_mode, hop = start_pods(torch, model, tok)
+        mesh_srv = start_mesh_server(torch)
         f8 = f8_phase(model, tok)
         lap("f8")
         grammar = grammar_phase(torch, q, model, tok, passes[0], breakdown, grammar_kernels)
         lap("grammar")
         fleet = fleet_phase(model, tok, durability, f8["passes"][1])
         lap("fleet")
+        mesh_pass = mesh_serving_pass(torch, passes, mesh_srv)
+        lap("mesh_serve")
         pod = pod_phase(model, tok, passes, pods, compute_mode, paged["tp2_step"]["export"],
                         card, hop)
         lap("pod")
@@ -7130,6 +7509,8 @@ def main() -> int:
                        "prefix_bits": prefix_bits,
                        "decode_step": breakdown, "tp_decode_step": tp,
                        "tp_prefill_logits": tp_logits, "tp_decode_step_hops": hop_step,
+                       "mesh_decode_steps": meshes,
+                       "mesh_serving": {k: v for k, v in mesh_pass.items() if k != "log"},
                        "decode_step_products": products,
                        "paged": {**paged, "serving": {k: v for k, v in paged["serving"].items()
                                                       if k != "log"}},
@@ -7141,7 +7522,7 @@ def main() -> int:
         log("phase seconds: " + json.dumps(seconds))
         main_path = (passes + [paged["serving"]] + cli + durability["passes"]
                      + grammar["passes"] + [moe["serving"]] + f8["passes"] + fleet["passes"]
-                     + pod["passes"])
+                     + [mesh_pass] + pod["passes"])
         line = kernels_line(q, rc, cs, checks, main_path, breakdown, tp, hops, hop_step,
                             products, geometry, sampler, lab, lab_result, timings, forms, attn,
                             row_plans, paged, grammar, moe, pod)
@@ -7158,6 +7539,10 @@ def main() -> int:
         if hop is not None and hop.poll() is None:
             hop.kill()
             hop.wait()
+        if mesh_srv.get("thread") is not None:
+            mesh_srv["thread"].join(timeout=900)
+            if mesh_srv.get("srv") is not None:
+                mesh_srv["srv"].kill()
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(line))

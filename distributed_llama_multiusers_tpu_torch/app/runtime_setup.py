@@ -43,7 +43,8 @@ def refuse(msg: str) -> None:
 def join_pod(args) -> tuple[int, int]:
     """Join the pod where ``--coordinator`` (or ``DLLAMA_COORDINATOR``) asks
     for one, before anything touches a device; refuse (exit 2) what a pod
-    does not serve: a mesh the processes cannot split, or processes that
+    does not serve: a mesh the processes cannot split (any axis but tp
+    above 1, or a tp the process count does not divide), or processes that
     disagree on the data plane's transport. Processes on different hosts
     take the socket transport (``DLLAMA_POD_TRANSPORT=socket`` takes it on
     one host). Returns (process index, process count)."""
@@ -54,6 +55,10 @@ def join_pod(args) -> tuple[int, int]:
     plan = parse_mesh_spec(args.workers)
     if plan is None or plan.n_devices <= 1:
         refuse("a pod needs a --workers mesh spec spanning the global device set")
+    others = {ax: getattr(plan, ax) for ax in ("dp", "sp", "ep", "pp") if getattr(plan, ax) > 1}
+    if others:
+        refuse(f"a pod splits tp ranks only; --workers {args.workers[0]} ({others}) across "
+               "processes is later work (ROADMAP A9.1; pp: A9.2)")
     if plan.tp % n_proc:
         refuse(f"--workers tp{plan.tp} does not split over {n_proc} processes")
     try:
@@ -77,7 +82,9 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
     their devices). Process 0's engine comes back wrapped in
     ``RootControlEngine`` (every call broadcast to the workers first); a
     worker's carries ``control_plane`` for ``worker_serve``. Every process
-    takes ``--max-lanes`` lanes (``n_lanes`` applies to one process)."""
+    takes ``--max-lanes`` lanes (``n_lanes`` applies to one process, rounded
+    up to a lane a dp group on a dp mesh; ``--max-lanes`` must split over
+    dp)."""
     pid, n_proc = join_pod(args)
     plan = parse_mesh_spec(args.workers)
     if plan is not None and plan.n_devices > 1:
@@ -125,6 +132,14 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                      f"{mesh.local_ranks.stop - 1} on "
                      f"{','.join(str(d) for d in mesh.devices)})"))
     log("💿", f"Weights loaded in {time.perf_counter() - t0:.1f}s")
+    if mesh is not None and device.type == "cuda":
+        # ranks on one card share each weight they hold alike
+        # (parallel/sharding.py); what the card holds for them
+        for dev in dict.fromkeys(mesh.devices):
+            free, total = torch.cuda.mem_get_info(dev)
+            log("💾", f"{dev}: {torch.cuda.memory_allocated(dev) >> 20} MiB of weights for "
+                      f"{sum(d == dev for d in mesh.devices)} ranks, card free "
+                      f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB")
 
     # the dequant mode is set before anything runs
     if args.dequant is not None:
@@ -156,14 +171,32 @@ def load_stack(args, n_lanes: int | None = None, serving: bool = True):
                   "matmul, every hop one ring_hop kernel launch"
                   + (" (Q80 wire)" if q80_sync else "") + " — --ring-sync off for "
                   "a local partial and a ring all-reduce")
+    if mesh is not None and not mesh.pure_tp:
+        # the JAX package's gates: the ring sync and the Q80 wire are pure-TP
+        if mesh.tp > 1:
+            log("🔗", f"TP sync: {synced} partials meet in a ring all-reduce within each tp "
+                      "group (f32; the ring sync and the Q80 wire serve pure-TP meshes"
+                      + (", --buffer-float-type q80 emulates the casts" if emulate_q80 else "")
+                      + ")")
+        if plan.dp > 1:
+            log("⭕", f"dp={plan.dp}: lanes split over the dp groups")
+        if plan.sp > 1:
+            log("⭕", f"sp={plan.sp}: each rank holds {config.seq_len // plan.sp} slots of every "
+                      "lane; attention combines the blocks' flash stats over the sp group")
+        if plan.ep > 1:
+            log("⭕", f"ep={plan.ep}: {config.n_experts // plan.ep} experts a rank, the routed "
+                      "partials meet in one f32 all-reduce over each ep x tp group")
 
     # None: bf16 KV on the card, f32 on the CPU; f8 doubles the lanes or
     # context a card holds against bf16
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "f8": torch.float8_e4m3fn, "auto": None}[args.kv_dtype]
     try:
-        engine = InferenceEngine(config, params,
-                                 n_lanes=(n_lanes if n_proc == 1 else None) or args.max_lanes,
+        lanes = (n_lanes if n_proc == 1 else None) or args.max_lanes
+        if n_lanes and mesh is not None:
+            # the CLI's one lane: one a dp group (the others park)
+            lanes = -(-lanes // plan.dp) * plan.dp
+        engine = InferenceEngine(config, params, n_lanes=lanes,
                                  cache_dtype=cache_dtype, device=device, mesh=mesh,
                                  emulate_q80_activations=emulate_q80, q80_sync=q80_sync,
                                  ring_sync=ring_sync,

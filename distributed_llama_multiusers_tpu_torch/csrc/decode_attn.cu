@@ -73,6 +73,19 @@
 // same cache widened to bf16 (every e4m3 value is a bf16 value), bit for
 // bit. Sixteen e4m3 a thread would have halved the loads but doubled the
 // slot groups' shared sums (64 KB at G = 8, past the static limit).
+//
+// The partial-stats form (a sequence-parallel rank, the JAX package's
+// parallel/ring_attention.py sp_attention, whose _block_stats each sp shard
+// computes over its block of the cache): with a stats pointer, each row also
+// writes its softmax max m (of the scaled scores) and sum l beside its
+// normalised output, from the one split's state or from the fold's, with
+// every sum in the order above. The caller passes its block as the cache
+// and positions shifted by the block's start, so a row whose block lies
+// wholly past its position has no slot (n <= 0): split 0's block then
+// writes the empty state (o = 0, l = 0, m = -inf), which weighs nothing in
+// the ranks' combine. A null stats pointer is the kernel above, unchanged;
+// the pointer is a runtime argument, not a template axis, so the form adds
+// no instantiation.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -231,8 +244,8 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
                                           const KV* __restrict__ kc, const KV* __restrict__ vc,
                                           const Addr& addr, bool vec_ok, int n, int j,
                                           int ns, float* __restrict__ rec,
-                                          float* __restrict__ ob, int g_n, int hd,
-                                          float scale) {
+                                          float* __restrict__ ob, float* __restrict__ st,
+                                          int g_n, int hd, float scale) {
   constexpr int VEC = Vec<KV>::n;
   using Raw = typename Vec<KV>::raw;
   constexpr int SPW = 32 / TPS;  // slots one load instruction of a warp covers
@@ -374,14 +387,19 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) s_acc[warp * SPW + r][g][d0 + i] = acc[g][i];
   __syncthreads();
-  if (ns > 1) {
+  if (ns > 1 || st != nullptr) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g == threadIdx.x && g < g_n) {
         float den = 0.0f;
         for (int w = 0; w < kWarps; ++w) den += s_red[w][g];
-        rec[g_n * hd + g] = mx[g];
-        rec[g_n * (hd + 1) + g] = den;
+        if (ns > 1) {
+          rec[g_n * hd + g] = mx[g];
+          rec[g_n * (hd + 1) + g] = den;
+        } else {  // the stats form: the row's one split is its whole state
+          st[2 * g] = mx[g];
+          st[2 * g + 1] = den;
+        }
       }
     }
   }
@@ -411,7 +429,8 @@ __device__ __forceinline__ void split_row(const float* __restrict__ qb,
 // weighted in split order. A later chunk rescales what came before.
 template <int G, int TPS, typename KV>
 __device__ __forceinline__ void fold_row(const float* __restrict__ rec0, size_t split_stride,
-                                         int ns, float* __restrict__ ob, int g_n, int hd) {
+                                         int ns, float* __restrict__ ob,
+                                         float* __restrict__ st, int g_n, int hd) {
   constexpr int VEC = Vec<KV>::n;
   static_assert(kFoldChunk == 16 && G * kFoldChunk <= kThreads, "the fold's lanes");
   __shared__ float s_w[kFoldChunk][G], s_mx[G], s_c[G], s_den[G];
@@ -474,6 +493,10 @@ __device__ __forceinline__ void fold_row(const float* __restrict__ rec0, size_t 
     const int e = threadIdx.x + x * kThreads;
     if (e < g_n * hd) ob[e] = fa[x] / s_den[e / hd];
   }
+  if (st != nullptr && threadIdx.x < g_n) {  // the stats form: the folded state
+    st[2 * threadIdx.x] = s_mx[threadIdx.x];
+    st[2 * threadIdx.x + 1] = s_den[threadIdx.x];
+  }
 }
 
 // Where a lane's slots lie: contiguous (table null), lane b's slot s at b
@@ -493,17 +516,29 @@ __global__ void __launch_bounds__(kThreads, G <= 4 && TPS <= 8 ? kMinBlocks : 1)
 decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                    const KV* __restrict__ v, const long long* __restrict__ pos,
                    float* __restrict__ out, float* __restrict__ part,
-                   unsigned* __restrict__ tickets, Layout lay, int lane_rows,
-                   int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale) {
+                   unsigned* __restrict__ tickets, float* __restrict__ stats, Layout lay,
+                   int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
+                   float scale) {
   constexpr int VEC = Vec<KV>::n;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int j = blockIdx.z;
   const int n = row_slots(pos[b], s_len);
-  if (j * kSplit >= n) return;  // past the row's last split
+  const size_t head = (size_t)b * n_kv + kvh;
+  // the stats form: this (row, kv head)'s (m, l) per query head
+  float* st = stats != nullptr ? stats + head * g_n * 2 : nullptr;
+  if (j * kSplit >= n) {  // past the row's last split
+    if (st != nullptr && n <= 0 && j == 0) {  // no slot at all: the empty state
+      for (int e = threadIdx.x; e < g_n * hd; e += kThreads) out[head * g_n * hd + e] = 0.0f;
+      if (threadIdx.x < g_n) {
+        st[2 * threadIdx.x] = -INFINITY;
+        st[2 * threadIdx.x + 1] = 0.0f;
+      }
+    }
+    return;
+  }
   const int ns = (n + kSplit - 1) / kSplit;
   const int c = (threadIdx.x % 32) % TPS;
-  const size_t head = (size_t)b * n_kv + kvh;
   const size_t lane = (size_t)(b / lane_rows);
   const size_t slot_stride = (size_t)n_kv * hd;
   const size_t at = (PAGED ? 0 : lane * lay.lane_stride) + (size_t)kvh * hd + c * VEC;
@@ -522,10 +557,10 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
               (ws & ~((1 << lay.lp) - 1));
     const Paged addr{row, lay.lp, lay.nb, big, delta, slot_stride};
     split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, addr, vec_ok != 0, n, j, ns, rec,
-                          ob, g_n, hd, scale);
+                          ob, st, g_n, hd, scale);
   } else {
     split_row<G, TPS, KV>(q + head * g_n * hd, k + at, v + at, Dense{slot_stride},
-                          vec_ok != 0, n, j, ns, rec, ob, g_n, hd, scale);
+                          vec_ok != 0, n, j, ns, rec, ob, st, g_n, hd, scale);
   }
   if (ns == 1) return;
 
@@ -538,23 +573,23 @@ decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  fold_row<G, TPS, KV>(part + head * gridDim.z * rec_len, rec_len, ns, ob, g_n, hd);
+  fold_row<G, TPS, KV>(part + head * gridDim.z * rec_len, rec_len, ns, ob, st, g_n, hd);
 }
 
 template <int G, int TPS, typename KV>
 cudaError_t launch(const float* q, const void* k, const void* v, const long long* pos,
-                   float* out, float* part, unsigned* tickets, Layout lay, int rows,
-                   int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok, float scale,
-                   cudaStream_t stream) {
+                   float* out, float* part, unsigned* tickets, float* stats, Layout lay,
+                   int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
+                   float scale, cudaStream_t stream) {
   const dim3 grid(n_kv, rows, (s_len + kSplit - 1) / kSplit);
   if (lay.tbl != nullptr)
     decode_attn_kernel<G, TPS, KV, true><<<grid, kThreads, 0, stream>>>(
-        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, lay,
-        lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
+        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, stats,
+        lay, lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
   else
     decode_attn_kernel<G, TPS, KV, false><<<grid, kThreads, 0, stream>>>(
-        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, lay,
-        lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
+        q, static_cast<const KV*>(k), static_cast<const KV*>(v), pos, out, part, tickets, stats,
+        lay, lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale);
   return cudaGetLastError();
 }
 
@@ -562,12 +597,12 @@ cudaError_t launch(const float* q, const void* k, const void* v, const long long
 // cover the head
 template <int G, typename KV>
 cudaError_t by_dims(const float* q, const void* k, const void* v, const long long* pos,
-                    float* out, float* part, unsigned* tickets, Layout lay,
+                    float* out, float* part, unsigned* tickets, float* stats, Layout lay,
                     int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len, int vec_ok,
                     float scale, cudaStream_t stream) {
   constexpr int VEC = Vec<KV>::n;
 #define DECODE_ATTN_LAUNCH(TPS)                                                        \
-  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, lay, rows,               \
+  return launch<G, TPS, KV>(q, k, v, pos, out, part, tickets, stats, lay, rows,        \
                             lane_rows, n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (hd <= 4 * VEC) DECODE_ATTN_LAUNCH(4);
   if (hd <= 8 * VEC) DECODE_ATTN_LAUNCH(8);
@@ -579,11 +614,11 @@ cudaError_t by_dims(const float* q, const void* k, const void* v, const long lon
 
 template <typename KV>
 cudaError_t by_group(const float* q, const void* k, const void* v, const long long* pos,
-                     float* out, float* part, unsigned* tickets, Layout lay,
+                     float* out, float* part, unsigned* tickets, float* stats, Layout lay,
                      int rows, int lane_rows, int n_kv, int g_n, int hd, int s_len,
                      int vec_ok, float scale, cudaStream_t stream) {
 #define DECODE_ATTN_GROUP(G)                                                            \
-  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, lay, rows, lane_rows,         \
+  return by_dims<G, KV>(q, k, v, pos, out, part, tickets, stats, lay, rows, lane_rows,  \
                         n_kv, g_n, hd, s_len, vec_ok, scale, stream)
   if (g_n <= 1) DECODE_ATTN_GROUP(1);
   if (g_n <= 2) DECODE_ATTN_GROUP(2);
@@ -598,8 +633,9 @@ namespace {
 
 // kv_dtype: 0 f32, 1 bf16, 2 e4m3 (ops/cuda_attn.py kv_code)
 int launch_any(const float* q, const void* k, const void* v, const long long* pos, float* out,
-               float* part, unsigned* tickets, Layout lay, int lanes, int rows, int n_kv,
-               int g_n, int hd, int s_len, int split, int kv_dtype, float scale, void* stream) {
+               float* part, unsigned* tickets, float* stats, Layout lay, int lanes, int rows,
+               int n_kv, int g_n, int hd, int s_len, int split, int kv_dtype, float scale,
+               void* stream) {
   if (lanes < 1 || rows < 1 || rows > kWindow || n_kv < 1 || g_n < 1 || g_n > 8 || hd < 1 ||
       hd > 128 || s_len < 1 || split != kSplit || kv_dtype < 0 || kv_dtype > 2 ||
       (s_len > kSplit && (part == nullptr || tickets == nullptr)) ||
@@ -613,13 +649,14 @@ int launch_any(const float* q, const void* k, const void* v, const long long* po
                      reinterpret_cast<uintptr_t>(v) % unit == 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kv_dtype == 2)
-    return (int)by_group<E4M3>(q, k, v, pos, out, part, tickets, lay, lanes * rows, rows, n_kv,
-                               g_n, hd, s_len, vec_ok, scale, st);
+    return (int)by_group<E4M3>(q, k, v, pos, out, part, tickets, stats, lay, lanes * rows, rows,
+                               n_kv, g_n, hd, s_len, vec_ok, scale, st);
   if (kv_dtype == 1)
-    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, lay, lanes * rows,
-                                        rows, n_kv, g_n, hd, s_len, vec_ok, scale, st);
-  return (int)by_group<float>(q, k, v, pos, out, part, tickets, lay, lanes * rows, rows, n_kv,
-                              g_n, hd, s_len, vec_ok, scale, st);
+    return (int)by_group<__nv_bfloat16>(q, k, v, pos, out, part, tickets, stats, lay,
+                                        lanes * rows, rows, n_kv, g_n, hd, s_len, vec_ok, scale,
+                                        st);
+  return (int)by_group<float>(q, k, v, pos, out, part, tickets, stats, lay, lanes * rows, rows,
+                              n_kv, g_n, hd, s_len, vec_ok, scale, st);
 }
 
 }  // namespace
@@ -630,14 +667,16 @@ int launch_any(const float* q, const void* k, const void* v, const long long* po
 // rows: 1 .. kWindow. split: the caller's split length, which must be
 // kSplit. With more than one split (s_len > split), part: f32 [lanes, rows,
 // n_kv, ceil(s_len / split), g_n * (hd + 2)] scratch and tickets: [lanes *
-// rows * n_kv] u32 zeros; else both may be null.
+// rows * n_kv] u32 zeros; else both may be null. stats: null, or f32 [lanes,
+// rows, n_kv, g_n, 2], each row's (m, l) per query head (the partial-stats
+// form; pos may then be negative: a row with no slot).
 extern "C" int decode_attn_launch(const float* q, const void* k, const void* v,
                                   const long long* pos, float* out, float* part,
-                                  unsigned* tickets, long long lane_stride, int lanes, int rows,
-                                  int n_kv, int g_n, int hd, int s_len, int split, int kv_dtype,
-                                  float scale, void* stream) {
-  return launch_any(q, k, v, pos, out, part, tickets, Layout{lane_stride, nullptr, 0, 0}, lanes,
-                    rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
+                                  unsigned* tickets, float* stats, long long lane_stride,
+                                  int lanes, int rows, int n_kv, int g_n, int hd, int s_len,
+                                  int split, int kv_dtype, float scale, void* stream) {
+  return launch_any(q, k, v, pos, out, part, tickets, stats, Layout{lane_stride, nullptr, 0, 0},
+                    lanes, rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
 }
 
 // The paged form: k, v: one layer's pool, page p's slot i at (p 2^log2_page
@@ -650,6 +689,6 @@ extern "C" int decode_attn_paged_launch(const float* q, const void* k, const voi
                                         int hd, int s_len, int split, int kv_dtype, float scale,
                                         void* stream) {
   if (table == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_any(q, k, v, pos, out, part, tickets, Layout{0, table, nb, log2_page}, lanes,
-                    rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
+  return launch_any(q, k, v, pos, out, part, tickets, nullptr, Layout{0, table, nb, log2_page},
+                    lanes, rows, n_kv, g_n, hd, s_len, split, kv_dtype, scale, stream);
 }

@@ -36,18 +36,32 @@ Mixtral family): each layer's FFN is E gated experts behind a router
 router runs as one kernel a layer (``ops/cuda_moe.moe_route``); the experts
 take the JAX package's dispatch (``_moe_ffn``).
 
-Tensor parallelism (``mesh``): one process drives its ranks, every rank as
-the JAX package's single controller does, or in a pod
-(parallel/multihost.py) the block of ranks it holds. Each layer runs rank by
-rank on local shards (head-sharded attention, row-sliced wq/wk/wv/w1/w3),
-the replicated parts (embedding, norms, RoPE, the router) on every rank; the
-wo/w2 outputs sync through the ring collectives (ops/ring_collective.py,
-across processes through the pod's windows), an MoE layer's routed partials
-through one f32 ring all-reduce, and the logits shards gather onto every
-rank. The caller gets the first held rank's copy: in a pod each process
-holds the whole logits, so the sampler, the grammar mask and the pipelined
-carry run identically in every process (the JAX package's replicated
-outputs).
+A mesh (``mesh``, parallel/mesh.py: dp, tp, sp and ep axes): one process
+drives its ranks, every rank as the JAX package's single controller does,
+or in a pod (parallel/multihost.py, tp only) the block of ranks it holds.
+Each layer runs rank by rank on local shards (head-sharded attention,
+row-sliced wq/wk/wv/w1/w3), the replicated parts (embedding, norms, RoPE,
+the router) on every rank; the wo/w2 outputs sync within each tp group
+through the ring collectives (ops/ring_collective.py, across processes
+through the pod's windows), an MoE layer's routed partials through one f32
+ring all-reduce over each ep x tp group, and the logits shards gather over
+each tp group. Per axis:
+
+- dp: the lanes split over the dp groups, each group running its own rows
+  (a lane-addressed call, ``dp_group``, runs that lane's group alone);
+- sp: each sp rank holds one block of every lane's slots and its own
+  scratch slot; it writes only the positions in its block (the others go
+  to its scratch slot, as the JAX scatter drops them) and attends through
+  its block's flash stats, combined over the sp group
+  (parallel/ring_attention.py);
+- ep: each rank holds E/ep experts and runs the per-expert loop over them
+  at every T, with the router weights' columns for those experts (the JAX
+  package's ``_moe_ffn_ep_packed``).
+
+The caller gets the dp groups' logits rows assembled on this process's
+first rank's device: in a pod each process holds the whole logits, so the
+sampler, the grammar mask and the pipelined carry run identically in every
+process (the JAX package's replicated outputs).
 """
 
 from __future__ import annotations
@@ -61,8 +75,10 @@ from ..formats.model_file import HiddenAct
 from ..ops.activations import gelu, silu
 from ..ops.cuda_attn import (
     WINDOW,
+    block_stats,
     decode_attention,
     decode_attention_paged,
+    decode_attention_stats,
     dense_attention,
     paged_gather_index,
     paged_view,
@@ -74,6 +90,7 @@ from ..ops.ring_collective import (
     chunk_d_out,
     held,
     local_matmul,
+    over_groups,
     per_rank,
     ring_all_gather,
     ring_all_reduce,
@@ -84,6 +101,7 @@ from ..ops.ring_collective import (
 from ..ops.rope import apply_rope
 from ..quants.packed import PackedQ40, unpack_q40
 from ..parallel.collectives import q80_sync_engages, q80_sync_matmul
+from ..parallel.ring_attention import sp_attention
 from ..quants.torch_codec import qdq_q80
 from .config import LlamaConfig
 
@@ -300,11 +318,13 @@ def _moe_ffn_sparse(yq, topw, topi, w1, w2, w3, act_fn, maybe_qdq) -> torch.Tens
     return out.view(b, t, d)
 
 
-def _moe_ffn_loop(y, yq, lp: LlamaLayerParams, act_fn, n_active: int, maybe_qdq):
+def _moe_ffn_loop(y, yq, lp: LlamaLayerParams, act_fn, n_active: int, maybe_qdq,
+                  first: int = 0):
     """Every expert on every row, mixed by the dense routing weights (zero
     for the experts a row did not choose): the JAX package's static
     per-expert loop. No host read and no data-dependent shape, so a
-    captured step holds it."""
+    captured step holds it. ``first``: the global index of the stack's
+    expert 0 (an ep rank's E/ep experts read their own router columns)."""
     rw = _moe_router_weights(y, lp.moe_gate, n_active)
     # the w1/w3 operand is a function of yq alone: one build feeds all 2E
     # of the layer's w1/w3 products (JAX builds it for each)
@@ -314,7 +334,7 @@ def _moe_ffn_loop(y, yq, lp: LlamaLayerParams, act_fn, n_active: int, maybe_qdq)
         g = act_fn(matmul(ys, lp.w1[e]))
         u = matmul(ys, lp.w3[e])
         d = matmul(maybe_qdq(g * u), lp.w2[e])
-        term = d * rw[..., e:e + 1].to(d.dtype)
+        term = d * rw[..., first + e:first + e + 1].to(d.dtype)
         out = term if out is None else out + term
     return out
 
@@ -353,6 +373,7 @@ def llama_forward(
     mesh=None,
     q80_sync: bool = False,
     ring_sync: bool = True,
+    dp_group: int | None = None,
 ):
     """Returns (logits [B, T', vocab] float32, cache), for prefill (T > 1)
     and decode (T = 1) alike; ``cache`` is updated in place.
@@ -377,23 +398,41 @@ def llama_forward(
     wo/w2 outputs unless the Q80 wire quantizes them; on an MoE layer's
     output after its all-reduce).
 
-    ``mesh`` (parallel/mesh.Mesh, pure TP): ``params`` and ``cache`` are the
-    per-rank lists of parallel/sharding.py (this process's ranks in a pod);
-    the logits come back on the first held rank's device. The wo/w2 outputs sync through the ring (``ring_sync``, the
-    default) with the f32 wire, or the Q80 wire when ``q80_sync`` engages
-    (parallel/collectives.q80_sync_engages); with ``ring_sync`` off, through
-    ``q80_sync_matmul`` when q80 engages, else a ring all-reduce of the
-    local partials."""
+    ``mesh`` (parallel/mesh.Mesh): ``params`` and ``cache`` are the per-rank
+    lists of parallel/sharding.py (this process's ranks in a pod); the B
+    rows split over the dp groups in order, or with ``dp_group`` all B rows
+    are lanes of that dp group, which runs alone (the other groups' cache
+    entries may be None); the logits come back on this process's first
+    rank's device. On a pure-TP mesh the wo/w2 outputs sync through the ring
+    (``ring_sync``, the default) with the f32 wire, or the Q80 wire when
+    ``q80_sync`` engages (parallel/collectives.q80_sync_engages); with
+    ``ring_sync`` off, through ``q80_sync_matmul`` when q80 engages, else a
+    ring all-reduce of the local partials, which is also every dp, sp or ep
+    mesh's sync, within each tp group."""
     b, t = tokens.shape
     cfg = config
     # per-rank lists over every global rank, None where another process of
-    # a pod holds it
-    n = 1 if mesh is None else mesh.tp
-    ranks, caches = [None] * n, [None] * n
+    # a pod holds it, or where its dp group does not run
+    n_all = 1 if mesh is None else mesh.n_ranks
+    ranks, caches = [None] * n_all, [None] * n_all
     for i, r in enumerate([0] if mesh is None else mesh.local_ranks):
         ranks[r] = params if mesh is None else params[i]
         caches[r] = cache if mesh is None else cache[i]
+    shape = dict.fromkeys(("dp", "tp", "sp", "ep"), 1) if mesh is None else mesh.shape
+    coords = [mesh.coords(r) if mesh is not None else dict.fromkeys(shape, 0)
+              for r in range(n_all)]
+    groups = ({k: [[0]] for k in ("tp", "sp", "ep_tp")} if mesh is None else
+              {"tp": mesh.tp_groups(), "sp": mesh.sp_groups(), "ep_tp": mesh.ep_tp_groups()})
+    active = list(range(shape["dp"])) if dp_group is None else [dp_group]
+    if b % len(active):
+        raise ValueError(f"{b} rows do not split over {len(active)} dp groups")
+    b //= len(active)  # rows a rank runs
+    row0 = {d: i * b for i, d in enumerate(active)}
+    for r in range(n_all):
+        if coords[r]["dp"] not in row0:
+            ranks[r] = caches[r] = None
     first = held(ranks)[0]
+    n = shape["tp"]
     n_heads, n_kv, hd = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_size
     eps = cfg.norm_epsilon
     act_fn = silu if cfg.hidden_act == HiddenAct.SILU else gelu
@@ -406,9 +445,13 @@ def llama_forward(
             raise ValueError("Q80 activation emulation on a mesh needs whole 32-value "
                              f"blocks per rank (dim {cfg.dim}, hidden {cfg.hidden_dim}, "
                              f"tp {n})")
-        # the predicates the startup log reads too
+        # the predicates the startup log reads too (pure TP only)
         use_q80_sync = q80_sync and q80_sync_engages(cfg, mesh.shape)
         use_ring_sync = ring_sync_engages(cfg, mesh.shape, ring_sync)
+    # sp: each rank's block of slots; ep: each rank's first expert
+    blk = cfg.seq_len // shape["sp"]
+    s0 = [c["sp"] * blk for c in coords]
+    ep_first = [c["ep"] * (cfg.n_experts // shape["ep"]) for c in coords]
 
     def synced_matmul(ys: list, ws: list) -> list:
         """A row-parallel (col-sliced) wo/w2 product and its TP sync."""
@@ -421,11 +464,12 @@ def llama_forward(
             return out if use_q80_sync else per_rank(maybe_qdq, out)
         if use_q80_sync:
             return q80_sync_matmul(ys, ws)
-        return per_rank(maybe_qdq, ring_all_reduce(per_rank(local_matmul, ys, ws)))
+        return per_rank(maybe_qdq, over_groups(ring_all_reduce, per_rank(local_matmul, ys, ws),
+                                               groups["tp"]))
 
     def each(fn) -> list:
         """``fn(r)`` for each held rank r, None for the others."""
-        return [None if ranks[r] is None else fn(r) for r in range(n)]
+        return [None if ranks[r] is None else fn(r) for r in range(n_all)]
 
     # packed weights: one activation-operand build feeds wq/wk/wv, one w1/w3
     share = isinstance(first.layers.wq, PackedQ40)
@@ -433,11 +477,15 @@ def llama_forward(
     group = n_heads // n_kv
     scale = 1.0 / float(hd) ** 0.5
 
-    # per rank: its tokens, positions and masks on its own device
+    # per rank: its dp group's tokens, positions and masks on its own device
     devs = each(lambda r: ranks[r].device)
-    poss = each(lambda r: positions.to(devs[r]))
-    xs = each(lambda r: ranks[r].embedding[tokens.to(devs[r])])  # [B, T, dim]
+    rows = each(lambda r: slice(row0[coords[r]["dp"]], row0[coords[r]["dp"]] + b))
+    poss = each(lambda r: positions[rows[r]].to(devs[r]))
+    xs = each(lambda r: ranks[r].embedding[tokens[rows[r]].to(devs[r])])  # [B, T, dim]
     paged = isinstance(held(caches)[0], PagedKVCache)
+    use_sp = shape["sp"] > 1
+    if use_sp and paged:
+        raise ValueError("the paged KV cache does not shard over sp (use --paged-kv off)")
     if paged:
         # the table is the same for every layer: the write targets and
         # the prompt chunk's gather index are computed once a call. A
@@ -454,12 +502,19 @@ def llama_forward(
         w_page = each(write_page)
         w_idx = each(lambda r: (w_page[r], poss[r] % page))
         unmapped = each(lambda r: w_page[r] == n_pages)
-    else:
+    elif not use_sp:
         # writes at or past seq_len land in the scratch slot (the JAX
         # scatter drops them)
         w_idx = each(lambda r: (torch.arange(b, device=devs[r])[:, None].expand(b, t),
                                 poss[r].clamp(0, cfg.seq_len)))
         unmapped = each(lambda r: poss[r] >= cfg.seq_len)
+    else:
+        # an sp rank's writes outside its block (another rank holds them)
+        # land in its scratch slot, the block's last, at blk
+        inb = each(lambda r: (poss[r] >= s0[r]) & (poss[r] < s0[r] + blk))
+        w_idx = each(lambda r: (torch.arange(b, device=devs[r])[:, None].expand(b, t),
+                                torch.where(inb[r], poss[r] - s0[r], blk)))
+        unmapped = each(lambda r: ~inb[r])
     # with T > 1 several rows of a lane may land in the scratch slot or
     # page, and a scatter leaves any one of them, so they all write zeros:
     # the cache stays a function of the inputs
@@ -467,13 +522,29 @@ def llama_forward(
     # a decode step or a verify window runs the attention kernel, which masks
     # each row by its position; a prompt chunk the dense attention
     windowed = t == 1 or (attn_len is None and t <= WINDOW)
-    masks = None if windowed else each(
+    masks = None if windowed or use_sp else each(
         lambda r: torch.arange(s_len, device=devs[r])[None, None, :] <= poss[r][:, :, None])
     # a prompt chunk over the paged layout gathers each lane's [S] view
     gather = each(lambda r: paged_gather_index(tables[r], page, s_len)) \
         if paged and not windowed else None
 
-    def attention(r: int, lp: LlamaLayerParams, l: int) -> torch.Tensor:
+    def block_attention(r: int, qf, k_cache, v_cache):
+        """An sp rank's flash stats over its block's first slots that
+        attention may read (those below ``s_len``)."""
+        n_loc = max(0, min(blk, s_len - s0[r]))
+        local = poss[r] - s0[r]
+        if n_loc == 0:  # the whole block lies past the attention length
+            stat = torch.zeros(qf.shape[:4], dtype=torch.float32, device=qf.device)
+            return torch.zeros_like(qf), stat, torch.full_like(stat, float("-inf"))
+        if windowed:
+            return decode_attention_stats(qf, k_cache, v_cache, local, scale, n_loc)
+        mask = torch.arange(n_loc, device=devs[r])[None, None, :] <= local[:, :, None]
+        return block_stats(qf, k_cache[:, :n_loc].to(torch.float32),
+                           v_cache[:, :n_loc].to(torch.float32), mask, scale)
+
+    def attention(r: int, lp: LlamaLayerParams, l: int):
+        """Rank r's q/k/v, its cache writes and its attention output [B, T,
+        n_kv, G, hd] f32 (an sp rank: its block's flash stats)."""
         x, pos, p = xs[r], poss[r], ranks[r]
         # contiguous [B, S+1, n_kv, hd]; paged [n_pages+1, page, n_kv, hd]
         k_cache, v_cache = caches[r].k[l], caches[r].v[l]
@@ -492,6 +563,8 @@ def llama_forward(
         cache_bits(v_cache)[w_idx[r]] = cache_bits(_to_cache_dtype(v, v_cache.dtype))
 
         qf = q.to(torch.float32).reshape(b, t, n_kv, group, hd)
+        if use_sp:
+            return block_attention(r, qf, k_cache, v_cache)
         if windowed and paged:
             attn = decode_attention_paged(qf, k_cache, v_cache, tables[r], pos, scale, s_len)
         elif windowed:
@@ -506,7 +579,7 @@ def llama_forward(
                 qf, k_cache[:, :s_len].to(torch.float32),
                 v_cache[:, :s_len].to(torch.float32), masks[r], scale,
             )
-        return maybe_qdq(attn.reshape(b, t, n_heads * hd).to(x.dtype))
+        return attn
 
     def ffn_in(r: int, lp: LlamaLayerParams) -> torch.Tensor:
         yqs = share_q80(maybe_qdq(rms_norm(xs[r], lp.rms_ffn, eps)))
@@ -516,20 +589,32 @@ def llama_forward(
 
     def moe(r: int, lp: LlamaLayerParams) -> torch.Tensor:
         y = rms_norm(xs[r], lp.rms_ffn, eps)
+        if shape["ep"] > 1:
+            # the JAX ep branch at every T: the loop over this rank's experts
+            return _moe_ffn_loop(y, maybe_qdq(y), lp, act_fn, cfg.n_active_experts, maybe_qdq,
+                                 first=ep_first[r])
         return _moe_ffn(y, maybe_qdq(y), lp, act_fn, cfg.n_active_experts, maybe_qdq)
+
+    def attn_out(r: int, attn) -> torch.Tensor:
+        return maybe_qdq(attn[r].reshape(b, t, n_heads * hd).to(xs[r].dtype))
 
     add = lambda x, o: x + o  # noqa: E731
     for l in range(cfg.n_layers):
         lps = each(lambda r: ranks[r].layers.layer(l))
         attn = each(lambda r: attention(r, lps[r], l))
+        if use_sp:
+            attn = sp_attention(attn, groups["sp"])
+        attn = each(lambda r: attn_out(r, attn))
         xs = per_rank(add, xs, synced_matmul(attn, per_rank(lambda lp: lp.wo, lps)))
         if cfg.n_experts > 0:
             ds = each(lambda r: moe(r, lps[r]))
             if mesh is not None:
-                # the routed partials over each rank's hidden slice meet in
-                # one f32 ring all-reduce (never the Q80 wire: the JAX
-                # package's MoE output is a psum)
-                ds = ring_all_reduce(per_rank(lambda d: d.to(torch.float32), ds))
+                # the routed partials over each rank's hidden slice (and its
+                # experts) meet in one f32 ring all-reduce over the ep x tp
+                # group (never the Q80 wire: the JAX package's MoE output is
+                # a psum)
+                ds = over_groups(ring_all_reduce, per_rank(lambda d: d.to(torch.float32), ds),
+                                 groups["ep_tp"])
             xs = per_rank(lambda x, d: x + maybe_qdq(d).to(x.dtype), xs, ds)
         else:
             hs = each(lambda r: ffn_in(r, lps[r]))
@@ -540,9 +625,22 @@ def llama_forward(
         y = maybe_qdq(rms_norm(x, ranks[r].rms_final, eps))
         return matmul(y, ranks[r].wcls).to(torch.float32)
 
-    logits = each(head)
-    # each rank's [B, T', vocab/tp] shard, gathered onto every rank; the
-    # first held rank's copy
-    out = logits[0] if mesh is None else held(ring_all_gather(logits))[0]
+    if mesh is None:
+        out = head(0)
+    else:
+        # each dp group's first tp group (sp and ep coordinates 0: the
+        # others hold the same activations) computes its [B, T', vocab/tp]
+        # shards, gathered over the group; the dp groups' rows, in order, on
+        # this process's first rank's device (the engine's, whichever dp
+        # group ran)
+        logits = each(lambda r: head(r) if coords[r]["sp"] == coords[r]["ep"] == 0 else None)
+        gathered = over_groups(ring_all_gather, logits, groups["tp"])
+        dev = mesh.devices[0]
+        parts = []
+        for d in active:
+            g = next(g for g in groups["tp"] if coords[g[0]]["dp"] == d
+                     and coords[g[0]]["sp"] == coords[g[0]]["ep"] == 0)
+            parts.append(held([gathered[r] for r in g])[0].to(dev))
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
     # a packed wcls may be padded past the vocabulary (quantize_params)
     return out[..., : cfg.vocab_size].contiguous(), cache

@@ -39,10 +39,22 @@ so its result equals the bf16 kernel's on the cache widened to bf16; its
 plain version widens the cache to f32 before the plain attention, as the
 JAX forward does.
 
-``COUNTS`` holds the launches (one a call, whatever T, layout or dtype),
-the window launches among them and the plain calls; ``PAGED_COUNTS`` the
-launches of the paged form and ``F8_COUNTS`` those over an e4m3 cache (both
-counted in ``COUNTS`` too).
+``decode_attention_stats(qf, k_block, v_block, positions, scale, s_len)``
+is the partial-stats form, what a sequence-parallel rank runs over its
+block of the cache (parallel/ring_attention.py, the counterpart of the JAX
+package's ``sp_attention``): positions are shifted by the block's start, so
+a row may have no slot in the block (a negative position), and each row
+comes back as its flash state: the normalised output o beside the max m of
+its scaled scores and the sum l of their exponentials (an empty row: o = 0,
+l = 0, m = -inf). On the card it is the same kernel with a stats pointer;
+its plain version, ``decode_attention_stats_plain``, is ``block_stats``,
+the counterpart of the JAX ``_block_stats``, over the same block.
+
+``COUNTS`` holds the launches (one a call, whatever T, layout, form or
+dtype), the window launches among them and the plain calls;
+``PAGED_COUNTS`` the launches of the paged form, ``STATS_COUNTS`` those of
+the stats form and ``F8_COUNTS`` those over an e4m3 cache (all counted in
+``COUNTS`` too).
 """
 
 from __future__ import annotations
@@ -67,14 +79,16 @@ WINDOW = 4  # query rows per lane at most: kWindow (runtime/spec.SPEC_DRAFT + 1)
 COUNTS = {"launches": 0, "window_launches": 0, "plain_calls": 0}
 # the launches through a page table
 PAGED_COUNTS = {"launches": 0}
+# the launches of the partial-stats form
+STATS_COUNTS = {"launches": 0}
 # the launches over an e4m3 cache
 F8_COUNTS = {"launches": 0}
 _counts_lock = threading.Lock()
 # the cache dtypes the kernel reads, by their code in csrc/decode_attn.cu
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-# q, k, v, pos, out, part, tickets, lane_stride, lanes, rows, n_kv, group,
-# head_size, s_len, split, kv_dtype, scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+# q, k, v, pos, out, part, tickets, stats, lane_stride, lanes, rows, n_kv,
+# group, head_size, s_len, split, kv_dtype, scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 # q, k, v, pos, out, part, tickets, table, nb, log2_page, lanes, rows, n_kv,
 # group, head_size, s_len, split, kv_dtype, scale, stream
@@ -84,7 +98,7 @@ _PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
 
 def reset_counts() -> None:
     with _counts_lock:
-        for table in (COUNTS, PAGED_COUNTS, F8_COUNTS):
+        for table in (COUNTS, PAGED_COUNTS, STATS_COUNTS, F8_COUNTS):
             for k in table:
                 table[k] = 0
 
@@ -94,6 +108,7 @@ def attn_counts() -> dict:
     with _counts_lock:
         return {**{f"{KERNEL}_{k}": v for k, v in COUNTS.items()},
                 f"{KERNEL}_paged_launches": PAGED_COUNTS["launches"],
+                f"{KERNEL}_stats_launches": STATS_COUNTS["launches"],
                 f"{KERNEL}_f8_launches": F8_COUNTS["launches"]}
 
 
@@ -109,6 +124,13 @@ def add_paged_counts(delta: dict) -> None:
     with _counts_lock:
         for k, v in delta.items():
             PAGED_COUNTS[k] += v
+
+
+def add_stats_counts(delta: dict) -> None:
+    """``add_counts`` for the stats form's launches."""
+    with _counts_lock:
+        for k, v in delta.items():
+            STATS_COUNTS[k] += v
 
 
 def add_f8_counts(delta: dict) -> None:
@@ -153,6 +175,33 @@ def decode_attention_plain(qf, k_cache, v_cache, positions, scale: float, s_len:
     mask = torch.arange(s_len, device=qf.device)[None, None, :] <= positions[:, :, None]
     return dense_attention(qf, k_cache[:, :s_len].to(torch.float32),
                            v_cache[:, :s_len].to(torch.float32), mask, scale)
+
+
+def block_stats(qf, kf, vf, mask, scale):
+    """Flash partial stats of one KV block (the JAX package's
+    ``parallel/ring_attention._block_stats``), with the output normalised:
+    (o [B,T,K,G,H], l [B,T,K,G], m [B,T,K,G]), m the max of the scaled
+    scores, l the sum of their exponentials after m, o the softmax-weighted
+    V (o = l = 0 and m = -inf for a row with no slot). qf: [B,T,K,G,H];
+    kf/vf: [B,S,K,H] f32; mask: [B,T,S] bool."""
+    scores = torch.einsum("btkgh,bskh->btkgs", qf * scale, kf)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m_safe[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("btkgs,bskh->btkgh", p, vf)
+    o = torch.where(l[..., None] > 0, o / l.clamp_min(1e-30)[..., None], torch.zeros_like(o))
+    return o, l, m
+
+
+def decode_attention_stats_plain(qf, k_block, v_block, positions, scale: float, s_len: int):
+    """The stats form's plain version: ``block_stats`` over the block's first
+    ``s_len`` slots, each row masked to the slots at or below its (shifted)
+    position."""
+    mask = torch.arange(s_len, device=qf.device)[None, None, :] <= positions[:, :, None]
+    return block_stats(qf, k_block[:, :s_len].to(torch.float32),
+                       v_block[:, :s_len].to(torch.float32), mask, scale)
 
 
 def paged_gather_index(table: torch.Tensor, page_size: int, s_len: int) -> torch.Tensor:
@@ -270,21 +319,21 @@ def decode_attention_paged(qf: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     return out
 
 
-def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     positions: torch.Tensor, scale: float, s_len: int) -> torch.Tensor:
-    """qf: f32 [B, T, n_kv, G, H], 1 <= T <= WINDOW; k_cache, v_cache: one
-    layer's cache [B, S, n_kv, H] (bf16, f32 or e4m3; S >= s_len); positions: int
-    [B, T] on the same device. Returns f32 [B, T, n_kv, G, H]."""
+def _check_cache(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 positions: torch.Tensor, s_len: int) -> None:
     _check_q(qf, positions)
-    b, t, n_kv, group, hd = qf.shape
+    b, _, n_kv, _, hd = qf.shape
     if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or k_cache.shape[0] != b \
             or tuple(k_cache.shape[2:]) != (n_kv, hd) or not 1 <= s_len <= k_cache.shape[1]:
         raise ValueError(f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not "
                          f"hold [{b}, >= {s_len}, {n_kv}, {hd}]")
-    if qf.device.type == "cpu":
-        _bump("plain_calls")
-        return decode_attention_plain(qf, k_cache, v_cache, positions, scale, s_len)
+
+
+def _launch(qf, k_cache, v_cache, positions, scale: float, s_len: int, stats=None):
+    """One launch of the contiguous kernel (``stats``: the stats form's
+    [B, T, K, G, 2] output, or None)."""
     _check_card(qf, k_cache, v_cache)
+    b, t, n_kv, group, hd = qf.shape
     slot = n_kv * hd
     for name, cache in (("k_cache", k_cache), ("v_cache", v_cache)):
         if cache.stride()[1:] != (slot, hd, 1) or cache.stride(0) != k_cache.stride(0):
@@ -296,10 +345,39 @@ def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     with torch.cuda.device(qf.device):
         err = load_kernel(KERNEL, _ARGTYPES)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), _ptr(part), _ptr(tickets), k_cache.stride(0), b, t, n_kv,
-            group, hd, s_len, SPLIT, KV_CODES[k_cache.dtype], float(scale),
+            out.data_ptr(), _ptr(part), _ptr(tickets), _ptr(stats), k_cache.stride(0), b, t,
+            n_kv, group, hd, s_len, SPLIT, KV_CODES[k_cache.dtype], float(scale),
             torch.cuda.current_stream(qf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     _bump_launch(t, k_cache.dtype)
     return out
+
+
+def decode_attention(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     positions: torch.Tensor, scale: float, s_len: int) -> torch.Tensor:
+    """qf: f32 [B, T, n_kv, G, H], 1 <= T <= WINDOW; k_cache, v_cache: one
+    layer's cache [B, S, n_kv, H] (bf16, f32 or e4m3; S >= s_len); positions: int
+    [B, T] on the same device. Returns f32 [B, T, n_kv, G, H]."""
+    _check_cache(qf, k_cache, v_cache, positions, s_len)
+    if qf.device.type == "cpu":
+        _bump("plain_calls")
+        return decode_attention_plain(qf, k_cache, v_cache, positions, scale, s_len)
+    return _launch(qf, k_cache, v_cache, positions, scale, s_len)
+
+
+def decode_attention_stats(qf: torch.Tensor, k_block: torch.Tensor, v_block: torch.Tensor,
+                           positions: torch.Tensor, scale: float, s_len: int):
+    """The partial-stats form over one sp rank's block: ``decode_attention``'s
+    arguments with the block as the cache and positions shifted by its start
+    (any int64, negative for a row with no slot in the block). Returns (o f32
+    [B, T, n_kv, G, H] normalised, l and m f32 [B, T, n_kv, G]); a row with
+    no slot gives o = 0, l = 0, m = -inf."""
+    _check_cache(qf, k_block, v_block, positions, s_len)
+    if qf.device.type == "cpu":
+        _bump("plain_calls")
+        return decode_attention_stats_plain(qf, k_block, v_block, positions, scale, s_len)
+    stats = torch.empty((*qf.shape[:4], 2), dtype=torch.float32, device=qf.device)
+    out = _launch(qf, k_block, v_block, positions, scale, s_len, stats)
+    _bump("launches", STATS_COUNTS)
+    return out, stats[..., 1], stats[..., 0]

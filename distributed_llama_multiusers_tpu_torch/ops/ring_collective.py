@@ -19,6 +19,8 @@ and gather-slot write in the same launch.
   hops add on arrival; gather hops land in their column slot of the output.
 - ``ring_sync_matmul``: a row-parallel (d_in-sharded) product whose output is
   reduced chunk by chunk around the ring, then gathered (f32 or the Q80 wire).
+- ``over_groups``: any of them within each group of a mesh's ranks (the tp,
+  sp or ep x tp groups of a dp, sp or ep mesh), each group a ring of its own.
 
 ``ring_step`` launches the kernel for CUDA tensors and runs its plain
 version (``ring_step_plain``) only for CPU tensors; ``ring_shift`` is the
@@ -355,6 +357,22 @@ def per_rank(fn, *lists) -> list:
     return [None if args[0] is None else fn(*args) for args in zip(*lists)]
 
 
+def over_groups(fn, xs: list, groups: list) -> list:
+    """A collective ``fn`` over a per-rank list run within each group of
+    ranks on its own (a mesh's tp, sp or ep x tp groups, parallel/mesh.py):
+    each group's ring takes its ranks in the group's order, and a group
+    none of whose ranks this call holds is skipped. Returns the per-rank
+    results, None where the rank is not held."""
+    out = [None] * len(xs)
+    for g in groups:
+        mine = [xs[r] for r in g]
+        if not held(mine):
+            continue
+        for r, y in zip(g, fn(mine)):
+            out[r] = y
+    return out
+
+
 def _check_ring(xs: list) -> None:
     mine = held(xs)
     if not mine:
@@ -537,7 +555,8 @@ def ring_sync_supported(d_out: int, tp: int, q80_wire: bool = False) -> bool:
 def ring_sync_engages(config, mesh_shape: dict, enabled: bool = True) -> bool:
     """Whether ``llama_forward`` syncs wo/w2 through the ring (``enabled`` is
     ``--ring-sync``): a pure-TP mesh with tp > 1 whose ``dim`` splits into
-    whole chunks."""
+    whole chunks. A dp, sp or ep mesh syncs through a ring all-reduce of
+    the local partials over each tp group, as the JAX package gates it."""
     if not enabled:
         return False
     tp = mesh_shape.get("tp", 1)

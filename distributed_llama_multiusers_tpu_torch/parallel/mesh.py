@@ -1,22 +1,36 @@
-"""The port's device mesh: one device per tensor-parallel rank.
+"""The port's device mesh: one device per rank, the JAX package's axes.
 
-The JAX package runs TP under a single controller over a ``jax.sharding.Mesh``
-with named axes (dp, pp, tp, sp, ep). The port keeps the same plan and
-checks, and its ``Mesh`` is the per-rank device list plus the axis sizes:
-one process drives its ranks, layer by layer (models/llama.py). A device
-may repeat (``cuda:0,cuda:0``): the ranks then share one card, the
-counterpart of the JAX package's virtual devices on one host.
+The JAX package runs its serving meshes under a single controller over a
+``jax.sharding.Mesh`` with named axes (dp, pp, tp, sp, ep), its devices the
+device list reshaped to (dp, pp, tp, sp, ep) row-major. The port keeps the
+same plan, checks and order: rank r is the r-th device of that list, so the
+same ``--device`` list puts the same coordinate on the same card. Its
+``Mesh`` is the per-rank device list, the axis sizes, each rank's
+coordinates and the rank groups the forward syncs over:
+
+    tp group:     the ranks of one (dp, sp, ep) point, in tp order: the wo/w2
+                  sync and the logits gather
+    sp group:     the ranks of one (dp, tp, ep) point, in sp order: the
+                  attention's flash stats (parallel/ring_attention.py)
+    ep x tp group: the ranks of one (dp, sp) point, in rank order: an MoE
+                  layer's routed partials
+
+One process drives its ranks (models/llama.py). A device may repeat
+(``cuda:0,cuda:0``): the ranks then share one card, the counterpart of the
+JAX package's virtual devices on one host.
 
 A pod (parallel/multihost.py) spreads the ranks over processes: the plan
 stays global (``--workers`` names the global mesh, as in the JAX package)
-and process i holds the contiguous block of ``tp / num_processes`` ranks
-starting at ``i * tp / num_processes``, on the devices ``--device`` names.
-The port serves pure TP; dp, sp, ep and pp meshes are later work (ROADMAP
-A9).
+and process i holds the contiguous block of ``ranks / num_processes`` ranks
+starting at ``i * ranks / num_processes``, on the devices ``--device``
+names. A pod splits tp ranks only: dp, sp and ep above 1 in a pod are later
+work (ROADMAP A9.1), as is pp anywhere (ROADMAP A9.2, with the training
+slice's pipeline).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -51,13 +65,58 @@ class Mesh:
 
     @property
     def tp(self) -> int:
+        """The tp width (ranks in a tp group), not the rank count."""
         return self.shape["tp"]
+
+    @property
+    def n_ranks(self) -> int:
+        """Every rank of the mesh, in every process."""
+        return math.prod(self.shape[ax] for ax in AXES)
+
+    @property
+    def pure_tp(self) -> bool:
+        """No axis but tp above 1."""
+        return all(self.shape[ax] == 1 for ax in AXES if ax != "tp")
 
     @property
     def local_ranks(self) -> range:
         """The global ranks this process holds, in order."""
-        per = self.tp // self.num_processes
+        per = self.n_ranks // self.num_processes
         return range(self.process_index * per, (self.process_index + 1) * per)
+
+    def coords(self, r: int) -> dict:
+        """Rank r's coordinate on each axis: r's index in the device grid
+        (dp, pp, tp, sp, ep), row-major, as the JAX package lays it out."""
+        out = {}
+        for ax in reversed(AXES):
+            r, out[ax] = divmod(r, self.shape[ax])
+        return {ax: out[ax] for ax in AXES}
+
+    def rank(self, **coords) -> int:
+        """The rank at ``coords`` (axes left out at 0)."""
+        r = 0
+        for ax in AXES:
+            r = r * self.shape[ax] + coords.get(ax, 0)
+        return r
+
+    def _groups(self, varying: tuple) -> list:
+        """The ranks that share every coordinate but ``varying``'s, one list
+        a group, each in rank order; the groups ordered by their first
+        rank."""
+        groups: dict = {}
+        for r in range(self.n_ranks):
+            c = self.coords(r)
+            groups.setdefault(tuple(c[ax] for ax in AXES if ax not in varying), []).append(r)
+        return sorted(groups.values())
+
+    def tp_groups(self) -> list:
+        return self._groups(("tp",))
+
+    def sp_groups(self) -> list:
+        return self._groups(("sp",))
+
+    def ep_tp_groups(self) -> list:
+        return self._groups(("ep", "tp"))
 
     @property
     def is_pod(self) -> bool:
@@ -83,19 +142,25 @@ def _cuda_devices(n: int) -> list:
 def make_mesh(plan: MeshPlan, devices=None, process_index: int = 0,
               num_processes: int = 1) -> Mesh:
     """A Mesh over ``devices`` (default ``cuda:0`` .. ``cuda:N-1``), the
-    devices of this process's ranks: all of them, or in a pod of
-    ``num_processes`` the ``tp / num_processes`` ranks of process
+    devices of this process's ranks in rank order: all of them, or in a pod
+    of ``num_processes`` the ``ranks / num_processes`` ranks of process
     ``process_index``. Raises when there are fewer devices than the ranks it
-    holds, for any axis but tp above 1, and for a tp that the process count
-    does not divide."""
-    others = {ax: getattr(plan, ax) for ax in ("dp", "sp", "ep", "pp") if getattr(plan, ax) > 1}
-    if others:
+    holds, for pp above 1, for a pod with any axis but tp above 1, and for a
+    tp that the process count does not divide."""
+    if plan.pp > 1:
         raise ValueError(
-            f"the PyTorch port serves pure tensor parallelism; {others} is later "
-            "work (ROADMAP A9: data, sequence, expert and pipeline parallelism)"
+            f"pp={plan.pp}: the port serves dp, tp, sp and ep meshes; pipeline "
+            "parallelism comes with the training slice's pipeline (ROADMAP A9.2)"
         )
     if num_processes < 1 or not 0 <= process_index < num_processes:
         raise ValueError(f"process {process_index} of {num_processes}")
+    if num_processes > 1:
+        others = {ax: getattr(plan, ax) for ax in ("dp", "sp", "ep") if getattr(plan, ax) > 1}
+        if others:
+            raise ValueError(
+                f"a pod splits tp ranks only; {others} across processes is later work "
+                "(ROADMAP A9.1: pods with dp, sp and ep axes)"
+            )
     if plan.tp % num_processes:
         raise ValueError(f"tp={plan.tp} does not split over {num_processes} processes: "
                          "each process holds the same number of ranks")

@@ -62,9 +62,12 @@ The prompt-chunk and fused families run eagerly on the stream, as does a
 tensor-parallel mesh across cards or processes; a one-process mesh whose
 ranks share one card is captured.
 
-With a tensor-parallel ``mesh`` the engine holds per-rank parameters and
-KV caches; sampling and the returned logits stay on its first rank's
-device, so the scheduler sees one engine either way. On a pod mesh
+With a ``mesh`` (tp, dp, sp, ep; parallel/mesh.py) the engine holds
+per-rank parameters and KV caches; sampling and the returned logits stay
+on its first rank's device, so the scheduler sees one engine either way.
+On a dp mesh lane b lives in dp group b // (n_lanes / dp): a lane-addressed
+operation (a prompt chunk, ``copy_lane``) runs on that group's ranks only,
+a decode family on every group, each over its own lanes. On a pod mesh
 (parallel/multihost.py) the engine holds this process's ranks and opens the
 pod's windows (parallel/window.py) at construction: every process runs the
 same calls (the root's through ``RootControlEngine``, a worker's replayed
@@ -272,6 +275,8 @@ class InferenceEngine:
         ``llama_forward``. ``pipeline_depth`` bounds the pipelined ring
         (None: 2; 0 or 1 turns the scheduler's pipelined path off).
 
+        On a dp mesh ``n_lanes`` must split evenly over the dp groups.
+
         ``paged_kv`` (the JAX engine's ``--paged-kv on``): the KV cache is a
         pool of ``kv_page_size``-token pages (a power of two, shrunk to fit
         short contexts) behind per-lane page tables; ``kv_pool_pages``
@@ -379,13 +384,13 @@ class InferenceEngine:
             # before either side waits for the other's pool planes
             agree("pod/kv_layout", self._kv_layout())
             local = dict(zip(mesh.local_ranks, mesh.devices))
-            self.pod = open_windows(mesh.tp, local, self.pod_slot_bytes(), pod_store())
+            self.pod = open_windows(mesh.n_ranks, local, self.pod_slot_bytes(), pod_store())
             set_pod(self.pod)
             if self.kvpool is not None:
                 # the pool planes shared with the peers: the root reads
                 # their heads of the pages it exports or swaps out
                 c0 = self.cache[0]
-                self.kvshare = open_pool_share(mesh.tp, local, tuple(c0.k.shape), c0.k.dtype,
+                self.kvshare = open_pool_share(mesh.n_ranks, local, tuple(c0.k.shape), c0.k.dtype,
                                                pod_store())
                 for r, c in zip(mesh.local_ranks, self.cache):
                     c.k, c.v = self.kvshare.planes[r]
@@ -446,10 +451,21 @@ class InferenceEngine:
         return {"pod_transport": self.pod.transport,
                 **{f"pod_ring_{k}": v for k, v in self.pod.stats.items()}}
 
+    def _lane_group(self, lane: int) -> tuple[int | None, int]:
+        """(the lane's dp group, None off a mesh; its index among the
+        group's lanes)."""
+        if self.mesh is None:
+            return None, lane
+        return divmod(lane, self.n_lanes // self.mesh.shape["dp"])
+
     def _lane_cache(self, lane: int):
+        """One lane's cache as a batch of 1: on a mesh, a view on each rank
+        of the lane's dp group, None on the other groups' ranks."""
         if self.mesh is None:
             return self.cache.lane(lane)
-        return [c.lane(lane) for c in self.cache]
+        d, local = self._lane_group(lane)
+        return [c.lane(local) if self.mesh.coords(r)["dp"] == d else None
+                for r, c in zip(self.mesh.local_ranks, self.cache)]
 
     def _chunk_attn(self, end: int) -> int:
         """The attention bucket of a prompt chunk ending at ``end``: the
@@ -683,7 +699,8 @@ class InferenceEngine:
             self.config, self.params, self._upload(padded)[None, :],
             self._upload(positions)[None, :], self._lane_cache(lane),
             attn_len=self._chunk_attn(start_pos + n),
-            logit_rows=self._upload([n - 1]), **self._forward_flags,
+            logit_rows=self._upload([n - 1]), dp_group=self._lane_group(lane)[0],
+            **self._forward_flags,
         )
         last = logits[0, 0]
         self._sync_gtab()
@@ -1269,10 +1286,27 @@ class InferenceEngine:
         n = self.config.seq_len if prefix_len is None else int(prefix_len)
         if src == dst or n <= 0:
             return
-        for c in ([self.cache] if self.mesh is None else self.cache):
-            for plane in (c.k, c.v):
+        if self.mesh is None:
+            for plane in (self.cache.k, self.cache.v):
                 plane = cache_bits(plane)
                 plane[:, dst, :n].copy_(plane[:, src, :n])
+            return
+        # each rank of dst's dp group takes its block's share of the slots
+        # from the rank of src's group at the same tp, sp and ep coordinates
+        mesh = self.mesh
+        (ds, ls), (dd, ld) = self._lane_group(src), self._lane_group(dst)
+        held = dict(zip(mesh.local_ranks, self.cache))
+        blk = self.config.seq_len // mesh.shape["sp"]
+        for r, c in held.items():
+            co = mesh.coords(r)
+            if co["dp"] != dd:
+                continue
+            m = min(blk, n - co["sp"] * blk)
+            if m <= 0:
+                continue
+            sc = held[mesh.rank(**{**co, "dp": ds})]
+            for to, frm in ((c.k, sc.k), (c.v, sc.v)):
+                cache_bits(to)[:, ld, :m].copy_(cache_bits(frm)[:, ls, :m])
 
     # -- the paged KV pool (runtime/kvpool.py): the host/device seam ----------
 
@@ -1284,6 +1318,12 @@ class InferenceEngine:
     def _ranks(self) -> list:
         """The global rank of each of ``_caches()``."""
         return [0] if self.mesh is None else list(self.mesh.local_ranks)
+
+    def _head_caches(self) -> list:
+        """Each tp slice's cache once, in tp order (on an ep mesh its ep 0
+        copy: the others hold the same heads): a page's heads in order."""
+        return [c for r, c in zip(self._ranks(), self._caches())
+                if self.mesh is None or self.mesh.coords(r)["ep"] == 0]
 
     def _need_paged(self, what: str) -> None:
         if self.kvpool is None:
@@ -1429,7 +1469,7 @@ class InferenceEngine:
             heads = self.kvshare.read(idx, self._page_writes)
         else:
             heads = [tuple(cache_bits(p).index_select(1, idx.to(p.device)) for p in (c.k, c.v))
-                     for c in self._caches()]
+                     for c in self._head_caches()]
         # [L, n, page, n_kv, hd] a plane
         planes = [torch.cat([kv[j].to(self.device) for kv in heads], dim=3) for j in (0, 1)]
         # [n, K/V, L, page, n_kv, hd]: each page's K then V, contiguous
@@ -1446,7 +1486,7 @@ class InferenceEngine:
     def _write_pages(self, pages: list[int], payloads: list[bytes]) -> None:
         """Write pages' K then V bytes (``_read_pages``' encoding, every
         rank's heads) into this process's ranks' planes, in place, each
-        rank its own heads by its global rank: one non-blocking copy from
+        rank its own heads by its tp coordinate: one non-blocking copy from
         pinned memory a device, then one indexed copy a plane and rank,
         ordered before every later dispatch."""
         shape, dtype, _ = self._page_geometry()
@@ -1460,7 +1500,8 @@ class InferenceEngine:
         for r, c in zip(self._ranks(), self._caches()):
             if c.k.device not in on_device:
                 on_device[c.k.device] = host.to(c.k.device, non_blocking=True)
-            src = on_device[c.k.device][..., r * heads:(r + 1) * heads, :]
+            t = r if self.mesh is None else self.mesh.coords(r)["tp"]
+            src = on_device[c.k.device][..., t * heads:(t + 1) * heads, :]
             idx = torch.as_tensor(pages, dtype=torch.int64).to(c.k.device)
             for j, plane in enumerate((c.k, c.v)):
                 # [n, L, page, heads, hd] -> [L, n, page, heads, hd]

@@ -52,6 +52,7 @@ def _counters() -> dict:
         "sample": {"launches": cuda_sample.COUNTS["launches"]},
         "attn": {k: cuda_attn.COUNTS[k] for k in ("launches", "window_launches")},
         "attn_paged": dict(cuda_attn.PAGED_COUNTS),
+        "attn_stats": dict(cuda_attn.STATS_COUNTS),
         "attn_f8": dict(cuda_attn.F8_COUNTS),
         "grammar": {k: cuda_grammar.COUNTS[k]
                     for k in ("mask_argmax_launches", "next_launches")},
@@ -61,7 +62,8 @@ def _counters() -> dict:
 
 _ADD = {"q40": cuda_q40.add_launches, "ring": ring_collective.add_counts,
         "sample": cuda_sample.add_counts, "attn": cuda_attn.add_counts,
-        "attn_paged": cuda_attn.add_paged_counts, "attn_f8": cuda_attn.add_f8_counts,
+        "attn_paged": cuda_attn.add_paged_counts, "attn_stats": cuda_attn.add_stats_counts,
+        "attn_f8": cuda_attn.add_f8_counts,
         "grammar": cuda_grammar.add_counts,
         "moe": cuda_moe.add_counts}
 

@@ -1251,6 +1251,104 @@ def test_decode_attn_f8_lane_bits_and_graph_replay(cuda):
         [lambda: cuda_attn.decode_attention(qf, k, v, serving, 0.125, 2048)])
 
 
+# -- sequence parallelism: the stats form and a sub-ring all-reduce -----------
+
+
+def _stats_positions(t, blk, split):
+    """8 lanes' first rows, local to a block (positions shifted by its
+    start s0): far before it and at s0 - 1 (no slot: the empty state), at
+    s0 and s0 + 1, on a split boundary, at the block's last slot and past
+    it (every slot). A window's rows follow at consecutive positions, so
+    its rows at -3..0 mix empty and one-slot rows."""
+    first = [-500, -1 - (t - 1), 0, 1, split - 1, split, blk - 1, blk + 5]
+    return torch.tensor(first)[:, None] + torch.arange(t)[None, :]
+
+
+def _assert_stats_close(got, want):
+    (o, l, m), (po, pl, pm) = got, want
+    assert torch.equal(torch.isinf(m), torch.isinf(pm)) and torch.equal(l == 0, pl == 0)
+    fin = torch.isfinite(pm)
+    for a, b in ((o, po), (l, pl), (m[fin], pm[fin])):
+        assert float((a - b).abs().max()) <= ATTN_TOL * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "e4m3"])
+@pytest.mark.parametrize("n_kv,group,hd,blk", [
+    (4, 4, 64, 1024),  # Llama-3.2-1B's rank at tp2 x sp2, seq_len 2048
+    (2, 2, 16, 32),  # the tiny test model at sp2
+    (2, 3, 36, 300)])  # a head of no whole 16-byte chunks, no multiple of the split
+def test_decode_attn_stats_matches_plain(cuda, n_kv, group, hd, blk, kv, t):
+    """The partial-stats form over one block at the rows of
+    ``_stats_positions``: (o, l, m) within ATTN_TOL of ``block_stats``; a
+    row with no slot gives exactly o = 0, l = 0, m = -inf; o is the plain
+    kernel's output bit for bit wherever the row has a slot; one launch,
+    counted as a stats launch."""
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    if kv == "e4m3":
+        qf, k, v = _f8_attn_inputs(cuda, 8, n_kv, group, hd, blk, t, seed=hd + t)
+    else:
+        dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+        gen = torch.Generator(device=cuda).manual_seed(hd + t)
+        qf = torch.randn((8, t, n_kv, group, hd), device=cuda, generator=gen)
+        k, v = (torch.randn((8, blk + 1, n_kv, hd), device=cuda, generator=gen).to(dtype)
+                for _ in range(2))
+    pos = _stats_positions(t, blk, cuda_attn.SPLIT).to(cuda)
+    scale = 1.0 / hd ** 0.5
+    qf = qf.contiguous()
+    cuda_attn.reset_counts()
+    got = cuda_attn.decode_attention_stats(qf, k, v, pos, scale, blk)
+    torch.cuda.synchronize()
+    assert cuda_attn.STATS_COUNTS == {"launches": 1} and cuda_attn.COUNTS["launches"] == 1
+    want = cuda_attn.decode_attention_stats_plain(qf, k, v, pos, scale, blk)
+    _assert_stats_close(got, want)
+    empty = pos < 0
+    o, l, m = got
+    assert bool((o[empty] == 0).all() and (l[empty] == 0).all())
+    assert bool(torch.isneginf(m[empty]).all())
+    assert bool((l[~empty] > 0).all())
+    ok = (pos >= 0).all(dim=1)  # lanes every row of which has a slot
+    plain_kernel = cuda_attn.decode_attention(qf[ok], k[ok], v[ok], pos[ok], scale, blk)
+    assert torch.equal(o[ok], plain_kernel)
+
+
+@pytest.mark.gpu
+def test_decode_attn_stats_graph_replay_equals_eager(cuda):
+    from distributed_llama_multiusers_tpu_torch.ops import cuda_attn
+
+    qf, k, v = _attn_inputs(cuda, 8, 4, 4, 64, 1024, torch.bfloat16, seed=7)
+    pos = _stats_positions(1, 1024, cuda_attn.SPLIT).to(cuda)
+    _graph_replay_equals_eager(
+        [lambda: torch.cat([x.reshape(-1) for x in cuda_attn.decode_attention_stats(
+            qf, k, v, pos, 0.125, 1024)])])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_all_reduce_over_sub_rings_matches_plain(cuda, dtype):
+    """``ring_all_reduce`` within each tp group of dp2 x tp2 x sp2 (four
+    sub-rings of two ranks, all on one card) and within each ep x tp group
+    of tp2 x ep2: bit-equal to the plain ring step's on the CPU."""
+    from distributed_llama_multiusers_tpu_torch.ops import ring_collective as rc
+    from distributed_llama_multiusers_tpu_torch.parallel import MeshPlan, make_mesh
+
+    for plan in (MeshPlan(dp=2, tp=2, sp=2), MeshPlan(tp=2, ep=2)):
+        mesh = make_mesh(plan, [cuda] * plan.n_devices)
+        gen = torch.Generator().manual_seed(plan.n_devices)
+        cpu = [torch.randn((8, 2048), generator=gen).to(dtype) for _ in range(mesh.n_ranks)]
+        for groups in (mesh.tp_groups(), mesh.ep_tp_groups()):
+            rc.reset_counts()
+            got = rc.over_groups(rc.ring_all_reduce, [x.to(cuda) for x in cpu], groups)
+            torch.cuda.synchronize()
+            n = len(groups[0])
+            assert rc.COUNTS["launches"] == mesh.n_ranks * 2 * (n - 1)
+            want = rc.over_groups(rc.ring_all_reduce, cpu, groups)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
 # -- structured output: the masked argmax and the automaton step -------------
 
 

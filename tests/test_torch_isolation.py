@@ -60,6 +60,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
         import importlib, pkgutil
         import distributed_llama_multiusers_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        assert "distributed_llama_multiusers_tpu_torch.parallel.ring_attention" in names
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # noqa: F401

@@ -380,7 +380,7 @@ def test_workers_cli_refuses_what_it_cannot_serve(tiny_model):
     with pytest.raises(ValueError, match="n_kv_heads"):  # tiny: 2 kv heads
         dllama_api.main(base + ["--workers", "3", "--device", "cpu"])
     with pytest.raises(ValueError, match="ROADMAP"):
-        dllama_api.main(base + ["--workers", "dp2,tp1", "--device", "cpu"])
+        dllama_api.main(base + ["--workers", "pp2", "--device", "cpu"])
     with pytest.raises(ValueError, match="one device per rank|list one device"):
         dllama_api.main(base + ["--workers", "2", "--device", "cuda:0"])
     with pytest.raises(ValueError, match="3 devices for 2 ranks"):
